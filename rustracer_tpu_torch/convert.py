@@ -1,0 +1,84 @@
+"""Carry the JAX package's scene state over to the port.
+
+Each function takes an object of the JAX package (its arrays are read with
+``np.asarray``; this module imports no JAX) and returns the port's
+counterpart on ``device``, so both packages render from identical tables.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .render.camera import PerspectiveCamera
+from .render.sampler import SamplerConfig
+from .scene.lights import LIGHT_AREA, LightTables
+from .scene.tables import N_DUMMY_QUADRICS, GeometryTables
+
+# the JAX package's never-hit placeholder quadric (a zero-radius sphere)
+_DUMMY_Q_PARAMS = np.array([[0.0, 1.0, 2.0, 2.0 * np.pi]], np.float32)
+
+
+def _t(x, dtype, device):
+    # a copy: arrays read from JAX are not writable
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def geometry_from_jax(geom, device="cpu") -> GeometryTables:
+    """JAX GeometryTables of a triangle scene with a wide BVH -> port's."""
+    q_params = np.asarray(geom.q_params)
+    if q_params.shape != _DUMMY_Q_PARAMS.shape \
+            or not np.array_equal(q_params, _DUMMY_Q_PARAMS):
+        raise NotImplementedError("scenes with real quadrics are not ported")
+    if np.asarray(geom.bvh16_table).shape[0] <= 1:
+        raise ValueError("the port needs the wide BVH (bvh16_table)")
+    if np.asarray(geom.inst_o2w).shape[0] > 1:
+        raise NotImplementedError("instancing is not ported")
+    if np.asarray(geom.alpha_atlas).shape[0] > 1:
+        raise NotImplementedError("alpha cutouts are not ported")
+    if np.asarray(geom.iface_flag).shape[0] > 0:
+        raise NotImplementedError("medium interfaces are not ported")
+    return GeometryTables(
+        tv_p=_t(geom.tv_p, torch.float32, device),
+        t_idx=_t(geom.t_idx, torch.int32, device),
+        t_reverse=_t(geom.t_reverse, torch.bool, device),
+        t_shade=_t(geom.t_shade, torch.float32, device),
+        bvh16_table=_t(geom.bvh16_table, torch.float32, device),
+        bvh16_roots=_t(geom.bvh16_roots, torch.int32, device),
+        bvh16_depth=int(np.asarray(geom.bvh16_depth_pad).shape[0]),
+        n_quadrics=N_DUMMY_QUADRICS)
+
+
+def lights_from_jax(lt, device="cpu") -> LightTables:
+    """JAX LightTables built with ``geom=`` (the per-light precompute),
+    area lights only -> port's."""
+    l_type = np.asarray(lt.l_type)
+    if np.any(l_type != LIGHT_AREA) or np.asarray(lt.pre_flag).shape[0] == 0:
+        raise NotImplementedError("only precomputed area lights are ported")
+    if len(lt.inf_maps):
+        raise NotImplementedError("infinite lights are not ported")
+    return LightTables(
+        l_type=_t(l_type, torch.int32, device),
+        l_emit=_t(lt.l_emit, torch.float32, device),
+        l_prim=_t(lt.l_prim, torch.int32, device),
+        l_twosided=_t(lt.l_twosided, torch.bool, device),
+        l_area=_t(lt.l_area, torch.float32, device),
+        l_tri_p=_t(lt.l_tri_p, torch.float32, device),
+        l_tri_rev=_t(lt.l_tri_rev, torch.bool, device))
+
+
+def textures_from_jax(textures, device="cpu") -> dict:
+    """{"const": {key: array}} -> the same dict of float32 tensors."""
+    return {"const": {k: _t(v, torch.float32, device)
+                      for k, v in textures["const"].items()}}
+
+
+def camera_from_jax(cam) -> PerspectiveCamera:
+    if cam.lens_radius > 0.0:
+        raise NotImplementedError("thin-lens cameras are not ported")
+    return PerspectiveCamera(
+        camera_to_world=np.asarray(cam.camera_to_world, np.float32),
+        raster_to_camera=np.asarray(cam.raster_to_camera, np.float32))
+
+
+def sampler_from_jax(cfg) -> SamplerConfig:
+    return SamplerConfig(kind=cfg.kind, spp=cfg.spp, seed=cfg.seed)

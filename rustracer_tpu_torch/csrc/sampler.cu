@@ -1,0 +1,90 @@
+// K3: stateless scrambled (0,2)-sequence samples, one thread per lane.
+//
+// Replaces rustracer_tpu/render/sampler.py get_1d (:34) and get_2d (:40)
+// with the hash of rustracer_tpu/core/rng.py and the van der Corput /
+// Sobol' pair of rustracer_tpu/core/lowdiscrepancy.py. Bit-exact with the
+// plain versions in rustracer_tpu_torch/render/sampler.py.
+//
+// Bound: memory traffic (two int64 loads and one or two float stores per
+// lane against a few dozen integer operations); the design keeps the whole
+// chain in registers so each lane touches device memory once each way.
+#include "common.cuh"
+
+namespace {
+
+__constant__ uint32_t kPascalCols[32] = {
+    0x80000000u, 0xc0000000u, 0xa0000000u, 0xf0000000u, 0x88000000u, 0xcc000000u,
+    0xaa000000u, 0xff000000u, 0x80800000u, 0xc0c00000u, 0xa0a00000u, 0xf0f00000u,
+    0x88880000u, 0xcccc0000u, 0xaaaa0000u, 0xffff0000u, 0x80008000u, 0xc000c000u,
+    0xa000a000u, 0xf000f000u, 0x88008800u, 0xcc00cc00u, 0xaa00aa00u, 0xff00ff00u,
+    0x80808080u, 0xc0c0c0c0u, 0xa0a0a0a0u, 0xf0f0f0f0u, 0x88888888u, 0xccccccccu,
+    0xaaaaaaaau, 0xffffffffu};
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+__device__ __forceinline__ uint32_t hash4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+    uint32_t h = 0x9E3779B9u;
+    h = mix32(h ^ a) + 0x7F4A7C15u;
+    h = mix32(h ^ b) + 0x7F4A7C15u;
+    h = mix32(h ^ c) + 0x7F4A7C15u;
+    h = mix32(h ^ d) + 0x7F4A7C15u;
+    return mix32(h);
+}
+
+// uint32 -> float32 rounding to nearest even (astype(float32)), * 2^-32,
+// clamped below 1
+__device__ __forceinline__ float bits_to_float(uint32_t bits) {
+    return fminf(__uint2float_rn(bits) * 0x1p-32f, 0x1.fffffep-1f);
+}
+
+__device__ __forceinline__ uint32_t sobol_bits(uint32_t index) {
+    uint32_t out = 0;
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+        if ((index >> k) & 1u) out ^= kPascalCols[k];
+    return out;
+}
+
+template <bool TWO_D>
+__global__ void sample_kernel(const long long* __restrict__ pixel,
+                              const long long* __restrict__ sample, int n, uint32_t seed,
+                              uint32_t dim, float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    uint32_t p = static_cast<uint32_t>(pixel[i]);
+    uint32_t s = static_cast<uint32_t>(sample[i]);
+    if (!TWO_D) {
+        out[i] = bits_to_float(__brev(s) ^ hash4(seed, p, dim, 0x1Du));
+    } else {
+        out[2 * i] = bits_to_float(__brev(s) ^ hash4(seed, p, dim, 0x2D0u));
+        out[2 * i + 1] = bits_to_float(sobol_bits(s) ^ hash4(seed, p, dim, 0x2D1u));
+    }
+}
+
+template <bool TWO_D>
+int launch(const void* pixel, const void* sample, int n, uint32_t seed, uint32_t dim, void* out,
+           void* stream) {
+    constexpr int kThreads = 256;
+    sample_kernel<TWO_D><<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)pixel, (const long long*)sample, n, seed, dim, (float*)out);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rt_sample_1d(const void* pixel, const void* sample, int n, uint32_t seed,
+                            uint32_t dim, void* out, void* stream) {
+    return launch<false>(pixel, sample, n, seed, dim, out, stream);
+}
+
+extern "C" int rt_sample_2d(const void* pixel, const void* sample, int n, uint32_t seed,
+                            uint32_t dim, void* out, void* stream) {
+    return launch<true>(pixel, sample, n, seed, dim, out, stream);
+}

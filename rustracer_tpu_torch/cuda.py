@@ -1,0 +1,142 @@
+"""The hand-written Hopper kernels of csrc/: build, bind, launch and count.
+
+All kernels live in one shared library with a plain C interface, compiled
+with nvcc for sm_90a and bound through ctypes (no PyTorch headers, so the
+build takes seconds). Each C entry point launches its kernel on the stream it
+is given (the wrappers pass ``torch.cuda.current_stream()``), allocates
+nothing and returns ``cudaGetLastError()``.
+
+Routing rule of every wrapper in this package: a tensor on the CPU goes to
+the plain PyTorch version beside the kernel; a CUDA tensor launches the
+kernel or raises. The only way to run a plain version on the card is the
+explicit ``plain_reference()`` scope, which checks the kernels against
+their plain versions.
+
+``LAUNCHES`` counts, per C entry point, the launches made outside that scope.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from ._build import CSRC, compile_shared
+
+CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# C entry point -> argument types (the trailing stream argument included)
+SIGNATURES = {
+    "sample_1d": [_P, _P, _I, _U, _U, _P, _P],
+    "sample_2d": [_P, _P, _I, _U, _U, _P, _P],
+    "film_add_samples": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                         _F, _F, _I, _I, _F, _P],
+    "traverse16_closest": [_P, _I, _P, _I, _P, _P, _P, _I,
+                           _P, _P, _P, _P, _P],
+    "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
+                       _P, _P, _P, _P, _P],
+    "build_interaction_tri": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I]
+    + [_P] * 15 + [_P],
+}
+LAUNCHES = {name: 0 for name in SIGNATURES}
+
+_lock = threading.Lock()
+_lib = None
+
+
+class _Route(threading.local):
+    plain = False
+
+
+_route = _Route()
+
+
+@contextlib.contextmanager
+def plain_reference():
+    """Run the plain PyTorch versions, also on CUDA tensors, inside this
+    scope: the reference the kernels are checked against."""
+    prev = _route.plain
+    _route.plain = True
+    try:
+        yield
+    finally:
+        _route.plain = prev
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True when a wrapper given ``t`` must launch its kernel."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return not _route.plain
+    raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def library_path() -> str:
+    """Compile the kernel library if its build is missing; return its path."""
+    return compile_shared(
+        "rustracer_kernels", [os.path.join(CSRC, s) for s in CU_SOURCES],
+        [nvcc_path(), *NVCC_FLAGS])
+
+
+def library():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(library_path())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, "rt_" + name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _arg(a):
+    if isinstance(a, torch.Tensor):
+        return a.data_ptr()
+    return a
+
+
+def launch(name: str, *args):
+    """Call C entry point ``rt_<name>`` on the current stream; raise if the
+    launch failed; count it."""
+    fn = getattr(library(), "rt_" + name)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*[_arg(a) for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous tensor of this dtype, shape and
+    device (the kernels read raw pointers)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")

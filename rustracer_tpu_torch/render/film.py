@@ -1,0 +1,128 @@
+"""Film: filter-weighted sample accumulation (port of
+rustracer_tpu/render/film.py) with hand kernel K4 (csrc/film.cu).
+
+Unlike the reference's functional state, ``add_samples`` adds into the
+state's tensors in place: the film is 16 MB at 1024^2 and the render loop
+owns it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import cuda
+from ..core.spectrum import luminance
+from .filters import Filter
+
+
+class FilmState(NamedTuple):
+    rgb: torch.Tensor    # (H, W, 3) filter-weighted radiance sum
+    wsum: torch.Tensor   # (H, W) filter weight sum
+
+
+@dataclasses.dataclass(frozen=True)
+class Film:
+    full_resolution: Tuple[int, int] = (1280, 720)   # (x, y)
+    crop_window: Tuple[float, float, float, float] = (0.0, 0.0, 1.0, 1.0)
+    filter: Filter = dataclasses.field(default_factory=Filter)
+    max_sample_luminance: float = float("inf")
+
+    @property
+    def cropped_pixel_bounds(self):
+        """(x0, y0, x1, y1) integer pixel bounds."""
+        xr, yr = self.full_resolution
+        cx0, cy0, cx1, cy1 = self.crop_window
+        x0 = int(np.ceil(xr * cx0))
+        x1 = max(x0 + 1, int(np.ceil(xr * cx1)))
+        y0 = int(np.ceil(yr * cy0))
+        y1 = max(y0 + 1, int(np.ceil(yr * cy1)))
+        return (x0, y0, x1, y1)
+
+    @property
+    def cropped_resolution(self):
+        x0, y0, x1, y1 = self.cropped_pixel_bounds
+        return (x1 - x0, y1 - y0)
+
+    def get_sample_bounds(self):
+        """Pixel sample bounds expanded by the filter radius."""
+        x0, y0, x1, y1 = self.cropped_pixel_bounds
+        rx, ry = self.filter.radius
+        return (int(np.floor(x0 + 0.5 - rx)), int(np.floor(y0 + 0.5 - ry)),
+                int(np.ceil(x1 - 0.5 + rx)), int(np.ceil(y1 - 0.5 + ry)))
+
+    def init_state(self, device="cpu") -> FilmState:
+        w, h = self.cropped_resolution
+        return FilmState(
+            rgb=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
+            wsum=torch.zeros((h, w), dtype=torch.float32, device=device))
+
+    def _footprint(self):
+        rx, ry = self.filter.radius
+        return max(int(math.ceil(2.0 * rx)), 1), max(int(math.ceil(2.0 * ry)), 1)
+
+    def add_samples_plain(self, state: FilmState, p_film, radiance,
+                          valid=None) -> FilmState:
+        """Plain PyTorch version of K4: scatter-add of the filter taps."""
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        h, w = state.wsum.shape
+        rx, ry = self.filter.radius
+        nx, ny = self._footprint()
+        if np.isfinite(self.max_sample_luminance):
+            lum = luminance(radiance)
+            m = self.max_sample_luminance
+            scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
+            radiance = radiance * scale[:, None]
+        p_lo_x = torch.ceil(p_film[:, 0] - 0.5 - rx).int()
+        p_lo_y = torch.ceil(p_film[:, 1] - 0.5 - ry).int()
+        if valid is None:
+            valid = torch.ones_like(p_lo_x, dtype=torch.bool)
+        for j in range(ny):
+            for i in range(nx):
+                px, py = p_lo_x + i, p_lo_y + j
+                fw = self.filter.evaluate(px.float() + 0.5 - p_film[:, 0],
+                                          py.float() + 0.5 - p_film[:, 1])
+                ix, iy = px - x0, py - y0
+                ok = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h) \
+                    & (fw > 0.0)
+                fw = torch.where(ok, fw, 0.0)
+                idx = (iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
+                state.rgb.index_put_(idx, fw[:, None] * radiance,
+                                     accumulate=True)
+                state.wsum.index_put_(idx, fw, accumulate=True)
+        return state
+
+    def add_samples(self, state: FilmState, p_film, radiance,
+                    valid=None) -> FilmState:
+        """Splat samples (p_film (B, 2) raster positions, radiance (B, 3),
+        valid (B,) bool or None) into ``state`` in place. CPU tensors take
+        the plain version, CUDA tensors launch K4."""
+        if not cuda.use_kernel(p_film):
+            return self.add_samples_plain(state, p_film, radiance, valid)
+        n = p_film.shape[0]
+        dev = p_film.device
+        h, w = state.wsum.shape
+        cuda.check(p_film, "p_film", torch.float32, (n, 2), dev)
+        cuda.check(radiance, "radiance", torch.float32, (n, 3), dev)
+        if valid is not None:
+            cuda.check(valid, "valid", torch.bool, (n,), dev)
+        cuda.check(state.rgb, "rgb", torch.float32, (h, w, 3), dev)
+        cuda.check(state.wsum, "wsum", torch.float32, (h, w), dev)
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        rx, ry = self.filter.radius
+        nx, ny = self._footprint()
+        if n:
+            cuda.launch("film_add_samples", p_film, radiance, valid, n,
+                        state.rgb, state.wsum, h, w, x0, y0, rx, ry, nx, ny,
+                        self.max_sample_luminance)
+        return state
+
+    def to_image(self, state: FilmState):
+        """Weight-normalized (H, W, 3) linear RGB."""
+        pos = state.wsum > 0.0
+        safe_w = torch.where(pos, state.wsum, 1.0)
+        img = torch.where(pos[..., None], state.rgb / safe_w[..., None], 0.0)
+        return torch.clamp(img, min=0.0)

@@ -1,0 +1,107 @@
+"""Scenes of the port.
+
+``build_dragon_matte`` is the matte variant of the benchmark dragon
+(``bench.py`` build_dragon and its ``dragon_matte_fwd_rays_per_s`` config):
+the 327,680-triangle bumpy sphere that stands in for the dragon scan, a
+ground quad and a two-triangle area light, a look-at camera with fov 42,
+the box 0.5 filter, the (0,2)-sequence sampler and path tracing to depth 5,
+with constant matte materials.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.transform import Transform
+from .integrators.path import PathIntegrator
+from .render.camera import PerspectiveCamera
+from .render.film import Film
+from .render.filters import Filter
+from .render.renderer import RenderContext
+from .render.sampler import SamplerConfig
+from .scene.lights import LIGHT_AREA, make_lights
+from .scene.materials import MaterialSet, MatteMaterial
+from .scene.tables import N_DUMMY_QUADRICS, make_geometry
+from .scene.textures import ConstantTexture
+from .utils.meshgen import bumpy_sphere
+
+MAX_DEPTH = 5
+
+
+def dragon_tris(sub=7):
+    """Host triangle tables of the dragon scene -> (tris dict, n_mesh)."""
+    mv, mn, mf = bumpy_sphere(subdivisions=sub, radius=1.0)
+    n_mesh = mf.shape[0]
+    extra_v = np.array([
+        [-12, -1.25, -12], [12, -1.25, -12], [12, -1.25, 12], [-12, -1.25, 12],
+        # light: 2x2 quad at y=3.0, wound so its normal points -y
+        [-1, 3.0, -1], [1, 3.0, -1], [1, 3.0, 1], [-1, 3.0, 1],
+    ], np.float32)
+    base = mv.shape[0]
+    extra_f = np.array([
+        [base, base + 1, base + 2], [base, base + 2, base + 3],          # ground
+        [base + 4, base + 5, base + 6], [base + 4, base + 6, base + 7],  # light
+    ], np.int32)
+    # spherical uv on the hero mesh
+    uv_mesh = np.stack(
+        [np.arctan2(mv[:, 2], mv[:, 0]) / (2 * np.pi) + 0.5,
+         np.arccos(np.clip(mv[:, 1] /
+                           np.maximum(np.linalg.norm(mv, axis=1), 1e-9),
+                           -1, 1)) / np.pi], -1).astype(np.float32)
+    tv_p = np.concatenate([mv, extra_v])
+    n_tris = n_mesh + 4
+    tris = dict(
+        tv_p=tv_p,
+        tv_n=np.concatenate([mn, np.zeros((8, 3), np.float32)]),
+        tv_uv=np.concatenate([uv_mesh, np.zeros((8, 2), np.float32)]),
+        tv_s=np.zeros_like(tv_p),
+        t_idx=np.concatenate([mf, extra_f]),
+        t_material=np.concatenate([np.full(n_mesh, 1, np.int32),
+                                   np.array([0, 0, 2, 2], np.int32)]),
+        t_arealight=np.concatenate([np.full(n_mesh + 2, -1, np.int32),
+                                    np.array([0, 1], np.int32)]),
+        t_reverse=np.zeros(n_tris, bool),
+        t_has_n=np.concatenate([np.ones(n_mesh, bool), np.zeros(4, bool)]),
+        t_has_uv=np.concatenate([np.ones(n_mesh, bool), np.zeros(4, bool)]),
+        t_alpha_tex=np.full(n_tris, -1, np.int32),
+    )
+    return tris, n_mesh
+
+
+def dragon_light_rows(n_mesh):
+    emit = (18.0, 18.0, 18.0)
+    first = N_DUMMY_QUADRICS + n_mesh + 2
+    return [dict(type=LIGHT_AREA, emit=emit, prim=first + k, twosided=False)
+            for k in range(2)]
+
+
+def dragon_materials():
+    """-> (MaterialSet, constant texture values as float32 numpy)."""
+    const = {"kd_floor": np.array([0.6, 0.6, 0.6], np.float32),
+             "kd_dragon": np.array([0.55, 0.45, 0.35], np.float32),
+             "kd_black": np.array([0.0, 0.0, 0.0], np.float32)}
+    ms = MaterialSet([MatteMaterial(kd=ConstantTexture(k))
+                      for k in ("kd_floor", "kd_dragon", "kd_black")])
+    return ms, const
+
+
+def dragon_camera(res):
+    c2w = Transform.look_at([0.0, 1.1, -3.4], [0.0, 0.0, 0.0], [0, 1, 0])
+    return PerspectiveCamera.create(c2w, fov=42.0, resolution=res)
+
+
+def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cpu",
+                       crop_window=(0.0, 0.0, 1.0, 1.0)):
+    """-> (ctx, camera, film, sampler, integrator, n_tris) on ``device``."""
+    tris, n_mesh = dragon_tris(sub)
+    geom = make_geometry(tris, device=device)
+    lights = make_lights(dragon_light_rows(n_mesh), geom, device=device)
+    ms, const = dragon_materials()
+    textures = {"const": {k: torch.as_tensor(v, device=device)
+                          for k, v in const.items()}}
+    ctx = RenderContext(geom=geom, lights=lights, textures=textures)
+    film = Film(full_resolution=res, crop_window=crop_window,
+                filter=Filter("box", 0.5, 0.5))
+    return (ctx, dragon_camera(res), film,
+            SamplerConfig(kind="02sequence", spp=spp),
+            PathIntegrator(mat_set=ms, max_depth=MAX_DEPTH), n_mesh + 4)
