@@ -6,16 +6,29 @@
 Phases, each printing its lines:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand kernels from rustracer_tpu_torch/csrc (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, at the
-     render path's shapes on the full 327,680-triangle matte dragon, with
-     kernel and plain times;
+  3. each kernel against its plain PyTorch version on the card, with kernel
+     and plain device times (torch.profiler): K1-K4 at the matte render's shapes on the full
+     327,680-triangle dragon; K5 (atlas EWA, both texel layouts) on a
+     2^18-lane textured-dragon camera tile; K6/K7 (alive-first order, slab
+     take/put) on the real alive mask after bounce 0 of a 2^18-lane tile;
+     K8 (row gather) through the gather microbenchmark's entry point
+     (rustracer_tpu_torch.tools.bench_gather, its defaults) and on the
+     dragon's own bvh16_table;
   4. the matte dragon at 1024^2, 8 spp, depth 5 through the Renderer, with
-     every kernel's launch count from that run;
-  5. a 128^2 crop at 1 spp, kernel path against the all-plain path, within
-     the golden-image tolerance of tests/test_golden.py;
-  6. a JSON line of the kernels, the card line, and the result line.
+     its kernels' launch counts from that run;
+  5. a 128^2 crop of it at 1 spp, kernel path against the all-plain path,
+     within the golden-image tolerance of tests/test_golden.py;
+  6. the textured headline dragon (64-spp config, an 8-sample slice, 2^18
+     lanes, slab compaction on) at 1024^2, with every kernel's launch count
+     and the slab tiers taken in that run;
+  7. a 1024 x 128 crop of it at 1 spp in 2^16-lane tiles (one takes the B/4
+     slab, one the B/2 slab), kernel path against the all-plain path;
+  8. a JSON line of the kernels, the card line, and the result line.
+Each path (the gather tool, the matte render, the textured render) is run
+with the launch counts set to 0 just before it and read just after.
 Any failed check raises; there is no CPU fallback.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -26,9 +39,14 @@ import torch
 
 SUB = 7          # bumpy_sphere(7): 327,680 mesh triangles
 RES = (1024, 1024)
-SPP = 8
+SPP = 8          # the matte config's samples (its 64-spp config draws these)
+SAMPLES = 8      # the textured 64-spp config's timed slice
 LANES = 1 << 18
 CROP = (0.4375, 0.4375, 0.5625, 0.5625)     # 128^2 around the image centre
+# rows 64-191 above and through the dragon's crown: two 2^16-lane tiles,
+# about 6% and 38% of whose lanes hit, so one takes each slab tier
+TEX_CROP = (0.0, 0.0625, 1.0, 0.1875)
+TEX_CROP_LANES = 1 << 16
 SOURCES = {
     "sample_1d": ("rustracer_tpu_torch/csrc/sampler.cu",
                   "rustracer_tpu/render/sampler.py:34"),
@@ -42,35 +60,56 @@ SOURCES = {
                               "rustracer_tpu/scene/tables.py:549"),
     "film_add_samples": ("rustracer_tpu_torch/csrc/film.cu",
                          "rustracer_tpu/render/film.py:67"),
+    "atlas_lookup_ewa": ("rustracer_tpu_torch/csrc/atlas.cu",
+                         "rustracer_tpu/scene/atlas.py:174"),
+    "alive_first_order": ("rustracer_tpu_torch/csrc/compact.cu",
+                          "rustracer_tpu/integrators/path.py:382"),
+    "slab_take": ("rustracer_tpu_torch/csrc/compact.cu",
+                  "rustracer_tpu/integrators/path.py:65"),
+    "slab_put": ("rustracer_tpu_torch/csrc/compact.cu",
+                 "rustracer_tpu/integrators/path.py:87"),
+    "row_gather": ("rustracer_tpu_torch/csrc/gather.cu",
+                   "tools/bench_gather_pallas.py:26"),
 }
+# the kernels the matte render runs (no texture, no slab at its widths)
+MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
+              "traverse16_any", "build_interaction_tri", "film_add_samples",
+              "row_gather")
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps):
-    """Mean device time of fn over reps calls after one warm-up call."""
+def device_ms(fn, reps):
+    """Device time of one call of fn: the duration of every kernel, copy
+    and fill it launches, summed over reps calls under torch.profiler and
+    divided by reps (the host's issue time is left out), after one warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device work")
+    return sum(e.time_range.end - e.time_range.start
+               for e in events) / reps * 1e-3
 
 
 def both(fn, reps, plain_reps=None):
-    """-> (kernel output, plain output, kernel ms, plain ms)."""
+    """-> (kernel output, plain output, kernel ms, plain ms), device time."""
     from rustracer_tpu_torch.cuda import plain_reference
     out = fn()
     with plain_reference():
         ref = fn()
-        plain_ms = time_ms(fn, plain_reps or reps)
-    return out, ref, time_ms(fn, reps), plain_ms
+        plain_ms = device_ms(fn, plain_reps or reps)
+    return out, ref, device_ms(fn, reps), plain_ms
 
 
 def check_kernels(ctx, cam, film, sampler, renderer, results):
@@ -208,69 +247,239 @@ def main():
     run(torch.device("cuda:0"), card)
 
 
-def run(dev, card):
-    """Phases 3 to 6 on device ``dev``."""
+def camera_tile(cam, sampler, tile, sample):
+    """-> (lanes, camera rays with the sampler's differential scale) of one
+    renderer tile at sample index ``sample``."""
+    from rustracer_tpu_torch.render.renderer import Lanes
+    px, py, _ = tile
+    pix = py.long() * RES[0] + px.long()
+    lanes = Lanes(pixel_idx=pix, sample_idx=torch.full_like(pix, sample))
+    p_film, _, _ = sampler.get_camera_sample(
+        torch.stack([px, py], -1).float(), lanes.pixel_idx,
+        lanes.sample_idx)
+    ray = cam.generate_ray_differential(p_film)
+    return lanes, ray.scaled_differentials(1.0 / np.sqrt(sampler.spp))
+
+
+def check_atlas(ctx, cam, sampler, integ, tile, results):
+    """K5 on the textured dragon's camera hits, both texel layouts."""
+    from rustracer_tpu_torch.core.interaction import compute_differentials
+    from rustracer_tpu_torch.scene import atlas as A
+    from rustracer_tpu_torch.scene.tables import scene_intersect
+
+    ms = integ.mat_set
+    _, ray = camera_tile(cam, sampler, tile, 3)
+    si = compute_differentials(scene_intersect(ctx.geom, ray), ray)
+    dev = si.t.device
+    quad, texels, regs, slots = ms.atlas_tables(ctx.textures, dev)
+    if not quad:
+        raise AssertionError("the hero atlas should use the quad rows")
+    reg = slots[si.material.clamp(0, len(ms.materials) - 1).long(), 0]
+    reg = reg.contiguous()
+    meta, levels = ctx.textures["atlas_meta"], ctx.textures["atlas_levels"]
+    flat = A.atlas_texels(ctx.textures["images"]).to(dev)
+    outs = []
+    for label, q, tex in (("quad rows (T, 12)", True, texels),
+                          ("texels (T, 3)", False, flat)):
+        def fn(q=q, tex=tex):
+            return A.atlas_lookup_ewa(tex, meta, levels, regs, reg, si,
+                                      quad=q)
+        out, ref, ms_k, ms_p = both(fn, 20)
+        d = (out - ref).abs().max(-1).values
+        off = (d > 1e-5).float().mean().item()
+        log(f"[3] atlas_lookup_ewa {label}: {reg.shape[0]} lanes, "
+            f"{(reg >= 0).float().mean().item():.4f} textured; max abs err "
+            f"{d.max().item():.3g}, lanes beyond 1e-5 {off:.3g} (<= 1e-3); "
+            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+        if off > 1e-3 or bool(out[reg < 0].any()):
+            raise AssertionError(f"atlas_lookup_ewa {label} differs")
+        if q:
+            results["atlas_lookup_ewa"] = dict(max_abs_err=d.max().item(),
+                                               ms=ms_k, plain_ms=ms_p)
+        outs.append(out)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("atlas_lookup_ewa: the two layouts differ")
+
+
+def check_compaction(ctx, cam, sampler, integ, tile, results):
+    """K6 and K7 on the alive mask and state after bounce 0 of a tile."""
     from rustracer_tpu_torch import cuda as K
-    from rustracer_tpu_torch.render.film import Film
-    from rustracer_tpu_torch.render.filters import Filter
-    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
-    from rustracer_tpu_torch.scenes import build_dragon_matte
+    from rustracer_tpu_torch.integrators.path import SLAB_FIELDS
+    from rustracer_tpu_torch.ops import compact as C
+    from rustracer_tpu_torch.render.sampler import DimAllocator
 
-    t0 = time.perf_counter()
-    ctx, cam, film, sampler, integ, n_tris = build_dragon_matte(
-        sub=SUB, res=RES, spp=SPP, device=dev)
-    log(f"[3] matte dragon: {n_tris} triangles, BVH depth "
-        f"{ctx.geom.bvh16_depth}, {ctx.geom.bvh16_table.shape[0]} records, "
-        f"built in {time.perf_counter() - t0:.1f} s")
-    renderer = Renderer(integ.li, cam, film, sampler,
-                        RenderConfig(max_lanes=LANES), device=dev)
-    results = {}
-    check_kernels(ctx, cam, film, sampler, renderer, results)
+    lanes, ray = camera_tile(cam, sampler, tile, 0)
+    st = integ.bounce0(ctx, ray, lanes, sampler, DimAllocator())
+    alive = st.alive
+    n = alive.shape[0]
+    out, ref, ms, pms = both(lambda: C.alive_first_order(alive), 20)
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError("alive_first_order differs from the plain sort")
+    results["alive_first_order"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    order, _, n_alive = out
+    n_alive = int(n_alive.item())
+    w = integ.slab_width(n, n_alive)
+    w = w if w < n else n // 2
+    log(f"[3] alive_first_order: {n_alive} of {n} lanes alive after bounce "
+        f"0, bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
-    # 4: the main path, counted
+    fields = [getattr(st, f).contiguous() for f in SLAB_FIELDS] \
+        + [lanes.pixel_idx, lanes.sample_idx]
+    subs, ref, ms, pms = both(lambda: C.slab_take(fields, order, w), 20)
+    if not all(torch.equal(a, b) for a, b in zip(subs, ref)):
+        raise AssertionError("slab_take differs from the plain take")
+    results["slab_take"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    log(f"[3] slab_take: {len(fields)} fields into a {w}-lane slab, "
+        f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    zeros = [torch.zeros_like(f) for f in fields]
+    out = C.slab_put([z.clone() for z in zeros], subs, order, w)
+    with K.plain_reference():
+        ref = C.slab_put([z.clone() for z in zeros], subs, order, w)
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError("slab_put differs from the plain put")
+    _, _, ms, pms = both(lambda: C.slab_put(zeros, subs, order, w), 20)
+    results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+
+
+def check_gather(geom, results):
+    """K8 through the gather microbenchmark's entry point (its own path,
+    counted), then on the dragon's bvh16_table."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools import bench_gather
+
     torch.cuda.synchronize()
     K.reset_launches()
-    t0 = time.perf_counter()
-    img = film.to_image(renderer.render_state(ctx))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    mean = img.mean().item()
-    log(f"[4] render {RES[0]}x{RES[1]} {SPP} spp depth {integ.max_depth}: "
-        f"{wall:.3f} s wall, {RES[0] * RES[1] * SPP / wall:.1f} camera "
-        f"rays/s, image mean {mean:.5f} on {card}")
-    log(f"[4] launches: {launches}")
-    if not bool(torch.isfinite(img).all()):
-        raise AssertionError("non-finite radiance in the render")
-    if not mean > 1e-4:
-        raise AssertionError(f"render is black (mean {mean})")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the render: {missing}")
+    r = bench_gather.main([])
+    n = K.LAUNCHES["row_gather"]
+    log(f"[3] row_gather: the tool's defaults (2^17 x 128 table, 2^20 rows) "
+        f"launched it {n} times; equal={r['equal']}")
+    if n <= 0 or not r["equal"]:
+        raise AssertionError("the gather tool did not run K8 or it differs")
+    results["row_gather"] = dict(max_abs_err=0.0, ms=r["ms"],
+                                 plain_ms=r["plain_ms"])
+    table = geom.bvh16_table
+    gen = torch.Generator(device=table.device)
+    gen.manual_seed(5)
+    idx = torch.randint(0, table.shape[0], (LANES,), generator=gen,
+                        device=table.device, dtype=torch.int32)
+    r = bench_gather.measure(table, idx, reps=20)
+    for line in bench_gather.report(r, "[3] bvh16_table "):
+        log(line)
+    if not r["equal"]:
+        raise AssertionError("row_gather differs on the bvh16_table")
 
-    # 5: kernel path against the all-plain path on a 128^2 crop, 1 spp
-    crop_film = Film(full_resolution=RES, crop_window=CROP,
-                     filter=Filter("box", 0.5, 0.5))
-    crop = Renderer(integ.li, cam, crop_film, sampler,
-                    RenderConfig(max_lanes=LANES), device=dev)
-    t0 = time.perf_counter()
-    img_k = crop_film.to_image(crop.render_state(ctx, sample_stop=1))
-    torch.cuda.synchronize()
-    t_k = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with K.plain_reference():
-        img_p = crop_film.to_image(crop.render_state(ctx, sample_stop=1))
-    torch.cuda.synchronize()
-    t_p = time.perf_counter() - t0
+
+def compare_crop(label, renderer, film, ctx):
+    """Kernel path against the all-plain path, 1 spp, golden tolerance.
+    -> (kernel-run slab tiers, plain-run slab tiers)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.integrators import path as P
+    runs = []
+    for plain in (False, True):
+        P.reset_tiers()
+        t0 = time.perf_counter()
+        with K.plain_reference() if plain else contextlib.nullcontext():
+            img = film.to_image(renderer.render_state(ctx, sample_stop=1))
+        torch.cuda.synchronize()
+        runs.append((img, time.perf_counter() - t0, dict(P.TIERS)))
+    (img_k, t_k, tiers_k), (img_p, t_p, tiers_p) = runs
     err = (img_k - img_p).abs()
     scale = max(img_p.mean().item(), 1e-3)
     mean_err = err.mean().item() / scale
     p99 = float(np.percentile(err.cpu().numpy(), 99)) / scale
-    log(f"[5] crop {tuple(img_k.shape)} 1 spp: mean err {mean_err:.3g} "
+    log(f"{label} crop {tuple(img_k.shape)} 1 spp: mean err {mean_err:.3g} "
         f"(<= 2e-3), p99 {p99:.3g} (<= 2e-2); kernel path {t_k:.3f} s, "
-        f"plain path {t_p:.3f} s")
+        f"plain path {t_p:.3f} s; slab tiers kernel {tiers_k}, plain "
+        f"{tiers_p}")
+    if not bool(torch.isfinite(img_k).all()):
+        raise AssertionError("non-finite radiance in the crop")
     if not (mean_err <= 2e-3 and p99 <= 2e-2):
         raise AssertionError("kernel and plain renders disagree")
+    return tiers_k, tiers_p
+
+
+def render_counted(label, renderer, film, ctx, samples, card):
+    """One counted render of the main path -> (image, launches, tiers)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.integrators import path as P
+    torch.cuda.synchronize()
+    K.reset_launches()
+    P.reset_tiers()
+    t0 = time.perf_counter()
+    img = film.to_image(renderer.render_state(ctx, sample_stop=samples))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tiers = dict(K.LAUNCHES), dict(P.TIERS)
+    mean = img.mean().item()
+    log(f"{label} render {RES[0]}x{RES[1]} {samples} samples depth 5: "
+        f"{wall:.3f} s wall, {RES[0] * RES[1] * samples / wall:.1f} camera "
+        f"rays/s, image mean {mean:.5f} on {card}")
+    log(f"{label} launches: {launches}; slab tiers {tiers}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("non-finite radiance in the render")
+    if not mean > 1e-4:
+        raise AssertionError(f"render is black (mean {mean})")
+    return launches, tiers
+
+
+def run(dev, card):
+    """Phases 3 to 8 on device ``dev``."""
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.filters import Filter
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.scenes import (build_dragon, build_dragon_matte,
+                                            dragon_geometry)
+
+    t0 = time.perf_counter()
+    geometry = dragon_geometry(SUB, dev)
+    ctx, cam, film, sampler, integ, n_tris = build_dragon_matte(
+        sub=SUB, res=RES, spp=SPP, device=dev, geometry=geometry)
+    tctx, tcam, tfilm, tsampler, tinteg, _ = build_dragon(
+        sub=SUB, res=RES, device=dev, geometry=geometry)
+    log(f"[3] dragon: {n_tris} triangles, BVH depth "
+        f"{ctx.geom.bvh16_depth}, {ctx.geom.bvh16_table.shape[0]} records, "
+        f"matte and textured scenes built in {time.perf_counter() - t0:.1f} "
+        f"s; textured config {tsampler.spp} spp, {SAMPLES} rendered")
+    renderer = Renderer(integ.li, cam, film, sampler,
+                        RenderConfig(max_lanes=LANES), device=dev)
+    trenderer = Renderer(tinteg.li, tcam, tfilm, tsampler,
+                         RenderConfig(max_lanes=LANES), device=dev)
+    results = {}
+    check_kernels(ctx, cam, film, sampler, renderer, results)
+    check_atlas(tctx, tcam, tsampler, tinteg, trenderer.tiles[1], results)
+    check_compaction(tctx, tcam, tsampler, tinteg, trenderer.tiles[0],
+                     results)
+    check_gather(ctx.geom, results)
+
+    # 4-5: the matte path, counted, and its crop against the plain path
+    launches, _ = render_counted("[4]", renderer, film, ctx, SPP, card)
+    missing = [k for k in MATTE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the render: {missing}")
+    crop_film = Film(full_resolution=RES, crop_window=CROP,
+                     filter=Filter("box", 0.5, 0.5))
+    compare_crop("[5]", Renderer(integ.li, cam, crop_film, sampler,
+                                 RenderConfig(max_lanes=LANES), device=dev),
+                 crop_film, ctx)
+
+    # 6-7: the textured headline, counted after a 1-sample warm-up, and its
+    # crop in 2^16-lane tiles, where both slab tiers run in both paths
+    trenderer.render_state(tctx, sample_stop=1)
+    launches, tiers = render_counted("[6]", trenderer, tfilm, tctx, SAMPLES,
+                                     card)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the render: {missing}")
+    if tiers[2] + tiers[4] == 0:
+        raise AssertionError(f"the render took no slab tier: {tiers}")
+    crop_film = Film(full_resolution=RES, crop_window=TEX_CROP,
+                     filter=Filter("box", 0.5, 0.5))
+    crop = Renderer(tinteg.li, tcam, crop_film, tsampler,
+                    RenderConfig(max_lanes=TEX_CROP_LANES), device=dev)
+    for tiers in compare_crop("[7]", crop, crop_film, tctx):
+        if tiers[2] == 0 or tiers[4] == 0:
+            raise AssertionError(f"the crop missed a slab tier: {tiers}")
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],

@@ -12,7 +12,9 @@ import torch
 from .render.camera import PerspectiveCamera
 from .render.sampler import SamplerConfig
 from .scene.lights import LIGHT_AREA, LightTables
+from .scene.materials import MaterialSet, MatteMaterial
 from .scene.tables import N_DUMMY_QUADRICS, GeometryTables
+from .scene.textures import ConstantTexture, ImageTexture, UVMapping2D
 
 # the JAX package's never-hit placeholder quadric (a zero-radius sphere)
 _DUMMY_Q_PARAMS = np.array([[0.0, 1.0, 2.0, 2.0 * np.pi]], np.float32)
@@ -67,9 +69,45 @@ def lights_from_jax(lt, device="cpu") -> LightTables:
 
 
 def textures_from_jax(textures, device="cpu") -> dict:
-    """{"const": {key: array}} -> the same dict of float32 tensors."""
-    return {"const": {k: _t(v, torch.float32, device)
-                      for k, v in textures["const"].items()}}
+    """{"const": {key: array}, "images": [pyramid], "atlas_meta",
+    "atlas_levels"} -> the same dict of tensors (float32 values, int32
+    atlas metadata); keys the JAX dict lacks stay absent."""
+    out = {"const": {k: _t(v, torch.float32, device)
+                     for k, v in textures["const"].items()}}
+    if "images" in textures:
+        out["images"] = [[_t(lv, torch.float32, device) for lv in pyr]
+                         for pyr in textures["images"]]
+    for key in ("atlas_meta", "atlas_levels"):
+        if key in textures:
+            out[key] = _t(textures[key], torch.int32, device)
+    return out
+
+
+def _texture_from_jax(tex):
+    kind = type(tex).__name__
+    if kind == "ConstantTexture":
+        return ConstantTexture(tex.key)
+    if kind == "ImageTexture" and type(tex.mapping).__name__ == "UVMapping2D":
+        m = tex.mapping
+        return ImageTexture(tex.image_id, UVMapping2D(m.su, m.sv, m.du, m.dv),
+                            trilinear=tex.trilinear, max_aniso=tex.max_aniso,
+                            wrap=tex.wrap, scale=tex.scale,
+                            is_spectrum=tex.is_spectrum)
+    raise NotImplementedError(f"texture {kind} is not ported")
+
+
+def material_set_from_jax(ms) -> MaterialSet:
+    """JAX MaterialSet of matte materials over constant or UV-mapped image
+    textures -> port's; raises on anything else."""
+    out = []
+    for m in ms.materials:
+        kind = type(m).__name__
+        if kind != "MatteMaterial" or m.sigma is not None \
+                or m.bump_tex is not None:
+            raise NotImplementedError(
+                f"material {kind} (sigma, bump) is not ported")
+        out.append(MatteMaterial(kd=_texture_from_jax(m.kd)))
+    return MaterialSet(out)
 
 
 def camera_from_jax(cam) -> PerspectiveCamera:

@@ -26,7 +26,8 @@ import torch
 
 from ._build import CSRC, compile_shared
 
-CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu")
+CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
+              "atlas.cu", "compact.cu", "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,12 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P],
     "build_interaction_tri": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I]
     + [_P] * 15 + [_P],
+    "atlas_lookup_ewa": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
+    + [_P, _P],
+    "alive_first_order": [_P, _I, _P, _P, _P, _P, _P],
+    "slab_take": [_P, _I, _I, _P, _P, _P, _P],
+    "slab_put": [_P, _I, _I, _P, _P, _P, _P],
+    "row_gather": [_P, _P, _I, _I, _P, _P],
 }
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
@@ -129,9 +136,11 @@ def launch(name: str, *args):
     LAUNCHES[name] += 1
 
 
-def check(t: torch.Tensor, name: str, dtype, shape, device):
+def check(t: torch.Tensor, name: str, dtype, shape, device,
+          align: int = 1):
     """Raise unless ``t`` is a contiguous tensor of this dtype, shape and
-    device (the kernels read raw pointers)."""
+    device whose data starts on an ``align``-byte boundary (the kernels
+    read raw pointers)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
@@ -140,3 +149,5 @@ def check(t: torch.Tensor, name: str, dtype, shape, device):
             f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data is not {align}-byte aligned")

@@ -8,10 +8,17 @@ heuristic against the light-sampling density pmf * pdf_li. Sampler
 dimensions are allocated exactly as the reference allocates them, so lanes
 compare one to one with it.
 
-Not ported: the alive-first slab compaction of the interior bounces (its
-results are identical; it is a later performance change), passes through
-medium interfaces, infinite lights, the light grid and the stats counters.
-No transmissive lobe is ported, so Russian roulette's eta scale is 1.
+Wavefronts of at least ``PATH_COMPACT_MIN_B`` lanes run the interior
+bounces on an alive-first slab (hand kernels K6 and K7, ops/compact.py):
+after bounce 0 the alive count picks the slab width once, B/4 when at most a
+quarter of the lanes live, B/2 when at most half, else the full width. Dead
+lanes are never read again (their radiance is final and every update is
+masked by alive), so the results equal the full-width run's up to float
+rounding. The choice is a host decision: one ``n_alive.item()`` per step.
+
+Not ported: passes through medium interfaces, infinite lights, the light
+grid and the stats counters. No transmissive lobe is ported, so Russian
+roulette's eta scale is 1.
 """
 from __future__ import annotations
 
@@ -25,11 +32,24 @@ from ..core.ray import Ray
 from ..core.sampling import power_heuristic
 from ..core.spectrum import is_black
 from ..ops import bsdf as B
+from ..ops import compact as C
 from ..scene import lights as L
 from ..scene.tables import scene_intersect
 from .common import estimate_direct_light_side
 
 RR_THRESHOLD = 1.0   # Russian roulette only for throughput below this
+
+# wavefronts at least this wide may run the interior bounces on a slab
+PATH_COMPACT_MIN_B = 1 << 16
+
+# interior runs per slab width divisor (1 full, 2 half, 4 quarter), counted
+# since the last reset_tiers()
+TIERS = {1: 0, 2: 0, 4: 0}
+
+
+def reset_tiers():
+    for k in TIERS:
+        TIERS[k] = 0
 
 
 @dataclasses.dataclass
@@ -45,10 +65,20 @@ class _PathState:
     prev_p: torch.Tensor      # (B, 3) scattering point that spawned ray_d
 
 
+# state fields moved into and out of a slab (pixel and sample indices move
+# in besides, and come back unchanged)
+SLAB_FIELDS = ("ray_o", "ray_d", "ray_tmax", "L", "beta", "alive",
+                "prev_pdf", "prev_spec", "prev_p")
+
+
 @dataclasses.dataclass(frozen=True)
 class PathIntegrator:
     mat_set: object
     max_depth: int = 5
+    # alive-first slab compaction of the interior bounces; compact_tiers 1
+    # offers the B/2 slab only, 2 adds the B/4 slab
+    compact_interior: bool = True
+    compact_tiers: int = 2
 
     def li(self, ctx, ray: Ray, lanes, sampler, dims):
         return self._run(ctx, ray, lanes, sampler, dims)
@@ -83,7 +113,7 @@ class PathIntegrator:
     def _scatter(self, ctx, sampler, lanes, si, st: _PathState,
                  d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool):
         """Shade, NEE (light side), BSDF bounce sample, Russian roulette."""
-        lobes = self.mat_set.shade(si, ctx.textures)
+        si, lobes = self.mat_set.shade(si, ctx)
         lobes = lobes._replace(active=lobes.active & st.alive[:, None])
         n_nonspec = B.num_matching(lobes, B.ALL & ~B.SPECULAR)
         lid, pmf = self._pick_light(ctx, sampler, lanes, d_sel)
@@ -117,12 +147,13 @@ class PathIntegrator:
                           beta=beta, alive=alive, prev_pdf=pdf,
                           prev_spec=(flags & B.SPECULAR) != 0, prev_p=si.p)
 
-    def _run(self, ctx, ray: Ray, lanes, sampler, dims):
-        """Radiance (B, 3) of the camera rays."""
+    @staticmethod
+    def _initial_state(ray: Ray) -> _PathState:
+        """The path state of camera rays ``ray`` before bounce 0."""
         n = ray.t_max.shape[0]
         dev = ray.o.device
         ones = torch.ones(n, dtype=torch.float32, device=dev)
-        st = _PathState(
+        return _PathState(
             ray_o=ray.o, ray_d=ray.d, ray_tmax=ray.t_max,
             L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
             beta=torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -131,18 +162,37 @@ class PathIntegrator:
             prev_pdf=ones, prev_spec=torch.ones(n, dtype=torch.bool,
                                                 device=dev),
             prev_p=ray.o)
-        si, st = self._hit_and_emit(ctx, ray, st, first=True)
+
+    def bounce0(self, ctx, ray: Ray, lanes, sampler, dims) -> _PathState:
+        """Camera hit, emission and the bounce-0 scatter: the state whose
+        alive mask picks the slab width of the interior bounces."""
+        si, st = self._hit_and_emit(ctx, ray, self._initial_state(ray),
+                                    first=True)
+        return self._scatter(ctx, sampler, lanes, si, st, dims.next_1d(),
+                             dims.next_2d(), dims.next_1d(), dims.next_2d(),
+                             dims.next_1d(), rr_on=False)
+
+    def _run(self, ctx, ray: Ray, lanes, sampler, dims):
+        """Radiance (B, 3) of the camera rays."""
         if self.max_depth == 1:
+            _, st = self._hit_and_emit(ctx, ray, self._initial_state(ray),
+                                       first=True)
             return st.L
-        st = self._scatter(ctx, sampler, lanes, si, st, dims.next_1d(),
-                           dims.next_2d(), dims.next_1d(), dims.next_2d(),
-                           dims.next_1d(), rr_on=False)
+        st = self.bounce0(ctx, ray, lanes, sampler, dims)
         # interior bounces 1..max_depth-2, dims laid out as the reference's
         # scanned body allocates them
         base1, base2 = dims.d1, dims.d2
         n_interior = max(self.max_depth - 2, 0)
         dims.d1 += 3 * n_interior
         dims.d2 += 2 * n_interior
+        if n_interior:
+            st = self._interior(ctx, sampler, lanes, st, base1, base2)
+        # final bounce: emission only
+        r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
+        _, st = self._hit_and_emit(ctx, r, st, first=False)
+        return st.L
+
+    def _bounces(self, ctx, sampler, lanes, st, base1, base2):
         for b in range(1, self.max_depth - 1):
             k = b - 1
             r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
@@ -151,7 +201,36 @@ class PathIntegrator:
                                base1 + 3 * k, base2 + 2 * k,
                                base1 + 3 * k + 1, base2 + 2 * k + 1,
                                base1 + 3 * k + 2, rr_on=b > 3)
-        # final bounce: emission only
-        r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
-        _, st = self._hit_and_emit(ctx, r, st, first=False)
-        return st.L
+        return st
+
+    def slab_width(self, n, n_alive):
+        """The interior's lane count: n/4 or n/2 when the alive lanes fit."""
+        if self.compact_tiers >= 2 and n % 4 == 0 and n_alive <= n // 4:
+            return n // 4
+        return n // 2 if n_alive <= n // 2 else n
+
+    def _interior(self, ctx, sampler, lanes, st, base1, base2):
+        """Interior bounces at full width or on an alive-first slab."""
+        n = st.alive.shape[0]
+        if not (self.compact_interior and n >= PATH_COMPACT_MIN_B
+                and n % 2 == 0):
+            return self._bounces(ctx, sampler, lanes, st, base1, base2)
+        order, _rank, n_alive = C.alive_first_order(st.alive)
+        w = self.slab_width(n, int(n_alive.item()))
+        TIERS[n // w] += 1
+        if w == n:
+            return self._bounces(ctx, sampler, lanes, st, base1, base2)
+        full = [getattr(st, f).contiguous() for f in SLAB_FIELDS]
+        sub = C.slab_take(full + [lanes.pixel_idx.contiguous(),
+                                  lanes.sample_idx.contiguous()], order, w)
+        k = len(SLAB_FIELDS)
+        sub_st = _PathState(**dict(zip(SLAB_FIELDS, sub[:k])))
+        sub_lanes = dataclasses.replace(lanes, pixel_idx=sub[k],
+                                        sample_idx=sub[k + 1])
+        sub_st = self._bounces(ctx, sampler, sub_lanes, sub_st, base1, base2)
+        # the slab's lanes go back into the full-width state in place: the
+        # tensors of st were made by this step's bounce-0 scatter
+        C.slab_put(full, [getattr(sub_st, f) for f in SLAB_FIELDS], order,
+                   w)
+        return _PathState(**dict(zip(SLAB_FIELDS, full)))
+

@@ -1,11 +1,18 @@
-"""Scenes of the port.
+"""Scenes of the port: the benchmark dragon of ``bench.py`` build_dragon.
 
-``build_dragon_matte`` is the matte variant of the benchmark dragon
-(``bench.py`` build_dragon and its ``dragon_matte_fwd_rays_per_s`` config):
-the 327,680-triangle bumpy sphere that stands in for the dragon scan, a
-ground quad and a two-triangle area light, a look-at camera with fov 42,
-the box 0.5 filter, the (0,2)-sequence sampler and path tracing to depth 5,
-with constant matte materials.
+Both variants share the geometry (the 327,680-triangle bumpy sphere that
+stands in for the dragon scan, a ground quad and a two-triangle area
+light), a look-at camera with fov 42, the box 0.5 filter, the
+(0,2)-sequence sampler and path tracing to depth 5:
+
+- ``build_dragon`` is the headline config (``dragon_fwd_rays_per_s``): the
+  hero mesh carries a 128^2 marbled imagemap served through the shared
+  atlas, and the config is 64 spp (timed on an 8-sample slice, so render
+  with ``sample_stop=8``: the spp sets the ray-differential scale);
+- ``build_dragon_matte`` is its constant-matte variant
+  (``dragon_matte_fwd_rays_per_s``).
+
+The PLY round trip of the reference is left out.
 """
 from __future__ import annotations
 
@@ -19,13 +26,16 @@ from .render.film import Film
 from .render.filters import Filter
 from .render.renderer import RenderContext
 from .render.sampler import SamplerConfig
+from .ops.mipmap import build_pyramid
+from .scene.atlas import build_atlas_meta
 from .scene.lights import LIGHT_AREA, make_lights
 from .scene.materials import MaterialSet, MatteMaterial
 from .scene.tables import N_DUMMY_QUADRICS, make_geometry
-from .scene.textures import ConstantTexture
+from .scene.textures import ConstantTexture, ImageTexture
 from .utils.meshgen import bumpy_sphere
 
 MAX_DEPTH = 5
+DRAGON_SPP = 64      # the headline config's spp (bench.py DRAGON_SPP)
 
 
 def dragon_tris(sub=7):
@@ -90,18 +100,73 @@ def dragon_camera(res):
     return PerspectiveCamera.create(c2w, fov=42.0, resolution=res)
 
 
-def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cpu",
-                       crop_window=(0.0, 0.0, 1.0, 1.0)):
-    """-> (ctx, camera, film, sampler, integrator, n_tris) on ``device``."""
+def hero_texture():
+    """The hero mesh's 128^2 marbled albedo as bench.py builds it.
+    -> (images [pyramid of float32 levels], build_atlas_meta dict)."""
+    yy, xx = np.mgrid[0:128, 0:128].astype(np.float32) / 128.0
+    tex = np.stack([0.45 + 0.25 * np.sin(14 * xx + 5 * np.sin(3 * yy)),
+                    0.40 + 0.15 * np.sin(11 * yy + 4 * np.sin(5 * xx)),
+                    0.32 + 0.10 * np.cos(9 * (xx + yy))], -1)
+    images = [build_pyramid(tex.astype(np.float32))]
+    return images, build_atlas_meta(images)
+
+
+def dragon_materials_textured():
+    """-> (MaterialSet: floor constant, ImageTexture(0), black constant;
+    constant texture values as float32 numpy)."""
+    const = {"kd_floor": np.array([0.6, 0.6, 0.6], np.float32),
+             "kd_black": np.array([0.0, 0.0, 0.0], np.float32)}
+    ms = MaterialSet([MatteMaterial(kd=ConstantTexture("kd_floor")),
+                      MatteMaterial(kd=ImageTexture(0)),
+                      MatteMaterial(kd=ConstantTexture("kd_black"))])
+    return ms, const
+
+
+def dragon_geometry(sub=7, device="cpu"):
+    """-> (GeometryTables, LightTables, n_tris) of the dragon scene, which
+    both variants can share (the SAH build is the costly part)."""
     tris, n_mesh = dragon_tris(sub)
     geom = make_geometry(tris, device=device)
     lights = make_lights(dragon_light_rows(n_mesh), geom, device=device)
-    ms, const = dragon_materials()
-    textures = {"const": {k: torch.as_tensor(v, device=device)
-                          for k, v in const.items()}}
+    return geom, lights, n_mesh + 4
+
+
+def _dragon(textures, ms, res, spp, device, crop_window, geometry, sub):
+    geom, lights, n_tris = geometry or dragon_geometry(sub, device)
     ctx = RenderContext(geom=geom, lights=lights, textures=textures)
     film = Film(full_resolution=res, crop_window=crop_window,
                 filter=Filter("box", 0.5, 0.5))
     return (ctx, dragon_camera(res), film,
             SamplerConfig(kind="02sequence", spp=spp),
-            PathIntegrator(mat_set=ms, max_depth=MAX_DEPTH), n_mesh + 4)
+            PathIntegrator(mat_set=ms, max_depth=MAX_DEPTH), n_tris)
+
+
+def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cpu",
+                       crop_window=(0.0, 0.0, 1.0, 1.0), geometry=None):
+    """-> (ctx, camera, film, sampler, integrator, n_tris) on ``device``;
+    ``geometry`` is a ``dragon_geometry`` result to share."""
+    ms, const = dragon_materials()
+    textures = {"const": {k: torch.as_tensor(v, device=device)
+                          for k, v in const.items()}}
+    return _dragon(textures, ms, res, spp, device, crop_window, geometry,
+                   sub)
+
+
+def build_dragon(sub=7, res=(1024, 1024), spp=DRAGON_SPP, device="cpu",
+                 crop_window=(0.0, 0.0, 1.0, 1.0), geometry=None):
+    """The textured headline dragon -> (ctx, camera, film, sampler,
+    integrator, n_tris) on ``device``; ``geometry`` as build_dragon_matte.
+    ``ctx.textures`` carries the pyramids (``images``), ``atlas_meta`` and
+    ``atlas_levels``."""
+    ms, const = dragon_materials_textured()
+    images, meta = hero_texture()
+    textures = {
+        "const": {k: torch.as_tensor(v, device=device)
+                  for k, v in const.items()},
+        "images": [[torch.as_tensor(lv, device=device) for lv in pyr]
+                   for pyr in images],
+        "atlas_meta": torch.as_tensor(meta["atlas_meta"], device=device),
+        "atlas_levels": torch.as_tensor(meta["atlas_levels"],
+                                        device=device)}
+    return _dragon(textures, ms, res, spp, device, crop_window, geometry,
+                   sub)

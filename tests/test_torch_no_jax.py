@@ -1,6 +1,7 @@
 """The port imports no JAX: a fresh interpreter imports its main path (and
-every module of the package) and renders a tiny frame, then checks that
-neither ``jax`` nor the JAX package was ever imported."""
+every module of the package) and renders a tiny frame of the matte and of
+the textured dragon, then checks that neither ``jax`` nor the JAX package
+was ever imported."""
 import os
 import subprocess
 import sys
@@ -14,11 +15,13 @@ torch.set_num_threads(1)
 import rustracer_tpu_torch
 for m in pkgutil.walk_packages(rustracer_tpu_torch.__path__, "rustracer_tpu_torch."):
     importlib.import_module(m.name)
-from rustracer_tpu_torch.scenes import build_dragon_matte
+from rustracer_tpu_torch.scenes import build_dragon, build_dragon_matte
 from rustracer_tpu_torch.render.renderer import Renderer, RenderConfig
-ctx, cam, film, samp, integ, _ = build_dragon_matte(sub=1, res=(8, 8), spp=1)
-img = Renderer(integ.li, cam, film, samp, RenderConfig(max_lanes=64)).render(ctx)
-assert bool(torch.isfinite(img).all())
+for build in (build_dragon_matte, build_dragon):
+    ctx, cam, film, samp, integ, _ = build(sub=1, res=(8, 8), spp=1)
+    img = Renderer(integ.li, cam, film, samp,
+                   RenderConfig(max_lanes=64)).render(ctx)
+    assert bool(torch.isfinite(img).all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "rustracer_tpu."))
              or m == "rustracer_tpu")
