@@ -7,9 +7,15 @@ Phases, each printing its lines:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand kernels from rustracer_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, with kernel
-     and plain device times (torch.profiler): K1-K4 at the matte render's shapes on the full
-     327,680-triangle dragon; K5 (atlas EWA, both texel layouts) on a
-     2^18-lane textured-dragon camera tile; K6/K7 (alive-first order, slab
+     and plain device times (torch.profiler; K1's from CUDA events around
+     20 launches) and its bound (the larger of its bytes over 3.35 TB/s
+     and its operations over 33.5 T/s, the float32 rate without FMAs,
+     counted on this run's inputs): K1-K4 at the matte render's shapes on
+     the full 327,680-triangle dragon, K1 bit for bit (hit, prim, t,
+     counts) on 2^18 camera rays, 2^18 bounce rays and a 2^16-lane slab
+     with dead lanes (rustracer_tpu_torch.tools.traverse_work); K5
+     (atlas EWA, both texel layouts) on a 2^18-lane textured-dragon camera
+     tile; K6/K7 (alive-first order, slab
      take/put) on the real alive mask after bounce 0 of a 2^18-lane tile;
      K8 (row gather) through the gather microbenchmark's entry point
      (rustracer_tpu_torch.tools.bench_gather, its defaults) and on the
@@ -23,9 +29,13 @@ Phases, each printing its lines:
      and the slab tiers taken in that run;
   7. a 1024 x 128 crop of it at 1 spp in 2^16-lane tiles (one takes the B/4
      slab, one the B/2 slab), kernel path against the all-plain path;
-  8. a JSON line of the kernels, the card line, and the result line.
-Each path (the gather tool, the matte render, the textured render) is run
-with the launch counts set to 0 just before it and read just after.
+  8. the launches of one full-width textured step (tile 2), a JSON line
+     of the kernels (times, bounds, library yardsticks, launches in the
+     counted textured render and per step), the card line, and the result
+     line.
+Each path (the gather tool, the matte render, the textured render, the
+textured step) is run with the launch counts set to 0 just before it and
+read just after.
 Any failed check raises; there is no CPU fallback.
 """
 import contextlib
@@ -75,6 +85,12 @@ SOURCES = {
 MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
               "traverse16_any", "build_interaction_tri", "film_add_samples",
               "row_gather")
+# operations a lane does, for the bounds of the kernels other than K1 (32-bit
+# integer and float operations both counted at one instruction each): the
+# sampler's hash (5 mixing rounds of 7 operations, plus the 2D dimension's
+# 32-step Sobol' loop), K2's rebuild of the surface frame, K5's 16 EWA taps
+LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300,
+            "atlas_lookup_ewa": 450}
 
 
 def log(msg):
@@ -85,21 +101,38 @@ def device_ms(fn, reps):
     """Device time of one call of fn: the duration of every kernel, copy
     and fill it launches, summed over reps calls under torch.profiler and
     divided by reps (the host's issue time is left out), after one warm-up
-    call."""
+    call. A trace now and then comes back empty; it is taken again, at
+    most three times in all."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise AssertionError("the profiler saw no device work")
-    return sum(e.time_range.end - e.time_range.start
-               for e in events) / reps * 1e-3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in events) / reps * 1e-3
+    raise AssertionError("the profiler saw no device work")
+
+
+def bound(moved, ops=0.0):
+    """-> dict(bound_ms, bound_by): the larger of ``moved`` bytes over
+    the H100 SXM's device-memory rate and ``ops`` operations over its
+    float32 instruction rate without FMAs (tools/traverse_work.py)."""
+    from rustracer_tpu_torch.tools.traverse_work import (PEAK_BYTES_PER_S,
+                                                         PEAK_OPS_PER_S)
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def both(fn, reps, plain_reps=None):
@@ -115,9 +148,8 @@ def both(fn, reps, plain_reps=None):
 def check_kernels(ctx, cam, film, sampler, renderer, results):
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.accel.traverse16 import traverse16
-    from rustracer_tpu_torch.core.math import normalize
-    from rustracer_tpu_torch.core.ray import Ray
     from rustracer_tpu_torch.scene.tables import build_interaction
+    from rustracer_tpu_torch.tools import traverse_work as TW
 
     dev = ctx.geom.tv_p.device
     px, py, valid = renderer.tiles[len(renderer.tiles) // 2]
@@ -133,55 +165,56 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
         out, ref, ms, pms = both(fn, 20)
         if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError(f"{name}: kernel and plain differ in bits")
-        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                             **bound(nbytes(pixel_idx, sample_idx, out),
+                                     LANES * LANE_OPS[name]))
         log(f"[3] {name}: bit-equal on {LANES} lanes; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+            f"plain {pms:.4f} ms, bound {results[name]['bound_ms']:.4f} ms")
 
-    # camera rays of this tile, and random bounce rays from their hits
+    # camera rays of this tile and their hits (K2's and K4's inputs)
     p_film = pixel_xy + sampler.get_2d(pixel_idx, sample_idx, 0)
     cam_ray = cam.generate_ray_differential(p_film)
     hit, t, tid = traverse16(ctx.geom, cam_ray.o, cam_ray.d, cam_ray.t_max,
                              any_hit=False)
     prim = torch.where(hit, tid + ctx.geom.n_quadrics, 0)
-    si = build_interaction(ctx.geom, cam_ray, hit, t, prim)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
-    w = normalize(torch.randn((LANES, 3), generator=gen, device=dev))
-    w = torch.where(((w * si.n).sum(-1) < 0)[:, None], -w, w)
-    bounce = si.spawn_ray(w)
-    bounce = Ray(o=torch.where(si.valid[:, None], bounce.o, cam_ray.o),
-                 d=w.contiguous(), t_max=bounce.t_max)
     log(f"[3] camera rays hit {hit.float().mean().item():.4f} of the tile")
 
-    # K1: closest and any hit on both wavefronts
+    # K1: closest and any hit on the camera rays, bounce rays from their
+    # hits and a 2^16-lane slab with dead lanes, bit-equal to the plain walk
+    waves = TW.wavefronts(ctx, cam, sampler, renderer.tiles)
+    if not bool((waves["slab"].t_max <= 0).any()):
+        raise AssertionError("the slab case holds no dead lane")
     for name, any_hit in (("traverse16_closest", False),
                           ("traverse16_any", True)):
-        err, ms_sum, pms_sum = 0.0, 0.0, 0.0
-        for label, ray in (("camera", cam_ray), ("bounce", bounce)):
+        full = []
+        for label, ray in waves.items():
+            ref, work = TW.k1_work(ctx.geom, ray, any_hit)
+            out = traverse16(ctx.geom, ray.o, ray.d, ray.t_max,
+                             any_hit=any_hit, with_counts=True)
+            if not TW.equal_outputs(out, ref):
+                raise AssertionError(f"{name} {label}: hit, prim, t bits or "
+                                     "counts differ from the plain walk")
+
             def fn(ray=ray):
                 return traverse16(ctx.geom, ray.o, ray.d, ray.t_max,
-                                  any_hit=any_hit, with_counts=True)
-            (h, tt, p, c), (rh, rt, rp, rc), ms, pms = both(fn, 10, 1)
-            same = (h == rh) & (~h | (p == rp))
-            frac = same.float().mean().item()
-            m = h & rh & (p == rp)
-            rel = ((tt[m] - rt[m]).abs() / rt[m].abs().clamp(min=1e-30))
-            rel = rel.max().item() if m.any() else 0.0
-            err = max(err, (tt[m] - rt[m]).abs().max().item()
-                      if m.any() else 0.0)
-            ms_sum += ms
-            pms_sum += pms
-            log(f"[3] {name} {label}: hit&prim equal {frac:.6f}, t rel err "
-                f"{rel:.3g}, hits {h.float().mean().item():.4f}, counts "
-                f"kernel {c.tolist()} plain {rc.tolist()}; kernel {ms:.3f} "
-                f"ms, plain {pms:.3f} ms")
-            if frac < 0.9999:
-                raise AssertionError(f"{name} {label}: hit/prim agree on "
-                                     f"{frac:.6f} < 0.9999 of rays")
-            if not any_hit and rel > 1e-6:
-                raise AssertionError(f"{name} {label}: t rel err {rel}")
-        results[name] = dict(max_abs_err=err, ms=ms_sum / 2,
-                             plain_ms=pms_sum / 2)
+                                  any_hit=any_hit)
+            ms = TW.events_ms(fn, 20)
+            with K.plain_reference():
+                pms = device_ms(fn, 1)
+            bound_ms, bound_by = TW.k1_bound(work)
+            n = work["rays"]
+            log(f"[3] {name} {label}: {n} rays ({int((ray.t_max <= 0).sum())}"
+                f" dead), bit-equal with counts {out[3].tolist()}; kernel "
+                f"{ms:.4f} ms ({n / ms * 1e-6:.3f} G rays/s), plain "
+                f"{pms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.2f}% of it")
+            if label != "slab":
+                full.append((ms, pms, bound_ms, bound_by))
+        results[name] = dict(
+            max_abs_err=0.0, ms=float(np.mean([f[0] for f in full])),
+            plain_ms=float(np.mean([f[1] for f in full])),
+            bound_ms=float(np.mean([f[2] for f in full])),
+            bound_by=full[0][3])
 
     # K2: every interaction field within 1e-5 abs or rel
     def k2():
@@ -200,12 +233,24 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     for f in ("material", "arealight", "prim_id"):
         if not torch.equal(getattr(out, f), getattr(ref, f)):
             raise AssertionError(f"build_interaction_tri: {f} differs")
-    results["build_interaction_tri"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=pms)
+    # the lanes' rays and hits in, every field out, and the shading row of
+    # each distinct triangle hit
+    rows = torch.unique(prim[hit]).numel()
+    moved = nbytes(cam_ray.o, cam_ray.d, cam_ray.t_max, hit, t, prim) \
+        + nbytes(*[getattr(out, f) for f in (
+            "p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+            "dndu", "dndv", "wo", "material", "arealight", "prim_id")]) \
+        + rows * ctx.geom.t_shade.shape[1] * 4
+    results["build_interaction_tri"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms,
+        **bound(moved, LANES * LANE_OPS["build_interaction_tri"]))
     log(f"[3] build_interaction_tri: fields max abs err {err:.3g}; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms")
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['build_interaction_tri']['bound_ms']:.4f} ms")
 
     # K4: splat into the full film, within 1e-5 relative
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
     rad = torch.rand((LANES, 3), generator=gen, device=dev) * 4.0
 
     out = film.add_samples(film.init_state(dev), p_film, rad, valid=valid)
@@ -220,10 +265,14 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     if ((d > 1e-5 * ref.rgb.abs()) & (d > 1e-6)).any() or \
             not torch.allclose(out.wsum, ref.wsum, rtol=1e-5):
         raise AssertionError(f"film_add_samples differs, max {d.max()}")
-    results["film_add_samples"] = dict(max_abs_err=d.max().item(), ms=ms,
-                                       plain_ms=pms)
+    # samples in; each pixel they touch read and written once (16 bytes)
+    touched = torch.unique(pixel_idx[valid]).numel()
+    results["film_add_samples"] = dict(
+        max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
+        **bound(nbytes(p_film, rad, valid) + 2 * 16 * touched))
     log(f"[3] film_add_samples: max abs err {d.max().item():.3g}; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms")
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['film_add_samples']['bound_ms']:.4f} ms")
 
 
 def main():
@@ -294,8 +343,13 @@ def check_atlas(ctx, cam, sampler, integ, tile, results):
         if off > 1e-3 or bool(out[reg < 0].any()):
             raise AssertionError(f"atlas_lookup_ewa {label} differs")
         if q:
-            results["atlas_lookup_ewa"] = dict(max_abs_err=d.max().item(),
-                                               ms=ms_k, plain_ms=ms_p)
+            # the lanes' uv, differentials and registration in, the
+            # colour out (the texels read are not counted)
+            moved = nbytes(si.uv, si.dudx, si.dvdx, si.dudy, si.dvdy, reg,
+                           out)
+            results["atlas_lookup_ewa"] = dict(
+                max_abs_err=d.max().item(), ms=ms_k, plain_ms=ms_p,
+                **bound(moved, reg.shape[0] * LANE_OPS["atlas_lookup_ewa"]))
         outs.append(out)
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError("atlas_lookup_ewa: the two layouts differ")
@@ -315,7 +369,12 @@ def check_compaction(ctx, cam, sampler, integ, tile, results):
     out, ref, ms, pms = both(lambda: C.alive_first_order(alive), 20)
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
         raise AssertionError("alive_first_order differs from the plain sort")
-    results["alive_first_order"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    lib_ms = device_ms(lambda: torch.argsort(~alive, stable=True), 20)
+    results["alive_first_order"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        **bound(nbytes(alive, *out)))
+    log(f"[3] alive_first_order: torch.argsort(~alive, stable=True) "
+        f"{lib_ms:.4f} ms")
     order, _, n_alive = out
     n_alive = int(n_alive.item())
     w = integ.slab_width(n, n_alive)
@@ -328,7 +387,10 @@ def check_compaction(ctx, cam, sampler, integ, tile, results):
     subs, ref, ms, pms = both(lambda: C.slab_take(fields, order, w), 20)
     if not all(torch.equal(a, b) for a, b in zip(subs, ref)):
         raise AssertionError("slab_take differs from the plain take")
-    results["slab_take"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    # the slab's order entries, and each field's slab read and written once
+    moved = w * 4 + 2 * nbytes(*subs)
+    results["slab_take"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                **bound(moved))
     log(f"[3] slab_take: {len(fields)} fields into a {w}-lane slab, "
         f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
     zeros = [torch.zeros_like(f) for f in fields]
@@ -338,7 +400,8 @@ def check_compaction(ctx, cam, sampler, integ, tile, results):
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
         raise AssertionError("slab_put differs from the plain put")
     _, _, ms, pms = both(lambda: C.slab_put(zeros, subs, order, w), 20)
-    results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                               **bound(moved))
     log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
 
@@ -356,8 +419,12 @@ def check_gather(geom, results):
         f"launched it {n} times; equal={r['equal']}")
     if n <= 0 or not r["equal"]:
         raise AssertionError("the gather tool did not run K8 or it differs")
+    # the plain version is the library call, table[idx]; 2^20 indices
+    # in, 2^20 rows of 512 bytes read and written
     results["row_gather"] = dict(max_abs_err=0.0, ms=r["ms"],
-                                 plain_ms=r["plain_ms"])
+                                 plain_ms=r["plain_ms"],
+                                 library_ms=r["plain_ms"],
+                                 **bound((1 << 20) * (4 + 2 * 512)))
     table = geom.bvh16_table
     gen = torch.Generator(device=table.device)
     gen.manual_seed(5)
@@ -397,6 +464,19 @@ def compare_crop(label, renderer, film, ctx):
     if not (mean_err <= 2e-3 and p99 <= 2e-2):
         raise AssertionError("kernel and plain renders disagree")
     return tiers_k, tiers_p
+
+
+def step_launches(renderer, ctx, tile):
+    """Launches of each kernel in one full-width step (sample 1) of
+    ``tile``, counted from 0."""
+    from rustracer_tpu_torch import cuda as K
+    px, py, v = tile
+    fs = renderer.film.init_state(renderer.device)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    renderer.step(ctx, fs, px, py, 1, v)
+    torch.cuda.synchronize()
+    return dict(K.LAUNCHES)
 
 
 def render_counted(label, renderer, film, ctx, samples, card):
@@ -481,10 +561,18 @@ def run(dev, card):
         if tiers[2] == 0 or tiers[4] == 0:
             raise AssertionError(f"the crop missed a slab tier: {tiers}")
 
+    # launches per step: tile 2 of the textured render, all floor and
+    # dragon, at full width
+    per_step = step_launches(trenderer, tctx, trenderer.tiles[2])
+    log(f"[8] launches in one full-width textured step (tile 2): {per_step}")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
                     max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+                    bound_ms=results[k]["bound_ms"],
+                    bound_by=results[k]["bound_by"],
+                    library_ms=results[k].get("library_ms"),
+                    launches_per_step=per_step[k])
                for k in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,9 +11,10 @@ otherwise the walk pops, and the popped record is read again and re-tested
 against the tightened t_best. Any-hit stops at the first leaf hit.
 
 ``traverse16_plain`` is that walk in plain PyTorch over a batch of rays,
-stepping only the live ones; the kernel runs the same walk with one thread
-per ray. Both return (hit bool, t f32 (INF on a miss), prim int32 (0 on a
-miss)) and, when asked, the observed work [rows read, triangle tests].
+stepping only the live ones; the kernel runs the same walk with a group of
+16 lanes per ray, persistent groups taking rays from a counter. Both return
+(hit bool, t f32 (INF on a miss), prim int32 (0 on a miss)) and, when
+asked, the observed work [rows read, triangle tests].
 """
 from __future__ import annotations
 
@@ -24,7 +25,19 @@ from ..core.math import INFINITY
 from ..ops.triangle import triangle_intersect_c
 
 FULL_MASK = (1 << 16) - 1
-MAX_DEPTH = 32   # the kernel's stack size (csrc/traverse16.cu kMaxDepth)
+MAX_DEPTH = 32   # the kernel's register stack (csrc/traverse16.cu kMaxDepth)
+_RAY_COUNTERS = {}   # (device, stream) -> K1's ray counter, 0 between launches
+
+
+def _ray_counter(dev):
+    """K1's ray counter for the current stream of ``dev``: zeroed once;
+    each launch leaves it at 0 for the next launch on that stream."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    counter = _RAY_COUNTERS.get(key)
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _RAY_COUNTERS[key] = counter
+    return counter
 
 
 def _inv_dir(c):
@@ -171,5 +184,5 @@ def traverse16(geom, o, d, t_max, any_hit: bool, with_counts: bool = False):
         cuda.launch("traverse16_any" if any_hit else "traverse16_closest",
                     table, table.shape[0], geom.bvh16_roots,
                     geom.bvh16_depth, o, d, t_max, n, hit, t, prim,
-                    counts)
+                    counts, _ray_counter(dev))
     return (hit, t, prim, counts) if with_counts else (hit, t, prim)

@@ -25,7 +25,7 @@ def _t(x, dtype, device):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def geometry_from_jax(geom, device="cpu") -> GeometryTables:
+def geometry_from_jax(geom, device="cuda") -> GeometryTables:
     """JAX GeometryTables of a triangle scene with a wide BVH -> port's."""
     q_params = np.asarray(geom.q_params)
     if q_params.shape != _DUMMY_Q_PARAMS.shape \
@@ -50,7 +50,7 @@ def geometry_from_jax(geom, device="cpu") -> GeometryTables:
         n_quadrics=N_DUMMY_QUADRICS)
 
 
-def lights_from_jax(lt, device="cpu") -> LightTables:
+def lights_from_jax(lt, device="cuda") -> LightTables:
     """JAX LightTables built with ``geom=`` (the per-light precompute),
     area lights only -> port's."""
     l_type = np.asarray(lt.l_type)
@@ -68,7 +68,7 @@ def lights_from_jax(lt, device="cpu") -> LightTables:
         l_tri_rev=_t(lt.l_tri_rev, torch.bool, device))
 
 
-def textures_from_jax(textures, device="cpu") -> dict:
+def textures_from_jax(textures, device="cuda") -> dict:
     """{"const": {key: array}, "images": [pyramid], "atlas_meta",
     "atlas_levels"} -> the same dict of tensors (float32 values, int32
     atlas metadata); keys the JAX dict lacks stay absent."""

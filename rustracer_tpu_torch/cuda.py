@@ -39,9 +39,9 @@ SIGNATURES = {
     "film_add_samples": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                          _F, _F, _I, _I, _F, _P],
     "traverse16_closest": [_P, _I, _P, _I, _P, _P, _P, _I,
-                           _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P, _P, _P],
     "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
-                       _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P],
     "build_interaction_tri": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I]
     + [_P] * 15 + [_P],
     "atlas_lookup_ewa": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
@@ -106,16 +106,22 @@ def library_path() -> str:
         [nvcc_path(), *NVCC_FLAGS])
 
 
+def load(path: str, names=tuple(SIGNATURES)):
+    """ctypes handle of the kernel library at ``path`` with its entry points
+    ``names`` bound to their SIGNATURES."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, "rt_" + name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(library_path())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, "rt_" + name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(library_path())
         return _lib
 
 
@@ -125,15 +131,17 @@ def _arg(a):
     return a
 
 
-def launch(name: str, *args):
+def launch(name: str, *args, lib=None):
     """Call C entry point ``rt_<name>`` on the current stream; raise if the
-    launch failed; count it."""
-    fn = getattr(library(), "rt_" + name)
+    launch failed. A launch of the kernel library is counted; ``lib``, a
+    ``load``ed other build of an entry point, is launched uncounted."""
+    fn = getattr(lib or library(), "rt_" + name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*[_arg(a) for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    if lib is None:
+        LAUNCHES[name] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device,

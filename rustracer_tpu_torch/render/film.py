@@ -54,7 +54,7 @@ class Film:
         return (int(np.floor(x0 + 0.5 - rx)), int(np.floor(y0 + 0.5 - ry)),
                 int(np.ceil(x1 - 0.5 + rx)), int(np.ceil(y1 - 0.5 + ry)))
 
-    def init_state(self, device="cpu") -> FilmState:
+    def init_state(self, device="cuda") -> FilmState:
         w, h = self.cropped_resolution
         return FilmState(
             rgb=torch.zeros((h, w, 3), dtype=torch.float32, device=device),

@@ -46,7 +46,7 @@ class Renderer:
 
     def __init__(self, li_fn, camera: PerspectiveCamera, film: Film,
                  sampler: SamplerConfig, config: Optional[RenderConfig] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.li_fn = li_fn
         self.camera = camera
         self.film = film

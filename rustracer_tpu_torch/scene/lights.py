@@ -29,7 +29,7 @@ class LightTables:
         return self.l_type.shape[0]
 
 
-def make_lights(rows, geom, device="cpu") -> LightTables:
+def make_lights(rows, geom, device="cuda") -> LightTables:
     """rows: dicts (type, emit, prim, twosided), every row an area light on
     a triangle of ``geom``. Triangle vertices and areas are precomputed so
     per-lane sampling reads only these (L, ...) tables."""

@@ -70,7 +70,7 @@ def pack_shade_rows(t: dict) -> np.ndarray:
 
 
 def make_geometry(tris: dict, bvh: dict = None, quadrics: dict = None,
-                  device="cpu") -> GeometryTables:
+                  device="cuda") -> GeometryTables:
     """Host arrays (numpy, the reference's ``tris`` dict) -> device tables.
 
     ``bvh`` is the output of ``accel.bvh_build.build_wide_arrays``, built

@@ -122,7 +122,7 @@ def dragon_materials_textured():
     return ms, const
 
 
-def dragon_geometry(sub=7, device="cpu"):
+def dragon_geometry(sub=7, device="cuda"):
     """-> (GeometryTables, LightTables, n_tris) of the dragon scene, which
     both variants can share (the SAH build is the costly part)."""
     tris, n_mesh = dragon_tris(sub)
@@ -141,7 +141,7 @@ def _dragon(textures, ms, res, spp, device, crop_window, geometry, sub):
             PathIntegrator(mat_set=ms, max_depth=MAX_DEPTH), n_tris)
 
 
-def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cpu",
+def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cuda",
                        crop_window=(0.0, 0.0, 1.0, 1.0), geometry=None):
     """-> (ctx, camera, film, sampler, integrator, n_tris) on ``device``;
     ``geometry`` is a ``dragon_geometry`` result to share."""
@@ -152,7 +152,7 @@ def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cpu",
                    sub)
 
 
-def build_dragon(sub=7, res=(1024, 1024), spp=DRAGON_SPP, device="cpu",
+def build_dragon(sub=7, res=(1024, 1024), spp=DRAGON_SPP, device="cuda",
                  crop_window=(0.0, 0.0, 1.0, 1.0), geometry=None):
     """The textured headline dragon -> (ctx, camera, film, sampler,
     integrator, n_tris) on ``device``; ``geometry`` as build_dragon_matte.

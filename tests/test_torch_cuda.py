@@ -5,8 +5,10 @@ conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: sampler bit-equal; traversal hit/prim equal and t bit-equal
-(the same float operations in the same order); interaction fields within
+Tolerances: sampler bit-equal; traversal (K1) hit, prim, t bits and the
+counts [rows read, triangle tests] equal (the same walk, the same float
+operations in the same order), on camera rays, random soups, the small
+dragon and a table deeper than 16 levels; interaction fields within
 1e-5 absolute or relative (rsqrt rounds differently); film within 1e-5
 relative (atomic adds in no fixed order); atlas EWA within 1e-5 absolute on
 at least 99.9% of the lanes (the plain version divides by the weight sum
@@ -15,14 +17,17 @@ whose mip level sits on an integer may floor to the other level); the
 alive-first order, the slab moves and the row gather bit-equal; small
 renders within the golden-image tolerance of tests/test_golden.py (mean
 2e-3, p99 2e-2)."""
+import dataclasses
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from rustracer_tpu_torch import cuda as K
-from rustracer_tpu_torch.accel.traverse16 import traverse16
+from rustracer_tpu_torch.accel import bvh_build
+from rustracer_tpu_torch.accel.traverse16 import MAX_DEPTH, traverse16
 from rustracer_tpu_torch.core.interaction import compute_differentials
 from rustracer_tpu_torch.integrators import path as P
 from rustracer_tpu_torch.ops import compact as C
@@ -31,7 +36,8 @@ from rustracer_tpu_torch.ops.mipmap import (WRAP_BLACK, WRAP_CLAMP,
                                             WRAP_REPEAT, build_pyramid)
 from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
 from rustracer_tpu_torch.scene import atlas as A
-from rustracer_tpu_torch.scene.tables import build_interaction, scene_intersect
+from rustracer_tpu_torch.scene.tables import (build_interaction, make_geometry,
+                                             scene_intersect)
 from rustracer_tpu_torch.scenes import (build_dragon, build_dragon_matte,
                                         dragon_geometry)
 
@@ -90,6 +96,128 @@ def _plain(fn):
         return fn()
 
 
+def _soup_dict(v):
+    """Host triangle tables of the soup with vertices v (3T, 3)."""
+    n = len(v) // 3
+    return dict(
+        tv_p=v, tv_n=np.zeros_like(v),
+        tv_uv=np.zeros((len(v), 2), np.float32), tv_s=np.zeros_like(v),
+        t_idx=np.arange(3 * n, dtype=np.int32).reshape(-1, 3),
+        t_material=np.zeros(n, np.int32),
+        t_arealight=np.full(n, -1, np.int32),
+        t_reverse=np.zeros(n, bool), t_has_n=np.zeros(n, bool),
+        t_has_uv=np.zeros(n, bool), t_alpha_tex=np.full(n, -1, np.int32))
+
+
+def random_soup(n_tris, seed=0, spread=4.0):
+    """The random soup of tests/test_bvh.py (which imports JAX)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-spread, spread, (n_tris, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
+    return _soup_dict(np.stack([base, base + e1, base + e2], 1).reshape(-1, 3))
+
+
+def random_rays(n, seed=1, spread=6.0):
+    """tests/test_bvh.py's random rays -> (o, d) float32 numpy."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def _chain_binary(lo, hi, max_prims):
+    """A binary tree in the SAH builder's layout that is a chain: interior
+    2s holds leaf 2s+1 (triangle s) and the interior 2s+2 (the rest)."""
+    n = lo.shape[0]
+    m = 2 * n - 1
+    nodes_lo = np.empty((m, 3), np.float32)
+    nodes_hi = np.empty((m, 3), np.float32)
+    meta = np.zeros((m, 3), np.int32)
+    for s in range(n - 1):
+        nodes_lo[2 * s], nodes_hi[2 * s] = lo[s:].min(0), hi[s:].max(0)
+        meta[2 * s] = (2 * s + 2, 0, 0)
+        nodes_lo[2 * s + 1], nodes_hi[2 * s + 1] = lo[s], hi[s]
+        meta[2 * s + 1] = (s, 1, 0)
+    nodes_lo[m - 1], nodes_hi[m - 1] = lo[n - 1], hi[n - 1]
+    meta[m - 1] = (n - 1, 1, 0)
+    return nodes_lo, nodes_hi, meta, np.arange(n, dtype=np.int32)
+
+
+def chain_tables(n=300):
+    """n triangles in the planes x = 0 .. n-1 under a chain-shaped tree,
+    which collapses to 15 leaves and one subtree per wide node: a table
+    n / 15 levels deep (20 for n = 300). -> (tris, wide BVH arrays)."""
+    x = np.arange(n, dtype=np.float32)
+    one = np.ones(n, np.float32)
+    v = np.stack([np.stack([x, -one, -one], 1), np.stack([x, one, -one], 1),
+                  np.stack([x, 0 * one, one], 1)], 1).reshape(-1, 3)
+    tris = _soup_dict(v)
+    with mock.patch.object(bvh_build, "build_binary_sah", _chain_binary):
+        bvh = bvh_build.build_wide_arrays(tris["tv_p"], tris["t_idx"])
+    return tris, bvh
+
+
+def chain_rays(n=3072, seed=3):
+    """Rays for the chain: along -x from beyond its far end (the nearest
+    triangle is its deepest leaf), along +x from before its near end, and
+    from inside in random directions; every 9th dead, every 4th with a
+    finite t_max. -> (o, d, t_max) float32 numpy."""
+    rs = np.random.default_rng(seed)
+    third = (np.arange(n) // (n // 3))[:, None]
+    o = np.where(third == 0, [301.0, 0.0, 0.0],
+                 np.where(third == 1, [-2.0, 0.0, 0.0],
+                          rs.uniform([0, -1, -1], [300, 1, 1], (n, 3))))
+    o = o + rs.uniform(-0.3, 0.3, (n, 3)) * [0, 1, 1]
+    d = np.where(third == 0, [-1.0, 0.0, 0.0],
+                 np.where(third == 1, [1.0, 0.0, 0.0],
+                          rs.normal(0, 1, (n, 3))))
+    d = d + rs.normal(0, 0.01, (n, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    lane = np.arange(n)
+    t_max = np.where(lane % 9 == 0, 0.0,
+                     np.where(lane % 4 == 0, rs.uniform(0.5, 50.0, n),
+                              np.inf))
+    return tuple(np.asarray(a, np.float32) for a in (o, d, t_max))
+
+
+def _k1_case(request, dev, case):
+    """-> (geom, o, d, t_max) on the card of a K1 test case."""
+    rs = np.random.default_rng(3)
+    if case == "camera":
+        sc = request.getfixturevalue("scene")
+        return sc["ctx"].geom, sc["ray"].o, sc["ray"].d, sc["ray"].t_max
+    if case.startswith("soup"):
+        # tests/test_torch_traverse16.py's soup cases: finite and infinite
+        # t_max, every 7th lane dead
+        n_tris = int(case[4:])
+        geom = make_geometry(random_soup(n_tris, seed=11 + n_tris),
+                             device=dev)
+        o, d = random_rays(2048, seed=12 + n_tris)
+        lane = np.arange(2048)
+        t_max = np.random.default_rng(11 + n_tris).uniform(0.5, 12.0, 2048)
+        t_max = np.where(lane % 7 == 0, 0.0,
+                         np.where(lane % 3 == 0, np.inf, t_max))
+    elif case == "dragon":
+        # tests/test_torch_traverse16.py's small-dragon rays: toward the
+        # mesh from the camera, and from points in and around it
+        geom = request.getfixturevalue("geometry")[0]
+        n = 4096
+        first = (np.arange(n) < n // 2)[:, None]
+        o = np.where(first, np.array([0.0, 1.1, -3.4]),
+                     rs.normal(0, 1, (n, 3)) * 0.6)
+        d = np.where(first, rs.uniform(-1.2, 1.2, (n, 3)) - o,
+                     rs.normal(0, 1, (n, 3)))
+        d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        t_max = np.where(np.arange(n) % 5 == 0, 0.0, np.inf)
+    else:
+        tris, bvh = chain_tables()
+        geom = make_geometry(tris, bvh=bvh, device=dev)
+        o, d, t_max = chain_rays()
+    return (geom, *(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                    for a in (o, d, t_max)))
+
+
 def test_sampler_bit_equal(scene):
     s, pix, smp = scene["sampler"], scene["pix"], scene["smp"]
     n0 = K.LAUNCHES["sample_2d"]
@@ -102,17 +230,30 @@ def test_sampler_bit_equal(scene):
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_traverse16_matches_plain(scene, any_hit):
-    g, ray = scene["ctx"].geom, scene["ray"]
+@pytest.mark.parametrize("case", ["camera", "soup3", "soup17", "soup400",
+                                  "dragon", "deep"])
+def test_traverse16_matches_plain(request, dev, case, any_hit):
+    g, o, d, t_max = _k1_case(request, dev, case)
+    if case == "deep":      # the stack's second register slot runs
+        assert 16 < g.bvh16_depth <= MAX_DEPTH
 
     def fn():
-        return traverse16(g, ray.o, ray.d, ray.t_max, any_hit=any_hit,
-                          with_counts=True)
+        return traverse16(g, o, d, t_max, any_hit=any_hit, with_counts=True)
+    n0 = K.LAUNCHES["traverse16_any" if any_hit else "traverse16_closest"]
     h, t, p, c = fn()
+    # a second launch finds the ray counter the first left at 0
+    again = fn()
+    assert K.LAUNCHES["traverse16_any" if any_hit
+                      else "traverse16_closest"] == n0 + 2
+    h2, t2, p2, c2 = again
+    assert torch.equal(h, h2) and torch.equal(p, p2) and torch.equal(c, c2)
+    assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
     rh, rt, rp, rc = _plain(fn)
     assert torch.equal(h, rh) and torch.equal(p, rp) and torch.equal(c, rc)
-    assert torch.equal(t, rt)
-    assert h.float().mean() > 0.3
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert not h[t_max <= 0].any()
+    if case in ("camera", "dragon", "deep", "soup400"):
+        assert h.float().mean() > 0.05
 
 
 def test_build_interaction_matches_plain(scene):
@@ -150,6 +291,9 @@ def test_wrapper_refuses_bad_input(scene):
         traverse16(g, ray.o[:, :2], ray.d, ray.t_max, any_hit=False)
     with pytest.raises(ValueError):
         traverse16(g, ray.o.double(), ray.d, ray.t_max, any_hit=False)
+    deep = dataclasses.replace(g, bvh16_depth=MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="depth"):
+        traverse16(deep, ray.o, ray.d, ray.t_max, any_hit=True)
 
 
 def _assert_render_matches_plain(renderer, ctx, **kw):

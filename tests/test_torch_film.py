@@ -39,7 +39,7 @@ def test_add_samples_and_to_image(max_lum):
         js = jfilm.add_samples(js, jnp.asarray(p_film[sl]),
                                jnp.asarray(rad[sl]),
                                valid=jnp.asarray(valid[sl]))
-    st = film.init_state()
+    st = film.init_state(device="cpu")
     for k in range(2):
         sl = slice(k * n // 2, (k + 1) * n // 2)
         st = film.add_samples(st, torch.tensor(p_film[sl]),

@@ -61,16 +61,17 @@ def jax_dragon_matte(sub=SMALL_SUB, res=(32, 32), spp=1):
 def port_ctx_from_jax(jctx):
     """The port's RenderContext over the JAX scene's own tables."""
     from rustracer_tpu_torch.render.renderer import RenderContext
-    return RenderContext(geom=convert.geometry_from_jax(jctx.geom),
-                         lights=convert.lights_from_jax(jctx.lights),
-                         textures=convert.textures_from_jax(jctx.textures))
+    return RenderContext(
+        geom=convert.geometry_from_jax(jctx.geom, device="cpu"),
+        lights=convert.lights_from_jax(jctx.lights, device="cpu"),
+        textures=convert.textures_from_jax(jctx.textures, device="cpu"))
 
 
 @pytest.mark.parametrize("sub", [1, SMALL_SUB])
 def test_make_geometry_bit_equal(sub):
     tris, _ = dragon_tris(sub)
     before = copy.deepcopy(tris)
-    g = make_geometry(tris)
+    g = make_geometry(tris, device="cpu")
     # the port reads the caller's dict and never adds or changes keys
     assert tris.keys() == before.keys()
     for k in tris:
@@ -90,12 +91,12 @@ def test_make_geometry_bit_equal(sub):
 def test_convert_matches_port_build():
     """Tables converted from the JAX scene equal the port's own build."""
     jctx = jax_dragon_matte(sub=2)[0]
-    g = convert.geometry_from_jax(jctx.geom)
-    lt = convert.lights_from_jax(jctx.lights)
+    g = convert.geometry_from_jax(jctx.geom, device="cpu")
+    lt = convert.lights_from_jax(jctx.lights, device="cpu")
     tris, n_mesh = dragon_tris(2)
-    g2 = make_geometry(tris)
+    g2 = make_geometry(tris, device="cpu")
     from rustracer_tpu_torch.scene.lights import make_lights
-    lt2 = make_lights(dragon_light_rows(n_mesh), g2)
+    lt2 = make_lights(dragon_light_rows(n_mesh), g2, device="cpu")
     for a, b in ((g.t_shade, g2.t_shade), (g.bvh16_table, g2.bvh16_table),
                  (g.bvh16_roots, g2.bvh16_roots), (lt.l_area, lt2.l_area),
                  (lt.l_tri_p, lt2.l_tri_p), (lt.l_emit, lt2.l_emit),
@@ -107,4 +108,5 @@ def test_convert_matches_port_build():
 def test_real_quadrics_refused():
     tris, _ = dragon_tris(1)
     with pytest.raises(NotImplementedError, match="quadric"):
-        make_geometry(tris, quadrics=dict(q_type=np.zeros(1, np.int32)))
+        make_geometry(tris, quadrics=dict(q_type=np.zeros(1, np.int32)),
+                      device="cpu")

@@ -41,7 +41,7 @@ def test_build_interaction_fields():
     jray = make_ray(jnp.asarray(o), jnp.asarray(d))
     hit, t, prim, _ = _closest_prim(jctx.geom, jray)
     ref = jax_build(jctx.geom, jray, hit, t, prim)
-    geom = convert.geometry_from_jax(jctx.geom)
+    geom = convert.geometry_from_jax(jctx.geom, device="cpu")
     ray = Ray(o=torch.tensor(o), d=torch.tensor(d),
               t_max=torch.full((n,), float("inf")))
     out = build_interaction(geom, ray, torch.tensor(np.asarray(hit)),

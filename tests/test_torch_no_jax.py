@@ -18,9 +18,10 @@ for m in pkgutil.walk_packages(rustracer_tpu_torch.__path__, "rustracer_tpu_torc
 from rustracer_tpu_torch.scenes import build_dragon, build_dragon_matte
 from rustracer_tpu_torch.render.renderer import Renderer, RenderConfig
 for build in (build_dragon_matte, build_dragon):
-    ctx, cam, film, samp, integ, _ = build(sub=1, res=(8, 8), spp=1)
-    img = Renderer(integ.li, cam, film, samp,
-                   RenderConfig(max_lanes=64)).render(ctx)
+    ctx, cam, film, samp, integ, _ = build(sub=1, res=(8, 8), spp=1,
+                                           device="cpu")
+    img = Renderer(integ.li, cam, film, samp, RenderConfig(max_lanes=64),
+                   device="cpu").render(ctx)
     assert bool(torch.isfinite(img).all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "rustracer_tpu."))

@@ -78,7 +78,8 @@ def test_renderer_image_mean():
         JaxRenderConfig(max_lanes=1 << 10, collect_stats=False)).render(jctx))
     film = Film(full_resolution=RES, filter=Filter("box", 0.5, 0.5))
     img = Renderer(integ.li, cam, film, sampler,
-                   RenderConfig(max_lanes=1 << 10)).render(ctx).numpy()
+                   RenderConfig(max_lanes=1 << 10),
+                   device="cpu").render(ctx).numpy()
     assert img.shape == ref.shape and np.isfinite(img).all()
     assert ref.mean() > 1e-2
     assert abs(img.mean() - ref.mean()) <= 1e-3 * ref.mean()

@@ -94,9 +94,10 @@ def port_from_jax(jctx, jcam, jsampler, jinteg):
     """-> (ctx, camera, sampler, integrator) of the port over the JAX
     scene's own tables and materials."""
     from rustracer_tpu_torch.integrators.path import PathIntegrator
-    ctx = RenderContext(geom=convert.geometry_from_jax(jctx.geom),
-                        lights=convert.lights_from_jax(jctx.lights),
-                        textures=convert.textures_from_jax(jctx.textures))
+    ctx = RenderContext(
+        geom=convert.geometry_from_jax(jctx.geom, device="cpu"),
+        lights=convert.lights_from_jax(jctx.lights, device="cpu"),
+        textures=convert.textures_from_jax(jctx.textures, device="cpu"))
     return (ctx, convert.camera_from_jax(jcam),
             convert.sampler_from_jax(jsampler),
             PathIntegrator(mat_set=convert.material_set_from_jax(
@@ -201,7 +202,8 @@ def test_textured_renderer_image_mean():
                      JaxRenderConfig(max_lanes=1 << 10, collect_stats=False))
     ref = np.asarray(jfilm.to_image(jr.render_state(jctx, sample_stop=2)))
     film = Film(full_resolution=RES, filter=Filter("box", 0.5, 0.5))
-    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=1 << 10))
+    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=1 << 10),
+                 device="cpu")
     img = film.to_image(r.render_state(ctx, sample_stop=2)).numpy()
     assert img.shape == ref.shape and np.isfinite(img).all()
     assert ref.mean() > 1e-2

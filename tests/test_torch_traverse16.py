@@ -1,6 +1,7 @@
 """Port parity: the wide-BVH walk (plain version of kernel K1) against the
 JAX package's ``bvh16_intersect_counts``, closest hit and any hit, on the
-random triangle soups of tests/test_bvh16.py and the small matte dragon.
+random triangle soups of tests/test_bvh16.py, the small matte dragon and a
+chain-shaped table 20 levels deep.
 
 Tolerance: hit and prim equal except where two candidate hits agree in t
 within 1e-5 relative (counted, at most 0.1% of the rays); t within 1e-5
@@ -23,6 +24,7 @@ from rustracer_tpu_torch.accel.traverse16 import traverse16
 from rustracer_tpu_torch.scenes import dragon_tris
 
 from test_bvh import random_rays, random_soup
+from test_torch_cuda import chain_rays, chain_tables
 
 torch.set_num_threads(1)
 
@@ -45,7 +47,7 @@ def _near_tie(geom, o, d, t, prim_a, prim_b):
 
 
 def _compare(jgeom, o, d, t_max, any_hit):
-    geom = convert.geometry_from_jax(jgeom)
+    geom = convert.geometry_from_jax(jgeom, device="cpu")
     ray = make_ray(jnp.asarray(o), jnp.asarray(d))._replace(
         t_max=jnp.asarray(t_max))
     jh, jt, jp, _, jc = (np.asarray(x) for x in
@@ -107,4 +109,15 @@ def test_small_dragon(any_hit):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     t_max = np.full(n, np.inf, np.float32)
     h = _compare(jgeom, o, d, t_max, any_hit)
+    assert h.mean() > 0.3
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_deep_chain(any_hit):
+    """The same table in both walks (the JAX package takes the port's
+    arrays), deeper than 16 levels: the stacks hold up to 19 entries."""
+    tris, bvh = chain_tables()
+    assert 16 < bvh["bvh16_depth"] <= 32
+    jgeom = jax_make_geometry(tris=dict(tris), bvh=dict(bvh))
+    h = _compare(jgeom, *chain_rays(), any_hit)
     assert h.mean() > 0.3
