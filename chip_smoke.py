@@ -6,20 +6,25 @@
 Phases, each printing its lines:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand kernels from rustracer_tpu_torch/csrc (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, with kernel
-     and plain device times (torch.profiler; K1's from CUDA events around
-     20 launches) and its bound (the larger of its bytes over 3.35 TB/s
-     and its operations over 33.5 T/s, the float32 rate without FMAs,
-     counted on this run's inputs): K1-K4 at the matte render's shapes on
-     the full 327,680-triangle dragon, K1 bit for bit (hit, prim, t,
-     counts) on 2^18 camera rays, 2^18 bounce rays and a 2^16-lane slab
-     with dead lanes (rustracer_tpu_torch.tools.traverse_work); K5
-     (atlas EWA, both texel layouts) on a 2^18-lane textured-dragon camera
-     tile; K6/K7 (alive-first order, slab
-     take/put) on the real alive mask after bounce 0 of a 2^18-lane tile;
-     K8 (row gather) through the gather microbenchmark's entry point
-     (rustracer_tpu_torch.tools.bench_gather, its defaults) and on the
-     dragon's own bvh16_table;
+  3. each kernel against its plain PyTorch version on the card, with the
+     kernel's device time (torch.profiler, by kernel name; K1's from CUDA
+     events around 20 launches; K4's with L2 evicted before each launch,
+     as a render's one splat a step finds it), the plain version's (CUDA
+     events around 20 calls; K1's around one) and its bound (the larger of its bytes over 3.35
+     TB/s and its operations over 33.5 T/s, the float32 rate without FMAs,
+     counted on this run's inputs): K1-K4 at the matte render's
+     shapes on the full 327,680-triangle dragon, K1 bit for bit (hit, prim,
+     t, counts) on 2^18 camera rays, 2^18 bounce rays and a 2^16-lane slab
+     with dead lanes (rustracer_tpu_torch.tools.traverse_work); then one
+     step of the textured dragon's full-width tile 2 is recorded
+     (tools/bench_step_kernels.capture_step): K5 (atlas EWA, both texel
+     layouts, bounded by tools/atlas_work.py) on the inputs of its four
+     calls, K6 (alive-first order, one launch, three calls in a row) on
+     the step's alive mask and on that of tile 0 after bounce 0, K7 (slab
+     take/put) on tile 0's state; K8 (row gather) through the gather
+     microbenchmark's entry point (rustracer_tpu_torch.tools.bench_gather,
+     its defaults), on the dragon's own bvh16_table and on the step's
+     material rows;
   4. the matte dragon at 1024^2, 8 spp, depth 5 through the Renderer, with
      its kernels' launch counts from that run;
   5. a 128^2 crop of it at 1 spp, kernel path against the all-plain path,
@@ -31,8 +36,8 @@ Phases, each printing its lines:
      slab, one the B/2 slab), kernel path against the all-plain path;
   8. the launches of one full-width textured step (tile 2), a JSON line
      of the kernels (times, bounds, library yardsticks, launches in the
-     counted textured render and per step), the card line, and the result
-     line.
+     counted textured render and per step; K8 has a row for the tool's
+     shape and one for the render's), the card line, and the result line.
 Each path (the gather tool, the matte render, the textured render, the
 textured step) is run with the launch counts set to 0 just before it and
 read just after.
@@ -81,43 +86,46 @@ SOURCES = {
     "row_gather": ("rustracer_tpu_torch/csrc/gather.cu",
                    "tools/bench_gather_pallas.py:26"),
 }
+# the rows of the kernels line: result key -> (kernel, the inputs timed)
+ROWS = {
+    "sample_1d": ("sample_1d", "2^18 lanes of the matte render's tile 2"),
+    "sample_2d": ("sample_2d", "2^18 lanes of the matte render's tile 2"),
+    "traverse16_closest": ("traverse16_closest",
+                           "mean of 2^18 camera and 2^18 bounce rays"),
+    "traverse16_any": ("traverse16_any",
+                       "mean of 2^18 camera and 2^18 bounce rays"),
+    "build_interaction_tri": ("build_interaction_tri",
+                              "2^18 camera hits, matte tile 2"),
+    "film_add_samples": ("film_add_samples",
+                         "2^18 samples into the 1024^2 film, L2 evicted "
+                         "before each launch"),
+    "atlas_lookup_ewa": ("atlas_lookup_ewa",
+                         "mean of the 4 calls of a full-width textured "
+                         "step (tile 2), quad rows"),
+    "alive_first_order": ("alive_first_order",
+                          "alive mask after bounce 0 of a full-width "
+                          "textured step (tile 2)"),
+    "slab_take": ("slab_take", "11 fields of textured tile 0 into its slab"),
+    "slab_put": ("slab_put", "11 fields of textured tile 0 from its slab"),
+    "row_gather": ("row_gather", "the gather tool: 2^20 rows of 512 B"),
+    "row_gather material rows": ("row_gather",
+                                 "the render: 2^18 lanes' material rows of "
+                                 "16 float32"),
+}
 # the kernels the matte render runs (no texture, no slab at its widths)
 MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
               "traverse16_any", "build_interaction_tri", "film_add_samples",
               "row_gather")
-# operations a lane does, for the bounds of the kernels other than K1 (32-bit
-# integer and float operations both counted at one instruction each): the
-# sampler's hash (5 mixing rounds of 7 operations, plus the 2D dimension's
-# 32-step Sobol' loop), K2's rebuild of the surface frame, K5's 16 EWA taps
-LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300,
-            "atlas_lookup_ewa": 450}
+# operations a lane does, for the bounds of K2 and K3 (32-bit integer and
+# float operations both counted at one instruction each): the sampler's hash
+# (5 mixing rounds of 7 operations, plus the 2D dimension's 32-step Sobol'
+# loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
+# work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
+LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300}
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def device_ms(fn, reps):
-    """Device time of one call of fn: the duration of every kernel, copy
-    and fill it launches, summed over reps calls under torch.profiler and
-    divided by reps (the host's issue time is left out), after one warm-up
-    call. A trace now and then comes back empty; it is taken again, at
-    most three times in all."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in events) / reps * 1e-3
-    raise AssertionError("the profiler saw no device work")
 
 
 def bound(moved, ops=0.0):
@@ -135,14 +143,18 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def both(fn, reps, plain_reps=None):
-    """-> (kernel output, plain output, kernel ms, plain ms), device time."""
+def both(fn, kernel, reps=20):
+    """-> (kernel output, plain output, kernel ms, plain ms): the device
+    time of the kernel named ``kernel`` under torch.profiler
+    (tools/timing.py), and CUDA events around ``reps`` plain calls (the
+    host's issue time included where the plain version is host-bound)."""
     from rustracer_tpu_torch.cuda import plain_reference
+    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
     out = fn()
     with plain_reference():
         ref = fn()
-        plain_ms = device_ms(fn, plain_reps or reps)
-    return out, ref, device_ms(fn, reps), plain_ms
+        plain_ms = events_ms(fn, reps)
+    return out, ref, kernel_ms(fn, reps, kernel), plain_ms
 
 
 def check_kernels(ctx, cam, film, sampler, renderer, results):
@@ -150,6 +162,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     from rustracer_tpu_torch.accel.traverse16 import traverse16
     from rustracer_tpu_torch.scene.tables import build_interaction
     from rustracer_tpu_torch.tools import traverse_work as TW
+    from rustracer_tpu_torch.tools.timing import cold_ms, events_ms
 
     dev = ctx.geom.tv_p.device
     px, py, valid = renderer.tiles[len(renderer.tiles) // 2]
@@ -162,7 +175,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
                                                           sample_idx, 5)),
                      ("sample_2d", lambda: sampler.get_2d(pixel_idx,
                                                           sample_idx, 6))):
-        out, ref, ms, pms = both(fn, 20)
+        out, ref, ms, pms = both(fn, "sample_kernel")
         if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError(f"{name}: kernel and plain differ in bits")
         results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
@@ -198,9 +211,9 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
             def fn(ray=ray):
                 return traverse16(ctx.geom, ray.o, ray.d, ray.t_max,
                                   any_hit=any_hit)
-            ms = TW.events_ms(fn, 20)
+            ms = events_ms(fn, 20)
             with K.plain_reference():
-                pms = device_ms(fn, 1)
+                pms = events_ms(fn, 1)
             bound_ms, bound_by = TW.k1_bound(work)
             n = work["rays"]
             log(f"[3] {name} {label}: {n} rays ({int((ray.t_max <= 0).sum())}"
@@ -219,7 +232,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     # K2: every interaction field within 1e-5 abs or rel
     def k2():
         return build_interaction(ctx.geom, cam_ray, hit, t, prim)
-    out, ref, ms, pms = both(k2, 20)
+    out, ref, ms, pms = both(k2, "build_interaction_kernel")
     err = 0.0
     for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
               "dndu", "dndv", "wo"):
@@ -248,7 +261,8 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
         f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
         f"{results['build_interaction_tri']['bound_ms']:.4f} ms")
 
-    # K4: splat into the full film, within 1e-5 relative
+    # K4: splat into the full film, within 1e-5 relative; timed with L2
+    # evicted before each launch, as a render's one splat a step finds it
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rad = torch.rand((LANES, 3), generator=gen, device=dev) * 4.0
@@ -260,7 +274,9 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
 
     def k4():
         return film.add_samples(acc, p_film, rad, valid=valid)
-    _, _, ms, pms = both(k4, 20)
+    ms = cold_ms(k4, 20, name="film_add_kernel")
+    with K.plain_reference():
+        pms = cold_ms(k4, 20)
     d = (out.rgb - ref.rgb).abs()
     if ((d > 1e-5 * ref.rgb.abs()) & (d > 1e-6)).any() or \
             not torch.allclose(out.wsum, ref.wsum, rtol=1e-5):
@@ -270,9 +286,10 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     results["film_add_samples"] = dict(
         max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
         **bound(nbytes(p_film, rad, valid) + 2 * 16 * touched))
-    log(f"[3] film_add_samples: max abs err {d.max().item():.3g}; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{results['film_add_samples']['bound_ms']:.4f} ms")
+    log(f"[3] film_add_samples: max abs err {d.max().item():.3g}; L2 "
+        f"evicted before each launch: kernel {ms:.4f} ms, plain {pms:.4f} "
+        f"ms, bound {results['film_add_samples']['bound_ms']:.4f} ms "
+        f"({100 * results['film_add_samples']['bound_ms'] / ms:.1f}%)")
 
 
 def main():
@@ -310,81 +327,106 @@ def camera_tile(cam, sampler, tile, sample):
     return lanes, ray.scaled_differentials(1.0 / np.sqrt(sampler.spp))
 
 
-def check_atlas(ctx, cam, sampler, integ, tile, results):
-    """K5 on the textured dragon's camera hits, both texel layouts."""
-    from rustracer_tpu_torch.core.interaction import compute_differentials
+def check_atlas(ctx, cap, results):
+    """K5 on the inputs of its four calls in one full-width textured step
+    (tile 2), both texel layouts; timed and bounded on the quad rows the
+    render uses."""
     from rustracer_tpu_torch.scene import atlas as A
-    from rustracer_tpu_torch.scene.tables import scene_intersect
+    from rustracer_tpu_torch.tools.atlas_work import k5_bound, k5_work
 
-    ms = integ.mat_set
-    _, ray = camera_tile(cam, sampler, tile, 3)
-    si = compute_differentials(scene_intersect(ctx.geom, ray), ray)
-    dev = si.t.device
-    quad, texels, regs, slots = ms.atlas_tables(ctx.textures, dev)
-    if not quad:
-        raise AssertionError("the hero atlas should use the quad rows")
-    reg = slots[si.material.clamp(0, len(ms.materials) - 1).long(), 0]
-    reg = reg.contiguous()
-    meta, levels = ctx.textures["atlas_meta"], ctx.textures["atlas_levels"]
-    flat = A.atlas_texels(ctx.textures["images"]).to(dev)
-    outs = []
-    for label, q, tex in (("quad rows (T, 12)", True, texels),
-                          ("texels (T, 3)", False, flat)):
-        def fn(q=q, tex=tex):
-            return A.atlas_lookup_ewa(tex, meta, levels, regs, reg, si,
-                                      quad=q)
-        out, ref, ms_k, ms_p = both(fn, 20)
-        d = (out - ref).abs().max(-1).values
-        off = (d > 1e-5).float().mean().item()
-        log(f"[3] atlas_lookup_ewa {label}: {reg.shape[0]} lanes, "
-            f"{(reg >= 0).float().mean().item():.4f} textured; max abs err "
-            f"{d.max().item():.3g}, lanes beyond 1e-5 {off:.3g} (<= 1e-3); "
-            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-        if off > 1e-3 or bool(out[reg < 0].any()):
-            raise AssertionError(f"atlas_lookup_ewa {label} differs")
-        if q:
-            # the lanes' uv, differentials and registration in, the
-            # colour out (the texels read are not counted)
-            moved = nbytes(si.uv, si.dudx, si.dvdx, si.dudy, si.dvdy, reg,
-                           out)
-            results["atlas_lookup_ewa"] = dict(
-                max_abs_err=d.max().item(), ms=ms_k, plain_ms=ms_p,
-                **bound(moved, reg.shape[0] * LANE_OPS["atlas_lookup_ewa"]))
-        outs.append(out)
-    if not torch.equal(outs[0], outs[1]):
-        raise AssertionError("atlas_lookup_ewa: the two layouts differ")
+    flat = A.atlas_texels(ctx.textures["images"]).to(cap["k5"][0]["reg"]
+                                                     .device)
+    rows = []
+    for li, c in enumerate(cap["k5"]):
+        if not c["quad"]:
+            raise AssertionError("the hero atlas should use the quad rows")
+        reg, si = c["reg"], c["si"]
+        outs = []
+        for label, q, tex in (("quad rows (T, 12)", True, c["texels"]),
+                              ("texels (T, 3)", False, flat)):
+            def fn(q=q, tex=tex):
+                return A.atlas_lookup_ewa(tex, c["meta"], c["levels"],
+                                          c["regs"], reg, si, quad=q)
+            out, ref, ms_k, ms_p = both(fn, "atlas_ewa_kernel")
+            d = (out - ref).abs().max(-1).values
+            off = (d > 1e-5).float().mean().item()
+            work = k5_work(c["meta"], c["levels"], c["regs"], reg, si, q)
+            bound_ms, bound_by = k5_bound(work)
+            log(f"[3] atlas_lookup_ewa call {li} {label}: {reg.shape[0]} "
+                f"lanes, {work['textured'] / reg.shape[0]:.4f} textured, "
+                f"{work['rows']} distinct rows read; max abs err "
+                f"{d.max().item():.3g}, lanes beyond 1e-5 {off:.3g} "
+                f"(<= 1e-3); kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms_k:.1f}%")
+            if off > 1e-3 or bool(out[reg < 0].any()):
+                raise AssertionError(f"atlas_lookup_ewa {label} differs")
+            if q:
+                rows.append((ms_k, ms_p, bound_ms, bound_by,
+                             d.max().item()))
+            outs.append(out)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError("atlas_lookup_ewa: the two layouts differ")
+    by = [r[3] for r in rows]
+    results["atlas_lookup_ewa"] = dict(
+        max_abs_err=max(r[4] for r in rows),
+        ms=float(np.mean([r[0] for r in rows])),
+        plain_ms=float(np.mean([r[1] for r in rows])),
+        bound_ms=float(np.mean([r[2] for r in rows])),
+        bound_by=max(set(by), key=by.count))
 
 
-def check_compaction(ctx, cam, sampler, integ, tile, results):
-    """K6 and K7 on the alive mask and state after bounce 0 of a tile."""
+def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
+    """K6 on the alive mask of the full-width step ``cap`` and of
+    ``tile`` after bounce 0; K7 on that tile's state."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.integrators.path import SLAB_FIELDS
     from rustracer_tpu_torch.ops import compact as C
     from rustracer_tpu_torch.render.sampler import DimAllocator
+    from rustracer_tpu_torch.tools.timing import queued_ms
 
     lanes, ray = camera_tile(cam, sampler, tile, 0)
     st = integ.bounce0(ctx, ray, lanes, sampler, DimAllocator())
-    alive = st.alive
-    n = alive.shape[0]
-    out, ref, ms, pms = both(lambda: C.alive_first_order(alive), 20)
-    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-        raise AssertionError("alive_first_order differs from the plain sort")
-    lib_ms = device_ms(lambda: torch.argsort(~alive, stable=True), 20)
+    step_alive = cap["k6"][0]
+    # bit-equal on both masks, three calls in a row each: every call finds
+    # the status words the one before left at 0
+    for label, alive in (("step (tile 2)", step_alive), ("tile 0", st.alive)):
+        with K.plain_reference():
+            ref = C.alive_first_order(alive)
+        n0 = K.LAUNCHES["alive_first_order"]
+        for _ in range(3):
+            out = C.alive_first_order(alive)
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f"alive_first_order differs from the "
+                                     f"plain sort on the {label} mask")
+        if K.LAUNCHES["alive_first_order"] != n0 + 3:
+            raise AssertionError("alive_first_order is not one launch a "
+                                 "call")
+        log(f"[3] alive_first_order {label} mask: {int(ref[2])} of "
+            f"{alive.shape[0]} lanes alive, bit-equal three calls in a row")
+    # timed on the step's mask
+    out, _, ms, pms = both(lambda: C.alive_first_order(step_alive),
+                           "alive_first_kernel")
+    q_ms = queued_ms(lambda: C.alive_first_order(step_alive), 20)
+    lib_ms = queued_ms(lambda: torch.argsort(~step_alive, stable=True), 20)
     results["alive_first_order"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
-        **bound(nbytes(alive, *out)))
-    log(f"[3] alive_first_order: torch.argsort(~alive, stable=True) "
-        f"{lib_ms:.4f} ms")
-    order, _, n_alive = out
-    n_alive = int(n_alive.item())
-    w = integ.slab_width(n, n_alive)
+        **bound(nbytes(step_alive, *out)))
+    log(f"[3] alive_first_order step mask: kernel {ms:.4f} ms ({q_ms:.4f} "
+        f"ms queued behind the host), plain {pms:.4f} ms, "
+        f"torch.argsort(~alive, stable=True) {lib_ms:.4f} ms, bound "
+        f"{results['alive_first_order']['bound_ms']:.4f} ms")
+
+    # K7 on tile 0's state, into a slab of its alive-first order
+    n = st.alive.shape[0]
+    order, _, n_alive = C.alive_first_order(st.alive)
+    w = integ.slab_width(n, int(n_alive.item()))
     w = w if w < n else n // 2
-    log(f"[3] alive_first_order: {n_alive} of {n} lanes alive after bounce "
-        f"0, bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
     fields = [getattr(st, f).contiguous() for f in SLAB_FIELDS] \
         + [lanes.pixel_idx, lanes.sample_idx]
-    subs, ref, ms, pms = both(lambda: C.slab_take(fields, order, w), 20)
+    subs, ref, ms, pms = both(lambda: C.slab_take(fields, order, w),
+                              "slab_kernel")
     if not all(torch.equal(a, b) for a, b in zip(subs, ref)):
         raise AssertionError("slab_take differs from the plain take")
     # the slab's order entries, and each field's slab read and written once
@@ -399,17 +441,21 @@ def check_compaction(ctx, cam, sampler, integ, tile, results):
         ref = C.slab_put([z.clone() for z in zeros], subs, order, w)
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
         raise AssertionError("slab_put differs from the plain put")
-    _, _, ms, pms = both(lambda: C.slab_put(zeros, subs, order, w), 20)
+    _, _, ms, pms = both(lambda: C.slab_put(zeros, subs, order, w),
+                         "slab_kernel")
     results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                **bound(moved))
     log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
 
-def check_gather(geom, results):
+def check_gather(geom, cap, results):
     """K8 through the gather microbenchmark's entry point (its own path,
-    counted), then on the dragon's bvh16_table."""
+    counted), on the dragon's bvh16_table, and at the render's shape: the
+    material parameter rows of the full-width step's bounce 0."""
     from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.ops.gather import row_gather
     from rustracer_tpu_torch.tools import bench_gather
+    from rustracer_tpu_torch.tools.timing import queued_ms
 
     torch.cuda.synchronize()
     K.reset_launches()
@@ -435,6 +481,23 @@ def check_gather(geom, results):
         log(line)
     if not r["equal"]:
         raise AssertionError("row_gather differs on the bvh16_table")
+
+    tab, mid = cap["k8"][0]
+    out, ref, ms, pms = both(lambda: row_gather(tab, mid),
+                             "row_gather_kernel")
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("row_gather differs on the material rows")
+    lib_ms = queued_ms(lambda: torch.index_select(tab, 0, mid), 20)
+    # the lanes' ids in, their rows out, each distinct row read once
+    rows = torch.unique(mid).numel()
+    results["row_gather material rows"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        **bound(nbytes(mid, out) + rows * tab.shape[1] * 4))
+    log(f"[3] row_gather material rows ({tab.shape[0]} x {tab.shape[1]} "
+        f"float32, {mid.shape[0]} lanes, {rows} distinct): equal; kernel "
+        f"{ms:.4f} ms, plain table[idx.long()] {pms:.4f} ms, "
+        f"torch.index_select {lib_ms:.4f} ms, bound "
+        f"{results['row_gather material rows']['bound_ms']:.4f} ms")
 
 
 def compare_crop(label, renderer, film, ctx):
@@ -510,6 +573,7 @@ def run(dev, card):
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
     from rustracer_tpu_torch.scenes import (build_dragon, build_dragon_matte,
                                             dragon_geometry)
+    from rustracer_tpu_torch.tools.bench_step_kernels import capture_step
 
     t0 = time.perf_counter()
     geometry = dragon_geometry(SUB, dev)
@@ -527,10 +591,14 @@ def run(dev, card):
                          RenderConfig(max_lanes=LANES), device=dev)
     results = {}
     check_kernels(ctx, cam, film, sampler, renderer, results)
-    check_atlas(tctx, tcam, tsampler, tinteg, trenderer.tiles[1], results)
-    check_compaction(tctx, tcam, tsampler, tinteg, trenderer.tiles[0],
+    # the inputs of K5, K6 and K8 in one full-width textured step
+    cap = capture_step(trenderer, tctx, trenderer.tiles[2])
+    log(f"[3] recorded one step of textured tile 2: {len(cap['k5'])} K5, "
+        f"{len(cap['k6'])} K6 and {len(cap['k8'])} K8 calls")
+    check_atlas(tctx, cap, results)
+    check_compaction(tctx, tcam, tsampler, tinteg, trenderer.tiles[0], cap,
                      results)
-    check_gather(ctx.geom, results)
+    check_gather(ctx.geom, cap, results)
 
     # 4-5: the matte path, counted, and its crop against the plain path
     launches, _ = render_counted("[4]", renderer, film, ctx, SPP, card)
@@ -565,15 +633,16 @@ def run(dev, card):
     # dragon, at full width
     per_step = step_launches(trenderer, tctx, trenderer.tiles[2])
     log(f"[8] launches in one full-width textured step (tile 2): {per_step}")
-    kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
-                    replaces=SOURCES[k][1], launches=launches[k],
-                    max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
-                    bound_ms=results[k]["bound_ms"],
-                    bound_by=results[k]["bound_by"],
-                    library_ms=results[k].get("library_ms"),
-                    launches_per_step=per_step[k])
-               for k in SOURCES]
+    kernels = []
+    for key, (name, case) in ROWS.items():
+        r = results[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name][0],
+            replaces=SOURCES[name][1], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms"),
+            launches_per_step=per_step[name], case=case))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

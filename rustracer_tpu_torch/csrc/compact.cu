@@ -4,11 +4,17 @@
 // K6 replaces the order/rank/count of rustracer_tpu/integrators/path.py
 // _run (:382-384): order = argsort(~alive) (stable), rank = argsort(order)
 // and n_alive = sum(alive). It is a prefix sum over the alive flags, not a
-// sort: (1) each block counts the alive lanes of its 1024-lane chunk with
-// warp ballots; (2) one block scans the chunk counts into chunk offsets and
-// the total; (3) each block recomputes its chunk's in-block prefix and
-// writes every lane's position, alive lanes first in lane order, dead lanes
-// after them in lane order: rank[i] = pos, order[pos] = i.
+// sort, in one cooperative launch whose blocks are all resident at once:
+// (1) each block counts the alive lanes of its tiles of kTileLanes lanes
+// (8 flags a thread from one 64-bit load) and publishes each count,
+// flagged, in a status array; (2) it waits until every tile's count is
+// published, then scans the counts: its tiles' prefixes and the total;
+// (3) it writes every lane's position, alive lanes first in lane order,
+// dead lanes after them in lane order: rank[i] = pos, order[pos] = i. The
+// last block to have read the counts sets the status array back to 0, so
+// the next launch on the stream needs no fill. A mask of more tiles than
+// the card holds blocks is walked with a tile-stride loop; no block ever
+// waits on a block that is not resident.
 //
 // K7 replaces the forward passes of perm_take (:65) and perm_put (:87) and
 // the int/bool takes (:392-403): one launch moves every lane field of the
@@ -17,18 +23,21 @@
 // order[:w], where the plain version issues one indexing launch per field.
 //
 // Bound: both are small streaming passes (a few bytes per lane for K6,
-// about 90 bytes per lane for K7) whose cost on the render step is the
-// launch count; the design spends three launches on K6 and one on each K7
-// move. Within a chunk K6 touches each flag twice from L2; K7 reads the
-// order once per lane and copies each field with one to three aligned
-// word accesses.
+// about 90 bytes per lane for K7) whose cost on the render step is launch
+// and tail latency, not bytes: hence one launch for K6, and one for each K7
+// move. K6 reads the flags twice (the second time from L2) and stages each
+// tile's positions in shared memory, so that rank, and order within each
+// run of alive or dead lanes, are written by consecutive threads on
+// consecutive words; K7 reads the order once per lane and copies each field
+// with one to three aligned word accesses.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kScanThreads = 256;
-constexpr int kChunk = 1024;  // lanes per block in K6 passes 1 and 3
-constexpr int kPerThread = kChunk / kScanThreads;
+constexpr int kOrderThreads = 256;
+constexpr int kFlagsPerThread = 8;  // one 64-bit load of bools
+constexpr int kTileLanes = kOrderThreads * kFlagsPerThread;
+constexpr unsigned kPublished = 0x80000000u;
 
 __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -55,60 +64,100 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* 
     return before + x - v;
 }
 
-// lanes [base, base + kChunk) of thread t: base + t * kPerThread + j
-__device__ __forceinline__ int chunk_flags(const bool* alive, int n, int base, bool* f) {
-    int c = 0;
+// the flags of this thread's lanes i0 .. i0 + 7 as bits 0 .. 7 (lanes >= n
+// are dead); vec: alive starts on an 8-byte boundary, so a thread's flags
+// load as one 64-bit word
+__device__ __forceinline__ unsigned thread_flags(const unsigned char* alive, long long n,
+                                                 long long i0, bool vec) {
+    unsigned bits = 0;
+    if (vec && i0 + kFlagsPerThread <= n) {
+        uint2 w = __ldg(reinterpret_cast<const uint2*>(alive + i0));
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-        int i = base + threadIdx.x * kPerThread + j;
-        f[j] = i < n && alive[i];
-        c += f[j];
+        for (int b = 0; b < kFlagsPerThread; ++b)
+            bits |= (unsigned)((((b < 4 ? w.x : w.y) >> (8 * (b % 4))) & 0xffu) != 0) << b;
+    } else {
+        for (int j = 0; j < kFlagsPerThread && i0 + j < n; ++j)
+            bits |= (unsigned)(alive[i0 + j] != 0) << j;
     }
-    return c;
+    return bits;
 }
 
-__global__ void count_kernel(const bool* __restrict__ alive, int n, int* __restrict__ counts) {
+// status: n_tiles published counts, then the count of blocks that have read
+// them; all 0 between launches. tile_prefix: dynamic shared memory, one int
+// for each tile of this block.
+__global__ void __launch_bounds__(kOrderThreads)
+    alive_first_kernel(const unsigned char* __restrict__ alive, int n, int n_tiles, int vec,
+                       int* __restrict__ order, int* __restrict__ rank, int* __restrict__ n_alive,
+                       unsigned* status) {
+    extern __shared__ int tile_prefix[];
     __shared__ int warp_sums[32];
-    bool f[kPerThread];
-    int c = chunk_flags(alive, n, blockIdx.x * kChunk, f);
-    int total;
-    block_exclusive_scan(c, warp_sums, &total);
-    if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
+    __shared__ __align__(16) int s_pos[kTileLanes];  // the tile's positions, in lane order
+    __shared__ bool last;
+    volatile unsigned* vstatus = status;
+    const long long lanes = n;
 
-// one block: exclusive scan of the chunk counts in place, total to *n_alive
-__global__ void scan_counts_kernel(int* __restrict__ counts, int n_chunks, int* __restrict__ n_alive) {
-    __shared__ int warp_sums[32];
-    int carry = 0;
-    for (int base = 0; base < n_chunks; base += blockDim.x) {
-        int i = base + threadIdx.x;
-        int v = i < n_chunks ? counts[i] : 0;
+    // 1. count and publish this block's tiles
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        long long i0 = (long long)t * kTileLanes + threadIdx.x * kFlagsPerThread;
         int total;
-        int ex = block_exclusive_scan(v, warp_sums, &total);
-        if (i < n_chunks) counts[i] = carry + ex;
+        block_exclusive_scan(__popc(thread_flags(alive, lanes, i0, vec)), warp_sums, &total);
+        if (threadIdx.x == 0) atomicExch(status + t, kPublished | (unsigned)total);
+        __syncthreads();
+    }
+    // 2. every tile's count, once published: this block's prefixes, the total
+    int carry = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += kOrderThreads) {
+        int t = t0 + threadIdx.x;
+        int c = 0;
+        if (t < n_tiles) {
+            unsigned s;
+            while (!((s = vstatus[t]) & kPublished)) {
+            }
+            c = (int)(s & ~kPublished);
+        }
+        int total;
+        int ex = block_exclusive_scan(c, warp_sums, &total);
+        if (t < n_tiles && t % gridDim.x == blockIdx.x) tile_prefix[t / gridDim.x] = carry + ex;
         carry += total;
         __syncthreads();
     }
-    if (threadIdx.x == 0) *n_alive = carry;
-}
-
-__global__ void place_kernel(const bool* __restrict__ alive, int n, const int* __restrict__ offsets,
-                             const int* __restrict__ n_alive, int* __restrict__ order,
-                             int* __restrict__ rank) {
-    __shared__ int warp_sums[32];
-    bool f[kPerThread];
-    int base = blockIdx.x * kChunk;
-    int c = chunk_flags(alive, n, base, f);
-    int alive_before = offsets[blockIdx.x] + block_exclusive_scan(c, warp_sums, nullptr);
-    int total = *n_alive;
+    if (threadIdx.x == 0) {
+        if (blockIdx.x == 0) *n_alive = carry;
+        __threadfence();
+        last = atomicAdd(status + n_tiles, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (last) {  // every block has read every count
+        for (int t = threadIdx.x; t < n_tiles; t += kOrderThreads) status[t] = 0;
+        if (threadIdx.x == 0) status[n_tiles] = 0;
+    }
+    // 3. place this block's lanes: positions staged in shared memory, then
+    // rank and order written by consecutive threads on consecutive lanes
+    for (int t = blockIdx.x, j = 0; t < n_tiles; t += gridDim.x, ++j) {
+        long long base = (long long)t * kTileLanes;
+        long long i0 = base + threadIdx.x * kFlagsPerThread;
+        unsigned bits = thread_flags(alive, lanes, i0, vec);
+        int alive_before =
+            tile_prefix[j] + block_exclusive_scan(__popc(bits), warp_sums, nullptr);
+        int pos[kFlagsPerThread];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-        int i = base + threadIdx.x * kPerThread + j;
-        if (i >= n) break;
-        int pos = f[j] ? alive_before : total + (i - alive_before);
-        alive_before += f[j];
-        rank[i] = pos;
-        order[pos] = i;
+        for (int q = 0; q < kFlagsPerThread; ++q) {
+            bool f = (bits >> q) & 1u;
+            pos[q] = f ? alive_before : carry + (int)(i0 + q - alive_before);
+            alive_before += f;
+        }
+#pragma unroll
+        for (int q = 0; q < kFlagsPerThread / 4; ++q)
+            reinterpret_cast<int4*>(s_pos)[threadIdx.x * (kFlagsPerThread / 4) + q] =
+                make_int4(pos[4 * q], pos[4 * q + 1], pos[4 * q + 2], pos[4 * q + 3]);
+        __syncthreads();
+        int in_tile = (int)min((long long)kTileLanes, lanes - base);
+        for (int k = threadIdx.x; k < in_tile; k += kOrderThreads) {
+            int pos = s_pos[k];
+            rank[base + k] = pos;
+            order[pos] = (int)(base + k);
+        }
+        __syncthreads();  // s_pos and warp_sums are written again by the next tile
     }
 }
 
@@ -172,16 +221,28 @@ int slab_move(bool put, const void* order, int w, int n_fields, const long long*
 
 }  // namespace
 
-// scratch: ceil(n / 1024) ints for the chunk counts
+// status: ceil(n / kTileLanes) + 1 words, 0 before the first launch on a
+// stream; each launch leaves them at 0
 extern "C" int rt_alive_first_order(const void* alive, int n, void* order, void* rank,
-                                    void* n_alive, void* scratch, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int n_chunks = rt::blocks_for(n, kChunk);
-    count_kernel<<<n_chunks, kScanThreads, 0, s>>>((const bool*)alive, n, (int*)scratch);
-    scan_counts_kernel<<<1, 1024, 0, s>>>((int*)scratch, n_chunks, (int*)n_alive);
-    place_kernel<<<n_chunks, kScanThreads, 0, s>>>((const bool*)alive, n, (const int*)scratch,
-                                                   (const int*)n_alive, (int*)order, (int*)rank);
-    return (int)cudaGetLastError();
+                                    void* n_alive, void* status, void* stream) {
+    int n_tiles = rt::blocks_for(n, kTileLanes);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // a tile-stride loop over the tiles: every block must be resident
+    size_t smem_cap = sizeof(int) * (size_t)rt::blocks_for(n_tiles, sms);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, alive_first_kernel, kOrderThreads, smem_cap);
+    if (err != cudaSuccess) return (int)err;
+    int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    size_t smem = sizeof(int) * (size_t)rt::blocks_for(n_tiles, grid);
+    const unsigned char* a = (const unsigned char*)alive;
+    int vec = ((uintptr_t)alive % kFlagsPerThread) == 0;
+    void* args[] = {(void*)&a,    (void*)&n,    (void*)&n_tiles, (void*)&vec,
+                    (void*)&order, (void*)&rank, (void*)&n_alive, (void*)&status};
+    return (int)cudaLaunchCooperativeKernel((const void*)alive_first_kernel, grid, kOrderThreads,
+                                            args, smem, (cudaStream_t)stream);
 }
 
 // src, dst: host arrays of n_fields device addresses; bytes: per-lane sizes

@@ -25,9 +25,28 @@ def alive_first_order_plain(alive):
     return (order.int(), rank.int(), alive.sum(dtype=torch.int32))
 
 
+# lanes of one K6 tile (csrc/compact.cu kTileLanes)
+K6_TILE_LANES = 2048
+_K6_STATUS = {}   # (device, stream) -> K6's status words, 0 between launches
+
+
+def _k6_status(dev, n):
+    """K6's status words for ``n`` lanes on the current stream of ``dev``:
+    zeroed when first made (or grown); each launch leaves them at 0 for the
+    next launch on that stream."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    need = -(-n // K6_TILE_LANES) + 1
+    status = _K6_STATUS.get(key)
+    if status is None or status.shape[0] < need:
+        status = torch.zeros(need, dtype=torch.int32, device=dev)
+        _K6_STATUS[key] = status
+    return status
+
+
 def alive_first_order(alive):
     """The stable alive-first partition of ``alive`` (B,) bool. CPU tensors
-    take the plain version, CUDA tensors launch K6 (a prefix sum)."""
+    take the plain version, CUDA tensors launch K6 (a prefix sum, one
+    launch)."""
     if not cuda.use_kernel(alive):
         return alive_first_order_plain(alive)
     n = alive.shape[0]
@@ -35,12 +54,11 @@ def alive_first_order(alive):
     cuda.check(alive, "alive", torch.bool, (n,), dev)
     order = torch.empty(n, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    n_alive = torch.zeros((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32,
-                          device=dev)
-    if n:
-        cuda.launch("alive_first_order", alive, n, order, rank, n_alive,
-                    scratch)
+    if not n:
+        return order, rank, torch.zeros((), dtype=torch.int32, device=dev)
+    n_alive = torch.empty((), dtype=torch.int32, device=dev)
+    cuda.launch("alive_first_order", alive, n, order, rank, n_alive,
+                _k6_status(dev, n))
     return order, rank, n_alive
 
 

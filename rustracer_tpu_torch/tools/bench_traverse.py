@@ -35,20 +35,23 @@ import torch
 from .. import cuda
 from .._build import CSRC, compile_shared
 from ..accel.traverse16 import traverse16
-from .traverse_work import (LANES, RES, equal_outputs, events_ms, k1_bound,
-                            k1_work, wavefronts)
+from .timing import events_ms, kernel_ms
+from .traverse_work import (LANES, RES, equal_outputs, k1_bound, k1_work,
+                            wavefronts)
 
 K1 = ("traverse16_closest", "traverse16_any")
 
 
-def _nvcc(source):
+def nvcc_command(source):
+    """nvcc and the library's flags, for ``source`` beside the headers it
+    includes."""
     return [cuda.nvcc_path(), *cuda.NVCC_FLAGS,
             "-I" + os.path.dirname(os.path.abspath(source))]
 
 
 def ptxas_report(source):
     """What ptxas says of the kernels in ``source`` (-Xptxas -v)."""
-    cmd = [a for a in _nvcc(source) if a != "-shared"]
+    cmd = [a for a in nvcc_command(source) if a != "-shared"]
     proc = subprocess.run(cmd + ["-Xptxas", "-v", "-c", source, "-o",
                                  os.devnull], capture_output=True, text=True,
                           timeout=600)
@@ -67,7 +70,7 @@ def build(others):
     with concurrent.futures.ThreadPoolExecutor(2 * len(sources)) as pool:
         lib = pool.submit(cuda.library)
         libs = {name: pool.submit(compile_shared, f"k1_other{i}", [src],
-                                  _nvcc(src))
+                                  nvcc_command(src))
                 for i, (name, src) in enumerate(sources.items()) if i}
         reports = {name: pool.submit(ptxas_report, src)
                    for name, src in sources.items()}
@@ -100,27 +103,6 @@ def k1_call(lib, geom, ray, any_hit, with_counts):
     return hit, t, prim, counts
 
 
-def kernel_ms(fn, reps, name="traverse16_kernel"):
-    """Mean device time of one kernel named ``name`` under torch.profiler,
-    over ``reps`` calls of ``fn``."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # a trace now and then comes back without some of the launches: the
-    # mean is over those it holds
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
-    if not spans:
-        raise AssertionError(f"the profiler saw no {name}")
-    return sum(spans) / len(spans) * 1e-3
-
-
 def measure(geom, waves, builds, reps=20, log=print):
     """Check and time every build on every case -> list of row dicts."""
     rows = []
@@ -143,7 +125,8 @@ def measure(geom, waves, builds, reps=20, log=print):
             prof = {name: [] for name in names}
             for name in names + names[::-1]:      # a, b, c, c, b, a
                 ev[name].append(events_ms(runs[name], reps))
-                prof[name].append(kernel_ms(runs[name], reps))
+                prof[name].append(kernel_ms(runs[name], reps,
+                                            "traverse16_kernel"))
             for name in names:
                 ms = float(np.mean(prof[name]))
                 row = dict(case=case, build=name, events_ms=ev[name],

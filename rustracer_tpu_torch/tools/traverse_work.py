@@ -119,17 +119,3 @@ def equal_outputs(a, b):
     return (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
             and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
             and torch.equal(a[3].cpu(), b[3].cpu()))
-
-
-def events_ms(fn, reps):
-    """Mean device time of one call of ``fn``: CUDA events around ``reps``
-    calls, after a warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps

@@ -11,7 +11,7 @@ operations in the same order), on camera rays, random soups, the small
 dragon and a table deeper than 16 levels; interaction fields within
 1e-5 absolute or relative (rsqrt rounds differently); film within 1e-5
 relative (atomic adds in no fixed order); atlas EWA within 1e-5 absolute on
-at least 99.9% of the lanes (the plain version divides by the weight sum
+at least 99.9% of the lanes and zero where reg < 0 (the plain version divides by the weight sum
 as a multiply by its reciprocal on the card, the kernel divides; a lane
 whose mip level sits on an integer may floor to the other level); the
 alive-first order, the slab moves and the row gather bit-equal; small
@@ -34,7 +34,8 @@ from rustracer_tpu_torch.ops import compact as C
 from rustracer_tpu_torch.ops.gather import row_gather
 from rustracer_tpu_torch.ops.mipmap import (WRAP_BLACK, WRAP_CLAMP,
                                             WRAP_REPEAT, build_pyramid)
-from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+from rustracer_tpu_torch.render.renderer import Lanes, RenderConfig, Renderer
+from rustracer_tpu_torch.render.sampler import DimAllocator
 from rustracer_tpu_torch.scene import atlas as A
 from rustracer_tpu_torch.scene.tables import (build_interaction, make_geometry,
                                              scene_intersect)
@@ -314,10 +315,12 @@ def test_render_matches_plain(scene):
     assert all(K.LAUNCHES[k] > 0 for k in MATTE_KERNELS), K.LAUNCHES
 
 
-def _ewa_inputs(dev, wrap, n=1 << 14):
+def _ewa_inputs(dev, wrap, n=1 << 14, pattern="random"):
     """Three small pyramids, four registrations of wrap mode ``wrap``, and n
     lanes with uv in [-0.5, 1.5], random differentials on 3/4 of them and
-    zeros on the rest, reg = -1 on some."""
+    zeros on the rest; textured lanes (reg >= 0) by ``pattern``: "random"
+    (reg = -1 on about a fifth), "none", "all" or "alternating" (the even
+    lanes, so every warp mixes both)."""
     rs = np.random.RandomState(11)
     images = [build_pyramid(rs.rand(*s).astype(np.float32))
               for s in ((64, 64, 3), (12, 20, 3), (8, 8))]
@@ -340,24 +343,35 @@ def _ewa_inputs(dev, wrap, n=1 << 14):
                            device=dev),
         dudx=diffs[:, 0].contiguous(), dvdx=diffs[:, 1].contiguous(),
         dudy=diffs[:, 2].contiguous(), dvdy=diffs[:, 3].contiguous())
-    reg = torch.as_tensor(rs.randint(-1, 4, n).astype(np.int32), device=dev)
+    reg = rs.randint(-1 if pattern == "random" else 0, 4, n)
+    if pattern == "none":
+        reg[:] = -1
+    elif pattern == "alternating":
+        reg[1::2] = -1
+    reg = torch.as_tensor(reg.astype(np.int32), device=dev)
     timg = [[torch.as_tensor(lv) for lv in p] for p in images]
     return (timg, torch.as_tensor(meta["atlas_meta"], device=dev),
             torch.as_tensor(meta["atlas_levels"], device=dev), regs, reg, si)
 
 
 def _ewa_close(out, ref, reg):
+    if not out.shape[0]:
+        return
     bad = ((out - ref).abs().max(-1).values > 1e-5).float().mean().item()
     assert bad <= 1e-3, bad
     assert torch.equal(out[reg < 0], torch.zeros_like(out[reg < 0]))
 
 
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 1 << 14, (1 << 18) + 5])
+@pytest.mark.parametrize("pattern", ["random", "none", "all", "alternating"])
 @pytest.mark.parametrize("quad,wrap", [(True, WRAP_REPEAT),
                                        (False, WRAP_REPEAT),
                                        (False, WRAP_BLACK),
                                        (False, WRAP_CLAMP)])
-def test_atlas_ewa_matches_plain(dev, quad, wrap):
-    timg, meta, levels, regs, reg, si = _ewa_inputs(dev, wrap)
+def test_atlas_ewa_matches_plain(dev, quad, wrap, pattern, n):
+    """K5's tiles of 128 lanes pack their textured lanes: whole, empty,
+    mixed in every warp, and ragged at the end of the wavefront."""
+    timg, meta, levels, regs, reg, si = _ewa_inputs(dev, wrap, n, pattern)
     texels = (A.atlas_quad_texels if quad else A.atlas_texels)(timg).to(dev)
     n0 = K.LAUNCHES["atlas_lookup_ewa"]
 
@@ -365,9 +379,12 @@ def test_atlas_ewa_matches_plain(dev, quad, wrap):
         return A.atlas_lookup_ewa(texels, meta, levels, regs, reg, si,
                                   quad=quad)
     out, ref = fn(), _plain(fn)
-    assert K.LAUNCHES["atlas_lookup_ewa"] == n0 + 1
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["atlas_lookup_ewa"] == n0 + (n > 0)
+    assert out.shape == ref.shape == (n, 3)
     _ewa_close(out, ref, reg)
-    assert ref.abs().max() > 0.1
+    if pattern != "none" and n >= 127:
+        assert ref.abs().max() > 0.1
 
 
 def test_atlas_ewa_layouts_agree_on_dragon(textured):
@@ -393,17 +410,79 @@ def test_atlas_ewa_layouts_agree_on_dragon(textured):
     assert torch.equal(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("n", [1, 1000, (1 << 18) + 123])
-def test_alive_first_order_bit_equal(dev, n):
+@pytest.fixture(scope="module")
+def real_alive(textured):
+    """The alive mask after bounce 0 of the 64^2 textured dragon's 4096
+    camera lanes."""
+    t = textured
+    dev = t["si"].t.device
+    py, px = torch.meshgrid(torch.arange(64, device=dev),
+                            torch.arange(64, device=dev), indexing="ij")
+    px, py = px.ravel(), py.ravel()
+    pix = py.long() * 64 + px.long()
+    lanes = Lanes(pixel_idx=pix, sample_idx=torch.zeros_like(pix))
+    p_film, _, _ = t["sampler"].get_camera_sample(
+        torch.stack([px, py], -1).float(), lanes.pixel_idx,
+        lanes.sample_idx)
+    ray = t["cam"].generate_ray_differential(p_film).scaled_differentials(
+        1.0 / np.sqrt(t["sampler"].spp))
+    return t["integ"].bounce0(t["ctx"], ray, lanes, t["sampler"],
+                              DimAllocator()).alive
+
+
+def _masks(n, gen, real):
+    dev = real.device
+    for frac in (0.0, 0.25, 0.5, 0.9, 1.0):
+        yield f"{frac} alive", torch.rand(n, generator=gen, device=dev) < frac
+    yield "alternating", torch.arange(n, device=dev) % 2 == 0
+    yield "real", real.repeat(-(-n // real.shape[0]))[:n].contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1023, 1024, 1025, 1 << 18,
+                               (1 << 18) + 3, (1 << 18) + 123, 1 << 20])
+def test_alive_first_order_bit_equal(dev, real_alive, n):
+    """K6 is one launch a call and bit-equal with the stable argsort, its
+    rank and count, on three calls in a row: each call finds the status
+    words the one before left at 0."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
-    for frac in (0.0, 0.25, 0.5, 0.9, 1.0):
-        alive = torch.rand(n, generator=gen, device=dev) < frac
-        out = C.alive_first_order(alive)
+    for label, alive in _masks(n, gen, real_alive):
         ref = _plain(lambda: C.alive_first_order(alive))
-        for a, b in zip(out, ref):
-            assert a.dtype == b.dtype == torch.int32
-            assert torch.equal(a, b)
+        assert torch.equal(ref[0], torch.argsort(~alive, stable=True).int())
+        for _ in range(3):
+            n0 = K.LAUNCHES["alive_first_order"]
+            out = C.alive_first_order(alive)
+            assert K.LAUNCHES["alive_first_order"] == n0 + 1
+            for a, b in zip(out, ref):
+                assert a.dtype == b.dtype == torch.int32
+                assert torch.equal(a, b), label
+
+
+def test_alive_first_order_two_streams_and_unaligned(dev, real_alive):
+    """Two streams each keep their own status words; a mask that does not
+    start on a 16-byte boundary takes the byte loads."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    masks = [torch.rand((1 << 18) + 3, generator=gen, device=dev) < 0.4,
+             real_alive.repeat(300).contiguous()]
+    refs = [_plain(lambda a=a: C.alive_first_order(a)) for a in masks]
+    streams = [torch.cuda.Stream(dev) for _ in masks]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for k, (s, a) in enumerate(zip(streams, masks)):
+            with torch.cuda.stream(s):
+                outs[k].append(C.alive_first_order(a))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out in outs[k]:
+            assert all(torch.equal(x, y) for x, y in zip(out, refs[k]))
+    base = torch.rand((1 << 16) + 9, generator=gen, device=dev) < 0.5
+    alive = base[1:]
+    assert alive.data_ptr() % 16
+    out = C.alive_first_order(alive)
+    ref = _plain(lambda: C.alive_first_order(alive))
+    assert all(torch.equal(x, y) for x, y in zip(out, ref))
 
 
 def test_slab_take_put_match_plain(dev):
