@@ -15,13 +15,15 @@ Phases, each printing its lines:
      counted on this run's inputs): K1-K4 at the matte render's
      shapes on the full 327,680-triangle dragon, K1 bit for bit (hit, prim,
      t, counts) on 2^18 camera rays, 2^18 bounce rays and a 2^16-lane slab
-     with dead lanes (rustracer_tpu_torch.tools.traverse_work); then one
+     with dead lanes (rustracer_tpu_torch.tools.traverse_work), K4 bit for
+     bit on the splat of 2^18 samples into the 1024^2 film; then one
      step of the textured dragon's full-width tile 2 is recorded
      (tools/bench_step_kernels.capture_step): K5 (atlas EWA, both texel
      layouts, bounded by tools/atlas_work.py) on the inputs of its four
      calls, K6 (alive-first order, one launch, three calls in a row) on
      the step's alive mask and on that of tile 0 after bounce 0, K7 (slab
-     take/put) on tile 0's state; K8 (row gather) through the gather
+     take/put, bit for bit, timed warm) on tile 0's state; K8 (row
+     gather) through the gather
      microbenchmark's entry point (rustracer_tpu_torch.tools.bench_gather,
      its defaults), on the dragon's own bvh16_table and on the step's
      material rows;
@@ -162,6 +164,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     from rustracer_tpu_torch.accel.traverse16 import traverse16
     from rustracer_tpu_torch.scene.tables import build_interaction
     from rustracer_tpu_torch.tools import traverse_work as TW
+    from rustracer_tpu_torch.tools.bench_step_kernels import k4_moved
     from rustracer_tpu_torch.tools.timing import cold_ms, events_ms
 
     dev = ctx.geom.tv_p.device
@@ -261,8 +264,9 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
         f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
         f"{results['build_interaction_tri']['bound_ms']:.4f} ms")
 
-    # K4: splat into the full film, within 1e-5 relative; timed with L2
-    # evicted before each launch, as a render's one splat a step finds it
+    # K4: splat into the full film, bit for bit (box 0.5: a pixel takes at
+    # most two taps, and a + b == b + a); timed with L2 evicted before each
+    # launch, as a render's one splat a step finds it
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rad = torch.rand((LANES, 3), generator=gen, device=dev) * 4.0
@@ -278,15 +282,16 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     with K.plain_reference():
         pms = cold_ms(k4, 20)
     d = (out.rgb - ref.rgb).abs()
-    if ((d > 1e-5 * ref.rgb.abs()) & (d > 1e-6)).any() or \
-            not torch.allclose(out.wsum, ref.wsum, rtol=1e-5):
-        raise AssertionError(f"film_add_samples differs, max {d.max()}")
+    if not (torch.equal(out.rgb.view(torch.int32), ref.rgb.view(torch.int32))
+            and torch.equal(out.wsum.view(torch.int32),
+                            ref.wsum.view(torch.int32))):
+        raise AssertionError(f"film_add_samples differs in bits from the "
+                             f"plain splat, max {d.max()}")
     # samples in; each pixel they touch read and written once (16 bytes)
-    touched = torch.unique(pixel_idx[valid]).numel()
     results["film_add_samples"] = dict(
         max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
-        **bound(nbytes(p_film, rad, valid) + 2 * 16 * touched))
-    log(f"[3] film_add_samples: max abs err {d.max().item():.3g}; L2 "
+        **bound(k4_moved(film, p_film, rad, valid)))
+    log(f"[3] film_add_samples: bit-equal with the plain splat; L2 "
         f"evicted before each launch: kernel {ms:.4f} ms, plain {pms:.4f} "
         f"ms, bound {results['film_add_samples']['bound_ms']:.4f} ms "
         f"({100 * results['film_add_samples']['bound_ms'] / ms:.1f}%)")
@@ -383,6 +388,7 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
     from rustracer_tpu_torch.integrators.path import SLAB_FIELDS
     from rustracer_tpu_torch.ops import compact as C
     from rustracer_tpu_torch.render.sampler import DimAllocator
+    from rustracer_tpu_torch.tools.bench_step_kernels import k7_moved
     from rustracer_tpu_torch.tools.timing import queued_ms
 
     lanes, ray = camera_tile(cam, sampler, tile, 0)
@@ -430,11 +436,13 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
     if not all(torch.equal(a, b) for a, b in zip(subs, ref)):
         raise AssertionError("slab_take differs from the plain take")
     # the slab's order entries, and each field's slab read and written once
-    moved = w * 4 + 2 * nbytes(*subs)
+    moved = k7_moved(fields, w)
     results["slab_take"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                 **bound(moved))
     log(f"[3] slab_take: {len(fields)} fields into a {w}-lane slab, "
-        f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['slab_take']['bound_ms']:.4f} ms "
+        f"({100 * results['slab_take']['bound_ms'] / ms:.1f}%)")
     zeros = [torch.zeros_like(f) for f in fields]
     out = C.slab_put([z.clone() for z in zeros], subs, order, w)
     with K.plain_reference():
@@ -445,7 +453,9 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
                          "slab_kernel")
     results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                **bound(moved))
-    log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {results['slab_put']['bound_ms']:.4f} ms "
+        f"({100 * results['slab_put']['bound_ms'] / ms:.1f}%)")
 
 
 def check_gather(geom, cap, results):

@@ -22,14 +22,23 @@
 // pixel_idx, sample_idx) between the full width and the w-slab selected by
 // order[:w], where the plain version issues one indexing launch per field.
 //
-// Bound: both are small streaming passes (a few bytes per lane for K6,
-// about 90 bytes per lane for K7) whose cost on the render step is launch
-// and tail latency, not bytes: hence one launch for K6, and one for each K7
-// move. K6 reads the flags twice (the second time from L2) and stages each
-// tile's positions in shared memory, so that rank, and order within each
-// run of alive or dead lanes, are written by consecutive threads on
-// consecutive words; K7 reads the order once per lane and copies each field
-// with one to three aligned word accesses.
+// Bound: K6 is a small streaming pass (a few bytes per lane) whose cost on
+// the render step is launch and tail latency, not bytes: hence one launch.
+// It reads the flags twice (the second time from L2) and stages each tile's
+// positions in shared memory, so that rank, and order within each run of
+// alive or dead lanes, are written by consecutive threads on consecutive
+// words. K7 reads and writes 86 bytes a lane, 11 MB for a 2^16-lane slab:
+// it fits in one wave of blocks on the card, so its time is the memory
+// latency of each thread's chain of accesses plus the bytes. A thread that
+// copied field after field, each load waiting for the store before it (21
+// dependent round trips to L2 through char pointers the compiler could not
+// tell apart), took twice the bytes' time. Here each thread issues every
+// load of its lane's fields before its first store: one round trip. (A
+// block that staged its lanes' order entries in shared memory and walked
+// the slab side of each field with consecutive threads on consecutive
+// words, so that the take's stores and the put's loads were whole sectors
+// an instruction, was measured slower: its shared-memory reads and barrier
+// cost more than the sectors it saved, which L2 merges anyway.)
 #include "common.cuh"
 
 namespace {
@@ -162,59 +171,80 @@ __global__ void __launch_bounds__(kOrderThreads)
 }
 
 constexpr int kMaxFields = 16;
+constexpr int kSlabThreads = 256;
 
 struct Fields {
-    const char* src[kMaxFields];
-    char* dst[kMaxFields];
+    const void* src[kMaxFields];
+    void* dst[kMaxFields];
     int bytes[kMaxFields];  // per lane: 1, 4, 8 or 12
     int n;
 };
 
-__device__ __forceinline__ void copy_lane(const char* src, char* dst, int bytes, long long s,
-                                          long long d) {
-    switch (bytes) {
-        case 1:
-            dst[d] = src[s];
-            break;
-        case 4:
-            reinterpret_cast<int*>(dst)[d] = reinterpret_cast<const int*>(src)[s];
-            break;
-        case 8:
-            reinterpret_cast<long long*>(dst)[d] = reinterpret_cast<const long long*>(src)[s];
-            break;
-        default: {  // 12: three words
-            const int* a = reinterpret_cast<const int*>(src) + 3 * s;
-            int* b = reinterpret_cast<int*>(dst) + 3 * d;
-            b[0] = a[0];
-            b[1] = a[1];
-            b[2] = a[2];
+// PUT = false: dst[j] = src[order[j]] (take); PUT = true: dst[order[j]] =
+// src[j]. One thread a slab lane: it loads the lane's words of every field
+// into registers (a byte, a word, a long or three words a field; the field
+// loop unrolled to kMaxFields) and only then stores them, so all of its
+// loads are in flight at once.
+template <bool PUT>
+__global__ void __launch_bounds__(kSlabThreads) slab_kernel(const int* __restrict__ order, int w,
+                                                            const Fields f) {
+    const int j = blockIdx.x * kSlabThreads + threadIdx.x;
+    if (j >= w) return;
+    const long long o = __ldg(order + j);
+    const long long s = PUT ? j : o, d = PUT ? o : j;
+    uint32_t v[kMaxFields][3];
+#pragma unroll
+    for (int k = 0; k < kMaxFields; ++k) {
+        if (k >= f.n) break;
+        const int b = f.bytes[k];
+        if (b == 12) {
+            const uint32_t* __restrict__ p = static_cast<const uint32_t*>(f.src[k]) + 3 * s;
+            v[k][0] = __ldg(p);
+            v[k][1] = __ldg(p + 1);
+            v[k][2] = __ldg(p + 2);
+        } else if (b == 8) {
+            uint2 x = __ldg(static_cast<const uint2*>(f.src[k]) + s);
+            v[k][0] = x.x;
+            v[k][1] = x.y;
+        } else if (b == 4) {
+            v[k][0] = __ldg(static_cast<const uint32_t*>(f.src[k]) + s);
+        } else {
+            v[k][0] = __ldg(static_cast<const uint8_t*>(f.src[k]) + s);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxFields; ++k) {
+        if (k >= f.n) break;
+        const int b = f.bytes[k];
+        if (b == 12) {
+            uint32_t* __restrict__ p = static_cast<uint32_t*>(f.dst[k]) + 3 * d;
+            p[0] = v[k][0];
+            p[1] = v[k][1];
+            p[2] = v[k][2];
+        } else if (b == 8) {
+            static_cast<uint2*>(f.dst[k])[d] = make_uint2(v[k][0], v[k][1]);
+        } else if (b == 4) {
+            static_cast<uint32_t*>(f.dst[k])[d] = v[k][0];
+        } else {
+            static_cast<uint8_t*>(f.dst[k])[d] = (uint8_t)v[k][0];
         }
     }
 }
 
-// PUT = false: dst[j] = src[order[j]] (take); PUT = true: dst[order[j]] = src[j]
-template <bool PUT>
-__global__ void slab_kernel(const int* __restrict__ order, int w, Fields f) {
-    int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= w) return;
-    int o = order[j];
-    long long s = PUT ? j : o, d = PUT ? o : j;
-    for (int k = 0; k < f.n; ++k) copy_lane(f.src[k], f.dst[k], f.bytes[k], s, d);
-}
-
 int slab_move(bool put, const void* order, int w, int n_fields, const long long* src,
               const long long* dst, const int* bytes, void* stream) {
-    if (n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
+    if (n_fields < 0 || n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
     Fields f;
     f.n = n_fields;
     for (int k = 0; k < n_fields; ++k) {
-        f.src[k] = reinterpret_cast<const char*>(src[k]);
-        f.dst[k] = reinterpret_cast<char*>(dst[k]);
+        if (bytes[k] != 1 && bytes[k] != 4 && bytes[k] != 8 && bytes[k] != 12)
+            return (int)cudaErrorInvalidValue;
+        f.src[k] = reinterpret_cast<const void*>(src[k]);
+        f.dst[k] = reinterpret_cast<void*>(dst[k]);
         f.bytes[k] = bytes[k];
     }
-    constexpr int kThreads = 256;
     auto kernel = put ? slab_kernel<true> : slab_kernel<false>;
-    kernel<<<rt::blocks_for(w, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<rt::blocks_for(w, kSlabThreads), kSlabThreads, 0, (cudaStream_t)stream>>>(
         (const int*)order, w, f);
     return (int)cudaGetLastError();
 }

@@ -1,27 +1,42 @@
 // K4: filter-weighted splat of a sample batch into the film, one thread per
-// sample, atomicAdd into the (H, W, 3) radiance and (H, W) weight sums.
+// sample, one 16-byte vector reduction per filter tap.
 //
 // Replaces rustracer_tpu/render/film.py Film.add_samples (:67-111): the
 // luminance clamp, the nx x ny filter footprint, the valid mask and the crop
 // bounds. Only the box filter is ported (weight 1 inside its extent); the
-// footprint loop is general. Sums are taken in no fixed order, so results
-// agree with the plain version to float rounding, not bit for bit.
+// footprint loop is general, so taps of a box wider than 0.5 overlap other
+// samples' taps and the sums stay atomic. Sums are taken in no fixed order:
+// a pixel that receives at most two taps into a zero film is bit for bit
+// the plain version's (a + b == b + a), more agree to float rounding.
 //
-// Bound: atomics into device memory (4 per tap; one tap for box 0.5), with
-// neighbouring samples of a tile landing on neighbouring pixels; the design
-// reads each sample once and issues its taps without staging.
+// Bound: bytes. The samples are read once (p_film 8, radiance 12, valid 1
+// byte a lane) and each pixel a tap lands on is read and written once in
+// L2 by its reduction; with the film out of L2, as in the render, each
+// touched line also comes in from device memory. The film is one (H, W, 4)
+// float32 buffer, r, g, b and the weight side by side in 16 bytes, so a tap
+// is one red.global.add.v4.f32 (atomicAdd(float4*, float4), global memory,
+// compute capability 9.x): a warp's taps on a row touch their 16 sectors
+// once, where four scalar reductions into an (H, W, 3) and an (H, W) array
+// touched 12 sectors three times and 4 once. p_film is read as one float2 a
+// lane and the radiance as three words: a warp's three loads cover its 384
+// contiguous bytes, each sector once in L1 (staging the block's radiance
+// through shared memory, so that each load instruction reads 128
+// contiguous bytes, measured slower: it adds a barrier before any lane can
+// issue its reductions).
 #include "common.cuh"
 
 namespace {
 
-__global__ void film_add_kernel(const float* __restrict__ p_film, const float* __restrict__ rad,
-                                const bool* __restrict__ valid, int n, float* __restrict__ rgb,
-                                float* __restrict__ wsum, int h, int w, int x0, int y0, float rx,
-                                float ry, int nx, int ny, float max_lum) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+    film_add_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
+                    const bool* __restrict__ valid, int n, float4* __restrict__ acc, int h,
+                    int w, int x0, int y0, float rx, float ry, int nx, int ny, float max_lum) {
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     if (valid != nullptr && !valid[i]) return;
-    float fx = p_film[2 * i], fy = p_film[2 * i + 1];
+    float2 p = p_film[i];
     float r = rad[3 * i], g = rad[3 * i + 1], b = rad[3 * i + 2];
     if (isfinite(max_lum)) {
         float lum = r * 0.212671f + g * 0.715160f + b * 0.072169f;
@@ -30,34 +45,37 @@ __global__ void film_add_kernel(const float* __restrict__ p_film, const float* _
         g = g * scale;
         b = b * scale;
     }
-    int lo_x = (int)ceilf((fx - 0.5f) - rx);
-    int lo_y = (int)ceilf((fy - 0.5f) - ry);
+    int lo_x = (int)ceilf((p.x - 0.5f) - rx);
+    int lo_y = (int)ceilf((p.y - 0.5f) - ry);
     for (int j = 0; j < ny; ++j) {
         for (int k = 0; k < nx; ++k) {
             int px = lo_x + k, py = lo_y + j;
-            float dx = ((float)px + 0.5f) - fx;
-            float dy = ((float)py + 0.5f) - fy;
+            float dx = ((float)px + 0.5f) - p.x;
+            float dy = ((float)py + 0.5f) - p.y;
             // box filter: weight 1 within the filter extent
             float fw = (fabsf(dx) <= rx && fabsf(dy) <= ry) ? 1.0f : 0.0f;
             int ix = px - x0, iy = py - y0;
             if (ix < 0 || ix >= w || iy < 0 || iy >= h || !(fw > 0.0f)) continue;
-            float* pix = rgb + 3 * ((size_t)iy * w + ix);
-            atomicAdd(pix, fw * r);
-            atomicAdd(pix + 1, fw * g);
-            atomicAdd(pix + 2, fw * b);
-            atomicAdd(wsum + (size_t)iy * w + ix, fw);
+            atomicAdd(acc + ((size_t)iy * w + ix), make_float4(fw * r, fw * g, fw * b, fw));
         }
     }
 }
 
 }  // namespace
 
+// rgb: the (H, W, 4) film's base, 16-byte aligned; wsum: the same buffer
+// plus 3 floats (the (H, W, 3) and (H, W) views of the film state). Any
+// other layout is refused with cudaErrorInvalidValue.
 extern "C" int rt_film_add_samples(const void* p_film, const void* rad, const void* valid, int n,
                                    void* rgb, void* wsum, int h, int w, int x0, int y0, float rx,
                                    float ry, int nx, int ny, float max_lum, void* stream) {
-    constexpr int kThreads = 256;
+    if ((uintptr_t)rgb % 16 || (float*)wsum != (float*)rgb + 3 || (uintptr_t)p_film % 8)
+        return (int)cudaErrorInvalidValue;
     film_add_kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)p_film, (const float*)rad, (const bool*)valid, n, (float*)rgb,
-        (float*)wsum, h, w, x0, y0, rx, ry, nx, ny, max_lum);
+        (const float2*)p_film, (const float*)rad, (const bool*)valid, n, (float4*)rgb, h, w, x0,
+        y0, rx, ry, nx, ny, max_lum);
     return (int)cudaGetLastError();
 }
+
+// the film layout this source takes: 4 floats a pixel in one buffer
+extern "C" int rt_film_channels() { return 4; }

@@ -13,8 +13,9 @@ import torch
 
 from .. import cuda
 
-# element sizes (bytes per lane) K7 moves with one to three word accesses
-_LANE_BYTES = {1, 4, 8, 12}
+# bytes per lane K7 moves -> the alignment its accesses need: a byte, a
+# word, a long, or three words
+_LANE_BYTES = {1: 1, 4: 4, 8: 8, 12: 4}
 
 
 def alive_first_order_plain(alive):
@@ -70,9 +71,10 @@ def _lane_bytes(t):
     return b
 
 
-def _move(name, order, w, full: Sequence[torch.Tensor],
-          slab: Sequence[torch.Tensor]):
-    """Launch K7 between full-width fields and their w-lane slabs."""
+def slab_move(name, order, w, full: Sequence[torch.Tensor],
+              slab: Sequence[torch.Tensor], lib=None):
+    """Launch K7 (``name``: "slab_take" or "slab_put") between full-width
+    fields and their w-lane slabs; ``lib``: another build (cuda.launch)."""
     n = order.shape[0]
     dev = order.device
     if not 0 <= w <= n:
@@ -81,8 +83,9 @@ def _move(name, order, w, full: Sequence[torch.Tensor],
         raise ValueError("K7 moves one slab per field, at most 16 fields")
     cuda.check(order, "order", torch.int32, (n,), dev)
     for f, s in zip(full, slab):
-        cuda.check(f, name, f.dtype, (n,) + tuple(f.shape[1:]), dev)
-        cuda.check(s, name, f.dtype, (w,) + tuple(f.shape[1:]), dev)
+        align = _LANE_BYTES[_lane_bytes(f)]
+        cuda.check(f, name, f.dtype, (n,) + tuple(f.shape[1:]), dev, align)
+        cuda.check(s, name, f.dtype, (w,) + tuple(f.shape[1:]), dev, align)
     put = name == "slab_put"
     src, dst = (slab, full) if put else (full, slab)
     k = len(full)
@@ -91,7 +94,7 @@ def _move(name, order, w, full: Sequence[torch.Tensor],
     size = (ctypes.c_int * k)(*[_lane_bytes(t) for t in full])
     if w:
         cuda.launch(name, order, w, k, ctypes.addressof(src_p),
-                    ctypes.addressof(dst_p), ctypes.addressof(size))
+                    ctypes.addressof(dst_p), ctypes.addressof(size), lib=lib)
 
 
 def slab_take_plain(fields, order, w):
@@ -113,7 +116,7 @@ def slab_take(fields: List[torch.Tensor], order, w: int):
         return slab_take_plain(fields, order, w)
     subs = [torch.empty((w,) + tuple(f.shape[1:]), dtype=f.dtype,
                         device=f.device) for f in fields]
-    _move("slab_take", order, w, fields, subs)
+    slab_move("slab_take", order, w, fields, subs)
     return subs
 
 
@@ -124,5 +127,5 @@ def slab_put(fields: List[torch.Tensor], subs: List[torch.Tensor], order,
     tensors launch K7 once."""
     if not cuda.use_kernel(order):
         return slab_put_plain(fields, subs, order, w)
-    _move("slab_put", order, w, fields, subs)
+    slab_move("slab_put", order, w, fields, subs)
     return fields

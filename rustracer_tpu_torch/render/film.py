@@ -3,7 +3,10 @@ rustracer_tpu/render/film.py) with hand kernel K4 (csrc/film.cu).
 
 Unlike the reference's functional state, ``add_samples`` adds into the
 state's tensors in place: the film is 16 MB at 1024^2 and the render loop
-owns it.
+owns it. The state is one (H, W, 4) float32 buffer, r, g, b and the weight
+side by side for each pixel, seen through the reference's two arrays:
+``rgb`` is its view ``[..., :3]`` and ``wsum`` its view ``[..., 3]``. K4
+adds each filter tap as one 16-byte vector reduction into that buffer.
 """
 from __future__ import annotations
 
@@ -22,6 +25,26 @@ from .filters import Filter
 class FilmState(NamedTuple):
     rgb: torch.Tensor    # (H, W, 3) filter-weighted radiance sum
     wsum: torch.Tensor   # (H, W) filter weight sum
+
+
+def _check_film(state: FilmState, h, w, device):
+    """Raise unless ``state`` is the two views of one 16-byte aligned
+    (H, W, 4) float32 buffer that ``Film.init_state`` makes (K4 adds r, g,
+    b and the weight of a tap with one 16-byte reduction)."""
+    rgb, wsum = state.rgb, state.wsum
+    if not (rgb.dtype == wsum.dtype == torch.float32
+            and rgb.device == wsum.device == device
+            and tuple(rgb.shape) == (h, w, 3)
+            and rgb.stride() == (4 * w, 4, 1) and wsum.stride() == (4 * w, 4)
+            and wsum.data_ptr() == rgb.data_ptr() + 12
+            and rgb.data_ptr() % 16 == 0):
+        raise ValueError(
+            "film state: K4 takes rgb and wsum as the [..., :3] and [..., 3] "
+            "views of one 16-byte aligned (H, W, 4) float32 buffer on "
+            f"{device} (Film.init_state); got rgb {rgb.dtype} "
+            f"{tuple(rgb.shape)} strides {rgb.stride()} on {rgb.device}, "
+            f"wsum strides {wsum.stride()}, {wsum.data_ptr() - rgb.data_ptr()}"
+            " bytes after rgb")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,26 +79,21 @@ class Film:
 
     def init_state(self, device="cuda") -> FilmState:
         w, h = self.cropped_resolution
-        return FilmState(
-            rgb=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
-            wsum=torch.zeros((h, w), dtype=torch.float32, device=device))
+        acc = torch.zeros((h, w, 4), dtype=torch.float32, device=device)
+        return FilmState(rgb=acc[..., :3], wsum=acc[..., 3])
 
     def _footprint(self):
         rx, ry = self.filter.radius
         return max(int(math.ceil(2.0 * rx)), 1), max(int(math.ceil(2.0 * ry)), 1)
 
-    def add_samples_plain(self, state: FilmState, p_film, radiance,
-                          valid=None) -> FilmState:
-        """Plain PyTorch version of K4: scatter-add of the filter taps."""
+    def taps(self, p_film, valid, h, w):
+        """The filter footprint of samples ``p_film`` (B, 2) on an (h, w)
+        film, one tap at a time -> (iy, ix, fw, ok) each (B,): the tap's
+        film row and column, its filter weight, and whether it lands (the
+        sample is valid, the pixel inside the crop, the weight above 0)."""
         x0, y0, _, _ = self.cropped_pixel_bounds
-        h, w = state.wsum.shape
         rx, ry = self.filter.radius
         nx, ny = self._footprint()
-        if np.isfinite(self.max_sample_luminance):
-            lum = luminance(radiance)
-            m = self.max_sample_luminance
-            scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
-            radiance = radiance * scale[:, None]
         p_lo_x = torch.ceil(p_film[:, 0] - 0.5 - rx).int()
         p_lo_y = torch.ceil(p_film[:, 1] - 0.5 - ry).int()
         if valid is None:
@@ -88,11 +106,22 @@ class Film:
                 ix, iy = px - x0, py - y0
                 ok = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h) \
                     & (fw > 0.0)
-                fw = torch.where(ok, fw, 0.0)
-                idx = (iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
-                state.rgb.index_put_(idx, fw[:, None] * radiance,
-                                     accumulate=True)
-                state.wsum.index_put_(idx, fw, accumulate=True)
+                yield iy, ix, fw, ok
+
+    def add_samples_plain(self, state: FilmState, p_film, radiance,
+                          valid=None) -> FilmState:
+        """Plain PyTorch version of K4: scatter-add of the filter taps."""
+        h, w = state.wsum.shape
+        if np.isfinite(self.max_sample_luminance):
+            lum = luminance(radiance)
+            m = self.max_sample_luminance
+            scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
+            radiance = radiance * scale[:, None]
+        for iy, ix, fw, ok in self.taps(p_film, valid, h, w):
+            fw = torch.where(ok, fw, 0.0)
+            idx = (iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
+            state.rgb.index_put_(idx, fw[:, None] * radiance, accumulate=True)
+            state.wsum.index_put_(idx, fw, accumulate=True)
         return state
 
     def add_samples(self, state: FilmState, p_film, radiance,
@@ -105,12 +134,11 @@ class Film:
         n = p_film.shape[0]
         dev = p_film.device
         h, w = state.wsum.shape
-        cuda.check(p_film, "p_film", torch.float32, (n, 2), dev)
+        cuda.check(p_film, "p_film", torch.float32, (n, 2), dev, align=8)
         cuda.check(radiance, "radiance", torch.float32, (n, 3), dev)
         if valid is not None:
             cuda.check(valid, "valid", torch.bool, (n,), dev)
-        cuda.check(state.rgb, "rgb", torch.float32, (h, w, 3), dev)
-        cuda.check(state.wsum, "wsum", torch.float32, (h, w), dev)
+        _check_film(state, h, w, dev)
         x0, y0, _, _ = self.cropped_pixel_bounds
         rx, ry = self.filter.radius
         nx, ny = self._footprint()

@@ -1,15 +1,25 @@
-"""K5 (the atlas EWA lookup) and K6 (the alive-first order) on the inputs of
-one full-width textured step, against their plain versions and, given them,
-other builds of their sources.
+"""K4 (the film splat), K5 (the atlas EWA lookup), K6 (the alive-first
+order) and K7 (the slab take and put) on the inputs of full-width textured
+steps, against their plain versions and, given them, other builds of their
+sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
         [--reps N] [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
 tiles, compaction on) and runs one step of tile 2 (all floor and dragon,
-sample 1), recording the inputs of every call of K5 (one for bounce 0 and
-one for each interior bounce: four), of K6 (the alive mask after bounce 0)
-and of K8 (the material rows) in that step (``capture_step``).
+sample 1), recording the inputs of every call of K4 (the step's splat), K5
+(one for bounce 0 and one for each interior bounce: four), K6 (the alive
+mask after bounce 0) and K8 (the material rows) in that step
+(``capture_step``); then one step of tile 0 (mostly sky, so it takes a
+slab), recording K7's fields as bounce 0 left them, its order and width.
+
+K4 runs on the recorded splat into a zero 1024^2 film, bit for bit equal
+with the plain version (box 0.5: a pixel takes at most two taps), and is
+timed with L2 evicted before each call, as the render's one splat a step
+finds it (timing.cold_ms). K7 runs take and put on the recorded slab, bit
+for bit, timed warm, as in the render, where bounce 0 has just written
+the fields.
 
 K5 runs on each recorded call in both texel layouts (the quad rows the
 render uses, and the (T, 3) texels): the library's kernel within the plain
@@ -23,11 +33,18 @@ of the device (queued_ms: for K6 it holds the gaps between its launches). The to
 textured lanes of each K5 input, K5's bound (tools/atlas_work.py) and K6's
 (its flags in, order and rank out), what ptxas reports for each source
 (-Xptxas -v), one line per case and build, and one JSON line of everything
-(also written to ``--json``).
+(also written to ``--json``). For film.cu and compact.cu it also prints
+the memory instructions of each kernel in program order, from cuobjdump's
+SASS (``sass_memory_ops``): K4's reductions a tap, K7's loads and stores.
 
-An ``--other`` source is an atlas.cu or compact.cu with the library's C
-interface (cuda.SIGNATURES), next to the common.cuh it includes; it is
-built alone, and what it exports decides which kernel it is timed as. A
+An ``--other`` source is a film.cu, atlas.cu or compact.cu with the
+library's C interface (cuda.SIGNATURES), next to the common.cuh it
+includes; it is built alone, and what it exports decides which kernels it
+is timed as: ``rt_film_add_samples`` K4, ``rt_atlas_lookup_ewa`` K5,
+``rt_alive_first_order`` K6, ``rt_slab_take`` K7 (take and put). A
+film.cu that exports ``rt_film_channels`` takes the film as one (H, W, 4)
+buffer, as the library's does; one that does not (an older source) is
+given its own (H, W, 3) and (H, W) sums, compared after packing. A
 compact.cu's K6 is given zeroed scratch words enough for either the
 one-launch kernel's status words or a three-launch kernel's chunk counts.
 Refuses to run without CUDA.
@@ -38,10 +55,13 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 from types import SimpleNamespace
 
 import numpy as np
@@ -50,33 +70,47 @@ import torch
 from .. import cuda
 from .._build import CSRC, compile_shared
 from ..ops import compact as C
+from ..render.film import Film
 from ..scene import atlas as A
 from ..scene import materials as M
 from .atlas_work import k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
-from .timing import kernel_ms, queued_ms
+from .timing import cold_ms, kernel_ms, queued_ms
 from .traverse_work import PEAK_BYTES_PER_S
 
-K5, K6 = "atlas_lookup_ewa", "alive_first_order"
+K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
+                  "slab_take")
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
+K4_KERNELS = ("film_add_kernel",)
 K5_KERNELS = ("atlas_ewa_kernel",)
 K6_KERNELS = ("alive_first_kernel", "count_kernel", "scan_counts_kernel",
               "place_kernel")
+K7_KERNELS = ("slab_kernel",)
 LANES = 1 << 18
 RES = (1024, 1024)
 STEP_TILE = 2
+SLAB_TILE = 0
 SI_FIELDS = ("uv", "dudx", "dvdx", "dudy", "dvdy")
 
 
+def _cloned(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cloned(a) for a in x)
+    return x
+
+
 @contextlib.contextmanager
-def _recording(module, name, calls):
+def _recording(module, name, calls, copy=False):
     """Within the scope, calls of ``module.name`` append their arguments
-    to ``calls`` before running as usual."""
+    (with ``copy``, clones of their tensors, as they were when called) to
+    ``calls`` before running as usual."""
     orig = getattr(module, name)
 
     def recorded(*args, **kw):
-        calls.append((args, kw))
+        calls.append(_cloned((args, kw)) if copy else (args, kw))
         return orig(*args, **kw)
 
     setattr(module, name, recorded)
@@ -87,16 +121,25 @@ def _recording(module, name, calls):
 
 
 def capture_step(renderer, ctx, tile, sample=1):
-    """One step of ``tile`` at ``sample`` -> dict of the inputs of its K5,
-    K6 and K8 calls, in call order: k5 [dict(texels, meta, levels, regs,
-    reg, si, quad)], k6 [alive], k8 [(table, idx)] (the material rows)."""
-    k5, k6, k8 = [], [], []
+    """One step of ``tile`` at ``sample`` -> dict of the inputs of its K4,
+    K5, K6, K7 and K8 calls, in call order: k4 [dict(film, p_film,
+    radiance, valid)], k5 [dict(texels, meta, levels, regs, reg, si,
+    quad)], k6 [alive], k7 [dict(fields, order, w)] (the slab takes: the
+    fields as bounce 0 left them), k8 [(table, idx)] (the material rows)."""
+    k4, k5, k6, k7, k8 = [], [], [], [], []
     px, py, v = tile
     fs = renderer.film.init_state(renderer.device)
-    with _recording(A, K5, k5), _recording(C, K6, k6), \
+    with _recording(Film, "add_samples", k4), _recording(A, K5, k5), \
+            _recording(C, K6, k6), _recording(C, K7, k7, copy=True), \
             _recording(M, "row_gather", k8):
         renderer.step(ctx, fs, px, py, sample, v)
-    out = dict(k5=[], k6=[a[0].clone() for a, _ in k6],
+    k4 = [inspect.signature(Film.add_samples).bind(*a, **kw).arguments
+          for a, kw in k4]
+    out = dict(k4=[dict(film=c["self"], p_film=c["p_film"].clone(),
+                        radiance=c["radiance"].clone(),
+                        valid=_cloned(c.get("valid"))) for c in k4],
+               k5=[], k6=[a[0].clone() for a, _ in k6],
+               k7=[dict(fields=a[0], order=a[1], w=a[2]) for a, _ in k7],
                k8=[(a[0], a[1].clone()) for a, _ in k8])
     for (texels, meta, levels, regs, reg, si), kw in k5:
         out["k5"].append(dict(
@@ -145,45 +188,186 @@ def k6_call(lib, alive, scratch):
     return order, rank, n_alive
 
 
+def k4_call(lib, case, channels=4):
+    """K4 on a recorded splat -> (call, sums): ``call()`` splats it into
+    a film that starts at 0 and keeps what each call adds; ``sums()`` is
+    that film as (H, W, 4). The library's kernel through its wrapper, or
+    ``lib``'s with the same arguments; a build of ``channels`` 3 is given
+    separate (H, W, 3) and (H, W) sums, packed by ``sums()``."""
+    film, p_film, rad, valid = (case[k] for k in ("film", "p_film",
+                                                  "radiance", "valid"))
+    fs = film.init_state(p_film.device)
+    h, w = fs.wsum.shape
+    if channels == 3:
+        fs = type(fs)(rgb=torch.zeros((h, w, 3), dtype=torch.float32,
+                                      device=p_film.device),
+                      wsum=torch.zeros((h, w), dtype=torch.float32,
+                                       device=p_film.device))
+    x0, y0, _, _ = film.cropped_pixel_bounds
+    rx, ry = film.filter.radius
+    nx, ny = film._footprint()
+
+    def call():
+        if lib is None:
+            film.add_samples(fs, p_film, rad, valid=valid)
+        else:
+            cuda.launch(K4, p_film, rad, valid, p_film.shape[0], fs.rgb,
+                        fs.wsum, h, w, x0, y0, rx, ry, nx, ny,
+                        film.max_sample_luminance, lib=lib)
+    return call, lambda: torch.cat([fs.rgb, fs.wsum[..., None]], -1)
+
+
+def k4_touched(film, p_film, valid=None):
+    """The distinct film pixels that the splat's taps land on (the plain
+    version's footprint, crop bounds and valid mask: Film.taps)."""
+    w, h = film.cropped_resolution
+    pix = [(iy.long() * w + ix.long())[ok]
+           for iy, ix, _, ok in film.taps(p_film, valid, h, w)]
+    return torch.unique(torch.cat(pix)).numel()
+
+
+def k4_moved(film, p_film, radiance, valid=None):
+    """Bytes K4 must move: every sample's position, radiance and valid flag
+    in, and each pixel a tap lands on read and written once (r, g, b and
+    the weight: 16 bytes)."""
+    inputs = [p_film, radiance] + ([] if valid is None else [valid])
+    return sum(t.numel() * t.element_size() for t in inputs) \
+        + 2 * 16 * k4_touched(film, p_film, valid)
+
+
+def k7_moved(fields, w):
+    """Bytes one K7 move must make: the slab's w order entries in, and w
+    lanes of every field read and written once."""
+    lane = sum(f.element_size() * (f.numel() // f.shape[0]) for f in fields)
+    return w * (4 + 2 * lane)
+
+
+def k7_call(lib, case, put, slab=None):
+    """One K7 move of a recorded slab -> (call, out): the take fills w-lane
+    slabs from the recorded fields; the put writes ``slab`` into
+    full-width fields that start at 0. ``out`` is the list written. The
+    library's kernel through its wrapper, or ``lib``'s with the same
+    arguments."""
+    fields, order, w = case["fields"], case["order"], case["w"]
+    if put:
+        full, subs = [torch.zeros_like(f) for f in fields], slab
+    else:
+        full = fields
+        subs = [torch.empty((w,) + tuple(f.shape[1:]), dtype=f.dtype,
+                            device=f.device) for f in fields]
+    out = full if put else subs
+    name = "slab_put" if put else "slab_take"
+
+    def call():
+        if lib is not None:
+            C.slab_move(name, order, w, full, subs, lib=lib)
+        elif put:
+            C.slab_put(full, subs, order, w)
+        else:
+            out[:] = C.slab_take(fields, order, w)
+    return call, out
+
+
+def cuobjdump_path():
+    return os.path.join(os.path.dirname(cuda.nvcc_path()), "cuobjdump")
+
+
+_SASS_FN = re.compile(r"Function : (\S+)")
+# opcodes (before their first ".") of the loads, stores and reductions
+_SASS_MEM = {"LD", "LDG", "LDS", "LDL", "ST", "STG", "STS", "STL", "RED",
+             "REDG", "ATOM", "ATOMG", "ATOMS"}
+
+
+def sass_memory_ops(source):
+    """The memory instructions of each kernel in ``source``, in program
+    order, from cuobjdump's SASS of a cubin built with the library's flags
+    -> {kernel (mangled name): [opcode, ...]} (``memory_ops``)."""
+    cmd = [a for a in nvcc_command(source) if a != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        subprocess.run(cmd + ["-cubin", "-o", cubin, source], check=True,
+                       capture_output=True, text=True, timeout=600)
+        sass = subprocess.run([cuobjdump_path(), "-sass", cubin],
+                              check=True, capture_output=True, text=True,
+                              timeout=600).stdout
+    return memory_ops(sass)
+
+
+def memory_ops(sass):
+    """cuobjdump -sass text -> {kernel: [the opcode, with its modifiers,
+    of each load, store and reduction, in program order]}."""
+    ops, fn = {}, None
+    for ln in sass.splitlines():
+        m = _SASS_FN.search(ln)
+        if m:
+            fn = m.group(1)
+            ops[fn] = []
+        elif fn is not None and "*/" in ln:
+            code = ln.split("*/", 1)[1].strip()
+            op = re.sub(r"^@!?U?P[T0-9]+\s+", "", code).split(" ", 1)[0]
+            if op.split(".", 1)[0] in _SASS_MEM:
+                ops[fn].append(op.rstrip(";"))
+    return ops
+
+
 def build(others):
     """Build the library and each other source, and ask ptxas of the
-    library's atlas.cu and compact.cu and of each other source, all at
-    once -> ({kernel: {build name: loaded build, or None for the
-    library}}, {source name: ptxas lines})."""
-    sources = {"library atlas.cu": os.path.join(CSRC, "atlas.cu"),
-               "library compact.cu": os.path.join(CSRC, "compact.cu")}
+    library's film.cu, atlas.cu and compact.cu and of each other source
+    (and cuobjdump of each film.cu and compact.cu), all at once ->
+    ({kernel: {build name: loaded build, or None for the library}},
+    {source name: ptxas lines}, {source name: sass_memory_ops},
+    {build name: film channels})."""
+    sources = {f"library {f}": os.path.join(CSRC, f)
+               for f in ("film.cu", "atlas.cu", "compact.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    with concurrent.futures.ThreadPoolExecutor(2 * len(sources)) as pool:
+    kernels = (K4, K5, K6, K7)
+    with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
         lib = pool.submit(cuda.library)
         libs = {p: pool.submit(compile_shared, f"step_other{i}",
                                [os.path.abspath(p)], nvcc_command(p))
                 for i, p in enumerate(others)}
         reports = {name: pool.submit(ptxas_report, src)
                    for name, src in sources.items()}
+        sass = {name: pool.submit(sass_memory_ops, src)
+                for name, src in sources.items()
+                if os.path.basename(src) in ("film.cu", "compact.cu")}
         lib.result()
-        builds = {K5: {"library": None}, K6: {"library": None}}
+        builds = {k: {"library": None} for k in kernels}
+        channels = {"library": 4}
         for p, f in libs.items():
-            exports = [k for k in (K5, K6)
-                       if hasattr(ctypes.CDLL(f.result()), "rt_" + k)]
+            handle = ctypes.CDLL(f.result())
+            exports = [k for k in kernels if hasattr(handle, "rt_" + k)]
             if not exports:
-                raise ValueError(f"{p} exports neither rt_{K5} nor rt_{K6}")
-            loaded = cuda.load(f.result(), exports)
+                raise ValueError(f"{p} exports none of "
+                                 f"{['rt_' + k for k in kernels]}")
+            loaded = cuda.load(f.result(), exports
+                               + (["slab_put"] if K7 in exports else []))
             for k in exports:
                 builds[k][p] = loaded
-        return builds, {name: f.result() for name, f in reports.items()}
+            if K4 in exports:
+                channels[p] = handle.rt_film_channels() \
+                    if hasattr(handle, "rt_film_channels") else 3
+        return (builds, {name: f.result() for name, f in reports.items()},
+                {name: f.result() for name, f in sass.items()}, channels)
 
 
-def _turns(runs, reps, names):
+def _turns(runs, reps, names, cold=False):
     """Time each build in turns (a, b, ..., ..., b, a) -> {build:
     (kernel ms list, queued ms list)}: the device time of its kernels
     named in ``names`` (timing.kernel_ms), and of a call with the host
-    ahead (timing.queued_ms)."""
+    ahead (timing.queued_ms); with ``cold``, both with L2 evicted before
+    each call (timing.cold_ms: by name, and between CUDA events with each
+    call queued behind a sleeping kernel)."""
     order = list(runs)
     prof = {b: [] for b in order}
     queued = {b: [] for b in order}
     for b in order + order[::-1]:
-        prof[b].append(kernel_ms(runs[b], reps, names))
-        queued[b].append(queued_ms(runs[b], reps))
+        if cold:
+            prof[b].append(cold_ms(runs[b], reps, name=names))
+            queued[b].append(cold_ms(runs[b], reps))
+        else:
+            prof[b].append(kernel_ms(runs[b], reps, names))
+            queued[b].append(queued_ms(runs[b], reps))
     return {b: (prof[b], queued[b]) for b in order}
 
 
@@ -279,11 +463,84 @@ def measure_k6(cap, builds, reps=20, log=print):
     return rows
 
 
+def measure_k4(cap, builds, channels, reps=20, log=print):
+    """Check every K4 build on the step's recorded splat, bit for bit
+    with the plain version, and time them with L2 evicted before each
+    call -> list of row dicts."""
+    case = cap["k4"][0]
+    with cuda.plain_reference():
+        call, sums = k4_call(None, case)
+        call()
+        ref = sums()
+    for b, lib in builds.items():
+        call, sums = k4_call(lib, case, channels[b])
+        call()
+        if not torch.equal(sums().view(torch.int32), ref.view(torch.int32)):
+            d = (sums() - ref).abs().max().item()
+            raise AssertionError(f"K4 {b} differs in bits from the plain "
+                                 f"splat (max abs {d:.3g})")
+    film, p_film = case["film"], case["p_film"]
+    moved = k4_moved(film, p_film, case["radiance"], case["valid"])
+    touched = k4_touched(film, p_film, case["valid"])
+    log(f"K4: {p_film.shape[0]} samples onto {touched} pixels of the "
+        f"{tuple(ref.shape)} film, box {film.filter.radius}; every build "
+        "bit-equal with the plain splat")
+    timed = _turns({b: k4_call(lib, case, channels[b])[0]
+                    for b, lib in builds.items()}, reps, K4_KERNELS,
+                   cold=True)
+    rows = []
+    for b in builds:
+        r = _row("K4 step splat, L2 cold", b, timed[b],
+                 moved / PEAK_BYTES_PER_S * 1e3, "bytes",
+                 samples=p_film.shape[0], touched=touched, bytes=moved)
+        rows.append(r)
+        _log_row(log, r)
+    return rows
+
+
+def measure_k7(cap, builds, reps=20, log=print):
+    """Check every K7 build's take and put on the recorded slab, bit for
+    bit with the plain versions, and time them warm -> list of row
+    dicts."""
+    case = cap["k7"][0]
+    fields, w = case["fields"], case["w"]
+    with cuda.plain_reference():
+        call, ref_take = k7_call(None, case, False)
+        call()
+        call, ref_put = k7_call(None, case, True, ref_take)
+        call()
+    runs = {}
+    for b, lib in builds.items():
+        take, subs = k7_call(lib, case, False)
+        take()
+        put, full = k7_call(lib, case, True, ref_take)
+        put()
+        for label, out, ref in (("take", subs, ref_take),
+                                ("put", full, ref_put)):
+            if not all(torch.equal(x, y) for x, y in zip(out, ref)):
+                raise AssertionError(f"K7 {b} {label} differs from the "
+                                     "plain version")
+        runs[b] = (take, put)
+    moved = k7_moved(fields, w)
+    log(f"K7: {len(fields)} fields, {fields[0].shape[0]} lanes, a {w}-lane "
+        "slab; every build bit-equal with the plain take and put")
+    rows = []
+    for k, label in enumerate(("take", "put")):
+        timed = _turns({b: runs[b][k] for b in builds}, reps, K7_KERNELS)
+        for b in builds:
+            r = _row(f"K7 slab_{label}", b, timed[b],
+                     moved / PEAK_BYTES_PER_S * 1e3, "bytes",
+                     lanes=fields[0].shape[0], w=w, bytes=moved)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
-                    help="another atlas.cu or compact.cu to time "
-                         "(repeatable)")
+                    help="another film.cu, atlas.cu or compact.cu to "
+                         "time (repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the JSON result here")
     args = ap.parse_args(argv)
@@ -299,21 +556,28 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    builds, reports = build(args.other)
+    builds, reports, sass, channels = build(args.other)
     for name, lines in reports.items():
         for ln in lines:
             print(f"ptxas [{name}] {ln}", flush=True)
+    for name, fns in sass.items():
+        for fn, ops in fns.items():
+            print(f"sass [{name}] {fn}: {' '.join(ops)}", flush=True)
     dev = torch.device("cuda:0")
     ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
     r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=LANES),
                  device=dev)
     cap = capture_step(r, ctx, r.tiles[STEP_TILE])
-    print(f"step of tile {STEP_TILE}: {len(cap['k5'])} K5 calls, "
-          f"{len(cap['k6'])} K6 call", flush=True)
+    cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
+    print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
+          f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls; step of "
+          f"tile {SLAB_TILE}: {len(cap['k7'])} K7 take", flush=True)
     log = lambda s: print(s, flush=True)   # noqa: E731
-    rows = measure_k5(ctx, cap, builds[K5], args.reps, log) \
-        + measure_k6(cap, builds[K6], args.reps, log)
-    out = dict(card=card, ptxas=reports, rows=rows)
+    rows = measure_k4(cap, builds[K4], channels, args.reps, log) \
+        + measure_k5(ctx, cap, builds[K5], args.reps, log) \
+        + measure_k6(cap, builds[K6], args.reps, log) \
+        + measure_k7(cap, builds[K7], args.reps, log)
+    out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -10,7 +10,8 @@ counts [rows read, triangle tests] equal (the same walk, the same float
 operations in the same order), on camera rays, random soups, the small
 dragon and a table deeper than 16 levels; interaction fields within
 1e-5 absolute or relative (rsqrt rounds differently); film within 1e-5
-relative (atomic adds in no fixed order); atlas EWA within 1e-5 absolute on
+relative (atomic adds in no fixed order), bit for bit on the render's box
+0.5 splat (at most two taps a pixel); atlas EWA within 1e-5 absolute on
 at least 99.9% of the lanes and zero where reg < 0 (the plain version divides by the weight sum
 as a multiply by its reciprocal on the card, the kernel divides; a lane
 whose mip level sits on an integer may floor to the other level); the
@@ -34,6 +35,8 @@ from rustracer_tpu_torch.ops import compact as C
 from rustracer_tpu_torch.ops.gather import row_gather
 from rustracer_tpu_torch.ops.mipmap import (WRAP_BLACK, WRAP_CLAMP,
                                             WRAP_REPEAT, build_pyramid)
+from rustracer_tpu_torch.render.film import Film, FilmState
+from rustracer_tpu_torch.render.filters import Filter
 from rustracer_tpu_torch.render.renderer import Lanes, RenderConfig, Renderer
 from rustracer_tpu_torch.render.sampler import DimAllocator
 from rustracer_tpu_torch.scene import atlas as A
@@ -275,15 +278,97 @@ def test_build_interaction_matches_plain(scene):
 
 
 def test_film_matches_plain(scene):
+    """The render's splat (box 0.5, its tile's samples and valid mask) is
+    bit for bit the plain version's: a pixel takes at most two taps, and
+    a + b == b + a."""
     film, p_film, v = scene["film"], scene["p_film"], scene["valid"]
     rad = torch.rand((p_film.shape[0], 3), device=p_film.device)
 
     def fn():
         return film.add_samples(film.init_state(p_film.device), p_film, rad,
                                 valid=v)
+    n0 = K.LAUNCHES["film_add_samples"]
     out, ref = fn(), _plain(fn)
+    assert K.LAUNCHES["film_add_samples"] == n0 + 1
+    assert torch.equal(out.rgb.view(torch.int32), ref.rgb.view(torch.int32))
+    assert torch.equal(out.wsum.view(torch.int32),
+                       ref.wsum.view(torch.int32))
+    assert (out.wsum > 0).float().mean() > 0.9
+
+
+def _film_case(dev, case):
+    """-> (film, p_film, radiance, valid) of a K4 card test case."""
+    width, crop, max_lum = 0.5, (0.0, 0.0, 1.0, 1.0), float("inf")
+    n, res = 1 << 14, (96, 64)
+    if case == "box 1.5":
+        width = 1.5
+    elif case == "crop":
+        crop = (0.3, 0.15, 0.8, 0.9)
+    elif case == "max_lum":
+        max_lum = 1.25
+    elif case.startswith("n="):
+        n, res = int(case[2:]), (1024, 1024)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + len(case))
+    p_film = torch.rand((n, 2), generator=gen, device=dev) \
+        * torch.tensor([res[0] + 4.0, res[1] + 4.0], device=dev) - 2.0
+    p_film[:8] = torch.floor(p_film[:8])         # jitter exactly 0
+    rad = torch.rand((n, 3), generator=gen, device=dev) * 3.0
+    valid = None if case == "valid None" else \
+        torch.rand(n, generator=gen, device=dev) > 0.1
+    film = Film(full_resolution=res, crop_window=crop,
+                filter=Filter("box", width, width),
+                max_sample_luminance=max_lum)
+    return film, p_film, rad, valid
+
+
+@pytest.mark.parametrize("case", ["box 1.5", "crop", "valid None",
+                                  "max_lum", "n=0", "n=1",
+                                  f"n={(1 << 18) + 5}"])
+def test_film_cases_match_plain(dev, case):
+    """K4 against its plain version, two splats into one film: overlapping
+    taps (box 1.5, 3 x 3 a sample, contended reductions) within 1e-5
+    relative; a crop offset, no valid mask, the luminance clamp and 0, 1
+    and 2^18 + 5 samples likewise (the weights, sums of ones, exactly)."""
+    film, p_film, rad, valid = _film_case(dev, case)
+    n = p_film.shape[0]
+    half = n // 2
+
+    def fn():
+        st = film.init_state(dev)
+        for sl in (slice(0, half), slice(half, n)):
+            film.add_samples(st, p_film[sl], rad[sl],
+                             valid=None if valid is None else valid[sl])
+        return st
+    n0 = K.LAUNCHES["film_add_samples"]
+    out, ref = fn(), _plain(fn)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["film_add_samples"] == n0 + (half > 0) + (n > half)
     torch.testing.assert_close(out.rgb, ref.rgb, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(out.wsum, ref.wsum, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out.wsum, ref.wsum)
+    if n > 1:
+        assert (ref.wsum > 0).any()
+
+
+def test_film_refuses_other_layouts(scene):
+    """K4 takes only Film.init_state's views of one (H, W, 4) buffer:
+    separate (H, W, 3) and (H, W) sums, the views of a buffer that is not
+    16-byte aligned, or a transposed view are refused."""
+    film, p_film = scene["film"], scene["p_film"]
+    rad = torch.rand((p_film.shape[0], 3), device=p_film.device)
+    w, h = film.cropped_resolution
+    dev = p_film.device
+    apart = FilmState(rgb=torch.zeros((h, w, 3), device=dev),
+                      wsum=torch.zeros((h, w), device=dev))
+    shifted = torch.zeros(h * w * 4 + 1, device=dev)[1:].view(h, w, 4)
+    flipped = torch.zeros((w, h, 4), device=dev).transpose(0, 1)
+    n0 = K.LAUNCHES["film_add_samples"]
+    for st in (apart, FilmState(shifted[..., :3], shifted[..., 3]),
+               FilmState(flipped[..., :3], flipped[..., 3])):
+        with pytest.raises(ValueError, match="film state"):
+            film.add_samples(st, p_film, rad)
+    assert K.LAUNCHES["film_add_samples"] == n0
+    assert not apart.rgb.any() and not apart.wsum.any()
 
 
 def test_wrapper_refuses_bad_input(scene):
@@ -507,6 +592,61 @@ def test_slab_take_put_match_plain(dev):
         assert all(torch.equal(a, b) for a, b in zip(back, ref))
     assert K.LAUNCHES["slab_take"] == n0["slab_take"] + 2
     assert K.LAUNCHES["slab_put"] == n0["slab_put"] + 2
+
+
+_SLAB_N = 70001   # not a multiple of K7's 256-lane blocks
+
+
+@pytest.fixture(scope="module")
+def slab_fields(dev):
+    """Fields of 1, 4, 8 and 12 bytes a lane (bool, uint8, float32, int32,
+    int64, (n, 3) float32) over _SLAB_N lanes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    n = _SLAB_N
+    return [torch.rand((n, 3), generator=gen, device=dev),
+            torch.rand(n, generator=gen, device=dev) < 0.5,
+            torch.randint(0, 255, (n,), generator=gen, device=dev,
+                          dtype=torch.uint8),
+            torch.rand(n, generator=gen, device=dev),
+            torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+                          device=dev, dtype=torch.int32),
+            torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                          device=dev, dtype=torch.int64),
+            torch.rand((n, 3), generator=gen, device=dev) - 0.5]
+
+
+@pytest.mark.parametrize("kind", ["alive first", "permutation"])
+@pytest.mark.parametrize("w", [0, 1, _SLAB_N // 4, _SLAB_N // 2, _SLAB_N])
+def test_slab_moves_bit_equal(dev, slab_fields, kind, w):
+    """K7's take and put, bit for bit the plain versions, each one launch
+    (none for an empty slab), for slab widths from 0 to n, on an
+    alive-first order and on a random permutation."""
+    n = _SLAB_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(w)
+    if kind == "alive first":
+        order, _, _ = C.alive_first_order(
+            torch.rand(n, generator=gen, device=dev) < 0.4)
+    else:
+        order = torch.randperm(n, generator=gen, device=dev).int()
+    fields = slab_fields
+    n0 = dict(K.LAUNCHES)
+    subs = C.slab_take(fields, order, w)
+    ref = _plain(lambda: C.slab_take(fields, order, w))
+    assert K.LAUNCHES["slab_take"] == n0["slab_take"] + (w > 0)
+    for a, b in zip(subs, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    # the put writes over fields that hold other values, so a lane it
+    # misses shows
+    base = [f.flip(0).contiguous() for f in fields]
+    out = C.slab_put([f.clone() for f in base], subs, order, w)
+    assert K.LAUNCHES["slab_put"] == n0["slab_put"] + (w > 0)
+    ref = _plain(lambda: C.slab_put([f.clone() for f in base], subs, order,
+                                    w))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("width", [128, 16, 4])

@@ -1,7 +1,8 @@
-"""The measurement helpers of K4, K5 and K6 on the CPU: K5's work count
-(tools/atlas_work.py) against a count by hand on a tiny atlas, the cold
-timer's argument handling (tools/timing.py), and the recording of one
-render step's K5, K6 and K8 inputs (tools/bench_step_kernels.py)."""
+"""The measurement helpers of K4-K7 on the CPU: K5's work count
+(tools/atlas_work.py) and K4's and K7's byte counts
+(tools/bench_step_kernels.py) against counts by hand, the cold timer's
+argument handling (tools/timing.py), and the recording of one render
+step's K4-K8 inputs (tools/bench_step_kernels.py)."""
 from types import SimpleNamespace
 
 import pytest
@@ -11,12 +12,15 @@ from rustracer_tpu_torch.integrators import path as P
 from rustracer_tpu_torch.ops import compact as C
 from rustracer_tpu_torch.ops.mipmap import (WRAP_BLACK, WRAP_CLAMP,
                                             WRAP_REPEAT, build_pyramid)
+from rustracer_tpu_torch.render.film import Film
+from rustracer_tpu_torch.render.filters import Filter
 from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
 from rustracer_tpu_torch.scene import atlas as A
 from rustracer_tpu_torch.scene import materials as M
 from rustracer_tpu_torch.scenes import build_dragon
 from rustracer_tpu_torch.tools import atlas_work as W
 from rustracer_tpu_torch.tools import timing
+from rustracer_tpu_torch.tools import bench_step_kernels as B
 from rustracer_tpu_torch.tools.bench_step_kernels import capture_step
 
 torch.set_num_threads(1)
@@ -77,6 +81,45 @@ def test_k5_work_without_textured_lanes():
     assert W.k5_bound(work) == (48 / W.PEAK_BYTES_PER_S * 1e3, "bytes")
 
 
+# a 4 x 3 film; by hand, with box 0.5 each sample's one tap: (0.5, 0.5)
+# and (0.25, 0.5) on pixel (0, 0), (3.75, 2.5) on (3, 2), (1.0, 1.5) (on a
+# pixel edge) on (0, 1), (-3, -3) off the film, (2.5, 0.5) on (2, 0);
+# with box 1.5 (3 x 3 taps from ceil(p - 2)): the first two on x, y in
+# {0, 1}, the third on x {2, 3} x y {1, 2}, the fourth on x {0, 1} x y
+# {0, 1, 2}, the fifth off the film, the sixth on x {1, 2, 3} x y {0, 1}
+K4_SAMPLES = [[0.5, 0.5], [0.25, 0.5], [3.75, 2.5], [1.0, 1.5], [-3.0, -3.0],
+              [2.5, 0.5]]
+
+
+@pytest.mark.parametrize("width,masked,touched", [
+    (0.5, True, 3), (0.5, False, 4),
+    (1.5, True, 10), (1.5, False, 12),   # the sixth adds (2, 0) and (3, 0)
+])
+def test_k4_bytes_by_hand(width, masked, touched):
+    film = Film(full_resolution=(4, 3), filter=Filter("box", width, width))
+    p_film = torch.tensor(K4_SAMPLES)
+    rad = torch.ones(6, 3)
+    valid = torch.tensor([True] * 5 + [False]) if masked else None
+    assert B.k4_touched(film, p_film, valid) == touched
+    # 8 + 12 (+ 1) bytes a sample in, 16 bytes a touched pixel read and
+    # written
+    assert B.k4_moved(film, p_film, rad, valid) \
+        == 6 * (20 + masked) + 32 * touched
+    # the plain splat's nonzero weights land on exactly those pixels
+    st = film.add_samples(film.init_state("cpu"), p_film, rad, valid)
+    assert int((st.wsum > 0).sum()) == touched
+
+
+def test_k7_bytes_by_hand():
+    n, w = 5, 2
+    fields = [torch.zeros(n, 3), torch.zeros(n), torch.zeros(n, dtype=bool),
+              torch.zeros(n, dtype=torch.int64)]
+    # 4 bytes of order a slab lane; 12 + 4 + 1 + 8 bytes a lane read and
+    # written
+    assert B.k7_moved(fields, w) == w * (4 + 2 * 25)
+    assert B.k7_moved(fields, 0) == 0
+
+
 def test_cold_ms_argument_handling():
     with pytest.raises(ValueError, match="reps"):
         timing.cold_ms(lambda: None, reps=0)
@@ -93,9 +136,9 @@ def test_cold_ms_argument_handling():
 
 def test_capture_step_records_the_step(monkeypatch):
     """A 32^2 textured dragon in one 1024-lane tile, with the slab tiers
-    opened to it: the step makes 4 K5 calls (bounce 0 and 3 interior
-    bounces, one atlas slot), 1 K6 call and 4 material-row gathers, and
-    recording them leaves the step's result unchanged."""
+    opened to it: the step makes 1 splat, 4 K5 calls (bounce 0 and 3
+    interior bounces, one atlas slot), 1 K6 call and 4 material-row
+    gathers, and recording them leaves the step's result unchanged."""
     monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 256)
     ctx, cam, film, sampler, integ, _ = build_dragon(sub=3, res=(32, 32),
                                                      device="cpu")
@@ -109,7 +152,10 @@ def test_capture_step_records_the_step(monkeypatch):
         == recorded
     assert torch.equal(r.step(ctx, film.init_state("cpu"), px, py, 1,
                               v).rgb, before)
-    assert [len(cap[k]) for k in ("k5", "k6", "k8")] == [4, 1, 4]
+    assert [len(cap[k]) for k in ("k4", "k5", "k6", "k8")] == [1, 4, 1, 4]
+    k4 = cap["k4"][0]
+    assert k4["film"] is film and k4["p_film"].shape == (1024, 2)
+    assert k4["radiance"].shape == (1024, 3) and k4["valid"].all()
     assert cap["k6"][0].dtype == torch.bool
     assert cap["k6"][0].shape == (1024,)
     first = cap["k5"][0]
@@ -122,3 +168,55 @@ def test_capture_step_records_the_step(monkeypatch):
         assert work["rows"] <= 16 * work["textured"]
     table, idx = cap["k8"][0]
     assert table.shape[1] == 16 and idx.shape == (1024,)
+
+
+def test_capture_step_records_the_slab(monkeypatch):
+    """The top 256-lane tile of a 32^2 textured dragon, mostly sky, takes
+    the B/4 slab: K7's fields are recorded as bounce 0 left them (the put
+    at the end of the step writes into them), and the plain take and put
+    of the tool move them back where they were."""
+    monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 256)
+    ctx, cam, film, sampler, integ, _ = build_dragon(sub=3, res=(32, 32),
+                                                     device="cpu")
+    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=256),
+                 device="cpu")
+    cap = capture_step(r, ctx, r.tiles[0])
+    assert len(cap["k7"]) == 1
+    case = cap["k7"][0]
+    fields, order, w = case["fields"], case["order"], case["w"]
+    assert w == 64 and len(fields) == len(P.SLAB_FIELDS) + 2
+    assert all(f.shape[0] == 256 for f in fields)
+    assert sorted(order.tolist()) == list(range(256))
+    take, subs = B.k7_call(None, case, False)
+    take()
+    put, full = B.k7_call(None, case, True, subs)
+    put()
+    sel = order[:w].long()
+    for f, s, g in zip(fields, subs, full):
+        assert torch.equal(s, f[sel]) and torch.equal(g[sel], f[sel])
+    assert B.k7_moved(fields, w) == w * (4 + 2 * 86)
+
+
+SASS = """
+        code for sm_90a
+                Function : _Z1kPf
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/    LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+        /*0010*/    LDG.E.64.CONSTANT R2, desc[UR4][R2.64] ; /* 0x0000000402 */
+        /*0020*/    @P0 EXIT ;                          /* 0x000000000000094d */
+        /*0030*/    @!P1 REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU desc[UR4][R6.64], R8 ;
+                                                        /* 0x000fe2000c12f304 */
+        /*0040*/    STS [R0], R3 ;                      /* 0x0000000300007388 */
+                Function : _Z1jPi
+        /*0000*/    STG.E.U8 desc[UR4][R2.64], R5 ;     /* 0x0000000502007986 */
+        /*0010*/    BRA 0x10;                           /* 0xfffffffc00fc7947 */
+"""
+
+
+def test_sass_memory_ops_in_program_order():
+    """The loads, stores and reductions of each kernel, predicates
+    dropped, modifiers kept; other instructions and encodings skipped."""
+    assert B.memory_ops(SASS) == {
+        "_Z1kPf": ["LDG.E.64.CONSTANT", "REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU",
+                   "STS"],
+        "_Z1jPi": ["STG.E.U8"]}
