@@ -36,13 +36,36 @@ Phases, each printing its lines:
      and the slab tiers taken in that run;
   7. a 1024 x 128 crop of it at 1 spp in 2^16-lane tiles (one takes the B/4
      slab, one the B/2 slab), kernel path against the all-plain path;
-  8. the launches of one full-width textured step (tile 2), a JSON line
-     of the kernels (times, bounds, library yardsticks, launches in the
-     counted textured render and per step; K8 has a row for the tool's
-     shape and one for the render's), the card line, and the result line.
+  8. the launches of one full-width textured step (tile 2);
+  9. the backward kernels against their plain versions on the recorded
+     backward pass of a full-width textured step
+     (tools/bench_step_kernels.capture_grad_step): K9 (the splat's
+     radiance gradient, bit for bit), K10 (the atlas EWA texel gradient,
+     within 1e-5 of the plain result's largest magnitude: atomic sums in
+     another order) and K11 (the material rows' gradient: each entry sums
+     some 10^5 terms of both signs, so within 1e-4 of the sum of its terms'
+     magnitudes) on tile 2, K7 as its own transpose (the take's and the
+     put's backward, bit for bit) on tile 0, each timed with its bound and
+     yardstick;
+ 10. the Cornell box at 256^2 with atlas imagemap walls: 3 train steps
+     (parallel/mesh.make_train_step, lr 0.1, sample 0, the target its
+     render with every albedo scaled by 0.5), counted, the loss falling and
+     every gradient finite; then its fwd+bwd loss timed
+     (tools/bench_fwdbwd.py: 4 samples, depth 5, compaction off);
+ 11. one train step of the textured dragon at 1024^2 (sample 0, 2^18-lane
+     tiles, compaction on, the target its render with the hero's albedo
+     scaled by 0.5), counted, with its wall time and peak device memory;
+     then its 1024 x 128 crop in 2^16-lane tiles (both slab tiers taken),
+     the gradient of every float leaf of the kernel path against the
+     all-plain path within the CPU parity bound (||d|| / ||g|| <= 1e-3,
+     every element within 1e-2 max |g|);
+ 12. a JSON line of the kernels (times, bounds, library yardsticks,
+     launches in the counted path that runs them and per step; K8 has a
+     row for the tool's shape and one for the render's, K7 rows for its
+     moves and for its transposes), the card line, and the result line.
 Each path (the gather tool, the matte render, the textured render, the
-textured step) is run with the launch counts set to 0 just before it and
-read just after.
+textured step, the Cornell train steps, the dragon train step) is run with
+the launch counts set to 0 just before it and read just after.
 Any failed check raises; there is no CPU fallback.
 """
 import contextlib
@@ -87,7 +110,17 @@ SOURCES = {
                  "rustracer_tpu/integrators/path.py:87"),
     "row_gather": ("rustracer_tpu_torch/csrc/gather.cu",
                    "tools/bench_gather_pallas.py:26"),
+    "film_add_samples_bwd": ("rustracer_tpu_torch/csrc/film_bwd.cu",
+                             "rustracer_tpu/render/film.py:67"),
+    "atlas_lookup_ewa_bwd": ("rustracer_tpu_torch/csrc/atlas_bwd.cu",
+                             "rustracer_tpu/scene/atlas.py:174"),
+    "row_gather_bwd": ("rustracer_tpu_torch/csrc/gather_bwd.cu",
+                       "tools/bench_gather_pallas.py:26"),
 }
+# the transposes of K7 (rustracer_tpu/integrators/path.py _perm_take_bwd,
+# _perm_put_bwd)
+TRANSPOSES = {"slab_take transpose": "rustracer_tpu/integrators/path.py:74",
+              "slab_put transpose": "rustracer_tpu/integrators/path.py:96"}
 # the rows of the kernels line: result key -> (kernel, the inputs timed)
 ROWS = {
     "sample_1d": ("sample_1d", "2^18 lanes of the matte render's tile 2"),
@@ -113,7 +146,30 @@ ROWS = {
     "row_gather material rows": ("row_gather",
                                  "the render: 2^18 lanes' material rows of "
                                  "16 float32"),
+    "film_add_samples_bwd": ("film_add_samples_bwd",
+                             "the radiance gradient of a full-width "
+                             "textured step's splat (tile 2)"),
+    "atlas_lookup_ewa_bwd": ("atlas_lookup_ewa_bwd",
+                             "mean of the 4 calls of a full-width textured "
+                             "step's backward (tile 2), quad layout"),
+    "row_gather_bwd": ("row_gather_bwd",
+                       "mean of the 4 material-row gradients of a "
+                       "full-width textured step's backward (tile 2)"),
+    "slab_take transpose": ("slab_put",
+                            "the take's backward: the slab's 2 float "
+                            "gradients put into full-width zeros (tile 0)"),
+    "slab_put transpose": ("slab_take",
+                           "the put's backward: a take of the 2 float "
+                           "gradients and a put of zeros, two launches "
+                           "(tile 0)"),
 }
+# the rows whose launches are counted in the dragon train step
+TRAIN_ROWS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
+              "row_gather_bwd", "slab_take transpose", "slab_put transpose")
+# operations a textured lane of K10 does: K5's set-up (about 60), then for
+# 8 taps x 2 levels the bilinear set-up (12) and 4 corners of a weight (3),
+# its product with the lane's 3 gradients and the address (10)
+K10_LANE_OPS = 60 + 16 * (12 + 4 * 13)
 # the kernels the matte render runs (no texture, no slab at its widths)
 MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
               "traverse16_any", "build_interaction_tri", "film_add_samples",
@@ -576,8 +632,275 @@ def render_counted(label, renderer, film, ctx, samples, card):
     return launches, tiers
 
 
+def check_backward(renderer, ctx, results):
+    """K9, K10 and K11 on the recorded backward pass of one full-width
+    textured step (tile 2), K7's transposes on that of tile 0, each
+    against its plain version, timed, bounded and with its yardstick."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.ops import compact as C
+    from rustracer_tpu_torch.ops.gather import row_gather_bwd
+    from rustracer_tpu_torch.scene import atlas as A
+    from rustracer_tpu_torch.tools.atlas_work import k5_work
+    from rustracer_tpu_torch.tools.bench_step_kernels import (
+        capture_grad_step, k4_touched, k7_moved)
+    from rustracer_tpu_torch.tools.timing import kernel_ms, queued_ms
+
+    cap = capture_grad_step(renderer, ctx, renderer.tiles[2])
+    slab = capture_grad_step(renderer, ctx, renderer.tiles[0])
+    log(f"[9] recorded the backward of textured tile 2: "
+        f"{len(cap['k9'])} K9, {len(cap['k10'])} K10, {len(cap['k11'])} "
+        f"K11 calls; of tile 0: {len(slab['take_t'])} take and "
+        f"{len(slab['put_t'])} put transposes")
+
+    # K9, bit for bit
+    (film, g_acc, p_film, rad, valid), _ = cap["k9"][0]
+    out, ref, ms, pms = both(
+        lambda: film.add_samples_bwd(g_acc, p_film, rad, valid),
+        "film_add_bwd_kernel")
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("film_add_samples_bwd differs in bits from "
+                             "the plain gather")
+    h, w = g_acc.shape[:2]
+    iy, ix, fw, ok = next(film.taps(p_film, valid, h, w))
+    iy, ix = iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long()
+    fw = torch.where(ok, fw, 0.0)[:, None]
+    g_rgb = g_acc[..., :3]
+    lib_ms = queued_ms(lambda: g_rgb[iy, ix] * fw, 20)
+    # samples in, their gradients out, each touched pixel's 16 bytes read
+    results["film_add_samples_bwd"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        **bound(nbytes(p_film, rad, out) + valid.numel()
+                + 16 * k4_touched(film, p_film, valid)))
+    log(f"[9] film_add_samples_bwd: bit-equal on {p_film.shape[0]} samples; "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, g_rgb[iy, ix] * fw (one "
+        f"tap) {lib_ms:.4f} ms, bound "
+        f"{results['film_add_samples_bwd']['bound_ms']:.4f} ms")
+
+    # K10 on its 4 calls, within 1e-5 of the plain result's max
+    rows = []
+    for i in range(len(cap["k10"])):
+        (g, texels, meta, levels, regs, reg, si, qidx), _ = cap["k10"][i]
+
+        def k10(g=g, texels=texels, meta=meta, levels=levels, regs=regs,
+                reg=reg, si=si, qidx=qidx):
+            return A.atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg,
+                                          si, qidx)
+        out, ref, ms, pms = both(k10, "atlas_ewa_bwd_kernel")
+        err = (out - ref).abs().max().item()
+        top = ref.abs().max().item()
+        work = k5_work(meta, levels, regs, reg, si, qidx is not None)
+        n_tex = work["textured"]
+        moved = nbytes(reg, out) + n_tex * (8 + 16 + 12)
+        b = bound(moved, n_tex * K10_LANE_OPS)
+        log(f"[9] atlas_lookup_ewa_bwd call {i}: {reg.shape[0]} lanes, "
+            f"{n_tex} textured, {texels.shape[0]} texels, quad "
+            f"{qidx is not None}; max abs err {err:.3g} of max {top:.3g} "
+            f"(<= 1e-5 of it); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if not err <= 1e-5 * top or not bool(torch.isfinite(out).all()):
+            raise AssertionError("atlas_lookup_ewa_bwd differs from the "
+                                 "plain backward")
+        rows.append((ms, pms, b["bound_ms"], b["bound_by"], err))
+    by = [r[3] for r in rows]
+    results["atlas_lookup_ewa_bwd"] = dict(
+        max_abs_err=max(r[4] for r in rows),
+        ms=float(np.mean([r[0] for r in rows])),
+        plain_ms=float(np.mean([r[1] for r in rows])),
+        bound_ms=float(np.mean([r[2] for r in rows])),
+        bound_by=max(set(by), key=by.count))
+
+    # K11 on its 4 calls; the plain version is the library call,
+    # index_add_ (atomics on the card too). A table entry sums some 10^5
+    # lanes' gradients of both signs, so the two orders' rounding is held
+    # to the sum of the terms' magnitudes (as tests/test_torch_cuda.py):
+    # each entry within 1e-4 of it; the error against the plain result's
+    # largest entry is printed beside
+    rows = []
+    for i in range(len(cap["k11"])):
+        (g, idx, n_rows), _ = cap["k11"][i]
+        out, ref, ms, pms = both(lambda g=g, idx=idx, n_rows=n_rows:
+                                 row_gather_bwd(g, idx, n_rows),
+                                 "row_gather_bwd_kernel")
+        with K.plain_reference():
+            ref_abs = row_gather_bwd(g.abs(), idx, n_rows)
+        d = (out - ref).abs()
+        err, top = d.max().item(), ref.abs().max().item()
+        of_abs = (d / ref_abs.clamp(min=1e-30)).max().item()
+        log(f"[9] row_gather_bwd call {i}: {g.shape[0]} x {g.shape[1]} into "
+            f"{n_rows} rows; max abs err {err:.3g}, {err / top:.3g} of the "
+            f"plain result's max {top:.3g}, {of_abs:.3g} of its entry's "
+            f"sum of magnitudes (<= 1e-4)")
+        if not of_abs <= 1e-4:
+            raise AssertionError("row_gather_bwd differs from index_add_")
+        b = bound(nbytes(g, idx, out))
+        rows.append((ms, pms, b["bound_ms"], err))
+        log(f"[9] row_gather_bwd call {i}: kernel {ms:.4f} ms, index_add_ "
+            f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    results["row_gather_bwd"] = dict(
+        max_abs_err=max(r[3] for r in rows),
+        ms=float(np.mean([r[0] for r in rows])),
+        plain_ms=float(np.mean([r[1] for r in rows])),
+        library_ms=float(np.mean([r[1] for r in rows])),
+        bound_ms=float(np.mean([r[2] for r in rows])), bound_by="bytes")
+
+    # K7 as its own transpose, bit for bit, on tile 0's slab
+    (order, w, g_subs, shapes), _ = slab["take_t"][0]
+    fields = [torch.empty(s_, dtype=d, device=order.device)
+              for s_, d in shapes]
+    out, ref, ms, pms = both(lambda: C.take_transpose(order, w, g_subs,
+                                                      shapes), "slab_kernel")
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError("the take's transpose differs from the plain")
+    results["slab_take transpose"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, **bound(k7_moved(fields, w)))
+    log(f"[9] slab_take transpose: {len(g_subs)} gradients of a {w}-lane "
+        f"slab, equal; K7 {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{results['slab_take transpose']['bound_ms']:.4f} ms")
+    (order, w, g_full), _ = slab["put_t"][0]
+    out, ref, _, pms = both(lambda: C.put_transpose(order, w, g_full),
+                            "slab_kernel")
+    if not all(torch.equal(a, b) for a, b in zip(out[0] + out[1],
+                                                 ref[0] + ref[1])):
+        raise AssertionError("the put's transpose differs from the plain")
+    # two K7 launches a call (the take, the put of zeros): their mean by
+    # name, twice
+    ms = 2 * kernel_ms(lambda: C.put_transpose(order, w, g_full), 20,
+                       "slab_kernel")
+    results["slab_put transpose"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms,
+        **bound(2 * k7_moved(g_full, w)))
+    log(f"[9] slab_put transpose: {len(g_full)} gradients, equal; K7 "
+        f"{ms:.4f} ms (two launches), plain {pms:.4f} ms, bound "
+        f"{results['slab_put transpose']['bound_ms']:.4f} ms")
+
+
+def _finite(tensors):
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def cornell_train(dev, card):
+    """3 counted train steps of the 256^2 Cornell with imagemap walls (the
+    loss must fall, every gradient be finite), then its fwd+bwd rays/s."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.parallel.mesh import (float_leaves,
+                                                   make_train_step)
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.scenes import build_cornell
+    from rustracer_tpu_torch.tools import bench_fwdbwd
+
+    ctx, cam, film, sampler, integ = build_cornell(imagemap_walls=(1, 2),
+                                                   device=dev)
+    config = RenderConfig(max_lanes=1 << 16)
+    target = bench_fwdbwd.half_albedo_target(
+        Renderer(integ.li, cam, film, sampler, config, device=dev), ctx,
+        scale_const=True)
+    step = make_train_step(integ.li, cam, film, sampler, lr=0.1,
+                           config=config, device=dev)
+    losses = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        new, loss = step(ctx, target, 0)
+        old, _ = float_leaves(ctx.textures)
+        grads = [(p - q) / 0.1 for p, q in
+                 zip(old, float_leaves(new.textures)[0])]
+        if not _finite(grads):
+            raise AssertionError("non-finite Cornell gradient")
+        losses.append(loss.item())
+        ctx = new
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[10] Cornell 256^2 imagemap walls, 3 train steps (sample 0, lr "
+        f"0.1) in {wall:.3f} s: losses {losses}; launches "
+        f"{dict(K.LAUNCHES)}")
+    if not (losses[0] > losses[1] > losses[2]):
+        raise AssertionError(f"the Cornell loss did not fall: {losses}")
+    r = bench_fwdbwd.bench_cornell(dev)
+    log(f"[10] Cornell fwd+bwd (tools/bench_fwdbwd.py: 256^2 x "
+        f"{bench_fwdbwd.SPP_BWD} spp, depth 5, compaction off): "
+        f"{r['rays_per_s']:.1f} rays/s, best {r['best_s']:.4f} s of "
+        f"{r['times_s']}, loss {r['loss']:.7g}, gradients finite "
+        f"{r['grads_finite']}, on {card}")
+    if not r["grads_finite"]:
+        raise AssertionError("non-finite Cornell fwd+bwd gradient")
+
+
+def dragon_train(dev, card, geometry, ctx, cam, sampler, integ):
+    """One counted train step of the 1024^2 textured dragon with its wall
+    time and peak memory; then the 1024 x 128 crop's gradients, kernel
+    path against the all-plain path. -> the step's launches."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.integrators import path as P
+    from rustracer_tpu_torch.parallel.mesh import (float_leaves, grad_errors,
+                                                   make_train_step)
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.filters import Filter
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools.bench_fwdbwd import half_albedo_target
+
+    film = Film(full_resolution=RES, filter=Filter("box", 0.5, 0.5))
+    config = RenderConfig(max_lanes=LANES)
+    target = half_albedo_target(Renderer(integ.li, cam, film, sampler,
+                                         config, device=dev), ctx)
+    step = make_train_step(integ.li, cam, film, sampler, lr=0.1,
+                           config=config, device=dev)
+    step(ctx, target)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    P.reset_tiers()
+    t0 = time.perf_counter()
+    new, loss = step(ctx, target)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tiers = dict(K.LAUNCHES), dict(P.TIERS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    old, _ = float_leaves(ctx.textures)
+    grads = [(p - q) / 0.1 for p, q in zip(old, float_leaves(
+        new.textures)[0])]
+    log(f"[11] dragon train step {RES[0]}x{RES[1]}, sample 0, 2^18-lane "
+        f"tiles: {wall:.3f} s wall, loss {loss.item():.7g}, peak "
+        f"torch.cuda.max_memory_allocated {peak} bytes "
+        f"({peak / 2 ** 30:.3f} GiB), slab tiers {tiers}, on {card}")
+    log(f"[11] launches: {launches}")
+    if not (_finite(grads) and bool(torch.isfinite(loss))):
+        raise AssertionError("non-finite dragon loss or gradient")
+    if max(g.abs().max().item() for g in grads) <= 0:
+        raise AssertionError("the dragon's gradient is zero")
+
+    crop_film = Film(full_resolution=RES, crop_window=TEX_CROP,
+                     filter=Filter("box", 0.5, 0.5))
+    crop_config = RenderConfig(max_lanes=TEX_CROP_LANES)
+    crop_target = half_albedo_target(Renderer(integ.li, cam, crop_film,
+                                              sampler, crop_config,
+                                              device=dev), ctx)
+    crop_step = make_train_step(integ.li, cam, crop_film, sampler, lr=1.0,
+                                config=crop_config, device=dev)
+    runs = []
+    for plain in (False, True):
+        P.reset_tiers()
+        with K.plain_reference() if plain else contextlib.nullcontext():
+            new, loss = crop_step(ctx, crop_target)
+        runs.append(([p - q for p, q in zip(old, float_leaves(
+            new.textures)[0])], loss.item(), dict(P.TIERS)))
+    (g_k, l_k, tiers_k), (g_p, l_p, tiers_p) = runs
+    rel, elem = grad_errors(g_k, g_p)
+    log(f"[11] crop {TEX_CROP} in 2^16-lane tiles: loss kernel {l_k:.7g}, "
+        f"plain {l_p:.7g}; gradients ||d|| / ||g|| {rel:.3g} (<= 1e-3), "
+        f"max |d| / max |g| {elem:.3g} (<= 1e-2); slab tiers kernel "
+        f"{tiers_k}, plain {tiers_p}")
+    if tiers_k[2] == 0 or tiers_k[4] == 0:
+        raise AssertionError(f"the crop missed a slab tier: {tiers_k}")
+    if not (rel <= 1e-3 and elem <= 1e-2 and _finite(g_k)):
+        raise AssertionError("the crop's gradients differ from the plain "
+                             "path's")
+    return launches
+
+
 def run(dev, card):
-    """Phases 3 to 8 on device ``dev``."""
+    """Phases 3 to 12 on device ``dev``."""
+    from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -626,7 +949,7 @@ def run(dev, card):
     trenderer.render_state(tctx, sample_stop=1)
     launches, tiers = render_counted("[6]", trenderer, tfilm, tctx, SAMPLES,
                                      card)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in K.FORWARD_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
     if tiers[2] + tiers[4] == 0:
@@ -643,16 +966,29 @@ def run(dev, card):
     # dragon, at full width
     per_step = step_launches(trenderer, tctx, trenderer.tiles[2])
     log(f"[8] launches in one full-width textured step (tile 2): {per_step}")
+
+    # 9-11: the gradient path
+    check_backward(trenderer, tctx, results)
+    cornell_train(dev, card)
+    train_launches = dragon_train(dev, card, geometry, tctx, tcam, tsampler,
+                                  tinteg)
     kernels = []
     for key, (name, case) in ROWS.items():
         r = results[key]
+        train = key in TRAIN_ROWS
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0],
-            replaces=SOURCES[name][1], launches=launches[name],
+            replaces=TRANSPOSES.get(key, SOURCES[name][1]),
+            launches=(train_launches if train else launches)[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            launches_per_step=per_step[name], case=case))
+            launches_per_step=None if train else per_step[name],
+            launches_counted_in="dragon train step" if train
+            else "textured render", case=case))
+    missing = [k for k in K.BACKWARD_KERNELS if train_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"backward kernels not launched: {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

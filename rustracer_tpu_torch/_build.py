@@ -4,13 +4,16 @@ Each library is built into ``build/rustracer_tpu_torch/<name>-<key>/`` beside
 the package (a directory that version control ignores), keyed by a hash of
 its sources and its command line, so an edited source or flag rebuilds and
 an unchanged one loads the cached build. Concurrent builders (test workers)
-write to a private temporary name and rename it into place atomically.
+write to a private temporary name and rename it into place atomically. A
+library of several sources compiles each to an object file, all at once,
+and links the objects.
 """
 from __future__ import annotations
 
 import hashlib
 import os
 import subprocess
+import tempfile
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
@@ -36,8 +39,27 @@ def compile_shared(name: str, sources, command, timeout: float = 600.0):
         return lib
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib}.tmp{os.getpid()}"
-    proc = subprocess.run(list(command) + ["-o", tmp] + list(sources),
-                          capture_output=True, text=True, timeout=timeout)
+    with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
+        inputs = list(sources)
+        if len(inputs) > 1:
+            compile_only = [a for a in command if a != "-shared"] + ["-c"]
+            objs = [os.path.join(obj_dir, f"{i}.o")
+                    for i in range(len(inputs))]
+            procs = [subprocess.Popen(compile_only + [src, "-o", obj],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(inputs, objs)]
+            for src, p in zip(inputs, procs):
+                out, _ = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    for q in procs:
+                        q.kill()
+                    raise RuntimeError(f"building {name}: {src} failed "
+                                       f"({' '.join(compile_only)}):\n{out}")
+            inputs = objs
+        proc = subprocess.run(list(command) + ["-o", tmp] + inputs,
+                              capture_output=True, text=True,
+                              timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"building {name} failed ({' '.join(command)}):\n"
                            f"{proc.stdout}\n{proc.stderr}")

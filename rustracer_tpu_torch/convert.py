@@ -68,14 +68,19 @@ def lights_from_jax(lt, device="cuda") -> LightTables:
         l_tri_rev=_t(lt.l_tri_rev, torch.bool, device))
 
 
-def textures_from_jax(textures, device="cuda") -> dict:
+def textures_from_jax(textures, device="cuda",
+                      requires_grad=False) -> dict:
     """{"const": {key: array}, "images": [pyramid], "atlas_meta",
     "atlas_levels"} -> the same dict of tensors (float32 values, int32
-    atlas metadata); keys the JAX dict lacks stay absent."""
-    out = {"const": {k: _t(v, torch.float32, device)
-                     for k, v in textures["const"].items()}}
+    atlas metadata); keys the JAX dict lacks stay absent. With
+    ``requires_grad`` the float leaves (the constants and every pyramid
+    level) are leaves that require grad."""
+    def leaf(v):
+        return _t(v, torch.float32, device).requires_grad_(requires_grad)
+
+    out = {"const": {k: leaf(v) for k, v in textures["const"].items()}}
     if "images" in textures:
-        out["images"] = [[_t(lv, torch.float32, device) for lv in pyr]
+        out["images"] = [[leaf(lv) for lv in pyr]
                          for pyr in textures["images"]]
     for key in ("atlas_meta", "atlas_levels"):
         if key in textures:

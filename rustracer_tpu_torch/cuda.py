@@ -13,6 +13,13 @@ explicit ``plain_reference()`` scope, which checks the kernels against
 their plain versions.
 
 ``LAUNCHES`` counts, per C entry point, the launches made outside that scope.
+
+Autograd cannot see through a ctypes call: a kernel handed a tensor that
+requires grad would cut the graph without a word. So ``launch`` raises for
+such a tensor while grad mode is on, except inside ``differentiable()``,
+the scope in which this package's ``torch.autograd.Function``s launch the
+forward kernels and their backward kernels (K9-K11, K7 as its own
+transpose).
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 from ._build import CSRC, compile_shared
 
 CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
-              "atlas.cu", "compact.cu", "gather.cu")
+              "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
+              "atlas_bwd.cu", "gather_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,7 +58,17 @@ SIGNATURES = {
     "slab_take": [_P, _I, _I, _P, _P, _P, _P],
     "slab_put": [_P, _I, _I, _P, _P, _P, _P],
     "row_gather": [_P, _P, _I, _I, _P, _P],
+    "film_add_samples_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _F, _P, _P],
+    "atlas_lookup_ewa_bwd": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
+    + [_P, _I, _P],
+    "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P],
 }
+# the backward kernels (K9-K11), launched only by autograd's backward pass;
+# K7 is its own transpose and counts as slab_take / slab_put
+BACKWARD_KERNELS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
+                    "row_gather_bwd")
+FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in BACKWARD_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
@@ -59,6 +77,7 @@ _lib = None
 
 class _Route(threading.local):
     plain = False
+    function = False
 
 
 _route = _Route()
@@ -74,6 +93,31 @@ def plain_reference():
         yield
     finally:
         _route.plain = prev
+
+
+@contextlib.contextmanager
+def differentiable():
+    """The scope of this package's autograd Functions: launches inside it
+    may take tensors that require grad (the Function carries the
+    gradient)."""
+    prev = _route.function
+    _route.function = True
+    try:
+        yield
+    finally:
+        _route.function = prev
+
+
+def check_grad(name: str, tensors):
+    """Raise if grad mode is on, the call is outside ``differentiable()``
+    and one of ``tensors`` requires grad: the kernel would cut the graph."""
+    if _route.function or not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"kernel {name}: a tensor argument requires grad, and a kernel "
+            "launch is invisible to autograd; call it through its "
+            "differentiable wrapper")
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -134,7 +178,9 @@ def _arg(a):
 def launch(name: str, *args, lib=None):
     """Call C entry point ``rt_<name>`` on the current stream; raise if the
     launch failed. A launch of the kernel library is counted; ``lib``, a
-    ``load``ed other build of an entry point, is launched uncounted."""
+    ``load``ed other build of an entry point, is launched uncounted.
+    Raises for a tensor that requires grad (``check_grad``)."""
+    check_grad(name, args)
     fn = getattr(lib or library(), "rt_" + name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*[_arg(a) for a in args], stream)

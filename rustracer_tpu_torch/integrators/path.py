@@ -221,6 +221,11 @@ class PathIntegrator:
         if w == n:
             return self._bounces(ctx, sampler, lanes, st, base1, base2)
         full = [getattr(st, f).contiguous() for f in SLAB_FIELDS]
+        if torch.is_grad_enabled() and (st.L.requires_grad
+                                        or st.beta.requires_grad):
+            # the graph has saved some of these tensors (the alive mask as
+            # a where condition): the put below writes into copies
+            full = [f.clone() for f in full]
         sub = C.slab_take(full + [lanes.pixel_idx.contiguous(),
                                   lanes.sample_idx.contiguous()], order, w)
         k = len(SLAB_FIELDS)
@@ -229,8 +234,9 @@ class PathIntegrator:
                                         sample_idx=sub[k + 1])
         sub_st = self._bounces(ctx, sampler, sub_lanes, sub_st, base1, base2)
         # the slab's lanes go back into the full-width state in place: the
-        # tensors of st were made by this step's bounce-0 scatter
-        C.slab_put(full, [getattr(sub_st, f) for f in SLAB_FIELDS], order,
-                   w)
+        # tensors of st were made by this step's bounce-0 scatter (under
+        # autograd the put marks them dirty)
+        full = C.slab_put(full, [getattr(sub_st, f) for f in SLAB_FIELDS],
+                          order, w)
         return _PathState(**dict(zip(SLAB_FIELDS, full)))
 

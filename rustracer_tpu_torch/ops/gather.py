@@ -1,5 +1,7 @@
 """Row gather ``out[i] = table[idx[i]]`` and its hand kernel K8
-(csrc/gather.cu), the port of tools/bench_gather_pallas.py ``pallas_gather``.
+(csrc/gather.cu), the port of tools/bench_gather_pallas.py ``pallas_gather``,
+with its backward, hand kernel K11 (csrc/gather_bwd.cu): the scatter-add of
+the row gradients into the table's gradient.
 
 K8 copies float4s with neighbouring threads on neighbouring addresses; a
 128-float (512-byte) BVH row is one warp. The render uses it for the
@@ -13,6 +15,8 @@ import torch
 from .. import cuda
 
 MAX_ROWS = (1 << 31) - 1
+# floats of the table gradient K11 sums in one block's shared memory
+K11_MAX_FLOATS = 12288
 
 
 def row_gather_plain(table, idx):
@@ -40,8 +44,12 @@ def _check(table, idx):
 def row_gather(table, idx):
     """Rows ``idx`` (B,) int32 of ``table`` (R, W) float32, W a multiple of
     4, both contiguous on one device; every index must lie in [0, R).
-    CPU tensors take the plain version, CUDA tensors launch K8."""
+    CPU tensors take the plain version, CUDA tensors launch K8. A table
+    that requires grad (grad mode on) goes through an autograd Function
+    whose backward is ``row_gather_bwd``."""
     _check(table, idx)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _RowGather.apply(table, idx)
     if not cuda.use_kernel(table):
         return row_gather_plain(table, idx)
     n = idx.shape[0]
@@ -50,3 +58,47 @@ def row_gather(table, idx):
     if n:
         cuda.launch("row_gather", table, idx, n, table.shape[1], out)
     return out
+
+
+def row_gather_bwd_plain(g, idx, rows):
+    """Plain PyTorch version of K11: ``zeros(R, W).index_add_(0, idx, g)``."""
+    return torch.zeros((rows, g.shape[1]), dtype=g.dtype,
+                       device=g.device).index_add_(0, idx.long(), g)
+
+
+def row_gather_bwd(g, idx, rows):
+    """The table gradient (R, W) of ``row_gather``: row gradients ``g``
+    (B, W) summed into the rows ``idx`` (B,) int32 they came from. CPU
+    tensors take the plain version, CUDA tensors launch K11, which sums a
+    block's lanes in shared memory first (R * W at most K11_MAX_FLOATS)
+    and then adds each of its R * W sums with one atomic."""
+    if not cuda.use_kernel(g):
+        return row_gather_bwd_plain(g, idx, rows)
+    n, width = g.shape
+    cuda.check(g, "g", torch.float32, (n, width), g.device)
+    cuda.check(idx, "idx", torch.int32, (n,), g.device)
+    if not 0 < rows * width <= K11_MAX_FLOATS:
+        raise ValueError(f"row_gather_bwd: a {rows} x {width} table gradient "
+                         f"exceeds the {K11_MAX_FLOATS} floats K11 sums in "
+                         "shared memory")
+    out = torch.zeros((rows, width), dtype=torch.float32, device=g.device)
+    if n:
+        cuda.launch("row_gather_bwd", g, idx, n, rows, width, out)
+    return out
+
+
+class _RowGather(torch.autograd.Function):
+    """K8 forward, K11 backward (gradient to the table only)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        with cuda.differentiable():
+            return row_gather(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        with cuda.differentiable():
+            return row_gather_bwd(g.contiguous(), idx, ctx.rows), None

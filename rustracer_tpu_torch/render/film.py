@@ -7,6 +7,14 @@ owns it. The state is one (H, W, 4) float32 buffer, r, g, b and the weight
 side by side for each pixel, seen through the reference's two arrays:
 ``rgb`` is its view ``[..., :3]`` and ``wsum`` its view ``[..., 3]``. K4
 adds each filter tap as one 16-byte vector reduction into that buffer.
+
+Under autograd (grad mode on, radiance requiring grad) the splat of a
+packed state is an autograd Function: the buffer is still added to in
+place (marked dirty) and its gradient passes through unchanged; the
+radiance's gradient is hand kernel K9 (csrc/film_bwd.cu), the gather of
+the film's gradient at the same taps, times the filter weights, through
+the VJP of the luminance clamp. ``wsum`` takes no gradient: it depends on
+``p_film`` only.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import cuda
-from ..core.spectrum import luminance
+from ..core.spectrum import LUM_WEIGHTS, luminance
 from .filters import Filter
 
 
@@ -110,25 +118,48 @@ class Film:
 
     def add_samples_plain(self, state: FilmState, p_film, radiance,
                           valid=None) -> FilmState:
-        """Plain PyTorch version of K4: scatter-add of the filter taps."""
+        """Plain PyTorch version of K4: scatter-add of the filter taps, in
+        place; out of place (a new state of two tensors, which autograd
+        differentiates) when grad mode is on and the radiance or the state
+        requires grad."""
         h, w = state.wsum.shape
         if np.isfinite(self.max_sample_luminance):
             lum = luminance(radiance)
             m = self.max_sample_luminance
             scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
             radiance = radiance * scale[:, None]
+        rgb, wsum = state
+        graph = torch.is_grad_enabled() and (radiance.requires_grad
+                                             or rgb.requires_grad)
         for iy, ix, fw, ok in self.taps(p_film, valid, h, w):
             fw = torch.where(ok, fw, 0.0)
             idx = (iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
-            state.rgb.index_put_(idx, fw[:, None] * radiance, accumulate=True)
-            state.wsum.index_put_(idx, fw, accumulate=True)
-        return state
+            if graph:
+                rgb = rgb.index_put(idx, fw[:, None] * radiance,
+                                    accumulate=True)
+                wsum = wsum.index_put(idx, fw, accumulate=True)
+            else:
+                rgb.index_put_(idx, fw[:, None] * radiance, accumulate=True)
+                wsum.index_put_(idx, fw, accumulate=True)
+        return FilmState(rgb=rgb, wsum=wsum)
 
     def add_samples(self, state: FilmState, p_film, radiance,
                     valid=None) -> FilmState:
         """Splat samples (p_film (B, 2) raster positions, radiance (B, 3),
         valid (B,) bool or None) into ``state`` in place. CPU tensors take
-        the plain version, CUDA tensors launch K4."""
+        the plain version, CUDA tensors launch K4. With grad mode on and
+        the radiance requiring grad, a packed state (``init_state``) is
+        splatted through an autograd Function (K4 forward, K9 backward);
+        any other state on the CPU through the plain version, out of
+        place."""
+        if torch.is_grad_enabled() and radiance.requires_grad:
+            acc = _packed(state)
+            if acc is not None:
+                acc = _Splat.apply(acc, p_film, radiance, valid, self)
+                return FilmState(rgb=acc[..., :3], wsum=acc[..., 3])
+        return self._add_samples(state, p_film, radiance, valid)
+
+    def _add_samples(self, state, p_film, radiance, valid):
         if not cuda.use_kernel(p_film):
             return self.add_samples_plain(state, p_film, radiance, valid)
         n = p_film.shape[0]
@@ -148,9 +179,104 @@ class Film:
                         self.max_sample_luminance)
         return state
 
+    def clamp_vjp(self, radiance, g):
+        """The gradient of the radiance (B, 3) from that of the clamped
+        radiance ``g`` (B, 3): the VJP of the ``max_sample_luminance``
+        clamp, written out in K9's order of operations."""
+        m = self.max_sample_luminance
+        if not np.isfinite(m):
+            return g
+        lum = luminance(radiance)
+        over = lum > m
+        cl = torch.clamp(lum, min=1e-20)
+        scale = torch.where(over, m / cl, 1.0)
+        dot = g[:, 0] * radiance[:, 0] + g[:, 1] * radiance[:, 1] \
+            + g[:, 2] * radiance[:, 2]
+        # d scale / d lum, where the clamp lets lum through
+        d_lum = torch.where(over & (lum >= 1e-20), -(dot * m) / (cl * cl),
+                            0.0)
+        return torch.stack([g[:, c] * scale + d_lum * LUM_WEIGHTS[c]
+                            for c in range(3)], -1)
+
+    def add_samples_bwd_plain(self, g_acc, p_film, radiance, valid=None):
+        """Plain PyTorch version of K9: the radiance's gradient (B, 3) from
+        the film buffer's (H, W, 4): per sample, the sum over its taps, in
+        ``taps`` order, of the filter weight times the rgb gradient of the
+        tap's pixel, then ``clamp_vjp``."""
+        h, w = g_acc.shape[:2]
+        g_rgb = g_acc[..., :3]
+        g = torch.zeros_like(radiance)
+        for iy, ix, fw, ok in self.taps(p_film, valid, h, w):
+            fw = torch.where(ok, fw, 0.0)
+            idx = (iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
+            g = g + fw[:, None] * g_rgb[idx]
+        return self.clamp_vjp(radiance, g)
+
+    def add_samples_bwd(self, g_acc, p_film, radiance, valid=None):
+        """The radiance's gradient of a splat: ``g_acc`` (H, W, 4), the
+        gradient of the film buffer, contiguous. CPU tensors take the plain
+        version, CUDA tensors launch K9."""
+        if not cuda.use_kernel(p_film):
+            return self.add_samples_bwd_plain(g_acc, p_film, radiance, valid)
+        n = p_film.shape[0]
+        dev = p_film.device
+        w, h = self.cropped_resolution
+        cuda.check(g_acc, "g_acc", torch.float32, (h, w, 4), dev, align=16)
+        cuda.check(p_film, "p_film", torch.float32, (n, 2), dev, align=8)
+        cuda.check(radiance, "radiance", torch.float32, (n, 3), dev)
+        if valid is not None:
+            cuda.check(valid, "valid", torch.bool, (n,), dev)
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        rx, ry = self.filter.radius
+        nx, ny = self._footprint()
+        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        if n:
+            cuda.launch("film_add_samples_bwd", p_film, radiance, valid, n,
+                        g_acc, h, w, x0, y0, rx, ry, nx, ny,
+                        self.max_sample_luminance, out)
+        return out
+
     def to_image(self, state: FilmState):
         """Weight-normalized (H, W, 3) linear RGB."""
         pos = state.wsum > 0.0
         safe_w = torch.where(pos, state.wsum, 1.0)
         img = torch.where(pos[..., None], state.rgb / safe_w[..., None], 0.0)
         return torch.clamp(img, min=0.0)
+
+
+def _packed(state: FilmState):
+    """The (H, W, 4) buffer whose views ``state`` holds (``init_state``),
+    or None for another layout."""
+    base = state.rgb._base
+    h, w = state.wsum.shape
+    if (base is None or state.wsum._base is not base
+            or tuple(base.shape) != (h, w, 4) or not base.is_contiguous()
+            or base.data_ptr() != state.rgb.data_ptr()
+            or state.wsum.data_ptr() != base.data_ptr()
+            + 3 * base.element_size()):
+        return None
+    return base
+
+
+class _Splat(torch.autograd.Function):
+    """K4 into the film buffer in place, K9 for the radiance's gradient."""
+
+    @staticmethod
+    def forward(ctx, acc, p_film, radiance, valid, film):
+        with cuda.differentiable():
+            film._add_samples(FilmState(rgb=acc[..., :3], wsum=acc[..., 3]),
+                              p_film, radiance, valid)
+        ctx.mark_dirty(acc)
+        ctx.save_for_backward(p_film, radiance, valid)
+        ctx.film = film
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        p_film, radiance, valid = ctx.saved_tensors
+        g_rad = None
+        if ctx.needs_input_grad[2]:
+            with cuda.differentiable():
+                g_rad = ctx.film.add_samples_bwd(g.contiguous(), p_film,
+                                                 radiance, valid)
+        return g, None, g_rad, None, None

@@ -10,13 +10,19 @@ registrations are host numpy; the texel arrays are built from
 ``textures["images"]``.
 
 ``atlas_lookup_ewa_plain`` is the reference's lookup in plain PyTorch; the
-kernel runs the same arithmetic with one thread per lane. The tap weights
+kernel runs the same arithmetic with one thread per lane.
+``atlas_lookup_ewa_grad`` is the lookup differentiable in the (T, 3)
+texels, an autograd Function whose backward is hand kernel K10
+(csrc/atlas_bwd.cu); for the quad layout it builds the quad rows from the
+(T, 3) texels itself (``atlas_quad_index``), so the gradient lands in the
+(T, 3) array and no (T, 12) gradient is ever folded. The tap weights
 are float64 Python numbers in the reference, rounded to float32 where they
 meet float32 tensors (JAX's weak typing); ``TAP_WEIGHTS32`` and ``WSUM32``
 are those roundings.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List
 
 import numpy as np
@@ -87,17 +93,35 @@ def atlas_texels(images: List[list]):
     return torch.cat([lv.reshape(-1, 3) for lv in _levels_rgb(images)])
 
 
+def atlas_quad_index(images: List[list]):
+    """(T, 4) int64: for each texel, the (T, 3) rows of its 2x2 bilerp
+    neighbourhood [(s, t), (s+1, t), (s, t+1), (s+1, t+1)], REPEAT-wrapped
+    within its level (the host-side shapes of ``images`` only)."""
+    parts, off = [], 0
+    for pyr in images:
+        for lv in pyr:
+            h, w = lv.shape[:2]
+            t, s = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                  indexing="ij")
+            s1, t1 = (s + 1) % w, (t + 1) % h
+            parts.append(off + torch.stack(
+                [t * w + s, t * w + s1, t1 * w + s, t1 * w + s1],
+                -1).reshape(-1, 4))
+            off += h * w
+    return torch.cat(parts)
+
+
 def atlas_quad_texels(images: List[list]):
     """(T, 12) rows [v00 v10 v01 v11]: each texel row carries its 2x2
     bilerp neighbourhood with REPEAT wrapping baked in, so a bilerp reads
     one row. Valid only when every registration wraps REPEAT."""
-    parts = []
-    for lv in _levels_rgb(images):
-        r = torch.roll(lv, -1, dims=1)      # (s+1, t), wrapped
-        d = torch.roll(lv, -1, dims=0)      # (s, t+1)
-        rd = torch.roll(r, -1, dims=0)      # (s+1, t+1)
-        parts.append(torch.cat([lv, r, d, rd], -1).reshape(-1, 12))
-    return torch.cat(parts)
+    texels = atlas_texels(images)
+    return quad_rows(texels, atlas_quad_index(images).to(texels.device))
+
+
+def quad_rows(texels, quad_index):
+    """The (T, 12) quad rows of the (T, 3) ``texels``."""
+    return texels[quad_index].reshape(-1, 12)
 
 
 def all_repeat(regs):
@@ -237,6 +261,24 @@ def atlas_lookup_ewa_plain(texels, meta, levels, regs, reg, si, quad=False):
     return torch.where((reg >= 0)[:, None], out, 0.0)
 
 
+def _check_lookup(meta, levels, regs, reg, si):
+    """Raise unless the lookup's tables and lanes are what K5 and K10
+    read."""
+    n = reg.shape[0]
+    dev = reg.device
+    n_img, lmax = meta.shape[0], meta.shape[1]
+    cuda.check(meta, "atlas_meta", torch.int32, (n_img, lmax, 3), dev)
+    cuda.check(levels, "atlas_levels", torch.int32, (n_img,), dev)
+    k = regs["reg_img"].shape[0]
+    for name, shape in (("reg_img", (k,)), ("reg_map", (k, 4)),
+                        ("reg_scale", (k,)), ("reg_wrap", (k,))):
+        cuda.check(regs[name], name, REG_DTYPES[name], shape, dev)
+    cuda.check(reg, "reg", torch.int32, (n,), dev)
+    cuda.check(si.uv, "uv", torch.float32, (n, 2), dev)
+    for name in ("dudx", "dvdx", "dudy", "dvdy"):
+        cuda.check(getattr(si, name), name, torch.float32, (n,), dev)
+
+
 def atlas_lookup_ewa(texels, meta, levels, regs, reg, si, quad=False):
     """EWA lookups of registrations ``reg`` (B,) int32 at the lanes of
     ``si`` (uv and the four texture differentials) -> (B, 3) float32.
@@ -250,22 +292,86 @@ def atlas_lookup_ewa(texels, meta, levels, regs, reg, si, quad=False):
     dev = reg.device
     cuda.check(texels, "texels", torch.float32,
                (texels.shape[0], 12 if quad else 3), dev, align=16)
-    n_img, lmax = meta.shape[0], meta.shape[1]
-    cuda.check(meta, "atlas_meta", torch.int32, (n_img, lmax, 3), dev)
-    cuda.check(levels, "atlas_levels", torch.int32, (n_img,), dev)
-    k = regs["reg_img"].shape[0]
-    for name, shape in (("reg_img", (k,)), ("reg_map", (k, 4)),
-                        ("reg_scale", (k,)), ("reg_wrap", (k,))):
-        cuda.check(regs[name], name, REG_DTYPES[name], shape, dev)
-    cuda.check(reg, "reg", torch.int32, (n,), dev)
-    cuda.check(si.uv, "uv", torch.float32, (n, 2), dev)
-    for name in ("dudx", "dvdx", "dudy", "dvdy"):
-        cuda.check(getattr(si, name), name, torch.float32, (n,), dev)
+    _check_lookup(meta, levels, regs, reg, si)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n:
-        cuda.launch("atlas_lookup_ewa", texels, int(quad), meta, lmax,
-                    levels, regs["reg_img"], regs["reg_map"],
+        cuda.launch("atlas_lookup_ewa", texels, int(quad), meta,
+                    meta.shape[1], levels, regs["reg_img"], regs["reg_map"],
                     regs["reg_scale"], regs["reg_wrap"], reg, si.uv,
                     si.dudx, si.dvdx, si.dudy, si.dvdy, n, *TAP_WEIGHTS32,
                     WSUM32, out)
     return out
+
+
+SI_FIELDS = ("uv", "dudx", "dvdx", "dudy", "dvdy")
+
+
+def atlas_lookup_ewa_bwd_plain(g, texels, meta, levels, regs, reg, si,
+                               quad_index=None):
+    """Plain PyTorch version of K10: autograd of ``atlas_lookup_ewa_plain``
+    -> the (T, 3) texel gradient for the lookups' gradient ``g`` (B, 3);
+    with ``quad_index``, of the lookup on the quad rows built from
+    ``texels``."""
+    with torch.enable_grad():
+        t = texels.detach().requires_grad_()
+        quad = quad_index is not None
+        out = atlas_lookup_ewa_plain(quad_rows(t, quad_index) if quad else t,
+                                     meta, levels, regs, reg, si, quad)
+        return torch.autograd.grad(out, t, g)[0]
+
+
+def atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg, si,
+                         quad_index=None):
+    """The (T, 3) texel gradient of ``atlas_lookup_ewa`` on ``texels``
+    (with ``quad_index``: on their quad rows) for the lookups' gradient
+    ``g`` (B, 3), contiguous. CPU tensors take the plain version, CUDA
+    tensors launch K10."""
+    if not cuda.use_kernel(reg):
+        return atlas_lookup_ewa_bwd_plain(g, texels, meta, levels, regs, reg,
+                                          si, quad_index)
+    n = reg.shape[0]
+    dev = reg.device
+    cuda.check(g, "g", torch.float32, (n, 3), dev)
+    cuda.check(texels, "texels", torch.float32, (texels.shape[0], 3), dev)
+    _check_lookup(meta, levels, regs, reg, si)
+    out = torch.zeros_like(texels)
+    if n:
+        cuda.launch("atlas_lookup_ewa_bwd", g, int(quad_index is not None),
+                    meta, meta.shape[1], levels, regs["reg_img"],
+                    regs["reg_map"], regs["reg_scale"], regs["reg_wrap"], reg,
+                    si.uv, si.dudx, si.dvdx, si.dudy, si.dvdy, n,
+                    *TAP_WEIGHTS32, WSUM32, out, texels.shape[0])
+    return out
+
+
+class _AtlasEWA(torch.autograd.Function):
+    """K5 forward, K10 backward (gradient to the (T, 3) texels only)."""
+
+    @staticmethod
+    def forward(ctx, texels, quad_index, meta, levels, regs, reg, si):
+        quad = quad_index is not None
+        with cuda.differentiable():
+            out = atlas_lookup_ewa(
+                quad_rows(texels, quad_index) if quad else texels, meta,
+                levels, regs, reg, si, quad)
+        ctx.save_for_backward(texels, quad_index, meta, levels, reg,
+                              *[getattr(si, f) for f in SI_FIELDS])
+        ctx.regs = regs
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        texels, quad_index, meta, levels, reg, *fields = ctx.saved_tensors
+        si = SimpleNamespace(**dict(zip(SI_FIELDS, fields)))
+        with cuda.differentiable():
+            g_tex = atlas_lookup_ewa_bwd(g.contiguous(), texels, meta, levels,
+                                         ctx.regs, reg, si, quad_index)
+        return (g_tex,) + (None,) * 6
+
+
+def atlas_lookup_ewa_grad(texels, quad_index, meta, levels, regs, reg, si):
+    """``atlas_lookup_ewa`` differentiable in ``texels`` (T, 3): on the
+    quad rows ``texels[quad_index]`` when ``quad_index`` ((T, 4),
+    ``atlas_quad_index``) is given, else on ``texels``. Forward K5,
+    backward K10 (their plain versions for CPU tensors)."""
+    return _AtlasEWA.apply(texels, quad_index, meta, levels, regs, reg, si)

@@ -61,8 +61,11 @@ class MaterialSet:
     """Material id -> material; ``shade`` is the batched dispatch.
 
     The atlas texel array is built on first use and kept for the
-    ``textures["images"]`` list it was built from (a new list rebuilds it;
-    a list changed in place does not)."""
+    ``textures["images"]`` list it was built from and the versions of its
+    levels (a new list, or a level changed in place, rebuilds it; a list
+    changed in place does not). With grad mode on and a level requiring
+    grad it is built on every call instead, from the levels, so the
+    lookups' gradient reaches them (``atlas.atlas_lookup_ewa_grad``)."""
 
     def __init__(self, materials: List[MatteMaterial] = None):
         self.materials = list(materials or [])
@@ -100,14 +103,14 @@ class MaterialSet:
                             per_mat)
         return self._atlas_info
 
-    def _cached(self, key, source, build):
+    def _cached(self, key, source, build, version=None):
         """``build()`` once per ``source`` object (kept alive here, so its
-        identity cannot be reused)."""
+        identity cannot be reused) and ``version``."""
         hit = self._cache.get(key)
-        if hit is None or hit[0] is not source:
-            hit = (source, build())
+        if hit is None or hit[0] is not source or hit[1] != version:
+            hit = (source, version, build())
             self._cache[key] = hit
-        return hit[1]
+        return hit[2]
 
     def _uniform_table(self, textures, dev):
         """-> (types (n_mat,) int32, params (n_mat, 16), active (n_mat,))
@@ -135,26 +138,51 @@ class MaterialSet:
         if not n_slots or "atlas_meta" not in textures:
             return None
         quad = A.all_repeat(regs)
+        images = textures["images"]
         texels = self._cached(
-            ("texels", quad, dev), textures["images"],
+            ("texels", quad, dev), images,
             lambda: (A.atlas_quad_texels if quad else A.atlas_texels)(
-                textures["images"]).to(dev))
+                images).to(dev),
+            [lv._version for pyr in images for lv in pyr])
+        return (quad, texels) + self._regs_slots(regs, slot_tab, dev)
+
+    def _regs_slots(self, regs, slot_tab, dev):
         regs_t = self._cached(("regs", dev), regs,
                               lambda: A.registrations_on(regs, dev))
         slots = self._cached(("slots", dev), slot_tab,
                              lambda: torch.as_tensor(slot_tab, device=dev))
-        return quad, texels, regs_t, slots
+        return regs_t, slots
 
     def _atlas_values(self, si, textures, midc):
         """One EWA lookup per slot -> {id(texture): (B, 3)} per material."""
-        tables = self.atlas_tables(textures, si.t.device)
-        if tables is None:
+        n_slots, slot_tab, regs, _ = self.atlas_prep()
+        if not n_slots or "atlas_meta" not in textures:
             return None
-        quad, texels, regs_t, slots = tables
-        vals = [A.atlas_lookup_ewa(texels, textures["atlas_meta"],
-                                   textures["atlas_levels"], regs_t,
-                                   slots[midc, s].contiguous(), si,
-                                   quad=quad)
+        dev = si.t.device
+        images = textures["images"]
+        meta, levels = textures["atlas_meta"], textures["atlas_levels"]
+        if torch.is_grad_enabled() and any(lv.requires_grad for pyr in images
+                                           for lv in pyr):
+            # built from the levels on every call: the graph reaches them
+            texels = A.atlas_texels(images).to(dev)
+            qidx = None
+            if A.all_repeat(regs):
+                qidx = self._cached(
+                    ("quad_index", dev), None,
+                    lambda: A.atlas_quad_index(images).to(dev),
+                    [tuple(lv.shape) for pyr in images for lv in pyr])
+            regs_t, slots = self._regs_slots(regs, slot_tab, dev)
+
+            def lookup(reg):
+                return A.atlas_lookup_ewa_grad(texels, qidx, meta, levels,
+                                               regs_t, reg, si)
+        else:
+            quad, texels, regs_t, slots = self.atlas_tables(textures, dev)
+
+            def lookup(reg):
+                return A.atlas_lookup_ewa(texels, meta, levels, regs_t, reg,
+                                          si, quad=quad)
+        vals = [lookup(slots[midc, s].contiguous())
                 for s in range(slots.shape[1])]
         return [{id(t): vals[s] for s, t in enumerate(texs)}
                 for texs in self.atlas_prep()[3]]

@@ -1,4 +1,5 @@
-"""Scenes of the port: the benchmark dragon of ``bench.py`` build_dragon.
+"""Scenes of the port: the benchmark dragon of ``bench.py`` build_dragon,
+and the Cornell box of ``bench.py`` build_cornell (``build_cornell``).
 
 Both variants share the geometry (the 327,680-triangle bumpy sphere that
 stands in for the dragon scan, a ground quad and a two-triangle area
@@ -13,6 +14,13 @@ light), a look-at camera with fov 42, the box 0.5 filter, the
   (``dragon_matte_fwd_rays_per_s``).
 
 The PLY round trip of the reference is left out.
+
+The Cornell box (``tests/helpers.py`` cornell_box and cornell_camera,
+``bench.py`` build_cornell) is built from triangles only, through the
+port's ``make_geometry``, so it renders through the wide BVH (K1); the
+JAX bench's brute-force Cornell and a wide-BVH one render the same.
+``imagemap_walls`` serves the given wall materials as atlas imagemaps (the
+8x8 noisy pyramids of ``tests/helpers.py`` cornell_imagemap_materials).
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ from .utils.meshgen import bumpy_sphere
 
 MAX_DEPTH = 5
 DRAGON_SPP = 64      # the headline config's spp (bench.py DRAGON_SPP)
+CORNELL_RES = (256, 256)
+CORNELL_SPP = 16
+# the Cornell's matte albedos: white, red (left), green (right), black
+CORNELL_KD = ([0.73] * 3, [0.63, 0.065, 0.05], [0.14, 0.45, 0.09], [0.0] * 3)
 
 
 def dragon_tris(sub=7):
@@ -146,10 +158,8 @@ def build_dragon_matte(sub=7, res=(1024, 1024), spp=8, device="cuda",
     """-> (ctx, camera, film, sampler, integrator, n_tris) on ``device``;
     ``geometry`` is a ``dragon_geometry`` result to share."""
     ms, const = dragon_materials()
-    textures = {"const": {k: torch.as_tensor(v, device=device)
-                          for k, v in const.items()}}
-    return _dragon(textures, ms, res, spp, device, crop_window, geometry,
-                   sub)
+    return _dragon(textures_on({"const": const}, device), ms, res, spp,
+                   device, crop_window, geometry, sub)
 
 
 def build_dragon(sub=7, res=(1024, 1024), spp=DRAGON_SPP, device="cuda",
@@ -160,13 +170,115 @@ def build_dragon(sub=7, res=(1024, 1024), spp=DRAGON_SPP, device="cuda",
     ``atlas_levels``."""
     ms, const = dragon_materials_textured()
     images, meta = hero_texture()
-    textures = {
-        "const": {k: torch.as_tensor(v, device=device)
-                  for k, v in const.items()},
-        "images": [[torch.as_tensor(lv, device=device) for lv in pyr]
-                   for pyr in images],
-        "atlas_meta": torch.as_tensor(meta["atlas_meta"], device=device),
-        "atlas_levels": torch.as_tensor(meta["atlas_levels"],
-                                        device=device)}
+    textures = textures_on(dict(const=const, images=images, **meta), device)
     return _dragon(textures, ms, res, spp, device, crop_window, geometry,
                    sub)
+
+
+def _quad(tris, p00, p10, p11, p01, material=0, arealight=-1):
+    """Two triangles (p00, p10, p11) and (p00, p11, p01) into ``tris``
+    (lists), uv (0,0) (1,0) (1,1) (0,1); -> the first triangle's index."""
+    base = len(tris["v"])
+    tris["v"] += [p00, p10, p11, p01]
+    tris["uv"] += [(0, 0), (1, 0), (1, 1), (0, 1)]
+    tris["idx"] += [(base, base + 1, base + 2), (base, base + 2, base + 3)]
+    tris["mat"] += [material, material]
+    tris["al"] += [arealight, arealight]
+    return len(tris["idx"]) - 2
+
+
+def cornell_tris():
+    """Host triangle tables of the Cornell box in [0, 1]^3 (tests/helpers.py
+    cornell_box): materials 0 white (floor, ceiling, back wall), 1 red
+    (left wall), 2 green (right wall), 3 the light's black matte; the light
+    is a small quad under the ceiling facing down, area lights 0 and 1.
+    -> (tris dict, the light's first triangle)."""
+    t = {"v": [], "uv": [], "idx": [], "mat": [], "al": []}
+    _quad(t, (0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1), 0)    # floor
+    _quad(t, (0, 1, 1), (1, 1, 1), (1, 1, 0), (0, 1, 0), 0)    # ceiling
+    _quad(t, (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1), 0)    # back
+    _quad(t, (0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0), 1)    # left
+    _quad(t, (1, 0, 1), (1, 0, 0), (1, 1, 0), (1, 1, 1), 2)    # right
+    first = _quad(t, (0.35, 0.999, 0.35), (0.65, 0.999, 0.35),
+                  (0.65, 0.999, 0.65), (0.35, 0.999, 0.65), 3)
+    t["al"][first], t["al"][first + 1] = 0, 1
+    n = len(t["idx"])
+    v = np.asarray(t["v"], np.float32)
+    return dict(
+        tv_p=v, tv_n=np.zeros_like(v),
+        tv_uv=np.asarray(t["uv"], np.float32), tv_s=np.zeros_like(v),
+        t_idx=np.asarray(t["idx"], np.int32),
+        t_material=np.asarray(t["mat"], np.int32),
+        t_arealight=np.asarray(t["al"], np.int32),
+        t_reverse=np.zeros(n, bool), t_has_n=np.zeros(n, bool),
+        t_has_uv=np.ones(n, bool), t_alpha_tex=np.full(n, -1, np.int32),
+    ), first
+
+
+def cornell_box(light_emit=(15.0, 15.0, 15.0), device="cuda"):
+    """-> (GeometryTables, LightTables) of the Cornell box."""
+    tris, first = cornell_tris()
+    geom = make_geometry(tris, device=device)
+    rows = [dict(type=LIGHT_AREA, emit=light_emit,
+                 prim=N_DUMMY_QUADRICS + first + k, twosided=False)
+            for k in range(2)]
+    return geom, make_lights(rows, geom, device=device)
+
+
+def cornell_camera(res=(64, 64)):
+    c2w = Transform.look_at([0.5, 0.5, -1.4], [0.5, 0.5, 0.5], [0, 1, 0])
+    return PerspectiveCamera.create(c2w, fov=40.0, resolution=res)
+
+
+def cornell_materials(imagemap_walls=(), seed_base=10):
+    """-> (MaterialSet, textures dict of numpy arrays): the four mattes,
+    those in ``imagemap_walls`` served as atlas imagemaps (8x8 noisy
+    pyramids of their albedo, tests/helpers.py
+    cornell_imagemap_materials); "images" always present, "atlas_meta" and
+    "atlas_levels" when there are imagemaps."""
+    ms = MaterialSet()
+    const, images = {}, []
+    for i, a in enumerate(CORNELL_KD):
+        const[f"kd{i}"] = np.asarray(a, np.float32)
+        if i in imagemap_walls:
+            rng = np.random.RandomState(seed_base + i)
+            img = (np.asarray(a, np.float32)[None, None]
+                   * (0.6 + 0.4 * rng.rand(8, 8, 3))).astype(np.float32)
+            images.append(build_pyramid(img))
+            ms.add(MatteMaterial(kd=ImageTexture(len(images) - 1)))
+        else:
+            ms.add(MatteMaterial(kd=ConstantTexture(f"kd{i}")))
+    textures = {"const": const, "images": images}
+    if images:
+        am = build_atlas_meta(images)
+        textures["atlas_meta"] = am["atlas_meta"]
+        textures["atlas_levels"] = am["atlas_levels"]
+    return ms, textures
+
+
+def textures_on(textures, device):
+    """A textures dict of numpy arrays ("const", optional "images",
+    "atlas_meta", "atlas_levels") as tensors on ``device``."""
+    out = {"const": {k: torch.as_tensor(v, device=device)
+                     for k, v in textures["const"].items()}}
+    if "images" in textures:
+        out["images"] = [[torch.as_tensor(lv, device=device) for lv in pyr]
+                         for pyr in textures["images"]]
+    for key in ("atlas_meta", "atlas_levels"):
+        if key in textures:
+            out[key] = torch.as_tensor(textures[key], device=device)
+    return out
+
+
+def build_cornell(res=CORNELL_RES, spp=CORNELL_SPP, max_depth=MAX_DEPTH,
+                  imagemap_walls=(), device="cuda"):
+    """bench.py build_cornell: the Cornell box, box 0.5 filter, (0,2)
+    sampler, path tracing -> (ctx, camera, film, sampler, integrator)."""
+    geom, lights = cornell_box(device=device)
+    ms, textures = cornell_materials(imagemap_walls)
+    ctx = RenderContext(geom=geom, lights=lights,
+                        textures=textures_on(textures, device))
+    film = Film(full_resolution=res, filter=Filter("box", 0.5, 0.5))
+    return (ctx, cornell_camera(res), film,
+            SamplerConfig(kind="02sequence", spp=spp),
+            PathIntegrator(mat_set=ms, max_depth=max_depth))

@@ -55,6 +55,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
 import inspect
 import json
 import os
@@ -91,7 +92,6 @@ LANES = 1 << 18
 RES = (1024, 1024)
 STEP_TILE = 2
 SLAB_TILE = 0
-SI_FIELDS = ("uv", "dudx", "dvdx", "dudy", "dvdy")
 
 
 def _cloned(x):
@@ -146,7 +146,37 @@ def capture_step(renderer, ctx, tile, sample=1):
             texels=texels, meta=meta, levels=levels, regs=regs,
             reg=reg.clone(), quad=kw.get("quad", False),
             si=SimpleNamespace(**{f: getattr(si, f).clone()
-                                  for f in SI_FIELDS})))
+                                  for f in A.SI_FIELDS})))
+    return out
+
+
+def capture_grad_step(renderer, ctx, tile, sample=1):
+    """The backward pass of one step of ``tile`` at ``sample`` with every
+    float leaf of ``ctx.textures`` requiring grad (the loss: the mean
+    square of the step's image) -> dict of the inputs of its backward
+    kernels' calls, in call order, as (args, kwargs) with tensors cloned:
+    k9 (Film.add_samples_bwd: film, g_acc, p_film, radiance, valid), k10
+    (atlas_lookup_ewa_bwd: g, texels, meta, levels, regs, reg, si,
+    quad_index), k11 (row_gather_bwd: g, idx, rows), take_t
+    (compact.take_transpose: order, w, g_subs, shapes) and put_t
+    (compact.put_transpose: order, w, g_full)."""
+    from ..ops import gather as G
+    from ..parallel.mesh import float_leaves
+    leaves, rebuild = float_leaves(ctx.textures)
+    theta = [p.detach().requires_grad_() for p in leaves]
+    c = dataclasses.replace(ctx, textures=rebuild(theta))
+    px, py, v = tile
+    with torch.enable_grad():
+        fs = renderer.step(c, renderer.film.init_state(renderer.device),
+                           px, py, sample, v)
+        loss = (renderer.film.to_image(fs) ** 2).mean()
+    out = {k: [] for k in ("k9", "k10", "k11", "take_t", "put_t")}
+    with _recording(Film, "add_samples_bwd", out["k9"], copy=True), \
+            _recording(A, "atlas_lookup_ewa_bwd", out["k10"], copy=True), \
+            _recording(G, "row_gather_bwd", out["k11"], copy=True), \
+            _recording(C, "take_transpose", out["take_t"], copy=True), \
+            _recording(C, "put_transpose", out["put_t"], copy=True):
+        torch.autograd.grad(loss, theta, allow_unused=True)
     return out
 
 

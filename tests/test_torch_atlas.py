@@ -9,6 +9,8 @@ the two libraries' log2 round to different sides of it (a floor flip);
 such lanes are counted and must stay at most 0.1% of the lanes."""
 import types
 
+import jax
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,3 +138,60 @@ def test_lookup_ewa_matches_jax(quad, wrap):
           f"level: {int((bad & on_int).sum())}")
     assert not (bad & ~on_int).any()
     assert bad.mean() <= 1e-3
+
+
+@pytest.mark.parametrize("quad,wrap", [(True, TM.WRAP_REPEAT),
+                                       (False, TM.WRAP_REPEAT),
+                                       (False, TM.WRAP_BLACK),
+                                       (False, TM.WRAP_CLAMP)])
+def test_lookup_ewa_vjp_matches_jax(quad, wrap):
+    """The texel gradient of the differentiable lookup (the autograd
+    Function around K5, whose CPU backward is K10's plain version) against
+    ``jax.vjp`` of the JAX lookup, both taken back to every pyramid level
+    through the atlas build (for quad rows: built from the (T, 3) texels
+    by the port, by jnp.roll in JAX). The cotangent is zero on the lanes
+    whose mip level sits on an integer (a floor flip moves their taps to
+    the other level). Tolerance: 1e-5 of the largest texel gradient (sums
+    of up to a few thousand float32 terms in another order)."""
+    images = _images()
+    meta = TA.build_atlas_meta(images)
+    texs, uv, diffs, reg = _lookup_inputs(wrap)
+    regs = TA.build_registrations(texs)
+    regs_t = TA.registrations_on(regs, "cpu")
+    si = _si(uv, diffs, torch.as_tensor)
+    _, img, _, _, _, minor = TA._ewa_axes(regs_t, torch.as_tensor(reg), si)
+    level, _ = TA.ewa_level(torch.as_tensor(meta["atlas_levels"]), img,
+                            minor)
+    on_int = np.abs(level.numpy() - np.round(level.numpy())) < 1e-4
+    cot = np.random.RandomState(4).uniform(-1, 1, (LANES, 3))
+    cot = (cot * ~on_int[:, None]).astype(np.float32)
+
+    def jax_lookup(levels_):
+        it = iter(levels_)
+        imgs = [[next(it) for _ in p] for p in images]
+        tex = JA.atlas_quad_texels(imgs) if quad else JA.atlas_texels(imgs)
+        return JA.atlas_lookup_ewa(tex, meta["atlas_meta"],
+                                   meta["atlas_levels"], regs,
+                                   jnp.asarray(reg), _si(uv, diffs,
+                                                         jnp.asarray),
+                                   quad=quad)
+    flat = [jnp.asarray(lv) for p in images for lv in p]
+    _, vjp = jax.vjp(jax_lookup, flat)
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(cot))[0]]
+
+    leaves = [torch.tensor(lv, requires_grad=True)
+              for p in images for lv in p]
+    it = iter(leaves)
+    timg = [[next(it) for _ in p] for p in images]
+    qidx = TA.atlas_quad_index(timg) if quad else None
+    out = TA.atlas_lookup_ewa_grad(
+        TA.atlas_texels(timg), qidx, torch.as_tensor(meta["atlas_meta"]),
+        torch.as_tensor(meta["atlas_levels"]), regs_t, torch.as_tensor(reg),
+        si)
+    out.backward(torch.as_tensor(cot))
+    top = max(np.abs(r).max() for r in ref)
+    assert top > 0
+    for lv, r in zip(leaves, ref):
+        assert lv.grad.shape == r.shape
+        np.testing.assert_allclose(lv.grad.numpy(), r, rtol=0,
+                                   atol=1e-5 * top)

@@ -154,3 +154,41 @@ def test_compacted_run_matches(scene, monkeypatch, tier, n_hit):
     close = np.all(np.abs(out_c - ref) <= 1e-5 + 1e-4 * np.abs(ref), axis=-1)
     print(f"diverging lanes: {int((~close).sum())} of {len(close)}")
     assert close.mean() >= 0.99
+
+
+@pytest.mark.parametrize("w", [B // 2, B // 4])
+def test_take_put_vjp_matches_jax(w):
+    """The slab moves' autograd Functions (K7 forward, K7 as its own
+    transpose backward, their plain versions here) against the reference's
+    ``perm_take`` / ``perm_put`` custom_vjps (tests/test_path_compact.py
+    TestPermTakePutVJP's function): value and both gradients within 1e-6
+    relative."""
+    rs = np.random.RandomState(3)
+    x = rs.rand(B, 3).astype(np.float32)
+    full = rs.rand(B, 3).astype(np.float32)
+    alive = rs.rand(B) < 0.4
+    order = jnp.argsort(~jnp.asarray(alive))
+    sel, rank = order[:w], jnp.argsort(order)
+
+    def f_jax(x, full):
+        sub = JP.perm_take(x, sel, rank)
+        out = JP.perm_put(full, sub * 2.0, sel, rank)
+        return jnp.sum(out ** 2) + jnp.sum(sub ** 3)
+
+    v_ref, (gx_ref, gf_ref) = jax.value_and_grad(f_jax, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(full))
+    torder, _, _ = C.alive_first_order(torch.as_tensor(alive))
+    tx = torch.tensor(x, requires_grad=True)
+    tfull = torch.tensor(full, requires_grad=True)
+    flag = torch.as_tensor(alive)     # rides along without a gradient
+    sub, sub_flag = C.slab_take([tx, flag], torder, w)
+    out, out_flag = C.slab_put([tfull.clone(), flag.clone()],
+                               [sub * 2.0, sub_flag], torder, w)
+    assert sub_flag.grad_fn is None and out_flag.grad_fn is None
+    v = (out ** 2).sum() + (sub ** 3).sum()
+    v.backward()
+    np.testing.assert_allclose(v.item(), float(v_ref), rtol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx_ref),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tfull.grad.numpy(), np.asarray(gf_ref),
+                               rtol=1e-6, atol=1e-7)

@@ -17,7 +17,10 @@ as a multiply by its reciprocal on the card, the kernel divides; a lane
 whose mip level sits on an integer may floor to the other level); the
 alive-first order, the slab moves and the row gather bit-equal; small
 renders within the golden-image tolerance of tests/test_golden.py (mean
-2e-3, p99 2e-2)."""
+2e-3, p99 2e-2). The gradient path: K9 (a gather) and K7 as its own
+transpose bit-equal; K10 and K11 (atomic sums) each sum within 1e-4 of the
+sum of its terms' magnitudes; a train step's gradients within the bound of
+the CPU parity test (tests/test_torch_grad.py)."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -663,7 +666,7 @@ def test_row_gather_equal(dev, width):
 
 def test_textured_render_matches_plain(textured, monkeypatch):
     """The 64^2 textured dragon, 1 sample, with the slab tiers opened to
-    its 4096-lane tile: every kernel launches, a slab tier runs."""
+    its 4096-lane tile: every forward kernel launches, a slab tier runs."""
     monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 1024)
     t = textured
     r = Renderer(t["integ"].li, t["cam"], t["film"], t["sampler"],
@@ -671,5 +674,180 @@ def test_textured_render_matches_plain(textured, monkeypatch):
     K.reset_launches()
     P.reset_tiers()
     _assert_render_matches_plain(r, t["ctx"], sample_stop=1)
-    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in K.FORWARD_KERNELS), K.LAUNCHES
     assert P.TIERS[2] + P.TIERS[4] > 0, P.TIERS
+
+
+# ---------------------------------------------------------------------------
+# the gradient path: K9-K11, K7 as its own transpose, the launch guard
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["box 0.5", "box 1.5", "crop", "valid None",
+                                  "max_lum", "n=0", "n=1",
+                                  f"n={(1 << 18) + 5}"])
+def test_film_bwd_matches_plain(dev, case):
+    """K9, the splat's radiance gradient, is bit for bit its plain version:
+    a gather in the plain version's tap order (no atomics), the clamp's
+    VJP op for op; one launch (none for no samples)."""
+    film, p_film, rad, valid = _film_case(dev, case)
+    w, h = film.cropped_resolution
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    g_acc = torch.rand((h, w, 4), generator=gen, device=dev) - 0.5
+    n0 = K.LAUNCHES["film_add_samples_bwd"]
+    out = film.add_samples_bwd(g_acc, p_film, rad, valid)
+    assert K.LAUNCHES["film_add_samples_bwd"] == n0 + (p_film.shape[0] > 0)
+    ref = _plain(lambda: film.add_samples_bwd(g_acc, p_film, rad, valid))
+    assert out.shape == ref.shape == rad.shape
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def _sums_close(out, ref, ref_abs):
+    """Scatter-added sums against the plain version's, taken in another
+    order by atomics: each within 1e-4 of the sum of its terms' magnitudes
+    ``ref_abs`` (the plain version on |g|), which bounds the rounding of a
+    float32 sum of thousands of terms in any order with room to spare."""
+    assert out.shape == ref.shape
+    tol = 1e-4 * ref_abs + 1e-7 * ref_abs.max()
+    assert bool(((out - ref).abs() <= tol).all()), \
+        ((out - ref).abs() / tol.clamp(min=1e-30)).max()
+
+
+@pytest.mark.parametrize("n", [0, 1, 129, 1 << 14, (1 << 18) + 5])
+@pytest.mark.parametrize("pattern", ["random", "all", "alternating"])
+@pytest.mark.parametrize("quad,wrap", [(True, WRAP_REPEAT),
+                                       (False, WRAP_REPEAT),
+                                       (False, WRAP_BLACK),
+                                       (False, WRAP_CLAMP)])
+def test_atlas_bwd_matches_plain(dev, quad, wrap, pattern, n):
+    """K10, the texel gradient of the EWA lookup, against autograd of the
+    plain lookup (on the quad rows built from the (T, 3) texels for the
+    quad layout), as sums taken in another order (_sums_close)."""
+    timg, meta, levels, regs, reg, si = _ewa_inputs(dev, wrap, n, pattern)
+    texels = A.atlas_texels(timg).to(dev)
+    qidx = A.atlas_quad_index(timg).to(dev) if quad else None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    g = torch.rand((n, 3), generator=gen, device=dev) - 0.5
+    n0 = K.LAUNCHES["atlas_lookup_ewa_bwd"]
+    out = A.atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg, si,
+                                 qidx)
+    assert K.LAUNCHES["atlas_lookup_ewa_bwd"] == n0 + (n > 0)
+    ref, ref_abs = (_plain(lambda x=x: A.atlas_lookup_ewa_bwd(
+        x, texels, meta, levels, regs, reg, si, qidx)) for x in (g, g.abs()))
+    _sums_close(out, ref, ref_abs)
+    if n > 1:
+        assert ref.abs().max() > 0
+
+
+@pytest.mark.parametrize("rows,width", [(3, 16), (5, 16), (3001, 4)])
+def test_row_gather_bwd_matches_plain(dev, rows, width):
+    """K11, the table gradient of the row gather, against index_add_ as
+    sums taken in another order (_sums_close); a table gradient beyond the
+    shared memory K11 sums in is refused."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rows)
+    n = (1 << 18) + 5
+    g = torch.rand((n, width), generator=gen, device=dev) - 0.5
+    idx = torch.randint(0, rows, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    from rustracer_tpu_torch.ops.gather import row_gather_bwd
+    n0 = K.LAUNCHES["row_gather_bwd"]
+    out = row_gather_bwd(g, idx, rows)
+    assert K.LAUNCHES["row_gather_bwd"] == n0 + 1
+    _sums_close(out, _plain(lambda: row_gather_bwd(g, idx, rows)),
+                _plain(lambda: row_gather_bwd(g.abs(), idx, rows)))
+    with pytest.raises(ValueError, match="shared memory"):
+        row_gather_bwd(torch.zeros((4, 16), device=dev),
+                       torch.zeros(4, dtype=torch.int32, device=dev), 1024)
+
+
+@pytest.mark.parametrize("w", [0, 1, _SLAB_N // 4, _SLAB_N // 2, _SLAB_N])
+def test_slab_transposes_bit_equal(dev, slab_fields, w):
+    """K7 as its own transpose: the take's backward (a put into zeros) and
+    the put's (a take, and a put of zeros) bit for bit the plain versions
+    on the float fields, one launch each (none for an empty slab)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(w + 1)
+    n = _SLAB_N
+    order, _, _ = C.alive_first_order(
+        torch.rand(n, generator=gen, device=dev) < 0.4)
+    full = [f for f in slab_fields if f.is_floating_point()]
+    shapes = [(f.shape, f.dtype) for f in full]
+    subs = [torch.rand((w,) + tuple(f.shape[1:]), generator=gen,
+                       device=dev) for f in full]
+    n0 = dict(K.LAUNCHES)
+    out = C.take_transpose(order, w, subs, shapes)
+    assert K.LAUNCHES["slab_put"] == n0["slab_put"] + (w > 0)
+    ref = _plain(lambda: C.take_transpose(order, w, subs, shapes))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    n0 = dict(K.LAUNCHES)
+    out = C.put_transpose(order, w, full)
+    assert K.LAUNCHES["slab_take"] == n0["slab_take"] + (w > 0)
+    assert K.LAUNCHES["slab_put"] == n0["slab_put"] + (w > 0)
+    ref = _plain(lambda: C.put_transpose(order, w, full))
+    for a, b in zip(out[0] + out[1], ref[0] + ref[1]):
+        assert torch.equal(a, b)
+
+
+def test_launch_guard_raises_on_requires_grad(dev):
+    """With grad mode on, a kernel given a tensor that requires grad
+    outside this package's autograd Functions raises (a ctypes launch
+    would cut the graph); inside ``differentiable()`` and under no_grad
+    it launches."""
+    table = torch.rand((8, 16), device=dev, requires_grad=True)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    out = torch.empty((4, 16), device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        K.launch("row_gather", table, idx, 4, 16, out)
+    fields = [torch.rand((64, 3), device=dev, requires_grad=True)]
+    order = torch.arange(64, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        C.slab_move("slab_take", order, 32, fields,
+                    [torch.empty((32, 3), device=dev)])
+    with K.differentiable():
+        K.launch("row_gather", table, idx, 4, 16, out)
+    with torch.no_grad():
+        K.launch("row_gather", table, idx, 4, 16, out)
+    assert torch.equal(out, table.detach()[idx.long()])
+    # the differentiable wrapper carries the gradient
+    row_gather(table, idx).sum().backward()
+    assert torch.equal(table.grad[0], torch.full((16,), 4.0, device=dev))
+
+
+def test_train_step_matches_plain(textured, monkeypatch):
+    """One train step of the 64^2 textured dragon (1024-lane tiles, slab
+    tiers opened), kernel path against the all-plain path: the same loss
+    within 1e-5 relative, the gradients of every float leaf within the
+    bound of the CPU parity test (1e-3 of the norm, 1e-2 of the largest
+    entry), every backward kernel launched, a slab tier taken."""
+    from rustracer_tpu_torch.parallel.mesh import (float_leaves, grad_errors,
+                                                   make_train_step)
+    monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 1024)
+    t = textured
+    dev = t["si"].t.device
+    step = make_train_step(t["integ"].li, t["cam"], t["film"], t["sampler"],
+                           lr=1.0, config=RenderConfig(max_lanes=1024),
+                           device=dev)
+    target = torch.full((64, 64, 3), 0.05, device=dev)
+    leaves, _ = float_leaves(t["ctx"].textures)
+    K.reset_launches()
+    P.reset_tiers()
+    new, loss = step(t["ctx"], target)
+    torch.cuda.synchronize()
+    assert all(K.LAUNCHES[k] > 0 for k in K.BACKWARD_KERNELS), K.LAUNCHES
+    # a slab step: take and put forward; a put (the take's transpose), a
+    # take and a put (the put's) backward
+    slabs = P.TIERS[2] + P.TIERS[4]
+    assert slabs > 0, P.TIERS
+    assert K.LAUNCHES["slab_take"] == 2 * slabs
+    assert K.LAUNCHES["slab_put"] == 3 * slabs
+    with K.plain_reference():
+        new_p, loss_p = step(t["ctx"], target)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    grads = [p - q for p, q in zip(leaves, float_leaves(new.textures)[0])]
+    refs = [p - q for p, q in zip(leaves, float_leaves(new_p.textures)[0])]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    rel, elem = grad_errors(grads, refs)
+    assert rel <= 1e-3 and elem <= 1e-2, (rel, elem)
+    assert max(g.abs().max().item() for g in refs) > 0

@@ -6,6 +6,7 @@ seen as the reference's (H, W, 3) and (H, W) sums.
 
 Tolerance: 1e-6 relative (and 1e-6 absolute): scatter-adds of float32 in
 another order."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +109,62 @@ def test_packed_state_splats_like_separate_sums(width):
     assert torch.equal(img.view(torch.int32),
                        film.to_image(apart).view(torch.int32))
     assert (packed.wsum > 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("width", [0.5, 1.5])
+@pytest.mark.parametrize("max_lum", [float("inf"), 0.8])
+def test_add_samples_vjp_matches_jax(max_lum, width):
+    """The splat's autograd Function (K4 forward, its CPU backward K9's
+    plain version) against ``jax.vjp`` of the JAX splat: the radiance's
+    gradient for a random cotangent of both sums, within 1e-6 relative and
+    absolute (the same few taps a sample, float32); the film's gradient
+    passes through unchanged; the K9 plain version equals autograd of the
+    out-of-place plain splat to float rounding. With the luminance clamp
+    the gradient subtracts a term of the sample's whole radiance, which
+    can cancel: 1e-5 there."""
+    rs = np.random.default_rng(3)
+    res, crop = (40, 24), (0.1, 0.2, 0.85, 0.9)
+    n = 4096
+    p_film = rs.uniform(-2, 42, (n, 2)).astype(np.float32)
+    p_film[:16] = np.floor(p_film[:16])
+    rad = rs.exponential(0.5, (n, 3)).astype(np.float32)
+    valid = rs.uniform(size=n) > 0.1
+    jfilm = JaxFilm(full_resolution=res, crop_window=crop,
+                    filter=JaxFilter("box", width, width),
+                    max_sample_luminance=max_lum)
+    film = Film(full_resolution=res, crop_window=crop,
+                filter=Filter("box", width, width),
+                max_sample_luminance=max_lum)
+    w, h = film.cropped_resolution
+    c_rgb = rs.uniform(-1, 1, (h, w, 3)).astype(np.float32)
+    c_w = rs.uniform(-1, 1, (h, w)).astype(np.float32)
+
+    js0 = jfilm.init_state()
+    _, vjp = jax.vjp(lambda r: jfilm.add_samples(js0, jnp.asarray(p_film), r,
+                                                 valid=jnp.asarray(valid)),
+                     jnp.asarray(rad))
+    ref = np.asarray(vjp(js0._replace(rgb=jnp.asarray(c_rgb),
+                                      wsum=jnp.asarray(c_w)))[0])
+
+    base = torch.zeros((h, w, 4), requires_grad=True)
+    acc = base.clone()
+    st = FilmState(rgb=acc[..., :3], wsum=acc[..., 3])
+    r = torch.tensor(rad, requires_grad=True)
+    st = film.add_samples(st, torch.tensor(p_film), r,
+                          valid=torch.tensor(valid))
+    assert st.rgb.grad_fn is not None and st.rgb._base is acc
+    ((st.rgb * torch.tensor(c_rgb)).sum()
+     + (st.wsum * torch.tensor(c_w)).sum()).backward()
+    tol = 1e-6 if np.isinf(max_lum) else 1e-5
+    np.testing.assert_allclose(r.grad.numpy(), ref, rtol=tol, atol=tol)
+    np.testing.assert_array_equal(
+        base.grad.numpy(), np.concatenate([c_rgb, c_w[..., None]], -1))
+
+    r2 = torch.tensor(rad, requires_grad=True)
+    apart = FilmState(rgb=torch.zeros(h, w, 3), wsum=torch.zeros(h, w))
+    out = film.add_samples_plain(apart, torch.tensor(p_film), r2,
+                                 valid=torch.tensor(valid))
+    (out.rgb * torch.tensor(c_rgb)).sum().backward()
+    np.testing.assert_allclose(r.grad.numpy(), r2.grad.numpy(), rtol=tol,
+                               atol=tol)
+    assert not apart.rgb.any()          # the plain splat went out of place

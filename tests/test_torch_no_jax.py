@@ -1,7 +1,8 @@
 """The port imports no JAX: a fresh interpreter imports its main path (and
-every module of the package) and renders a tiny frame of the matte and of
-the textured dragon, then checks that neither ``jax`` nor the JAX package
-was ever imported."""
+every module of the package), renders a tiny frame of the matte and of
+the textured dragon, takes a train step of the textured dragon and of the
+Cornell box with imagemap walls and the Cornell's fwd+bwd loss, then
+checks that neither ``jax`` nor the JAX package was ever imported."""
 import os
 import subprocess
 import sys
@@ -23,6 +24,21 @@ for build in (build_dragon_matte, build_dragon):
     img = Renderer(integ.li, cam, film, samp, RenderConfig(max_lanes=64),
                    device="cpu").render(ctx)
     assert bool(torch.isfinite(img).all())
+from rustracer_tpu_torch.parallel.mesh import make_train_step
+from rustracer_tpu_torch.scenes import build_cornell
+from rustracer_tpu_torch.tools.bench_fwdbwd import cornell_loss, value_and_grad
+ctx, cam, film, samp, integ, _ = build_dragon(sub=1, res=(8, 8), device="cpu")
+step = make_train_step(integ.li, cam, film, samp, device="cpu")
+ctx, loss = step(ctx, torch.zeros(8, 8, 3))
+assert bool(torch.isfinite(loss))
+ctx, cam, film, samp, integ = build_cornell(res=(8, 8), spp=4, max_depth=3,
+                                            imagemap_walls=(1, 2),
+                                            device="cpu")
+ctx, loss = make_train_step(integ.li, cam, film, samp, device="cpu")(
+    ctx, torch.zeros(8, 8, 3))
+loss, grads = value_and_grad(cornell_loss(ctx, cam, film, samp, integ),
+                             ctx.textures)
+assert all(bool(torch.isfinite(g).all()) for g in grads) and float(loss) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "rustracer_tpu."))
              or m == "rustracer_tpu")
