@@ -166,10 +166,6 @@ ROWS = {
 # the rows whose launches are counted in the dragon train step
 TRAIN_ROWS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
               "row_gather_bwd", "slab_take transpose", "slab_put transpose")
-# operations a textured lane of K10 does: K5's set-up (about 60), then for
-# 8 taps x 2 levels the bilinear set-up (12) and 4 corners of a weight (3),
-# its product with the lane's 3 gradients and the address (10)
-K10_LANE_OPS = 60 + 16 * (12 + 4 * 13)
 # the kernels the matte render runs (no texture, no slab at its widths)
 MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
               "traverse16_any", "build_interaction_tri", "film_add_samples",
@@ -640,7 +636,8 @@ def check_backward(renderer, ctx, results):
     from rustracer_tpu_torch.ops import compact as C
     from rustracer_tpu_torch.ops.gather import row_gather_bwd
     from rustracer_tpu_torch.scene import atlas as A
-    from rustracer_tpu_torch.tools.atlas_work import k5_work
+    from rustracer_tpu_torch.tools.atlas_work import (k10_atomics, k10_work,
+                                                      k5_bound)
     from rustracer_tpu_torch.tools.bench_step_kernels import (
         capture_grad_step, k4_touched, k7_moved)
     from rustracer_tpu_torch.tools.timing import kernel_ms, queued_ms
@@ -688,19 +685,20 @@ def check_backward(renderer, ctx, results):
         out, ref, ms, pms = both(k10, "atlas_ewa_bwd_kernel")
         err = (out - ref).abs().max().item()
         top = ref.abs().max().item()
-        work = k5_work(meta, levels, regs, reg, si, qidx is not None)
-        n_tex = work["textured"]
-        moved = nbytes(reg, out) + n_tex * (8 + 16 + 12)
-        b = bound(moved, n_tex * K10_LANE_OPS)
+        work = k10_work(meta, levels, regs, reg, si, texels.shape[0])
+        bound_ms, bound_by = k5_bound(work)
+        atomics = k10_atomics(meta, levels, regs, reg, si, qidx is not None,
+                              g, texels.shape[0])
         log(f"[9] atlas_lookup_ewa_bwd call {i}: {reg.shape[0]} lanes, "
-            f"{n_tex} textured, {texels.shape[0]} texels, quad "
+            f"{work['textured']} textured, {texels.shape[0]} texels, quad "
             f"{qidx is not None}; max abs err {err:.3g} of max {top:.3g} "
             f"(<= 1e-5 of it); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            f"bound {bound_ms:.4f} ms ({bound_by}); global atomics "
+            f"(tools/atlas_work.py k10_atomics) {atomics}")
         if not err <= 1e-5 * top or not bool(torch.isfinite(out).all()):
             raise AssertionError("atlas_lookup_ewa_bwd differs from the "
                                  "plain backward")
-        rows.append((ms, pms, b["bound_ms"], b["bound_by"], err))
+        rows.append((ms, pms, bound_ms, bound_by, err))
     by = [r[3] for r in rows]
     results["atlas_lookup_ewa_bwd"] = dict(
         max_abs_err=max(r[4] for r in rows),
@@ -732,6 +730,10 @@ def check_backward(renderer, ctx, results):
             f"sum of magnitudes (<= 1e-4)")
         if not of_abs <= 1e-4:
             raise AssertionError("row_gather_bwd differs from index_add_")
+        if not torch.equal(out.view(torch.int32),
+                           row_gather_bwd(g, idx, n_rows).view(torch.int32)):
+            raise AssertionError("row_gather_bwd: two launches differ in "
+                                 "bits")
         b = bound(nbytes(g, idx, out))
         rows.append((ms, pms, b["bound_ms"], err))
         log(f"[9] row_gather_bwd call {i}: kernel {ms:.4f} ms, index_add_ "

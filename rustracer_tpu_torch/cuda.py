@@ -62,8 +62,11 @@ SIGNATURES = {
                              _F, _F, _I, _I, _F, _P, _P],
     "atlas_lookup_ewa_bwd": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _I, _P],
-    "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P],
+    "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
+# host functions of the library (no launch, not counted): name -> argument
+# types; each returns an int
+HOST_SIGNATURES = {"row_gather_bwd_blocks": [_I, _I, _I]}
 # the backward kernels (K9-K11), launched only by autograd's backward pass;
 # K7 is its own transpose and counts as slab_take / slab_put
 BACKWARD_KERNELS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
@@ -73,6 +76,7 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
 _lib = None
+_lib_error = None
 
 
 class _Route(threading.local):
@@ -150,23 +154,37 @@ def library_path() -> str:
         [nvcc_path(), *NVCC_FLAGS])
 
 
-def load(path: str, names=tuple(SIGNATURES)):
+def load(path: str, names=tuple(SIGNATURES) + tuple(HOST_SIGNATURES)):
     """ctypes handle of the kernel library at ``path`` with its entry points
-    ``names`` bound to their SIGNATURES."""
+    ``names`` bound to their SIGNATURES (or HOST_SIGNATURES)."""
     lib = ctypes.CDLL(path)
     for name in names:
         fn = getattr(lib, "rt_" + name)
-        fn.argtypes = SIGNATURES[name]
+        fn.argtypes = SIGNATURES.get(name) or HOST_SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
 
 
 def library():
-    global _lib
+    """The loaded kernel library, built on first use. A build that failed
+    is not tried again in this process: its error is raised again."""
+    global _lib, _lib_error
     with _lock:
+        if _lib_error is not None:
+            raise _lib_error
         if _lib is None:
-            _lib = load(library_path())
+            try:
+                _lib = load(library_path())
+            except RuntimeError as e:
+                _lib_error = e
+                raise
         return _lib
+
+
+def host_call(name: str, *args, lib=None) -> int:
+    """The int that host function ``rt_<name>`` of the kernel library (or of
+    ``lib``) returns for ``args`` (HOST_SIGNATURES); nothing is launched."""
+    return getattr(lib or library(), "rt_" + name)(*args)
 
 
 def _arg(a):

@@ -1,7 +1,7 @@
 """Row gather ``out[i] = table[idx[i]]`` and its hand kernel K8
 (csrc/gather.cu), the port of tools/bench_gather_pallas.py ``pallas_gather``,
-with its backward, hand kernel K11 (csrc/gather_bwd.cu): the scatter-add of
-the row gradients into the table's gradient.
+with its backward, hand kernel K11 (csrc/gather_bwd.cu): the sum of the
+row gradients into the table's gradient.
 
 K8 copies float4s with neighbouring threads on neighbouring addresses; a
 128-float (512-byte) BVH row is one warp. The render uses it for the
@@ -15,8 +15,13 @@ import torch
 from .. import cuda
 
 MAX_ROWS = (1 << 31) - 1
-# floats of the table gradient K11 sums in one block's shared memory
+# floats of a table gradient that K11 sums in one block's shared memory: a
+# table beyond its register path (more than 8 rows, or a row that is not
+# 1, 2, 4 or 8 float4s) must fit
 K11_MAX_FLOATS = 12288
+# K11's fold counter: one word for each (device, stream), zeroed when made;
+# each launch leaves it at 0
+_K11_COUNTER = {}
 
 
 def row_gather_plain(table, idx):
@@ -66,24 +71,43 @@ def row_gather_bwd_plain(g, idx, rows):
                        device=g.device).index_add_(0, idx.long(), g)
 
 
+def _k11_counter(dev):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    counter = _K11_COUNTER.get(key)
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _K11_COUNTER[key] = counter
+    return counter
+
+
 def row_gather_bwd(g, idx, rows):
     """The table gradient (R, W) of ``row_gather``: row gradients ``g``
     (B, W) summed into the rows ``idx`` (B,) int32 they came from. CPU
-    tensors take the plain version, CUDA tensors launch K11, which sums a
-    block's lanes in shared memory first (R * W at most K11_MAX_FLOATS)
-    and then adds each of its R * W sums with one atomic."""
+    tensors take the plain version, CUDA tensors launch K11: a table of at
+    most 8 rows of 4, 8, 16 or 32 floats is summed in registers and folded
+    in a fixed order (the same bits from launch to launch); a larger one
+    (R * W at most K11_MAX_FLOATS) in each block's shared memory, added
+    into the output with one atomic an entry."""
     if not cuda.use_kernel(g):
         return row_gather_bwd_plain(g, idx, rows)
     n, width = g.shape
-    cuda.check(g, "g", torch.float32, (n, width), g.device)
-    cuda.check(idx, "idx", torch.int32, (n,), g.device)
-    if not 0 < rows * width <= K11_MAX_FLOATS:
+    dev = g.device
+    cuda.check(g, "g", torch.float32, (n, width), dev)
+    cuda.check(idx, "idx", torch.int32, (n,), dev)
+    blocks = cuda.host_call("row_gather_bwd_blocks", n, rows, width)
+    if not blocks and not 0 < rows * width <= K11_MAX_FLOATS:
         raise ValueError(f"row_gather_bwd: a {rows} x {width} table gradient "
                          f"exceeds the {K11_MAX_FLOATS} floats K11 sums in "
                          "shared memory")
-    out = torch.zeros((rows, width), dtype=torch.float32, device=g.device)
-    if n:
-        cuda.launch("row_gather_bwd", g, idx, n, rows, width, out)
+    if not n:
+        return torch.zeros((rows, width), dtype=torch.float32, device=dev)
+    if blocks and g.data_ptr() % 16:
+        g = g.clone()    # the register path reads float4s
+    out = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    partials = torch.empty(blocks * rows * width, dtype=torch.float32,
+                           device=dev)
+    cuda.launch("row_gather_bwd", g, idx, n, rows, width, out, partials,
+                _k11_counter(dev))
     return out
 
 

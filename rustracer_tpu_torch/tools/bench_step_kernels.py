@@ -1,10 +1,11 @@
 """K4 (the film splat), K5 (the atlas EWA lookup), K6 (the alive-first
-order) and K7 (the slab take and put) on the inputs of full-width textured
-steps, against their plain versions and, given them, other builds of their
+order), K7 (the slab take and put), K10 (the lookup's backward) and K11
+(the row gather's backward) on the inputs of full-width textured steps,
+against their plain versions and, given them, other builds of their
 sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
-        [--reps N] [--json PATH]
+        [--reps N] [--kernels K4,K5,K6,K7,K10,K11] [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
 tiles, compaction on) and runs one step of tile 2 (all floor and dragon,
@@ -37,16 +38,29 @@ textured lanes of each K5 input, K5's bound (tools/atlas_work.py) and K6's
 the memory instructions of each kernel in program order, from cuobjdump's
 SASS (``sass_memory_ops``): K4's reductions a tap, K7's loads and stores.
 
-An ``--other`` source is a film.cu, atlas.cu or compact.cu with the
-library's C interface (cuda.SIGNATURES), next to the common.cuh it
-includes; it is built alone, and what it exports decides which kernels it
-is timed as: ``rt_film_add_samples`` K4, ``rt_atlas_lookup_ewa`` K5,
-``rt_alive_first_order`` K6, ``rt_slab_take`` K7 (take and put). A
+An ``--other`` source is a film.cu, atlas.cu, compact.cu, atlas_bwd.cu or
+gather_bwd.cu with the library's C interface (cuda.SIGNATURES), next to
+the common.cuh it includes; it is built alone, and what it exports
+decides which kernels it is timed as: ``rt_film_add_samples`` K4,
+``rt_atlas_lookup_ewa`` K5, ``rt_alive_first_order`` K6, ``rt_slab_take``
+K7 (take and put), ``rt_atlas_lookup_ewa_bwd`` K10, ``rt_row_gather_bwd``
+K11. A
 film.cu that exports ``rt_film_channels`` takes the film as one (H, W, 4)
 buffer, as the library's does; one that does not (an older source) is
 given its own (H, W, 3) and (H, W) sums, compared after packing. A
 compact.cu's K6 is given zeroed scratch words enough for either the
 one-launch kernel's status words or a three-launch kernel's chunk counts.
+K10 and K11 run on the recorded backward pass of tile 2's step
+(``capture_grad_step``): K10 on each of its calls (the texel gradient
+within 1e-5 of the plain result's largest entry, for every build), with
+its global atomics counted on the host (tools/atlas_work.py
+k10_atomics); K11 on each of its calls (each entry within 1e-4 of its sum
+of magnitudes), both timed in turns. An atlas_bwd.cu needs atlas.cuh and
+common.cuh beside it; a gather_bwd.cu that does not export
+``rt_row_gather_bwd_blocks`` (the parent's) is called with the parent's
+arguments, into a zeroed output. ``--kernels`` picks what is measured
+(all by default).
+
 Refuses to run without CUDA.
 """
 from __future__ import annotations
@@ -71,16 +85,19 @@ import torch
 from .. import cuda
 from .._build import CSRC, compile_shared
 from ..ops import compact as C
+from ..ops import gather as G
 from ..render.film import Film
 from ..scene import atlas as A
 from ..scene import materials as M
-from .atlas_work import k5_bound, k5_work
+from .atlas_work import k10_atomics, k10_work, k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
 from .timing import cold_ms, kernel_ms, queued_ms
 from .traverse_work import PEAK_BYTES_PER_S
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
                   "slab_take")
+K10, K11 = "atlas_lookup_ewa_bwd", "row_gather_bwd"
+KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
 K4_KERNELS = ("film_add_kernel",)
@@ -88,6 +105,12 @@ K5_KERNELS = ("atlas_ewa_kernel",)
 K6_KERNELS = ("alive_first_kernel", "count_kernel", "scan_counts_kernel",
               "place_kernel")
 K7_KERNELS = ("slab_kernel",)
+K10_KERNELS = ("atlas_ewa_bwd_kernel",)
+K11_KERNELS = ("row_gather_bwd_kernel", "row_gather_bwd_shared_kernel")
+# K11's C interface before its register path: g, idx, n, rows,
+# width, out (zeroed, added into), stream
+K11_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p] * 2
 LANES = 1 << 18
 RES = (1024, 1024)
 STEP_TILE = 2
@@ -160,7 +183,6 @@ def capture_grad_step(renderer, ctx, tile, sample=1):
     quad_index), k11 (row_gather_bwd: g, idx, rows), take_t
     (compact.take_transpose: order, w, g_subs, shapes) and put_t
     (compact.put_transpose: order, w, g_full)."""
-    from ..ops import gather as G
     from ..parallel.mesh import float_leaves
     leaves, rebuild = float_leaves(ctx.textures)
     theta = [p.detach().requires_grad_() for p in leaves]
@@ -342,15 +364,18 @@ def memory_ops(sass):
 
 def build(others):
     """Build the library and each other source, and ask ptxas of the
-    library's film.cu, atlas.cu and compact.cu and of each other source
-    (and cuobjdump of each film.cu and compact.cu), all at once ->
+    library's film.cu, atlas.cu, compact.cu, atlas_bwd.cu and gather_bwd.cu
+    and of each other source (and cuobjdump of each film.cu, compact.cu,
+    atlas_bwd.cu and gather_bwd.cu), all at once ->
     ({kernel: {build name: loaded build, or None for the library}},
     {source name: ptxas lines}, {source name: sass_memory_ops},
     {build name: film channels})."""
     sources = {f"library {f}": os.path.join(CSRC, f)
-               for f in ("film.cu", "atlas.cu", "compact.cu")}
+               for f in ("film.cu", "atlas.cu", "compact.cu",
+                         "atlas_bwd.cu", "gather_bwd.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K4, K5, K6, K7)
+    kernels = (K4, K5, K6, K7, K10, K11)
+    sass_of = ("film.cu", "compact.cu", "atlas_bwd.cu", "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
         lib = pool.submit(cuda.library)
         libs = {p: pool.submit(compile_shared, f"step_other{i}",
@@ -360,7 +385,7 @@ def build(others):
                    for name, src in sources.items()}
         sass = {name: pool.submit(sass_memory_ops, src)
                 for name, src in sources.items()
-                if os.path.basename(src) in ("film.cu", "compact.cu")}
+                if os.path.basename(src) in sass_of}
         lib.result()
         builds = {k: {"library": None} for k in kernels}
         channels = {"library": 4}
@@ -370,8 +395,17 @@ def build(others):
             if not exports:
                 raise ValueError(f"{p} exports none of "
                                  f"{['rt_' + k for k in kernels]}")
-            loaded = cuda.load(f.result(), exports
-                               + (["slab_put"] if K7 in exports else []))
+            k11_parent = K11 in exports and not hasattr(
+                handle, "rt_row_gather_bwd_blocks")
+            names = [k for k in exports if not (k == K11 and k11_parent)]
+            loaded = cuda.load(f.result(), names
+                               + (["slab_put"] if K7 in exports else [])
+                               + (["row_gather_bwd_blocks"]
+                                  if K11 in names else []))
+            if k11_parent:
+                loaded.rt_row_gather_bwd.argtypes = K11_PARENT_ARGS
+                loaded.rt_row_gather_bwd.restype = ctypes.c_int
+                loaded.k11_parent = True
             for k in exports:
                 builds[k][p] = loaded
             if K4 in exports:
@@ -566,12 +600,125 @@ def measure_k7(cap, builds, reps=20, log=print):
     return rows
 
 
+def k10_call(lib, case):
+    """One K10 call on a recorded input (the arguments of
+    atlas_lookup_ewa_bwd): the library's through its wrapper, or ``lib``'s
+    with the same arguments into a zeroed gradient."""
+    (g, texels, meta, levels, regs, reg, si, qidx), _ = case
+    if lib is None:
+        return A.atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg, si,
+                                      qidx)
+    out = torch.zeros_like(texels)
+    cuda.launch(K10, g, int(qidx is not None), meta, meta.shape[1], levels,
+                regs["reg_img"], regs["reg_map"], regs["reg_scale"],
+                regs["reg_wrap"], reg, si.uv, si.dudx, si.dvdx, si.dudy,
+                si.dvdy, reg.shape[0], *A.TAP_WEIGHTS32, A.WSUM32, out,
+                texels.shape[0], lib=lib)
+    return out
+
+
+def measure_k10(grad, builds, reps=20, log=print):
+    """Check and time every K10 build on every recorded call of the
+    backward step -> list of row dicts."""
+    rows = []
+    for i, case in enumerate(grad["k10"]):
+        (g, texels, meta, levels, regs, reg, si, qidx), _ = case
+        with cuda.plain_reference():
+            ref = k10_call(None, case)
+        top = ref.abs().max().item()
+        errs = {}
+        for b, lib in builds.items():
+            d = (k10_call(lib, case) - ref).abs().max().item()
+            if not d <= 1e-5 * top:
+                raise AssertionError(f"K10 call {i} {b}: max abs err {d:.3g}"
+                                     f" beyond 1e-5 of {top:.3g}")
+            errs[b] = d
+        work = k10_work(meta, levels, regs, reg, si, texels.shape[0])
+        bound_ms, bound_by = k5_bound(work)
+        atomics = k10_atomics(meta, levels, regs, reg, si, qidx is not None,
+                              g, texels.shape[0])
+        log(f"K10 call {i}: {reg.shape[0]} lanes, {work['textured']} "
+            f"textured, {texels.shape[0]} texels; max abs err {errs} of "
+            f"max {top:.3g}; global atomics {atomics}")
+        timed = _turns({b: (lambda lib=lib: k10_call(lib, case))
+                        for b, lib in builds.items()}, reps, K10_KERNELS)
+        for b in builds:
+            r = _row(f"K10 call {i}", b, timed[b], bound_ms, bound_by,
+                     max_abs_err=errs[b], atomics=atomics, **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
+def k11_call(lib, case):
+    """One K11 call on a recorded input (g, idx, rows): the library's
+    through its wrapper, or ``lib``'s with the same arguments (a parent
+    build's into a zeroed output)."""
+    (g, idx, n_rows), _ = case
+    if lib is None:
+        return G.row_gather_bwd(g, idx, n_rows)
+    n, width = g.shape
+    if getattr(lib, "k11_parent", False):
+        out = torch.zeros((n_rows, width), dtype=torch.float32,
+                          device=g.device)
+        cuda.launch(K11, g, idx, n, n_rows, width, out, lib=lib)
+        return out
+    blocks = cuda.host_call("row_gather_bwd_blocks", n, n_rows, width,
+                            lib=lib)
+    out = torch.empty((n_rows, width), dtype=torch.float32, device=g.device)
+    partials = torch.empty(blocks * n_rows * width, dtype=torch.float32,
+                           device=g.device)
+    cuda.launch(K11, g, idx, n, n_rows, width, out, partials,
+                G._k11_counter(g.device), lib=lib)
+    return out
+
+
+def measure_k11(grad, builds, reps=20, log=print):
+    """Check and time every K11 build on every recorded call of the
+    backward step -> list of row dicts."""
+    rows = []
+    for i, case in enumerate(grad["k11"]):
+        (g, idx, n_rows), _ = case
+        with cuda.plain_reference():
+            ref = k11_call(None, case)
+            ref_abs = G.row_gather_bwd(g.abs(), idx, n_rows)
+        errs = {}
+        for b, lib in builds.items():
+            out = k11_call(lib, case)
+            d = (out - ref).abs()
+            of_abs = (d / ref_abs.clamp(min=1e-30)).max().item()
+            if not of_abs <= 1e-4:
+                raise AssertionError(f"K11 call {i} {b}: {of_abs:.3g} of an "
+                                     "entry's sum of magnitudes")
+            same = torch.equal(out.view(torch.int32),
+                               k11_call(lib, case).view(torch.int32))
+            errs[b] = (d.max().item(), of_abs, same)
+        moved = sum(t.numel() * t.element_size() for t in (g, idx, ref))
+        log(f"K11 call {i}: {g.shape[0]} x {g.shape[1]} into {n_rows} rows; "
+            f"(max abs err, of the sum of magnitudes, two launches "
+            f"bit-equal) {errs}")
+        timed = _turns({b: (lambda lib=lib: k11_call(lib, case))
+                        for b, lib in builds.items()}, reps, K11_KERNELS)
+        for b in builds:
+            r = _row(f"K11 call {i}", b, timed[b],
+                     moved / PEAK_BYTES_PER_S * 1e3, "bytes",
+                     max_abs_err=errs[b][0], reproducible=errs[b][2],
+                     bytes=moved)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
-                    help="another film.cu, atlas.cu or compact.cu to "
-                         "time (repeatable)")
+                    help="another film.cu, atlas.cu, compact.cu, "
+                         "atlas_bwd.cu or gather_bwd.cu to time "
+                         "(repeatable)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to measure, of "
+                         f"{','.join(KERNELS)}")
     ap.add_argument("--json", help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -597,16 +744,24 @@ def main(argv=None):
     ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
     r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=LANES),
                  device=dev)
+    which = args.kernels.split(",")
     cap = capture_step(r, ctx, r.tiles[STEP_TILE])
     cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
+    grad = capture_grad_step(r, ctx, r.tiles[STEP_TILE])
     print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
-          f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls; step of "
-          f"tile {SLAB_TILE}: {len(cap['k7'])} K7 take", flush=True)
+          f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls, "
+          f"{len(grad['k10'])} K10 and {len(grad['k11'])} K11 calls in its "
+          f"backward; step of tile {SLAB_TILE}: {len(cap['k7'])} K7 take",
+          flush=True)
     log = lambda s: print(s, flush=True)   # noqa: E731
-    rows = measure_k4(cap, builds[K4], channels, args.reps, log) \
-        + measure_k5(ctx, cap, builds[K5], args.reps, log) \
-        + measure_k6(cap, builds[K6], args.reps, log) \
-        + measure_k7(cap, builds[K7], args.reps, log)
+    measure = {
+        "K4": lambda: measure_k4(cap, builds[K4], channels, args.reps, log),
+        "K5": lambda: measure_k5(ctx, cap, builds[K5], args.reps, log),
+        "K6": lambda: measure_k6(cap, builds[K6], args.reps, log),
+        "K7": lambda: measure_k7(cap, builds[K7], args.reps, log),
+        "K10": lambda: measure_k10(grad, builds[K10], args.reps, log),
+        "K11": lambda: measure_k11(grad, builds[K11], args.reps, log)}
+    rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

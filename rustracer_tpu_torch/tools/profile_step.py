@@ -1,18 +1,28 @@
-"""Render times and profiled render steps of the full-size dragon, one GPU.
+"""Render times and profiled render or train steps of the full-size
+dragon, one GPU.
 
-    python -m rustracer_tpu_torch.tools.profile_step [textured|matte] [tile ...]
+    python -m rustracer_tpu_torch.tools.profile_step [textured|matte|train]
+        [tile ...]
 
 Builds the scene at 1024^2 in 2^18-lane tiles (the textured headline: the
-64-spp config, compaction on), renders one sample of every tile as a
-warm-up, then times five 8-sample renders (host clock ending in
-``torch.cuda.synchronize()``) and prints them as one JSON line. Then, for
-each tile index (default 0 and 2; tile 0 holds the sky and takes a slab
-tier, tile 2 is all floor and dragon), it times one step at sample 1
-(median of 5) and profiles one more, and prints one JSON line per tile: the
-step's wall time, the device busy time (the union of the kernels' device
-intervals) and its share of the profiled step, the kernel count and the ten
-largest device items, and the device time of each hand kernel. Refuses to
-run without CUDA.
+64-spp config, compaction on). For ``textured`` and ``matte`` it renders one
+sample of every tile as a warm-up, then times five 8-sample renders (host
+clock ending in ``torch.cuda.synchronize()``) and prints them as one JSON
+line. Then, for each tile index (default 0 and 2; tile 0 holds the sky and
+takes a slab tier, tile 2 is all floor and dragon), it times one step at
+sample 1 (median of 5) and profiles one more, and prints one JSON line per
+tile: the step's wall time, the device busy time (the union of the kernels'
+device intervals) and its share of the profiled step, the kernel count and
+the ten largest device items, and the device time of each hand kernel.
+
+``train`` times three whole train steps of the textured dragon
+(parallel/mesh.py make_train_step, lr 0.1, sample 0, the target its render
+with the hero's albedo scaled by 0.5; tools/bench_fwdbwd.py) after a
+warm-up, then, for each tile index (default 2), makes a train step of that
+tile alone (the film cropped to its 256 rows), times it (median of 5) and
+profiles one more: the same line as a render step's, with the share of
+the busy time that the backward kernels K9-K11 take. Refuses to run
+without CUDA.
 """
 from __future__ import annotations
 
@@ -57,6 +67,13 @@ def profile_tile(renderer, ctx, tile, reps=5):
         renderer.step(ctx, fs, px, py, 1, v)
         torch.cuda.synchronize()
 
+    return profile_call(step, reps)
+
+
+def profile_call(step, reps=5):
+    """-> dict of the wall time of ``step()`` (which ends in a
+    synchronize), median of ``reps``, and the device profile of one
+    more."""
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -92,14 +109,48 @@ def profile_tile(renderer, ctx, tile, reps=5):
                 hand_kernels_ms={k: round(ms, 4) for k, ms in hand.items()})
 
 
+def profile_train(ctx, cam, full, sampler, integ, ti, reps=5):
+    """-> dict of the wall time and device profile of a train step of
+    tile ``ti`` alone (the film ``full`` cropped to the tile's rows)."""
+    from ..parallel.mesh import make_train_step
+    from ..render.film import Film
+    from .bench_fwdbwd import half_albedo_target
+    w, h = full.full_resolution
+    rows = LANES // w
+    film = Film(full_resolution=(w, h), filter=full.filter,
+                crop_window=(0.0, ti * rows / h, 1.0, (ti + 1) * rows / h))
+    config = RenderConfig(max_lanes=LANES)
+    target = half_albedo_target(Renderer(integ.li, cam, film, sampler,
+                                         config, device=ctx.geom.tv_p.device),
+                                ctx)
+    train = make_train_step(integ.li, cam, film, sampler, lr=0.1,
+                            config=config, device=ctx.geom.tv_p.device)
+
+    def step():
+        _, loss = train(ctx, target)
+        loss.item()
+
+    step()                                # warm-up
+    r = profile_call(step, reps)
+    busy = r["device_busy_ms"]
+    bwd = {k: v for k, v in r["hand_kernels_ms"].items()
+           if "_bwd_" in k}
+    r.update(backward_kernels_ms=bwd,
+             backward_kernels_share=sum(bwd.values()) / busy,
+             idle_share=1.0 - r["busy_share"])
+    return r
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device; nothing runs on the "
                          "CPU")
     scene = argv[0] if argv else "textured"
-    tiles = [int(a) for a in argv[1:]] or [0, 2]
     dev = torch.device("cuda:0")
+    if scene == "train":
+        return main_train([int(a) for a in argv[1:]] or [2], dev)
+    tiles = [int(a) for a in argv[1:]] or [0, 2]
     build = {"textured": build_dragon, "matte": build_dragon_matte}[scene]
     ctx, cam, film, sampler, integ, _ = build(device=dev)
     renderer = Renderer(integ.li, cam, film, sampler,
@@ -122,6 +173,26 @@ def main(argv=None):
         r = dict(scene=scene, tile=ti, lanes=LANES,
                  card=torch.cuda.get_device_name(0),
                  **profile_tile(renderer, ctx, renderer.tiles[ti]))
+        print(json.dumps(r), flush=True)
+        out.append(r)
+    return out
+
+
+def main_train(tiles, dev):
+    from ..scenes import dragon_geometry
+    from .bench_fwdbwd import bench_dragon_step
+    geometry = dragon_geometry(device=dev)
+    ctx, cam, film, sampler, integ, _ = build_dragon(device=dev,
+                                                     geometry=geometry)
+    whole = bench_dragon_step(dev, runs=3, geometry=geometry)
+    out = [dict(scene="train", card=torch.cuda.get_device_name(0),
+                step_s=whole["step_s"], times_s=whole["times_s"],
+                peak_bytes=whole["peak_bytes"])]
+    print(json.dumps(out[0]), flush=True)
+    for ti in tiles:
+        r = dict(scene="train", tile=ti, lanes=LANES,
+                 card=torch.cuda.get_device_name(0),
+                 **profile_train(ctx, cam, film, sampler, integ, ti))
         print(json.dumps(r), flush=True)
         out.append(r)
     return out

@@ -407,8 +407,10 @@ def _ewa_inputs(dev, wrap, n=1 << 14, pattern="random"):
     """Three small pyramids, four registrations of wrap mode ``wrap``, and n
     lanes with uv in [-0.5, 1.5], random differentials on 3/4 of them and
     zeros on the rest; textured lanes (reg >= 0) by ``pattern``: "random"
-    (reg = -1 on about a fifth), "none", "all" or "alternating" (the even
-    lanes, so every warp mixes both)."""
+    (reg = -1 on about a fifth), "none", "all", "alternating" (the even
+    lanes, so every warp mixes both) or "coarse" (about 1% of the lanes,
+    all with differentials of 0.03-3 that put them on the coarsest levels,
+    where many lanes add into one texel: an interior bounce)."""
     rs = np.random.RandomState(11)
     images = [build_pyramid(rs.rand(*s).astype(np.float32))
               for s in ((64, 64, 3), (12, 20, 3), (8, 8))]
@@ -424,8 +426,10 @@ def _ewa_inputs(dev, wrap, n=1 << 14, pattern="random"):
     regs = A.registrations_on(A.build_registrations(texs), dev)
     scale = 10.0 ** rs.uniform(-4, -0.5, (n, 4))
     sign = np.where(rs.rand(n, 4) < 0.5, -1.0, 1.0)
-    diffs = torch.as_tensor((scale * sign * (rs.rand(n, 1) < 0.75))
-                            .astype(np.float32), device=dev)
+    diffs = scale * sign * (rs.rand(n, 1) < 0.75)
+    if pattern == "coarse":
+        diffs = 10.0 ** rs.uniform(-1.5, 0.5, (n, 4)) * sign
+    diffs = torch.as_tensor(diffs.astype(np.float32), device=dev)
     si = SimpleNamespace(
         uv=torch.as_tensor(rs.uniform(-0.5, 1.5, (n, 2)).astype(np.float32),
                            device=dev),
@@ -436,6 +440,8 @@ def _ewa_inputs(dev, wrap, n=1 << 14, pattern="random"):
         reg[:] = -1
     elif pattern == "alternating":
         reg[1::2] = -1
+    elif pattern == "coarse":
+        reg[rs.rand(n) >= 0.01] = -1
     reg = torch.as_tensor(reg.astype(np.int32), device=dev)
     timg = [[torch.as_tensor(lv) for lv in p] for p in images]
     return (timg, torch.as_tensor(meta["atlas_meta"], device=dev),
@@ -714,7 +720,8 @@ def _sums_close(out, ref, ref_abs):
 
 
 @pytest.mark.parametrize("n", [0, 1, 129, 1 << 14, (1 << 18) + 5])
-@pytest.mark.parametrize("pattern", ["random", "all", "alternating"])
+@pytest.mark.parametrize("pattern", ["random", "all", "alternating",
+                                     "coarse"])
 @pytest.mark.parametrize("quad,wrap", [(True, WRAP_REPEAT),
                                        (False, WRAP_REPEAT),
                                        (False, WRAP_BLACK),
@@ -722,7 +729,9 @@ def _sums_close(out, ref, ref_abs):
 def test_atlas_bwd_matches_plain(dev, quad, wrap, pattern, n):
     """K10, the texel gradient of the EWA lookup, against autograd of the
     plain lookup (on the quad rows built from the (T, 3) texels for the
-    quad layout), as sums taken in another order (_sums_close)."""
+    quad layout), as sums taken in another order (_sums_close): tiles of
+    its persistent blocks whole, empty, mixed and ragged, and sparse lanes
+    on the coarse levels, whose adds meet in each block's hash."""
     timg, meta, levels, regs, reg, si = _ewa_inputs(dev, wrap, n, pattern)
     texels = A.atlas_texels(timg).to(dev)
     qidx = A.atlas_quad_index(timg).to(dev) if quad else None
@@ -736,14 +745,17 @@ def test_atlas_bwd_matches_plain(dev, quad, wrap, pattern, n):
     ref, ref_abs = (_plain(lambda x=x: A.atlas_lookup_ewa_bwd(
         x, texels, meta, levels, regs, reg, si, qidx)) for x in (g, g.abs()))
     _sums_close(out, ref, ref_abs)
-    if n > 1:
+    if n > 1 and (pattern != "coarse" or n >= 1 << 14):
         assert ref.abs().max() > 0
 
 
-@pytest.mark.parametrize("rows,width", [(3, 16), (5, 16), (3001, 4)])
+@pytest.mark.parametrize("rows,width", [(3, 16), (5, 16), (3001, 4),
+                                        (8, 16), (9, 16), (1, 4), (8, 32)])
 def test_row_gather_bwd_matches_plain(dev, rows, width):
     """K11, the table gradient of the row gather, against index_add_ as
-    sums taken in another order (_sums_close); a table gradient beyond the
+    sums taken in another order (_sums_close), on 2^18 + 5 lanes (not a
+    multiple of a block's lanes): the register path up to 8 rows (of 4 to
+    32 floats), the shared-copy path beyond; a table gradient beyond the
     shared memory K11 sums in is refused."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(rows)
@@ -760,6 +772,26 @@ def test_row_gather_bwd_matches_plain(dev, rows, width):
     with pytest.raises(ValueError, match="shared memory"):
         row_gather_bwd(torch.zeros((4, 16), device=dev),
                        torch.zeros(4, dtype=torch.int32, device=dev), 1024)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, (1 << 18) + 5])
+@pytest.mark.parametrize("rows", [3, 8])
+def test_row_gather_bwd_reproducible(dev, rows, n):
+    """K11's register path sums in a fixed order: two launches give the
+    same bits, from a grid of one block to one block an SM, and a g that
+    starts off a 16-byte boundary is read as well."""
+    from rustracer_tpu_torch.ops.gather import row_gather_bwd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    buf = torch.rand((n * 16 + 1,), generator=gen, device=dev) - 0.5
+    idx = torch.randint(0, rows, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for g in (buf[:-1].view(n, 16), buf[1:].view(n, 16)):
+        out = row_gather_bwd(g, idx, rows)
+        assert torch.equal(out.view(torch.int32),
+                           row_gather_bwd(g, idx, rows).view(torch.int32))
+        _sums_close(out, _plain(lambda: row_gather_bwd(g, idx, rows)),
+                    _plain(lambda: row_gather_bwd(g.abs(), idx, rows)))
 
 
 @pytest.mark.parametrize("w", [0, 1, _SLAB_N // 4, _SLAB_N // 2, _SLAB_N])

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from rustracer_tpu_torch import convert, scenes
+from rustracer_tpu_torch.parallel.mesh import make_train_step
 from rustracer_tpu_torch.render.film import Film
 from rustracer_tpu_torch.render.renderer import Renderer
 from rustracer_tpu_torch.scene.lights import make_lights
@@ -15,7 +16,8 @@ from rustracer_tpu_torch.scene.tables import make_geometry
 ENTRY_POINTS = (scenes.dragon_geometry, scenes.build_dragon_matte,
                 scenes.build_dragon, Renderer, make_geometry, make_lights,
                 Film.init_state, convert.geometry_from_jax,
-                convert.lights_from_jax, convert.textures_from_jax)
+                convert.lights_from_jax, convert.textures_from_jax,
+                scenes.build_cornell, scenes.cornell_box, make_train_step)
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)

@@ -81,6 +81,41 @@ def test_k5_work_without_textured_lanes():
     assert W.k5_bound(work) == (48 / W.PEAK_BYTES_PER_S * 1e3, "bytes")
 
 
+# K10 on the same lanes, by hand: lane 1's 64 adds go to level 0's quad at
+# (1, 1) (texels 5 6 9 10, weights 1/4 each) and level 1's at (0, 0) (16-19);
+# lane 2's to level 0's quad at (-1, -1) and level 1's at (-1, -1), which
+# REPEAT wraps to texels 15 12 3 0 and 19 18 17 16, CLAMP clamps onto 0 and
+# 16, and BLACK keeps one corner of (0 and 16). The parent adds each of a
+# lane's 64 adds apart, but where the two lanes meet on a texel at one add
+# number (CLAMP: texel 16 at level 1's corner 0, on 8 taps: 120 adds of
+# 128); K10 runs each lookup on 8 threads (one tap each), skips level 1
+# (blend 0), and sums a corner over the 8 taps: 4 texels for lane 1, 4 for
+# lane 2 (1 once clamped or black), 3 channels each. The busiest texel: 16
+# and up, 8 adds from each lane (REPEAT), or 32 from lane 2 and 8 from
+# lane 1 (CLAMP)
+@pytest.mark.parametrize("quad,wrap,adds,parent,new,most", [
+    (True, WRAP_REPEAT, 128, 384, 24, 16),
+    (False, WRAP_REPEAT, 128, 384, 24, 16),
+    (False, WRAP_BLACK, 80, 240, 15, 16),
+    (False, WRAP_CLAMP, 128, 360, 15, 40),
+])
+def test_k10_work_and_atomics_by_hand(quad, wrap, adds, parent, new, most):
+    meta, levels, regs, reg, si = _tiny(wrap)
+    n_texels = 21
+    work = W.k10_work(meta, levels, regs, reg, si, n_texels)
+    assert work == dict(lanes=3, textured=2,
+                        bytes=3 * 4 + 2 * (24 + 12) + n_texels * 12,
+                        ops=2 * W.K10_LANE_OPS)
+    g = torch.tensor([[1.0, 2.0, 3.0]] * 3)
+    assert W.k10_atomics(meta, levels, regs, reg, si, quad, g,
+                         n_texels) == dict(adds=adds, parent=parent, new=new,
+                                           max_adds_texel=most)
+    # no textured lane: nothing to add
+    none = torch.full_like(reg, -1)
+    assert W.k10_atomics(meta, levels, regs, none, si, quad, g, n_texels) \
+        == dict(adds=0, parent=0, new=0, max_adds_texel=0)
+
+
 # a 4 x 3 film; by hand, with box 0.5 each sample's one tap: (0.5, 0.5)
 # and (0.25, 0.5) on pixel (0, 0), (3.75, 2.5) on (3, 2), (1.0, 1.5) (on a
 # pixel edge) on (0, 1), (-3, -3) off the film, (2.5, 0.5) on (2, 0);
