@@ -59,19 +59,47 @@ Phases, each printing its lines:
      the gradient of every float leaf of the kernel path against the
      all-plain path within the CPU parity bound (||d|| / ||g|| <= 1e-3,
      every element within 1e-2 max |g|);
- 12. a JSON line of the kernels (times, bounds, library yardsticks,
+ 12. the Cornell box through the port's command line on the card, in a
+     subprocess (python -m rustracer_tpu_torch.utils.cli
+     scenes/cornell-box.pbrt -o <tmp>.exr -v): its phase timings (parse,
+     BVH, spatial grid K12, render) and launches, its image read back with
+     the port's reader and held to tests/goldens/cornell-box.npz with
+     tests/test_golden.py's tolerance (mean 2e-3, p99 2e-2) and structural
+     checks;
+ 13. the same scene parsed and rendered (16 spp) in this process, counted,
+     against the golden; K12 on every chunk of its 64 x 63 x 64-voxel grid
+     against its plain version, one chunk timed and bounded;
+ 14. the headline dragon through a scene file (tools/dragon_scene.py: the
+     327,680-triangle mesh as a binary PLY, the hero texture as EXR) at
+     1024^2, samples [0, 8) in 2^18-lane tiles: with the uniform strategy
+     its tables bit for bit build_dragon's and its image within the golden
+     tolerance of phase 6's; with the spatial grid (K12, K13) finite, its
+     1024 x 128 crop at 1 spp against the all-plain path, and K13 on the
+     recorded inputs of one full-width step (tile 2), bit for bit; camera
+     rays/s of both and of build_dragon;
+ 15. the Cornell box parsed from a scene string once for each of the
+     triangle, Gaussian and Mitchell filters, 1 spp, kernel against
+     all-plain image; K4 with each filter on its recorded splat and K9 with
+     the Mitchell filter, against their plain versions (within 1e-5
+     relative), timed; one fwd+bwd train step of the Mitchell Cornell
+     (K9's variant under autograd);
+ 16. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and one for the render's, K7 rows for its
-     moves and for its transposes), the card line, and the result line.
+     moves and for its transposes, K4 and K9 rows for the filters), the
+     card line, and the result line.
 Each path (the gather tool, the matte render, the textured render, the
-textured step, the Cornell train steps, the dragon train step) is run with
-the launch counts set to 0 just before it and read just after.
+textured step, the Cornell train steps, the dragon train step, each scene
+parse and render of phases 13-15) is run with the launch counts set to 0
+just before it and read just after; the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
 """
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,6 +144,12 @@ SOURCES = {
                              "rustracer_tpu/scene/atlas.py:174"),
     "row_gather_bwd": ("rustracer_tpu_torch/csrc/gather_bwd.cu",
                        "tools/bench_gather_pallas.py:26"),
+    "spatial_grid_contrib": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
+                             "rustracer_tpu/scene/lightdistrib.py:91"),
+    "spatial_light_pick": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
+                           "rustracer_tpu/scene/lightdistrib.py:141"),
+    "spatial_pmf_lookup": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
+                           "rustracer_tpu/scene/lightdistrib.py:159"),
 }
 # the transposes of K7 (rustracer_tpu/integrators/path.py _perm_take_bwd,
 # _perm_put_bwd)
@@ -162,7 +196,31 @@ ROWS = {
                            "the put's backward: a take of the 2 float "
                            "gradients and a put of zeros, two launches "
                            "(tile 0)"),
+    "spatial_grid_contrib": ("spatial_grid_contrib",
+                             "one 2^14-voxel chunk of the parsed Cornell "
+                             "box's grid (2 lights x 128 probes)"),
+    "spatial_light_pick": ("spatial_light_pick",
+                           "bounce 0's pick in a full-width step (tile 2) "
+                           "of the dragon scene file, spatial grid"),
+    "spatial_pmf_lookup": ("spatial_pmf_lookup",
+                           "bounce 1's lookup in that step"),
+    "film_add_samples triangle": ("film_add_samples",
+                                  "the parsed Cornell box's splat, 64^2 "
+                                  "samples, PixelFilter triangle (16 taps)"),
+    "film_add_samples gaussian": ("film_add_samples",
+                                  "the same, PixelFilter gaussian"),
+    "film_add_samples mitchell": ("film_add_samples",
+                                  "the same, PixelFilter mitchell"),
+    "film_add_samples_bwd mitchell": ("film_add_samples_bwd",
+                                      "the radiance gradient of that "
+                                      "Mitchell splat"),
 }
+# the pixel filters the parsed Cornell box is rendered with (no file of
+# scenes/ names a PixelFilter)
+FILTER_KINDS = ("triangle", "gaussian", "mitchell")
+REPO = os.path.dirname(os.path.abspath(__file__))
+CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
+CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell-box.npz")
 # the rows whose launches are counted in the dragon train step
 TRAIN_ROWS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
               "row_gather_bwd", "slab_take transpose", "slab_put transpose")
@@ -176,6 +234,16 @@ MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
 # loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
 # work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
 LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300}
+# operations of one filter tap in K4 and K9 (csrc/filter.cuh), counted from
+# the code as LANE_OPS: the tap's offsets (2 conversions, 2 adds, 2
+# subtracts) and the extent test (2 abs, 2 compares, a select) 11 for every
+# kind; the triangle's 2 abs, 2 subtracts, 2 max and a multiply 7; the
+# Gaussian's 2 x (2 multiplies, exp, subtract, max) and a multiply 11; the
+# Mitchell's 2 x (a divide, 2 multiplies for 2x and its abs, x^2, x^3, the
+# inner piece 5, the outer 7, 2 compares and 2 selects) and a multiply 43;
+# then K4's 4 multiplies into the float4, K9's 3 multiplies and 3 adds
+FILTER_TAP_OPS = {"box": 11, "triangle": 18, "gaussian": 22, "mitchell": 54}
+K4_TAP_OPS, K9_TAP_OPS = 4, 6
 
 
 def log(msg):
@@ -625,7 +693,7 @@ def render_counted(label, renderer, film, ctx, samples, card):
         raise AssertionError("non-finite radiance in the render")
     if not mean > 1e-4:
         raise AssertionError(f"render is black (mean {mean})")
-    return launches, tiers
+    return launches, tiers, img, RES[0] * RES[1] * samples / wall
 
 
 def check_backward(renderer, ctx, results):
@@ -900,8 +968,429 @@ def dragon_train(dev, card, geometry, ctx, cam, sampler, integ):
     return launches
 
 
+def image_errors(img, ref):
+    """-> (mean, 99th percentile) relative error of ``img`` against
+    ``ref`` (numpy), as tests/test_golden.py measures them."""
+    err = np.abs(img - ref)
+    scale = max(float(ref.mean()), 1e-3)
+    return float(err.mean()) / scale, float(np.percentile(err, 99)) / scale
+
+
+def check_cornell_image(label, img):
+    """The Cornell box against its golden image (mean 2e-3, p99 2e-2) and
+    tests/test_golden.py's structural checks."""
+    ref = np.load(CORNELL_GOLDEN)["img"]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: image {img.shape} not finite or not "
+                             f"the golden's {ref.shape}")
+    mean_err, p99 = image_errors(img, ref)
+    h, w, _ = img.shape
+    left = img[h // 4: 3 * h // 4, : w // 5]
+    right = img[h // 4: 3 * h // 4, -w // 5:]
+    yx = np.unravel_index(np.argmax(img.sum(-1)), (h, w))
+    structure = (left[..., 0].mean() > 1.5 * left[..., 1].mean()
+                 and right[..., 1].mean() > 1.5 * right[..., 0].mean()
+                 and yx[0] < h // 3 and w // 4 < yx[1] < 3 * w // 4
+                 and img.max() <= 20.0 and 0.05 < img.mean() < 1.0)
+    log(f"{label} against tests/goldens/cornell-box.npz: mean err "
+        f"{mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< 2e-2); structure "
+        f"{structure}")
+    if not (mean_err < 2e-3 and p99 < 2e-2 and structure):
+        raise AssertionError(f"{label}: the Cornell box differs from its "
+                             "golden image")
+
+
+def cornell_cli():
+    """The Cornell box through the port's command line on the card, in a
+    subprocess: its image read back with the port's reader and held to
+    the golden image; the launches it prints must include K12 and K13."""
+    from rustracer_tpu_torch.render.imageio import read_image
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "cornell.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli",
+             CORNELL_PBRT, "-o", out, "-v"], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[12] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_image(out)
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    log(f"[12] python -m rustracer_tpu_torch.utils.cli "
+        f"scenes/cornell-box.pbrt -o cornell.exr: {wall:.2f} s in all; "
+        f"K12 {launches['spatial_grid_contrib']}, K13 "
+        f"{launches['spatial_light_pick']} picks and "
+        f"{launches['spatial_pmf_lookup']} lookups")
+    if min(launches[k] for k in ("spatial_grid_contrib", "spatial_light_pick",
+                                 "spatial_pmf_lookup")) <= 0:
+        raise AssertionError("the CLI's render did not launch K12 and K13")
+    check_cornell_image("[12] the CLI's image", img)
+
+
+def parse_counted(label, path=None, text=None, dev="cuda"):
+    """-> (bundle, the launches of the parse): ``path`` or ``text`` parsed
+    on ``dev`` with the launch counts set to 0 before, and its phase
+    timings printed."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene.api import parse_scene, parse_scene_string
+    from rustracer_tpu_torch.utils import stats
+    stats.init_stats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    api = parse_scene(path, device=dev) if path else \
+        parse_scene_string(text, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ph = stats.phases()
+    log(f"{label} parsed in {wall:.3f} s: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sorted(ph.items())))
+    return api.scene, dict(K.LAUNCHES)
+
+
+def check_grid_contrib(bundle, launches, results):
+    """K12 on every chunk of the parsed Cornell box's grid against its
+    plain version on the card (each sum within 1e-5 relative, 1e-6 of the
+    largest absolute), one chunk timed and bounded."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    lt, dev = bundle.lights, bundle.device
+    lo = bundle.geom.tv_p.min(0).values.cpu().numpy()
+    hi = bundle.geom.tv_p.max(0).values.cpu().numpy()
+    nv, _, vox_lo, vox_ext = LD.voxels(lo, hi)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+    ext = vox_ext
+    chunks = [torch.as_tensor(vox_lo[i:i + LD.CHUNK_VOXELS], device=dev)
+              for i in range(0, vox_lo.shape[0], LD.CHUNK_VOXELS)]
+    out = torch.cat([LD.grid_contrib(lt, c, ext, halton) for c in chunks])
+    with K.plain_reference():
+        ref = torch.cat([LD.grid_contrib(lt, c, ext, halton)
+                         for c in chunks])
+    d = (out - ref).abs()
+    top = ref.abs().max().item()
+    bad = (d > 1e-5 * ref.abs()) & (d > 1e-6 * top)
+    log(f"[13] spatial_grid_contrib: {tuple(int(x) for x in nv)} voxels x "
+        f"{lt.n_lights} "
+        f"lights x {LD.N_SAMPLES} probes in {len(chunks)} launches (the "
+        f"parse launched {launches['spatial_grid_contrib']}); max abs err "
+        f"{d.max().item():.3g} of max {top:.3g}, {int(bad.sum())} sums "
+        "beyond 1e-5 relative")
+    if bad.any() or not bool(torch.isfinite(out).all()):
+        raise AssertionError("spatial_grid_contrib differs from its plain "
+                             "version")
+
+    def fn():
+        return LD.grid_contrib(lt, chunks[0], ext, halton)
+    ms = kernel_ms(fn, 20, "grid_contrib_kernel")
+    with K.plain_reference():
+        pms = events_ms(fn, 3)
+    c = chunks[0].shape[0]
+    moved = nbytes(chunks[0], halton, lt.l_tri_p, lt.l_emit, lt.l_area) \
+        + c * lt.n_lights * 4
+    b = bound(moved, c * lt.n_lights * LD.N_SAMPLES * LD.K12_PROBE_OPS)
+    full = events_ms(lambda: [LD.grid_contrib(lt, ch, ext, halton)
+                              for ch in chunks], 5)
+    results["spatial_grid_contrib"] = dict(
+        max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
+        launches=launches["spatial_grid_contrib"],
+        counted_in="the parse of scenes/cornell-box.pbrt", **b)
+    log(f"[13] spatial_grid_contrib chunk of {c} voxels: kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {LD.K12_PROBE_OPS} operations a probe), "
+        f"{100 * b['bound_ms'] / ms:.1f}%; the whole grid {full:.4f} ms")
+
+
+def check_grid_picks(cap, results, launches):
+    """K13's pick and lookup on their recorded inputs (a full-width step
+    of the dragon scene file), bit for bit with the plain versions, timed
+    and bounded; the pick's yardstick torch.searchsorted on the rows
+    already gathered."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms, \
+        queued_ms
+    for i, ((grid, p, u), _) in enumerate(cap["pick"]):
+        lid, pmf = LD.sample_light(grid, p, u)
+        with K.plain_reference():
+            rlid, rpmf = LD.sample_light(grid, p, u)
+        if not (torch.equal(lid, rlid) and torch.equal(
+                pmf.view(torch.int32), rpmf.view(torch.int32))):
+            raise AssertionError(f"spatial_light_pick call {i} differs")
+    for i, ((grid, p, q), _) in enumerate(cap["lookup"]):
+        out = LD.pmf_lookup(grid, p, q)
+        with K.plain_reference():
+            ref = LD.pmf_lookup(grid, p, q)
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"spatial_pmf_lookup call {i} differs")
+    (grid, p, u), _ = cap["pick"][0]
+    n, n_l = p.shape[0], grid.n_lights
+    flat = LD.voxel_index(grid, p)
+    lid, _ = LD.sample_light(grid, p, u)
+    rows = torch.unique(flat).numel()
+    pairs = torch.unique(flat * n_l + lid.long()).numel()
+    ms = kernel_ms(lambda: LD.sample_light(grid, p, u), 20,
+                   "light_pick_kernel")
+    with K.plain_reference():
+        pms = events_ms(lambda: LD.sample_light(grid, p, u), 20)
+    gathered = grid.cdf[flat]
+    lib_ms = queued_ms(lambda: torch.searchsorted(gathered, u[:, None],
+                                                  right=True), 20)
+    b = bound(n * (12 + 4 + 4 + 4) + rows * n_l * 4 + pairs * 4)
+    results["spatial_light_pick"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        launches=launches["spatial_light_pick"],
+        counted_in="the 1024^2 render of the dragon scene file", **b)
+    log(f"[14] spatial_light_pick: {len(cap['pick'])} recorded calls bit "
+        f"for bit; bounce 0 ({n} lanes, {rows} voxels): kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, torch.searchsorted on the gathered rows "
+        f"(the gather not counted) {lib_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    (grid, p, q), _ = cap["lookup"][0]
+    n = p.shape[0]
+    flat = LD.voxel_index(grid, p)
+    pairs = torch.unique(flat * n_l + q.long().clamp(0, n_l - 1)).numel()
+    ms = kernel_ms(lambda: LD.pmf_lookup(grid, p, q), 20,
+                   "pmf_lookup_kernel")
+    with K.plain_reference():
+        pms = events_ms(lambda: LD.pmf_lookup(grid, p, q), 20)
+    b = bound(n * (12 + 4 + 4) + pairs * 4)
+    results["spatial_pmf_lookup"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms,
+        launches=launches["spatial_pmf_lookup"],
+        counted_in="the 1024^2 render of the dragon scene file", **b)
+    log(f"[14] spatial_pmf_lookup: {len(cap['lookup'])} recorded calls "
+        f"bit for bit; bounce 1 ({n} lanes): kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+
+
+def capture_grid_calls(renderer, ctx, tile, sample=1):
+    """The inputs of K13's calls in one step of ``tile``: {"pick": [((grid,
+    p, u), {})], "lookup": [((grid, p, lid), {})]}, tensors cloned."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.tools.bench_step_kernels import _recording
+    cap = {"pick": [], "lookup": []}
+    px, py, v = tile
+    fs = renderer.film.init_state(renderer.device)
+    with _recording(LD, "sample_light", cap["pick"], copy=True), \
+            _recording(LD, "pmf_lookup", cap["lookup"], copy=True):
+        renderer.step(ctx, fs, px, py, sample, v)
+    torch.cuda.synchronize()
+    return cap
+
+
+def filter_cornells(dev, card, results):
+    """The Cornell box parsed from a scene string once for each
+    PixelFilter, 1 sample, counted: the kernel path's image against the
+    all-plain path's (golden tolerance); K4 with the filter on the
+    render's recorded splat against its plain version, timed; with the
+    Mitchell filter, K9 on that splat and one fwd+bwd train step
+    (parallel/mesh.py) counted, so K9's variant runs under autograd."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.parallel.mesh import make_train_step
+    from rustracer_tpu_torch.render.renderer import RenderConfig
+    from rustracer_tpu_torch.tools.bench_step_kernels import (capture_step,
+                                                              k4_moved,
+                                                              k4_touched)
+    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    text = open(CORNELL_PBRT).read()
+    for kind in FILTER_KINDS:
+        bundle, _ = parse_counted(
+            f"[15] Cornell box with PixelFilter {kind!r}",
+            text=text.replace("WorldBegin", f'PixelFilter "{kind}"\n'
+                              "WorldBegin", 1), dev=dev)
+        film, ctx = bundle.film, bundle.context()
+        r = bundle.renderer()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        img = film.to_image(r.render_state(ctx, sample_stop=1))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        with K.plain_reference():
+            ref = film.to_image(r.render_state(ctx, sample_stop=1))
+        mean_err, p99 = image_errors(img.cpu().numpy(), ref.cpu().numpy())
+        log(f"[15] {kind}: film {film.filter}, 1 spp; kernel against "
+            f"all-plain image: mean err {mean_err:.3g} (<= 2e-3), p99 "
+            f"{p99:.3g} (<= 2e-2); launches {launches}")
+        if not (mean_err <= 2e-3 and p99 <= 2e-2
+                and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"the {kind} Cornell differs from plain")
+        if launches["film_add_samples"] <= 0:
+            raise AssertionError("the filter render did not launch K4")
+        c = capture_step(r, ctx, r.tiles[0], sample=0)["k4"][0]
+        p_film, rad, valid = c["p_film"], c["radiance"], c["valid"]
+
+        def k4():
+            return film.add_samples(film.init_state(dev), p_film, rad,
+                                    valid=valid)
+        out = k4()
+        with K.plain_reference():
+            ref = k4()
+        err = max((out.rgb - ref.rgb).abs().max().item(),
+                  (out.wsum - ref.wsum).abs().max().item())
+        if not (torch.allclose(out.rgb, ref.rgb, rtol=1e-5, atol=1e-6)
+                and torch.allclose(out.wsum, ref.wsum, rtol=1e-5,
+                                   atol=1e-6)):
+            raise AssertionError(f"film_add_samples {kind} differs")
+        ms = kernel_ms(k4, 20, "film_add_kernel")
+        with K.plain_reference():
+            pms = events_ms(k4, 20)
+        nx, ny = film._footprint()
+        taps = p_film.shape[0] * nx * ny
+        b = bound(k4_moved(film, p_film, rad, valid),
+                  taps * (FILTER_TAP_OPS[kind] + K4_TAP_OPS))
+        results[f"film_add_samples {kind}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms,
+            launches=launches["film_add_samples"],
+            counted_in=f"the 1-spp render of the {kind} Cornell box", **b)
+        log(f"[15] film_add_samples {kind}: {p_film.shape[0]} samples, "
+            f"{taps} taps, max abs err {err:.3g} (within 1e-5 relative); "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+        if kind != "mitchell":
+            continue
+        w, h = film.cropped_resolution
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        g_acc = torch.rand((h, w, 4), generator=gen, device=dev) - 0.5
+
+        def k9():
+            return film.add_samples_bwd(g_acc, p_film, rad, valid)
+        out = k9()
+        with K.plain_reference():
+            ref = k9()
+        err = (out - ref).abs().max().item()
+        if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError("film_add_samples_bwd mitchell differs")
+        ms = kernel_ms(k9, 20, "film_add_bwd_kernel")
+        with K.plain_reference():
+            pms = events_ms(k9, 20)
+        b = bound(nbytes(p_film, rad, out) + valid.numel()
+                  + 16 * k4_touched(film, p_film, valid),
+                  taps * (FILTER_TAP_OPS[kind] + K9_TAP_OPS))
+        step = make_train_step(bundle.integrator.li, bundle.camera, film,
+                               bundle.sampler, lr=0.1,
+                               config=RenderConfig(max_lanes=1 << 16),
+                               device=dev)
+        target = torch.zeros((h, w, 3), device=dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        new, loss = step(ctx, target)
+        torch.cuda.synchronize()
+        train = dict(K.LAUNCHES)
+        log(f"[15] Mitchell Cornell fwd+bwd train step: loss "
+            f"{loss.item():.7g}; launches {train}")
+        if train["film_add_samples_bwd"] <= 0 or not bool(
+                torch.isfinite(loss)):
+            raise AssertionError("the Mitchell train step did not run K9")
+        results["film_add_samples_bwd mitchell"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms,
+            launches=train["film_add_samples_bwd"],
+            counted_in="a fwd+bwd train step of the Mitchell Cornell box",
+            **b)
+        log(f"[15] film_add_samples_bwd mitchell: max abs err {err:.3g}; "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+
+
+def timed_render(renderer, ctx):
+    """Wall seconds of samples [0, SAMPLES) through ``renderer``, ending
+    in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.film.to_image(renderer.render_state(ctx, sample_stop=SAMPLES))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
+    """The headline dragon through a scene file (tools/dragon_scene.py) at
+    1024^2, samples [0, 8) in 2^18-lane tiles: the uniform strategy's
+    tables bit for bit build_dragon's and its image within the golden
+    tolerance of build_dragon's (``ref_img``, phase 6); the spatial grid's
+    render finite, its 1-spp crop against the all-plain path, and K13 on
+    the recorded inputs of one full-width step. Then the three renders
+    (build_dragon's, ``ref`` = (renderer, ctx), the uniform and spatial
+    files') timed in turns, a, b, c, c, b, a."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools.dragon_scene import write_dragon_scene
+    geom = geometry[0]
+    rays = {"build_dragon (phase 6)": ref_rays}
+    launches = None
+    turns = {"build_dragon": ref}
+    with tempfile.TemporaryDirectory() as d:
+        for strategy in ("uniform", "spatial"):
+            t0 = time.perf_counter()
+            path = write_dragon_scene(os.path.join(d, strategy), SUB, RES,
+                                      strategy)
+            log(f"[14] wrote the dragon scene file ({strategy}) in "
+                f"{time.perf_counter() - t0:.3f} s")
+            bundle, parse_launches = parse_counted(
+                f"[14] dragon file, {strategy}:", path=path, dev=dev)
+            if strategy == "uniform":
+                for f in ("tv_p", "t_idx", "bvh16_table", "bvh16_roots"):
+                    a, b = getattr(bundle.geom, f), getattr(geom, f)
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(f"dragon file: {f} differs "
+                                             "from build_dragon's")
+                log("[14] uniform: tv_p, t_idx, bvh16_table and bvh16_roots "
+                    "bit for bit build_dragon's")
+            r = bundle.renderer(LANES)
+            turns[strategy] = (r, bundle.context())
+            r.render_state(bundle.context(), sample_stop=1)    # warm-up
+            launches, _, img, rays[strategy] = render_counted(
+                f"[14] dragon file, {strategy}:", r, bundle.film,
+                bundle.context(), SAMPLES, card)
+            if strategy == "uniform":
+                mean_err, p99 = image_errors(img.cpu().numpy(),
+                                             ref_img.cpu().numpy())
+                log(f"[14] uniform against build_dragon's render: mean err "
+                    f"{mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< 2e-2)")
+                if not (mean_err < 2e-3 and p99 < 2e-2):
+                    raise AssertionError("the dragon file's render differs "
+                                         "from build_dragon's")
+                continue
+            log(f"[14] spatial: grid "
+                f"{tuple(int(x) for x in bundle.light_grid.host[2])} "
+                f"voxels, K12 launched {parse_launches['spatial_grid_contrib']}"
+                " times by the parse")
+            if min(launches[k] for k in ("spatial_light_pick",
+                                         "spatial_pmf_lookup")) <= 0 \
+                    or parse_launches["spatial_grid_contrib"] <= 0:
+                raise AssertionError("the spatial render did not launch "
+                                     "K12 and K13")
+            crop_film = Film(full_resolution=RES, crop_window=TEX_CROP,
+                             filter=bundle.film.filter)
+            compare_crop("[14] spatial", Renderer(
+                bundle.integrator.li, bundle.camera, crop_film,
+                bundle.sampler, RenderConfig(max_lanes=TEX_CROP_LANES),
+                device=dev), crop_film, bundle.context())
+            cap = capture_grid_calls(r, bundle.context(), r.tiles[2])
+            check_grid_picks(cap, results, launches)
+    log(f"[14] camera rays/s on {card}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rays.items()))
+    order = list(turns)
+    secs = {k: [] for k in order}
+    for k in order + order[::-1]:
+        secs[k].append(timed_render(*turns[k]))
+    log(f"[14] in turns {order + order[::-1]}, camera rays/s on {card}: "
+        + "; ".join(f"{k} " + " / ".join(
+            f"{RES[0] * RES[1] * SAMPLES / t:.1f}" for t in v)
+            for k, v in secs.items()))
+
+
 def run(dev, card):
-    """Phases 3 to 12 on device ``dev``."""
+    """Phases 3 to 16 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -936,7 +1425,8 @@ def run(dev, card):
     check_gather(ctx.geom, cap, results)
 
     # 4-5: the matte path, counted, and its crop against the plain path
-    launches, _ = render_counted("[4]", renderer, film, ctx, SPP, card)
+    launches, _, _, _ = render_counted("[4]", renderer, film, ctx, SPP,
+                                       card)
     missing = [k for k in MATTE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
@@ -949,8 +1439,8 @@ def run(dev, card):
     # 6-7: the textured headline, counted after a 1-sample warm-up, and its
     # crop in 2^16-lane tiles, where both slab tiers run in both paths
     trenderer.render_state(tctx, sample_stop=1)
-    launches, tiers = render_counted("[6]", trenderer, tfilm, tctx, SAMPLES,
-                                     card)
+    launches, tiers, dragon_img, dragon_rays = render_counted(
+        "[6]", trenderer, tfilm, tctx, SAMPLES, card)
     missing = [k for k in K.FORWARD_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
@@ -974,20 +1464,44 @@ def run(dev, card):
     cornell_train(dev, card)
     train_launches = dragon_train(dev, card, geometry, tctx, tcam, tsampler,
                                   tinteg)
+
+    # 12-15: the scene front end
+    cornell_cli()
+    bundle, parse_launches = parse_counted("[13] scenes/cornell-box.pbrt",
+                                           path=CORNELL_PBRT, dev=dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    img = bundle.render()
+    torch.cuda.synchronize()
+    log(f"[13] parsed Cornell box {bundle.film.full_resolution}, "
+        f"{bundle.sampler.spp} spp, depth {bundle.integrator.max_depth}: "
+        f"{time.perf_counter() - t0:.3f} s; launches {dict(K.LAUNCHES)}")
+    if min(K.LAUNCHES[k] for k in K.GRID_KERNELS[1:]) <= 0:
+        raise AssertionError("the parsed Cornell box did not launch K13")
+    check_cornell_image("[13] the in-process render", img.cpu().numpy())
+    check_grid_contrib(bundle, parse_launches, results)
+    dragon_file(dev, card, geometry, (trenderer, tctx), dragon_img,
+                dragon_rays, results)
+    filter_cornells(dev, card, results)
+
     kernels = []
     for key, (name, case) in ROWS.items():
         r = results[key]
         train = key in TRAIN_ROWS
+        own = "launches" in r
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0],
             replaces=TRANSPOSES.get(key, SOURCES[name][1]),
-            launches=(train_launches if train else launches)[name],
+            launches=r["launches"] if own
+            else (train_launches if train else launches)[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            launches_per_step=None if train else per_step[name],
-            launches_counted_in="dragon train step" if train
-            else "textured render", case=case))
+            launches_per_step=None if train or own else per_step[name],
+            launches_counted_in=r["counted_in"] if own
+            else "dragon train step" if train else "textured render",
+            case=case))
     missing = [k for k in K.BACKWARD_KERNELS if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"backward kernels not launched: {missing}")

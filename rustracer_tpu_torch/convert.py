@@ -10,7 +10,10 @@ import numpy as np
 import torch
 
 from .render.camera import PerspectiveCamera
+from .render.film import Film
+from .render.filters import Filter
 from .render.sampler import SamplerConfig
+from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
 from .scene.materials import MaterialSet, MatteMaterial
 from .scene.tables import N_DUMMY_QUADRICS, GeometryTables
@@ -65,7 +68,37 @@ def lights_from_jax(lt, device="cuda") -> LightTables:
         l_twosided=_t(lt.l_twosided, torch.bool, device),
         l_area=_t(lt.l_area, torch.float32, device),
         l_tri_p=_t(lt.l_tri_p, torch.float32, device),
-        l_tri_rev=_t(lt.l_tri_rev, torch.bool, device))
+        l_tri_rev=_t(lt.l_tri_rev, torch.bool, device),
+        world_center=_t(lt.world_center, torch.float32, device),
+        world_radius=float(np.asarray(lt.world_radius)))
+
+
+def light_grid_from_jax(grid, device="cuda") -> SpatialLightGrid:
+    """JAX SpatialLightGrid -> port's (the same tables)."""
+    lo, inv_ext, nv = (np.array(x) for x in (grid.world_lo,
+                                             grid.world_inv_ext,
+                                             grid.n_voxels))
+    return SpatialLightGrid(
+        world_lo=_t(lo, torch.float32, device),
+        world_inv_ext=_t(inv_ext, torch.float32, device),
+        n_voxels=_t(nv, torch.int32, device),
+        strides=_t(grid.strides, torch.int32, device),
+        pmf=_t(grid.pmf, torch.float32, device),
+        cdf=_t(grid.cdf, torch.float32, device),
+        host=(lo.astype(np.float32), inv_ext.astype(np.float32),
+              nv.astype(np.int32)))
+
+
+def film_from_jax(film) -> Film:
+    """JAX Film (any filter, scale, crop window) -> port's."""
+    f = film.filter
+    return Film(full_resolution=tuple(film.full_resolution),
+                crop_window=tuple(film.crop_window),
+                filter=Filter(f.kind, f.xwidth, f.ywidth, alpha=f.alpha,
+                              b=f.b, c=f.c),
+                filename=film.filename, scale=film.scale,
+                max_sample_luminance=film.max_sample_luminance,
+                diagonal=film.diagonal)
 
 
 def textures_from_jax(textures, device="cuda",
@@ -101,14 +134,25 @@ def _texture_from_jax(tex):
     raise NotImplementedError(f"texture {kind} is not ported")
 
 
-def material_set_from_jax(ms) -> MaterialSet:
+def _zero_sigma(sigma, textures) -> bool:
+    """A parsed matte's sigma: a constant texture whose value (in the JAX
+    textures dict) is 0, the Lambertian lobe."""
+    return (textures is not None
+            and type(sigma).__name__ == "ConstantTexture"
+            and np.asarray(textures["const"][sigma.key]).size == 1
+            and float(np.asarray(textures["const"][sigma.key])) == 0.0)
+
+
+def material_set_from_jax(ms, textures=None) -> MaterialSet:
     """JAX MaterialSet of matte materials over constant or UV-mapped image
-    textures -> port's; raises on anything else."""
+    textures -> port's; raises on anything else. A parsed scene's mattes
+    carry a sigma texture: with the JAX ``textures`` dict given, a sigma
+    that is the constant 0 is the Lambertian lobe."""
     out = []
     for m in ms.materials:
         kind = type(m).__name__
-        if kind != "MatteMaterial" or m.sigma is not None \
-                or m.bump_tex is not None:
+        if kind != "MatteMaterial" or m.bump_tex is not None or not (
+                m.sigma is None or _zero_sigma(m.sigma, textures)):
             raise NotImplementedError(
                 f"material {kind} (sigma, bump) is not ported")
         out.append(MatteMaterial(kd=_texture_from_jax(m.kd)))
@@ -116,11 +160,14 @@ def material_set_from_jax(ms) -> MaterialSet:
 
 
 def camera_from_jax(cam) -> PerspectiveCamera:
-    if cam.lens_radius > 0.0:
-        raise NotImplementedError("thin-lens cameras are not ported")
+    """JAX PerspectiveCamera (pinhole or thin lens) -> port's."""
     return PerspectiveCamera(
         camera_to_world=np.asarray(cam.camera_to_world, np.float32),
-        raster_to_camera=np.asarray(cam.raster_to_camera, np.float32))
+        raster_to_camera=np.asarray(cam.raster_to_camera, np.float32),
+        lens_radius=float(cam.lens_radius),
+        focal_distance=float(cam.focal_distance),
+        shutter_open=float(cam.shutter_open),
+        shutter_close=float(cam.shutter_close))
 
 
 def sampler_from_jax(cfg) -> SamplerConfig:

@@ -3,9 +3,11 @@
 //
 // Replaces rustracer_tpu/render/film.py Film.add_samples (:67-111): the
 // luminance clamp, the nx x ny filter footprint, the valid mask and the crop
-// bounds. Only the box filter is ported (weight 1 inside its extent); the
-// footprint loop is general, so taps of a box wider than 0.5 overlap other
-// samples' taps and the sums stay atomic. Sums are taken in no fixed order:
+// bounds. Every filter of the reference: the box (weight 1 inside its
+// extent) and the triangle, Gaussian and Mitchell weights of
+// csrc/filter.cuh over a footprint of ceil(2r)^2 taps, the kernel built
+// once per kind. Taps of a filter wider than the box 0.5 overlap other
+// samples' taps, so the sums stay atomic. Sums are taken in no fixed order:
 // a pixel that receives at most two taps into a zero film is bit for bit
 // the plain version's (a + b == b + a), more agree to float rounding.
 //
@@ -24,15 +26,17 @@
 // contiguous bytes, measured slower: it adds a barrier before any lane can
 // issue its reductions).
 #include "common.cuh"
+#include "filter.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <int Kind>
 __global__ void __launch_bounds__(kThreads)
     film_add_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
                     const bool* __restrict__ valid, int n, float4* __restrict__ acc, int h,
-                    int w, int x0, int y0, float rx, float ry, int nx, int ny, float max_lum) {
+                    int w, int x0, int y0, rt::FilterParams f, int nx, int ny, float max_lum) {
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     if (valid != nullptr && !valid[i]) return;
@@ -45,15 +49,14 @@ __global__ void __launch_bounds__(kThreads)
         g = g * scale;
         b = b * scale;
     }
-    int lo_x = (int)ceilf((p.x - 0.5f) - rx);
-    int lo_y = (int)ceilf((p.y - 0.5f) - ry);
+    int lo_x = (int)ceilf((p.x - 0.5f) - f.rx);
+    int lo_y = (int)ceilf((p.y - 0.5f) - f.ry);
     for (int j = 0; j < ny; ++j) {
         for (int k = 0; k < nx; ++k) {
             int px = lo_x + k, py = lo_y + j;
             float dx = ((float)px + 0.5f) - p.x;
             float dy = ((float)py + 0.5f) - p.y;
-            // box filter: weight 1 within the filter extent
-            float fw = (fabsf(dx) <= rx && fabsf(dy) <= ry) ? 1.0f : 0.0f;
+            float fw = rt::filter_weight<Kind>(f, dx, dy);
             int ix = px - x0, iy = py - y0;
             if (ix < 0 || ix >= w || iy < 0 || iy >= h || !(fw > 0.0f)) continue;
             atomicAdd(acc + ((size_t)iy * w + ix), make_float4(fw * r, fw * g, fw * b, fw));
@@ -61,21 +64,38 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+template <int Kind>
+struct LaunchAdd {
+    void operator()(const void* p_film, const void* rad, const void* valid, int n, void* rgb,
+                    int h, int w, int x0, int y0, rt::FilterParams f, int nx, int ny,
+                    float max_lum, cudaStream_t stream) {
+        film_add_kernel<Kind><<<rt::blocks_for(n, kThreads), kThreads, 0, stream>>>(
+            (const float2*)p_film, (const float*)rad, (const bool*)valid, n, (float4*)rgb, h, w,
+            x0, y0, f, nx, ny, max_lum);
+    }
+};
+
 }  // namespace
 
 // rgb: the (H, W, 4) film's base, 16-byte aligned; wsum: the same buffer
 // plus 3 floats (the (H, W, 3) and (H, W) views of the film state). Any
-// other layout is refused with cudaErrorInvalidValue.
+// other layout, or an unknown filter kind, is refused with
+// cudaErrorInvalidValue. kind and p0..p7: Filter.kernel_params.
 extern "C" int rt_film_add_samples(const void* p_film, const void* rad, const void* valid, int n,
                                    void* rgb, void* wsum, int h, int w, int x0, int y0, float rx,
-                                   float ry, int nx, int ny, float max_lum, void* stream) {
+                                   float ry, int nx, int ny, float max_lum, int kind, float p0,
+                                   float p1, float p2, float p3, float p4, float p5, float p6,
+                                   float p7, void* stream) {
     if ((uintptr_t)rgb % 16 || (float*)wsum != (float*)rgb + 3 || (uintptr_t)p_film % 8)
         return (int)cudaErrorInvalidValue;
-    film_add_kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float2*)p_film, (const float*)rad, (const bool*)valid, n, (float4*)rgb, h, w, x0,
-        y0, rx, ry, nx, ny, max_lum);
-    return (int)cudaGetLastError();
+    const float p8[8] = {p0, p1, p2, p3, p4, p5, p6, p7};
+    return rt::dispatch_filter<LaunchAdd>(kind, p_film, rad, valid, n, rgb, h, w, x0, y0,
+                                          rt::filter_params(rx, ry, p8), nx, ny, max_lum,
+                                          (cudaStream_t)stream);
 }
 
 // the film layout this source takes: 4 floats a pixel in one buffer
 extern "C" int rt_film_channels() { return 4; }
+// the filter kinds this source takes (csrc/filter.cuh): box, triangle,
+// Gaussian, Mitchell
+extern "C" int rt_film_filter_kinds() { return 4; }

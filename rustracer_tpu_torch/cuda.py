@@ -35,7 +35,7 @@ from ._build import CSRC, compile_shared
 
 CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
-              "atlas_bwd.cu", "gather_bwd.cu")
+              "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,8 +44,10 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 SIGNATURES = {
     "sample_1d": [_P, _P, _I, _U, _U, _P, _P],
     "sample_2d": [_P, _P, _I, _U, _U, _P, _P],
+    # ..., max_lum, the filter's kind and 8 parameters (filters.py
+    # Filter.kernel_params), stream
     "film_add_samples": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _F, _P],
+                         _F, _F, _I, _I, _F, _I] + [_F] * 8 + [_P],
     "traverse16_closest": [_P, _I, _P, _I, _P, _P, _P, _I,
                            _P, _P, _P, _P, _P, _P],
     "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
@@ -59,10 +61,17 @@ SIGNATURES = {
     "slab_put": [_P, _I, _I, _P, _P, _P, _P],
     "row_gather": [_P, _P, _I, _I, _P, _P],
     "film_add_samples_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I,
-                             _F, _F, _I, _I, _F, _P, _P],
+                             _F, _F, _I, _I, _F, _I] + [_F] * 8
+    + [_P, _P],
     "atlas_lookup_ewa_bwd": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _I, _P],
     "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "spatial_grid_contrib": [_P, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P,
+                             _P, _I, _P, _P],
+    "spatial_light_pick": [_P, _P, _I] + [_F] * 6 + [_I] * 3
+    + [_P, _P, _I, _P, _P, _P],
+    "spatial_pmf_lookup": [_P, _P, _I] + [_F] * 6 + [_I] * 3
+    + [_P, _I, _P, _P],
 }
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
@@ -71,7 +80,13 @@ HOST_SIGNATURES = {"row_gather_bwd_blocks": [_I, _I, _I]}
 # K7 is its own transpose and counts as slab_take / slab_put
 BACKWARD_KERNELS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
                     "row_gather_bwd")
-FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in BACKWARD_KERNELS)
+# the spatial light grid's kernels (K12, K13), launched only for a scene
+# with a grid (scene/lightdistrib.py); the scenes built in code have none
+GRID_KERNELS = ("spatial_grid_contrib", "spatial_light_pick",
+                "spatial_pmf_lookup")
+# the kernels of the textured dragon's forward render
+FORWARD_KERNELS = tuple(k for k in SIGNATURES
+                        if k not in BACKWARD_KERNELS + GRID_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()

@@ -16,9 +16,14 @@ lanes are never read again (their radiance is final and every update is
 masked by alive), so the results equal the full-width run's up to float
 rounding. The choice is a host decision: one ``n_alive.item()`` per step.
 
-Not ported: passes through medium interfaces, infinite lights, the light
-grid and the stats counters. No transmissive lobe is ported, so Russian
-roulette's eta scale is 1.
+Lights are picked uniformly, or, when ``ctx.light_grid`` is set, through
+the spatial light grid (scene/lightdistrib.py, hand kernel K13): the pick
+at the scattering point and the emission-hit MIS weight's selection pmf at
+the point the ray left (``prev_p``).
+
+Not ported: passes through medium interfaces, infinite lights and the
+stats counters. No transmissive lobe is ported, so Russian roulette's eta
+scale is 1.
 """
 from __future__ import annotations
 
@@ -33,11 +38,10 @@ from ..core.sampling import power_heuristic
 from ..core.spectrum import is_black
 from ..ops import bsdf as B
 from ..ops import compact as C
+from ..scene import lightdistrib as LD
 from ..scene import lights as L
 from ..scene.tables import scene_intersect
 from .common import estimate_direct_light_side
-
-RR_THRESHOLD = 1.0   # Russian roulette only for throughput below this
 
 # wavefronts at least this wide may run the interior bounces on a slab
 PATH_COMPACT_MIN_B = 1 << 16
@@ -75,6 +79,7 @@ SLAB_FIELDS = ("ray_o", "ray_d", "ray_tmax", "L", "beta", "alive",
 class PathIntegrator:
     mat_set: object
     max_depth: int = 5
+    rr_threshold: float = 1.0   # Russian roulette for throughput below this
     # alive-first slab compaction of the interior bounces; compact_tiers 1
     # offers the B/2 slab only, 2 adds the B/4 slab
     compact_interior: bool = True
@@ -83,12 +88,24 @@ class PathIntegrator:
     def li(self, ctx, ray: Ray, lanes, sampler, dims):
         return self._run(ctx, ray, lanes, sampler, dims)
 
-    def _pick_light(self, ctx, sampler, lanes, d_sel):
-        """Uniform light selection -> (light row, pmf)."""
+    def _pick_light(self, ctx, sampler, lanes, si, d_sel):
+        """Light selection at the scattering point -> (light row, pmf):
+        uniform, or through the spatial grid."""
         u_sel = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_sel)
+        if getattr(ctx, "light_grid", None) is not None:
+            return LD.sample_light(ctx.light_grid, si.p.contiguous(), u_sel)
         n = ctx.lights.n_lights
         lid = torch.clamp((u_sel * n).int(), max=n - 1)
         return lid, torch.full_like(u_sel, 1.0 / n)
+
+    def _sel_pmf(self, ctx, p, lid):
+        """Selection pmf of light row ``lid`` for a path scattered at p:
+        the density the emission-hit MIS weight pairs with the pick (the
+        uniform pick's 1/n as a number)."""
+        if getattr(ctx, "light_grid", None) is not None:
+            return LD.pmf_lookup(ctx.light_grid, p.contiguous(),
+                                 lid.int().contiguous())
+        return 1.0 / ctx.lights.n_lights
 
     def _hit_and_emit(self, ctx, ray: Ray, st: _PathState, first: bool):
         """Closest hit and MIS-weighted emission -> (si, state)."""
@@ -102,7 +119,8 @@ class PathIntegrator:
             w_hit = torch.ones_like(st.prev_pdf)
         else:
             lpdf = L.pdf_li_hit(lt, si.arealight, st.prev_p, ray.d, si.p,
-                                si.n) * (1.0 / lt.n_lights)
+                                si.n) * self._sel_pmf(ctx, st.prev_p,
+                                                      si.arealight)
             w_hit = torch.where(st.prev_spec, 1.0,
                                 power_heuristic(1.0, st.prev_pdf, 1.0, lpdf))
         le = torch.where((si.valid & (si.arealight >= 0))[:, None],
@@ -116,7 +134,7 @@ class PathIntegrator:
         si, lobes = self.mat_set.shade(si, ctx)
         lobes = lobes._replace(active=lobes.active & st.alive[:, None])
         n_nonspec = B.num_matching(lobes, B.ALL & ~B.SPECULAR)
-        lid, pmf = self._pick_light(ctx, sampler, lanes, d_sel)
+        lid, pmf = self._pick_light(ctx, sampler, lanes, si, d_sel)
         u_light = sampler.get_2d(lanes.pixel_idx, lanes.sample_idx, d_light)
         ld = estimate_direct_light_side(ctx, si, lobes, lid, u_light, pmf)
         Lrad = st.L + torch.where((st.alive & (n_nonspec > 0))[:, None],
@@ -138,7 +156,7 @@ class PathIntegrator:
             u_rr = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_rr)
             rr_beta_max = beta.max(dim=-1).values
             q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-            do_rr = rr_beta_max < RR_THRESHOLD
+            do_rr = rr_beta_max < self.rr_threshold
             alive = alive & ~(do_rr & (u_rr < q))
             beta = torch.where((do_rr & alive)[:, None],
                                beta / torch.clamp(1.0 - q, min=1e-3)[:, None],

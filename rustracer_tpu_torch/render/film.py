@@ -1,6 +1,10 @@
 """Film: filter-weighted sample accumulation (port of
 rustracer_tpu/render/film.py) with hand kernel K4 (csrc/film.cu).
 
+K4 and its transpose K9 take every filter of render/filters.py: the box,
+triangle, Gaussian and Mitchell weights over a footprint of ceil(2r)^2
+taps (csrc/filter.cuh, the same weights as ``Filter.evaluate``).
+
 Unlike the reference's functional state, ``add_samples`` adds into the
 state's tensors in place: the film is 16 MB at 1024^2 and the render loop
 owns it. The state is one (H, W, 4) float32 buffer, r, g, b and the weight
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ from .filters import Filter
 class FilmState(NamedTuple):
     rgb: torch.Tensor    # (H, W, 3) filter-weighted radiance sum
     wsum: torch.Tensor   # (H, W) filter weight sum
+    # (H, W, 3) unweighted splats, made by the first ``add_splats``
+    splat: Optional[torch.Tensor] = None
 
 
 def _check_film(state: FilmState, h, w, device):
@@ -60,7 +66,10 @@ class Film:
     full_resolution: Tuple[int, int] = (1280, 720)   # (x, y)
     crop_window: Tuple[float, float, float, float] = (0.0, 0.0, 1.0, 1.0)
     filter: Filter = dataclasses.field(default_factory=Filter)
+    filename: str = "out.png"
+    scale: float = 1.0
     max_sample_luminance: float = float("inf")
+    diagonal: float = 0.035
 
     @property
     def cropped_pixel_bounds(self):
@@ -128,7 +137,7 @@ class Film:
             m = self.max_sample_luminance
             scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
             radiance = radiance * scale[:, None]
-        rgb, wsum = state
+        rgb, wsum = state.rgb, state.wsum
         graph = torch.is_grad_enabled() and (radiance.requires_grad
                                              or rgb.requires_grad)
         for iy, ix, fw, ok in self.taps(p_film, valid, h, w):
@@ -141,7 +150,7 @@ class Film:
             else:
                 rgb.index_put_(idx, fw[:, None] * radiance, accumulate=True)
                 wsum.index_put_(idx, fw, accumulate=True)
-        return FilmState(rgb=rgb, wsum=wsum)
+        return FilmState(rgb=rgb, wsum=wsum, splat=state.splat)
 
     def add_samples(self, state: FilmState, p_film, radiance,
                     valid=None) -> FilmState:
@@ -156,7 +165,8 @@ class Film:
             acc = _packed(state)
             if acc is not None:
                 acc = _Splat.apply(acc, p_film, radiance, valid, self)
-                return FilmState(rgb=acc[..., :3], wsum=acc[..., 3])
+                return FilmState(rgb=acc[..., :3], wsum=acc[..., 3],
+                                 splat=state.splat)
         return self._add_samples(state, p_film, radiance, valid)
 
     def _add_samples(self, state, p_film, radiance, valid):
@@ -173,10 +183,11 @@ class Film:
         x0, y0, _, _ = self.cropped_pixel_bounds
         rx, ry = self.filter.radius
         nx, ny = self._footprint()
+        kind, fp = self.filter.kernel_params()
         if n:
             cuda.launch("film_add_samples", p_film, radiance, valid, n,
                         state.rgb, state.wsum, h, w, x0, y0, rx, ry, nx, ny,
-                        self.max_sample_luminance)
+                        self.max_sample_luminance, kind, *fp)
         return state
 
     def clamp_vjp(self, radiance, g):
@@ -230,18 +241,43 @@ class Film:
         rx, ry = self.filter.radius
         nx, ny = self._footprint()
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        kind, fp = self.filter.kernel_params()
         if n:
             cuda.launch("film_add_samples_bwd", p_film, radiance, valid, n,
                         g_acc, h, w, x0, y0, rx, ry, nx, ny,
-                        self.max_sample_luminance, out)
+                        self.max_sample_luminance, kind, *fp, out)
         return out
 
-    def to_image(self, state: FilmState):
-        """Weight-normalized (H, W, 3) linear RGB."""
+    def add_splats(self, state: FilmState, p_film, v,
+                   splat_weight=1.0) -> FilmState:
+        """Unfiltered splats of ``v`` (B, 3) at raster positions ``p_film``
+        (B, 2) into the state's splat buffer, out of place (the buffer is
+        made here on first use). Plain PyTorch: no integrator of either
+        package calls it (the reference's bidirectional integrators, its
+        callers, are not ported there either)."""
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        h, w = state.wsum.shape
+        ix = torch.floor(p_film[:, 0]).int() - x0
+        iy = torch.floor(p_film[:, 1]).int() - y0
+        ok = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        wgt = torch.where(ok, splat_weight, 0.0)
+        splat = state.splat if state.splat is not None else torch.zeros(
+            (h, w, 3), dtype=torch.float32, device=state.wsum.device)
+        splat = splat.index_put((iy.clamp(0, h - 1).long(),
+                                 ix.clamp(0, w - 1).long()),
+                                wgt[:, None] * v, accumulate=True)
+        return state._replace(splat=splat)
+
+    def to_image(self, state: FilmState, splat_scale=1.0):
+        """Weight-normalized (H, W, 3) linear RGB, splats added, times the
+        film's scale."""
         pos = state.wsum > 0.0
         safe_w = torch.where(pos, state.wsum, 1.0)
         img = torch.where(pos[..., None], state.rgb / safe_w[..., None], 0.0)
-        return torch.clamp(img, min=0.0)
+        img = torch.clamp(img, min=0.0)
+        if state.splat is not None:
+            img = img + splat_scale * state.splat
+        return img * self.scale if self.scale != 1.0 else img
 
 
 def _packed(state: FilmState):

@@ -25,6 +25,7 @@ class RenderContext:
     geom: Any
     lights: Any = None
     textures: Any = None     # {"const": {key: (3,) tensor}}
+    light_grid: Any = None   # scene/lightdistrib.py SpatialLightGrid
 
 
 @dataclasses.dataclass
@@ -79,9 +80,9 @@ class Renderer:
         lanes = Lanes(pixel_idx=pixel_idx,
                       sample_idx=torch.full_like(pixel_idx, s))
         pixel_xy = torch.stack([px, py], dim=-1).float()
-        p_film, _p_lens, _time = self.sampler.get_camera_sample(
+        p_film, p_lens, _time = self.sampler.get_camera_sample(
             pixel_xy, lanes.pixel_idx, lanes.sample_idx)
-        ray = self.camera.generate_ray_differential(p_film)
+        ray = self.camera.generate_ray_differential(p_film, p_lens)
         ray = ray.scaled_differentials(1.0 / np.sqrt(max(1, self.sampler.spp)))
         L = scrub_radiance(self.li_fn(ctx, ray, lanes, self.sampler,
                                       DimAllocator()))

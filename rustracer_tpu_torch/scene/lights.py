@@ -1,6 +1,6 @@
 """Light tables and light sampling (port of rustracer_tpu/scene/lights.py,
-the subset for area lights on triangles with the per-light precompute and
-no infinite lights)."""
+the subset for area lights on triangles with the per-light precompute; the
+spatial grid that picks among them is scene/lightdistrib.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +11,10 @@ import torch
 from ..core.math import absdot, distance_squared, dot
 from ..ops.triangle import triangle_sample
 
-LIGHT_AREA = 2   # the reference's light type code of an area light
+# the reference's light type codes
+LIGHT_POINT, LIGHT_DISTANT, LIGHT_AREA, LIGHT_INFINITE = 0, 1, 2, 3
+_NOT_PORTED = {LIGHT_POINT: "point", LIGHT_DISTANT: "distant",
+               LIGHT_INFINITE: "infinite"}
 
 
 @dataclasses.dataclass
@@ -23,16 +26,22 @@ class LightTables:
     l_area: torch.Tensor      # (L,) f32 triangle area
     l_tri_p: torch.Tensor     # (L, 3, 3) triangle vertices, world space
     l_tri_rev: torch.Tensor   # (L,) bool reverse orientation
+    world_center: torch.Tensor = None   # (3,) the scene bounds' centre
+    world_radius: float = 100.0         # radius of the bounds' sphere
 
     @property
     def n_lights(self):
         return self.l_type.shape[0]
 
 
-def make_lights(rows, geom, device="cuda") -> LightTables:
+def make_lights(rows, geom, world_center=(0.0, 0.0, 0.0), world_radius=100.0,
+                device="cuda") -> LightTables:
     """rows: dicts (type, emit, prim, twosided), every row an area light on
     a triangle of ``geom``. Triangle vertices and areas are precomputed so
-    per-lane sampling reads only these (L, ...) tables."""
+    per-lane sampling reads only these (L, ...) tables. ``world_center``
+    and ``world_radius`` bound the scene (the reference's distant lights
+    read them). Point, distant and infinite lights and area lights on
+    quadrics raise NotImplementedError."""
     nq = geom.n_quadrics
     tv_p = geom.tv_p.cpu().numpy()
     t_idx = geom.t_idx.cpu().numpy()
@@ -42,10 +51,14 @@ def make_lights(rows, geom, device="cuda") -> LightTables:
     l_tri_p = np.zeros((L, 3, 3), np.float32)
     l_tri_rev = np.zeros(L, bool)
     for i, r in enumerate(rows):
+        if r["type"] in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{_NOT_PORTED[r['type']]} lights are not ported yet "
+                "(ROADMAP.md, section A, item 14)")
         if r["type"] != LIGHT_AREA or r.get("prim", -1) < nq:
             raise NotImplementedError(
-                "only area lights on triangles are ported (point, distant, "
-                "infinite and quadric lights: ROADMAP.md, section A, item 14)")
+                "area lights on quadrics are not ported yet (ROADMAP.md, "
+                "section A, item 15); only area lights on triangles are")
         tid = int(r["prim"]) - nq
         pts = tv_p[t_idx[tid]]
         l_tri_p[i] = pts
@@ -62,7 +75,10 @@ def make_lights(rows, geom, device="cuda") -> LightTables:
         l_prim=tens([r["prim"] for r in rows], torch.int32),
         l_twosided=tens([r.get("twosided", False) for r in rows], torch.bool),
         l_area=tens(l_area, torch.float32), l_tri_p=tens(l_tri_p, torch.float32),
-        l_tri_rev=tens(l_tri_rev, torch.bool))
+        l_tri_rev=tens(l_tri_rev, torch.bool),
+        world_center=tens(np.asarray(world_center, np.float32),
+                          torch.float32),
+        world_radius=float(world_radius))
 
 
 @dataclasses.dataclass

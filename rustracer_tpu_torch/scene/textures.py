@@ -13,7 +13,8 @@ from ..ops.mipmap import WRAP_REPEAT
 
 
 class ConstantTexture:
-    """Value lives in ``textures["const"][key]``, a (3,) tensor."""
+    """Value lives in ``textures["const"][key]``: a (3,) tensor (spectrum)
+    or a 0-dim one (float)."""
 
     def __init__(self, key: str):
         self.key = key

@@ -97,6 +97,9 @@ from .traverse_work import PEAK_BYTES_PER_S
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
                   "slab_take")
 K10, K11 = "atlas_lookup_ewa_bwd", "row_gather_bwd"
+# K4's arguments in a film.cu without the filter kinds (no
+# rt_film_filter_kinds export): the box only
+K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
 KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
@@ -263,9 +266,12 @@ def k4_call(lib, case, channels=4):
         if lib is None:
             film.add_samples(fs, p_film, rad, valid=valid)
         else:
+            kind = () if getattr(lib, "k4_box_only", False) else (
+                film.filter.kernel_params()[0],
+                *film.filter.kernel_params()[1])
             cuda.launch(K4, p_film, rad, valid, p_film.shape[0], fs.rgb,
                         fs.wsum, h, w, x0, y0, rx, ry, nx, ny,
-                        film.max_sample_luminance, lib=lib)
+                        film.max_sample_luminance, *kind, lib=lib)
     return call, lambda: torch.cat([fs.rgb, fs.wsum[..., None]], -1)
 
 
@@ -411,6 +417,10 @@ def build(others):
             if K4 in exports:
                 channels[p] = handle.rt_film_channels() \
                     if hasattr(handle, "rt_film_channels") else 3
+                if not hasattr(handle, "rt_film_filter_kinds"):
+                    # a film.cu from before the filter kinds (box only)
+                    loaded.rt_film_add_samples.argtypes = K4_BOX_ARGS
+                    loaded.k4_box_only = True
         return (builds, {name: f.result() for name, f in reports.items()},
                 {name: f.result() for name, f in sass.items()}, channels)
 

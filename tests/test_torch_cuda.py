@@ -20,7 +20,12 @@ renders within the golden-image tolerance of tests/test_golden.py (mean
 2e-3, p99 2e-2). The gradient path: K9 (a gather) and K7 as its own
 transpose bit-equal; K10 and K11 (atomic sums) each sum within 1e-4 of the
 sum of its terms' magnitudes; a train step's gradients within the bound of
-the CPU parity test (tests/test_torch_grad.py)."""
+the CPU parity test (tests/test_torch_grad.py). The scene front end: K4
+and K9 with the triangle, Gaussian and Mitchell filters and K12 (the light
+grid's contribution sums) within 1e-5 relative (the plain versions' exp,
+sqrt and divides by a number round differently on the card), K13 (the
+light pick and pmf lookup) bit-equal, the parsed Cornell box's render
+within the golden-image tolerance of the all-plain render."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -883,3 +888,125 @@ def test_train_step_matches_plain(textured, monkeypatch):
     rel, elem = grad_errors(grads, refs)
     assert rel <= 1e-3 and elem <= 1e-2, (rel, elem)
     assert max(g.abs().max().item() for g in refs) > 0
+
+
+# ---------------------------------------------------------------------------
+# the scene front end: K4 and K9 with every filter, the light grid (K12,
+# K13), a parsed scene
+# ---------------------------------------------------------------------------
+
+FILTER_KINDS = {"triangle": Filter("triangle", 2.0, 2.0),
+                "gaussian": Filter("gaussian", 2.0, 1.5, alpha=3.0),
+                "mitchell": Filter("mitchell", 2.0, 2.0),
+                "mitchell 4": Filter("mitchell", 4.0, 4.0, b=0.5, c=0.25)}
+
+
+@pytest.mark.parametrize("kind", sorted(FILTER_KINDS))
+@pytest.mark.parametrize("case", ["crop", "max_lum", f"n={(1 << 16) + 3}"])
+def test_film_filters_match_plain(dev, kind, case):
+    """K4 and K9 with each filter against their plain versions: the film
+    within 1e-5 relative (1e-6 absolute; contended reductions, and the
+    plain version's exp and divides by a number round differently on the
+    card), the radiance gradient likewise; one launch each."""
+    film, p_film, rad, valid = _film_case(dev, case)
+    film = dataclasses.replace(film, filter=FILTER_KINDS[kind])
+
+    def fn():
+        return film.add_samples(film.init_state(dev), p_film, rad,
+                                valid=valid)
+    n0 = K.LAUNCHES["film_add_samples"]
+    out, ref = fn(), _plain(fn)
+    assert K.LAUNCHES["film_add_samples"] == n0 + 1
+    torch.testing.assert_close(out.rgb, ref.rgb, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out.wsum, ref.wsum, rtol=1e-5, atol=1e-6)
+    assert (ref.wsum > 0).float().mean() > 0.2
+    w, h = film.cropped_resolution
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    g_acc = torch.rand((h, w, 4), generator=gen, device=dev) - 0.5
+    n0 = K.LAUNCHES["film_add_samples_bwd"]
+    out = film.add_samples_bwd(g_acc, p_film, rad, valid)
+    assert K.LAUNCHES["film_add_samples_bwd"] == n0 + 1
+    ref = _plain(lambda: film.add_samples_bwd(g_acc, p_film, rad, valid))
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def parsed_cornell(dev):
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "cornell-box.pbrt")
+    K.reset_launches()
+    bundle = parse_scene(path, device=dev).scene
+    launches = dict(K.LAUNCHES)
+    return bundle, launches
+
+
+def test_grid_contrib_matches_plain(parsed_cornell):
+    """K12 on 2^14 voxels of the Cornell box's grid against its plain
+    version: each sum within 1e-5 relative (the reciprocal square root
+    rounds differently), 1e-6 of the largest absolute; the parse launched
+    K12 once a 2^14-voxel chunk."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    bundle, launches = parsed_cornell
+    nv = bundle.light_grid.host[2]
+    assert launches["spatial_grid_contrib"] == -(-int(np.prod(nv))
+                                                 // LD.CHUNK_VOXELS)
+    lt, dev = bundle.lights, bundle.device
+    lo, hi = bundle.geom.tv_p.min(0).values, bundle.geom.tv_p.max(0).values
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    ext = ((hi - lo) / 64).cpu().numpy()
+    vox = lo + torch.randint(0, 64, (1 << 14, 3), generator=gen,
+                             device=dev).float() * torch.as_tensor(ext,
+                                                                   device=dev)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+    out = LD.grid_contrib(lt, vox, ext, halton)
+    ref = _plain(lambda: LD.grid_contrib(lt, vox, ext, halton))
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-6 * ref.abs().max().item())
+    assert (ref > 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 18) + 7])
+def test_light_pick_and_pmf_bit_equal(parsed_cornell, n):
+    """K13's pick and lookup are bit for bit their plain versions (the
+    same float voxel map, a count, gathers), points inside and around the
+    scene's bounds, u on cdf entries included."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    bundle, _ = parsed_cornell
+    grid, dev = bundle.light_grid, bundle.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    lo, hi = bundle.geom.tv_p.min(0).values, bundle.geom.tv_p.max(0).values
+    p = lo - 10 + torch.rand((n, 3), generator=gen, device=dev) \
+        * (hi - lo + 20)
+    u = torch.rand(n, generator=gen, device=dev)
+    flat = LD.voxel_index(grid, p)
+    k = min(n, 64)
+    u[:k] = grid.cdf[flat[:k], 0]                 # ties
+    n0 = K.LAUNCHES["spatial_light_pick"]
+    lid, pmf = LD.sample_light(grid, p, u)
+    assert K.LAUNCHES["spatial_light_pick"] == n0 + 1
+    rlid, rpmf = _plain(lambda: LD.sample_light(grid, p, u))
+    assert torch.equal(lid, rlid)
+    assert torch.equal(pmf.view(torch.int32), rpmf.view(torch.int32))
+    q = torch.randint(-1, grid.n_lights + 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    out = LD.pmf_lookup(grid, p, q)
+    ref = _plain(lambda: LD.pmf_lookup(grid, p, q))
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_parsed_cornell_render_matches_plain(parsed_cornell):
+    """The parsed Cornell box, 1 sample through the spatial grid: K13
+    launches (a pick a scatter, a lookup a non-first hit), the image
+    within the golden-image tolerance of the all-plain render."""
+    bundle, _ = parsed_cornell
+    r = bundle.renderer()
+    K.reset_launches()
+    _assert_render_matches_plain(r, bundle.context(), sample_stop=1)
+    assert K.LAUNCHES["spatial_light_pick"] == 4, K.LAUNCHES
+    assert K.LAUNCHES["spatial_pmf_lookup"] == 4, K.LAUNCHES

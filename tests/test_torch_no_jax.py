@@ -1,8 +1,10 @@
 """The port imports no JAX: a fresh interpreter imports its main path (and
 every module of the package), renders a tiny frame of the matte and of
 the textured dragon, takes a train step of the textured dragon and of the
-Cornell box with imagemap walls and the Cornell's fwd+bwd loss, then
-checks that neither ``jax`` nor the JAX package was ever imported."""
+Cornell box with imagemap walls and the Cornell's fwd+bwd loss, parses
+``scenes/cornell-box.pbrt`` (its spatial light grid included) and renders
+one sample of it, then checks that neither ``jax`` nor the JAX package was
+ever imported."""
 import os
 import subprocess
 import sys
@@ -39,6 +41,11 @@ ctx, loss = make_train_step(integ.li, cam, film, samp, device="cpu")(
 loss, grads = value_and_grad(cornell_loss(ctx, cam, film, samp, integ),
                              ctx.textures)
 assert all(bool(torch.isfinite(g).all()) for g in grads) and float(loss) > 0
+from rustracer_tpu_torch.scene.api import parse_scene
+bundle = parse_scene("scenes/cornell-box.pbrt", device="cpu").scene
+assert bundle.light_grid is not None
+img = bundle.render(sample_stop=1)
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "rustracer_tpu."))
              or m == "rustracer_tpu")
