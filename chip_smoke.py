@@ -67,31 +67,41 @@ Phases, each printing its lines:
      tests/test_golden.py's tolerance (mean 2e-3, p99 2e-2) and structural
      checks;
  13. the same scene parsed and rendered (16 spp) in this process, counted,
-     against the golden; K12 on every chunk of its 64 x 63 x 64-voxel grid
-     against its plain version, one chunk timed and bounded;
+     against the golden; K12 in one launch over its whole 64 x 63 x
+     64-voxel grid (the parse launched it once) against its plain version
+     (each sum within 1e-5 relative), timed and bounded;
  14. the headline dragon through a scene file (tools/dragon_scene.py: the
      327,680-triangle mesh as a binary PLY, the hero texture as EXR) at
      1024^2, samples [0, 8) in 2^18-lane tiles: with the uniform strategy
      its tables bit for bit build_dragon's and its image within the golden
      tolerance of phase 6's; with the spatial grid (K12, K13) finite, its
      1024 x 128 crop at 1 spp against the all-plain path, and K13 on the
-     recorded inputs of one full-width step (tile 2), bit for bit; camera
-     rays/s of both and of build_dragon;
+     recorded inputs of one full-width step (tile 2), bit for bit, and K12
+     on the file's whole 64 x 11 x 64 grid as in phase 13; camera rays/s
+     of both and of build_dragon; the uniform file's K4 splat of one
+     full-width step (tile 2) through each radius-2 filter is recorded,
+     with that step's launches of K4, for phase 15;
  15. the Cornell box parsed from a scene string once for each of the
      triangle, Gaussian and Mitchell filters, 1 spp, kernel against
      all-plain image; K4 with each filter on its recorded splat and K9 with
      the Mitchell filter, against their plain versions (within 1e-5
-     relative), timed; one fwd+bwd train step of the Mitchell Cornell
-     (K9's variant under autograd);
+     relative), timed; K4 with each filter on the dragon file's
+     full-width splat (2^18 samples, 1024^2, rendered with that
+     filter), in the step's order (warp sums)
+     and permuted (per tap), each within 1e-5 relative, timed with L2
+     evicted; one fwd+bwd train step of the
+     Mitchell Cornell (K9's variant under autograd);
  16. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and one for the render's, K7 rows for its
-     moves and for its transposes, K4 and K9 rows for the filters), the
+     moves and for its transposes, K4 and K9 rows for the filters, K4's
+     also at full width, K12 rows for both grids), the
      card line, and the result line.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train step, each scene
-parse and render of phases 13-15) is run with the launch counts set to 0
-just before it and read just after; the CLI's subprocess prints its own.
+parse and render and each filtered dragon-file step of phases 13-15) is
+run with the launch counts set to 0 just before it and read just after;
+the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
 """
 import contextlib
@@ -197,8 +207,9 @@ ROWS = {
                            "gradients and a put of zeros, two launches "
                            "(tile 0)"),
     "spatial_grid_contrib": ("spatial_grid_contrib",
-                             "one 2^14-voxel chunk of the parsed Cornell "
-                             "box's grid (2 lights x 128 probes)"),
+                             "the parsed Cornell box's whole grid (64 x 63 "
+                             "x 64 voxels x 2 lights x 128 probes), one "
+                             "launch"),
     "spatial_light_pick": ("spatial_light_pick",
                            "bounce 0's pick in a full-width step (tile 2) "
                            "of the dragon scene file, spatial grid"),
@@ -214,6 +225,17 @@ ROWS = {
     "film_add_samples_bwd mitchell": ("film_add_samples_bwd",
                                       "the radiance gradient of that "
                                       "Mitchell splat"),
+    "film_add_samples triangle full width": (
+        "film_add_samples", "a full-width step's splat of the dragon scene "
+        "file (2^18 samples, 1024^2 film), PixelFilter triangle (16 taps), "
+        "L2 evicted before each launch"),
+    "film_add_samples gaussian full width": (
+        "film_add_samples", "the same, PixelFilter gaussian"),
+    "film_add_samples mitchell full width": (
+        "film_add_samples", "the same, PixelFilter mitchell"),
+    "spatial_grid_contrib dragon file": (
+        "spatial_grid_contrib", "the dragon scene file's whole grid (64 x "
+        "11 x 64 voxels x 2 lights x 128 probes), one launch"),
 }
 # the pixel filters the parsed Cornell box is rendered with (no file of
 # scenes/ names a PixelFilter)
@@ -234,16 +256,17 @@ MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
 # loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
 # work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
 LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300}
-# operations of one filter tap in K4 and K9 (csrc/filter.cuh), counted from
-# the code as LANE_OPS: the tap's offsets (2 conversions, 2 adds, 2
-# subtracts) and the extent test (2 abs, 2 compares, a select) 11 for every
-# kind; the triangle's 2 abs, 2 subtracts, 2 max and a multiply 7; the
-# Gaussian's 2 x (2 multiplies, exp, subtract, max) and a multiply 11; the
-# Mitchell's 2 x (a divide, 2 multiplies for 2x and its abs, x^2, x^3, the
-# inner piece 5, the outer 7, 2 compares and 2 selects) and a multiply 43;
-# then K4's 4 multiplies into the float4, K9's 3 multiplies and 3 adds
+# operations of one filter tap in K9 (csrc/film_bwd.cu, csrc/filter.cuh),
+# counted from the code as LANE_OPS: the tap's offsets (2 conversions, 2
+# adds, 2 subtracts) and the extent test (2 abs, 2 compares, a select) 11
+# for every kind; the triangle's 2 abs, 2 subtracts, 2 max and a multiply
+# 7; the Gaussian's 2 x (2 multiplies, exp, subtract, max) and a multiply
+# 11; the Mitchell's 2 x (a divide, 2 multiplies for 2x and its abs, x^2,
+# x^3, the inner piece 5, the outer 7, 2 compares and 2 selects) and a
+# multiply 43; then K9's 3 multiplies and 3 adds. K4 evaluates each axis's
+# weights once a sample (tools/bench_step_kernels.py k4_ops)
 FILTER_TAP_OPS = {"box": 11, "triangle": 18, "gaussian": 22, "mitchell": 54}
-K4_TAP_OPS, K9_TAP_OPS = 4, 6
+K9_TAP_OPS = 6
 
 
 def log(msg):
@@ -1054,58 +1077,59 @@ def parse_counted(label, path=None, text=None, dev="cuda"):
     return api.scene, dict(K.LAUNCHES)
 
 
-def check_grid_contrib(bundle, launches, results):
-    """K12 on every chunk of the parsed Cornell box's grid against its
-    plain version on the card (each sum within 1e-5 relative, 1e-6 of the
-    largest absolute), one chunk timed and bounded."""
+def check_grid_contrib(label, key, scene, bundle, launches, results):
+    """K12 over the whole grid of ``bundle``'s (the parse of ``scene``)
+    lights and bounds, one launch, against its plain version on the card (each sum within 1e-5
+    relative, 1e-6 of the largest absolute), timed and bounded; its row
+    ``results[key]``, its launches those of the scene's parse."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.scene import lightdistrib as LD
     from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
     lt, dev = bundle.lights, bundle.device
     lo = bundle.geom.tv_p.min(0).values.cpu().numpy()
     hi = bundle.geom.tv_p.max(0).values.cpu().numpy()
-    nv, _, vox_lo, vox_ext = LD.voxels(lo, hi)
+    nv, _, ext = LD.voxels(lo, hi)
     halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
                              device=dev)
-    ext = vox_ext
-    chunks = [torch.as_tensor(vox_lo[i:i + LD.CHUNK_VOXELS], device=dev)
-              for i in range(0, vox_lo.shape[0], LD.CHUNK_VOXELS)]
-    out = torch.cat([LD.grid_contrib(lt, c, ext, halton) for c in chunks])
+
+    def fn():
+        return LD.grid_contrib(lt, lo, ext, nv, halton)
+    n0 = K.LAUNCHES["spatial_grid_contrib"]
+    out = fn()
+    if K.LAUNCHES["spatial_grid_contrib"] != n0 + 1:
+        raise AssertionError("spatial_grid_contrib is not one launch a grid")
     with K.plain_reference():
-        ref = torch.cat([LD.grid_contrib(lt, c, ext, halton)
-                         for c in chunks])
+        ref = fn()
     d = (out - ref).abs()
     top = ref.abs().max().item()
     bad = (d > 1e-5 * ref.abs()) & (d > 1e-6 * top)
-    log(f"[13] spatial_grid_contrib: {tuple(int(x) for x in nv)} voxels x "
-        f"{lt.n_lights} "
-        f"lights x {LD.N_SAMPLES} probes in {len(chunks)} launches (the "
+    v = int(np.prod(nv))
+    log(f"{label} spatial_grid_contrib: {tuple(int(x) for x in nv)} voxels "
+        f"x {lt.n_lights} lights x {LD.N_SAMPLES} probes in one launch (the "
         f"parse launched {launches['spatial_grid_contrib']}); max abs err "
         f"{d.max().item():.3g} of max {top:.3g}, {int(bad.sum())} sums "
         "beyond 1e-5 relative")
-    if bad.any() or not bool(torch.isfinite(out).all()):
+    if bad.any() or not bool(torch.isfinite(out).all()) \
+            or launches["spatial_grid_contrib"] != 1:
         raise AssertionError("spatial_grid_contrib differs from its plain "
-                             "version")
-
-    def fn():
-        return LD.grid_contrib(lt, chunks[0], ext, halton)
+                             "version or the parse did not launch it once")
     ms = kernel_ms(fn, 20, "grid_contrib_kernel")
     with K.plain_reference():
         pms = events_ms(fn, 3)
-    c = chunks[0].shape[0]
-    moved = nbytes(chunks[0], halton, lt.l_tri_p, lt.l_emit, lt.l_area) \
-        + c * lt.n_lights * 4
-    b = bound(moved, c * lt.n_lights * LD.N_SAMPLES * LD.K12_PROBE_OPS)
-    full = events_ms(lambda: [LD.grid_contrib(lt, ch, ext, halton)
-                              for ch in chunks], 5)
-    results["spatial_grid_contrib"] = dict(
+    probes = v * lt.n_lights * LD.N_SAMPLES
+    moved = nbytes(halton, lt.l_tri_p, lt.l_tri_rev, lt.l_twosided,
+                   lt.l_emit, lt.l_area) + v * lt.n_lights * 4
+    b = bound(moved, probes * LD.K12_PROBE_OPS)
+    results[key] = dict(
         max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
         launches=launches["spatial_grid_contrib"],
-        counted_in="the parse of scenes/cornell-box.pbrt", **b)
-    log(f"[13] spatial_grid_contrib chunk of {c} voxels: kernel {ms:.4f} "
-        f"ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}, {LD.K12_PROBE_OPS} operations a probe), "
-        f"{100 * b['bound_ms'] / ms:.1f}%; the whole grid {full:.4f} ms")
+        counted_in=f"the parse of {scene}", **b)
+    log(f"{label} spatial_grid_contrib, the whole grid ({probes} probes): "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} "
+        f"ms ({b['bound_by']}, {LD.K12_PROBE_OPS} operations a probe; "
+        f"the per-chunk kernel's count of 42: "
+        f"{bound(moved, probes * 42)['bound_ms']:.4f} ms), "
+        f"{100 * b['bound_ms'] / ms:.1f}% of it")
 
 
 def check_grid_picks(cap, results, launches):
@@ -1186,18 +1210,64 @@ def capture_grid_calls(renderer, ctx, tile, sample=1):
     return cap
 
 
-def filter_cornells(dev, card, results):
+def check_k4_full(kind, full, launches, results):
+    """K4 with filter ``kind`` (PBRT's radius 2) on the full-width splat
+    ``full`` of one dragon-file step rendered with that filter, which
+    launched K4 ``launches`` times: in the step's order (its lanes 32
+    consecutive pixels of a row: the warp-summed path) and permuted (the
+    per-tap path), each within 1e-5 relative of the plain splat; both
+    timed with L2 evicted before each launch, the step's order in the
+    kernels line."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.bench_step_kernels import (
+        check_k4_filtered, k4_call, k4_moved, k4_ops, permuted)
+    from rustracer_tpu_torch.tools.timing import cold_ms
+    film, p_film = full["film"], full["p_film"]
+    n = p_film.shape[0]
+    b = bound(k4_moved(film, p_film, full["radiance"], full["valid"]),
+              k4_ops(film, n))
+    row = {}
+    for path, case in (("warp sums", full), ("per tap", permuted(full))):
+        call, sums = k4_call(None, case)
+        call()
+        with K.plain_reference():
+            pcall, psums = k4_call(None, case)
+            pcall()
+        err = check_k4_filtered(sums(), psums(), f"film_add_samples {kind} "
+                                f"full width, {path}")
+        ms = cold_ms(call, 20, name="film_add_kernel")
+        with K.plain_reference():
+            pms = cold_ms(pcall, 5)
+        log(f"[15] film_add_samples {kind}, the dragon file's full-width "
+            f"splat ({n} samples, 1024^2 film), {path}: max abs err "
+            f"{err:.3g} (within 1e-5 relative); L2 evicted before each "
+            f"launch: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it")
+        row = row or dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          launches=launches,
+                          counted_in="one full-width step (tile 2) of the "
+                          f"uniform dragon file with PixelFilter {kind}",
+                          **b)
+    results[f"film_add_samples {kind} full width"] = row
+
+
+def filter_cornells(dev, card, results, splats):
     """The Cornell box parsed from a scene string once for each
     PixelFilter, 1 sample, counted: the kernel path's image against the
     all-plain path's (golden tolerance); K4 with the filter on the
-    render's recorded splat against its plain version, timed; with the
-    Mitchell filter, K9 on that splat and one fwd+bwd train step
-    (parallel/mesh.py) counted, so K9's variant runs under autograd."""
+    render's recorded splat against its plain version, timed, and on the
+    full-width dragon-file splat of that filter (``splats[kind]``: the
+    splat and its step's K4 launches; ``check_k4_full``); with the
+    Mitchell filter, K9 on the Cornell splat and one fwd+bwd train step
+    (parallel/mesh.py) counted, so K9's
+    variant runs under autograd."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.parallel.mesh import make_train_step
     from rustracer_tpu_torch.render.renderer import RenderConfig
     from rustracer_tpu_torch.tools.bench_step_kernels import (capture_step,
                                                               k4_moved,
+                                                              k4_ops,
                                                               k4_touched)
     from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
     text = open(CORNELL_PBRT).read()
@@ -1245,7 +1315,7 @@ def filter_cornells(dev, card, results):
         nx, ny = film._footprint()
         taps = p_film.shape[0] * nx * ny
         b = bound(k4_moved(film, p_film, rad, valid),
-                  taps * (FILTER_TAP_OPS[kind] + K4_TAP_OPS))
+                  k4_ops(film, p_film.shape[0]))
         results[f"film_add_samples {kind}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=pms,
             launches=launches["film_add_samples"],
@@ -1254,6 +1324,7 @@ def filter_cornells(dev, card, results):
             f"{taps} taps, max abs err {err:.3g} (within 1e-5 relative); "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+        check_k4_full(kind, *splats[kind], results)
         if kind != "mitchell":
             continue
         w, h = film.cropped_resolution
@@ -1316,12 +1387,16 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
     tables bit for bit build_dragon's and its image within the golden
     tolerance of build_dragon's (``ref_img``, phase 6); the spatial grid's
     render finite, its 1-spp crop against the all-plain path, and K13 on
-    the recorded inputs of one full-width step. Then the three renders
-    (build_dragon's, ``ref`` = (renderer, ctx), the uniform and spatial
-    files') timed in turns, a, b, c, c, b, a."""
+    the recorded inputs of one full-width step, K12 on the file's whole
+    grid. Then the three renders (build_dragon's, ``ref`` = (renderer,
+    ctx), the uniform and spatial files') timed in turns, a, b, c, c, b,
+    a. -> {kind: (the K4 splat of one full-width step (tile 2) of the
+    uniform file rendered with PixelFilter kind at radius 2
+    (filtered_splat), K4's launches in that step)} for FILTER_KINDS."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools.bench_step_kernels import filtered_splat
     from rustracer_tpu_torch.tools.dragon_scene import write_dragon_scene
     geom = geometry[0]
     rays = {"build_dragon (phase 6)": ref_rays}
@@ -1359,6 +1434,20 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
                 if not (mean_err < 2e-3 and p99 < 2e-2):
                     raise AssertionError("the dragon file's render differs "
                                          "from build_dragon's")
+                # the splat of one full-width step (tile 2) through each
+                # radius-2 filter and its launches of K4, for phase 15
+                splats = {}
+                for kind in FILTER_KINDS:
+                    torch.cuda.synchronize()
+                    K.reset_launches()
+                    splat = filtered_splat(r, bundle.context(), r.tiles[2],
+                                           kind=kind)
+                    torch.cuda.synchronize()
+                    n_k4 = K.LAUNCHES["film_add_samples"]
+                    if n_k4 <= 0:
+                        raise AssertionError(f"the {kind} dragon-file step "
+                                             "did not launch K4")
+                    splats[kind] = (splat, n_k4)
                 continue
             log(f"[14] spatial: grid "
                 f"{tuple(int(x) for x in bundle.light_grid.host[2])} "
@@ -1369,6 +1458,9 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
                     or parse_launches["spatial_grid_contrib"] <= 0:
                 raise AssertionError("the spatial render did not launch "
                                      "K12 and K13")
+            check_grid_contrib("[14]", "spatial_grid_contrib dragon file",
+                               "the dragon scene file (spatial)", bundle,
+                               parse_launches, results)
             crop_film = Film(full_resolution=RES, crop_window=TEX_CROP,
                              filter=bundle.film.filter)
             compare_crop("[14] spatial", Renderer(
@@ -1387,6 +1479,7 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
         + "; ".join(f"{k} " + " / ".join(
             f"{RES[0] * RES[1] * SAMPLES / t:.1f}" for t in v)
             for k, v in secs.items()))
+    return splats
 
 
 def run(dev, card):
@@ -1480,10 +1573,12 @@ def run(dev, card):
     if min(K.LAUNCHES[k] for k in K.GRID_KERNELS[1:]) <= 0:
         raise AssertionError("the parsed Cornell box did not launch K13")
     check_cornell_image("[13] the in-process render", img.cpu().numpy())
-    check_grid_contrib(bundle, parse_launches, results)
-    dragon_file(dev, card, geometry, (trenderer, tctx), dragon_img,
-                dragon_rays, results)
-    filter_cornells(dev, card, results)
+    check_grid_contrib("[13]", "spatial_grid_contrib",
+                       "scenes/cornell-box.pbrt", bundle, parse_launches,
+                       results)
+    splats = dragon_file(dev, card, geometry, (trenderer, tctx), dragon_img,
+                         dragon_rays, results)
+    filter_cornells(dev, card, results, splats)
 
     kernels = []
     for key, (name, case) in ROWS.items():

@@ -1,5 +1,6 @@
 // K4: filter-weighted splat of a sample batch into the film, one thread per
-// sample, one 16-byte vector reduction per filter tap.
+// sample, one 16-byte vector reduction per filter tap or, for a filter
+// wider than the box in a warp of consecutive pixels, per pixel.
 //
 // Replaces rustracer_tpu/render/film.py Film.add_samples (:67-111): the
 // luminance clamp, the nx x ny filter footprint, the valid mask and the crop
@@ -25,30 +26,82 @@
 // through shared memory, so that each load instruction reads 128
 // contiguous bytes, measured slower: it adds a barrier before any lane can
 // issue its reductions).
+//
+// The triangle, Gaussian and Mitchell filters (PBRT's radius 2: 16 taps a
+// sample) are bound by their reductions, one a tap. Their design: each
+// sample evaluates its nx x-weights and ny y-weights once, in registers
+// (footprints up to kMaxAxisTaps an axis), a tap's weight their product in
+// filter_weight's order, so the weights are its bits. A renderer's warp
+// holds 32 consecutive pixels of one row (render/renderer.py builds its
+// lanes row-major); the warp checks that (a shuffle and a vote on the
+// pixel row and on the pixel column minus the lane) and then, for each row
+// its taps reach, sums across its lanes with shuffles the taps that land on
+// one pixel (lane t takes lane t - d's radiance and x weight once, its row
+// weight a row, and forms its tap) and issues one reduction a pixel: 32 a
+// row and the few taps beyond the warp's columns, where the per-tap design
+// issued 4 a lane a row. Any other warp (a shuffled order, the ends of a
+// row, a footprint wider than kWin) adds tap by tap, each tap's weight from
+// filter_weight, as the box does. The warp's sums fall
+// in another order than the plain version's: within float rounding (1e-5
+// relative).
 #include "common.cuh"
 #include "filter.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// the filtered splat keeps a footprint of up to kMaxAxisTaps x kMaxAxisTaps
+// in registers; its warp sums take taps within kWin pixels of the lane's
+constexpr int kMaxAxisTaps = 4;
+constexpr int kWin = 2;
 
-template <int Kind>
-__global__ void __launch_bounds__(kThreads)
-    film_add_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
-                    const bool* __restrict__ valid, int n, float4* __restrict__ acc, int h,
-                    int w, int x0, int y0, rt::FilterParams f, int nx, int ny, float max_lum) {
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    if (valid != nullptr && !valid[i]) return;
-    float2 p = p_film[i];
-    float r = rad[3 * i], g = rad[3 * i + 1], b = rad[3 * i + 2];
-    if (isfinite(max_lum)) {
-        float lum = r * 0.212671f + g * 0.715160f + b * 0.072169f;
-        float scale = lum > max_lum ? max_lum / fmaxf(lum, 1e-20f) : 1.0f;
-        r = r * scale;
-        g = g * scale;
-        b = b * scale;
+// kMaxAxisTaps weights of one axis as scalars (no array, so nothing goes to
+// local memory): at(k) folds to one register for a constant k and is 4
+// selects for a k known at run time
+struct AxisTaps {
+    float v0, v1, v2, v3;
+    __device__ __forceinline__ float at(int k) const {
+        return k == 0 ? v0 : k == 1 ? v1 : k == 2 ? v2 : k == 3 ? v3 : 0.0f;
     }
+};
+static_assert(kMaxAxisTaps == 4, "AxisTaps holds 4 weights");
+
+// the weights of axis Axis at offsets lo + k + 0.5 - p (0 beyond the
+// footprint's n taps and outside the extent)
+template <int Kind, int Axis>
+__device__ __forceinline__ AxisTaps axis_taps(const rt::FilterParams& f, int lo, float p,
+                                              int n) {
+    const float r = Axis == 0 ? f.rx : f.ry;
+    float v[kMaxAxisTaps];
+#pragma unroll
+    for (int k = 0; k < kMaxAxisTaps; ++k) {
+        float d = ((float)(lo + k) + 0.5f) - p;
+        v[k] = (k < n && fabsf(d) <= r) ? rt::axis_weight<Kind, Axis>(f, d) : 0.0f;
+    }
+    return {v[0], v[1], v[2], v[3]};
+}
+
+__device__ __forceinline__ float4 scaled(float fw, float r, float g, float b) {
+    return make_float4(fw * r, fw * g, fw * b, fw);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float shfl1(float v, int delta) {
+    // lane t gets lane t - delta's v (its own outside the warp)
+    return delta > 0 ? __shfl_up_sync(kFull, v, delta) : __shfl_down_sync(kFull, v, -delta);
+}
+
+// one reduction a tap that lands (inside the crop, weight above 0), the
+// weight of each from filter_weight: the box, and any warp of a wider
+// filter that cannot sum its taps across its lanes
+template <int Kind>
+__device__ __forceinline__ void splat_taps(float2 p, float r, float g, float b, float4* acc,
+                                           int h, int w, int x0, int y0,
+                                           const rt::FilterParams& f, int nx, int ny) {
     int lo_x = (int)ceilf((p.x - 0.5f) - f.rx);
     int lo_y = (int)ceilf((p.y - 0.5f) - f.ry);
     for (int j = 0; j < ny; ++j) {
@@ -59,8 +112,98 @@ __global__ void __launch_bounds__(kThreads)
             float fw = rt::filter_weight<Kind>(f, dx, dy);
             int ix = px - x0, iy = py - y0;
             if (ix < 0 || ix >= w || iy < 0 || iy >= h || !(fw > 0.0f)) continue;
-            atomicAdd(acc + ((size_t)iy * w + ix), make_float4(fw * r, fw * g, fw * b, fw));
+            atomicAdd(acc + ((size_t)iy * w + ix), scaled(fw, r, g, b));
         }
+    }
+}
+
+template <int Kind>
+__global__ void __launch_bounds__(kThreads)
+    film_add_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
+                    const bool* __restrict__ valid, int n, float4* __restrict__ acc, int h,
+                    int w, int x0, int y0, rt::FilterParams f, int nx, int ny, float max_lum) {
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const bool in = i < n;
+    if (Kind == rt::kBox && !in) return;
+    const bool live = in && (valid == nullptr || valid[i]);
+    if (Kind == rt::kBox && !live) return;
+    float2 p = in ? p_film[i] : make_float2(0.0f, 0.0f);
+    float r = 0.0f, g = 0.0f, b = 0.0f;
+    if (in) {
+        r = rad[3 * i];
+        g = rad[3 * i + 1];
+        b = rad[3 * i + 2];
+    }
+    if (isfinite(max_lum)) {
+        float lum = r * 0.212671f + g * 0.715160f + b * 0.072169f;
+        float scale = lum > max_lum ? max_lum / fmaxf(lum, 1e-20f) : 1.0f;
+        r = r * scale;
+        g = g * scale;
+        b = b * scale;
+    }
+    if (Kind == rt::kBox) {
+        splat_taps<Kind>(p, r, g, b, acc, h, w, x0, y0, f, nx, ny);
+        return;
+    }
+    // a filter wider than the box: a warp whose lanes hold consecutive
+    // pixels of one row, each footprint of at most kMaxAxisTaps taps an axis
+    // and within kWin pixels of its own, sums the taps that land on one
+    // pixel across its lanes; any other warp adds tap by tap
+    const int lo_x = (int)ceilf((p.x - 0.5f) - f.rx);
+    const int lo_y = (int)ceilf((p.y - 0.5f) - f.ry);
+    const int lane = threadIdx.x & 31;
+    const int pix_x = (int)floorf(p.x), pix_y = (int)floorf(p.y);
+    const int sx = lo_x - pix_x, sy = lo_y - pix_y;
+    const int row = __shfl_sync(kFull, pix_y, 0), col0 = __shfl_sync(kFull, pix_x - lane, 0);
+    const bool fits = in && nx <= kMaxAxisTaps && ny <= kMaxAxisTaps && pix_y == row &&
+                      pix_x - lane == col0 && sx >= -kWin && sx + nx - 1 <= kWin &&
+                      sy >= -kWin && sy + ny - 1 <= kWin;
+    if (!__all_sync(kFull, fits)) {
+        if (live) splat_taps<Kind>(p, r, g, b, acc, h, w, x0, y0, f, nx, ny);
+        return;
+    }
+    // each axis's weights once a sample (0 outside the footprint and the
+    // extent), a tap's weight wx.at(k) * wy.at(j), the product
+    // filter_weight forms, bit for bit
+    const AxisTaps wx = axis_taps<Kind, 0>(f, lo_x, p.x, nx);
+    const AxisTaps wy = axis_taps<Kind, 1>(f, lo_y, p.y, ny);
+    // lane t adds, on its own pixel column, the tap of lane t - d at column
+    // offset d, for d = -kWin .. kWin: lane t - d's x weight at that offset
+    // and its radiance, fetched once (o = d + kWin), and its row weight,
+    // fetched a row; the tap's weight is their product, as lane t - d would
+    // form it. A lane's tap on a column beyond the warp's 32 goes alone.
+    float wo[2 * kWin + 1], nwo[2 * kWin + 1], nr[2 * kWin + 1], ng[2 * kWin + 1],
+        nb[2 * kWin + 1];
+#pragma unroll
+    for (int o = 0; o <= 2 * kWin; ++o) {
+        const int d = o - kWin;
+        wo[o] = wx.at(d - sx);
+        nwo[o] = d == 0 ? wo[o] : shfl1(wo[o], d);
+        nr[o] = d == 0 ? r : shfl1(r, d);
+        ng[o] = d == 0 ? g : shfl1(g, d);
+        nb[o] = d == 0 ? b : shfl1(b, d);
+    }
+    const int ix = col0 + lane - x0;
+#pragma unroll
+    for (int q = -kWin; q <= kWin; ++q) {
+        const float wq = live ? wy.at(q - sy) : 0.0f;
+        const int iy = row + q - y0;
+        if (iy < 0 || iy >= h || !__any_sync(kFull, wq != 0.0f)) continue;
+        float4* acc_row = acc + (size_t)iy * w;
+        float4 tot = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int o = 0; o <= 2 * kWin; ++o) {
+            const int d = o - kWin;
+            const float fw = nwo[o] * (d == 0 ? wq : shfl1(wq, d));
+            if (lane - d >= 0 && lane - d < 32 && fw > 0.0f)
+                tot = add4(tot, scaled(fw, nr[o], ng[o], nb[o]));
+            if (d != 0 && (lane + d < 0 || lane + d >= 32)) {
+                const float own = wo[o] * wq;
+                if (own > 0.0f && ix + d >= 0 && ix + d < w)
+                    atomicAdd(acc_row + ix + d, scaled(own, r, g, b));
+            }
+        }
+        if (tot.w > 0.0f && ix >= 0 && ix < w) atomicAdd(acc_row + ix, tot);
     }
 }
 

@@ -8,7 +8,10 @@
 // float32 where they meet a float32 array: the Gaussian's -alpha and its
 // two edge values exp(-alpha r^2) (computed in float64), Mitchell's seven
 // polynomial coefficients (computed in float64). Each kernel is built once
-// per kind (a template argument), so the box keeps its one comparison.
+// per kind (a template argument), so the box keeps its one comparison. A
+// weight is the product of two 1-D factors (axis_weight), x times y, so K4
+// can evaluate each axis once a sample (Filter.axis_weights in
+// render/filters.py is the plain twin).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,21 +35,21 @@ __device__ __forceinline__ float mitchell_1d(const FilterParams& f, float x) {
     return x > 1.0f ? (x > 2.0f ? 0.0f : outer) : inner;
 }
 
+// the 1-D factor of axis Axis (0: x, 1: y) at offset d from the sample
+// point, inside the extent; the weight is the x factor times the y factor
+template <int Kind, int Axis>
+__device__ __forceinline__ float axis_weight(const FilterParams& f, float d) {
+    const float r = Axis == 0 ? f.rx : f.ry;
+    if (Kind == kBox) return 1.0f;
+    if (Kind == kTriangle) return fmaxf(r - fabsf(d), 0.0f);
+    if (Kind == kGaussian) return fmaxf(expf(f.p[0] * d * d) - f.p[1 + Axis], 0.0f);
+    return mitchell_1d(f, d / r);
+}
+
 // weight at offset (dx, dy) from the sample point; 0 outside the extent
 template <int Kind>
 __device__ __forceinline__ float filter_weight(const FilterParams& f, float dx, float dy) {
-    float w;
-    if (Kind == kBox) {
-        w = 1.0f;
-    } else if (Kind == kTriangle) {
-        w = fmaxf(f.rx - fabsf(dx), 0.0f) * fmaxf(f.ry - fabsf(dy), 0.0f);
-    } else if (Kind == kGaussian) {
-        float gx = fmaxf(expf(f.p[0] * dx * dx) - f.p[1], 0.0f);
-        float gy = fmaxf(expf(f.p[0] * dy * dy) - f.p[2], 0.0f);
-        w = gx * gy;
-    } else {
-        w = mitchell_1d(f, dx / f.rx) * mitchell_1d(f, dy / f.ry);
-    }
+    float w = Kind == kBox ? 1.0f : axis_weight<Kind, 0>(f, dx) * axis_weight<Kind, 1>(f, dy);
     return (fabsf(dx) <= f.rx && fabsf(dy) <= f.ry) ? w : 0.0f;
 }
 

@@ -66,8 +66,10 @@ SIGNATURES = {
     "atlas_lookup_ewa_bwd": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _I, _P],
     "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "spatial_grid_contrib": [_P, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P,
-                             _P, _I, _P, _P],
+    # the grid's lo, voxel extent and voxel counts, halton, n_probes, the
+    # light tables, n_lights, out, stream
+    "spatial_grid_contrib": [_F] * 6 + [_I] * 3 + [_P, _I] + [_P] * 5
+    + [_I, _P, _P],
     "spatial_light_pick": [_P, _P, _I] + [_F] * 6 + [_I] * 3
     + [_P, _P, _I, _P, _P, _P],
     "spatial_pmf_lookup": [_P, _P, _I] + [_F] * 6 + [_I] * 3

@@ -63,36 +63,41 @@ class Filter:
             p[:7] = self.mitchell_coeffs()
         return KINDS[self.kind], p
 
-    def evaluate(self, dx, dy):
-        """Filter weight at offset (dx, dy) from the sample point."""
+    def axis_weights(self, dx, dy):
+        """Each axis's 1-D factor of the weight and whether the offset lies
+        inside the extent -> (wx, mx, wy, my): the plain twin of K4's
+        separable weights (csrc/film.cu), which ``evaluate`` multiplies."""
         xw, yw = _f32(self.xwidth), _f32(self.ywidth)
         if self.kind == "box":
-            w = torch.ones_like(dx)
+            fx, fy = torch.ones_like(dx), torch.ones_like(dy)
         elif self.kind == "triangle":
-            w = torch.clamp(xw - torch.abs(dx), min=0.0) * \
-                torch.clamp(yw - torch.abs(dy), min=0.0)
+            fx = torch.clamp(xw - torch.abs(dx), min=0.0)
+            fy = torch.clamp(yw - torch.abs(dy), min=0.0)
         elif self.kind == "gaussian":
             na = _f32(-self.alpha)
-
-            def g(d, r):
-                return torch.clamp(torch.exp(na * d * d) - self._gauss_expv(r),
-                                   min=0.0)
-            w = g(dx, self.xwidth) * g(dy, self.ywidth)
+            fx = torch.clamp(torch.exp(na * dx * dx)
+                             - self._gauss_expv(self.xwidth), min=0.0)
+            fy = torch.clamp(torch.exp(na * dy * dy)
+                             - self._gauss_expv(self.ywidth), min=0.0)
         else:
-            i3, i2, i0, o3, o2, o1, o0 = self.mitchell_coeffs()
-            sixth = _f32(1.0 / 6.0)
+            fx, fy = self._mitchell_1d(dx / xw), self._mitchell_1d(dy / yw)
+        return fx, torch.abs(dx) <= xw, fy, torch.abs(dy) <= yw
 
-            def m1d(x):
-                x = torch.abs(2.0 * x)
-                x2 = x * x
-                x3 = x2 * x
-                inner = (i3 * x3 + i2 * x2 + i0) * sixth
-                outer = (o3 * x3 + o2 * x2 + o1 * x + o0) * sixth
-                return torch.where(x > 1.0, torch.where(x > 2.0, 0.0, outer),
-                                   inner)
-            w = m1d(dx / xw) * m1d(dy / yw)
-        inside = (torch.abs(dx) <= xw) & (torch.abs(dy) <= yw)
-        return torch.where(inside, w, 0.0).to(torch.float32)
+    def _mitchell_1d(self, x):
+        i3, i2, i0, o3, o2, o1, o0 = self.mitchell_coeffs()
+        sixth = _f32(1.0 / 6.0)
+        x = torch.abs(2.0 * x)
+        x2 = x * x
+        x3 = x2 * x
+        inner = (i3 * x3 + i2 * x2 + i0) * sixth
+        outer = (o3 * x3 + o2 * x2 + o1 * x + o0) * sixth
+        return torch.where(x > 1.0, torch.where(x > 2.0, 0.0, outer), inner)
+
+    def evaluate(self, dx, dy):
+        """Filter weight at offset (dx, dy) from the sample point: the
+        product of the two axes' factors inside the extent, else 0."""
+        fx, mx, fy, my = self.axis_weights(dx, dy)
+        return torch.where(mx & my, fx * fy, 0.0).to(torch.float32)
 
 
 def make_filter(name, params=None):

@@ -7,7 +7,8 @@ unoccluded contribution; a lane picks a light from the row of the voxel
 it stands in. The host part of ``build_spatial_grid`` (voxel counts, the
 Halton table, the floor, pmf and cdf in numpy float32) is the reference's,
 line for line; the voxels' contribution sums come from K12
-``spatial_grid_contrib`` (plain version ``grid_contrib_plain``).
+``spatial_grid_contrib``, one launch over the whole grid (plain version
+``grid_contrib_all_plain``).
 ``sample_light`` and ``pmf_lookup`` are K13 ``spatial_light_pick`` and
 ``spatial_pmf_lookup`` (plain versions beside them).
 """
@@ -22,19 +23,25 @@ import torch
 from .. import cuda
 from ..core.math import dot
 from ..ops.triangle import triangle_sample
+from ..utils.stats import time_phase
 
 PRIMES = (2, 3, 5, 7, 11)
 N_SAMPLES = 128          # probes a voxel
 MAX_VOXELS = 64          # voxels on the bounds' widest axis
 MIN_CONTRIB_FRAC = 1e-3  # floor: no light's probability is 0
+# the timers of build_spatial_grid's pieces (utils/stats.py)
+GRID_PHASE = "scene/spatial light distribution/"
 # a probe's operations in K12's inner loop, counted from its code (32-bit
-# float operations and compares at one instruction each; the sqrt and the
-# divides as one each): the point 6, d 3, dot 5, two fmaxf 2, the
-# reciprocal square root 2, wi 3, cos_l 3 negations + 5, the facing test
-# 2, the pdf's abs, multiply, fmaxf and divide 4, two selects 2, the
-# contribution's compare, fmaxf, divide, select and sum 5
-K12_PROBE_OPS = 42
-# voxels a K12 launch or a plain chunk covers
+# float operations, compares and selects at one instruction each, the
+# approximate reciprocal square root as one): the point 3 adds, d 3
+# subtracts, dist2 3 multiplies, 2 adds and a max, rsqrtf 1, cos_l 3
+# multiplies, 2 adds and the multiply by rs, its abs 1, the facing test's
+# select and compare 2, the contribution's multiply, max, 2 multiplies by
+# rs, min and multiply by y 6, its select and the sum 2. (The per-chunk
+# kernel before it, with a correctly rounded square root, two divides and
+# the probe point's 3 multiplies, counted 42.)
+K12_PROBE_OPS = 30
+# voxels a chunk of the plain version covers (its (S, C, 3) temporaries)
 CHUNK_VOXELS = 1 << 14
 
 
@@ -71,11 +78,11 @@ class SpatialLightGrid:
 
 
 def grid_contrib_plain(lt, vox_lo, vox_ext, halton):
-    """Plain version of K12: (C, 3) voxel lower corners -> (C, n_lights)
-    sums over the probes of y(li) / pdf where pdf > 0, each light's sample
-    as scene/lights.py sample_li computes it (the light point and normal of
-    a probe, which depend on the probe and the light only, computed once;
-    the probes summed in order)."""
+    """The contribution sums of voxels with lower corners ``vox_lo`` (C, 3)
+    -> (C, n_lights): over the probes, y(li) / pdf where pdf > 0, each
+    light's sample as scene/lights.py sample_li computes it (the light
+    point and normal of a probe, which depend on the probe and the light
+    only, computed once; the probes summed in order)."""
     n_s = halton.shape[0]
     ext = torch.as_tensor(vox_ext, device=vox_lo.device)
     pts = vox_lo[None] + (halton[:, None, :3] * ext)   # (S, C, 3)
@@ -107,14 +114,42 @@ def grid_contrib_plain(lt, vox_lo, vox_ext, halton):
     return torch.stack(cols, -1)
 
 
-def grid_contrib(lt, vox_lo, vox_ext, halton):
-    """K12 (plain version on CPU tensors): voxel corners (C, 3) and the
-    voxel extent (3,) float32 numpy -> (C, n_lights) contribution sums."""
-    if not cuda.use_kernel(vox_lo):
-        return grid_contrib_plain(lt, vox_lo, vox_ext, halton)
-    dev = vox_lo.device
-    c, n_l, n_s = vox_lo.shape[0], lt.n_lights, halton.shape[0]
-    cuda.check(vox_lo, "vox_lo", torch.float32, (c, 3), dev)
+def voxel_corners(world_lo, vox_ext, nv, start, stop, device="cpu"):
+    """Lower corners (stop - start, 3) float32 of the voxels with flat
+    indices [start, stop) of an ``nv`` grid, as K12 computes each from its
+    index: flat = (ix * ny + iy) * nz + iz, corner = world_lo + float(i) *
+    vox_ext (a float32 multiply, then an add)."""
+    flat = torch.arange(start, stop, device=device)
+    ny, nz = int(nv[1]), int(nv[2])
+    idx = torch.stack([flat // (ny * nz), (flat // nz) % ny, flat % nz], -1)
+    lo = torch.as_tensor(np.asarray(world_lo, np.float32), device=device)
+    ext = torch.as_tensor(np.asarray(vox_ext, np.float32), device=device)
+    return lo + idx.float() * ext
+
+
+def grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton,
+                           chunk_voxels: int = CHUNK_VOXELS):
+    """Plain version of K12: the contribution sums (V, n_lights) of every
+    voxel of the grid, ``chunk_voxels`` at a time (``voxel_corners``,
+    ``grid_contrib_plain``)."""
+    v = int(np.prod(nv))
+    dev = halton.device
+    return torch.cat([
+        grid_contrib_plain(lt, voxel_corners(world_lo, vox_ext, nv, s,
+                                             min(s + chunk_voxels, v), dev),
+                           vox_ext, halton)
+        for s in range(0, v, chunk_voxels)], 0)
+
+
+def grid_contrib(lt, world_lo, vox_ext, nv, halton):
+    """K12: the contribution sums (V, n_lights) of every voxel of the grid
+    with lower corner ``world_lo``, voxel extent ``vox_ext`` (3,) float32
+    and ``nv`` (3,) voxels an axis, in C order; one launch. CPU tensors
+    take the plain version."""
+    if not cuda.use_kernel(halton):
+        return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
+    dev = halton.device
+    n_l, n_s = lt.n_lights, halton.shape[0]
     cuda.check(halton, "halton", torch.float32, (n_s, 5), dev)
     cuda.check(lt.l_tri_p, "l_tri_p", torch.float32, (n_l, 3, 3), dev)
     cuda.check(lt.l_emit, "l_emit", torch.float32, (n_l, 3), dev)
@@ -122,66 +157,69 @@ def grid_contrib(lt, vox_lo, vox_ext, halton):
                     (lt.l_twosided, "l_twosided")):
         cuda.check(t, name, torch.bool, (n_l,), dev)
     cuda.check(lt.l_area, "l_area", torch.float32, (n_l,), dev)
-    out = torch.empty((c, n_l), dtype=torch.float32, device=dev)
-    ext = [float(x) for x in np.asarray(vox_ext, np.float32)]
-    if c:
-        cuda.launch("spatial_grid_contrib", vox_lo, c, *ext, halton, n_s,
-                    lt.l_tri_p, lt.l_tri_rev, lt.l_twosided, lt.l_emit,
-                    lt.l_area, n_l, out)
+    nv = [int(x) for x in nv]
+    out = torch.empty((int(np.prod(nv)), n_l), dtype=torch.float32,
+                      device=dev)
+    cuda.launch("spatial_grid_contrib",
+                *[float(x) for x in np.asarray(world_lo, np.float32)],
+                *[float(x) for x in np.asarray(vox_ext, np.float32)], *nv,
+                halton, n_s, lt.l_tri_p, lt.l_tri_rev, lt.l_twosided,
+                lt.l_emit, lt.l_area, n_l, out)
     return out
 
 
 def voxels(world_lo, world_hi, max_voxels: int = MAX_VOXELS):
     """The grid over the bounds: the widest axis gets ``max_voxels``
-    voxels, the others in proportion. -> (nv (3,) int64, diag (3,),
-    every voxel's lower corner (V, 3) in C order (flat = (ix*ny + iy)*nz
-    + iz), the voxel extent (3,)), float32 numpy."""
+    voxels, the others in proportion. -> (nv (3,) int64, diag (3,), the
+    voxel extent (3,)), float32 numpy (``voxel_corners`` gives the
+    voxels' lower corners)."""
     world_lo = np.asarray(world_lo, np.float32)
     world_hi = np.asarray(world_hi, np.float32)
     diag = np.maximum(world_hi - world_lo, 1e-6)
     b_max = float(diag.max())
     nv = np.maximum(1, np.round(diag / b_max * max_voxels)).astype(np.int64)
-    coords = np.stack(np.meshgrid(np.arange(nv[0]), np.arange(nv[1]),
-                                  np.arange(nv[2]), indexing="ij"),
-                      -1).reshape(-1, 3).astype(np.float32)
-    vox_ext = (diag / nv).astype(np.float32)
-    return nv, diag, world_lo + coords * vox_ext, vox_ext
+    return nv, diag, (diag / nv).astype(np.float32)
 
 
 def build_spatial_grid(lt, world_lo, world_hi, max_voxels: int = MAX_VOXELS,
-                       n_samples: int = N_SAMPLES,
-                       chunk_voxels: int = CHUNK_VOXELS) -> SpatialLightGrid:
+                       n_samples: int = N_SAMPLES) -> SpatialLightGrid:
     """The full voxel grid of light-selection pmfs on ``lt``'s device, the
-    voxels' contributions from K12 a chunk of ``chunk_voxels`` at a
-    time."""
+    voxels' contributions from K12 in one launch. Its pieces are timed
+    (utils/stats.py) under ``GRID_PHASE``."""
     dev = lt.l_emit.device
     world_lo = np.asarray(world_lo, np.float32)
-    nv, diag, vox_lo, vox_ext = voxels(world_lo, world_hi, max_voxels)
+    nv, diag, vox_ext = voxels(world_lo, world_hi, max_voxels)
     n_l = lt.n_lights
-    halton = torch.as_tensor(_radical_inverse_table(n_samples), device=dev)
-    rows = [grid_contrib(lt, torch.as_tensor(vox_lo[s:s + chunk_voxels],
-                                             device=dev), vox_ext, halton)
-            for s in range(0, vox_lo.shape[0], chunk_voxels)]
-    contrib = torch.cat(rows, 0).cpu().numpy()   # (V, n_l)
+    with time_phase(GRID_PHASE + "Halton table"):
+        halton = torch.as_tensor(_radical_inverse_table(n_samples),
+                                 device=dev)
+    with time_phase(GRID_PHASE + "contributions (K12)"):
+        contrib = grid_contrib(lt, world_lo, vox_ext, nv, halton)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with time_phase(GRID_PHASE + "copy back"):
+        contrib = contrib.cpu().numpy()   # (V, n_l)
 
-    # floor so no light has zero probability
-    avg = contrib.sum(-1, keepdims=True) / (n_samples * n_l)
-    min_c = np.where(avg > 0.0, MIN_CONTRIB_FRAC * avg, 1.0)
-    contrib = np.maximum(contrib, min_c)
-    pmf = contrib / contrib.sum(-1, keepdims=True)
-    cdf = np.cumsum(pmf, -1)
-    cdf[:, -1] = 1.0
+    with time_phase(GRID_PHASE + "pmf and cdf"):
+        # floor so no light has zero probability
+        avg = contrib.sum(-1, keepdims=True) / (n_samples * n_l)
+        min_c = np.where(avg > 0.0, MIN_CONTRIB_FRAC * avg, 1.0)
+        contrib = np.maximum(contrib, min_c)
+        pmf = contrib / contrib.sum(-1, keepdims=True)
+        cdf = np.cumsum(pmf, -1)
+        cdf[:, -1] = 1.0
 
     strides = np.array([nv[1] * nv[2], nv[2], 1], np.int32)
     inv_ext = (1.0 / diag).astype(np.float32)
-    return SpatialLightGrid(
-        world_lo=torch.as_tensor(world_lo, device=dev),
-        world_inv_ext=torch.as_tensor(inv_ext, device=dev),
-        n_voxels=torch.as_tensor(nv.astype(np.int32), device=dev),
-        strides=torch.as_tensor(strides, device=dev),
-        pmf=torch.as_tensor(pmf.astype(np.float32), device=dev),
-        cdf=torch.as_tensor(cdf.astype(np.float32), device=dev),
-        host=(world_lo, inv_ext, nv.astype(np.int32)))
+    with time_phase(GRID_PHASE + "tables to the device"):
+        return SpatialLightGrid(
+            world_lo=torch.as_tensor(world_lo, device=dev),
+            world_inv_ext=torch.as_tensor(inv_ext, device=dev),
+            n_voxels=torch.as_tensor(nv.astype(np.int32), device=dev),
+            strides=torch.as_tensor(strides, device=dev),
+            pmf=torch.as_tensor(pmf.astype(np.float32), device=dev),
+            cdf=torch.as_tensor(cdf.astype(np.float32), device=dev),
+            host=(world_lo, inv_ext, nv.astype(np.int32)))
 
 
 def voxel_index(grid: SpatialLightGrid, p):

@@ -1,11 +1,13 @@
-"""K4 (the film splat), K5 (the atlas EWA lookup), K6 (the alive-first
-order), K7 (the slab take and put), K10 (the lookup's backward) and K11
-(the row gather's backward) on the inputs of full-width textured steps,
-against their plain versions and, given them, other builds of their
-sources.
+"""K4 (the film splat, also with the triangle, Gaussian and Mitchell
+filters: K4F), K5 (the atlas EWA lookup), K6 (the alive-first order), K7
+(the slab take and put), K10 (the lookup's backward) and K11 (the row
+gather's backward) on the inputs of full-width textured steps, and K12
+(the light grid's contribution sums) over whole grids, against their
+plain versions and, given them, other builds of their sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
-        [--reps N] [--kernels K4,K5,K6,K7,K10,K11] [--json PATH]
+        [--reps N] [--kernels K4,K5,K6,K7,K10,K11,K12,K4F] [--k12-corners]
+        [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
 tiles, compaction on) and runs one step of tile 2 (all floor and dragon,
@@ -38,13 +40,13 @@ textured lanes of each K5 input, K5's bound (tools/atlas_work.py) and K6's
 the memory instructions of each kernel in program order, from cuobjdump's
 SASS (``sass_memory_ops``): K4's reductions a tap, K7's loads and stores.
 
-An ``--other`` source is a film.cu, atlas.cu, compact.cu, atlas_bwd.cu or
-gather_bwd.cu with the library's C interface (cuda.SIGNATURES), next to
+An ``--other`` source is a film.cu, atlas.cu, compact.cu, atlas_bwd.cu,
+gather_bwd.cu or lightdistrib.cu with the library's C interface (cuda.SIGNATURES), next to
 the common.cuh it includes; it is built alone, and what it exports
 decides which kernels it is timed as: ``rt_film_add_samples`` K4,
 ``rt_atlas_lookup_ewa`` K5, ``rt_alive_first_order`` K6, ``rt_slab_take``
 K7 (take and put), ``rt_atlas_lookup_ewa_bwd`` K10, ``rt_row_gather_bwd``
-K11. A
+K11, ``rt_spatial_grid_contrib`` K12. A
 film.cu that exports ``rt_film_channels`` takes the film as one (H, W, 4)
 buffer, as the library's does; one that does not (an older source) is
 given its own (H, W, 3) and (H, W) sums, compared after packing. A
@@ -58,7 +60,19 @@ k10_atomics); K11 on each of its calls (each entry within 1e-4 of its sum
 of magnitudes), both timed in turns. An atlas_bwd.cu needs atlas.cuh and
 common.cuh beside it; a gather_bwd.cu that does not export
 ``rt_row_gather_bwd_blocks`` (the parent's) is called with the parent's
-arguments, into a zeroed output. ``--kernels`` picks what is measured
+arguments, into a zeroed output. K4F runs the splat of tile 2's step
+rendered with a radius-2 filter (``filtered_splat``), its film's filter
+swapped for each of FILTERS (PBRT's defaults), in the step's order (a
+warp's lanes are consecutive pixels of a row: K4's warp-summed path) and
+permuted (its per-tap path), every build within 1e-5 relative
+of the plain splat, timed with L2 evicted, bounded by its bytes and its
+operations (``k4_ops``; the per-tap design's count printed beside). K12 fills
+the parsed Cornell box's grid and the dragon scene file's (over
+build_dragon's tables, which the file reproduces), every build within
+1e-5 relative (1e-6 of the largest sum) of the plain version; with
+``--k12-corners`` each ``--other`` lightdistrib.cu has the per-chunk C
+interface (K12_CORNER_ARGS: voxel corners, not the grid) and is launched
+once a CHUNK_VOXELS chunk, its kernel time the sum of its launches. ``--kernels`` picks what is measured
 (all by default).
 
 Refuses to run without CUDA.
@@ -92,15 +106,17 @@ from ..scene import materials as M
 from .atlas_work import k10_atomics, k10_work, k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
 from .timing import cold_ms, kernel_ms, queued_ms
-from .traverse_work import PEAK_BYTES_PER_S
+from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
                   "slab_take")
 K10, K11 = "atlas_lookup_ewa_bwd", "row_gather_bwd"
+K12 = "spatial_grid_contrib"
 # K4's arguments in a film.cu without the filter kinds (no
 # rt_film_filter_kinds export): the box only
 K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
-KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11}
+KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
+           "K12": K12, "K4F": K4}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
 K4_KERNELS = ("film_add_kernel",)
@@ -110,6 +126,30 @@ K6_KERNELS = ("alive_first_kernel", "count_kernel", "scan_counts_kernel",
 K7_KERNELS = ("slab_kernel",)
 K10_KERNELS = ("atlas_ewa_bwd_kernel",)
 K11_KERNELS = ("row_gather_bwd_kernel", "row_gather_bwd_shared_kernel")
+K12_KERNELS = ("grid_contrib_kernel",)
+# K12's per-chunk C interface, before it took the grid (--k12-corners):
+# voxel corners (n, 3), n, the voxel extent, halton, n_probes, the light
+# tables, n_lights, out, stream; called once a CHUNK_VOXELS chunk
+K12_CORNER_ARGS = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3 \
+    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+# the filters of the full-width splat (K4F), PBRT's defaults: radius 2
+FILTERS = ("triangle", "gaussian", "mitchell")
+# operations of K4 with a filter other than the box, counted from
+# csrc/film.cu and csrc/filter.cuh (32-bit float operations, compares,
+# selects and conversions at one instruction each, exp and the divide as
+# one each). A sample evaluates each axis's weights once, nx + ny 1-D
+# weights: the offset (a conversion, 2 adds or subtracts) and the extent
+# test (abs, compare) 5 for every kind, then the triangle's subtract and
+# max 2, the Gaussian's 2 multiplies, exp, subtract and max 5, Mitchell's
+# divide, 2x and its abs, x^2, x^3, the inner piece 5, the outer 7, 2
+# compares and 2 selects 21. A tap: the weight's product and its mask's
+# select 2, then 4 multiplies into the float4.
+FILTER_AXIS_OPS = {"triangle": 7, "gaussian": 10, "mitchell": 26}
+K4F_TAP_OPS = 6
+# the per-tap design's count, a tap evaluating both 1-D weights again
+# (chip_smoke.py FILTER_TAP_OPS plus K4's 4 multiplies)
+K4F_TAP_OPS_PER_TAP = {"triangle": 22, "gaussian": 26, "mitchell": 58}
 # K11's C interface before its register path: g, idx, n, rows,
 # width, out (zeroed, added into), stream
 K11_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
@@ -368,19 +408,20 @@ def memory_ops(sass):
     return ops
 
 
-def build(others):
+def build(others, k12_corners=False):
     """Build the library and each other source, and ask ptxas of the
     library's film.cu, atlas.cu, compact.cu, atlas_bwd.cu and gather_bwd.cu
     and of each other source (and cuobjdump of each film.cu, compact.cu,
-    atlas_bwd.cu and gather_bwd.cu), all at once ->
+    atlas_bwd.cu and gather_bwd.cu), all at once; ``k12_corners``: each
+    other source's K12 has the per-chunk interface (K12_CORNER_ARGS) ->
     ({kernel: {build name: loaded build, or None for the library}},
     {source name: ptxas lines}, {source name: sass_memory_ops},
     {build name: film channels})."""
     sources = {f"library {f}": os.path.join(CSRC, f)
                for f in ("film.cu", "atlas.cu", "compact.cu",
-                         "atlas_bwd.cu", "gather_bwd.cu")}
+                         "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K4, K5, K6, K7, K10, K11)
+    kernels = (K4, K5, K6, K7, K10, K11, K12)
     sass_of = ("film.cu", "compact.cu", "atlas_bwd.cu", "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
         lib = pool.submit(cuda.library)
@@ -403,11 +444,17 @@ def build(others):
                                  f"{['rt_' + k for k in kernels]}")
             k11_parent = K11 in exports and not hasattr(
                 handle, "rt_row_gather_bwd_blocks")
-            names = [k for k in exports if not (k == K11 and k11_parent)]
+            k12_chunked = K12 in exports and k12_corners
+            names = [k for k in exports if not (k == K11 and k11_parent)
+                     and not (k == K12 and k12_chunked)]
             loaded = cuda.load(f.result(), names
                                + (["slab_put"] if K7 in exports else [])
                                + (["row_gather_bwd_blocks"]
                                   if K11 in names else []))
+            if k12_chunked:
+                loaded.rt_spatial_grid_contrib.argtypes = K12_CORNER_ARGS
+                loaded.rt_spatial_grid_contrib.restype = ctypes.c_int
+                loaded.k12_chunked = True
             if k11_parent:
                 loaded.rt_row_gather_bwd.argtypes = K11_PARENT_ARGS
                 loaded.rt_row_gather_bwd.restype = ctypes.c_int
@@ -719,16 +766,225 @@ def measure_k11(grad, builds, reps=20, log=print):
     return rows
 
 
+def k4_ops(film, n):
+    """Operations K4 must do for ``n`` samples with ``film``'s filter (not
+    the box): each sample's nx + ny axis weights, then its nx * ny taps
+    (FILTER_AXIS_OPS, K4F_TAP_OPS)."""
+    nx, ny = film._footprint()
+    kind = film.filter.kind
+    return n * ((nx + ny) * FILTER_AXIS_OPS[kind] + nx * ny * K4F_TAP_OPS)
+
+
+def with_filter(case, kind):
+    """A recorded K4 call (capture_step's k4 entry) with its film's filter
+    swapped for ``kind`` at PBRT's default radius 2 and parameters."""
+    from ..render.filters import make_filter
+    return dict(case, film=dataclasses.replace(case["film"],
+                                               filter=make_filter(kind)))
+
+
+def filtered_splat(renderer, ctx, tile, sample=1, kind="triangle"):
+    """The K4 call of one step of ``tile`` rendered through ``renderer``
+    with its film's filter swapped for ``kind`` at PBRT's radius 2, so
+    that the samples cover that film's sample bounds, as a renderer of any
+    radius-2 filter lays them out (``with_filter`` then swaps among
+    those)."""
+    from ..render.filters import make_filter
+    from ..render.renderer import Renderer
+    film = dataclasses.replace(renderer.film, filter=make_filter(kind))
+    r = Renderer(renderer.li_fn, renderer.camera, film, renderer.sampler,
+                 renderer.config, device=renderer.device)
+    return capture_step(r, ctx, tile, sample)["k4"][0]
+
+
+def permuted(case, seed=0):
+    """The same splat with its samples in a random order, so that no warp
+    holds consecutive pixels of a row (K4's per-tap path)."""
+    n = case["p_film"].shape[0]
+    gen = torch.Generator(device=case["p_film"].device)
+    gen.manual_seed(seed)
+    perm = torch.randperm(n, generator=gen, device=case["p_film"].device)
+    return dict(case, p_film=case["p_film"][perm].contiguous(),
+                radiance=case["radiance"][perm].contiguous(),
+                valid=None if case["valid"] is None
+                else case["valid"][perm].contiguous())
+
+
+def check_k4_filtered(out, ref, label):
+    """K4 with a filter against the plain splat: every entry within 1e-5
+    relative, 1e-6 absolute (contended reductions, the warp sums' order)
+    -> the largest absolute difference."""
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+        d = (out - ref).abs().max().item()
+        raise AssertionError(f"{label} differs from the plain splat (max abs "
+                             f"{d:.3g})")
+    return (out - ref).abs().max().item()
+
+
+def measure_k4f(cap, builds, channels, reps=20, log=print):
+    """K4 with the triangle, Gaussian and Mitchell filters on a step's
+    recorded splat (``cap["k4f"]``, ``filtered_splat``; the film's filter
+    swapped), each build in the step's order (a warp's lanes on 32
+    consecutive pixels of a row: K4's warp-summed path) and permuted (its
+    per-tap path), within 1e-5 relative of the plain splat, timed in turns
+    with L2 evicted before each call -> list of row dicts."""
+    rows = []
+    for kind in FILTERS:
+        base = with_filter(cap["k4f"], kind)
+        film, p_film = base["film"], base["p_film"]
+        n = p_film.shape[0]
+        nx, ny = film._footprint()
+        moved = k4_moved(film, p_film, base["radiance"], base["valid"])
+        ops = k4_ops(film, n)
+        t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        ops_per_tap = n * nx * ny * K4F_TAP_OPS_PER_TAP[kind]
+        for order, case in (("step order", base),
+                            ("permuted", permuted(base))):
+            label = f"K4F {kind} {order}"
+            with cuda.plain_reference():
+                call, sums = k4_call(None, case)
+                call()
+                ref = sums()
+            errs = {}
+            for b, lib in builds.items():
+                call, sums = k4_call(lib, case, channels[b])
+                call()
+                errs[b] = check_k4_filtered(sums(), ref, f"{label} {b}")
+            log(f"{label}: {n} samples, {nx} x {ny} taps, onto "
+                f"{k4_touched(film, p_film, base['valid'])} pixels; max abs "
+                f"err {errs} (within 1e-5 relative); {ops} operations "
+                f"({ops / PEAK_OPS_PER_S * 1e3:.4f} ms; the per-tap count "
+                f"{ops_per_tap}, {ops_per_tap / PEAK_OPS_PER_S * 1e3:.4f} ms), "
+                f"{moved} bytes ({t_bytes * 1e3:.4f} ms)")
+            timed = _turns({b: k4_call(lib, case, channels[b])[0]
+                            for b, lib in builds.items()}, reps, K4_KERNELS,
+                           cold=True)
+            for b in builds:
+                r = _row(f"{label}, L2 cold", b, timed[b], bound_ms, bound_by,
+                         samples=n, bytes=moved, operations=ops,
+                         operations_per_tap_design=ops_per_tap, max_abs_err=errs[b])
+                rows.append(r)
+                _log_row(log, r)
+    return rows
+
+
+def k12_grids(dev, dragon_ctx):
+    """The two grids K12 fills: the parsed Cornell box's (64 x 63 x 64, 2
+    lights) and the dragon scene file's (64 x 11 x 64 over build_dragon's
+    tables, which the file reproduces; its 2-triangle light) -> [(label,
+    lights, world_lo, vox_ext, nv)]."""
+    from ..scene import lightdistrib as LD
+    from ..scene.api import parse_scene
+    cornell = parse_scene(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), "scenes", "cornell-box.pbrt"),
+        device=dev).scene
+    out = []
+    for label, lt, geom in (("Cornell box", cornell.lights, cornell.geom),
+                            ("dragon file", dragon_ctx.lights,
+                             dragon_ctx.geom)):
+        lo = geom.tv_p.min(0).values.cpu().numpy()
+        hi = geom.tv_p.max(0).values.cpu().numpy()
+        nv, _, ext = LD.voxels(lo, hi)
+        out.append((label, lt, lo, ext, nv))
+    return out
+
+
+def k12_call(lib, lt, lo, ext, nv, halton, chunks=None):
+    """K12 over a whole grid -> (V, n_lights): the library's through its
+    wrapper (one launch), or ``lib``'s with the same arguments; a build of
+    the per-chunk interface (``--k12-corners``) once a chunk of
+    ``chunks``, its voxel corners on the card."""
+    from ..scene import lightdistrib as LD
+    if lib is None:
+        return LD.grid_contrib(lt, lo, ext, nv, halton)
+    n_l, n_s = lt.n_lights, halton.shape[0]
+    v = int(np.prod(nv))
+    out = torch.empty((v, n_l), dtype=torch.float32, device=halton.device)
+    tables = (lt.l_tri_p, lt.l_tri_rev, lt.l_twosided, lt.l_emit, lt.l_area)
+    if getattr(lib, "k12_chunked", False):
+        start = 0
+        for c in chunks:
+            cuda.launch(K12, c, c.shape[0], *[float(x) for x in ext], halton,
+                        n_s, *tables, n_l, out[start:start + c.shape[0]],
+                        lib=lib)
+            start += c.shape[0]
+        return out
+    cuda.launch(K12, *[float(x) for x in lo], *[float(x) for x in ext],
+                *[int(x) for x in nv], halton, n_s, *tables, n_l, out,
+                lib=lib)
+    return out
+
+
+def measure_k12(grids, builds, reps=20, log=print):
+    """K12 over each whole grid, every build within 1e-5 relative (1e-6 of
+    the largest sum) of the plain version, timed in turns: a per-chunk
+    build's chunks are all its launches of a grid -> list of row dicts."""
+    from ..scene import lightdistrib as LD
+    rows = []
+    for label, lt, lo, ext, nv in grids:
+        dev = lt.l_emit.device
+        halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                                 device=dev)
+        v = int(np.prod(nv))
+        chunks = [LD.voxel_corners(lo, ext, nv, s, min(s + LD.CHUNK_VOXELS,
+                                                       v), dev)
+                  for s in range(0, v, LD.CHUNK_VOXELS)]
+        with cuda.plain_reference():
+            ref = k12_call(None, lt, lo, ext, nv, halton)
+        top = ref.abs().max().item()
+        errs, launches = {}, {}
+        for b, lib in builds.items():
+            out = k12_call(lib, lt, lo, ext, nv, halton, chunks)
+            d = (out - ref).abs()
+            if bool(((d > 1e-5 * ref.abs()) & (d > 1e-6 * top)).any()):
+                raise AssertionError(f"K12 {label} {b}: max abs err "
+                                     f"{d.max().item():.3g} of {top:.3g}")
+            errs[b] = d.max().item()
+            launches[b] = len(chunks) if getattr(lib, "k12_chunked", False) \
+                else 1
+        probes = v * lt.n_lights * LD.N_SAMPLES
+        moved = v * lt.n_lights * 4 + halton.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in (
+                lt.l_tri_p, lt.l_tri_rev, lt.l_twosided, lt.l_emit,
+                lt.l_area))
+        t_ops = probes * LD.K12_PROBE_OPS / PEAK_OPS_PER_S
+        bound_ms = max(t_ops, moved / PEAK_BYTES_PER_S) * 1e3
+        log(f"K12 {label}: {tuple(int(x) for x in nv)} voxels x "
+            f"{lt.n_lights} lights x {LD.N_SAMPLES} probes = {probes} "
+            f"probes; max abs err {errs} of max {top:.3g}; launches "
+            f"{launches}; bound {bound_ms:.4f} ms at {LD.K12_PROBE_OPS} "
+            f"operations a probe (the per-chunk kernel's 42: "
+            f"{probes * 42 / PEAK_OPS_PER_S * 1e3:.4f} ms)")
+        timed = _turns({b: (lambda lib=lib: k12_call(lib, lt, lo, ext, nv,
+                                                     halton, chunks))
+                        for b, lib in builds.items()}, reps, K12_KERNELS)
+        for b in builds:
+            # kernel_ms is a launch's mean: a call is all its launches
+            prof = [x * launches[b] for x in timed[b][0]]
+            r = _row(f"K12 {label}, whole grid", b, (prof, timed[b][1]),
+                     bound_ms, "operations", probes=probes,
+                     launches=launches[b], max_abs_err=errs[b])
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
                     help="another film.cu, atlas.cu, compact.cu, "
-                         "atlas_bwd.cu or gather_bwd.cu to time "
-                         "(repeatable)")
+                         "atlas_bwd.cu, gather_bwd.cu or lightdistrib.cu "
+                         "to time (repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="the kernels to measure, of "
                          f"{','.join(KERNELS)}")
+    ap.add_argument("--k12-corners", action="store_true",
+                    help="each --other lightdistrib.cu takes voxel corners, "
+                         "once a chunk (the per-chunk C interface)")
     ap.add_argument("--json", help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -743,7 +999,7 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    builds, reports, sass, channels = build(args.other)
+    builds, reports, sass, channels = build(args.other, args.k12_corners)
     for name, lines in reports.items():
         for ln in lines:
             print(f"ptxas [{name}] {ln}", flush=True)
@@ -757,6 +1013,7 @@ def main(argv=None):
     which = args.kernels.split(",")
     cap = capture_step(r, ctx, r.tiles[STEP_TILE])
     cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
+    cap["k4f"] = filtered_splat(r, ctx, r.tiles[STEP_TILE])
     grad = capture_grad_step(r, ctx, r.tiles[STEP_TILE])
     print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
           f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls, "
@@ -770,7 +1027,11 @@ def main(argv=None):
         "K6": lambda: measure_k6(cap, builds[K6], args.reps, log),
         "K7": lambda: measure_k7(cap, builds[K7], args.reps, log),
         "K10": lambda: measure_k10(grad, builds[K10], args.reps, log),
-        "K11": lambda: measure_k11(grad, builds[K11], args.reps, log)}
+        "K11": lambda: measure_k11(grad, builds[K11], args.reps, log),
+        "K12": lambda: measure_k12(k12_grids(dev, ctx), builds[K12],
+                                   args.reps, log),
+        "K4F": lambda: measure_k4f(cap, builds[K4], channels, args.reps,
+                                   log)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

@@ -23,9 +23,11 @@ sum of its terms' magnitudes; a train step's gradients within the bound of
 the CPU parity test (tests/test_torch_grad.py). The scene front end: K4
 and K9 with the triangle, Gaussian and Mitchell filters and K12 (the light
 grid's contribution sums) within 1e-5 relative (the plain versions' exp,
-sqrt and divides by a number round differently on the card), K13 (the
-light pick and pmf lookup) bit-equal, the parsed Cornell box's render
-within the golden-image tolerance of the all-plain render."""
+sqrt and divides by a number round differently on the card; K12 takes an
+approximate reciprocal square root; K4's warp sums add in another
+order), K13 (the light pick and pmf lookup) bit-equal, the parsed Cornell
+box's render within the golden-image tolerance of the all-plain
+render."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -901,15 +903,46 @@ FILTER_KINDS = {"triangle": Filter("triangle", 2.0, 2.0),
                 "mitchell 4": Filter("mitchell", 4.0, 4.0, b=0.5, c=0.25)}
 
 
+def _rows_case(dev, film, case):
+    """A renderer's order over ``film``'s sample bounds: two passes,
+    row-major, the first sample on column 37 of its row (a tile that
+    starts mid-row), jitter 0 and 0.5 on some; the crop cuts rows and
+    columns. "rows permuted" shuffles the samples."""
+    film = dataclasses.replace(film, crop_window=(0.1, 0.05, 0.9, 0.95))
+    sx0, sy0, sx1, sy1 = film.get_sample_bounds()
+    wd, ht = sx1 - sx0, sy1 - sy0
+    n = 2 * wd * ht
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    pix = (torch.arange(n, device=dev) + 37) % (wd * ht)
+    p_film = torch.stack([pix % wd + sx0, pix // wd + sy0], -1).float() \
+        + torch.rand((n, 2), generator=gen, device=dev)
+    p_film[1::7] = torch.floor(p_film[1::7]) + 0.5     # jitter 0.5
+    p_film[2::11] = torch.floor(p_film[2::11])          # jitter 0
+    rad = torch.rand((n, 3), generator=gen, device=dev) * 3.0
+    valid = torch.rand(n, generator=gen, device=dev) > 0.1
+    if case == "rows permuted":
+        perm = torch.randperm(n, generator=gen, device=dev)
+        p_film, rad, valid = p_film[perm], rad[perm], valid[perm]
+    return film, p_film.contiguous(), rad.contiguous(), valid.contiguous()
+
+
 @pytest.mark.parametrize("kind", sorted(FILTER_KINDS))
-@pytest.mark.parametrize("case", ["crop", "max_lum", f"n={(1 << 16) + 3}"])
+@pytest.mark.parametrize("case", ["crop", "max_lum", f"n={(1 << 16) + 3}",
+                                  "rows", "rows permuted"])
 def test_film_filters_match_plain(dev, kind, case):
     """K4 and K9 with each filter against their plain versions: the film
-    within 1e-5 relative (1e-6 absolute; contended reductions, and the
-    plain version's exp and divides by a number round differently on the
-    card), the radiance gradient likewise; one launch each."""
+    within 1e-5 relative (1e-6 absolute; contended reductions, K4's warp
+    sums in another order, and the plain version's exp and divides by a
+    number round differently on the card), the radiance gradient
+    likewise; one launch each. "rows" lays the samples out as a renderer
+    does (a warp's lanes on 32 consecutive pixels of a row): K4's
+    warp-summed path for footprints of up to 4 x 4 taps; the other cases,
+    and "mitchell 4" (8 x 8), its per-tap path."""
     film, p_film, rad, valid = _film_case(dev, case)
     film = dataclasses.replace(film, filter=FILTER_KINDS[kind])
+    if case.startswith("rows"):
+        film, p_film, rad, valid = _rows_case(dev, film, case)
 
     def fn():
         return film.add_samples(film.init_state(dev), p_film, rad,
@@ -944,27 +977,24 @@ def parsed_cornell(dev):
 
 
 def test_grid_contrib_matches_plain(parsed_cornell):
-    """K12 on 2^14 voxels of the Cornell box's grid against its plain
-    version: each sum within 1e-5 relative (the reciprocal square root
-    rounds differently), 1e-6 of the largest absolute; the parse launched
-    K12 once a 2^14-voxel chunk."""
+    """K12 on the Cornell box's whole 64 x 63 x 64 grid against its plain
+    version: each sum within 1e-5 relative (the approximate reciprocal
+    square root and the sums' order), 1e-6 of the largest absolute; the
+    parse launched K12 once, and so does each call."""
     from rustracer_tpu_torch.scene import lightdistrib as LD
     bundle, launches = parsed_cornell
-    nv = bundle.light_grid.host[2]
-    assert launches["spatial_grid_contrib"] == -(-int(np.prod(nv))
-                                                 // LD.CHUNK_VOXELS)
+    assert launches["spatial_grid_contrib"] == 1
     lt, dev = bundle.lights, bundle.device
-    lo, hi = bundle.geom.tv_p.min(0).values, bundle.geom.tv_p.max(0).values
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(9)
-    ext = ((hi - lo) / 64).cpu().numpy()
-    vox = lo + torch.randint(0, 64, (1 << 14, 3), generator=gen,
-                             device=dev).float() * torch.as_tensor(ext,
-                                                                   device=dev)
+    lo = bundle.geom.tv_p.min(0).values.cpu().numpy()
+    hi = bundle.geom.tv_p.max(0).values.cpu().numpy()
+    nv, _, ext = LD.voxels(lo, hi)
+    assert tuple(int(x) for x in nv) == (64, 63, 64)
     halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
                              device=dev)
-    out = LD.grid_contrib(lt, vox, ext, halton)
-    ref = _plain(lambda: LD.grid_contrib(lt, vox, ext, halton))
+    n0 = K.LAUNCHES["spatial_grid_contrib"]
+    out = LD.grid_contrib(lt, lo, ext, nv, halton)
+    assert K.LAUNCHES["spatial_grid_contrib"] == n0 + 1
+    ref = _plain(lambda: LD.grid_contrib(lt, lo, ext, nv, halton))
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-6 * ref.abs().max().item())
     assert (ref > 0).float().mean() > 0.5

@@ -10,6 +10,8 @@ CPU.
   ``add_samples_bwd_plain`` (of K9) with each filter against JAX's
   ``add_samples`` and its VJP: each film entry and radiance gradient
   within 1e-6 relative (1e-6 absolute): sums of up to 64 taps.
+- K4's separable weights (``Filter.axis_weights``): their product equals
+  ``evaluate`` bit for bit at every tap, for every kind and radius.
 - ``add_splats`` and ``to_image`` with a splat scale and the film's scale.
 - Thin-lens rays with differentials within 1e-6 of JAX's.
 """
@@ -61,6 +63,40 @@ def test_filter_weights(name):
     ref = np.asarray(jf.evaluate(jnp.asarray(d[:, 0]), jnp.asarray(d[:, 1])))
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
     assert (ref > 0).sum() > 100
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS) + ["triangle 2.5 wide"])
+def test_axis_weights_product_is_evaluate(name):
+    """K4's separable weights (``Filter.axis_weights``, the plain twin of
+    csrc/film.cu's registers): at every tap of a sample's footprint, x
+    factor times y factor where both offsets lie inside the extent equals
+    ``evaluate`` bit for bit, and JAX's ``evaluate`` within 1e-6; radii
+    up to 4 (8 taps an axis, wider than K4's 4-tap register arrays)."""
+    kw = FILTERS.get(name, dict(kind="triangle", xwidth=2.5, ywidth=1.2))
+    f, jf = Filter(**kw), JaxFilter(**kw)
+    rx, ry = f.radius
+    nx, ny = max(int(np.ceil(2 * rx)), 1), max(int(np.ceil(2 * ry)), 1)
+    rng = np.random.RandomState(7)
+    p = (rng.rand(512, 2) * 40).astype(np.float32)
+    p[:16] = np.floor(p[:16]) + [[0.0, 0.5]]        # jitter 0 and 0.5
+    p = torch.as_tensor(p)
+    lo_x = torch.ceil(p[:, 0] - 0.5 - rx).int()
+    lo_y = torch.ceil(p[:, 1] - 0.5 - ry).int()
+    dx = torch.stack([(lo_x + k).float() + 0.5 - p[:, 0]
+                      for k in range(nx)], 1)          # (B, nx)
+    dy = torch.stack([(lo_y + j).float() + 0.5 - p[:, 1]
+                      for j in range(ny)], 1)          # (B, ny)
+    wx, mx, wy, my = f.axis_weights(dx, dy)
+    got = torch.where(mx[:, None, :] & my[:, :, None],
+                      wx[:, None, :] * wy[:, :, None], 0.0)   # (B, ny, nx)
+    tdx = dx[:, None, :].expand(-1, ny, -1)
+    tdy = dy[:, :, None].expand(-1, -1, nx)
+    ref = f.evaluate(tdx, tdy)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    jref = np.asarray(jf.evaluate(jnp.asarray(tdx.numpy()),
+                                  jnp.asarray(tdy.numpy())))
+    np.testing.assert_allclose(got.numpy(), jref, rtol=0, atol=1e-6)
+    assert (ref > 0).float().mean() > 0.3
 
 
 @pytest.mark.parametrize("name,params", [

@@ -3,6 +3,12 @@
 package's ``scene/lightdistrib.py``, on the CPU, on a scene of five area
 lights of different sizes, emissions and orientations, one two-sided.
 
+- K12's voxel corners: those it computes from a voxel's flat index
+  (``voxel_corners``, the plain twin of the kernel's formula) equal the
+  reference's meshgrid corners bit for bit, for the Cornell box's and the
+  dragon file's bounds and an odd-shaped grid; the whole grid's sums
+  (``grid_contrib``, chunked on the CPU) equal the sums over the
+  reference's corners.
 - K12's plain version: every (voxel, light) contribution sum within 1e-5
   relative of JAX's (the 128 probes are summed in another order by XLA;
   1e-6 of the largest sum absolute for sums near 0); the grid's host
@@ -17,6 +23,7 @@ lights of different sizes, emissions and orientations, one two-sided.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rustracer_tpu.scene import lightdistrib as JLD
@@ -99,11 +106,68 @@ def test_contributions_match():
     halton = LD._radical_inverse_table(LD.N_SAMPLES)
     np.testing.assert_array_equal(halton,
                                   JLD._radical_inverse_table(LD.N_SAMPLES))
-    got = LD.grid_contrib(pb.lights, torch.as_tensor(vox_lo), vox_ext,
-                          torch.as_tensor(halton)).numpy()
+    got = LD.grid_contrib_plain(pb.lights, torch.as_tensor(vox_lo), vox_ext,
+                                torch.as_tensor(halton)).numpy()
     ref = _jax_contrib(jb, vox_lo, vox_ext, halton)
     assert (ref > 0).mean() > 0.5
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6 * ref.max())
+
+
+CORNELL_BOUNDS = ([0.0, 0.0, 0.0], [556.0, 548.8, 559.2])
+# the dragon scene file's bounds (tools/dragon_scene.py: the ground quad
+# and the light)
+DRAGON_BOUNDS = ([-12.0, -1.25, -12.0], [12.0, 3.0, 12.0])
+
+
+def _reference_corners(world_lo, world_hi, max_voxels):
+    """The reference's voxel corners (rustracer_tpu/scene/lightdistrib.py
+    build_spatial_grid: meshgrid coordinates in C order times the voxel
+    extent, plus the lower corner, in numpy float32)."""
+    world_lo = np.asarray(world_lo, np.float32)
+    world_hi = np.asarray(world_hi, np.float32)
+    diag = np.maximum(world_hi - world_lo, 1e-6)
+    nv = np.maximum(1, np.round(diag / float(diag.max()) * max_voxels)
+                    ).astype(np.int64)
+    coords = np.stack(np.meshgrid(np.arange(nv[0]), np.arange(nv[1]),
+                                  np.arange(nv[2]), indexing="ij"),
+                      -1).reshape(-1, 3).astype(np.float32)
+    vox_ext = (diag / nv).astype(np.float32)
+    return nv, vox_ext, world_lo + coords * vox_ext
+
+
+@pytest.mark.parametrize("bounds,max_voxels", [
+    (CORNELL_BOUNDS, LD.MAX_VOXELS), (DRAGON_BOUNDS, LD.MAX_VOXELS),
+    (([-0.3, 2.1, 5.0], [0.41, 2.2, 9.7]), 13)],
+    ids=["cornell", "dragon file", "odd"])
+def test_voxel_corners_from_flat_index(bounds, max_voxels):
+    lo, hi = bounds
+    nv_ref, ext_ref, corners = _reference_corners(lo, hi, max_voxels)
+    nv, _, ext = LD.voxels(lo, hi, max_voxels)
+    np.testing.assert_array_equal(nv, nv_ref)
+    np.testing.assert_array_equal(ext, ext_ref)
+    v = corners.shape[0]
+    assert v == int(np.prod(nv))
+    got = torch.cat([LD.voxel_corners(lo, ext, nv, s, min(s + 5000, v))
+                     for s in range(0, v, 5000)]).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), corners.view(np.int32))
+
+
+def test_grid_contrib_whole_grid_equals_corner_sums():
+    """The whole grid through ``grid_contrib`` (corners from flat indices,
+    chunked) equals the sums over the reference's corners, and its chunk
+    size does not change them."""
+    _, pb = _scenes()
+    lo, hi = _bounds(pb)
+    nv, ext, corners = _reference_corners(lo, hi, 9)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES))
+    got = LD.grid_contrib(pb.lights, lo, ext, nv, halton)
+    ref = LD.grid_contrib_plain(pb.lights, torch.as_tensor(corners), ext,
+                                halton)
+    assert got.shape == (int(np.prod(nv)), pb.lights.n_lights)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    small = LD.grid_contrib_all_plain(pb.lights, lo, ext, nv, halton,
+                                      chunk_voxels=97)
+    assert torch.equal(small.view(torch.int32), got.view(torch.int32))
 
 
 def _grids():

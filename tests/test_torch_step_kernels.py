@@ -145,6 +145,65 @@ def test_k4_bytes_by_hand(width, masked, touched):
     assert int((st.wsum > 0).sum()) == touched
 
 
+@pytest.mark.parametrize("kind,radius,ops", [
+    # 4 + 4 axis weights of 7, 16 taps of 6
+    ("triangle", 2.0, 8 * 7 + 16 * 6),
+    ("gaussian", 2.0, 8 * 10 + 16 * 6),
+    ("mitchell", 2.0, 8 * 26 + 16 * 6),
+    # 3 + 3 weights, 9 taps
+    ("mitchell", 1.5, 6 * 26 + 9 * 6),
+])
+def test_k4_operations_by_hand(kind, radius, ops):
+    film = Film(full_resolution=(8, 8),
+                filter=Filter(kind, radius, radius))
+    assert B.k4_ops(film, 5) == 5 * ops
+
+
+def test_filtered_splat_cases():
+    """K4F's inputs: ``with_filter`` swaps the film's filter for PBRT's
+    default (radius 2) and keeps the samples; ``permuted`` reorders the
+    samples, which leaves the plain splat within float rounding."""
+    film = Film(full_resolution=(16, 8), filter=Filter("box", 0.5, 0.5))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    p_film = torch.rand((300, 2), generator=gen) * torch.tensor([16.0, 8.0])
+    case = dict(film=film, p_film=p_film,
+                radiance=torch.rand((300, 3), generator=gen),
+                valid=torch.rand(300, generator=gen) > 0.2)
+    for kind in B.FILTERS:
+        f = B.with_filter(case, kind)
+        assert f["film"].filter.kind == kind
+        assert f["film"].filter.radius == (2.0, 2.0)
+        assert f["p_film"] is case["p_film"]
+        sums = []
+        for c in (f, B.permuted(f, seed=1)):
+            call, get = B.k4_call(None, c)
+            call()
+            sums.append(get())
+        assert not torch.equal(B.permuted(f, seed=1)["p_film"], p_film)
+        torch.testing.assert_close(sums[0], sums[1], rtol=1e-5, atol=1e-6)
+        assert float(sums[0][..., 3].sum()) > 0
+
+
+def test_k12_call_is_the_whole_grid():
+    """K12's benchmark call on the CPU: the library's route (the plain
+    version, chunked) over a small grid equals the sums over its corners
+    in one chunk."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    ctx = build_dragon(sub=1, res=(8, 8), device="cpu")[0]
+    lo = ctx.geom.tv_p.min(0).values.numpy()
+    hi = ctx.geom.tv_p.max(0).values.numpy()
+    nv, _, ext = LD.voxels(lo, hi, 6)
+    halton = torch.as_tensor(LD._radical_inverse_table(16))
+    out = B.k12_call(None, ctx.lights, lo, ext, nv, halton)
+    v = int(nv.prod())
+    ref = LD.grid_contrib_plain(ctx.lights, LD.voxel_corners(lo, ext, nv, 0,
+                                                             v), ext, halton)
+    assert out.shape == (v, ctx.lights.n_lights)
+    assert torch.equal(out, ref)
+    assert float(ref.max()) > 0
+
+
 def test_k7_bytes_by_hand():
     n, w = 5, 2
     fields = [torch.zeros(n, 3), torch.zeros(n), torch.zeros(n, dtype=bool),
