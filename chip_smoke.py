@@ -80,26 +80,34 @@ Phases, each printing its lines:
      on the file's whole 64 x 11 x 64 grid as in phase 13; camera rays/s
      of both and of build_dragon; the uniform file's K4 splat of one
      full-width step (tile 2) through each radius-2 filter is recorded,
-     with that step's launches of K4, for phase 15;
+     with that step's launches of K4, and the K9 call of that step's
+     backward (tools/bench_step_kernels.filtered_grad_step), with its
+     launches of K9, for phase 15; then one full-width train step of the
+     uniform file with PixelFilter mitchell (parallel/mesh.make_train_step,
+     2^18-lane tiles), counted: K9 launched, the loss finite;
  15. the Cornell box parsed from a scene string once for each of the
      triangle, Gaussian and Mitchell filters, 1 spp, kernel against
-     all-plain image; K4 with each filter on its recorded splat and K9 with
-     the Mitchell filter, against their plain versions (within 1e-5
-     relative), timed; K4 with each filter on the dragon file's
-     full-width splat (2^18 samples, 1024^2, rendered with that
-     filter), in the step's order (warp sums)
-     and permuted (per tap), each within 1e-5 relative, timed with L2
-     evicted; one fwd+bwd train step of the
-     Mitchell Cornell (K9's variant under autograd);
+     all-plain image; K4 and K9 with each filter on its recorded splat,
+     against their plain versions (K4 within 1e-5 relative, K9 triangle
+     bit for bit, Gaussian and Mitchell within 1e-5 relative), timed; K4
+     with each filter on the dragon file's full-width splat (2^18
+     samples, 1024^2, rendered with that filter), in the step's order
+     (warp sums) and permuted (per tap), each within 1e-5 relative,
+     timed with L2 evicted; K9 with each filter on the recorded backward
+     of that step, held as on the Cornell splat, timed warm (the film's
+     gradient just written, as the backward leaves it); one fwd+bwd
+     train step of the Cornell with each filter (K9 under autograd),
+     counted;
  16. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and one for the render's, K7 rows for its
-     moves and for its transposes, K4 and K9 rows for the filters, K4's
-     also at full width, K12 rows for both grids), the
+     moves and for its transposes, K4 and K9 rows for the filters, on
+     the Cornell splat and at full width, K12 rows for both grids), the
      card line, and the result line.
 Each path (the gather tool, the matte render, the textured render, the
-textured step, the Cornell train steps, the dragon train step, each scene
-parse and render and each filtered dragon-file step of phases 13-15) is
+textured step, the Cornell train steps, the dragon train steps, each scene
+parse and render and each filtered dragon-file step and backward of
+phases 13-15) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -222,9 +230,13 @@ ROWS = {
                                   "the same, PixelFilter gaussian"),
     "film_add_samples mitchell": ("film_add_samples",
                                   "the same, PixelFilter mitchell"),
+    "film_add_samples_bwd triangle": ("film_add_samples_bwd",
+                                      "the radiance gradient of the "
+                                      "triangle Cornell splat"),
+    "film_add_samples_bwd gaussian": ("film_add_samples_bwd",
+                                      "the same, PixelFilter gaussian"),
     "film_add_samples_bwd mitchell": ("film_add_samples_bwd",
-                                      "the radiance gradient of that "
-                                      "Mitchell splat"),
+                                      "the same, PixelFilter mitchell"),
     "film_add_samples triangle full width": (
         "film_add_samples", "a full-width step's splat of the dragon scene "
         "file (2^18 samples, 1024^2 film), PixelFilter triangle (16 taps), "
@@ -233,6 +245,14 @@ ROWS = {
         "film_add_samples", "the same, PixelFilter gaussian"),
     "film_add_samples mitchell full width": (
         "film_add_samples", "the same, PixelFilter mitchell"),
+    "film_add_samples_bwd triangle full width": (
+        "film_add_samples_bwd", "the radiance gradient of that full-width "
+        "splat's backward, PixelFilter triangle, the film's gradient warm "
+        "in L2 as the backward leaves it"),
+    "film_add_samples_bwd gaussian full width": (
+        "film_add_samples_bwd", "the same, PixelFilter gaussian"),
+    "film_add_samples_bwd mitchell full width": (
+        "film_add_samples_bwd", "the same, PixelFilter mitchell"),
     "spatial_grid_contrib dragon file": (
         "spatial_grid_contrib", "the dragon scene file's whole grid (64 x "
         "11 x 64 voxels x 2 lights x 128 probes), one launch"),
@@ -256,17 +276,6 @@ MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
 # loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
 # work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
 LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300}
-# operations of one filter tap in K9 (csrc/film_bwd.cu, csrc/filter.cuh),
-# counted from the code as LANE_OPS: the tap's offsets (2 conversions, 2
-# adds, 2 subtracts) and the extent test (2 abs, 2 compares, a select) 11
-# for every kind; the triangle's 2 abs, 2 subtracts, 2 max and a multiply
-# 7; the Gaussian's 2 x (2 multiplies, exp, subtract, max) and a multiply
-# 11; the Mitchell's 2 x (a divide, 2 multiplies for 2x and its abs, x^2,
-# x^3, the inner piece 5, the outer 7, 2 compares and 2 selects) and a
-# multiply 43; then K9's 3 multiplies and 3 adds. K4 evaluates each axis's
-# weights once a sample (tools/bench_step_kernels.py k4_ops)
-FILTER_TAP_OPS = {"box": 11, "triangle": 18, "gaussian": 22, "mitchell": 54}
-K9_TAP_OPS = 6
 
 
 def log(msg):
@@ -1252,23 +1261,61 @@ def check_k4_full(kind, full, launches, results):
     results[f"film_add_samples {kind} full width"] = row
 
 
-def filter_cornells(dev, card, results, splats):
+def check_k9_full(kind, case, launches, counted_in, results):
+    """K9 with filter ``kind`` (PBRT's radius 2) on ``case``, the recorded
+    backward of one full-width dragon-file step rendered with that filter
+    (tools/bench_step_kernels.filtered_grad_step), against its plain
+    version (``check_k9``: the triangle bit for bit, the others within
+    1e-5 relative), timed warm: the film's gradient is written just
+    before K9 in the backward, so it finds it in L2. ``launches``: K9's
+    in the path ``counted_in``."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.bench_step_kernels import (
+        check_k9, k4_touched, k9_call, k9_moved, k9_ops)
+    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    (film, g_acc, p_film, rad, valid), _ = case
+    n = p_film.shape[0]
+    label = f"film_add_samples_bwd {kind} full width"
+    out = k9_call(None, case)
+    with K.plain_reference():
+        ref = k9_call(None, case)
+    err = check_k9(out, ref, kind, label)
+    held = "bit for bit" if kind == "triangle" else "within 1e-5 relative"
+    ms = kernel_ms(lambda: k9_call(None, case), 20, "film_add_bwd_kernel")
+    with K.plain_reference():
+        pms = events_ms(lambda: k9_call(None, case), 5)
+    b = bound(k9_moved(film, p_film, rad, valid), k9_ops(film, n))
+    log(f"[15] {label}: the backward of the dragon file's full-width step "
+        f"({n} samples onto {k4_touched(film, p_film, valid)} pixels of "
+        f"the {tuple(g_acc.shape)} gradient), max abs err {err:.3g} "
+        f"({held}); warm: kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f}% of it; "
+        f"launches {launches} in {counted_in}")
+    results[label] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          launches=launches, counted_in=counted_in, **b)
+
+
+def filter_cornells(dev, card, results, splats, grads):
     """The Cornell box parsed from a scene string once for each
     PixelFilter, 1 sample, counted: the kernel path's image against the
-    all-plain path's (golden tolerance); K4 with the filter on the
-    render's recorded splat against its plain version, timed, and on the
-    full-width dragon-file splat of that filter (``splats[kind]``: the
-    splat and its step's K4 launches; ``check_k4_full``); with the
-    Mitchell filter, K9 on the Cornell splat and one fwd+bwd train step
-    (parallel/mesh.py) counted, so K9's
-    variant runs under autograd."""
+    all-plain path's (golden tolerance); K4 and K9 with the filter on the
+    render's recorded splat against their plain versions, timed, and on
+    the full-width dragon-file splat and backward of that filter
+    (``splats[kind]``: the splat and its step's K4 launches,
+    ``check_k4_full``; ``grads[kind]``: the K9 call, its launches and the
+    path they were counted in, ``check_k9_full``); one fwd+bwd train step
+    of the Cornell with the filter (parallel/mesh.py), counted, so K9
+    runs under autograd."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.parallel.mesh import make_train_step
     from rustracer_tpu_torch.render.renderer import RenderConfig
     from rustracer_tpu_torch.tools.bench_step_kernels import (capture_step,
+                                                              check_k9,
                                                               k4_moved,
                                                               k4_ops,
-                                                              k4_touched)
+                                                              k9_moved,
+                                                              k9_ops)
     from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
     text = open(CORNELL_PBRT).read()
     for kind in FILTER_KINDS:
@@ -1325,8 +1372,7 @@ def filter_cornells(dev, card, results, splats):
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
         check_k4_full(kind, *splats[kind], results)
-        if kind != "mitchell":
-            continue
+        check_k9_full(kind, *grads[kind], results)
         w, h = film.cropped_resolution
         gen = torch.Generator(device=dev)
         gen.manual_seed(11)
@@ -1337,15 +1383,14 @@ def filter_cornells(dev, card, results, splats):
         out = k9()
         with K.plain_reference():
             ref = k9()
-        err = (out - ref).abs().max().item()
-        if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
-            raise AssertionError("film_add_samples_bwd mitchell differs")
+        err = check_k9(out, ref, kind, f"film_add_samples_bwd {kind}")
+        held = "bit for bit" if kind == "triangle" else \
+            "within 1e-5 relative"
         ms = kernel_ms(k9, 20, "film_add_bwd_kernel")
         with K.plain_reference():
             pms = events_ms(k9, 20)
-        b = bound(nbytes(p_film, rad, out) + valid.numel()
-                  + 16 * k4_touched(film, p_film, valid),
-                  taps * (FILTER_TAP_OPS[kind] + K9_TAP_OPS))
+        b = bound(k9_moved(film, p_film, rad, valid),
+                  k9_ops(film, p_film.shape[0]))
         step = make_train_step(bundle.integrator.li, bundle.camera, film,
                                bundle.sampler, lr=0.1,
                                config=RenderConfig(max_lanes=1 << 16),
@@ -1356,19 +1401,19 @@ def filter_cornells(dev, card, results, splats):
         new, loss = step(ctx, target)
         torch.cuda.synchronize()
         train = dict(K.LAUNCHES)
-        log(f"[15] Mitchell Cornell fwd+bwd train step: loss "
+        log(f"[15] {kind} Cornell fwd+bwd train step: loss "
             f"{loss.item():.7g}; launches {train}")
         if train["film_add_samples_bwd"] <= 0 or not bool(
                 torch.isfinite(loss)):
-            raise AssertionError("the Mitchell train step did not run K9")
-        results["film_add_samples_bwd mitchell"] = dict(
+            raise AssertionError(f"the {kind} train step did not run K9")
+        results[f"film_add_samples_bwd {kind}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=pms,
             launches=train["film_add_samples_bwd"],
-            counted_in="a fwd+bwd train step of the Mitchell Cornell box",
+            counted_in=f"a fwd+bwd train step of the {kind} Cornell box",
             **b)
-        log(f"[15] film_add_samples_bwd mitchell: max abs err {err:.3g}; "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+        log(f"[15] film_add_samples_bwd {kind}: max abs err {err:.3g} "
+            f"({held}); kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
 
 
 def timed_render(renderer, ctx):
@@ -1390,13 +1435,18 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
     the recorded inputs of one full-width step, K12 on the file's whole
     grid. Then the three renders (build_dragon's, ``ref`` = (renderer,
     ctx), the uniform and spatial files') timed in turns, a, b, c, c, b,
-    a. -> {kind: (the K4 splat of one full-width step (tile 2) of the
-    uniform file rendered with PixelFilter kind at radius 2
-    (filtered_splat), K4's launches in that step)} for FILTER_KINDS."""
+    a. -> (splats, grads): {kind: (the K4 splat of one full-width step
+    (tile 2) of the uniform file rendered with PixelFilter kind at radius
+    2 (filtered_splat), K4's launches in that step)} and {kind: (the K9
+    call of that step's backward (filtered_grad_step), K9's launches,
+    the path they were counted in: that backward, or for Mitchell one
+    full-width train step of the file with PixelFilter mitchell)} for
+    FILTER_KINDS."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
-    from rustracer_tpu_torch.tools.bench_step_kernels import filtered_splat
+    from rustracer_tpu_torch.tools.bench_step_kernels import (
+        filtered_grad_step, filtered_splat)
     from rustracer_tpu_torch.tools.dragon_scene import write_dragon_scene
     geom = geometry[0]
     rays = {"build_dragon (phase 6)": ref_rays}
@@ -1435,19 +1485,29 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
                     raise AssertionError("the dragon file's render differs "
                                          "from build_dragon's")
                 # the splat of one full-width step (tile 2) through each
-                # radius-2 filter and its launches of K4, for phase 15
-                splats = {}
+                # radius-2 filter and its backward's K9 call, with their
+                # launches, for phase 15
+                splats, grads = {}, {}
                 for kind in FILTER_KINDS:
                     torch.cuda.synchronize()
                     K.reset_launches()
-                    splat = filtered_splat(r, bundle.context(), r.tiles[2],
-                                           kind=kind)
+                    splat = filtered_splat(r, bundle.context(), 2, kind=kind)
                     torch.cuda.synchronize()
                     n_k4 = K.LAUNCHES["film_add_samples"]
-                    if n_k4 <= 0:
+                    K.reset_launches()
+                    grad = filtered_grad_step(r, bundle.context(), 2,
+                                              kind=kind)
+                    torch.cuda.synchronize()
+                    n_k9 = K.LAUNCHES["film_add_samples_bwd"]
+                    if n_k4 <= 0 or n_k9 <= 0:
                         raise AssertionError(f"the {kind} dragon-file step "
-                                             "did not launch K4")
+                                             "did not launch K4 and K9")
                     splats[kind] = (splat, n_k4)
+                    grads[kind] = (grad, n_k9, "the backward of one "
+                                   "full-width step (tile 2) of the uniform "
+                                   f"dragon file with PixelFilter {kind}")
+                grads["mitchell"] = grads["mitchell"][:1] + mitchell_train(
+                    dev, card, bundle)
                 continue
             log(f"[14] spatial: grid "
                 f"{tuple(int(x) for x in bundle.light_grid.host[2])} "
@@ -1479,7 +1539,41 @@ def dragon_file(dev, card, geometry, ref, ref_img, ref_rays, results):
         + "; ".join(f"{k} " + " / ".join(
             f"{RES[0] * RES[1] * SAMPLES / t:.1f}" for t in v)
             for k, v in secs.items()))
-    return splats
+    return splats, grads
+
+
+def mitchell_train(dev, card, bundle):
+    """One full-width train step (parallel/mesh.make_train_step, 2^18-lane
+    tiles, sample 0, lr 0.1, a black target) of the parsed dragon file
+    ``bundle`` with PixelFilter mitchell, counted: K9 launched, the loss
+    finite -> (K9's launches, the path they were counted in)."""
+    import dataclasses
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.parallel.mesh import make_train_step
+    from rustracer_tpu_torch.render.filters import make_filter
+    from rustracer_tpu_torch.render.renderer import RenderConfig
+    film = dataclasses.replace(bundle.film, filter=make_filter("mitchell"))
+    step = make_train_step(bundle.integrator.li, bundle.camera, film,
+                           bundle.sampler, lr=0.1,
+                           config=RenderConfig(max_lanes=LANES), device=dev)
+    w, h = film.cropped_resolution
+    target = torch.zeros((h, w, 3), device=dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    _, loss = step(bundle.context(), target)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    log(f"[14] uniform dragon file, PixelFilter mitchell: one train step "
+        f"{w}x{h}, sample 0, 2^18-lane tiles, {wall:.3f} s wall, loss "
+        f"{loss.item():.7g} on {card}; launches {launches}")
+    if launches["film_add_samples_bwd"] <= 0 or not bool(
+            torch.isfinite(loss)):
+        raise AssertionError("the Mitchell dragon-file train step did not "
+                             "launch K9 or its loss is not finite")
+    return (launches["film_add_samples_bwd"], "one full-width train step of "
+            "the uniform dragon file with PixelFilter mitchell")
 
 
 def run(dev, card):
@@ -1576,9 +1670,9 @@ def run(dev, card):
     check_grid_contrib("[13]", "spatial_grid_contrib",
                        "scenes/cornell-box.pbrt", bundle, parse_launches,
                        results)
-    splats = dragon_file(dev, card, geometry, (trenderer, tctx), dragon_img,
-                         dragon_rays, results)
-    filter_cornells(dev, card, results, splats)
+    splats, grads = dragon_file(dev, card, geometry, (trenderer, tctx),
+                                dragon_img, dragon_rays, results)
+    filter_cornells(dev, card, results, splats, grads)
 
     kernels = []
     for key, (name, case) in ROWS.items():

@@ -30,8 +30,9 @@
 // The triangle, Gaussian and Mitchell filters (PBRT's radius 2: 16 taps a
 // sample) are bound by their reductions, one a tap. Their design: each
 // sample evaluates its nx x-weights and ny y-weights once, in registers
-// (footprints up to kMaxAxisTaps an axis), a tap's weight their product in
-// filter_weight's order, so the weights are its bits. A renderer's warp
+// (footprints up to kMaxAxisTaps an axis: filter.cuh's axis_taps, shared
+// with K9), a tap's weight their product in filter_weight's order, so the
+// weights are its bits. A renderer's warp
 // holds 32 consecutive pixels of one row (render/renderer.py builds its
 // lanes row-major); the warp checks that (a shuffle and a vote on the
 // pixel row and on the pixel column minus the lane) and then, for each row
@@ -51,36 +52,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-// the filtered splat keeps a footprint of up to kMaxAxisTaps x kMaxAxisTaps
-// in registers; its warp sums take taps within kWin pixels of the lane's
-constexpr int kMaxAxisTaps = 4;
+// the warp sums take taps within kWin pixels of the lane's
 constexpr int kWin = 2;
-
-// kMaxAxisTaps weights of one axis as scalars (no array, so nothing goes to
-// local memory): at(k) folds to one register for a constant k and is 4
-// selects for a k known at run time
-struct AxisTaps {
-    float v0, v1, v2, v3;
-    __device__ __forceinline__ float at(int k) const {
-        return k == 0 ? v0 : k == 1 ? v1 : k == 2 ? v2 : k == 3 ? v3 : 0.0f;
-    }
-};
-static_assert(kMaxAxisTaps == 4, "AxisTaps holds 4 weights");
-
-// the weights of axis Axis at offsets lo + k + 0.5 - p (0 beyond the
-// footprint's n taps and outside the extent)
-template <int Kind, int Axis>
-__device__ __forceinline__ AxisTaps axis_taps(const rt::FilterParams& f, int lo, float p,
-                                              int n) {
-    const float r = Axis == 0 ? f.rx : f.ry;
-    float v[kMaxAxisTaps];
-#pragma unroll
-    for (int k = 0; k < kMaxAxisTaps; ++k) {
-        float d = ((float)(lo + k) + 0.5f) - p;
-        v[k] = (k < n && fabsf(d) <= r) ? rt::axis_weight<Kind, Axis>(f, d) : 0.0f;
-    }
-    return {v[0], v[1], v[2], v[3]};
-}
 
 __device__ __forceinline__ float4 scaled(float fw, float r, float g, float b) {
     return make_float4(fw * r, fw * g, fw * b, fw);
@@ -155,9 +128,9 @@ __global__ void __launch_bounds__(kThreads)
     const int pix_x = (int)floorf(p.x), pix_y = (int)floorf(p.y);
     const int sx = lo_x - pix_x, sy = lo_y - pix_y;
     const int row = __shfl_sync(kFull, pix_y, 0), col0 = __shfl_sync(kFull, pix_x - lane, 0);
-    const bool fits = in && nx <= kMaxAxisTaps && ny <= kMaxAxisTaps && pix_y == row &&
-                      pix_x - lane == col0 && sx >= -kWin && sx + nx - 1 <= kWin &&
-                      sy >= -kWin && sy + ny - 1 <= kWin;
+    const bool fits = in && nx <= rt::kMaxAxisTaps && ny <= rt::kMaxAxisTaps &&
+                      pix_y == row && pix_x - lane == col0 && sx >= -kWin &&
+                      sx + nx - 1 <= kWin && sy >= -kWin && sy + ny - 1 <= kWin;
     if (!__all_sync(kFull, fits)) {
         if (live) splat_taps<Kind>(p, r, g, b, acc, h, w, x0, y0, f, nx, ny);
         return;
@@ -165,8 +138,8 @@ __global__ void __launch_bounds__(kThreads)
     // each axis's weights once a sample (0 outside the footprint and the
     // extent), a tap's weight wx.at(k) * wy.at(j), the product
     // filter_weight forms, bit for bit
-    const AxisTaps wx = axis_taps<Kind, 0>(f, lo_x, p.x, nx);
-    const AxisTaps wy = axis_taps<Kind, 1>(f, lo_y, p.y, ny);
+    const rt::AxisTaps wx = rt::axis_taps<Kind, 0>(f, lo_x, p.x, nx);
+    const rt::AxisTaps wy = rt::axis_taps<Kind, 1>(f, lo_y, p.y, ny);
     // lane t adds, on its own pixel column, the tap of lane t - d at column
     // offset d, for d = -kWin .. kWin: lane t - d's x weight at that offset
     // and its radiance, fetched once (o = d + kWin), and its row weight,

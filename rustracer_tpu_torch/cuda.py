@@ -60,9 +60,11 @@ SIGNATURES = {
     "slab_take": [_P, _I, _I, _P, _P, _P, _P],
     "slab_put": [_P, _I, _I, _P, _P, _P, _P],
     "row_gather": [_P, _P, _I, _I, _P, _P],
+    # ..., g_rad, the film's sample-bounds width and first column (the
+    # renderer's sample layout), stream
     "film_add_samples_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _F, _F, _I, _I, _F, _I] + [_F] * 8
-    + [_P, _P],
+    + [_P, _I, _I, _P],
     "atlas_lookup_ewa_bwd": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _I, _P],
     "row_gather_bwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -226,7 +226,9 @@ class Film:
     def add_samples_bwd(self, g_acc, p_film, radiance, valid=None):
         """The radiance's gradient of a splat: ``g_acc`` (H, W, 4), the
         gradient of the film buffer, contiguous. CPU tensors take the plain
-        version, CUDA tensors launch K9."""
+        version, CUDA tensors launch K9, given the renderer's layout of the
+        samples (row-major over ``get_sample_bounds``) as a hint of which
+        samples' footprints meet (any order gives the same result)."""
         if not cuda.use_kernel(p_film):
             return self.add_samples_bwd_plain(g_acc, p_film, radiance, valid)
         n = p_film.shape[0]
@@ -240,12 +242,14 @@ class Film:
         x0, y0, _, _ = self.cropped_pixel_bounds
         rx, ry = self.filter.radius
         nx, ny = self._footprint()
+        sx0, _, sx1, _ = self.get_sample_bounds()
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
         kind, fp = self.filter.kernel_params()
         if n:
             cuda.launch("film_add_samples_bwd", p_film, radiance, valid, n,
                         g_acc, h, w, x0, y0, rx, ry, nx, ny,
-                        self.max_sample_luminance, kind, *fp, out)
+                        self.max_sample_luminance, kind, *fp, out,
+                        sx1 - sx0, sx0)
         return out
 
     def add_splats(self, state: FilmState, p_film, v,

@@ -1,12 +1,14 @@
 """K4 (the film splat, also with the triangle, Gaussian and Mitchell
 filters: K4F), K5 (the atlas EWA lookup), K6 (the alive-first order), K7
-(the slab take and put), K10 (the lookup's backward) and K11 (the row
-gather's backward) on the inputs of full-width textured steps, and K12
-(the light grid's contribution sums) over whole grids, against their
-plain versions and, given them, other builds of their sources.
+(the slab take and put), K9 with those filters (the splat's backward:
+K9F), K10 (the lookup's backward) and K11 (the row gather's backward) on
+the inputs of full-width textured steps, and K12 (the light grid's
+contribution sums) over whole grids, against their plain versions and,
+given them, other builds of their sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
-        [--reps N] [--kernels K4,K5,K6,K7,K10,K11,K12,K4F] [--k12-corners]
+        [--time-only PATH ...] [--reps N]
+        [--kernels K4,K5,K6,K7,K10,K11,K12,K4F,K9F] [--k12-corners]
         [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
@@ -40,10 +42,11 @@ textured lanes of each K5 input, K5's bound (tools/atlas_work.py) and K6's
 the memory instructions of each kernel in program order, from cuobjdump's
 SASS (``sass_memory_ops``): K4's reductions a tap, K7's loads and stores.
 
-An ``--other`` source is a film.cu, atlas.cu, compact.cu, atlas_bwd.cu,
-gather_bwd.cu or lightdistrib.cu with the library's C interface (cuda.SIGNATURES), next to
-the common.cuh it includes; it is built alone, and what it exports
-decides which kernels it is timed as: ``rt_film_add_samples`` K4,
+An ``--other`` source is a film.cu, film_bwd.cu, atlas.cu, compact.cu,
+atlas_bwd.cu, gather_bwd.cu or lightdistrib.cu with the library's C
+interface (cuda.SIGNATURES), next to the common.cuh (and filter.cuh) it
+includes; it is built alone, and what it exports decides which kernels it
+is timed as: ``rt_film_add_samples`` K4, ``rt_film_add_samples_bwd`` K9,
 ``rt_atlas_lookup_ewa`` K5, ``rt_alive_first_order`` K6, ``rt_slab_take``
 K7 (take and put), ``rt_atlas_lookup_ewa_bwd`` K10, ``rt_row_gather_bwd``
 K11, ``rt_spatial_grid_contrib`` K12. A
@@ -72,8 +75,20 @@ build_dragon's tables, which the file reproduces), every build within
 1e-5 relative (1e-6 of the largest sum) of the plain version; with
 ``--k12-corners`` each ``--other`` lightdistrib.cu has the per-chunk C
 interface (K12_CORNER_ARGS: voxel corners, not the grid) and is launched
-once a CHUNK_VOXELS chunk, its kernel time the sum of its launches. ``--kernels`` picks what is measured
-(all by default).
+once a CHUNK_VOXELS chunk, its kernel time the sum of its launches. K9F
+runs K9 with each of FILTERS on the backward of tile 2's step rendered
+with that filter (``filtered_grad_step``: the film's gradient of the
+step's loss, its samples and radiance), the triangle's every build bit
+for bit with the plain gather, the Gaussian's and Mitchell's within 1e-5
+relative (1e-6 absolute; the plain version's exp and divides by a number
+round differently on the card), timed warm in turns, as the train step
+finds the film's gradient (written just before), bounded by ``k9_moved``
+and ``k9_ops``; a film_bwd.cu that does not export
+``rt_film_bwd_layout`` (an older source) is called without the sample
+layout's two arguments. A ``--time-only`` film_bwd.cu (a diagnostic
+build that computes a wrong gradient on purpose: tools/k9_parts.py) is
+timed on the K9F calls beside the others, unchecked. ``--kernels`` picks
+what is measured (all by default).
 
 Refuses to run without CUDA.
 """
@@ -110,13 +125,17 @@ from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
                   "slab_take")
-K10, K11 = "atlas_lookup_ewa_bwd", "row_gather_bwd"
+K9, K10, K11 = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
+                "row_gather_bwd")
 K12 = "spatial_grid_contrib"
 # K4's arguments in a film.cu without the filter kinds (no
 # rt_film_filter_kinds export): the box only
 K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
+# K9's arguments in a film_bwd.cu without the sample layout (no
+# rt_film_bwd_layout export)
+K9_NO_LAYOUT_ARGS = cuda.SIGNATURES[K9][:-3] + cuda.SIGNATURES[K9][-1:]
 KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
-           "K12": K12, "K4F": K4}
+           "K12": K12, "K4F": K4, "K9F": K9}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
 K4_KERNELS = ("film_add_kernel",)
@@ -124,6 +143,7 @@ K5_KERNELS = ("atlas_ewa_kernel",)
 K6_KERNELS = ("alive_first_kernel", "count_kernel", "scan_counts_kernel",
               "place_kernel")
 K7_KERNELS = ("slab_kernel",)
+K9_KERNELS = ("film_add_bwd_kernel",)
 K10_KERNELS = ("atlas_ewa_bwd_kernel",)
 K11_KERNELS = ("row_gather_bwd_kernel", "row_gather_bwd_shared_kernel")
 K12_KERNELS = ("grid_contrib_kernel",)
@@ -147,9 +167,19 @@ FILTERS = ("triangle", "gaussian", "mitchell")
 # select 2, then 4 multiplies into the float4.
 FILTER_AXIS_OPS = {"triangle": 7, "gaussian": 10, "mitchell": 26}
 K4F_TAP_OPS = 6
-# the per-tap design's count, a tap evaluating both 1-D weights again
-# (chip_smoke.py FILTER_TAP_OPS plus K4's 4 multiplies)
+# the per-tap design's count, a tap evaluating both 1-D weights again:
+# the offsets and the extent test 11, the triangle's two weights and their
+# product 7, the Gaussian's 11, Mitchell's 43, then K4's 4 multiplies
 K4F_TAP_OPS_PER_TAP = {"triangle": 22, "gaussian": 26, "mitchell": 58}
+# K9's operations: each axis's weights once a sample (FILTER_AXIS_OPS),
+# then a tap's product, its mask's select, 3 multiplies and 3 adds; with
+# the luminance clamp on, its VJP a sample (csrc/film_bwd.cu): the
+# luminance 5, the compare and the floor 2, the scale (divide, multiply,
+# select) 3, the dot product 5, d_lum (a compare, an and, 2 multiplies,
+# a divide, a negation, a select) 7 and the 3 outputs' multiplies,
+# multiplies and adds 9
+K9_TAP_OPS = 8
+K9_CLAMP_OPS = 31
 # K11's C interface before its register path: g, idx, n, rows,
 # width, out (zeroed, added into), stream
 K11_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
@@ -410,19 +440,21 @@ def memory_ops(sass):
 
 def build(others, k12_corners=False):
     """Build the library and each other source, and ask ptxas of the
-    library's film.cu, atlas.cu, compact.cu, atlas_bwd.cu and gather_bwd.cu
-    and of each other source (and cuobjdump of each film.cu, compact.cu,
-    atlas_bwd.cu and gather_bwd.cu), all at once; ``k12_corners``: each
+    library's film.cu, film_bwd.cu, atlas.cu, compact.cu, atlas_bwd.cu,
+    gather_bwd.cu and lightdistrib.cu and of each other source (and
+    cuobjdump of each film.cu, film_bwd.cu, compact.cu, atlas_bwd.cu and
+    gather_bwd.cu), all at once; ``k12_corners``: each
     other source's K12 has the per-chunk interface (K12_CORNER_ARGS) ->
     ({kernel: {build name: loaded build, or None for the library}},
     {source name: ptxas lines}, {source name: sass_memory_ops},
     {build name: film channels})."""
     sources = {f"library {f}": os.path.join(CSRC, f)
-               for f in ("film.cu", "atlas.cu", "compact.cu",
+               for f in ("film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
                          "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K4, K5, K6, K7, K10, K11, K12)
-    sass_of = ("film.cu", "compact.cu", "atlas_bwd.cu", "gather_bwd.cu")
+    kernels = (K4, K5, K6, K7, K9, K10, K11, K12)
+    sass_of = ("film.cu", "film_bwd.cu", "compact.cu", "atlas_bwd.cu",
+               "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
         lib = pool.submit(cuda.library)
         libs = {p: pool.submit(compile_shared, f"step_other{i}",
@@ -468,6 +500,10 @@ def build(others, k12_corners=False):
                     # a film.cu from before the filter kinds (box only)
                     loaded.rt_film_add_samples.argtypes = K4_BOX_ARGS
                     loaded.k4_box_only = True
+            if K9 in exports and not hasattr(handle, "rt_film_bwd_layout"):
+                # a film_bwd.cu from before the sample layout's arguments
+                loaded.rt_film_add_samples_bwd.argtypes = K9_NO_LAYOUT_ARGS
+                loaded.k9_layout = False
         return (builds, {name: f.result() for name, f in reports.items()},
                 {name: f.result() for name, f in sass.items()}, channels)
 
@@ -775,6 +811,104 @@ def k4_ops(film, n):
     return n * ((nx + ny) * FILTER_AXIS_OPS[kind] + nx * ny * K4F_TAP_OPS)
 
 
+def k9_ops(film, n):
+    """Operations K9 must do for ``n`` samples with ``film``'s filter (not
+    the box): each sample's nx + ny axis weights, its nx * ny taps
+    (FILTER_AXIS_OPS, K9_TAP_OPS) and, with the luminance clamp on, the
+    clamp's VJP (K9_CLAMP_OPS)."""
+    nx, ny = film._footprint()
+    clamp = K9_CLAMP_OPS if np.isfinite(film.max_sample_luminance) else 0
+    return n * ((nx + ny) * FILTER_AXIS_OPS[film.filter.kind]
+                + nx * ny * K9_TAP_OPS + clamp)
+
+
+def k9_moved(film, p_film, radiance, valid=None):
+    """Bytes K9 must move: every sample's position and valid flag in and
+    its radiance gradient out; the radiance in only where the luminance
+    clamp is on (its VJP reads it); each pixel a tap lands on read once
+    (r, g, b and the weight's gradient: 16 bytes)."""
+    inputs = [p_film] + ([] if valid is None else [valid])
+    if np.isfinite(film.max_sample_luminance):
+        inputs.append(radiance)
+    return sum(t.numel() * t.element_size() for t in inputs) \
+        + 12 * p_film.shape[0] + 16 * k4_touched(film, p_film, valid)
+
+
+def k9_call(lib, case):
+    """One K9 call on a recorded input (Film.add_samples_bwd's arguments:
+    film, g_acc, p_film, radiance, valid): the library's through its
+    wrapper, or ``lib``'s with the same arguments."""
+    (film, g_acc, p_film, rad, valid), _ = case
+    if lib is None:
+        return film.add_samples_bwd(g_acc, p_film, rad, valid)
+    n = p_film.shape[0]
+    h, w = g_acc.shape[:2]
+    x0, y0, _, _ = film.cropped_pixel_bounds
+    rx, ry = film.filter.radius
+    nx, ny = film._footprint()
+    kind, fp = film.filter.kernel_params()
+    sx0, _, sx1, _ = film.get_sample_bounds()
+    layout = (sx1 - sx0, sx0) if getattr(lib, "k9_layout", True) else ()
+    out = torch.empty((n, 3), dtype=torch.float32, device=p_film.device)
+    cuda.launch(K9, p_film, rad, valid, n, g_acc, h, w, x0, y0, rx, ry, nx,
+                ny, film.max_sample_luminance, kind, *fp, out, *layout,
+                lib=lib)
+    return out
+
+
+def check_k9(out, ref, kind, label):
+    """K9 against the plain gather: the triangle's bit for bit, the
+    Gaussian's and Mitchell's within 1e-5 relative, 1e-6 absolute (the
+    plain version's exp and divides by a number round differently on the
+    card) -> the largest absolute difference."""
+    d = (out - ref).abs().max().item()
+    same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    if not (same if kind == "triangle"
+            else torch.allclose(out, ref, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"{label} differs from the plain gather (max "
+                             f"abs {d:.3g})")
+    return d
+
+
+def measure_k9f(grads, builds, reps=20, log=print, unchecked=()):
+    """K9 with the triangle, Gaussian and Mitchell filters on the recorded
+    backward of a step rendered with each (``grads[kind]``,
+    ``filtered_grad_step``), every build but those named in ``unchecked``
+    checked (``check_k9``) and timed warm in turns -> list of row
+    dicts."""
+    rows = []
+    for kind in FILTERS:
+        case = grads[kind]
+        (film, g_acc, p_film, rad, valid), _ = case
+        n = p_film.shape[0]
+        nx, ny = film._footprint()
+        moved = k9_moved(film, p_film, rad, valid)
+        ops = k9_ops(film, n)
+        t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        label = f"K9F {kind}"
+        with cuda.plain_reference():
+            ref = k9_call(None, case)
+        errs = {b: None if b in unchecked else check_k9(
+            k9_call(lib, case), ref, kind, f"{label} {b}")
+            for b, lib in builds.items()}
+        log(f"{label}: {n} samples, {nx} x {ny} taps, onto "
+            f"{k4_touched(film, p_film, valid)} pixels of a "
+            f"{tuple(g_acc.shape)} gradient; max abs err {errs}; {ops} "
+            f"operations ({t_ops * 1e3:.4f} ms), {moved} bytes "
+            f"({t_bytes * 1e3:.4f} ms)")
+        timed = _turns({b: (lambda lib=lib: k9_call(lib, case))
+                        for b, lib in builds.items()}, reps, K9_KERNELS)
+        for b in builds:
+            r = _row(f"{label}, warm", b, timed[b], bound_ms, bound_by,
+                     samples=n, bytes=moved, operations=ops,
+                     max_abs_err=errs[b])
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def with_filter(case, kind):
     """A recorded K4 call (capture_step's k4 entry) with its film's filter
     swapped for ``kind`` at PBRT's default radius 2 and parameters."""
@@ -783,18 +917,32 @@ def with_filter(case, kind):
                                                filter=make_filter(kind)))
 
 
-def filtered_splat(renderer, ctx, tile, sample=1, kind="triangle"):
-    """The K4 call of one step of ``tile`` rendered through ``renderer``
-    with its film's filter swapped for ``kind`` at PBRT's radius 2, so
-    that the samples cover that film's sample bounds, as a renderer of any
-    radius-2 filter lays them out (``with_filter`` then swaps among
-    those)."""
+def filtered(renderer, kind):
+    """``renderer`` with its film's filter swapped for ``kind`` at PBRT's
+    radius 2: its tiles cover that film's sample bounds, row-major, as a
+    renderer of any radius-2 filter lays them out."""
     from ..render.filters import make_filter
     from ..render.renderer import Renderer
     film = dataclasses.replace(renderer.film, filter=make_filter(kind))
-    r = Renderer(renderer.li_fn, renderer.camera, film, renderer.sampler,
-                 renderer.config, device=renderer.device)
-    return capture_step(r, ctx, tile, sample)["k4"][0]
+    return Renderer(renderer.li_fn, renderer.camera, film, renderer.sampler,
+                    renderer.config, device=renderer.device)
+
+
+def filtered_splat(renderer, ctx, tile, sample=1, kind="triangle"):
+    """The K4 call of one step of tile number ``tile`` of ``renderer``
+    with its film's filter swapped for ``kind`` (``filtered``: that
+    renderer's tile; ``with_filter`` then swaps among those filters)."""
+    r = filtered(renderer, kind)
+    return capture_step(r, ctx, r.tiles[tile], sample)["k4"][0]
+
+
+def filtered_grad_step(renderer, ctx, tile, sample=1, kind="triangle"):
+    """The K9 call of the backward of one step of tile number ``tile`` of
+    ``renderer`` with its film's filter swapped for ``kind`` (``filtered``:
+    that renderer's tile; ``capture_grad_step``) -> ((film, g_acc, p_film,
+    radiance, valid), kwargs), tensors cloned."""
+    r = filtered(renderer, kind)
+    return capture_grad_step(r, ctx, r.tiles[tile], sample)["k9"][0]
 
 
 def permuted(case, seed=0):
@@ -975,9 +1123,12 @@ def measure_k12(grids, builds, reps=20, log=print):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
-                    help="another film.cu, atlas.cu, compact.cu, "
-                         "atlas_bwd.cu, gather_bwd.cu or lightdistrib.cu "
-                         "to time (repeatable)")
+                    help="another film.cu, film_bwd.cu, atlas.cu, "
+                         "compact.cu, atlas_bwd.cu, gather_bwd.cu or "
+                         "lightdistrib.cu to time (repeatable)")
+    ap.add_argument("--time-only", action="append", default=[],
+                    help="a diagnostic film_bwd.cu, timed on the K9F calls "
+                         "unchecked (tools/k9_parts.py; repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="the kernels to measure, of "
@@ -999,7 +1150,8 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    builds, reports, sass, channels = build(args.other, args.k12_corners)
+    builds, reports, sass, channels = build(args.other + args.time_only,
+                                            args.k12_corners)
     for name, lines in reports.items():
         for ln in lines:
             print(f"ptxas [{name}] {ln}", flush=True)
@@ -1013,8 +1165,10 @@ def main(argv=None):
     which = args.kernels.split(",")
     cap = capture_step(r, ctx, r.tiles[STEP_TILE])
     cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
-    cap["k4f"] = filtered_splat(r, ctx, r.tiles[STEP_TILE])
+    cap["k4f"] = filtered_splat(r, ctx, STEP_TILE)
     grad = capture_grad_step(r, ctx, r.tiles[STEP_TILE])
+    grads = {kind: filtered_grad_step(r, ctx, STEP_TILE, kind=kind)
+             for kind in FILTERS} if "K9F" in which else {}
     print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
           f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls, "
           f"{len(grad['k10'])} K10 and {len(grad['k11'])} K11 calls in its "
@@ -1031,7 +1185,9 @@ def main(argv=None):
         "K12": lambda: measure_k12(k12_grids(dev, ctx), builds[K12],
                                    args.reps, log),
         "K4F": lambda: measure_k4f(cap, builds[K4], channels, args.reps,
-                                   log)}
+                                   log),
+        "K9F": lambda: measure_k9f(grads, builds[K9], args.reps, log,
+                                   unchecked=args.time_only)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

@@ -935,10 +935,16 @@ def test_film_filters_match_plain(dev, kind, case):
     within 1e-5 relative (1e-6 absolute; contended reductions, K4's warp
     sums in another order, and the plain version's exp and divides by a
     number round differently on the card), the radiance gradient
-    likewise; one launch each. "rows" lays the samples out as a renderer
-    does (a warp's lanes on 32 consecutive pixels of a row): K4's
-    warp-summed path for footprints of up to 4 x 4 taps; the other cases,
-    and "mitchell 4" (8 x 8), its per-tap path."""
+    likewise, the triangle's bit for bit (its weights and K9's sums in the
+    plain version's order); one launch each. "rows" lays the samples out
+    as a renderer does (a warp's lanes on 32 consecutive pixels of a row):
+    K4's warp-summed path for footprints of up to 4 x 4 taps; the other
+    cases, and "mitchell 4" (8 x 8), its per-tap path. K9 for footprints
+    of up to 4 x 4 (the Gaussian's 4 x 3 included) reads the taps from the
+    block's box in shared memory where its samples lie as the renderer
+    lays them out ("rows", but for the blocks where the second pass
+    starts) and from global memory elsewhere; "mitchell 4" takes its
+    tap-by-tap kernel."""
     film, p_film, rad, valid = _film_case(dev, case)
     film = dataclasses.replace(film, filter=FILTER_KINDS[kind])
     if case.startswith("rows"):
@@ -961,6 +967,8 @@ def test_film_filters_match_plain(dev, kind, case):
     out = film.add_samples_bwd(g_acc, p_film, rad, valid)
     assert K.LAUNCHES["film_add_samples_bwd"] == n0 + 1
     ref = _plain(lambda: film.add_samples_bwd(g_acc, p_film, rad, valid))
+    if kind == "triangle":
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
 

@@ -159,6 +159,80 @@ def test_k4_operations_by_hand(kind, radius, ops):
     assert B.k4_ops(film, 5) == 5 * ops
 
 
+# K9 with a radius-2 filter on the same samples (footprints of 4 x 4 from
+# ceil(p - 2.5)), by hand: the triangle and the Gaussian weigh |d| < 2
+# above 0, so the first two samples land on x, y in {0, 1}, the third on
+# x {2, 3} x y {1, 2}, the fourth on x {0, 1, 2} x y {0, 1, 2} and the
+# sixth on x {1, 2, 3} x y {0, 1}. Mitchell (B = C = 1/3) is above 0 for
+# |d| < 8/7 and below it for 8/7 < |d| < 2, where a tap lands only if both
+# axes are below 0, and its float32 weight at |d| = 2 is a rounding's
+# width above 0: the first sample lands on x, y in {0, 1}, the second on
+# x 0 x y {0, 1}, the third on x 3 x y {0, 1, 2}, the fourth on x {0, 1} x
+# y {0, 1, 2}, the sixth on x {0, 1, 2, 3} x y {0, 1} (x 0 at |d| = 2, x 1
+# and 3 at |d| = 1). At radius 1.5 (3 x 3 taps from ceil(p - 2)) it is
+# above 0 for |d| < 6/7 and below it for 6/7 < |d| < 1.5: the first two
+# samples land on (0, 0) and (1, 1), the third on (2, 1) and (3, 2), the
+# fourth on (0, 1) and (1, 1), the sixth on (2, 0), (1, 1) and (3, 1)
+K9_TOUCHED = {("triangle", 2.0): (11, 12), ("gaussian", 2.0): (11, 12),
+              ("mitchell", 2.0): (9, 11), ("mitchell", 1.5): (5, 7)}
+
+
+@pytest.mark.parametrize("kind,radius", sorted(K9_TOUCHED))
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_k9_bytes_by_hand(kind, radius, masked, clamp):
+    film = Film(full_resolution=(4, 3), filter=Filter(kind, radius, radius),
+                max_sample_luminance=2.0 if clamp else float("inf"))
+    p_film = torch.tensor(K4_SAMPLES)
+    rad = torch.ones(6, 3)
+    valid = torch.tensor([True] * 5 + [False]) if masked else None
+    touched = K9_TOUCHED[(kind, radius)][0 if masked else 1]
+    assert B.k4_touched(film, p_film, valid) == touched
+    # 8 bytes of position (+ 1 of valid, + 12 of radiance with the clamp)
+    # a sample in, 12 of gradient out, 16 bytes a touched pixel read
+    assert B.k9_moved(film, p_film, rad, valid) \
+        == 6 * (20 + masked + 12 * clamp) + 16 * touched
+    # the plain splat's nonzero weights land on exactly those pixels
+    st = film.add_samples(film.init_state("cpu"), p_film, rad, valid)
+    assert int((st.wsum > 0).sum()) == touched
+
+
+@pytest.mark.parametrize("kind,radius,ops", [
+    # 4 + 4 axis weights, 16 taps of 8
+    ("triangle", 2.0, 8 * 7 + 16 * 8),
+    ("gaussian", 2.0, 8 * 10 + 16 * 8),
+    ("mitchell", 2.0, 8 * 26 + 16 * 8),
+    # 3 + 3 weights, 9 taps
+    ("mitchell", 1.5, 6 * 26 + 9 * 8),
+])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_k9_operations_by_hand(kind, radius, ops, clamp):
+    film = Film(full_resolution=(8, 8), filter=Filter(kind, radius, radius),
+                max_sample_luminance=2.0 if clamp else float("inf"))
+    # the clamp's VJP: 31 operations a sample
+    assert B.k9_ops(film, 5) == 5 * (ops + 31 * clamp)
+
+
+def test_k9_parts_replace_one_tap(tmp_path):
+    """tools/k9_parts.py finds the staged kernel's tap in csrc/film_bwd.cu
+    once and writes each diagnostic build beside its headers, the source
+    changed only there."""
+    from rustracer_tpu_torch._build import CSRC
+    from rustracer_tpu_torch.tools import k9_parts
+    with open(f"{CSRC}/film_bwd.cu") as f:
+        source = f.read()
+    paths = k9_parts.write_parts(str(tmp_path))
+    assert sorted(paths) == sorted(k9_parts.PARTS)
+    for part, path in paths.items():
+        old, new = k9_parts.PARTS[part]
+        with open(path) as f:
+            text = f.read()
+        assert text == source.replace(old, new) and text != source
+        assert (tmp_path / part / "filter.cuh").exists()
+    with pytest.raises(ValueError, match="once"):
+        k9_parts.part_source("no kernel here", "loads")
+
+
 def test_filtered_splat_cases():
     """K4F's inputs: ``with_filter`` swaps the film's filter for PBRT's
     default (radius 2) and keeps the samples; ``permuted`` reorders the
@@ -262,6 +336,38 @@ def test_capture_step_records_the_step(monkeypatch):
         assert work["rows"] <= 16 * work["textured"]
     table, idx = cap["k8"][0]
     assert table.shape[1] == 16 and idx.shape == (1024,)
+
+
+def test_filtered_grad_step_records_k9(monkeypatch):
+    """The backward of one step of a 32^2 textured dragon (1024-lane
+    tiles, the slab tiers opened to them) rendered with the Mitchell
+    filter makes one K9 call, on a film whose filter is PBRT's Mitchell
+    at radius 2 (the renderer's own film keeps its box), with the film
+    buffer's (H, W, 4) gradient and the samples of that film's renderer's
+    first tile; the plain gather on it is finite and not all zero."""
+    monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 256)
+    ctx, cam, film, sampler, integ, _ = build_dragon(sub=3, res=(32, 32),
+                                                     device="cpu")
+    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=1024),
+                 device="cpu")
+    seen, capture = [], B.capture_grad_step
+    monkeypatch.setattr(B, "capture_grad_step", lambda *a, **kw:
+                        seen.append(capture(*a, **kw)) or seen[-1])
+    case = B.filtered_grad_step(r, ctx, 0, kind="mitchell")
+    assert len(seen) == 1 and len(seen[0]["k9"]) == 1
+    assert case is seen[0]["k9"][0]
+    (f, g_acc, p_film, rad, valid), _ = case
+    assert f.filter == Filter("mitchell", 2.0, 2.0)
+    assert film.filter.kind == "box" and r.film is film
+    assert g_acc.shape == (32, 32, 4) and p_film.shape == (1024, 2)
+    assert rad.shape == (1024, 3) and bool(valid.all())
+    # the tile of the filtered film's renderer: row-major over its sample
+    # bounds, 36 x 36 pixels from (-2, -2)
+    i = torch.arange(1024)
+    assert torch.equal(torch.floor(p_film).long(),
+                       torch.stack([i % 36 - 2, i // 36 - 2], -1))
+    g = B.k9_call(None, case)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
 def test_capture_step_records_the_slab(monkeypatch):
