@@ -98,16 +98,33 @@ Phases, each printing its lines:
      gradient just written, as the backward leaves it); one fwd+bwd
      train step of the Cornell with each filter (K9 under autograd),
      counted;
- 16. a JSON line of the kernels (times, bounds, library yardsticks,
+ 16. the quadrics: K14 (quadric_closest, quadric_any) on 2^18 seeded rays
+     against the 16 mixed quadrics of tools/quadric_work.py (full and
+     clipped spheres, cylinders, disks with an inner radius; rotated,
+     scaled and reverse-oriented) over a ground triangle, hit and quadric
+     id bit for bit with the plain loop, t within 1e-6 relative, and K2
+     on those rays' hits (quadric and triangle lanes, within 1e-5
+     absolute or relative), each timed and bounded; scenes/testball-
+     matte.pbrt parsed with its film at 1024^2 and rendered, samples
+     [0, 8) in 2^18-lane tiles, depth 7, counted (K14 closest and any
+     and K2 launched); one full-width step (tile 2) recorded
+     (tools/quadric_work.capture_quadric_step) and K14 and K2 checked and
+     timed on its inputs, with that step's launches; a 128^2 crop at 1
+     spp against the all-plain path; then the scene through the port's
+     command line in a subprocess at its own 64^2, 16 spp, depth 7,
+     against tests/goldens/testball-matte.npz (mean 2e-3, p99 2e-2);
+ 17. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and one for the render's, K7 rows for its
      moves and for its transposes, K4 and K9 rows for the filters, on
-     the Cornell splat and at full width, K12 rows for both grids), the
+     the Cornell splat and at full width, K12 rows for both grids, K14
+     and K2 rows on the quadric table and on the testball step), the
      card line, and the result line.
+The dragon, Cornell and dragon-file paths launch no K14 (no quadric).
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
-phases 13-15) is
+phases 13-15, the testball render and step of phase 16) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -142,7 +159,7 @@ SOURCES = {
                            "rustracer_tpu/accel/traverse16.py:137"),
     "traverse16_any": ("rustracer_tpu_torch/csrc/traverse16.cu",
                        "rustracer_tpu/accel/traverse16.py:137"),
-    "build_interaction_tri": ("rustracer_tpu_torch/csrc/interaction.cu",
+    "build_interaction": ("rustracer_tpu_torch/csrc/interaction.cu",
                               "rustracer_tpu/scene/tables.py:549"),
     "film_add_samples": ("rustracer_tpu_torch/csrc/film.cu",
                          "rustracer_tpu/render/film.py:67"),
@@ -168,7 +185,13 @@ SOURCES = {
                            "rustracer_tpu/scene/lightdistrib.py:141"),
     "spatial_pmf_lookup": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
                            "rustracer_tpu/scene/lightdistrib.py:159"),
+    "quadric_closest": ("rustracer_tpu_torch/csrc/quadrics.cu",
+                        "rustracer_tpu/scene/tables.py:234"),
+    "quadric_any": ("rustracer_tpu_torch/csrc/quadrics.cu",
+                    "rustracer_tpu/scene/tables.py:522"),
 }
+# K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
+QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
 # the transposes of K7 (rustracer_tpu/integrators/path.py _perm_take_bwd,
 # _perm_put_bwd)
 TRANSPOSES = {"slab_take transpose": "rustracer_tpu/integrators/path.py:74",
@@ -181,7 +204,7 @@ ROWS = {
                            "mean of 2^18 camera and 2^18 bounce rays"),
     "traverse16_any": ("traverse16_any",
                        "mean of 2^18 camera and 2^18 bounce rays"),
-    "build_interaction_tri": ("build_interaction_tri",
+    "build_interaction": ("build_interaction",
                               "2^18 camera hits, matte tile 2"),
     "film_add_samples": ("film_add_samples",
                          "2^18 samples into the 1024^2 film, L2 evicted "
@@ -256,6 +279,21 @@ ROWS = {
     "spatial_grid_contrib dragon file": (
         "spatial_grid_contrib", "the dragon scene file's whole grid (64 x "
         "11 x 64 voxels x 2 lights x 128 probes), one launch"),
+    "quadric_closest": ("quadric_closest",
+                        "2^18 seeded rays against the 16-quadric table "
+                        "(tools/quadric_work.py)"),
+    "quadric_any": ("quadric_any", "the same rays, any hit"),
+    "build_interaction quadrics": ("build_interaction",
+                                   "the quadric branch: those rays' closest "
+                                   "hits (16 quadrics over a triangle)"),
+    "quadric_closest testball": ("quadric_closest",
+                                 "camera rays of a full-width testball-matte "
+                                 "step (tile 2, 2^18 lanes, one sphere)"),
+    "quadric_any testball": ("quadric_any",
+                             "the first shadow rays of that step"),
+    "build_interaction testball": ("build_interaction",
+                                   "the camera hits of that step (sphere "
+                                   "and floor lanes)"),
 }
 # the pixel filters the parsed Cornell box is rendered with (no file of
 # scenes/ names a PixelFilter)
@@ -263,19 +301,22 @@ FILTER_KINDS = ("triangle", "gaussian", "mitchell")
 REPO = os.path.dirname(os.path.abspath(__file__))
 CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
 CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell-box.npz")
+TESTBALL_PBRT = os.path.join(REPO, "scenes", "testball-matte.pbrt")
+TESTBALL_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                               "testball-matte.npz")
 # the rows whose launches are counted in the dragon train step
 TRAIN_ROWS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
               "row_gather_bwd", "slab_take transpose", "slab_put transpose")
 # the kernels the matte render runs (no texture, no slab at its widths)
 MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
-              "traverse16_any", "build_interaction_tri", "film_add_samples",
+              "traverse16_any", "build_interaction", "film_add_samples",
               "row_gather")
 # operations a lane does, for the bounds of K2 and K3 (32-bit integer and
 # float operations both counted at one instruction each): the sampler's hash
 # (5 mixing rounds of 7 operations, plus the 2D dimension's 32-step Sobol'
 # loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
 # work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
-LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction_tri": 300}
+LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction": 300}
 
 
 def log(msg):
@@ -295,6 +336,16 @@ def bound(moved, ops=0.0):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k2_off(field, a, b):
+    """-> bool mask of K2's lanes where ``field`` of the kernel (a) and the
+    plain version (b) disagree: 1e-5 absolute or relative, p_error (gamma
+    times |p|, 1e-7 to 1e-6 a lane) 1e-5 relative alone."""
+    d = (a - b).abs()
+    if field == "p_error":
+        return d > 1e-5 * b.abs() + 1e-30
+    return (d > 1e-5) & (d > 1e-5 * b.abs())
 
 
 def both(fn, kernel, reps=20):
@@ -384,7 +435,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
             bound_ms=float(np.mean([f[2] for f in full])),
             bound_by=full[0][3])
 
-    # K2: every interaction field within 1e-5 abs or rel
+    # K2: every interaction field within 1e-5 abs or rel (p_error rel)
     def k2():
         return build_interaction(ctx.geom, cam_ray, hit, t, prim)
     out, ref, ms, pms = both(k2, "build_interaction_kernel")
@@ -393,14 +444,14 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
               "dndu", "dndv", "wo"):
         a, b = getattr(out, f), getattr(ref, f)
         d = (a - b).abs()
-        bad = (d > 1e-5) & (d > 1e-5 * b.abs())
+        bad = k2_off(f, a, b)
         if bad.any():
-            raise AssertionError(f"build_interaction_tri: {f} differs on "
+            raise AssertionError(f"build_interaction: {f} differs on "
                                  f"{int(bad.sum())} lanes, max {d.max()}")
         err = max(err, d.max().item())
     for f in ("material", "arealight", "prim_id"):
         if not torch.equal(getattr(out, f), getattr(ref, f)):
-            raise AssertionError(f"build_interaction_tri: {f} differs")
+            raise AssertionError(f"build_interaction: {f} differs")
     # the lanes' rays and hits in, every field out, and the shading row of
     # each distinct triangle hit
     rows = torch.unique(prim[hit]).numel()
@@ -409,12 +460,12 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
             "p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
             "dndu", "dndv", "wo", "material", "arealight", "prim_id")]) \
         + rows * ctx.geom.t_shade.shape[1] * 4
-    results["build_interaction_tri"] = dict(
+    results["build_interaction"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms,
-        **bound(moved, LANES * LANE_OPS["build_interaction_tri"]))
-    log(f"[3] build_interaction_tri: fields max abs err {err:.3g}; kernel "
+        **bound(moved, LANES * LANE_OPS["build_interaction"]))
+    log(f"[3] build_interaction: fields max abs err {err:.3g}; kernel "
         f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{results['build_interaction_tri']['bound_ms']:.4f} ms")
+        f"{results['build_interaction']['bound_ms']:.4f} ms")
 
     # K4: splat into the full film, bit for bit (box 0.5: a pixel takes at
     # most two taps, and a + b == b + a); timed with L2 evicted before each
@@ -704,7 +755,7 @@ def step_launches(renderer, ctx, tile):
     return dict(K.LAUNCHES)
 
 
-def render_counted(label, renderer, film, ctx, samples, card):
+def render_counted(label, renderer, film, ctx, samples, card, depth=5):
     """One counted render of the main path -> (image, launches, tiers)."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.integrators import path as P
@@ -717,7 +768,7 @@ def render_counted(label, renderer, film, ctx, samples, card):
     wall = time.perf_counter() - t0
     launches, tiers = dict(K.LAUNCHES), dict(P.TIERS)
     mean = img.mean().item()
-    log(f"{label} render {RES[0]}x{RES[1]} {samples} samples depth 5: "
+    log(f"{label} render {RES[0]}x{RES[1]} {samples} samples depth {depth}: "
         f"{wall:.3f} s wall, {RES[0] * RES[1] * samples / wall:.1f} camera "
         f"rays/s, image mean {mean:.5f} on {card}")
     log(f"{label} launches: {launches}; slab tiers {tiers}")
@@ -1576,8 +1627,215 @@ def mitchell_train(dev, card, bundle):
             "the uniform dragon file with PixelFilter mitchell")
 
 
+def check_k14(label, geom, o, d, t_max, key, any_hit, results):
+    """K14 on these rays against its plain loop: the closest search's hit
+    and quadric id bit for bit and t within 1e-6 relative, the any-hit
+    search's flag bit for bit with the closest search's; timed, bounded
+    on the call's data (tools/quadric_work.py k14_work)."""
+    from rustracer_tpu_torch.scene.tables import (intersect_quadrics_all,
+                                                 quadrics_any_hit)
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    name = "quadric_any" if any_hit else "quadric_closest"
+
+    def fn():
+        if any_hit:
+            return quadrics_any_hit(geom, o, d, t_max)
+        return intersect_quadrics_all(geom, o, d, t_max)
+    out, ref, ms, pms = both(fn, name + "_kernel")
+    if any_hit:
+        from rustracer_tpu_torch.cuda import plain_reference
+        with plain_reference():
+            ref_hit = intersect_quadrics_all(geom, o, d, t_max)[0]
+        if not (torch.equal(out, ref) and torch.equal(out, ref_hit)):
+            raise AssertionError(f"{label} {name}: the hit flags differ")
+        err, hit_share = 0.0, out.float().mean().item()
+    else:
+        (hit, t, qid), (rhit, rt, rqid) = out, ref
+        if not (torch.equal(hit, rhit) and torch.equal(qid, rqid)):
+            raise AssertionError(f"{label} {name}: hit or quadric id "
+                                 "differs from the plain loop")
+        d_t = (t[hit] - rt[hit]).abs()
+        if bool((d_t > 1e-6 * rt[hit].abs()).any()):
+            raise AssertionError(f"{label} {name}: t beyond 1e-6 relative, "
+                                 f"max {d_t.max().item()}")
+        err = d_t.max().item() if d_t.numel() else 0.0
+        hit_share = hit.float().mean().item()
+    work = QW.k14_work(geom, o, d, t_max, any_hit)
+    bound_ms, bound_by = QW.k14_bound(work)
+    results[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+    log(f"{label} {name}: {work['lanes']} rays x {geom.n_quadrics} quadrics "
+        f"({work['tests']} tests), {hit_share:.4f} hit; matches the plain "
+        f"loop (t max abs err {err:.3g}); kernel {ms:.4f} ms, plain "
+        f"{pms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of it")
+
+
+def check_k2_quadrics(label, geom, ray, hit, t, prim, key, results):
+    """K2 on these hits, quadric lanes among them, against its plain
+    version: every field within 1e-5 absolute or relative (acosf, sinf,
+    atan2f and the normalisations may round apart), p_error within 1e-5
+    relative, the ids bit for bit; timed and bounded
+    (tools/quadric_work.py k2_bound)."""
+    from rustracer_tpu_torch.scene.tables import build_interaction
+    from rustracer_tpu_torch.tools import quadric_work as QW
+
+    def fn():
+        return build_interaction(geom, ray, hit, t, prim)
+    out, ref, ms, pms = both(fn, "build_interaction_kernel")
+    quad = hit & (prim < geom.n_quadrics)
+    err = qerr = 0.0
+    for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+              "dndu", "dndv", "wo"):
+        a, b = getattr(out, f), getattr(ref, f)
+        dd = (a - b).abs()
+        bad = k2_off(f, a, b)
+        if bad.any():
+            raise AssertionError(f"{label} build_interaction: {f} differs on "
+                                 f"{int(bad.sum())} lanes, max {dd.max()}")
+        err = max(err, dd.max().item())
+        if quad.any():
+            qerr = max(qerr, dd[quad].max().item())
+    for f in ("material", "arealight", "prim_id", "valid"):
+        if not torch.equal(getattr(out, f), getattr(ref, f)):
+            raise AssertionError(f"{label} build_interaction: {f} differs")
+    bound_ms, bound_by, n_q, n_t = QW.k2_bound(geom, hit, prim)
+    results[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+    log(f"{label} build_interaction: {n_q} quadric and {n_t} triangle lanes "
+        f"of {hit.shape[0]}; fields max abs err {err:.3g} (quadric lanes "
+        f"{qerr:.3g}); kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+
+
+def check_quadric_table(dev, results):
+    """Phase 16's kernels at full width on the 16-quadric table."""
+    from rustracer_tpu_torch.scene.tables import closest_prim
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    q = QW.quadric_table()
+    geom = QW.table_geometry(q, device=dev)
+    ray = QW.quadric_rays(q, LANES, device=dev)
+    check_k14("[16] table", geom, ray.o, ray.d, ray.t_max, "quadric_closest",
+              False, results)
+    check_k14("[16] table", geom, ray.o, ray.d, ray.t_max, "quadric_any",
+              True, results)
+    hit, t, prim = closest_prim(geom, ray)
+    check_k2_quadrics("[16] table", geom, ray, hit, t, prim,
+                      "build_interaction quadrics", results)
+
+
+def testball_full(dev, card, results):
+    """testball-matte at 1024^2: the counted render, one recorded step's
+    K14 and K2 calls, the launches of that step, the crop against the
+    all-plain path."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    with open(TESTBALL_PBRT) as f:
+        text = f.read()
+    small = '"integer xresolution" [64] "integer yresolution" [64]'
+    if small not in text:
+        raise AssertionError("testball-matte.pbrt's Film line changed")
+    text = text.replace(small, f'"integer xresolution" [{RES[0]}] '
+                        f'"integer yresolution" [{RES[1]}]')
+    bundle, _ = parse_counted(f"[16] testball-matte at {RES[0]}^2",
+                              text=text, dev=dev)
+    if tuple(bundle.film.full_resolution) != RES:
+        raise AssertionError(f"film {bundle.film.full_resolution}")
+    renderer, ctx = bundle.renderer(LANES), bundle.context()
+    renderer.render_state(ctx, sample_stop=1)
+    launches, _, img, rays = render_counted(
+        "[16]", renderer, bundle.film, ctx, SAMPLES, card,
+        depth=bundle.integrator.max_depth)
+    missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",)
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the render: {missing}")
+    tile = renderer.tiles[2]
+    per_step = step_launches(renderer, ctx, tile)
+    log(f"[16] launches in one full-width testball step (tile 2): "
+        f"{per_step}")
+    cap = QW.capture_quadric_step(renderer, ctx, tile)
+    geom, o, d, t_max = cap["intersect_quadrics_all"]
+    check_k14("[16] step", geom, o, d, t_max, "quadric_closest testball",
+              False, results)
+    geom, o, d, t_max = cap["quadrics_any_hit"]
+    check_k14("[16] step", geom, o, d, t_max, "quadric_any testball", True,
+              results)
+    check_k2_quadrics("[16] step", *cap["build_interaction"],
+                      "build_interaction testball", results)
+    for key in ("quadric_closest", "quadric_any", "build_interaction "
+                "quadrics", "quadric_closest testball", "quadric_any "
+                "testball", "build_interaction testball"):
+        name = ROWS[key][0]
+        results[key].update(launches=launches[name],
+                            launches_per_step=per_step[name],
+                            counted_in=f"testball-matte render at "
+                            f"{RES[0]}^2")
+    crop_film = Film(full_resolution=RES, crop_window=CROP,
+                     filter=bundle.film.filter)
+    compare_crop("[16]", Renderer(bundle.integrator.li, bundle.camera,
+                                  crop_film, bundle.sampler,
+                                  RenderConfig(max_lanes=LANES), device=dev),
+                 crop_film, ctx)
+    return rays
+
+
+def testball_cli():
+    """testball-matte through the port's command line on the card, in a
+    subprocess, at its own 64^2, 16 spp, depth 7: K14 and K2 launched, the
+    image held to its golden."""
+    from rustracer_tpu_torch.render.imageio import read_image
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "testball.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli",
+             TESTBALL_PBRT, "-o", out, "-v"], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[16] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_image(out)
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    ref = np.load(TESTBALL_GOLDEN)["img"]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"the CLI's image {img.shape} not finite or not "
+                             f"the golden's {ref.shape}")
+    mean_err, p99 = image_errors(img, ref)
+    log(f"[16] python -m rustracer_tpu_torch.utils.cli "
+        f"scenes/testball-matte.pbrt -o testball.exr: {wall:.2f} s in all; "
+        f"K14 {launches['quadric_closest']} closest and "
+        f"{launches['quadric_any']} any-hit launches, K2 "
+        f"{launches['build_interaction']}; against "
+        f"tests/goldens/testball-matte.npz: mean err {mean_err:.3g} (< "
+        f"2e-3), p99 {p99:.3g} (< 2e-2)")
+    if min(launches[k] for k in ("quadric_closest", "quadric_any",
+                                 "build_interaction")) <= 0:
+        raise AssertionError("the CLI's render did not launch K14 and K2")
+    if not (mean_err < 2e-3 and p99 < 2e-2):
+        raise AssertionError("the CLI's testball-matte differs from its "
+                             "golden image")
+
+
+def no_quadric_launches(label, launches):
+    """A path without quadrics launches no K14."""
+    from rustracer_tpu_torch import cuda as K
+    if any(launches[k] for k in K.QUADRIC_KERNELS):
+        raise AssertionError(f"{label} launched K14 without a quadric: "
+                             f"{launches}")
+
+
 def run(dev, card):
-    """Phases 3 to 16 on device ``dev``."""
+    """Phases 3 to 17 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -1617,6 +1875,7 @@ def run(dev, card):
     missing = [k for k in MATTE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
+    no_quadric_launches("[4]", launches)
     crop_film = Film(full_resolution=RES, crop_window=CROP,
                      filter=Filter("box", 0.5, 0.5))
     compare_crop("[5]", Renderer(integ.li, cam, crop_film, sampler,
@@ -1631,6 +1890,7 @@ def run(dev, card):
     missing = [k for k in K.FORWARD_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
+    no_quadric_launches("[6]", launches)
     if tiers[2] + tiers[4] == 0:
         raise AssertionError(f"the render took no slab tier: {tiers}")
     crop_film = Film(full_resolution=RES, crop_window=TEX_CROP,
@@ -1666,6 +1926,7 @@ def run(dev, card):
         f"{time.perf_counter() - t0:.3f} s; launches {dict(K.LAUNCHES)}")
     if min(K.LAUNCHES[k] for k in K.GRID_KERNELS[1:]) <= 0:
         raise AssertionError("the parsed Cornell box did not launch K13")
+    no_quadric_launches("[13]", K.LAUNCHES)
     check_cornell_image("[13] the in-process render", img.cpu().numpy())
     check_grid_contrib("[13]", "spatial_grid_contrib",
                        "scenes/cornell-box.pbrt", bundle, parse_launches,
@@ -1674,20 +1935,28 @@ def run(dev, card):
                                 dragon_img, dragon_rays, results)
     filter_cornells(dev, card, results, splats, grads)
 
+    # 16: the quadrics
+    check_quadric_table(dev, results)
+    testball_full(dev, card, results)
+    testball_cli()
+
     kernels = []
     for key, (name, case) in ROWS.items():
         r = results[key]
         train = key in TRAIN_ROWS
         own = "launches" in r
+        replaces = QUADRIC_BRANCH if key.startswith("build_interaction ") \
+            else TRANSPOSES.get(key, SOURCES[name][1])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0],
-            replaces=TRANSPOSES.get(key, SOURCES[name][1]),
+            replaces=replaces,
             launches=r["launches"] if own
             else (train_launches if train else launches)[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            launches_per_step=None if train or own else per_step[name],
+            launches_per_step=r.get("launches_per_step",
+                                    None if train or own else per_step[name]),
             launches_counted_in=r["counted_in"] if own
             else "dragon train step" if train else "textured render",
             case=case))

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.bvh_build import build_wide_arrays
 from .render.camera import PerspectiveCamera
 from .render.film import Film
 from .render.filters import Filter
@@ -16,11 +17,9 @@ from .render.sampler import SamplerConfig
 from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
 from .scene.materials import MaterialSet, MatteMaterial
-from .scene.tables import N_DUMMY_QUADRICS, GeometryTables
-from .scene.textures import ConstantTexture, ImageTexture, UVMapping2D
-
-# the JAX package's never-hit placeholder quadric (a zero-radius sphere)
-_DUMMY_Q_PARAMS = np.array([[0.0, 1.0, 2.0, 2.0 * np.pi]], np.float32)
+from .scene.tables import QUADRIC_KEYS, GeometryTables
+from .scene.textures import (CheckerboardTexture, ConstantTexture,
+                             ImageTexture, UVMapping2D)
 
 
 def _t(x, dtype, device):
@@ -29,28 +28,37 @@ def _t(x, dtype, device):
 
 
 def geometry_from_jax(geom, device="cuda") -> GeometryTables:
-    """JAX GeometryTables of a triangle scene with a wide BVH -> port's."""
-    q_params = np.asarray(geom.q_params)
-    if q_params.shape != _DUMMY_Q_PARAMS.shape \
-            or not np.array_equal(q_params, _DUMMY_Q_PARAMS):
-        raise NotImplementedError("scenes with real quadrics are not ported")
-    if np.asarray(geom.bvh16_table).shape[0] <= 1:
-        raise ValueError("the port needs the wide BVH (bvh16_table)")
+    """JAX GeometryTables of a scene of triangles and quadrics -> port's.
+    A scene the JAX package intersects without a wide BVH (8 primitives
+    or fewer) gets the port's own over its triangles."""
     if np.asarray(geom.inst_o2w).shape[0] > 1:
         raise NotImplementedError("instancing is not ported")
     if np.asarray(geom.alpha_atlas).shape[0] > 1:
         raise NotImplementedError("alpha cutouts are not ported")
     if np.asarray(geom.iface_flag).shape[0] > 0:
         raise NotImplementedError("medium interfaces are not ported")
+    table = np.asarray(geom.bvh16_table)
+    if table.shape[0] > 1:
+        bvh = dict(bvh16_table=table, bvh16_roots=geom.bvh16_roots,
+                   bvh16_depth=np.asarray(geom.bvh16_depth_pad).shape[0])
+    else:
+        bvh = build_wide_arrays(np.asarray(geom.tv_p), np.asarray(geom.t_idx))
+    q = {k: np.array(getattr(geom, k)) for k in QUADRIC_KEYS}
     return GeometryTables(
         tv_p=_t(geom.tv_p, torch.float32, device),
         t_idx=_t(geom.t_idx, torch.int32, device),
         t_reverse=_t(geom.t_reverse, torch.bool, device),
         t_shade=_t(geom.t_shade, torch.float32, device),
-        bvh16_table=_t(geom.bvh16_table, torch.float32, device),
-        bvh16_roots=_t(geom.bvh16_roots, torch.int32, device),
-        bvh16_depth=int(np.asarray(geom.bvh16_depth_pad).shape[0]),
-        n_quadrics=N_DUMMY_QUADRICS)
+        bvh16_table=_t(bvh["bvh16_table"], torch.float32, device),
+        bvh16_roots=_t(bvh["bvh16_roots"], torch.int32, device),
+        bvh16_depth=int(bvh["bvh16_depth"]),
+        q_type=_t(q["q_type"], torch.int32, device),
+        q_o2w=_t(q["q_o2w"], torch.float32, device),
+        q_w2o=_t(q["q_w2o"], torch.float32, device),
+        q_params=_t(q["q_params"], torch.float32, device),
+        q_material=_t(q["q_material"], torch.int32, device),
+        q_arealight=_t(q["q_arealight"], torch.int32, device),
+        q_reverse=_t(q["q_reverse"], torch.bool, device))
 
 
 def lights_from_jax(lt, device="cuda") -> LightTables:
@@ -121,13 +129,23 @@ def textures_from_jax(textures, device="cuda",
     return out
 
 
+def _uv_mapping(m):
+    if type(m).__name__ != "UVMapping2D":
+        raise NotImplementedError(f"mapping {type(m).__name__} is not ported")
+    return UVMapping2D(m.su, m.sv, m.du, m.dv)
+
+
 def _texture_from_jax(tex):
     kind = type(tex).__name__
     if kind == "ConstantTexture":
         return ConstantTexture(tex.key)
-    if kind == "ImageTexture" and type(tex.mapping).__name__ == "UVMapping2D":
-        m = tex.mapping
-        return ImageTexture(tex.image_id, UVMapping2D(m.su, m.sv, m.du, m.dv),
+    if kind == "CheckerboardTexture":
+        return CheckerboardTexture(_texture_from_jax(tex.tex1),
+                                   _texture_from_jax(tex.tex2),
+                                   _uv_mapping(tex.mapping), aa=tex.aa,
+                                   is_spectrum=tex.is_spectrum)
+    if kind == "ImageTexture":
+        return ImageTexture(tex.image_id, _uv_mapping(tex.mapping),
                             trilinear=tex.trilinear, max_aniso=tex.max_aniso,
                             wrap=tex.wrap, scale=tex.scale,
                             is_spectrum=tex.is_spectrum)
@@ -144,10 +162,10 @@ def _zero_sigma(sigma, textures) -> bool:
 
 
 def material_set_from_jax(ms, textures=None) -> MaterialSet:
-    """JAX MaterialSet of matte materials over constant or UV-mapped image
-    textures -> port's; raises on anything else. A parsed scene's mattes
-    carry a sigma texture: with the JAX ``textures`` dict given, a sigma
-    that is the constant 0 is the Lambertian lobe."""
+    """JAX MaterialSet of matte materials over constant, checkerboard or
+    UV-mapped image textures -> port's; raises on anything else. A parsed
+    scene's mattes carry a sigma texture: with the JAX ``textures`` dict
+    given, a sigma that is the constant 0 is the Lambertian lobe."""
     out = []
     for m in ms.materials:
         kind = type(m).__name__

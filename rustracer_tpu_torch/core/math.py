@@ -12,6 +12,7 @@ import torch
 
 MACHINE_EPSILON = np.float32(np.finfo(np.float32).eps * 0.5)
 INFINITY = float("inf")
+PI = np.float32(np.pi)
 INV_PI = float(np.float32(1.0 / np.pi))
 
 
@@ -64,6 +65,19 @@ def coordinate_system(v1):
                      torch.stack([-z * inv_a, zero, x * inv_a], dim=-1),
                      torch.stack([zero, z * inv_a, -y * inv_a], dim=-1))
     return v2, cross(v1, v2)
+
+
+def quadratic(a, b, c):
+    """Stable quadratic solve -> (t0 <= t1, has_solution): the reference's
+    float32 form q = -0.5 (b +- sqrt(disc)), t1 = c / q, in its order."""
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0.0
+    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    t0 = q / a
+    t1 = c / torch.where(q == 0.0, 1.0, q)
+    t1 = torch.where(q == 0.0, t0, t1)
+    return torch.minimum(t0, t1), torch.maximum(t0, t1), has
 
 
 def next_float_up(x):

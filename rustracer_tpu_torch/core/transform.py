@@ -159,23 +159,36 @@ class Transform:
         return n @ self.m_inv[:3, :3]
 
 
-def _rows3(m, x, y, z):
-    return (m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
-            m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
-            m[2, 0] * x + m[2, 1] * y + m[2, 2] * z)
+def apply_mat3(m, x, y, z):
+    """Rows of m[..., :3, :3] applied to the components (x, y, z); ``m``
+    is one (4, 4) tensor or one per lane (..., 4, 4)."""
+    return (m[..., 0, 0] * x + m[..., 0, 1] * y + m[..., 0, 2] * z,
+            m[..., 1, 0] * x + m[..., 1, 1] * y + m[..., 1, 2] * z,
+            m[..., 2, 0] * x + m[..., 2, 1] * y + m[..., 2, 2] * z)
 
 
 def xform_point(m, p):
-    """Apply the (4, 4) tensor m to points (..., 3), with the divide by w."""
+    """Apply m ((4, 4) or (..., 4, 4)) to points (..., 3), with the divide
+    by w."""
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
-    rx, ry, rz = _rows3(m, x, y, z)
-    rx = rx + m[0, 3]
-    ry = ry + m[1, 3]
-    rz = rz + m[2, 3]
-    w = m[3, 0] * x + m[3, 1] * y + m[3, 2] * z + m[3, 3]
+    rx, ry, rz = apply_mat3(m, x, y, z)
+    rx = rx + m[..., 0, 3]
+    ry = ry + m[..., 1, 3]
+    rz = rz + m[..., 2, 3]
+    w = m[..., 3, 0] * x + m[..., 3, 1] * y + m[..., 3, 2] * z + m[..., 3, 3]
     inv_w = 1.0 / w
     return torch.stack([rx * inv_w, ry * inv_w, rz * inv_w], dim=-1)
 
 
 def xform_vector(m, v):
-    return torch.stack(_rows3(m, v[..., 0], v[..., 1], v[..., 2]), dim=-1)
+    return torch.stack(apply_mat3(m, v[..., 0], v[..., 1], v[..., 2]), dim=-1)
+
+
+def xform_normal(m_inv, n):
+    """Normals transform by the inverse transpose: ``m_inv``'s columns."""
+    x, y, z = n[..., 0], n[..., 1], n[..., 2]
+    return torch.stack(
+        [m_inv[..., 0, 0] * x + m_inv[..., 1, 0] * y + m_inv[..., 2, 0] * z,
+         m_inv[..., 0, 1] * x + m_inv[..., 1, 1] * y + m_inv[..., 2, 1] * z,
+         m_inv[..., 0, 2] * x + m_inv[..., 1, 2] * y + m_inv[..., 2, 2] * z],
+        dim=-1)

@@ -1,26 +1,44 @@
-// K2: rebuild the surface interaction of each closest hit from its packed
-// (T, 32) t_shade row, one thread per lane.
+// K2: rebuild the surface interaction of each closest hit, one thread per
+// lane: a triangle hit from its packed (T, 32) t_shade row, a quadric hit
+// (a sphere, cylinder or disk) from its quadric's tables.
 //
-// Replaces the triangle branch of rustracer_tpu/scene/tables.py
-// build_interaction (:549-707): one row read per lane, the watertight
+// Replaces rustracer_tpu/scene/tables.py build_interaction (:549-707).
+// Triangle lanes (prim >= nq): one row read per lane, the watertight
 // re-intersection at t*1.0001+1e-4 (:610) for the barycentrics, then p and
 // its error bound, uv (the default uv when the row has none), the geometric
 // normal with the reverse flip, the interpolated shading normal and the
-// face-forward, dpdu/dpdv, dndu/dndv, the shading frame, the material and
-// area-light ids (bitcast words 25/26), and the miss-lane placeholders
-// (:684-698). Lanes whose prim is below nq would be quadric hits; the port
-// accepts no real quadrics, so such lanes are misses and only take the
-// placeholders.
+// face-forward, dpdu/dpdv, dndu/dndv, the material and area-light ids
+// (bitcast words 25/26). Quadric lanes (prim < nq, the branch of :556-595
+// with ops/quadrics.py quadric_intersect :245): the ray in the quadric's
+// object space, the full hit of its type (quadrics.cuh) re-intersected at
+// t*1.0001+1e-4, p through o2w with the conservative error bound
+// e1 + gamma(3) (e2 + |translation|), the normal cross(dpdu, dpdv) with the
+// reverse flip, dndu/dndv from the closed forms (dp/r on a sphere, dp/du / r
+// on a cylinder, 0 on a disk) through the inverse transpose. Both then take
+// the shading frame, and miss lanes the placeholders (:684-698). The
+// kernel is built twice: a scene whose one quadric row is the never-hit
+// dummy launches the instantiation without the quadric branch, the
+// triangle-only kernel (one kernel with the branch took 4-6% longer on
+// triangle lanes: tools/bench_step_kernels.py --kernels K2).
 //
 // Bound: the dependent 128-byte row read per lane and the 15 output
-// streams (about 150 bytes written per lane); the arithmetic (some 300 flops)
-// stays in registers. Outputs are struct-of-arrays so that each stream is
-// written coalesced.
-#include "common.cuh"
+// streams (about 150 bytes written per lane); the arithmetic (some 300 flops
+// a triangle lane, some 400 and acosf, sinf, atan2f a sphere lane) stays in
+// registers. Outputs are struct-of-arrays so that each stream is written
+// coalesced. A quadric lane reads its quadric's 38 words, the same for
+// every lane that hits it.
+#include "quadrics.cuh"
 
 namespace {
 
 using rt::V3;
+
+struct Quadrics {
+    const int* type;
+    const float *o2w, *w2o, *params;  // (Q, 4, 4), (Q, 4, 4), (Q, 4)
+    const int *material, *arealight;
+    const bool* reverse;
+};
 
 struct Outs {
     float *p, *p_error, *n, *uv, *dpdu, *dpdv, *ns, *ss, *ts, *dndu, *dndv, *wo;
@@ -32,7 +50,96 @@ __device__ __forceinline__ V3 bary(float b0, float b1, float b2, V3 a, V3 b, V3 
             b0 * a.z + b1 * b.z + b2 * c.z};
 }
 
+__device__ __forceinline__ V3 rows3(const float* m, V3 v) {
+    return {m[0] * v.x + m[1] * v.y + m[2] * v.z, m[4] * v.x + m[5] * v.y + m[6] * v.z,
+            m[8] * v.x + m[9] * v.y + m[10] * v.z};
+}
+
+// core/transform.py xform_point: rows 0-2 and the divide by w
+__device__ __forceinline__ V3 xform_point(const float* m, V3 p) {
+    V3 r = rows3(m, p);
+    float w = m[12] * p.x + m[13] * p.y + m[14] * p.z + m[15];
+    float inv_w = 1.0f / w;
+    return {(r.x + m[3]) * inv_w, (r.y + m[7]) * inv_w, (r.z + m[11]) * inv_w};
+}
+
+// core/transform.py xform_normal: the columns of the inverse
+__device__ __forceinline__ V3 xform_normal(const float* m_inv, V3 n) {
+    return {m_inv[0] * n.x + m_inv[4] * n.y + m_inv[8] * n.z,
+            m_inv[1] * n.x + m_inv[5] * n.y + m_inv[9] * n.z,
+            m_inv[2] * n.x + m_inv[6] * n.y + m_inv[10] * n.z};
+}
+
+__device__ __forceinline__ V3 abs3(V3 v) { return {fabsf(v.x), fabsf(v.y), fabsf(v.z)}; }
+
+// the quadric branch of tables.py build_interaction (:556-595) for lane
+// quadric qid: world-space p, error, uv, dpdu/dpdv, normal and dndu/dndv
+struct QuadricSurface {
+    V3 p, p_error, n, dpdu, dpdv, dndu, dndv;
+    float u, v;
+};
+
+// inlined, the tables by value: an out-of-line call (a 208-byte stack
+// frame) made every lane 1.6x slower, and this form beat the one taking
+// the tables by reference by 10% on quadric lanes
+__device__ __forceinline__ QuadricSurface quadric_surface(const Quadrics qs, int qid, V3 o, V3 d,
+                                                          float t) {
+    float o2w[16], w2o[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        o2w[k] = qs.o2w[16 * qid + k];
+        w2o[k] = qs.w2o[16 * qid + k];
+    }
+    const float* pr = qs.params + 4 * qid;
+    rt::QParams q{pr[0], pr[1], pr[2], pr[3]};
+    int type = qs.type[qid];
+    rt::QuadricHit qh = rt::quadric_intersect(type, xform_point(w2o, o), rows3(w2o, d),
+                                              t * 1.0001f + 1e-4f, q);
+    QuadricSurface s;
+    s.p = xform_point(o2w, qh.p);
+    // conservative world-space error: |M| err + gamma(3) (|M| |p| + |trans|)
+    float abs_m[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) abs_m[k] = fabsf(o2w[k]);
+    V3 e1 = rows3(abs_m, qh.p_error), e2 = rows3(abs_m, abs3(qh.p));
+    s.p_error = {e1.x + rt::kGamma3 * (e2.x + abs_m[3]), e1.y + rt::kGamma3 * (e2.y + abs_m[7]),
+                 e1.z + rt::kGamma3 * (e2.z + abs_m[11])};
+    s.dpdu = rows3(o2w, qh.dpdu);
+    s.dpdv = rows3(o2w, qh.dpdv);
+    s.n = rt::normalize(rt::cross(s.dpdu, s.dpdv));
+    // dn/du = dp/du / r except on a disk, dn/dv = dp/dv / r on a sphere only
+    float inv_r = 1.0f / fmaxf(q.r0, 1e-8f);
+    float ku = type == rt::kDisk ? 0.0f : inv_r;
+    float kv = type == rt::kSphere ? inv_r : 0.0f;
+    s.dndu = xform_normal(w2o, qh.dpdu * ku);
+    s.dndv = xform_normal(w2o, qh.dpdv * kv);
+    if (qs.reverse[qid]) {
+        s.n = -s.n;
+        s.dndu = -s.dndu;
+        s.dndv = -s.dndv;
+    }
+    s.u = qh.u;
+    s.v = qh.v;
+    return s;
+}
+
+__device__ __forceinline__ V3 finite_or_zero(V3 v) {
+    return {isfinite(v.x) ? v.x : 0.0f, isfinite(v.y) ? v.y : 0.0f, isfinite(v.z) ? v.z : 0.0f};
+}
+
+// core/interaction.py make_shading_frame
+__device__ __forceinline__ void shading_frame(V3 ns, V3 dpdu, V3* ss, V3* ts) {
+    *ss = rt::normalize(dpdu - rt::dot(dpdu, ns) * ns);
+    if (rt::dot(*ss, *ss) < 1e-12f) {
+        V3 unused;
+        rt::coordinate_system(ns, ss, &unused);
+    }
+    *ts = rt::cross(ns, *ss);
+}
+
+template <bool kQuadrics>
 __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int n_tris, int nq,
+                                         Quadrics qs,
                                          const float* __restrict__ o_in,
                                          const float* __restrict__ d_in,
                                          const float* __restrict__ t_max,
@@ -47,9 +154,7 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
     int prim = prim_in[i];
     float t = t_in[i];
     rt::store3(out.wo + 3 * i, rt::normalize(-d));
-    // quadric hits cannot occur (no real quadrics): is_tri decides validity
-    bool tri = hit && prim >= nq;
-    if (!tri) {
+    if (!hit) {
         rt::store3(out.p + 3 * i, o);
         rt::store3(out.p_error + 3 * i, V3{0.0f, 0.0f, 0.0f});
         rt::store3(out.n + 3 * i, V3{0.0f, 0.0f, 1.0f});
@@ -65,6 +170,28 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
         out.material[i] = -1;
         out.arealight[i] = -1;
         out.prim_id[i] = -1;
+        return;
+    }
+    if (kQuadrics && prim < nq) {
+        QuadricSurface qsf = quadric_surface(qs, min(max(prim, 0), nq - 1), o, d, t);
+        V3 ss, ts;
+        shading_frame(qsf.n, qsf.dpdu, &ss, &ts);
+        rt::store3(out.p + 3 * i, qsf.p);
+        rt::store3(out.p_error + 3 * i, qsf.p_error);
+        rt::store3(out.n + 3 * i, qsf.n);
+        rt::store3(out.ns + 3 * i, qsf.n);
+        rt::store3(out.ss + 3 * i, ss);
+        rt::store3(out.ts + 3 * i, ts);
+        out.uv[2 * i] = qsf.u;
+        out.uv[2 * i + 1] = qsf.v;
+        rt::store3(out.dpdu + 3 * i, qsf.dpdu);
+        rt::store3(out.dpdv + 3 * i, qsf.dpdv);
+        rt::store3(out.dndu + 3 * i, finite_or_zero(qsf.dndu));
+        rt::store3(out.dndv + 3 * i, finite_or_zero(qsf.dndv));
+        int qid = min(max(prim, 0), nq - 1);
+        out.material[i] = qs.material[qid];
+        out.arealight[i] = qs.arealight[qid];
+        out.prim_id[i] = prim;
         return;
     }
     int tid = min(max(prim - nq, 0), n_tris - 1);
@@ -117,18 +244,8 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
             dndv = -dndv;
         }
     }
-    auto finite_or_zero = [](V3 v) {
-        return V3{isfinite(v.x) ? v.x : 0.0f, isfinite(v.y) ? v.y : 0.0f,
-                  isfinite(v.z) ? v.z : 0.0f};
-    };
-
-    // shading frame (core/interaction.py make_shading_frame)
-    V3 ss = rt::normalize(dpdu - rt::dot(dpdu, ns) * ns);
-    if (rt::dot(ss, ss) < 1e-12f) {
-        V3 unused;
-        rt::coordinate_system(ns, &ss, &unused);
-    }
-    V3 ts = rt::cross(ns, ss);
+    V3 ss, ts;
+    shading_frame(ns, dpdu, &ss, &ts);
 
     rt::store3(out.p + 3 * i, p);
     rt::store3(out.p_error + 3 * i, p_error);
@@ -149,18 +266,24 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
 
 }  // namespace
 
-extern "C" int rt_build_interaction_tri(
-    const void* t_shade, int n_tris, int nq, const void* o, const void* d, const void* t_max,
-    const void* hit, const void* t, const void* prim, int n, void* p, void* p_error, void* ng,
-    void* uv, void* dpdu, void* dpdv, void* ns, void* ss, void* ts, void* dndu, void* dndv,
-    void* wo, void* material, void* arealight, void* prim_id, void* stream) {
+extern "C" int rt_build_interaction(
+    const void* t_shade, int n_tris, int nq, int with_quadrics, const void* q_type, const void* q_o2w,
+    const void* q_w2o, const void* q_params, const void* q_material, const void* q_arealight,
+    const void* q_reverse, const void* o, const void* d, const void* t_max, const void* hit,
+    const void* t, const void* prim, int n, void* p, void* p_error, void* ng, void* uv,
+    void* dpdu, void* dpdv, void* ns, void* ss, void* ts, void* dndu, void* dndv, void* wo,
+    void* material, void* arealight, void* prim_id, void* stream) {
+    Quadrics qs{(const int*)q_type,     (const float*)q_o2w,      (const float*)q_w2o,
+                (const float*)q_params, (const int*)q_material, (const int*)q_arealight,
+                (const bool*)q_reverse};
     Outs out{(float*)p,    (float*)p_error, (float*)ng,       (float*)uv,
              (float*)dpdu, (float*)dpdv,    (float*)ns,       (float*)ss,
              (float*)ts,   (float*)dndu,    (float*)dndv,     (float*)wo,
              (int*)material, (int*)arealight, (int*)prim_id};
     constexpr int kThreads = 128;
-    build_interaction_kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)t_shade, n_tris, nq, (const float*)o, (const float*)d, (const float*)t_max,
-        (const bool*)hit, (const float*)t, (const int*)prim, n, out);
+    auto kernel = with_quadrics ? build_interaction_kernel<true> : build_interaction_kernel<false>;
+    kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)t_shade, n_tris, nq, qs, (const float*)o, (const float*)d,
+        (const float*)t_max, (const bool*)hit, (const float*)t, (const int*)prim, n, out);
     return (int)cudaGetLastError();
 }

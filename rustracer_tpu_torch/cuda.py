@@ -35,7 +35,8 @@ from ._build import CSRC, compile_shared
 
 CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
-              "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")
+              "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu",
+              "quadrics.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,7 +53,10 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P],
     "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
                        _P, _P, _P, _P, _P, _P],
-    "build_interaction_tri": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I]
+    # t_shade, n_tris, nq, whether a quadric is real (the kernel with the
+    # quadric branch), the 7 quadric tables (scene/tables.py QUADRIC_KEYS),
+    # the rays and hits, n, 15 outputs, stream
+    "build_interaction": [_P, _I, _I, _I] + [_P] * 7 + [_P] * 6 + [_I]
     + [_P] * 15 + [_P],
     "atlas_lookup_ewa": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _P],
@@ -76,6 +80,9 @@ SIGNATURES = {
     + [_P, _P, _I, _P, _P, _P],
     "spatial_pmf_lookup": [_P, _P, _I] + [_F] * 6 + [_I] * 3
     + [_P, _I, _P, _P],
+    # q_type, q_w2o, q_params, nq, o, d, t_max, n, outputs, stream
+    "quadric_closest": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "quadric_any": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
 }
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
@@ -88,9 +95,12 @@ BACKWARD_KERNELS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
 # with a grid (scene/lightdistrib.py); the scenes built in code have none
 GRID_KERNELS = ("spatial_grid_contrib", "spatial_light_pick",
                 "spatial_pmf_lookup")
+# the quadrics' hit search (K14), launched only for a scene with a sphere,
+# cylinder or disk; the dragon and the Cornell box have none
+QUADRIC_KERNELS = ("quadric_closest", "quadric_any")
 # the kernels of the textured dragon's forward render
-FORWARD_KERNELS = tuple(k for k in SIGNATURES
-                        if k not in BACKWARD_KERNELS + GRID_KERNELS)
+FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
+                        BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()

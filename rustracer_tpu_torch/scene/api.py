@@ -9,9 +9,11 @@ the port's tables (scene/bundle.py).
 
 What renders: transforms and LookAt; ``Texture`` of class ``constant`` and
 ``imagemap`` (uv mapping, served through the shared atlas) as float and
-spectrum; ``Material "matte"`` (a ``sigma`` that is the constant 0 is the
-Lambertian lobe the reference picks for it); ``Shape "trianglemesh"`` and
-``"plymesh"``; ``AreaLightSource "diffuse"``. Every other shape, material,
+spectrum, and the 2D ``checkerboard`` spectrum texture over constant
+textures; ``Material "matte"`` (a ``sigma`` that is the constant 0 is the
+Lambertian lobe the reference picks for it); ``Shape "trianglemesh"``,
+``"plymesh"``, ``"sphere"``, ``"cylinder"`` and ``"disk"``;
+``AreaLightSource "diffuse"`` on triangle meshes. Every other shape, material,
 texture, light, instancing and alpha raises NotImplementedError naming the
 feature and the ROADMAP.md item (section A) that ports it; nothing is
 substituted. The reference's own unimplemented shapes keep its error, and
@@ -118,6 +120,15 @@ class GraphicsState:
 
 
 @dataclasses.dataclass
+class QuadricRecord:
+    qtype: int                  # ops/quadrics.py SPHERE, CYLINDER, DISK
+    o2w: Transform
+    params: np.ndarray          # (4,) float32, ops/quadrics.py's layout
+    material: int
+    reverse: bool
+
+
+@dataclasses.dataclass
 class MeshRecord:
     o2w: Transform              # applied at emit time
     p: np.ndarray               # (V, 3) object space
@@ -147,6 +158,7 @@ class RenderOptions:
     camera_to_world: Transform = dataclasses.field(default_factory=Transform)
     lights: List[dict] = dataclasses.field(default_factory=list)
     meshes: List[MeshRecord] = dataclasses.field(default_factory=list)
+    quadrics: List[QuadricRecord] = dataclasses.field(default_factory=list)
 
 
 class RealApi:
@@ -372,8 +384,6 @@ class RealApi:
     # --- shapes ---
     def shape(self, name, params):
         self._verify_world("shape")
-        if name in ("sphere", "cylinder", "disk"):
-            raise not_ported(f"Shape {name!r} (quadrics)", GEOMETRY)
         # the material is built before the shape is looked at, as the
         # reference does (its constants take the next texture keys)
         mid = self._current_material_id()
@@ -383,18 +393,27 @@ class RealApi:
             # unimplemented in the reference too
             raise NotImplementedError(f"shape {name!r} is unimplemented "
                                       "(matches reference api.rs:1134)")
-        if name not in ("trianglemesh", "plymesh"):
+        if name not in ("trianglemesh", "plymesh", "sphere", "cylinder",
+                        "disk"):
             log.error("shape %r unknown", name)
             return
-        for alpha in ("alpha", "shadowalpha"):
-            if params.has(alpha):
-                raise not_ported(f"Shape {name!r} with {alpha!r} (alpha "
-                                 "cutouts)", GEOMETRY)
         if mid < 0 and al_spec is None:
             raise not_ported("a shape with material \"none\" (medium "
                              "interfaces)", GEOMETRY)
         o2w = self.cur_transform
         rev = self.graphics.reverse_orientation ^ o2w.swaps_handedness()
+        if name in ("sphere", "cylinder", "disk"):
+            if al_spec is not None:
+                raise not_ported(f"an area light on Shape {name!r} (quadric "
+                                 "area lights)", LIGHTS)
+            self.render_options.quadrics.append(
+                QuadricRecord(("sphere", "cylinder", "disk").index(name), o2w,
+                              self._quadric_params(name, params), mid, rev))
+            return
+        for alpha in ("alpha", "shadowalpha"):
+            if params.has(alpha):
+                raise not_ported(f"Shape {name!r} with {alpha!r} (alpha "
+                                 "cutouts)", GEOMETRY)
         if name == "trianglemesh":
             idx = params.find_int("indices")
             p = params.find_point3("P")
@@ -415,6 +434,23 @@ class RealApi:
                 p, n, uv, idx = read_ply(fname)
             rec = MeshRecord(o2w, p, n, None, uv, idx, mid, al_spec, rev)
         self.render_options.meshes.append(rec)
+
+    @staticmethod
+    def _quadric_params(name, params) -> np.ndarray:
+        """The parameter row of a sphere, cylinder or disk with the
+        reference's defaults (rustracer_tpu/scene/api.py:484-510): z
+        bounds ordered, phimax in radians."""
+        phimax = np.deg2rad(params.find_one_float("phimax", 360.0))
+        if name == "disk":
+            return np.array([params.find_one_float("height", 0.0),
+                             params.find_one_float("radius", 1.0),
+                             params.find_one_float("innerradius", 0.0),
+                             phimax], np.float32)
+        r = params.find_one_float("radius", 1.0)
+        zmin = params.find_one_float("zmin", -r if name == "sphere" else -1.0)
+        zmax = params.find_one_float("zmax", r if name == "sphere" else 1.0)
+        return np.array([r, min(zmin, zmax), max(zmin, zmax), phimax],
+                        np.float32)
 
     def _area_light_spec(self):
         if not self.graphics.area_light:
@@ -506,8 +542,19 @@ class RealApi:
                 wrap={"repeat": WRAP_REPEAT, "black": 1, "clamp": 2}
                 .get(tp.find_string("wrap", "repeat"), WRAP_REPEAT),
                 scale=tp.find_float("scale", 1.0), is_spectrum=is_spectrum)
+        if is_spectrum and cls == "checkerboard":
+            if tp.find_int("dimension", 2) != 2:
+                log.warning("3D checkerboard unsupported; using 2D")
+            aa = tp.find_string("aamode", "closedform")
+            tex1 = tp.get_spectrum_texture("tex1", (1,) * 3)
+            tex2 = tp.get_spectrum_texture("tex2", (0,) * 3)
+            if not (tex1.is_constant and tex2.is_constant):
+                raise not_ported("a checkerboard of textures that are not "
+                                 "constant", SHADING)
+            return T.CheckerboardTexture(tex1, tex2, self._mapping_2d(tp),
+                                         aa=aa)
         if cls in ("scale", "mix", "fbm", "wrinkled", "windy") or (
-                is_spectrum and cls in ("uv", "checkerboard", "marble")):
+                is_spectrum and cls in ("uv", "marble")):
             raise not_ported(f"{kind} Texture class {cls!r}", SHADING)
         log.error("%s texture %r unimplemented (reference "
                   "api.rs:1201-1259)", kind, cls)

@@ -1,14 +1,17 @@
 """SceneBundle: the frozen, renderable scene that WorldEnd produces (port of
-rustracer_tpu/scene/bundle.py for triangle scenes).
+rustracer_tpu/scene/bundle.py for triangle and quadric scenes).
 
 ``build_bundle`` freezes the parsed records into the port's tables on the
-api's device: the meshes transformed to world space and concatenated (one
-area-light row a triangle of an emissive mesh), the wide BVH from the
-port's copy of the SAH builder (always: the reference tests scenes of at
-most 8 primitives one by one, which renders the same), the light tables
-with the scene's bounds, the film, filter, camera and sampler, and the
-path integrator with its spatial light grid (scene/lightdistrib.py) unless
-the scene asks for the uniform strategy or has a single light. The
+api's device: the quadrics' tables (their prim ids first, as the
+reference numbers them), the meshes transformed to world space and
+concatenated (one area-light row a triangle of an emissive mesh), the wide
+BVH over the triangles from the port's copy of the SAH builder (always:
+the reference tests scenes of at most 8 primitives one by one, which
+renders the same; the quadrics are searched brute force, as there), the
+light tables with the scene's bounds (quadrics included), the film,
+filter, camera and sampler, and the path integrator with its spatial light
+grid (scene/lightdistrib.py) unless the scene asks for the uniform
+strategy or has a single light. The
 reference's quirks stay: the film's ``rt-`` filename prefix and the crop
 window's PBRT order [x0 x1 y0 y1].
 """
@@ -23,6 +26,7 @@ import torch
 
 from ..accel.bvh_build import build_wide_arrays
 from ..integrators.path import PathIntegrator
+from ..ops.quadrics import quadric_world_bounds_np
 from ..render.camera import PerspectiveCamera
 from ..render.film import Film
 from ..render.filters import make_filter
@@ -72,12 +76,30 @@ class SceneBundle:
                                                  sample_stop=sample_stop))
 
 
+def _emit_quadrics(api):
+    """Quadric records -> the numpy ``quadrics`` dict of make_geometry, or
+    None (the reference's bundle.py:117-129; no quadric here carries an
+    area light)."""
+    recs = api.render_options.quadrics
+    if not recs:
+        return None
+    return dict(
+        q_type=np.array([r.qtype for r in recs], np.int32),
+        q_o2w=np.stack([r.o2w.m for r in recs]),
+        q_w2o=np.stack([r.o2w.m_inv for r in recs]),
+        q_params=np.stack([r.params for r in recs]),
+        q_material=np.array([r.material for r in recs], np.int32),
+        q_arealight=np.full(len(recs), -1, np.int32),
+        q_reverse=np.array([r.reverse for r in recs], bool))
+
+
 def _emit_geometry(api):
     """Mesh records -> the numpy ``tris`` dict and the light rows (one a
-    triangle of an emissive mesh)."""
+    triangle of an emissive mesh, its prim id after the quadrics')."""
     ro = api.render_options
     light_rows = list(ro.lights)
-    n_quad_slots = 1   # the never-hit dummy quadric occupies prim 0
+    # the quadrics' ids come first; the dummy takes id 0 when there are none
+    n_quad_slots = max(len(ro.quadrics), 1)
     vs, ns_, uvs, ss_, idxs = [], [], [], [], []
     t_mat, t_al, t_rev, t_has_n, t_has_uv = [], [], [], [], []
     v_off = 0
@@ -130,9 +152,16 @@ def _emit_geometry(api):
     return tris, light_rows
 
 
-def _world_bounds(tris):
-    """-> (center, radius, lo, hi) of the triangles' vertices."""
-    lo, hi = tris["tv_p"].min(0), tris["tv_p"].max(0)
+def _world_bounds(tris, quad):
+    """-> (center, radius, lo, hi) of the triangles' vertices and the
+    quadrics' world boxes."""
+    los, his = [tris["tv_p"].min(0)], [tris["tv_p"].max(0)]
+    if quad is not None:
+        lo, hi = quadric_world_bounds_np(quad["q_type"], quad["q_o2w"],
+                                         quad["q_params"])
+        los.append(lo.min(0))
+        his.append(hi.max(0))
+    lo, hi = np.min(np.stack(los), 0), np.max(np.stack(his), 0)
     center = 0.5 * (lo + hi)
     radius = float(np.linalg.norm(hi - center)) or 1.0
     return center, radius, lo, hi
@@ -209,10 +238,11 @@ def build_bundle(api, device="cuda") -> SceneBundle:
     if iname in ("directlighting", "whitted", "ao", "ambientocclusion",
                  "normal"):
         raise not_ported(f"Integrator {iname!r}", INTEGRATORS)
+    quad = _emit_quadrics(api)
     tris, light_rows = _emit_geometry(api)
     bvh = _bvh(ro, tris)
-    geom = make_geometry(tris, bvh=bvh, device=dev)
-    center, radius, world_lo, world_hi = _world_bounds(tris)
+    geom = make_geometry(tris, bvh=bvh, quadrics=quad, device=dev)
+    center, radius, world_lo, world_hi = _world_bounds(tris, quad)
     lights = make_lights(light_rows, geom, world_center=center,
                          world_radius=radius, device=dev)
     film = _film(ro)

@@ -58,7 +58,7 @@ def make_lights(rows, geom, world_center=(0.0, 0.0, 0.0), world_radius=100.0,
         if r["type"] != LIGHT_AREA or r.get("prim", -1) < nq:
             raise NotImplementedError(
                 "area lights on quadrics are not ported yet (ROADMAP.md, "
-                "section A, item 15); only area lights on triangles are")
+                "section A, item 14); only area lights on triangles are")
         tid = int(r["prim"]) - nq
         pts = tv_p[t_idx[tid]]
         l_tri_p[i] = pts

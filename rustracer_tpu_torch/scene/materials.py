@@ -1,12 +1,13 @@
 """Materials (port of rustracer_tpu/scene/materials.py: the matte material
-over constant and image textures, and the batched dispatch).
+over constant, checkerboard and image textures, and the batched dispatch).
 
 ``MaterialSet.shade`` builds one (n_materials, M, ...) table from the
 materials whose textures are all constant and gathers it by material id
-(the parameter rows through hand kernel K8). Materials with image textures
-are evaluated per lane and written over their lanes; their image textures
-are served by one atlas EWA lookup (hand kernel K5) per parameter slot for
-the whole wavefront.
+(the parameter rows through hand kernel K8). Materials with a texture whose
+value depends on the interaction (``is_constant`` False: checkerboards,
+images) are evaluated per lane and written over their lanes; their image
+textures are served by one atlas EWA lookup (hand kernel K5) per parameter
+slot for the whole wavefront.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ class MatteMaterial:
 def _is_uniform(m) -> bool:
     """Every texture of ``m`` is constant: its lobe rows are the same on
     every lane."""
-    return all(not isinstance(v, ImageTexture) for v in vars(m).values())
+    return all(t.is_constant for t in vars(m).values())
 
 
 def _atlas_eligible(t) -> bool:

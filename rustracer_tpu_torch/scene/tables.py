@@ -1,11 +1,12 @@
 """Scene geometry tables and the closest-hit / any-hit / interaction path
-(port of rustracer_tpu/scene/tables.py for triangle scenes) with hand
-kernel K2 (csrc/interaction.cu).
+(port of rustracer_tpu/scene/tables.py for triangle and quadric scenes)
+with hand kernels K1 (accel/traverse16.py), K14 (csrc/quadrics.cu) and K2
+(csrc/interaction.cu).
 
 Global primitive ids keep the reference's layout: [0, nq) are quadrics and
-[nq, nq + T) triangles. The port accepts no real quadric yet; every scene
-carries the reference's one never-hit dummy quadric (nq = 1), so the
-quadric branch of the reference is skipped while the ids stay the same.
+[nq, nq + T) triangles. A scene without a sphere, cylinder or disk carries
+the reference's one never-hit dummy quadric (nq = 1); its quadric search
+is skipped (no K14 launch), which leaves every result as it was.
 """
 from __future__ import annotations
 
@@ -18,22 +19,56 @@ from .. import cuda
 from ..accel.bvh_build import build_wide_arrays
 from ..accel.traverse16 import traverse16
 from ..core.interaction import Interaction, make_shading_frame
-from ..core.math import cross, face_forward, normalize
+from ..core.math import INFINITY, cross, face_forward, gamma, normalize
 from ..core.ray import Ray
+from ..core.transform import (apply_mat3, xform_normal, xform_point,
+                              xform_vector)
+from ..ops.quadrics import quadric_hit_t, quadric_intersect
 from ..ops.triangle import (triangle_intersect, triangle_normal_derivs,
                             triangle_partial_derivs, triangle_point_error)
 
+# the dummy quadric's count: the triangle ids of a scene without quadrics
+# start here
 N_DUMMY_QUADRICS = 1
+QUADRIC_KEYS = ("q_type", "q_o2w", "q_w2o", "q_params", "q_material",
+                "q_arealight", "q_reverse")
+
+
+def dummy_quadric() -> dict:
+    """The reference's never-hit placeholder: a zero-radius sphere over
+    z in [1, 2] (rustracer_tpu/scene/tables.py _dummy_quadric)."""
+    return dict(
+        q_type=np.zeros(1, np.int32),
+        q_o2w=np.eye(4, dtype=np.float32)[None],
+        q_w2o=np.eye(4, dtype=np.float32)[None],
+        q_params=np.array([[0.0, 1.0, 2.0, 2.0 * np.pi]], np.float32),
+        q_material=np.full(1, -1, np.int32),
+        q_arealight=np.full(1, -1, np.int32),
+        q_reverse=np.zeros(1, bool))
+
+
+def dummy_tris() -> dict:
+    """One degenerate, never-hit triangle: the triangle tables of a scene
+    of quadrics alone (rustracer_tpu/scene/tables.py _dummy_tris)."""
+    return dict(
+        tv_p=np.zeros((3, 3), np.float32), tv_n=np.zeros((3, 3), np.float32),
+        tv_uv=np.zeros((3, 2), np.float32), tv_s=np.zeros((3, 3), np.float32),
+        t_idx=np.zeros((1, 3), np.int32), t_material=np.full(1, -1, np.int32),
+        t_arealight=np.full(1, -1, np.int32), t_reverse=np.zeros(1, bool),
+        t_has_n=np.zeros(1, bool), t_has_uv=np.zeros(1, bool))
 
 
 @dataclasses.dataclass
 class GeometryTables:
-    """Device tables of a triangle scene.
+    """Device tables of a scene.
 
     t_shade row layout (one (T, 32) row gather per hit):
       [0:9) p0 p1 p2 | [9:18) n0 n1 n2 | [18:24) uv0 uv1 uv2 |
       24 flags (bit0 has_uv, bit1 has_n, bit2 reverse; int32 bits) |
       25 material | 26 area light (int32 bits) | 27:32 zero
+    Quadrics (the dummy's one row when the scene has none): q_params rows
+    as ops/quadrics.py lays them out; q_reverse is reverse_orientation ^
+    swaps_handedness.
     """
     tv_p: torch.Tensor          # (V, 3) f32
     t_idx: torch.Tensor         # (T, 3) i32
@@ -42,7 +77,25 @@ class GeometryTables:
     bvh16_table: torch.Tensor   # (R, 128) f32 (accel/bvh_build.py layout)
     bvh16_roots: torch.Tensor   # (8,) i32 per-octant root rows
     bvh16_depth: int            # wide-tree depth (stack size of the walk)
-    n_quadrics: int = N_DUMMY_QUADRICS
+    q_type: torch.Tensor        # (Q,) i32: 0 sphere, 1 cylinder, 2 disk
+    q_o2w: torch.Tensor         # (Q, 4, 4) f32
+    q_w2o: torch.Tensor         # (Q, 4, 4) f32
+    q_params: torch.Tensor      # (Q, 4) f32
+    q_material: torch.Tensor    # (Q,) i32 (-1 none)
+    q_arealight: torch.Tensor   # (Q,) i32 (-1 none)
+    q_reverse: torch.Tensor     # (Q,) bool
+    # False when the one quadric row is the dummy: a real quadric has a
+    # material or an area light (make_geometry refuses one with neither),
+    # the dummy neither. Read once here, on the host.
+    has_quadrics: bool = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.has_quadrics = bool((self.q_material[0] >= 0)
+                                 | (self.q_arealight[0] >= 0))
+
+    @property
+    def n_quadrics(self):
+        return self.q_type.shape[0]
 
     @property
     def n_triangles(self):
@@ -69,24 +122,28 @@ def pack_shade_rows(t: dict) -> np.ndarray:
     return rec
 
 
-def make_geometry(tris: dict, bvh: dict = None, quadrics: dict = None,
+def make_geometry(tris: dict = None, bvh: dict = None, quadrics: dict = None,
                   device="cuda") -> GeometryTables:
-    """Host arrays (numpy, the reference's ``tris`` dict) -> device tables.
-
-    ``bvh`` is the output of ``accel.bvh_build.build_wide_arrays``, built
-    here when absent. The caller's dicts are read, never modified."""
-    if quadrics is not None and len(quadrics.get("q_type", [])):
-        raise NotImplementedError(
-            "quadric shapes are not ported yet (ROADMAP.md, section A, "
-            "item 5); only triangle scenes render")
+    """Host arrays (numpy, the reference's ``tris`` and ``quadrics`` dicts)
+    -> device tables; no quadric gives the dummy row, no triangle the
+    dummy triangle. ``bvh`` is the output of
+    ``accel.bvh_build.build_wide_arrays``, built here when absent. The
+    caller's dicts are read, never modified."""
+    has_q = quadrics is not None and len(quadrics.get("q_type", [])) > 0
+    has_t = tris is not None and len(tris.get("t_idx", [])) > 0
+    for src, has, mk, ak in ((tris, has_t, "t_material", "t_arealight"),
+                             (quadrics, has_q, "q_material", "q_arealight")):
+        if has and np.any((np.asarray(src[mk]) < 0)
+                          & (np.asarray(src[ak]) < 0)):
+            raise NotImplementedError("medium-interface primitives (no "
+                                      "material, no area light) are not "
+                                      "ported yet")
+    q = quadrics if has_q else dummy_quadric()
+    tris = tris if has_t else dummy_tris()
     for key in ("t_alpha_tex", "t_shadow_alpha_tex"):
         if key in tris and np.any(np.asarray(tris[key]) >= 0):
             raise NotImplementedError(f"{key}: alpha cutouts are not ported "
                                       "yet (ROADMAP.md, section A, item 15)")
-    if np.any((np.asarray(tris["t_material"]) < 0)
-              & (np.asarray(tris["t_arealight"]) < 0)):
-        raise NotImplementedError("medium-interface triangles (no material, "
-                                  "no area light) are not ported yet")
     if bvh is None:
         bvh = build_wide_arrays(tris["tv_p"], tris["t_idx"])
 
@@ -101,17 +158,108 @@ def make_geometry(tris: dict, bvh: dict = None, quadrics: dict = None,
         t_shade=tens(pack_shade_rows(tris), torch.float32),
         bvh16_table=tens(bvh["bvh16_table"], torch.float32),
         bvh16_roots=tens(bvh["bvh16_roots"], torch.int32),
-        bvh16_depth=int(bvh["bvh16_depth"]))
+        bvh16_depth=int(bvh["bvh16_depth"]),
+        q_type=tens(q["q_type"], torch.int32),
+        q_o2w=tens(q["q_o2w"], torch.float32),
+        q_w2o=tens(q["q_w2o"], torch.float32),
+        q_params=tens(q["q_params"], torch.float32),
+        q_material=tens(q["q_material"], torch.int32),
+        q_arealight=tens(q["q_arealight"], torch.int32),
+        q_reverse=tens(q["q_reverse"], torch.bool))
 
 
 # ---------------------------------------------------------------------------
 # intersection
 # ---------------------------------------------------------------------------
 
+def quadric_object_ray(geom: GeometryTables, i: int, o, d):
+    """Rays (o, d) in quadric i's object space as component triples: rows
+    0-2 of its w2o in the reference's component form (tables.py:253-258),
+    as K14 computes them."""
+    m = geom.q_w2o[i]
+    oc = tuple(m[r, 0] * o[:, 0] + m[r, 1] * o[:, 1] + m[r, 2] * o[:, 2]
+               + m[r, 3] for r in range(3))
+    dc = tuple(m[r, 0] * d[:, 0] + m[r, 1] * d[:, 1] + m[r, 2] * d[:, 2]
+               for r in range(3))
+    return oc, dc
+
+
+def intersect_quadrics_all_plain(geom: GeometryTables, o, d, t_max):
+    """Plain PyTorch version of K14's closest hit: the reference's loop
+    over the quadrics (rustracer_tpu/scene/tables.py intersect_quadrics_all)
+    -> (hit, t (INF on a miss), qid (0 on a miss))."""
+    t_best = t_max
+    qid = torch.full(t_max.shape, -1, dtype=torch.int32, device=t_max.device)
+    for i, q_type in enumerate(geom.q_type.tolist()):
+        t, hit = quadric_hit_t(q_type, *quadric_object_ray(geom, i, o, d),
+                               t_best, geom.q_params[i])
+        better = hit & (t < t_best)
+        t_best = torch.where(better, t, t_best)
+        qid = torch.where(better, i, qid)
+    hit = qid >= 0
+    return hit, torch.where(hit, t_best, INFINITY), qid.clamp(min=0)
+
+
+def _check_quadric_call(geom, o, d, t_max):
+    n, dev = o.shape[0], o.device
+    nq = geom.n_quadrics
+    cuda.check(geom.q_type, "q_type", torch.int32, (nq,), dev)
+    cuda.check(geom.q_w2o, "q_w2o", torch.float32, (nq, 4, 4), dev)
+    cuda.check(geom.q_params, "q_params", torch.float32, (nq, 4), dev)
+    cuda.check(o, "o", torch.float32, (n, 3), dev)
+    cuda.check(d, "d", torch.float32, (n, 3), dev)
+    cuda.check(t_max, "t_max", torch.float32, (n,), dev)
+
+
+def intersect_quadrics_all(geom: GeometryTables, o, d, t_max):
+    """Closest hit of the rays (o (B, 3), d (B, 3), t_max (B,)) over every
+    quadric -> (hit, t (INF on a miss), qid (0 on a miss)). CPU tensors
+    take the plain version, CUDA tensors launch K14 (quadric_closest)."""
+    if not cuda.use_kernel(o):
+        return intersect_quadrics_all_plain(geom, o, d, t_max)
+    _check_quadric_call(geom, o, d, t_max)
+    n, dev = o.shape[0], o.device
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    qid = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        cuda.launch("quadric_closest", geom.q_type, geom.q_w2o,
+                    geom.q_params, geom.n_quadrics, o, d, t_max, n, hit, t,
+                    qid)
+    return hit, t, qid
+
+
+def quadrics_any_hit(geom: GeometryTables, o, d, t_max):
+    """(B,) bool: the ray hits some quadric below t_max (the closest
+    search's hit). CPU tensors take the plain version, CUDA tensors launch
+    K14 (quadric_any), which stops at the first hit."""
+    if not cuda.use_kernel(o):
+        return intersect_quadrics_all_plain(geom, o, d, t_max)[0]
+    _check_quadric_call(geom, o, d, t_max)
+    n, dev = o.shape[0], o.device
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        cuda.launch("quadric_any", geom.q_type, geom.q_w2o, geom.q_params,
+                    geom.n_quadrics, o, d, t_max, n, hit)
+    return hit
+
+
 def closest_prim(geom: GeometryTables, ray: Ray):
-    """-> (hit, t (INF on a miss), global prim id int32 (0 on a miss))."""
-    hit, t, tid = traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=False)
-    return hit, t, torch.where(hit, tid + geom.n_quadrics, 0)
+    """-> (hit, t (INF on a miss), global prim id int32 (0 on a miss)):
+    the quadrics' closest hit tightens the triangles' t_max (K1), the
+    triangle wins only when it is strictly nearer (the reference's
+    _closest_prim)."""
+    nq = geom.n_quadrics
+    if not geom.has_quadrics:
+        hit, t, tid = traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=False)
+        return hit, t, torch.where(hit, tid + nq, 0)
+    qhit, qt, qid = intersect_quadrics_all(geom, ray.o, ray.d, ray.t_max)
+    thit, tt, tid = traverse16(geom, ray.o, ray.d,
+                               torch.where(qhit, qt, ray.t_max),
+                               any_hit=False)
+    use_tri = thit & (~qhit | (tt < qt))
+    return (qhit | thit, torch.where(use_tri, tt, qt),
+            torch.where(use_tri, tid + nq, qid))
 
 
 def scene_intersect(geom: GeometryTables, ray: Ray) -> Interaction:
@@ -121,8 +269,14 @@ def scene_intersect(geom: GeometryTables, ray: Ray) -> Interaction:
 
 
 def scene_intersect_p(geom: GeometryTables, ray: Ray):
-    """Any-hit (shadow) test -> (B,) bool occluded."""
-    return traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=True)[0]
+    """Any-hit (shadow) test -> (B,) bool occluded: a quadric occluder
+    zeroes the triangles' t_max (K1 then ends the ray at once)."""
+    if not geom.has_quadrics:
+        return traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=True)[0]
+    qhit = quadrics_any_hit(geom, ray.o, ray.d, ray.t_max)
+    thit = traverse16(geom, ray.o, ray.d,
+                      torch.where(qhit, 0.0, ray.t_max), any_hit=True)[0]
+    return qhit | thit
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +287,46 @@ _FIELDS3 = ("p", "p_error", "n", "dpdu", "dpdv", "ns", "ss", "ts", "dndu",
             "dndv", "wo")
 
 
+def _quadric_branch(geom: GeometryTables, ray: Ray, hit, t, prim):
+    """The quadric branch of the reference's build_interaction (:556-595)
+    for every lane's quadric (prim clipped into [0, nq)) -> dict of world
+    p, p_error, n, uv, dpdu, dpdv, dndu, dndv, material, arealight."""
+    qid = prim.clamp(0, geom.n_quadrics - 1).long()
+    w2o, o2w = geom.q_w2o[qid], geom.q_o2w[qid]              # (B, 4, 4)
+    params, q_type = geom.q_params[qid], geom.q_type[qid]
+    qh = quadric_intersect(q_type, xform_point(w2o, ray.o),
+                           xform_vector(w2o, ray.d),
+                           torch.where(hit, t * 1.0001 + 1e-4, ray.t_max),
+                           params)
+    # conservative world-space error: |M| err + gamma(3) (|M| |p| + |trans|)
+    abs_m = torch.abs(o2w)
+    e1 = torch.stack(apply_mat3(abs_m, *qh.p_error.unbind(-1)), dim=-1)
+    e2 = torch.stack(apply_mat3(abs_m, *torch.abs(qh.p).unbind(-1)), dim=-1)
+    dpdu = xform_vector(o2w, qh.dpdu)
+    dpdv = xform_vector(o2w, qh.dpdv)
+    rev = geom.q_reverse[qid][:, None]
+    n = normalize(cross(dpdu, dpdv))
+    # normal derivatives in closed form: n = p / r on a sphere, so dn/du =
+    # dp/du / r and dn/dv = dp/dv / r; a cylinder's dn/du = dp/du / r, its
+    # dn/dv = 0; a disk is flat (the Weingarten equations give the same)
+    inv_r = 1.0 / torch.clamp(params[:, 0], min=1e-8)
+    ku = torch.where(q_type == 2, 0.0, inv_r)[:, None]
+    kv = torch.where(q_type == 0, inv_r, 0.0)[:, None]
+    dndu = xform_normal(w2o, qh.dpdu * ku)
+    dndv = xform_normal(w2o, qh.dpdv * kv)
+    return dict(
+        p=xform_point(o2w, qh.p),
+        p_error=e1 + gamma(3) * (e2 + torch.abs(o2w[:, :3, 3])),
+        n=torch.where(rev, -n, n), uv=qh.uv, dpdu=dpdu, dpdv=dpdv,
+        dndu=torch.where(rev, -dndu, dndu), dndv=torch.where(rev, -dndv, dndv),
+        material=geom.q_material[qid], arealight=geom.q_arealight[qid])
+
+
 def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
-    """Plain PyTorch version of K2: the triangle branch of the reference's
-    build_interaction, then the miss-lane placeholders."""
+    """Plain PyTorch version of K2: the reference's build_interaction, the
+    quadric branch (when the scene has quadrics) and the triangle branch
+    selected per lane, then the shading frame and the miss-lane
+    placeholders."""
     is_tri = prim >= geom.n_quadrics
     tid = torch.where(is_tri, prim - geom.n_quadrics, 0) \
         .clamp(0, geom.n_triangles - 1)
@@ -167,9 +358,23 @@ def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
     z3 = torch.zeros_like(dndu)
     dndu = torch.where(has_n & ~rev, dndu, torch.where(has_n & rev, -dndu, z3))
     dndv = torch.where(has_n & ~rev, dndv, torch.where(has_n & rev, -dndv, z3))
+    material = rec[:, 25].view(torch.int32)
+    arealight = rec[:, 26].view(torch.int32)
+    if geom.has_quadrics:
+        q = _quadric_branch(geom, ray, hit, t, prim)
+        tri3 = is_tri[:, None]
+
+        def w(a, b):
+            return torch.where(tri3 if a.dim() == 2 else is_tri, a, b)
+        p, p_error, uv = w(p, q["p"]), w(p_error, q["p_error"]), w(uv, q["uv"])
+        ng, ns = w(ng, q["n"]), w(ns, q["n"])
+        dpdu, dpdv = w(dpdu, q["dpdu"]), w(dpdv, q["dpdv"])
+        dndu, dndv = w(dndu, q["dndu"]), w(dndv, q["dndv"])
+        material = w(material, q["material"])
+        arealight = w(arealight, q["arealight"])
     ss, ts = make_shading_frame(ns, dpdu)
 
-    h = (hit & is_tri)[:, None]
+    h = hit[:, None]
     axis = torch.eye(3, dtype=torch.float32, device=t.device)
     xhat, yhat, zhat = (axis[k].expand_as(p) for k in range(3))
     neg1 = torch.full_like(prim, -1)
@@ -180,9 +385,9 @@ def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
         dpdu=torch.where(h, dpdu, xhat), dpdv=torch.where(h, dpdv, yhat),
         ns=torch.where(h, ns, zhat), ss=torch.where(h, ss, xhat),
         ts=torch.where(h, ts, yhat),
-        material=torch.where(h[:, 0], rec[:, 25].view(torch.int32), neg1),
-        arealight=torch.where(h[:, 0], rec[:, 26].view(torch.int32), neg1),
-        prim_id=torch.where(h[:, 0], prim, neg1),
+        material=torch.where(hit, material, neg1),
+        arealight=torch.where(hit, arealight, neg1),
+        prim_id=torch.where(hit, prim, neg1),
         dndu=torch.where(h & torch.isfinite(dndu), dndu, z3),
         dndv=torch.where(h & torch.isfinite(dndv), dndv, z3))
 
@@ -190,7 +395,7 @@ def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
 def build_interaction(geom: GeometryTables, ray: Ray, hit, t, prim):
     """Surface interactions of closest hits (hit (B,) bool, t (B,) f32,
     prim (B,) int32 global ids). CPU tensors take the plain version, CUDA
-    tensors launch K2."""
+    tensors launch K2 (triangle and quadric lanes in one launch)."""
     if not cuda.use_kernel(t):
         return build_interaction_plain(geom, ray, hit, t, prim)
     n = t.shape[0]
@@ -203,13 +408,23 @@ def build_interaction(geom: GeometryTables, ray: Ray, hit, t, prim):
     cuda.check(hit, "hit", torch.bool, (n,), dev)
     cuda.check(t, "t", torch.float32, (n,), dev)
     cuda.check(prim, "prim", torch.int32, (n,), dev)
+    nq = geom.n_quadrics
+    for name, dtype, shape in (("q_type", torch.int32, (nq,)),
+                               ("q_o2w", torch.float32, (nq, 4, 4)),
+                               ("q_w2o", torch.float32, (nq, 4, 4)),
+                               ("q_params", torch.float32, (nq, 4)),
+                               ("q_material", torch.int32, (nq,)),
+                               ("q_arealight", torch.int32, (nq,)),
+                               ("q_reverse", torch.bool, (nq,))):
+        cuda.check(getattr(geom, name), name, dtype, shape, dev)
     f3 = {k: torch.empty((n, 3), dtype=torch.float32, device=dev)
           for k in _FIELDS3}
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
     ids = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
     if n:
-        cuda.launch("build_interaction_tri", geom.t_shade, geom.n_triangles,
-                    geom.n_quadrics, ray.o, ray.d, ray.t_max, hit, t, prim, n,
+        cuda.launch("build_interaction", geom.t_shade, geom.n_triangles, nq,
+                    int(geom.has_quadrics), *(getattr(geom, k) for k in QUADRIC_KEYS), ray.o, ray.d,
+                    ray.t_max, hit, t, prim, n,
                     f3["p"], f3["p_error"], f3["n"], uv, f3["dpdu"],
                     f3["dpdv"], f3["ns"], f3["ss"], f3["ts"], f3["dndu"],
                     f3["dndv"], f3["wo"], *ids)

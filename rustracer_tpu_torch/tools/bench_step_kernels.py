@@ -1,5 +1,5 @@
-"""K4 (the film splat, also with the triangle, Gaussian and Mitchell
-filters: K4F), K5 (the atlas EWA lookup), K6 (the alive-first order), K7
+"""K2 (the interaction rebuild), K4 (the film splat, also with the
+triangle, Gaussian and Mitchell filters: K4F), K5 (the atlas EWA lookup), K6 (the alive-first order), K7
 (the slab take and put), K9 with those filters (the splat's backward:
 K9F), K10 (the lookup's backward) and K11 (the row gather's backward) on
 the inputs of full-width textured steps, and K12 (the light grid's
@@ -8,7 +8,7 @@ given them, other builds of their sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
         [--time-only PATH ...] [--reps N]
-        [--kernels K4,K5,K6,K7,K10,K11,K12,K4F,K9F] [--k12-corners]
+        [--kernels K2,K4,K5,K6,K7,K10,K11,K12,K4F,K9F] [--k12-corners]
         [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
@@ -18,6 +18,12 @@ sample 1), recording the inputs of every call of K4 (the step's splat), K5
 mask after bounce 0) and K8 (the material rows) in that step
 (``capture_step``); then one step of tile 0 (mostly sky, so it takes a
 slab), recording K7's fields as bounce 0 left them, its order and width.
+
+K2 runs on the closest hits of the dragon's camera and bounce wavefronts
+(tools/traverse_work.py: triangle lanes and misses) and of 2^18 rays at
+the 16-quadric table over a ground triangle (tools/quadric_work.py:
+quadric and triangle lanes); every build's 15 outputs bit for bit with the
+library's, timed in turns, bounded by tools/quadric_work.py k2_bound.
 
 K4 runs on the recorded splat into a zero 1024^2 film, bit for bit equal
 with the plain version (box 0.5: a pixel takes at most two taps), and is
@@ -42,14 +48,17 @@ textured lanes of each K5 input, K5's bound (tools/atlas_work.py) and K6's
 the memory instructions of each kernel in program order, from cuobjdump's
 SASS (``sass_memory_ops``): K4's reductions a tap, K7's loads and stores.
 
-An ``--other`` source is a film.cu, film_bwd.cu, atlas.cu, compact.cu,
-atlas_bwd.cu, gather_bwd.cu or lightdistrib.cu with the library's C
-interface (cuda.SIGNATURES), next to the common.cuh (and filter.cuh) it
-includes; it is built alone, and what it exports decides which kernels it
-is timed as: ``rt_film_add_samples`` K4, ``rt_film_add_samples_bwd`` K9,
+An ``--other`` source is an interaction.cu, film.cu, film_bwd.cu,
+atlas.cu, compact.cu, atlas_bwd.cu, gather_bwd.cu or lightdistrib.cu with
+the library's C interface (cuda.SIGNATURES), next to the headers it
+includes (common.cuh, filter.cuh, quadrics.cuh); it is built alone, and
+what it exports decides which kernels it is timed as:
+``rt_build_interaction`` K2, ``rt_film_add_samples`` K4, ``rt_film_add_samples_bwd`` K9,
 ``rt_atlas_lookup_ewa`` K5, ``rt_alive_first_order`` K6, ``rt_slab_take``
 K7 (take and put), ``rt_atlas_lookup_ewa_bwd`` K10, ``rt_row_gather_bwd``
-K11, ``rt_spatial_grid_contrib`` K12. A
+K11, ``rt_spatial_grid_contrib`` K12. An interaction.cu from before K2's
+quadric branch exports ``rt_build_interaction_tri`` (K2_TRI_ARGS) and is
+timed on the triangle cases only. A
 film.cu that exports ``rt_film_channels`` takes the film as one (H, W, 4)
 buffer, as the library's does; one that does not (an older source) is
 given its own (H, W, 3) and (H, W) sums, compared after packing. A
@@ -112,32 +121,43 @@ import numpy as np
 import torch
 
 from .. import cuda
+from ..accel.traverse16 import traverse16
 from .._build import CSRC, compile_shared
 from ..ops import compact as C
 from ..ops import gather as G
 from ..render.film import Film
 from ..scene import atlas as A
 from ..scene import materials as M
+from ..scene.tables import QUADRIC_KEYS, build_interaction, closest_prim
+from . import quadric_work as QW
 from .atlas_work import k10_atomics, k10_work, k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
 from .timing import cold_ms, kernel_ms, queued_ms
-from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
+from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S, wavefronts
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
                   "slab_take")
 K9, K10, K11 = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
                 "row_gather_bwd")
 K12 = "spatial_grid_contrib"
+K2 = "build_interaction"
+# K2's C interface before its quadric branch (rt_build_interaction_tri):
+# t_shade, n_tris, nq, the rays and hits, n, the 15 outputs, stream
+K2_TRI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 16
+K2_FIELDS = ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+             "dndu", "dndv", "wo", "material", "arealight", "prim_id")
 # K4's arguments in a film.cu without the filter kinds (no
 # rt_film_filter_kinds export): the box only
 K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
 # K9's arguments in a film_bwd.cu without the sample layout (no
 # rt_film_bwd_layout export)
 K9_NO_LAYOUT_ARGS = cuda.SIGNATURES[K9][:-3] + cuda.SIGNATURES[K9][-1:]
-KERNELS = {"K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
+KERNELS = {"K2": K2, "K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
            "K12": K12, "K4F": K4, "K9F": K9}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
+K2_KERNELS = ("build_interaction_kernel",)
 K4_KERNELS = ("film_add_kernel",)
 K5_KERNELS = ("atlas_ewa_kernel",)
 K6_KERNELS = ("alive_first_kernel", "count_kernel", "scan_counts_kernel",
@@ -440,7 +460,7 @@ def memory_ops(sass):
 
 def build(others, k12_corners=False):
     """Build the library and each other source, and ask ptxas of the
-    library's film.cu, film_bwd.cu, atlas.cu, compact.cu, atlas_bwd.cu,
+    library's interaction.cu, film.cu, film_bwd.cu, atlas.cu, compact.cu, atlas_bwd.cu,
     gather_bwd.cu and lightdistrib.cu and of each other source (and
     cuobjdump of each film.cu, film_bwd.cu, compact.cu, atlas_bwd.cu and
     gather_bwd.cu), all at once; ``k12_corners``: each
@@ -449,10 +469,10 @@ def build(others, k12_corners=False):
     {source name: ptxas lines}, {source name: sass_memory_ops},
     {build name: film channels})."""
     sources = {f"library {f}": os.path.join(CSRC, f)
-               for f in ("film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
+               for f in ("interaction.cu", "film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
                          "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K4, K5, K6, K7, K9, K10, K11, K12)
+    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12)
     sass_of = ("film.cu", "film_bwd.cu", "compact.cu", "atlas_bwd.cu",
                "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
@@ -471,6 +491,8 @@ def build(others, k12_corners=False):
         for p, f in libs.items():
             handle = ctypes.CDLL(f.result())
             exports = [k for k in kernels if hasattr(handle, "rt_" + k)]
+            k2_tri = hasattr(handle, "rt_build_interaction_tri")
+            exports += [K2] if k2_tri else []
             if not exports:
                 raise ValueError(f"{p} exports none of "
                                  f"{['rt_' + k for k in kernels]}")
@@ -478,7 +500,8 @@ def build(others, k12_corners=False):
                 handle, "rt_row_gather_bwd_blocks")
             k12_chunked = K12 in exports and k12_corners
             names = [k for k in exports if not (k == K11 and k11_parent)
-                     and not (k == K12 and k12_chunked)]
+                     and not (k == K12 and k12_chunked)
+                     and not (k == K2 and k2_tri)]
             loaded = cuda.load(f.result(), names
                                + (["slab_put"] if K7 in exports else [])
                                + (["row_gather_bwd_blocks"]
@@ -487,6 +510,10 @@ def build(others, k12_corners=False):
                 loaded.rt_spatial_grid_contrib.argtypes = K12_CORNER_ARGS
                 loaded.rt_spatial_grid_contrib.restype = ctypes.c_int
                 loaded.k12_chunked = True
+            if k2_tri:
+                loaded.rt_build_interaction_tri.argtypes = K2_TRI_ARGS
+                loaded.rt_build_interaction_tri.restype = ctypes.c_int
+                loaded.k2_tri = True
             if k11_parent:
                 loaded.rt_row_gather_bwd.argtypes = K11_PARENT_ARGS
                 loaded.rt_row_gather_bwd.restype = ctypes.c_int
@@ -541,6 +568,78 @@ def _log_row(log, r):
         f"{'/'.join(f'{x:.4f}' for x in r['queued_ms'])} ms; bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
         f"{100 * r['bound_share']:.2f}% of it")
+
+
+def k2_cases(ctx, cam, sampler, renderer):
+    """-> {case: (geom, ray, hit, t, prim)}: the closest hits of the
+    dragon's camera and bounce wavefronts and of LANES rays at the
+    16-quadric table over a ground triangle."""
+    waves = wavefronts(ctx, cam, sampler, renderer.tiles)
+    cases = {}
+    for label in ("camera", "bounce"):
+        ray = waves[label]
+        hit, t, tid = traverse16(ctx.geom, ray.o, ray.d, ray.t_max,
+                                 any_hit=False)
+        cases[f"K2 dragon {label}"] = (
+            ctx.geom, ray, hit, t, torch.where(hit, tid + ctx.geom.n_quadrics,
+                                               0))
+    q = QW.quadric_table()
+    geom = QW.table_geometry(q, device=renderer.device)
+    ray = QW.quadric_rays(q, LANES, device=renderer.device)
+    cases["K2 quadric table"] = (geom, ray, *closest_prim(geom, ray))
+    return cases
+
+
+def k2_call(lib, case):
+    """One K2 call on a case -> its outputs in K2_FIELDS order: the
+    library's through its wrapper, or ``lib``'s with the same arguments
+    (one from before the quadric branch through its triangle entry)."""
+    geom, ray, hit, t, prim = case
+    if lib is None:
+        si = build_interaction(geom, ray, hit, t, prim)
+        return [getattr(si, f) for f in K2_FIELDS]
+    n, dev = t.shape[0], t.device
+    out = [torch.empty((n, 2 if f == "uv" else 3), dtype=torch.float32,
+                       device=dev) for f in K2_FIELDS[:12]] \
+        + [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    rays = (ray.o, ray.d, ray.t_max, hit, t, prim, n)
+    if getattr(lib, "k2_tri", False):
+        cuda.launch(K2 + "_tri", geom.t_shade, geom.n_triangles,
+                    geom.n_quadrics, *rays, *out, lib=lib)
+    else:
+        cuda.launch(K2, geom.t_shade, geom.n_triangles, geom.n_quadrics,
+                    int(geom.has_quadrics),
+                    *(getattr(geom, k) for k in QUADRIC_KEYS), *rays, *out,
+                    lib=lib)
+    return out
+
+
+def measure_k2(cases, builds, reps=20, log=print):
+    """Check and time every K2 build on each case it takes (one from
+    before the quadric branch the dragon's only): every output bit for bit
+    with the library's, timed in turns."""
+    rows = []
+    for case, args in cases.items():
+        geom, _, hit, _, prim = args
+        takes = {b: lib for b, lib in builds.items()
+                 if not (geom.has_quadrics and getattr(lib, "k2_tri", False))}
+        ref = k2_call(None, args)
+        for b, lib in takes.items():
+            for f, x, y in zip(K2_FIELDS, k2_call(lib, args), ref):
+                if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                    raise AssertionError(f"{case} {b}: {f} differs from the "
+                                         "library's")
+        bound_ms, bound_by, n_q, n_t = QW.k2_bound(geom, hit, prim)
+        log(f"{case}: {n_q} quadric and {n_t} triangle lanes of "
+            f"{hit.shape[0]}; every build bit for bit with the library")
+        timed = _turns({b: (lambda lib=lib: k2_call(lib, args))
+                        for b, lib in takes.items()}, reps, K2_KERNELS)
+        for b in takes:
+            r = _row(case, b, timed[b], bound_ms, bound_by,
+                     quadric_lanes=n_q, triangle_lanes=n_t)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
 
 
 def measure_k5(ctx, cap, builds, reps=20, log=print):
@@ -1123,9 +1222,9 @@ def measure_k12(grids, builds, reps=20, log=print):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
-                    help="another film.cu, film_bwd.cu, atlas.cu, "
-                         "compact.cu, atlas_bwd.cu, gather_bwd.cu or "
-                         "lightdistrib.cu to time (repeatable)")
+                    help="another interaction.cu, film.cu, film_bwd.cu, "
+                         "atlas.cu, compact.cu, atlas_bwd.cu, gather_bwd.cu "
+                         "or lightdistrib.cu to time (repeatable)")
     ap.add_argument("--time-only", action="append", default=[],
                     help="a diagnostic film_bwd.cu, timed on the K9F calls "
                          "unchecked (tools/k9_parts.py; repeatable)")
@@ -1176,6 +1275,8 @@ def main(argv=None):
           flush=True)
     log = lambda s: print(s, flush=True)   # noqa: E731
     measure = {
+        "K2": lambda: measure_k2(k2_cases(ctx, cam, sampler, r), builds[K2],
+                                 args.reps, log),
         "K4": lambda: measure_k4(cap, builds[K4], channels, args.reps, log),
         "K5": lambda: measure_k5(ctx, cap, builds[K5], args.reps, log),
         "K6": lambda: measure_k6(cap, builds[K6], args.reps, log),

@@ -39,7 +39,7 @@ def test_cpu_render_writes_a_readable_exr(tmp_path):
 
 
 @pytest.mark.parametrize("scene,feature", [
-    ("scenes/testball-matte.pbrt", "'checkerboard'"),
+    ("scenes/testball-glass.pbrt", "Material 'glass'"),
     ("scenes/simple.pbrt", "LightSource 'point'")])
 def test_unsupported_scene_exits_with_the_feature(tmp_path, scene, feature):
     proc = run_cli(scene, "--cpu", "-o", str(tmp_path / "x.exr"))

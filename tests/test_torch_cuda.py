@@ -27,7 +27,12 @@ sqrt and divides by a number round differently on the card; K12 takes an
 approximate reciprocal square root; K4's warp sums add in another
 order), K13 (the light pick and pmf lookup) bit-equal, the parsed Cornell
 box's render within the golden-image tolerance of the all-plain
-render."""
+render. The quadrics: K14's closest and any hit bit-equal in hit and
+quadric id, t within 1e-6 relative (the same float operations; atan2f
+is the one call that may round apart from torch.atan2 on the card), K2's
+quadric lanes as its triangle lanes (1e-5 absolute or relative: acosf,
+sinf, atan2f and the normalisations), the parsed testball-matte's render
+within the golden-image tolerance of the all-plain render."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -58,7 +63,7 @@ from rustracer_tpu_torch.scenes import (build_dragon, build_dragon_matte,
 pytestmark = pytest.mark.cuda
 
 MATTE_KERNELS = ("sample_1d", "sample_2d", "traverse16_closest",
-                 "traverse16_any", "build_interaction_tri", "film_add_samples",
+                 "traverse16_any", "build_interaction", "film_add_samples",
                  "row_gather")
 
 
@@ -270,6 +275,15 @@ def test_traverse16_matches_plain(request, dev, case, any_hit):
         assert h.float().mean() > 0.05
 
 
+def _k2_off(field, a, b):
+    """K2's lanes where a field is beyond its tolerance of the plain
+    version: 1e-5 absolute or relative, p_error 1e-5 relative alone."""
+    d = (a - b).abs()
+    if field == "p_error":
+        return d > 1e-5 * b.abs() + 1e-30
+    return (d > 1e-5) & (d > 1e-5 * b.abs())
+
+
 def test_build_interaction_matches_plain(scene):
     g, ray = scene["ctx"].geom, scene["ray"]
     hit, t, tid = traverse16(g, ray.o, ray.d, ray.t_max, any_hit=False)
@@ -280,9 +294,7 @@ def test_build_interaction_matches_plain(scene):
     out, ref = fn(), _plain(fn)
     for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
               "dndu", "dndv", "wo"):
-        a, b = getattr(out, f), getattr(ref, f)
-        d = (a - b).abs()
-        assert not ((d > 1e-5) & (d > 1e-5 * b.abs())).any(), f
+        assert not _k2_off(f, getattr(out, f), getattr(ref, f)).any(), f
     for f in ("material", "arealight", "prim_id", "valid"):
         assert torch.equal(getattr(out, f), getattr(ref, f)), f
 
@@ -408,6 +420,8 @@ def test_render_matches_plain(scene):
     K.reset_launches()
     _assert_render_matches_plain(scene["renderer"], scene["ctx"])
     assert all(K.LAUNCHES[k] > 0 for k in MATTE_KERNELS), K.LAUNCHES
+    # no quadric in the dragon: its dummy row is never searched
+    assert all(K.LAUNCHES[k] == 0 for k in K.QUADRIC_KERNELS), K.LAUNCHES
 
 
 def _ewa_inputs(dev, wrap, n=1 << 14, pattern="random"):
@@ -1048,3 +1062,73 @@ def test_parsed_cornell_render_matches_plain(parsed_cornell):
     _assert_render_matches_plain(r, bundle.context(), sample_stop=1)
     assert K.LAUNCHES["spatial_light_pick"] == 4, K.LAUNCHES
     assert K.LAUNCHES["spatial_pmf_lookup"] == 4, K.LAUNCHES
+
+
+@pytest.fixture(scope="module")
+def quadric_scene(dev):
+    """The 16-quadric table (tools/quadric_work.py) over a ground triangle,
+    and 2^16 + 7 rays at it."""
+    from rustracer_tpu_torch.tools.quadric_work import (quadric_rays,
+                                                        quadric_table,
+                                                        table_geometry)
+    q = quadric_table()
+    return (table_geometry(q, device=dev),
+            quadric_rays(q, (1 << 16) + 7, device=dev))
+
+
+def test_quadric_search_matches_plain(quadric_scene):
+    from rustracer_tpu_torch.scene.tables import (intersect_quadrics_all,
+                                                 quadrics_any_hit)
+    geom, ray = quadric_scene
+    t_max = ray.t_max.clone()
+    t_max[::5] = 2.0
+    n0 = dict(K.LAUNCHES)
+
+    def closest():
+        return intersect_quadrics_all(geom, ray.o, ray.d, t_max)
+
+    def any_hit():
+        return quadrics_any_hit(geom, ray.o, ray.d, t_max)
+    hit, t, qid = closest()
+    occ = any_hit()
+    assert K.LAUNCHES["quadric_closest"] == n0["quadric_closest"] + 1
+    assert K.LAUNCHES["quadric_any"] == n0["quadric_any"] + 1
+    rhit, rt, rqid = _plain(closest)
+    assert torch.equal(hit, rhit) and torch.equal(qid, rqid)
+    assert torch.equal(occ, rhit) and torch.equal(_plain(any_hit), rhit)
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-6, atol=0)
+    assert torch.isinf(t[~hit]).all() and (qid[~hit] == 0).all()
+    assert 0.1 < hit.float().mean().item() < 0.9
+    assert torch.unique(qid[hit]).numel() == geom.n_quadrics
+
+
+def test_build_interaction_quadric_lanes_match_plain(quadric_scene):
+    from rustracer_tpu_torch.scene.tables import closest_prim
+    geom, ray = quadric_scene
+    hit, t, prim = closest_prim(geom, ray)
+    assert (hit & (prim < geom.n_quadrics)).any()
+
+    def fn():
+        return build_interaction(geom, ray, hit, t, prim)
+    out, ref = fn(), _plain(fn)
+    for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+              "dndu", "dndv", "wo"):
+        assert not _k2_off(f, getattr(out, f), getattr(ref, f)).any(), f
+    for f in ("material", "arealight", "prim_id", "valid"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+
+
+def test_testball_render_matches_plain(dev):
+    """scenes/testball-matte.pbrt on the card, 1 sample: K14 (closest and
+    any) and K2 launched, the image within the golden-image tolerance of
+    the all-plain render."""
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "testball-matte.pbrt")
+    bundle = parse_scene(path, device=dev).scene
+    K.reset_launches()
+    _assert_render_matches_plain(bundle.renderer(), bundle.context(),
+                                 sample_stop=1)
+    for k in K.QUADRIC_KERNELS + ("build_interaction",):
+        assert K.LAUNCHES[k] > 0, K.LAUNCHES

@@ -105,8 +105,30 @@ def test_convert_matches_port_build():
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def test_real_quadrics_refused():
+def test_real_quadric_tables_equal():
+    """make_geometry's quadric tables equal the JAX package's for the same
+    dict (the seeded 16-quadric table beside the small dragon's
+    triangles), and the caller's dict is left as it was."""
+    from rustracer_tpu_torch.scene.tables import QUADRIC_KEYS
+    from rustracer_tpu_torch.tools.quadric_work import quadric_table
     tris, _ = dragon_tris(1)
-    with pytest.raises(NotImplementedError, match="quadric"):
-        make_geometry(tris, quadrics=dict(q_type=np.zeros(1, np.int32)),
-                      device="cpu")
+    q = quadric_table()
+    before = copy.deepcopy(q)
+    g = make_geometry(tris, quadrics=q, device="cpu")
+    for k in q:
+        np.testing.assert_array_equal(q[k], before[k])
+    jg = jax_make_geometry(quadrics=copy.deepcopy(q), tris=copy.deepcopy(tris),
+                           bvh=jax_build_wide(copy.deepcopy(tris)))
+    assert g.has_quadrics and g.n_quadrics == jg.n_quadrics == 16
+    for k in QUADRIC_KEYS:
+        a, b = getattr(g, k).numpy(), np.asarray(getattr(jg, k))
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    np.testing.assert_array_equal(g.t_shade.numpy().view(np.int32),
+                                  np.asarray(jg.t_shade).view(np.int32))
+    # without quadrics: the reference's never-hit dummy row
+    g0 = make_geometry(tris, device="cpu")
+    assert not g0.has_quadrics and g0.n_quadrics == 1
+    np.testing.assert_array_equal(g0.q_params.numpy(),
+                                  np.asarray(jax_make_geometry(
+                                      tris=copy.deepcopy(tris)).q_params))

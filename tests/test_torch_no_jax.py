@@ -2,8 +2,9 @@
 every module of the package), renders a tiny frame of the matte and of
 the textured dragon, takes a train step of the textured dragon and of the
 Cornell box with imagemap walls and the Cornell's fwd+bwd loss, parses
-``scenes/cornell-box.pbrt`` (its spatial light grid included) and renders
-one sample of it, then checks that neither ``jax`` nor the JAX package was
+``scenes/cornell-box.pbrt`` (its spatial light grid included) and
+``scenes/testball-matte.pbrt`` (a sphere, a checkerboard) and renders one
+sample of each, then checks that neither ``jax`` nor the JAX package was
 ever imported."""
 import os
 import subprocess
@@ -44,6 +45,10 @@ assert all(bool(torch.isfinite(g).all()) for g in grads) and float(loss) > 0
 from rustracer_tpu_torch.scene.api import parse_scene
 bundle = parse_scene("scenes/cornell-box.pbrt", device="cpu").scene
 assert bundle.light_grid is not None
+img = bundle.render(sample_stop=1)
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+bundle = parse_scene("scenes/testball-matte.pbrt", device="cpu").scene
+assert bundle.geom.has_quadrics
 img = bundle.render(sample_stop=1)
 assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 bad = sorted(m for m in sys.modules

@@ -7,7 +7,8 @@ ReverseOrientation, named materials, a PLY mesh, constant and imagemap
 textures as float and spectrum over a PNG, a two-sided area light, a crop
 window, film scale, a Gaussian filter, a thin lens and a screen window),
 the JAX bundle's tables go through ``convert.py`` and are compared with the
-port's: geometry, BVH bytes, light tables, camera matrices, film, sampler
+port's (``assert_bundles_equal``, which tests/test_torch_quadrics.py also
+holds the testball-matte scene to): geometry with the quadric tables, BVH bytes, light tables, camera matrices, film, sampler
 and integrator settings bit-equal, the texture constants bit-equal, the
 texel pyramids within 1e-6. The spatial grid's tables are compared in
 tests/test_torch_lightdistrib.py. Every directive the port refuses raises
@@ -27,6 +28,7 @@ from rustracer_tpu.scene.api import parse_scene_string as jax_parse_string
 from rustracer_tpu_torch import convert
 from rustracer_tpu_torch.scene import textures as PT
 from rustracer_tpu_torch.scene.api import parse_scene, parse_scene_string
+from rustracer_tpu_torch.scene.tables import QUADRIC_KEYS
 from rustracer_tpu_torch.utils.plyio import write_ply
 
 torch.set_num_threads(1)
@@ -46,9 +48,10 @@ def _eq(a, b):
 def assert_bundles_equal(jb, pb):
     g = convert.geometry_from_jax(jb.geom, device="cpu")
     for f in ("tv_p", "t_idx", "t_reverse", "t_shade", "bvh16_table",
-              "bvh16_roots"):
+              "bvh16_roots") + QUADRIC_KEYS:
         _eq(getattr(g, f).numpy(), getattr(pb.geom, f).numpy())
     assert g.bvh16_depth == pb.geom.bvh16_depth
+    assert g.has_quadrics == pb.geom.has_quadrics
     lt = convert.lights_from_jax(jb.lights, device="cpu")
     for f in ("l_type", "l_emit", "l_prim", "l_twosided", "l_area",
               "l_tri_p", "l_tri_rev", "world_center"):
@@ -87,6 +90,10 @@ def assert_bundles_equal(jb, pb):
         assert type(a.kd) is type(b.kd)
         if isinstance(a.kd, PT.ConstantTexture):
             assert a.kd.key == b.kd.key
+        elif isinstance(a.kd, PT.CheckerboardTexture):
+            assert (a.kd.tex1.key, a.kd.tex2.key, a.kd.aa) == \
+                (b.kd.tex1.key, b.kd.tex2.key, b.kd.aa)
+            assert vars(a.kd.mapping) == vars(b.kd.mapping)
         else:
             assert vars(a.kd).keys() == vars(b.kd).keys()
             for k in ("image_id", "trilinear", "max_aniso", "wrap", "scale",
@@ -197,8 +204,11 @@ Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 1 1 0 1 0 1 1]
 WorldEnd
 '''
 REFUSED = {
-    "sphere": ('', 'Shape "sphere"', "Shape 'sphere' (quadrics)", 15),
-    "disk": ('', 'Shape "disk"', "Shape 'disk'", 15),
+    "sphere": ('', 'AreaLightSource "diffuse"\nShape "sphere"',
+               "an area light on Shape 'sphere'", 14),
+    "disk": ('', 'AreaLightSource "diffuse" "rgb L" [2 2 2]\n'
+             'Shape "disk" "float radius" [0.5]', "an area light on Shape "
+             "'disk'", 14),
     "plastic": ('', 'Material "plastic"', "Material 'plastic'", 13),
     "glass": ('', 'Material "glass"', "Material 'glass'", 13),
     "mix": ('', 'Material "mix"', "Material 'mix'", 13),
@@ -206,8 +216,7 @@ REFUSED = {
                    "Oren-Nayar", 13),
     "bumpmap": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
                 'Material "matte" "texture bumpmap" "b"', "bumpmap", 13),
-    "checkerboard": ('', 'Texture "c" "spectrum" "checkerboard"',
-                     "'checkerboard'", 13),
+    "marble": ('', 'Texture "m" "spectrum" "marble"', "'marble'", 13),
     "fbm": ('', 'Texture "f" "float" "fbm"', "'fbm'", 13),
     "scale texture": ('', 'Texture "s" "spectrum" "scale"', "'scale'", 13),
     "planar mapping": ('', 'Texture "p" "spectrum" "imagemap" '
@@ -261,7 +270,7 @@ def test_reference_unimplemented_shape_keeps_its_error():
 
 
 @pytest.mark.parametrize("name,feature", [
-    ("testball-matte.pbrt", "'checkerboard'"),
+    ("testball-glass.pbrt", "Material 'glass'"),
     ("simple.pbrt", "LightSource 'point'")])
 def test_repo_scenes_refused_by_feature(name, feature):
     with pytest.raises(NotImplementedError, match=feature):
