@@ -113,18 +113,37 @@ Phases, each printing its lines:
      spp against the all-plain path; then the scene through the port's
      command line in a subprocess at its own 64^2, 16 spp, depth 7,
      against tests/goldens/testball-matte.npz (mean 2e-3, p99 2e-2);
- 17. a JSON line of the kernels (times, bounds, library yardsticks,
+ 17. the specular and microfacet lobes: the seven material testballs
+     (glass, mirror, plastic, metal, roughglass, roughmetal, textured)
+     parsed and rendered in process at their own 64^2, 16 spp, depth 7
+     (textured 5), counted (K14 and K2 launched on each), each against
+     tests/goldens/testball-<m>.npz (mean 2e-3, p99 2e-2); testball-glass
+     with its film at 1024^2, 8 samples, 2^18-lane tiles, compaction on,
+     counted and timed; in one full-width glass step (tile 2) every K14
+     closest and K2 call recorded, and the one with the most rays leaving
+     the ball from inside held against the plain versions (hit, quadric
+     id and t bit for bit; K2 as in phase 16), timed and bounded; K14's
+     any hit likewise on the shadow rays of a full-width roughglass step
+     that start inside the ball; K8 at 32 floats a row (two lobes) on a
+     full-width plastic step, bit for bit; K5 on the calls of a
+     full-width textured step, its sphere lanes counted; then
+     testball-glass through the port's command line in a subprocess
+     against its golden;
+ 18. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
-     row for the tool's shape and one for the render's, K7 rows for its
-     moves and for its transposes, K4 and K9 rows for the filters, on
-     the Cornell splat and at full width, K12 rows for both grids, K14
-     and K2 rows on the quadric table and on the testball step), the
-     card line, and the result line.
-The dragon, Cornell and dragon-file paths launch no K14 (no quadric).
+     row for the tool's shape and ones for the render's at 16 and 32
+     floats, K7 rows for its moves and for its transposes, K4 and K9 rows
+     for the filters, on the Cornell splat and at full width, K12 rows
+     for both grids, K14 and K2 rows on the quadric table, the testball
+     step and the glass steps, K5 rows on the dragon and the textured
+     testball), the card line, and the result line.
+The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
+every testball does.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
-phases 13-15, the testball render and step of phase 16) is
+phases 13-15, the testball render and step of phase 16, each testball
+render and the glass render and steps of phase 17) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -215,8 +234,8 @@ ROWS = {
     "alive_first_order": ("alive_first_order",
                           "alive mask after bounce 0 of a full-width "
                           "textured step (tile 2)"),
-    "slab_take": ("slab_take", "11 fields of textured tile 0 into its slab"),
-    "slab_put": ("slab_put", "11 fields of textured tile 0 from its slab"),
+    "slab_take": ("slab_take", "12 fields of textured tile 0 into its slab"),
+    "slab_put": ("slab_put", "12 fields of textured tile 0 from its slab"),
     "row_gather": ("row_gather", "the gather tool: 2^20 rows of 512 B"),
     "row_gather material rows": ("row_gather",
                                  "the render: 2^18 lanes' material rows of "
@@ -294,16 +313,36 @@ ROWS = {
     "build_interaction testball": ("build_interaction",
                                    "the camera hits of that step (sphere "
                                    "and floor lanes)"),
+    "quadric_closest glass": ("quadric_closest",
+                              "the call of a full-width testball-glass "
+                              "step (tile 2, 2^18 lanes) with the most rays "
+                              "leaving the ball from inside"),
+    "build_interaction glass": ("build_interaction",
+                                "the hits of that call, back-side sphere "
+                                "hits among them"),
+    "quadric_any roughglass": ("quadric_any",
+                               "the shadow rays of a full-width "
+                               "testball-roughglass step (tile 2) with the "
+                               "most starting inside the ball"),
+    "row_gather material rows W=32": ("row_gather",
+                                      "the render: 2^18 lanes' material "
+                                      "rows of 32 float32 (two lobes), "
+                                      "bounce 0 of a full-width "
+                                      "testball-plastic step"),
+    "atlas_lookup_ewa testball-textured": (
+        "atlas_lookup_ewa", "mean of the calls of a full-width "
+        "testball-textured step (tile 2): the ball's and the floor's "
+        "imagemaps, quad rows"),
 }
+# the material testballs of phase 17
+TESTBALLS = ("glass", "mirror", "plastic", "metal", "roughglass",
+             "roughmetal", "textured")
 # the pixel filters the parsed Cornell box is rendered with (no file of
 # scenes/ names a PixelFilter)
 FILTER_KINDS = ("triangle", "gaussian", "mitchell")
 REPO = os.path.dirname(os.path.abspath(__file__))
 CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
 CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell-box.npz")
-TESTBALL_PBRT = os.path.join(REPO, "scenes", "testball-matte.pbrt")
-TESTBALL_GOLDEN = os.path.join(REPO, "tests", "goldens",
-                               "testball-matte.npz")
 # the rows whose launches are counted in the dragon train step
 TRAIN_ROWS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
               "row_gather_bwd", "slab_take transpose", "slab_put transpose")
@@ -1726,6 +1765,20 @@ def check_quadric_table(dev, results):
                       "build_interaction quadrics", results)
 
 
+def testball_at_res(label, name, dev):
+    """scenes/testball-<name>.pbrt parsed on ``dev`` with its film at
+    RES (its textures found beside it)."""
+    from rustracer_tpu_torch.tools.profile_step import testball_text
+    from rustracer_tpu_torch.utils import fileutil
+    text, scenes = testball_text(f"testball-{name}", RES)
+    fileutil.set_search_directory(scenes)
+    bundle, _ = parse_counted(f"{label} testball-{name} at {RES[0]}^2",
+                              text=text, dev=dev)
+    if tuple(bundle.film.full_resolution) != RES:
+        raise AssertionError(f"film {bundle.film.full_resolution}")
+    return bundle
+
+
 def testball_full(dev, card, results):
     """testball-matte at 1024^2: the counted render, one recorded step's
     K14 and K2 calls, the launches of that step, the crop against the
@@ -1734,17 +1787,7 @@ def testball_full(dev, card, results):
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
     from rustracer_tpu_torch.tools import quadric_work as QW
-    with open(TESTBALL_PBRT) as f:
-        text = f.read()
-    small = '"integer xresolution" [64] "integer yresolution" [64]'
-    if small not in text:
-        raise AssertionError("testball-matte.pbrt's Film line changed")
-    text = text.replace(small, f'"integer xresolution" [{RES[0]}] '
-                        f'"integer yresolution" [{RES[1]}]')
-    bundle, _ = parse_counted(f"[16] testball-matte at {RES[0]}^2",
-                              text=text, dev=dev)
-    if tuple(bundle.film.full_resolution) != RES:
-        raise AssertionError(f"film {bundle.film.full_resolution}")
+    bundle = testball_at_res("[16]", "matte", dev)
     renderer, ctx = bundle.renderer(LANES), bundle.context()
     renderer.render_state(ctx, sample_stop=1)
     launches, _, img, rays = render_counted(
@@ -1784,21 +1827,22 @@ def testball_full(dev, card, results):
     return rays
 
 
-def testball_cli():
-    """testball-matte through the port's command line on the card, in a
-    subprocess, at its own 64^2, 16 spp, depth 7: K14 and K2 launched, the
-    image held to its golden."""
+def testball_cli(name, phase):
+    """scenes/testball-<name>.pbrt through the port's command line on the
+    card, in a subprocess, at its own 64^2, 16 spp: K14 and K2 launched,
+    the image held to its golden."""
     from rustracer_tpu_torch.render.imageio import read_image
+    scene = os.path.join(REPO, "scenes", f"testball-{name}.pbrt")
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "testball.exr")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "rustracer_tpu_torch.utils.cli",
-             TESTBALL_PBRT, "-o", out, "-v"], cwd=REPO, capture_output=True,
+             scene, "-o", out, "-v"], cwd=REPO, capture_output=True,
             text=True, timeout=600)
         wall = time.perf_counter() - t0
         for line in proc.stdout.splitlines():
-            log(f"[16] cli: {line}")
+            log(f"[{phase}] cli: {line}")
         if proc.returncode != 0:
             raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
                                  f"{proc.stderr[-4000:]}")
@@ -1806,24 +1850,250 @@ def testball_cli():
     launches = json.loads(next(
         line for line in proc.stdout.splitlines()
         if line.startswith("launches "))[len("launches "):])
-    ref = np.load(TESTBALL_GOLDEN)["img"]
+    ref = np.load(os.path.join(REPO, "tests", "goldens",
+                               f"testball-{name}.npz"))["img"]
     if img.shape != ref.shape or not np.isfinite(img).all():
         raise AssertionError(f"the CLI's image {img.shape} not finite or not "
                              f"the golden's {ref.shape}")
     mean_err, p99 = image_errors(img, ref)
-    log(f"[16] python -m rustracer_tpu_torch.utils.cli "
-        f"scenes/testball-matte.pbrt -o testball.exr: {wall:.2f} s in all; "
+    log(f"[{phase}] python -m rustracer_tpu_torch.utils.cli "
+        f"scenes/testball-{name}.pbrt -o testball.exr: {wall:.2f} s in all; "
         f"K14 {launches['quadric_closest']} closest and "
         f"{launches['quadric_any']} any-hit launches, K2 "
         f"{launches['build_interaction']}; against "
-        f"tests/goldens/testball-matte.npz: mean err {mean_err:.3g} (< "
+        f"tests/goldens/testball-{name}.npz: mean err {mean_err:.3g} (< "
         f"2e-3), p99 {p99:.3g} (< 2e-2)")
     if min(launches[k] for k in ("quadric_closest", "quadric_any",
                                  "build_interaction")) <= 0:
         raise AssertionError("the CLI's render did not launch K14 and K2")
     if not (mean_err < 2e-3 and p99 < 2e-2):
-        raise AssertionError("the CLI's testball-matte differs from its "
+        raise AssertionError(f"the CLI's testball-{name} differs from its "
                              "golden image")
+
+
+def testball_goldens(dev, card):
+    """Phase 17: the seven material testballs parsed and rendered in
+    process on the card at their own 64^2, counted, each against its
+    golden. -> {name: launches of its render}."""
+    from rustracer_tpu_torch import cuda as K
+    counts = {}
+    for name in TESTBALLS:
+        bundle, _ = parse_counted(
+            f"[17] testball-{name}",
+            path=os.path.join(REPO, "scenes", f"testball-{name}.pbrt"),
+            dev=dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        img = bundle.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = launches = dict(K.LAUNCHES)
+        ref = np.load(os.path.join(REPO, "tests", "goldens",
+                                   f"testball-{name}.npz"))["img"]
+        img = img.cpu().numpy()
+        if img.shape != ref.shape or not np.isfinite(img).all():
+            raise AssertionError(f"[17] testball-{name}: image {img.shape} "
+                                 "not finite or not the golden's")
+        mean_err, p99 = image_errors(img, ref)
+        ms = bundle.material_set
+        log(f"[17] testball-{name} {bundle.film.full_resolution}, "
+            f"{bundle.sampler.spp} spp, depth {bundle.integrator.max_depth}: "
+            f"{wall:.3f} s; M {ms.max_lobes}, lobe types "
+            f"{ms.types_present()}; against tests/goldens/testball-{name}"
+            f".npz: mean err {mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< "
+            f"2e-2); launches {launches}")
+        need = K.QUADRIC_KERNELS + ("build_interaction", "row_gather")
+        if name == "textured":
+            need += ("atlas_lookup_ewa",)
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"[17] testball-{name} did not launch "
+                                 f"{missing}")
+        if not (mean_err < 2e-3 and p99 < 2e-2):
+            raise AssertionError(f"[17] testball-{name} differs from its "
+                                 "golden image")
+    return counts
+
+
+def inside_call(label, calls, key):
+    """-> the index of the recorded call (of ``calls``, the list
+    capture_quadric_step(every=True) gives under ``key``) with the most
+    live rays starting inside a sphere, and that count; every call's
+    count printed."""
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    counts = []
+    for c in calls:
+        if key == "build_interaction":
+            geom, ray, hit, _, prim = c
+            live = hit & (prim < geom.n_quadrics)
+            o = ray.o
+        else:
+            geom, o, _, t_max = c
+            live = t_max > 0
+        counts.append(int((QW.inside_sphere(geom, o) & live).sum()))
+    log(f"{label} {key}: rays starting inside the ball, by call: {counts}")
+    i = int(np.argmax(counts))
+    if counts[i] <= 0:
+        raise AssertionError(f"{label} {key}: no call has a ray leaving the "
+                             "ball from inside")
+    return i, counts[i]
+
+
+def check_t_bits(label, geom, o, d, t_max):
+    """K14 closest's t bit for bit with the plain loop's on its hits."""
+    from rustracer_tpu_torch.cuda import plain_reference
+    from rustracer_tpu_torch.scene.tables import intersect_quadrics_all
+    hit, t, _ = intersect_quadrics_all(geom, o, d, t_max)
+    with plain_reference():
+        _, rt, _ = intersect_quadrics_all(geom, o, d, t_max)
+    if not torch.equal(t[hit].view(torch.int32), rt[hit].view(torch.int32)):
+        raise AssertionError(f"{label}: K14's t differs in bits from the "
+                             "plain loop's")
+
+
+def check_atlas_testball(ctx, cap, ball_reg, results):
+    """K5 on every call of a full-width testball-textured step against its
+    plain version (lanes beyond 1e-5 at most 1e-3; the ball's lanes'
+    largest error printed), timed and bounded as in phase 3."""
+    from rustracer_tpu_torch.scene import atlas as A
+    from rustracer_tpu_torch.tools.atlas_work import k5_bound, k5_work
+    rows = []
+    for li, c in enumerate(cap["k5"]):
+        reg, si = c["reg"], c["si"]
+
+        def fn(c=c):
+            return A.atlas_lookup_ewa(c["texels"], c["meta"], c["levels"],
+                                      c["regs"], reg, si, quad=c["quad"])
+        out, ref, ms_k, ms_p = both(fn, "atlas_ewa_kernel")
+        d = (out - ref).abs().max(-1).values
+        off = (d > 1e-5).float().mean().item()
+        ball = reg == ball_reg
+        work = k5_work(c["meta"], c["levels"], c["regs"], reg, si,
+                       c["quad"])
+        bound_ms, bound_by = k5_bound(work)
+        ball_err = d[ball].max().item() if bool(ball.any()) else 0.0
+        log(f"[17] testball-textured atlas_lookup_ewa call {li} (quad "
+            f"{c['quad']}): {reg.shape[0]} lanes, {int(ball.sum())} on the "
+            f"ball, {int((reg >= 0).sum()) - int(ball.sum())} on the floor; "
+            f"max abs err {d.max().item():.3g} (ball {ball_err:.3g}), lanes "
+            f"beyond 1e-5 {off:.3g} (<= 1e-3); kernel {ms_k:.4f} ms, plain "
+            f"{ms_p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms_k:.1f}%")
+        if off > 1e-3 or bool(out[reg < 0].any()):
+            raise AssertionError("[17] atlas_lookup_ewa differs on the "
+                                 "textured testball")
+        rows.append((ms_k, ms_p, bound_ms, bound_by, d.max().item(),
+                     int(ball.sum())))
+    if sum(r[5] for r in rows) <= 0:
+        raise AssertionError("[17] no K5 lane on the textured ball")
+    by = [r[3] for r in rows]
+    results["atlas_lookup_ewa testball-textured"] = dict(
+        max_abs_err=max(r[4] for r in rows),
+        ms=float(np.mean([r[0] for r in rows])),
+        plain_ms=float(np.mean([r[1] for r in rows])),
+        bound_ms=float(np.mean([r[2] for r in rows])),
+        bound_by=max(set(by), key=by.count), library_ms=None)
+
+
+def check_gather_w32(cap, results):
+    """K8 at 32 floats a row: the material rows of a full-width plastic
+    step's bounce 0, bit for bit, timed with its yardstick."""
+    from rustracer_tpu_torch.ops.gather import row_gather
+    from rustracer_tpu_torch.tools.timing import queued_ms
+    tab, mid = cap["k8"][0]
+    if tab.shape[1] != 32:
+        raise AssertionError(f"the plastic's material rows are {tab.shape}")
+    out, ref, ms, pms = both(lambda: row_gather(tab, mid),
+                             "row_gather_kernel")
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("row_gather differs on 32-float rows")
+    lib_ms = queued_ms(lambda: torch.index_select(tab, 0, mid), 20)
+    rows = torch.unique(mid).numel()
+    r = results["row_gather material rows W=32"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        **bound(nbytes(mid, out) + rows * tab.shape[1] * 4))
+    log(f"[17] row_gather material rows ({tab.shape[0]} x {tab.shape[1]} "
+        f"float32, {mid.shape[0]} lanes, {rows} distinct): bit for bit; "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.index_select "
+        f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / ms:.1f}%)")
+
+
+def glass_steps(dev, card, results, counts):
+    """Phase 17 at full width: the counted and timed glass render, K14 and
+    K2 on the glass step's inside-origin calls, K14 any on roughglass's,
+    K8 at 32 floats on plastic's, K5 on textured's."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    from rustracer_tpu_torch.tools.bench_step_kernels import capture_step
+    bundle = testball_at_res("[17]", "glass", dev)
+    renderer, ctx = bundle.renderer(LANES), bundle.context()
+    renderer.render_state(ctx, sample_stop=1)
+    launches, tiers, _, rays = render_counted(
+        "[17] testball-glass", renderer, bundle.film, ctx, SAMPLES, card,
+        depth=bundle.integrator.max_depth)
+    missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",)
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the glass render did not launch {missing}")
+    tile = renderer.tiles[2]
+    per_step = step_launches(renderer, ctx, tile)
+    log(f"[17] launches in one full-width glass step (tile 2): {per_step}")
+    cap = QW.capture_quadric_step(renderer, ctx, tile, every=True)
+    i, n_in = inside_call("[17] glass step", cap["intersect_quadrics_all"],
+                          "intersect_quadrics_all")
+    for j, c in enumerate(cap["intersect_quadrics_all"]):
+        check_t_bits(f"[17] glass step call {j}", *c)
+    check_k14(f"[17] glass step call {i} ({n_in} rays from inside)",
+              *cap["intersect_quadrics_all"][i], "quadric_closest glass",
+              False, results)
+    i, n_in = inside_call("[17] glass step", cap["build_interaction"],
+                          "build_interaction")
+    check_k2_quadrics(f"[17] glass step call {i} ({n_in} back-side hits)",
+                      *cap["build_interaction"][i], "build_interaction glass",
+                      results)
+    for key in ("quadric_closest glass", "build_interaction glass"):
+        name = ROWS[key][0]
+        results[key].update(launches=launches[name],
+                            launches_per_step=per_step[name],
+                            counted_in=f"testball-glass render at {RES[0]}^2")
+
+    rough = testball_at_res("[17]", "roughglass", dev)
+    rr, rctx = rough.renderer(LANES), rough.context()
+    rcap = QW.capture_quadric_step(rr, rctx, rr.tiles[2], every=True)
+    i, n_in = inside_call("[17] roughglass step", rcap["quadrics_any_hit"],
+                          "quadrics_any_hit")
+    check_k14(f"[17] roughglass step call {i} ({n_in} rays from inside)",
+              *rcap["quadrics_any_hit"][i], "quadric_any roughglass", True,
+              results)
+    results["quadric_any roughglass"].update(
+        launches=counts["roughglass"]["quadric_any"],
+        launches_per_step=step_launches(rr, rctx, rr.tiles[2])[
+            "quadric_any"],
+        counted_in="testball-roughglass render at 64^2 (phase 17)")
+
+    plastic = testball_at_res("[17]", "plastic", dev)
+    pr, pctx = plastic.renderer(LANES), plastic.context()
+    check_gather_w32(capture_step(pr, pctx, pr.tiles[2]), results)
+    results["row_gather material rows W=32"].update(
+        launches=counts["plastic"]["row_gather"],
+        launches_per_step=step_launches(pr, pctx, pr.tiles[2])["row_gather"],
+        counted_in="testball-plastic render at 64^2 (phase 17)")
+
+    tex = testball_at_res("[17]", "textured", dev)
+    tr, tctx = tex.renderer(LANES), tex.context()
+    ms = tex.material_set
+    _, slot_tab, _, _ = ms.atlas_prep()
+    ball_reg = int(slot_tab[len(ms.materials) - 1, 0])
+    check_atlas_testball(tctx, capture_step(tr, tctx, tr.tiles[2]),
+                         ball_reg, results)
+    results["atlas_lookup_ewa testball-textured"].update(
+        launches=counts["textured"]["atlas_lookup_ewa"],
+        launches_per_step=step_launches(tr, tctx, tr.tiles[2])[
+            "atlas_lookup_ewa"],
+        counted_in="testball-textured render at 64^2 (phase 17)")
+    return rays
 
 
 def no_quadric_launches(label, launches):
@@ -1938,7 +2208,12 @@ def run(dev, card):
     # 16: the quadrics
     check_quadric_table(dev, results)
     testball_full(dev, card, results)
-    testball_cli()
+    testball_cli("matte", 16)
+
+    # 17: the specular and microfacet lobes
+    counts = testball_goldens(dev, card)
+    glass_steps(dev, card, results, counts)
+    testball_cli("glass", 17)
 
     kernels = []
     for key, (name, case) in ROWS.items():

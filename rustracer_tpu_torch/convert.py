@@ -16,7 +16,8 @@ from .render.filters import Filter
 from .render.sampler import SamplerConfig
 from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
-from .scene.materials import MaterialSet, MatteMaterial
+from .scene.materials import (GlassMaterial, MaterialSet, MatteMaterial,
+                              MetalMaterial, MirrorMaterial, PlasticMaterial)
 from .scene.tables import QUADRIC_KEYS, GeometryTables
 from .scene.textures import (CheckerboardTexture, ConstantTexture,
                              ImageTexture, UVMapping2D)
@@ -161,20 +162,46 @@ def _zero_sigma(sigma, textures) -> bool:
             and float(np.asarray(textures["const"][sigma.key])) == 0.0)
 
 
+def _opt_texture(tex):
+    return None if tex is None else _texture_from_jax(tex)
+
+
+def _material_from_jax(m, textures):
+    kind = type(m).__name__
+    if m.bump_tex is not None:
+        raise NotImplementedError(f"material {kind} with a bump map is not "
+                                  "ported")
+    if kind == "MatteMaterial":
+        sigma = None if m.sigma is None or _zero_sigma(m.sigma, textures) \
+            else _texture_from_jax(m.sigma)
+        return MatteMaterial(kd=_texture_from_jax(m.kd), sigma=sigma)
+    if kind == "PlasticMaterial":
+        return PlasticMaterial(_texture_from_jax(m.kd),
+                               _texture_from_jax(m.ks),
+                               _texture_from_jax(m.roughness), m.remap)
+    if kind == "MirrorMaterial":
+        return MirrorMaterial(_texture_from_jax(m.kr))
+    if kind == "GlassMaterial":
+        return GlassMaterial(_texture_from_jax(m.kr), _texture_from_jax(m.kt),
+                             _texture_from_jax(m.index),
+                             _opt_texture(m.urough), _opt_texture(m.vrough),
+                             m.remap)
+    if kind == "MetalMaterial":
+        return MetalMaterial(_texture_from_jax(m.eta), _texture_from_jax(m.k),
+                             _texture_from_jax(m.roughness),
+                             _opt_texture(m.urough), _opt_texture(m.vrough),
+                             m.remap)
+    raise NotImplementedError(f"material {kind} is not ported")
+
+
 def material_set_from_jax(ms, textures=None) -> MaterialSet:
-    """JAX MaterialSet of matte materials over constant, checkerboard or
-    UV-mapped image textures -> port's; raises on anything else. A parsed
-    scene's mattes carry a sigma texture: with the JAX ``textures`` dict
-    given, a sigma that is the constant 0 is the Lambertian lobe."""
-    out = []
-    for m in ms.materials:
-        kind = type(m).__name__
-        if kind != "MatteMaterial" or m.bump_tex is not None or not (
-                m.sigma is None or _zero_sigma(m.sigma, textures)):
-            raise NotImplementedError(
-                f"material {kind} (sigma, bump) is not ported")
-        out.append(MatteMaterial(kd=_texture_from_jax(m.kd)))
-    return MaterialSet(out)
+    """JAX MaterialSet of matte (with sigma), plastic, mirror, glass and
+    metal materials over constant, checkerboard or UV-mapped image
+    textures -> port's; raises on anything else (and on a bump map). A
+    parsed scene's mattes carry a sigma texture: with the JAX ``textures``
+    dict given, a sigma that is the constant 0 is the Lambertian lobe."""
+    return MaterialSet([_material_from_jax(m, textures)
+                        for m in ms.materials])
 
 
 def camera_from_jax(cam) -> PerspectiveCamera:

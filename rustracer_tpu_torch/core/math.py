@@ -103,3 +103,104 @@ def offset_ray_origin(p, p_error, n, w):
     po = p + offset
     return torch.where(offset > 0.0, next_float_up(po),
                        torch.where(offset < 0.0, next_float_down(po), po))
+
+
+# --- shading-space trigonometry: z is the shading normal, w a unit
+# direction in that frame ---
+
+def cos_theta(w):
+    return w[..., 2]
+
+
+def cos2_theta(w):
+    return w[..., 2] * w[..., 2]
+
+
+def abs_cos_theta(w):
+    return torch.abs(w[..., 2])
+
+
+def sin2_theta(w):
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return torch.sqrt(sin2_theta(w))
+
+
+def tan_theta(w):
+    return sin_theta(w) / w[..., 2]
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / cos2_theta(w)
+
+
+def cos_phi(w):
+    st = sin_theta(w)
+    zero = st == 0.0
+    return torch.where(zero, 1.0, torch.clamp(
+        w[..., 0] / torch.where(zero, 1.0, st), -1.0, 1.0))
+
+
+def sin_phi(w):
+    st = sin_theta(w)
+    zero = st == 0.0
+    return torch.where(zero, 0.0, torch.clamp(
+        w[..., 1] / torch.where(zero, 1.0, st), -1.0, 1.0))
+
+
+def cos2_phi(w):
+    c = cos_phi(w)
+    return c * c
+
+
+def sin2_phi(w):
+    s = sin_phi(w)
+    return s * s
+
+
+def same_hemisphere(w, wp):
+    return w[..., 2] * wp[..., 2] > 0.0
+
+
+def reflect(wo, n):
+    """Mirror wo about n (both pointing away from the surface)."""
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def refract(wi, n, eta):
+    """Refract wi about n with relative IOR eta -> (wt, valid); valid is
+    False on total internal reflection."""
+    cos_theta_i = dot(n, wi)
+    sin2_theta_i = torch.clamp(1.0 - cos_theta_i * cos_theta_i, min=0.0)
+    sin2_theta_t = eta * eta * sin2_theta_i
+    valid = sin2_theta_t < 1.0
+    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin2_theta_t, min=0.0))
+    wt = eta[..., None] * (-wi) \
+        + (eta * cos_theta_i - cos_theta_t)[..., None] * n
+    return wt, valid
+
+
+def erf_inv(x):
+    """Inverse error function: PBRT's single-precision polynomial (the
+    reference's, not torch.erfinv)."""
+    x = torch.clamp(x, -0.99999, 0.99999)
+    w = -torch.log((1.0 - x) * (1.0 + x))
+    small = w < 5.0
+    w_s = w - 2.5
+    w_l = torch.sqrt(torch.clamp(w, min=5.0)) - 3.0
+    p_s = 2.81022636e-08
+    for c in (3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+              0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+              1.50140941):
+        p_s = c + p_s * w_s
+    p_l = -0.000200214257
+    for c in (0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+              -0.0076224613, 0.00943887047, 1.00167406, 2.83297682):
+        p_l = c + p_l * w_l
+    return torch.where(small, p_s, p_l) * x
+
+
+def erf(x):
+    return torch.erf(x)

@@ -87,3 +87,29 @@ def srgb_decode_np(encoded):
     return np.where(encoded <= 0.04045,
                     encoded / 12.92,
                     ((encoded + 0.055) / 1.055) ** 2.4).astype(np.float32)
+
+
+# Named metal spectra (eta, k) for the metal material: sampled SPDs
+# (Palik / CRC handbooks) on a coarse wavelength grid, converted to RGB at
+# scene build (the reference material/metal.rs's default is copper)
+_CU_LAMS = [360, 400, 440, 480, 520, 560, 600, 640, 680, 720, 760, 830]
+_CU_ETA = [1.38, 1.25, 1.18, 1.15, 1.12, 1.05, 0.43, 0.26, 0.24, 0.23, 0.23, 0.24]
+_CU_K = [1.72, 2.04, 2.21, 2.36, 2.49, 2.60, 3.21, 3.67, 4.05, 4.35, 4.62, 4.95]
+_AU_LAMS = [360, 400, 440, 480, 520, 560, 600, 640, 680, 720, 760, 830]
+_AU_ETA = [1.68, 1.66, 1.54, 1.36, 0.83, 0.43, 0.25, 0.20, 0.17, 0.16, 0.16, 0.17]
+_AU_K = [1.94, 1.96, 1.85, 1.80, 2.12, 2.46, 2.92, 3.37, 3.81, 4.22, 4.60, 5.26]
+_AG_LAMS = [360, 400, 440, 480, 520, 560, 600, 640, 680, 720, 760, 830]
+_AG_ETA = [0.19, 0.17, 0.15, 0.14, 0.13, 0.12, 0.12, 0.13, 0.14, 0.15, 0.15, 0.16]
+_AG_K = [1.64, 2.00, 2.36, 2.70, 3.01, 3.31, 3.66, 3.96, 4.26, 4.56, 4.86, 5.36]
+
+
+def metal_eta_k(name="Cu"):
+    """-> (eta, k) RGB (numpy (3,)) of a named metal; copper for an
+    unknown name."""
+    tables = {
+        "Cu": (_CU_LAMS, _CU_ETA, _CU_K),
+        "Au": (_AU_LAMS, _AU_ETA, _AU_K),
+        "Ag": (_AG_LAMS, _AG_ETA, _AG_K),
+    }
+    lams, eta, k = tables.get(name, tables["Cu"])
+    return from_sampled(lams, eta), from_sampled(lams, k)

@@ -23,13 +23,17 @@ def unoccluded(geom, si, ls: L.LightSample, mask):
     return ~scene_intersect_p(geom, Ray(o=o, d=p_t - o, t_max=t_max))
 
 
-def estimate_direct_light_side(ctx, si, lobes, lid, u_light, sel_pmf):
-    """NEE toward light ``lid`` with MIS weight against the BSDF density;
-    the light-selection pmf is folded into the light pdf. -> (B, 3)."""
+def estimate_direct_light_side(ctx, mat_set, si, lobes, lid, u_light,
+                               sel_pmf):
+    """NEE toward light ``lid`` with MIS weight against the BSDF density
+    over ``mat_set``'s lobe types; the light-selection pmf is folded into
+    the light pdf. -> (B, 3)."""
+    types = mat_set.types_present()
     ls = L.sample_li(ctx.lights, lid, si, u_light)
     light_pdf = ls.pdf * sel_pmf
-    f = B.bsdf_f(lobes, si, si.wo, ls.wi) * absdot(ls.wi, si.ns)[:, None]
-    scattering_pdf = B.bsdf_pdf(lobes, si, si.wo, ls.wi)
+    f = B.bsdf_f(lobes, si, si.wo, ls.wi, types) \
+        * absdot(ls.wi, si.ns)[:, None]
+    scattering_pdf = B.bsdf_pdf(lobes, si, si.wo, ls.wi, types)
     possible = (light_pdf > 0.0) & ~is_black(ls.li) & ~is_black(f) & si.valid
     vis = unoccluded(ctx.geom, si, ls, possible) & possible
     li = torch.where(vis[:, None], ls.li, 0.0)

@@ -21,9 +21,11 @@ the spatial light grid (scene/lightdistrib.py, hand kernel K13): the pick
 at the scattering point and the emission-hit MIS weight's selection pmf at
 the point the ray left (``prev_p``).
 
+Russian roulette reads the throughput times ``eta_scale``, the product
+of the squared relative IORs of the specular transmissions taken.
+
 Not ported: passes through medium interfaces, infinite lights and the
-stats counters. No transmissive lobe is ported, so Russian roulette's eta
-scale is 1.
+stats counters.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import dataclasses
 import torch
 
 from ..core.interaction import compute_differentials
-from ..core.math import absdot
+from ..core.math import absdot, dot
 from ..core.ray import Ray
 from ..core.sampling import power_heuristic
 from ..core.spectrum import is_black
@@ -63,6 +65,7 @@ class _PathState:
     ray_tmax: torch.Tensor    # (B,)
     L: torch.Tensor           # (B, 3) accumulated radiance
     beta: torch.Tensor        # (B, 3) path throughput
+    eta_scale: torch.Tensor   # (B,) squared IOR ratios of specular refractions
     alive: torch.Tensor       # (B,) bool
     prev_pdf: torch.Tensor    # (B,) BSDF pdf of ray_d (solid angle)
     prev_spec: torch.Tensor   # (B,) bool: ray_d came from a delta lobe
@@ -71,8 +74,8 @@ class _PathState:
 
 # state fields moved into and out of a slab (pixel and sample indices move
 # in besides, and come back unchanged)
-SLAB_FIELDS = ("ray_o", "ray_d", "ray_tmax", "L", "beta", "alive",
-                "prev_pdf", "prev_spec", "prev_p")
+SLAB_FIELDS = ("ray_o", "ray_d", "ray_tmax", "L", "beta", "eta_scale",
+               "alive", "prev_pdf", "prev_spec", "prev_p")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,22 +134,34 @@ class PathIntegrator:
     def _scatter(self, ctx, sampler, lanes, si, st: _PathState,
                  d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool):
         """Shade, NEE (light side), BSDF bounce sample, Russian roulette."""
+        types = self.mat_set.types_present()
         si, lobes = self.mat_set.shade(si, ctx)
         lobes = lobes._replace(active=lobes.active & st.alive[:, None])
         n_nonspec = B.num_matching(lobes, B.ALL & ~B.SPECULAR)
         lid, pmf = self._pick_light(ctx, sampler, lanes, si, d_sel)
         u_light = sampler.get_2d(lanes.pixel_idx, lanes.sample_idx, d_light)
-        ld = estimate_direct_light_side(ctx, si, lobes, lid, u_light, pmf)
+        ld = estimate_direct_light_side(ctx, self.mat_set, si, lobes, lid,
+                                        u_light, pmf)
         Lrad = st.L + torch.where((st.alive & (n_nonspec > 0))[:, None],
                                   st.beta * ld, 0.0)
 
         u_lobe = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_lobe)
         u2 = sampler.get_2d(lanes.pixel_idx, lanes.sample_idx, d_u2)
-        wi, f, pdf, flags, ok = B.bsdf_sample_f(lobes, si, si.wo, u_lobe, u2)
+        wi, f, pdf, flags, ok = B.bsdf_sample_f(lobes, si, si.wo, u_lobe, u2,
+                                                types)
         contrib = f * (absdot(wi, si.ns)
                        / torch.clamp(pdf, min=1e-12))[:, None]
         alive = st.alive & ok & ~is_black(f) & (pdf > 0.0)
         beta = torch.where(alive[:, None], st.beta * contrib, st.beta)
+        spec = (flags & B.SPECULAR) != 0
+        eta_scale = st.eta_scale
+        if B.FRESNEL_SPECULAR in types or B.SPECULAR_TRANS in types:
+            eta2 = lobes.eta * lobes.eta
+            eta_scale = torch.where(
+                spec & ((flags & B.TRANSMISSION) != 0),
+                eta_scale * torch.where(dot(si.wo, si.ns) > 0.0, eta2,
+                                        1.0 / torch.clamp(eta2, min=1e-8)),
+                eta_scale)
         ray = si.spawn_ray(wi)
         # dead lanes must not traverse
         t_max = torch.where(alive, ray.t_max, 0.0)
@@ -154,7 +169,7 @@ class PathIntegrator:
         # Russian roulette; its dimension is allocated on every bounce
         if rr_on:
             u_rr = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_rr)
-            rr_beta_max = beta.max(dim=-1).values
+            rr_beta_max = (beta * eta_scale[:, None]).max(dim=-1).values
             q = torch.clamp(1.0 - rr_beta_max, min=0.05)
             do_rr = rr_beta_max < self.rr_threshold
             alive = alive & ~(do_rr & (u_rr < q))
@@ -162,8 +177,8 @@ class PathIntegrator:
                                beta / torch.clamp(1.0 - q, min=1e-3)[:, None],
                                beta)
         return _PathState(ray_o=ray.o, ray_d=ray.d, ray_tmax=t_max, L=Lrad,
-                          beta=beta, alive=alive, prev_pdf=pdf,
-                          prev_spec=(flags & B.SPECULAR) != 0, prev_p=si.p)
+                          beta=beta, eta_scale=eta_scale, alive=alive,
+                          prev_pdf=pdf, prev_spec=spec, prev_p=si.p)
 
     @staticmethod
     def _initial_state(ray: Ray) -> _PathState:
@@ -175,6 +190,7 @@ class PathIntegrator:
             ray_o=ray.o, ray_d=ray.d, ray_tmax=ray.t_max,
             L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
             beta=torch.ones((n, 3), dtype=torch.float32, device=dev),
+            eta_scale=torch.ones(n, dtype=torch.float32, device=dev),
             alive=torch.ones(n, dtype=torch.bool, device=dev),
             # prev_spec True: weight-1 emission on camera hits
             prev_pdf=ones, prev_spec=torch.ones(n, dtype=torch.bool,

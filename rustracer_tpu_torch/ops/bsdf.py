@@ -1,21 +1,52 @@
-"""Lobe-stack BSDF evaluation (port of rustracer_tpu/ops/bsdf.py, the
-Lambertian reflection lobe).
+"""Lobe-stack BSDF evaluation (port of rustracer_tpu/ops/bsdf.py: the
+Lambertian, Oren-Nayar, microfacet reflection and transmission lobes and
+the three specular lobes).
 
 Every lane carries up to M lobes as (type, params[16], active) rows; f and
-pdf sum or average the active matching lobes, and sampling picks the k-th
-matching lobe. Params slot [0:3] is the lobe's color.
+pdf sum or average the active matching lobes over the lobe types statically
+present in the scene (``types_present``, a tuple), and sampling picks the
+k-th matching lobe. A type the port does not evaluate yet raises
+NotImplementedError naming it; it is never treated as black.
+
+Param slots (the reference's layout):
+  [0:3] primary color, [3:6] secondary color (T, conductor eta),
+  [6:9] tertiary color (conductor k), [9] eta, [10] alpha_x, [11] alpha_y,
+  [12] microfacet distribution code, [13] fresnel code,
+  [14] Oren-Nayar A, [15] Oren-Nayar B.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
-from ..core.math import INV_PI, dot
+from ..core.math import (INV_PI, abs_cos_theta, cos_theta, dot, normalize,
+                         reflect, refract, same_hemisphere)
 from ..core.sampling import cosine_sample_hemisphere
+from .fresnel import FR_CONDUCTOR, FR_DIELECTRIC, fr_conductor, fr_dielectric
+from .microfacet import (distribution_d, distribution_g, distribution_pdf,
+                         distribution_sample_wh)
 
+# --- lobe type codes (the reference's) ---
 LAMBERTIAN_REFL = 0
+OREN_NAYAR = 1
+LAMBERTIAN_TRANS = 2
+SPECULAR_REFL = 3
+SPECULAR_TRANS = 4
+FRESNEL_SPECULAR = 5
+MICROFACET_REFL = 6
+MICROFACET_TRANS = 7
+FRESNEL_BLEND = 8
+DISNEY_DIFFUSE = 9
+DISNEY_RETRO = 10
+DISNEY_SHEEN = 11
+DISNEY_CLEARCOAT = 12
+DISNEY_FAKE_SS = 13
+FOURIER = 14
+N_LOBE_TYPES = 15
 
+# --- BxDF type flags ---
 REFLECTION = 1
 TRANSMISSION = 2
 DIFFUSE = 4
@@ -23,23 +54,284 @@ GLOSSY = 8
 SPECULAR = 16
 ALL = REFLECTION | TRANSMISSION | DIFFUSE | GLOSSY | SPECULAR
 
-LOBE_FLAGS = {LAMBERTIAN_REFL: REFLECTION | DIFFUSE}
+LOBE_FLAGS = np.zeros(N_LOBE_TYPES, np.int32)
+LOBE_FLAGS[[LAMBERTIAN_REFL, OREN_NAYAR, DISNEY_DIFFUSE, DISNEY_RETRO,
+            DISNEY_SHEEN, DISNEY_FAKE_SS]] = REFLECTION | DIFFUSE
+LOBE_FLAGS[LAMBERTIAN_TRANS] = TRANSMISSION | DIFFUSE
+LOBE_FLAGS[SPECULAR_REFL] = REFLECTION | SPECULAR
+LOBE_FLAGS[SPECULAR_TRANS] = TRANSMISSION | SPECULAR
+LOBE_FLAGS[FRESNEL_SPECULAR] = REFLECTION | TRANSMISSION | SPECULAR
+LOBE_FLAGS[[MICROFACET_REFL, FRESNEL_BLEND,
+            DISNEY_CLEARCOAT]] = REFLECTION | GLOSSY
+LOBE_FLAGS[MICROFACET_TRANS] = TRANSMISSION | GLOSSY
+LOBE_FLAGS[FOURIER] = REFLECTION | TRANSMISSION | GLOSSY
+
+SPECULAR_TYPES = (SPECULAR_REFL, SPECULAR_TRANS, FRESNEL_SPECULAR)
+DIFFUSE_LIKE = (LAMBERTIAN_REFL, OREN_NAYAR)
+PORTED_TYPES = frozenset(DIFFUSE_LIKE + SPECULAR_TYPES
+                         + (MICROFACET_REFL, MICROFACET_TRANS))
+_NAMES = {FRESNEL_BLEND: "FRESNEL_BLEND (substrate)",
+          LAMBERTIAN_TRANS: "LAMBERTIAN_TRANS (translucent)",
+          DISNEY_DIFFUSE: "DISNEY_DIFFUSE", DISNEY_RETRO: "DISNEY_RETRO",
+          DISNEY_SHEEN: "DISNEY_SHEEN", DISNEY_CLEARCOAT: "DISNEY_CLEARCOAT",
+          DISNEY_FAKE_SS: "DISNEY_FAKE_SS", FOURIER: "FOURIER"}
 
 
 class LobeStack(NamedTuple):
     type: torch.Tensor     # (B, M) int32
     params: torch.Tensor   # (B, M, 16) float32
     active: torch.Tensor   # (B, M) bool
+    eta: torch.Tensor      # (B,) float32: the lane's relative IOR
+
+
+def check_types(types_present: Sequence[int]):
+    """Raise NotImplementedError for a lobe type the port does not
+    evaluate yet."""
+    for T in types_present:
+        if T not in PORTED_TYPES:
+            raise NotImplementedError(
+                f"the lobe type {_NAMES.get(T, T)} is not ported yet "
+                "(ROADMAP.md, section A, item 13)")
+
+
+_FLAG_TABLES = {}
 
 
 def lobe_flags(ltype):
-    """Flags per lobe type (every ported type is Lambertian)."""
-    return torch.full_like(ltype, LOBE_FLAGS[LAMBERTIAN_REFL])
+    """Flags per lobe type: a lookup into the device's flag table."""
+    tab = _FLAG_TABLES.get(ltype.device)
+    if tab is None:
+        tab = _FLAG_TABLES[ltype.device] = torch.as_tensor(
+            LOBE_FLAGS, device=ltype.device)
+    return tab[ltype.long()]
 
 
 def _matches(ltype, flags):
     lf = lobe_flags(ltype)
     return (lf & flags) == lf
+
+
+def _is_specular(ltype):
+    return (lobe_flags(ltype) & SPECULAR) != 0
+
+
+def _fresnel(code, cos_i, params):
+    """(..., 3) reflectance by the fresnel code of slot 13 (FR_NOOP: 1)."""
+    s0 = params[..., 9]
+    pb = params[..., 3:6]
+    pc = params[..., 6:9]
+    fd = fr_dielectric(cos_i, torch.ones_like(s0), s0)[..., None]
+    fc = fr_conductor(cos_i, torch.ones_like(pb), pb, pc)
+    out = torch.ones_like(fc)
+    out = torch.where((code == FR_DIELECTRIC)[..., None], fd, out)
+    # FR_DISNEY comes only with the Disney lobes, which check_types refuses
+    return torch.where((code == FR_CONDUCTOR)[..., None], fc, out)
+
+
+def _f_one_type(T, params, wo, wi):
+    """Non-specular f of lobe type T (a static int) -> (..., 3)."""
+    pa = params[..., 0:3]
+    same = same_hemisphere(wo, wi)
+    if T == LAMBERTIAN_REFL:
+        return torch.where(same[..., None], pa * INV_PI, 0.0)
+    aci = abs_cos_theta(wi)
+    aco = abs_cos_theta(wo)
+    if T == OREN_NAYAR:
+        A = params[..., 14]
+        B = params[..., 15]
+        sin_ti = torch.sqrt(torch.clamp(1.0 - wi[..., 2] ** 2, min=0.0))
+        sin_to = torch.sqrt(torch.clamp(1.0 - wo[..., 2] ** 2, min=0.0))
+
+        def safe(s):
+            return torch.where(s < 1e-4, 1.0, s)
+        cpi, spi = wi[..., 0] / safe(sin_ti), wi[..., 1] / safe(sin_ti)
+        cpo, spo = wo[..., 0] / safe(sin_to), wo[..., 1] / safe(sin_to)
+        d_cos = torch.clamp(cpi * cpo + spi * spo, min=0.0)
+        d_cos = torch.where((sin_ti < 1e-4) | (sin_to < 1e-4), 0.0, d_cos)
+        big = torch.maximum(aci, aco)
+        small = torch.minimum(aci, aco)
+        sin_alpha = torch.sqrt(torch.clamp(1.0 - big * big, min=0.0))
+        tan_beta = torch.sqrt(torch.clamp(1.0 - small * small, min=0.0)) \
+            / torch.clamp(small, min=1e-8)
+        f = pa * INV_PI * (A + B * d_cos * sin_alpha * tan_beta)[..., None]
+        return torch.where(same[..., None], f, 0.0)
+    degenerate = (aci < 1e-8) | (aco < 1e-8)
+    ax, ay = params[..., 10], params[..., 11]
+    dist = params[..., 12].int()
+    if T == MICROFACET_REFL:
+        wh = wi + wo
+        wh_len = torch.sqrt(torch.clamp(
+            wh[..., 0] * wh[..., 0] + wh[..., 1] * wh[..., 1]
+            + wh[..., 2] * wh[..., 2], min=1e-20))
+        wh_n = wh / wh_len[..., None]
+        F = _fresnel(params[..., 13].int(), dot(wi, wh_n), params)
+        d = distribution_d(dist, wh_n, ax, ay)
+        g = distribution_g(dist, wo, wi, ax, ay)
+        f = pa * F * (d * g / torch.clamp(4.0 * aci * aco, min=1e-8))[..., None]
+        ok = same & ~degenerate & (wh_len > 1e-8)
+        return torch.where(ok[..., None], f, 0.0)
+    if T == MICROFACET_TRANS:
+        eta = params[..., 9]
+        # eta by the side of the surface wo is on
+        e = torch.where(cos_theta(wo) > 0.0, eta, 1.0 / eta)
+        wh = normalize(wo + wi * e[..., None])
+        wh = torch.where((cos_theta(wh) < 0.0)[..., None], -wh, wh)
+        wo_dot = dot(wo, wh)
+        wi_dot = dot(wi, wh)
+        ok = (~same) & ~degenerate & (wo_dot * wi_dot < 0.0)
+        F = fr_dielectric(wo_dot, torch.ones_like(e), eta)
+        d = distribution_d(dist, wh, ax, ay)
+        g = distribution_g(dist, wo, wi, ax, ay)
+        denom = (wo_dot + e * wi_dot) ** 2
+        factor = 1.0 / torch.clamp(e, min=1e-8)   # radiance transport
+        f = pa * ((1.0 - F) * d * g * e * e * torch.abs(wi_dot)
+                  * torch.abs(wo_dot) * factor * factor
+                  / torch.clamp(aci * aco * denom, min=1e-10))[..., None]
+        return torch.where(ok[..., None], f, 0.0)
+    check_types((T,))
+    raise AssertionError(f"lobe type {T} has no f")
+
+
+def _pdf_one_type(T, params, wo, wi):
+    same = same_hemisphere(wo, wi)
+    if T in DIFFUSE_LIKE:
+        return torch.where(same, abs_cos_theta(wi) * INV_PI, 0.0)
+    ax, ay = params[..., 10], params[..., 11]
+    dist = params[..., 12].int()
+    if T == MICROFACET_REFL:
+        wh = normalize(wo + wi)
+        pdf = distribution_pdf(dist, wo, wh, ax, ay) \
+            / torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-8)
+        return torch.where(same, pdf, 0.0)
+    if T == MICROFACET_TRANS:
+        eta = params[..., 9]
+        e = torch.where(cos_theta(wo) > 0.0, eta, 1.0 / eta)
+        wh = normalize(wo + wi * e[..., None])
+        wo_dot = dot(wo, wh)
+        wi_dot = dot(wi, wh)
+        ok = (~same) & (wo_dot * wi_dot < 0.0)
+        denom = (wo_dot + e * wi_dot) ** 2
+        dwh_dwi = torch.abs(e * e * wi_dot) / torch.clamp(denom, min=1e-10)
+        pdf = distribution_pdf(dist, wo, wh, ax, ay) * dwh_dwi
+        return torch.where(ok, pdf, 0.0)
+    check_types((T,))
+    raise AssertionError(f"lobe type {T} has no pdf")
+
+
+def _batch(ltype, wo):
+    return torch.broadcast_shapes(ltype.shape, wo.shape[:-1])
+
+
+def eval_f(ltype, params, wo, wi, types_present: Sequence[int]):
+    """Masked dispatch of _f_one_type over the present types (the specular
+    ones have f 0)."""
+    check_types(types_present)
+    out = wo.new_zeros(_batch(ltype, wo) + (3,))
+    for T in types_present:
+        if T not in SPECULAR_TYPES:
+            out = torch.where((ltype == T)[..., None],
+                              _f_one_type(T, params, wo, wi), out)
+    return out
+
+
+def eval_pdf(ltype, params, wo, wi, types_present: Sequence[int]):
+    check_types(types_present)
+    out = wo.new_zeros(_batch(ltype, wo))
+    for T in types_present:
+        if T not in SPECULAR_TYPES:
+            out = torch.where(ltype == T, _pdf_one_type(T, params, wo, wi),
+                              out)
+    return out
+
+
+def _normal_by_side(entering):
+    """(0, 0, 1) where ``entering``, else (0, 0, -1)."""
+    z = torch.where(entering, 1.0, -1.0)
+    zero = torch.zeros_like(z)
+    return torch.stack([zero, zero, z], -1)
+
+
+def _mirror(wo):
+    return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], -1)
+
+
+def sample_lobe(ltype, params, wo, u, types_present: Sequence[int]):
+    """wi from the chosen lobe (ltype (B,), params (B, 16)) ->
+    (wi, specular f, specular pdf, is specular). A non-specular lobe's f
+    and pdf are summed over all lobes afterwards."""
+    check_types(types_present)
+    wi = torch.zeros_like(wo)
+    spec_f = torch.zeros_like(wo)
+    spec_pdf = torch.zeros_like(wo[..., 0])
+    cos_o = cos_theta(wo)
+    pa = params[..., 0:3]
+    pb = params[..., 3:6]
+    eta = params[..., 9]
+
+    diffuse_like = [T for T in types_present if T in DIFFUSE_LIKE]
+    if diffuse_like:
+        w = cosine_sample_hemisphere(u)
+        w = torch.where((cos_o < 0.0)[..., None],
+                        w * w.new_tensor([1.0, 1.0, -1.0]), w)
+        mask = ltype == diffuse_like[0]
+        for T in diffuse_like[1:]:
+            mask = mask | (ltype == T)
+        wi = torch.where(mask[..., None], w, wi)
+    if MICROFACET_REFL in types_present or MICROFACET_TRANS in types_present:
+        ax, ay = params[..., 10], params[..., 11]
+        dist = params[..., 12].int()
+        wh = distribution_sample_wh(dist, wo, u, ax, ay)
+    if MICROFACET_REFL in types_present:
+        wi = torch.where((ltype == MICROFACET_REFL)[..., None],
+                         reflect(wo, wh), wi)
+    if MICROFACET_TRANS in types_present:
+        e = torch.where(cos_o > 0.0, 1.0 / eta, eta)
+        wh_f = torch.where((dot(wo, wh) < 0.0)[..., None], -wh, wh)
+        w, ok = refract(wo, wh_f, e)
+        w = torch.where(ok[..., None], w, -wo)  # TIR: degenerate, f 0
+        wi = torch.where((ltype == MICROFACET_TRANS)[..., None], w, wi)
+
+    # specular lobes: wi, f and pdf directly
+    if SPECULAR_REFL in types_present:
+        w = _mirror(wo)
+        F = _fresnel(params[..., 13].int(), cos_theta(w), params)
+        f = pa * F / torch.clamp(abs_cos_theta(w), min=1e-8)[..., None]
+        m = ltype == SPECULAR_REFL
+        wi = torch.where(m[..., None], w, wi)
+        spec_f = torch.where(m[..., None], f, spec_f)
+        spec_pdf = torch.where(m, 1.0, spec_pdf)
+    if SPECULAR_TRANS in types_present:
+        entering = cos_o > 0.0
+        e = torch.where(entering, 1.0 / eta, eta)
+        w, ok = refract(wo, _normal_by_side(entering), e)
+        F = fr_dielectric(cos_o, torch.ones_like(eta), eta)
+        ft = pa * (1.0 - F)[..., None] * (e * e)[..., None]
+        f = ft / torch.clamp(abs_cos_theta(w), min=1e-8)[..., None]
+        f = torch.where(ok[..., None], f, 0.0)
+        m = ltype == SPECULAR_TRANS
+        wi = torch.where(m[..., None], w, wi)
+        spec_f = torch.where(m[..., None], f, spec_f)
+        spec_pdf = torch.where(m, 1.0, spec_pdf)
+    if FRESNEL_SPECULAR in types_present:
+        F = fr_dielectric(cos_o, torch.ones_like(eta), eta)
+        pick_refl = u[..., 0] < F
+        w_r = _mirror(wo)
+        f_r = pa * F[..., None] \
+            / torch.clamp(abs_cos_theta(w_r), min=1e-8)[..., None]
+        entering = cos_o > 0.0
+        e = torch.where(entering, 1.0 / eta, eta)
+        w_t, ok = refract(wo, _normal_by_side(entering), e)
+        f_t = pb * ((1.0 - F) * e * e)[..., None] \
+            / torch.clamp(abs_cos_theta(w_t), min=1e-8)[..., None]
+        f_t = torch.where(ok[..., None], f_t, 0.0)
+        m = ltype == FRESNEL_SPECULAR
+        wi = torch.where((m & pick_refl)[..., None], w_r,
+                         torch.where(m[..., None], w_t, wi))
+        spec_f = torch.where((m & pick_refl)[..., None], f_r,
+                             torch.where(m[..., None], f_t, spec_f))
+        spec_pdf = torch.where(m, torch.where(pick_refl, F, 1.0 - F),
+                               spec_pdf)
+    return wi, spec_f, spec_pdf, _is_specular(ltype)
 
 
 def world_to_local(ss, ts, ns, v):
@@ -55,17 +347,7 @@ def num_matching(lobes: LobeStack, flags):
     return m.sum(-1, dtype=torch.int32)
 
 
-def _lambert_f(params, wo, wi):
-    same = wo[..., 2] * wi[..., 2] > 0.0
-    return torch.where(same[..., None], params[..., 0:3] * INV_PI, 0.0)
-
-
-def _lambert_pdf(wo, wi):
-    same = wo[..., 2] * wi[..., 2] > 0.0
-    return torch.where(same, torch.abs(wi[..., 2]) * INV_PI, 0.0)
-
-
-def bsdf_f(lobes: LobeStack, si, wo_w, wi_w, flags=ALL):
+def bsdf_f(lobes: LobeStack, si, wo_w, wi_w, types_present, flags=ALL):
     """Sum of the matching lobes' f, with the geometric-normal
     reflect/transmit test."""
     wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
@@ -75,26 +357,42 @@ def bsdf_f(lobes: LobeStack, si, wo_w, wi_w, flags=ALL):
     lf = lobe_flags(lobes.type)
     hemi_ok = torch.where(reflect_w[..., None], (lf & REFLECTION) != 0,
                           (lf & TRANSMISSION) != 0)
-    m = lobes.active & _matches(lobes.type, flags) & hemi_ok
-    f = _lambert_f(lobes.params, wo[..., None, :], wi[..., None, :])
+    m = lobes.active & ((lf & flags) == lf) & hemi_ok
+    f = eval_f(lobes.type, lobes.params, wo[..., None, :], wi[..., None, :],
+               types_present)
     f = torch.where(m[..., None], f, 0.0).sum(-2)
     return torch.where(ok_wo[..., None], f, 0.0)
 
 
-def bsdf_pdf(lobes: LobeStack, si, wo_w, wi_w, flags=ALL):
+def bsdf_pdf(lobes: LobeStack, si, wo_w, wi_w, types_present, flags=ALL):
     """Average of the matching lobes' pdf."""
     wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
     wi = world_to_local(si.ss, si.ts, si.ns, wi_w)
     ok_wo = torch.abs(wo[..., 2]) > 1e-8
     m = lobes.active & _matches(lobes.type, flags)
-    pdf = torch.where(m, _lambert_pdf(wo[..., None, :], wi[..., None, :]),
-                      0.0)
+    pdf = eval_pdf(lobes.type, lobes.params, wo[..., None, :],
+                   wi[..., None, :], types_present)
+    pdf = torch.where(m, pdf, 0.0)
     n = m.sum(-1, dtype=torch.int32)
     out = pdf.sum(-1) / torch.clamp(n.float(), min=1.0)
     return torch.where(ok_wo & (n > 0), out, 0.0)
 
 
-def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, flags=ALL):
+def choose_lobe(lobes: LobeStack, m, k):
+    """-> (type (B,), params (B, 16)) of the k-th lobe whose m is set
+    (lobe 0 where none is): a running count over the static M."""
+    ct, cp = lobes.type[:, 0], lobes.params[:, 0]
+    count = m[:, 0].int()
+    for j in range(1, lobes.type.shape[1]):
+        hit = m[:, j] & (count == k)
+        ct = torch.where(hit, lobes.type[:, j], ct)
+        cp = torch.where(hit[:, None], lobes.params[:, j], cp)
+        count = count + m[:, j].int()
+    return ct, cp
+
+
+def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, types_present,
+                  flags=ALL):
     """Sample a direction from the k-th matching lobe, k = floor(u_lobe *
     n_match). -> (wi_w, f (B,3), pdf (B,), sampled flags (B,), valid)."""
     wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
@@ -102,17 +400,22 @@ def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, flags=ALL):
     n_match = m.sum(-1, dtype=torch.int32)
     k = torch.minimum((u_lobe * n_match.float()).int(),
                       torch.clamp(n_match - 1, min=0))
-    rank = torch.cumsum(m.int(), dim=-1) - 1
-    chosen = torch.argmax((m & (rank == k[..., None])).int(), dim=-1)
-    ct = torch.gather(lobes.type, -1, chosen[..., None])[..., 0]
-    u = torch.stack([torch.clamp(u2[..., 0], max=0.99999), u2[..., 1]], -1)
-    # diffuse lobes: cosine-weighted hemisphere on wo's side
-    w = cosine_sample_hemisphere(u)
-    wi = torch.where((wo[..., 2] < 0.0)[..., None],
-                     w * w.new_tensor([1.0, 1.0, -1.0]), w)
+    ct, cp = choose_lobe(lobes, m, k)
+    specular = any(T in SPECULAR_TYPES for T in types_present)
+    # the specular lobes take u[0] unclamped (FRESNEL_SPECULAR picks on it)
+    u0 = torch.clamp(u2[..., 0], max=0.99999)
+    if specular:
+        u0 = torch.where(_is_specular(ct), u2[..., 0], u0)
+    u = torch.stack([u0, u2[..., 1]], -1)
+    wi, spec_f, spec_pdf, is_spec = sample_lobe(ct, cp, wo, u, types_present)
     wi_w = local_to_world(si.ss, si.ts, si.ns, wi)
-    f = bsdf_f(lobes, si, wo_w, wi_w, flags)
-    pdf = bsdf_pdf(lobes, si, wo_w, wi_w, flags)
+    # a non-specular lobe: f sums all lobes, pdf averages them
+    f = bsdf_f(lobes, si, wo_w, wi_w, types_present, flags)
+    pdf = bsdf_pdf(lobes, si, wo_w, wi_w, types_present, flags)
+    if specular:
+        f = torch.where(is_spec[..., None], spec_f, f)
+        pdf = torch.where(is_spec, spec_pdf / torch.clamp(n_match.float(),
+                                                          min=1.0), pdf)
     valid = (n_match > 0) & (torch.abs(wo[..., 2]) > 1e-8) & (pdf > 0.0)
     return (wi_w, torch.where(valid[..., None], f, 0.0),
             torch.where(valid, pdf, 0.0), lobe_flags(ct), valid)

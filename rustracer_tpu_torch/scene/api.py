@@ -10,8 +10,9 @@ the port's tables (scene/bundle.py).
 What renders: transforms and LookAt; ``Texture`` of class ``constant`` and
 ``imagemap`` (uv mapping, served through the shared atlas) as float and
 spectrum, and the 2D ``checkerboard`` spectrum texture over constant
-textures; ``Material "matte"`` (a ``sigma`` that is the constant 0 is the
-Lambertian lobe the reference picks for it); ``Shape "trianglemesh"``,
+textures; ``Material`` ``"matte"`` (Oren-Nayar where ``sigma`` is not 0),
+``"plastic"``, ``"mirror"``, ``"glass"`` (smooth and rough) and
+``"metal"``; ``Shape "trianglemesh"``,
 ``"plymesh"``, ``"sphere"``, ``"cylinder"`` and ``"disk"``;
 ``AreaLightSource "diffuse"`` on triangle meshes. Every other shape, material,
 texture, light, instancing and alpha raises NotImplementedError naming the
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..core.spectrum import srgb_decode_np
+from ..core.spectrum import metal_eta_k, srgb_decode_np
 from ..core.transform import Transform
 from ..ops.mipmap import WRAP_REPEAT, build_pyramid
 from ..utils import fileutil
@@ -483,25 +484,57 @@ class RealApi:
         return v.size == 1 and float(v) == 0.0
 
     def _build_material(self, name, params) -> int:
-        """The material id of ``name`` with ``params``."""
+        """The material id of ``name`` with ``params``: the reference's
+        factories (rustracer_tpu/scene/api.py:605-644), their defaults
+        and the order in which they register textures."""
         if name in ("", "none"):
             return -1
-        if name in ("plastic", "mirror", "glass", "metal", "substrate",
-                    "translucent", "uber", "disney", "mix", "fourier"):
+        if name in ("substrate", "translucent", "uber", "disney", "mix",
+                    "fourier"):
             raise not_ported(f"Material {name!r}", SHADING)
-        if name != "matte":
+        if name not in ("matte", "plastic", "mirror", "glass", "metal"):
             log.warning("material %r unknown; using matte", name)
             return self._build_material("matte", ParamSet())
         tp = self._tp(params)
-        kd = tp.get_spectrum_texture("Kd", (0.5, 0.5, 0.5))
-        sigma = tp.get_float_texture("sigma", 0.0)
+        if name == "matte":
+            kd = tp.get_spectrum_texture("Kd", (0.5, 0.5, 0.5))
+            sigma = tp.get_float_texture("sigma", 0.0)
+            # a constant 0 is the Lambertian lobe the reference picks for it
+            m = M.MatteMaterial(kd=kd,
+                                sigma=None if self._is_zero(sigma) else sigma)
+        elif name == "plastic":
+            m = M.PlasticMaterial(
+                kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
+                ks=tp.get_spectrum_texture("Ks", (0.25,) * 3),
+                roughness=tp.get_float_texture("roughness", 0.1),
+                remap_roughness=tp.find_bool("remaproughness", True))
+        elif name == "mirror":
+            m = M.MirrorMaterial(kr=tp.get_spectrum_texture("Kr", (0.9,) * 3))
+        elif name == "glass":
+            ur = tp.get_float_texture_or_none("uroughness")
+            vr = tp.get_float_texture_or_none("vroughness")
+            eta = tp.get_float_texture_or_none("eta")
+            if eta is None:
+                eta = tp.get_float_texture("index", 1.5)
+            kr = tp.get_spectrum_texture("Kr", (1.0,) * 3)
+            kt = tp.get_spectrum_texture("Kt", (1.0,) * 3)
+            m = M.GlassMaterial(
+                kr=kr, kt=kt, index=eta,
+                urough=ur or self.textures.constant_float(0.0),
+                vrough=vr or self.textures.constant_float(0.0),
+                remap_roughness=tp.find_bool("remaproughness", True))
+        else:
+            cu_eta, cu_k = metal_eta_k("Cu")
+            m = M.MetalMaterial(
+                eta=tp.get_spectrum_texture("eta", tuple(cu_eta)),
+                k=tp.get_spectrum_texture("k", tuple(cu_k)),
+                roughness=tp.get_float_texture("roughness", 0.01),
+                urough=tp.get_float_texture_or_none("uroughness"),
+                vrough=tp.get_float_texture_or_none("vroughness"),
+                remap_roughness=tp.find_bool("remaproughness", True))
         if tp.get_float_texture_or_none("bumpmap") is not None:
-            raise not_ported("Material \"matte\" with a bumpmap", SHADING)
-        if not self._is_zero(sigma):
-            # the reference's Oren-Nayar lobe
-            raise not_ported("Material \"matte\" with a sigma other than "
-                             "the constant 0 (Oren-Nayar)", SHADING)
-        return self.material_set.add(M.MatteMaterial(kd=kd))
+            raise not_ported(f"Material {name!r} with a bumpmap", SHADING)
+        return self.material_set.add(m)
 
     # --- textures ---
     def _mapping_2d(self, tp: TextureParams):

@@ -1,17 +1,21 @@
-"""Materials (port of rustracer_tpu/scene/materials.py: the matte material
-over constant, checkerboard and image textures, and the batched dispatch).
+"""Materials (port of rustracer_tpu/scene/materials.py: matte with its
+Oren-Nayar sigma, plastic, mirror, glass (smooth and rough) and metal over
+constant, checkerboard and image textures, and the batched dispatch).
 
-``MaterialSet.shade`` builds one (n_materials, M, ...) table from the
-materials whose textures are all constant and gathers it by material id
-(the parameter rows through hand kernel K8). Materials with a texture whose
-value depends on the interaction (``is_constant`` False: checkerboards,
-images) are evaluated per lane and written over their lanes; their image
-textures are served by one atlas EWA lookup (hand kernel K5) per parameter
-slot for the whole wavefront.
+A material's ``lobe_rows`` gives its lobes as (type, params (..., 16),
+active) rows in the reference's slot layout; the number of rows is
+structural (``n_rows``). ``MaterialSet.shade`` builds one (n_materials,
+M * 16) parameter table from the materials whose textures are all constant
+and gathers it by material id (hand kernel K8), with the (n_materials, M)
+types and active flags and the (n_materials,) eta beside it. Materials
+with a texture whose value depends on the interaction (``is_constant``
+False: checkerboards, images) are evaluated per lane and written over
+their lanes; their image textures are served by one atlas EWA lookup (hand
+kernel K5) per parameter slot for the whole wavefront.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -19,34 +23,194 @@ import torch
 from ..core.spectrum import is_black
 from ..ops import bsdf as B
 from ..ops.gather import row_gather
+from ..ops.microfacet import TROWBRIDGE, roughness_to_alpha
 from . import atlas as A
 from .textures import ImageTexture, UVMapping2D
 
+_DEG2RAD = float(np.float32(np.pi / 180.0))
 
-class MatteMaterial:
-    """Lambertian reflection with color kd."""
+
+def _mk_params(bs, dev, pa=None, pb=None, pc=None, **slots):
+    """(*bs, 16) params: the colors pa, pb, pc in [0:3], [3:6], [6:9] and
+    the scalars s0..s6 in [9..15]; the rest 0."""
+    p = torch.zeros(bs + (16,), dtype=torch.float32, device=dev)
+    for i, c in enumerate((pa, pb, pc)):
+        if c is not None:
+            p[..., 3 * i:3 * i + 3] = c
+    for name, v in slots.items():
+        p[..., 9 + int(name[1])] = v
+    return p
+
+
+def _lanes(si):
+    return () if si is None else tuple(si.t.shape)
+
+
+class Material:
+    """A material: its lobe rows, the lobe types they can take and the
+    relative IOR of the lanes it shades (None: 1)."""
+    n_rows = 1
+
+    def lobe_rows(self, si, textures, atlas=None) -> List[tuple]:
+        raise NotImplementedError
+
+    def lobe_types(self) -> set:
+        raise NotImplementedError
+
+    def eta_value(self, si, textures, atlas=None):
+        return None
+
+
+def _color(tex, si, textures, atlas):
+    return torch.clamp(tex.evaluate(si, textures, atlas).to(torch.float32),
+                       min=0.0)
+
+
+class MatteMaterial(Material):
+    """Lambertian reflection with color kd, or Oren-Nayar where the
+    texture sigma (degrees) is not 0; sigma None is the Lambertian lobe."""
 
     def __init__(self, kd, sigma=None):
-        if sigma is not None:
-            raise NotImplementedError("Oren-Nayar (sigma) is not ported yet "
-                                      "(ROADMAP.md, section A, item 13)")
         self.kd = kd
+        self.sigma = sigma
 
-    def lobe_row(self, si, textures, atlas=None):
-        """-> (type, params (..., 16), active (...)) of the material's one
-        lobe: one row for constant textures, one per lane for images."""
-        kd = torch.clamp(self.kd.evaluate(si, textures, atlas)
-                         .to(torch.float32), min=0.0)
-        params = torch.zeros(kd.shape[:-1] + (16,), dtype=torch.float32,
-                             device=kd.device)
-        params[..., 0:3] = kd
-        return B.LAMBERTIAN_REFL, params, ~is_black(kd)
+    def lobe_types(self):
+        return {B.LAMBERTIAN_REFL} if self.sigma is None \
+            else {B.LAMBERTIAN_REFL, B.OREN_NAYAR}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kd = _color(self.kd, si, textures, atlas)
+        bs, dev = _lanes(si), kd.device
+        if self.sigma is None:
+            return [(B.LAMBERTIAN_REFL, _mk_params(bs, dev, pa=kd),
+                     ~is_black(kd))]
+        sigma = torch.clamp(self.sigma.evaluate(si, textures, atlas), 0.0,
+                            90.0)
+        sig_rad = sigma * _DEG2RAD
+        s2 = sig_rad * sig_rad
+        a = 1.0 - s2 / (2.0 * (s2 + 0.33))
+        b = 0.45 * s2 / (s2 + 0.09)
+        ltype = torch.where(sigma == 0.0, B.LAMBERTIAN_REFL,
+                            B.OREN_NAYAR).to(torch.int32)
+        return [(ltype, _mk_params(bs, dev, pa=kd, s5=a, s6=b),
+                 ~is_black(kd))]
+
+
+class PlasticMaterial(Material):
+    """Lambertian kd under a Trowbridge-Reitz microfacet ks (eta 1.5)."""
+    n_rows = 2
+
+    def __init__(self, kd, ks, roughness, remap_roughness=True):
+        self.kd, self.ks, self.roughness = kd, ks, roughness
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.LAMBERTIAN_REFL, B.MICROFACET_REFL}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kd = _color(self.kd, si, textures, atlas)
+        ks = _color(self.ks, si, textures, atlas)
+        bs, dev = _lanes(si), kd.device
+        rough = self.roughness.evaluate(si, textures, atlas)
+        alpha = roughness_to_alpha(rough) if self.remap else rough
+        return [(B.LAMBERTIAN_REFL, _mk_params(bs, dev, pa=kd),
+                 ~is_black(kd)),
+                (B.MICROFACET_REFL,
+                 _mk_params(bs, dev, pa=ks, s0=1.5, s1=alpha, s2=alpha,
+                            s3=float(TROWBRIDGE), s4=1.0),
+                 ~is_black(ks))]
+
+
+class MirrorMaterial(Material):
+    """Perfect specular reflection kr, no Fresnel."""
+
+    def __init__(self, kr):
+        self.kr = kr
+
+    def lobe_types(self):
+        return {B.SPECULAR_REFL}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kr = _color(self.kr, si, textures, atlas)
+        return [(B.SPECULAR_REFL, _mk_params(_lanes(si), kr.device, pa=kr,
+                                             s4=0.0), ~is_black(kr))]
+
+
+class GlassMaterial(Material):
+    """Dielectric: specular reflection and transmission (FRESNEL_SPECULAR)
+    where both roughnesses are 0, else Trowbridge-Reitz microfacet
+    reflection and transmission."""
+    n_rows = 2
+
+    def __init__(self, kr, kt, index, urough=None, vrough=None,
+                 remap_roughness=True):
+        self.kr, self.kt, self.index = kr, kt, index
+        self.urough, self.vrough = urough, vrough
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.FRESNEL_SPECULAR, B.MICROFACET_REFL, B.MICROFACET_TRANS}
+
+    def eta_value(self, si, textures, atlas=None):
+        return torch.broadcast_to(self.index.evaluate(si, textures, atlas),
+                                  _lanes(si))
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kr = _color(self.kr, si, textures, atlas)
+        kt = _color(self.kt, si, textures, atlas)
+        bs, dev = _lanes(si), kr.device
+        eta = self.index.evaluate(si, textures, atlas)
+        if self.urough is None:
+            urough = vrough = torch.zeros(bs, device=dev)
+        else:
+            urough = self.urough.evaluate(si, textures, atlas)
+            vrough = self.vrough.evaluate(si, textures, atlas)
+        smooth = (urough == 0.0) & (vrough == 0.0)
+        ax = roughness_to_alpha(urough) if self.remap else urough
+        ay = roughness_to_alpha(vrough) if self.remap else vrough
+        row1_type = torch.where(smooth, B.FRESNEL_SPECULAR,
+                                B.MICROFACET_REFL).to(torch.int32)
+        return [(row1_type,
+                 _mk_params(bs, dev, pa=kr, pb=kt, s0=eta, s1=ax, s2=ay,
+                            s3=float(TROWBRIDGE), s4=1.0),
+                 ~(is_black(kr) & is_black(kt))),
+                (B.MICROFACET_TRANS,
+                 _mk_params(bs, dev, pa=kt, s0=eta, s1=ax, s2=ay,
+                            s3=float(TROWBRIDGE)),
+                 (~smooth) & ~is_black(kt))]
+
+
+class MetalMaterial(Material):
+    """Conductor Trowbridge-Reitz microfacet with RGB eta and k."""
+
+    def __init__(self, eta, k, roughness, urough=None, vrough=None,
+                 remap_roughness=True):
+        self.eta, self.k = eta, k
+        self.roughness = roughness
+        self.urough, self.vrough = urough, vrough
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.MICROFACET_REFL}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        eta = self.eta.evaluate(si, textures, atlas)
+        k = self.k.evaluate(si, textures, atlas)
+        bs, dev = _lanes(si), eta.device
+        ur = (self.urough or self.roughness).evaluate(si, textures, atlas)
+        vr = (self.vrough or self.roughness).evaluate(si, textures, atlas)
+        ax = roughness_to_alpha(ur) if self.remap else ur
+        ay = roughness_to_alpha(vr) if self.remap else vr
+        return [(B.MICROFACET_REFL,
+                 _mk_params(bs, dev, pa=1.0, pb=eta, pc=k, s1=ax, s2=ay,
+                            s3=float(TROWBRIDGE), s4=2.0),
+                 torch.ones(bs, dtype=torch.bool, device=dev))]
 
 
 def _is_uniform(m) -> bool:
     """Every texture of ``m`` is constant: its lobe rows are the same on
-    every lane."""
-    return all(t.is_constant for t in vars(m).values())
+    every lane (its other attributes, a flag or None, do not count)."""
+    return all(getattr(v, "is_constant", True) for v in vars(m).values())
 
 
 def _atlas_eligible(t) -> bool:
@@ -68,16 +232,28 @@ class MaterialSet:
     grad it is built on every call instead, from the levels, so the
     lookups' gradient reaches them (``atlas.atlas_lookup_ewa_grad``)."""
 
-    def __init__(self, materials: List[MatteMaterial] = None):
+    def __init__(self, materials: List[Material] = None):
         self.materials = list(materials or [])
         self._atlas_info = None
         self._cache = {}
 
-    def add(self, m: MatteMaterial) -> int:
+    def add(self, m: Material) -> int:
         self.materials.append(m)
         self._atlas_info = None
         self._cache = {}
         return len(self.materials) - 1
+
+    @property
+    def max_lobes(self) -> int:
+        """M: the most lobe rows of any material (at least 1)."""
+        return max([1] + [m.n_rows for m in self.materials])
+
+    def types_present(self) -> Tuple[int, ...]:
+        """The lobe types the scene's materials can take, sorted."""
+        s = set()
+        for m in self.materials:
+            s |= m.lobe_types()
+        return tuple(sorted(s)) or (B.LAMBERTIAN_REFL,)
 
     def atlas_prep(self):
         """Imagemap slots of the shared atlas: per material, its eligible
@@ -114,21 +290,51 @@ class MaterialSet:
         return hit[2]
 
     def _uniform_table(self, textures, dev):
-        """-> (types (n_mat,) int32, params (n_mat, 16), active (n_mat,))
-        of the uniform materials; other rows are inactive zeros."""
-        tab_t, tab_p, tab_a = [], [], []
+        """-> (types (n_mat, M) int32, params (n_mat, M * 16), active
+        (n_mat, M), eta (n_mat,) or None where every eta is 1) of the
+        uniform materials; other rows and the padding are inactive zeros."""
+        M = self.max_lobes
+        zero_p = torch.zeros(16, dtype=torch.float32, device=dev)
+        off = torch.zeros((), dtype=torch.bool, device=dev)
+        tab_t, tab_p, tab_a, tab_e = [], [], [], []
         for m in self.materials:
-            if _is_uniform(m):
-                t, p, a = m.lobe_row(None, textures)
-            else:
-                t, p, a = (B.LAMBERTIAN_REFL,
-                           torch.zeros(16, dtype=torch.float32),
-                           torch.zeros((), dtype=torch.bool))
-            tab_t.append(t)
-            tab_p.append(p.to(dev))
-            tab_a.append(a.to(dev))
-        return (torch.tensor(tab_t, dtype=torch.int32, device=dev),
-                torch.stack(tab_p).contiguous(), torch.stack(tab_a))
+            rows = m.lobe_rows(None, textures) if _is_uniform(m) else []
+            eta = m.eta_value(None, textures) if rows else None
+            rows = rows + [(B.LAMBERTIAN_REFL, zero_p, off)] * (M - len(rows))
+            tab_t.append([t for t, _, _ in rows])
+            tab_p += [p.to(dev) for _, p, _ in rows]
+            tab_a += [a.to(dev) for _, _, a in rows]
+            tab_e.append(eta)
+        if all(isinstance(t, int) for r in tab_t for t in r):
+            tab_t = torch.tensor(tab_t, dtype=torch.int32, device=dev)
+        else:
+            tab_t = torch.stack([torch.stack([torch.as_tensor(
+                t, dtype=torch.int32, device=dev) for t in r])
+                for r in tab_t])
+        if all(e is None for e in tab_e):
+            tab_e = None
+        else:
+            one = torch.ones((), dtype=torch.float32, device=dev)
+            tab_e = torch.stack([one if e is None else e.to(dev)
+                                 for e in tab_e])
+        n_mat = len(self.materials)
+        return (tab_t, torch.stack(tab_p).view(n_mat, M * 16),
+                torch.stack(tab_a).view(n_mat, M), tab_e)
+
+    def _lane_rows(self, m, si, textures, atlas):
+        """-> (types (B, M), params (B, M, 16), active (B, M)) of material
+        ``m`` evaluated on every lane, padded with inactive rows."""
+        n, dev = si.t.shape[0], si.t.device
+        rows = m.lobe_rows(si, textures, atlas)
+        lt = torch.zeros((n, self.max_lobes), dtype=torch.int32, device=dev)
+        la = torch.zeros((n, self.max_lobes), dtype=torch.bool, device=dev)
+        for j, (t, _, a) in enumerate(rows):
+            lt[:, j] = t
+            la[:, j] = a
+        pad = [torch.zeros((n, 16), dtype=torch.float32, device=dev)] \
+            * (self.max_lobes - len(rows))
+        lp = torch.stack([p.expand(n, 16) for _, p, _ in rows] + pad, 1)
+        return lt, lp, la
 
     def atlas_tables(self, textures, dev):
         """-> (quad, texels, registrations, slot_tab) on ``dev`` for the
@@ -194,23 +400,28 @@ class MaterialSet:
         for bump mapping, which is not ported)."""
         textures = ctx.textures
         dev = si.t.device
-        n_mat = len(self.materials)
-        tab_t, tab_p, tab_a = self._uniform_table(textures, dev)
+        n, n_mat, M = si.t.shape[0], len(self.materials), self.max_lobes
+        tab_t, tab_p, tab_a, tab_e = self._uniform_table(textures, dev)
         midc = si.material.clamp(0, n_mat - 1)
         mid = midc.long()
-        lt = tab_t[mid][:, None]
-        lp = row_gather(tab_p, midc.int())[:, None, :]
-        la = tab_a[mid][:, None]
+        lt = tab_t[mid]
+        lp = row_gather(tab_p, midc.int()).view(n, M, 16)
+        la = tab_a[mid]
+        eta = torch.ones_like(si.t) if tab_e is None else tab_e[mid]
         textured = [i for i, m in enumerate(self.materials)
                     if not _is_uniform(m)]
         if textured:
             atlas = self._atlas_values(si, textures, mid)
             for i in textured:
+                m = self.materials[i]
                 sel = si.material == i
-                t, p, a = self.materials[i].lobe_row(
-                    si, textures, None if atlas is None else atlas[i])
+                a_i = None if atlas is None else atlas[i]
+                t, p, a = self._lane_rows(m, si, textures, a_i)
                 lt = torch.where(sel[:, None], t, lt)
-                lp = torch.where(sel[:, None, None], p[:, None, :], lp)
-                la = torch.where(sel[:, None], a[:, None], la)
+                lp = torch.where(sel[:, None, None], p, lp)
+                la = torch.where(sel[:, None], a, la)
+                e = m.eta_value(si, textures, a_i)
+                if e is not None:
+                    eta = torch.where(sel, e, eta)
         active = la & (si.material >= 0)[:, None] & si.valid[:, None]
-        return si, B.LobeStack(type=lt, params=lp, active=active)
+        return si, B.LobeStack(type=lt, params=lp, active=active, eta=eta)

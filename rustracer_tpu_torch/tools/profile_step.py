@@ -1,11 +1,13 @@
 """Render times and profiled render or train steps of the full-size
-dragon, one GPU.
+dragon or of a testball scene file, one GPU.
 
-    python -m rustracer_tpu_torch.tools.profile_step [textured|matte|train]
-        [tile ...]
+    python -m rustracer_tpu_torch.tools.profile_step
+        [textured|matte|train|testball-<material>] [tile ...]
 
 Builds the scene at 1024^2 in 2^18-lane tiles (the textured headline: the
-64-spp config, compaction on). For ``textured`` and ``matte`` it renders one
+64-spp config, compaction on; ``testball-<material>``:
+scenes/testball-<material>.pbrt with its film at 1024^2, its own spp and
+depth). For ``textured``, ``matte`` and a testball it renders one
 sample of every tile as a warm-up, then times five 8-sample renders (host
 clock ending in ``torch.cuda.synchronize()``) and prints them as one JSON
 line. Then, for each tile index (default 0 and 2; tile 0 holds the sky and
@@ -27,6 +29,7 @@ without CUDA.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -40,6 +43,20 @@ from ..scenes import build_dragon, build_dragon_matte
 
 LANES = 1 << 18
 SAMPLES = 8      # the timed slice of the 64-spp config
+
+
+def testball_text(name, res):
+    """-> (the text of scenes/<name>.pbrt with its 64^2 film at ``res``,
+    the directory its textures are found from)."""
+    d = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "scenes")
+    with open(os.path.join(d, f"{name}.pbrt")) as f:
+        text = f.read()
+    small = '"integer xresolution" [64] "integer yresolution" [64]'
+    if small not in text:
+        raise ValueError(f"{name}.pbrt's Film line changed")
+    return text.replace(small, f'"integer xresolution" [{res[0]}] '
+                        f'"integer yresolution" [{res[1]}]'), d
 
 
 def _device_events(prof):
@@ -151,10 +168,19 @@ def main(argv=None):
     if scene == "train":
         return main_train([int(a) for a in argv[1:]] or [2], dev)
     tiles = [int(a) for a in argv[1:]] or [0, 2]
-    build = {"textured": build_dragon, "matte": build_dragon_matte}[scene]
-    ctx, cam, film, sampler, integ, _ = build(device=dev)
-    renderer = Renderer(integ.li, cam, film, sampler,
-                        RenderConfig(max_lanes=LANES), device=dev)
+    if scene.startswith("testball-"):
+        from ..scene.api import parse_scene_string
+        from ..utils import fileutil
+        text, d = testball_text(scene, (1024, 1024))
+        fileutil.set_search_directory(d)
+        bundle = parse_scene_string(text, device=dev).scene
+        ctx, film = bundle.context(), bundle.film
+        renderer = bundle.renderer(LANES)
+    else:
+        build = {"textured": build_dragon, "matte": build_dragon_matte}[scene]
+        ctx, cam, film, sampler, integ, _ = build(device=dev)
+        renderer = Renderer(integ.li, cam, film, sampler,
+                            RenderConfig(max_lanes=LANES), device=dev)
     renderer.render_state(ctx, sample_stop=1)
     torch.cuda.synchronize()
     walls = []

@@ -20,8 +20,10 @@ branch; shared by chip_smoke.py and the tests.
   quadrics up to its first hit.
 - ``k2_bound``: K2's bound on a call's data, its triangle and quadric lanes
   counted apart.
-- ``capture_quadric_step``: the inputs of the first K14 closest, K14 any
-  and K2 calls of one renderer step.
+- ``capture_quadric_step``: the inputs of the first (or of every) K14
+  closest, K14 any and K2 call of one renderer step; ``inside_sphere``:
+  the lanes of a call whose rays start inside a sphere (refracted rays
+  leaving a glass ball).
 """
 from __future__ import annotations
 
@@ -287,9 +289,10 @@ def k2_bound(geom, hit, prim):
 
 
 @contextlib.contextmanager
-def _first_call(module, name, into):
-    """Within the scope, the first call of ``module.name`` stores its
-    arguments, tensors cloned, under ``into[name]``."""
+def _calls(module, name, into, every):
+    """Within the scope, the first call (``every``: each call, in order)
+    of ``module.name`` stores its arguments, tensors cloned, under
+    ``into[name]`` (``every``: a list of them)."""
     orig = getattr(module, name)
 
     def clone(x):
@@ -300,7 +303,10 @@ def _first_call(module, name, into):
         return x
 
     def recorded(*args):
-        into.setdefault(name, tuple(clone(a) for a in args))
+        if every:
+            into.setdefault(name, []).append(tuple(clone(a) for a in args))
+        else:
+            into.setdefault(name, tuple(clone(a) for a in args))
         return orig(*args)
 
     setattr(module, name, recorded)
@@ -310,18 +316,32 @@ def _first_call(module, name, into):
         setattr(module, name, orig)
 
 
-def capture_quadric_step(renderer, ctx, tile, sample=1) -> dict:
+def capture_quadric_step(renderer, ctx, tile, sample=1, every=False) -> dict:
     """One step of ``tile`` at ``sample`` -> the arguments of its first
-    calls of scene/tables.py ``intersect_quadrics_all`` (K14 closest: geom,
-    o, d, t_max; the camera rays), ``quadrics_any_hit`` (K14 any: the first
-    shadow rays) and ``build_interaction`` (K2: geom, ray, hit, t, prim;
+    calls (``every``: lists of all its calls, in order) of scene/tables.py
+    ``intersect_quadrics_all`` (K14 closest: geom, o, d, t_max; first the
+    camera rays), ``quadrics_any_hit`` (K14 any: first the first shadow
+    rays) and ``build_interaction`` (K2: geom, ray, hit, t, prim; first
     the camera rays' hits), under those names."""
     from ..scene import tables   # the module whose functions are wrapped
     calls = {}
     px, py, v = tile
     fs = renderer.film.init_state(renderer.device)
-    with _first_call(tables, "intersect_quadrics_all", calls), \
-            _first_call(tables, "quadrics_any_hit", calls), \
-            _first_call(tables, "build_interaction", calls):
+    with _calls(tables, "intersect_quadrics_all", calls, every), \
+            _calls(tables, "quadrics_any_hit", calls, every), \
+            _calls(tables, "build_interaction", calls, every):
         renderer.step(ctx, fs, px, py, sample, v)
     return calls
+
+
+def inside_sphere(geom, o):
+    """(N,) bool: the origins o (N, 3) that lie inside one of ``geom``'s
+    spheres (in its object space, x^2 + y^2 + z^2 < r^2): the rays that
+    leave a sphere from inside."""
+    inside = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    q_type = geom.q_type.tolist()
+    for i in range(geom.n_quadrics if geom.has_quadrics else 0):
+        if q_type[i] == SPHERE:
+            (x, y, z), _ = quadric_object_ray(geom, i, o, o)
+            inside |= x * x + y * y + z * z < geom.q_params[i, 0] ** 2
+    return inside

@@ -1,0 +1,400 @@
+"""Port parity of the lobe engine against the JAX package, on the CPU: the
+shading-space trigonometry, refract and the PBRT erf_inv; fr_dielectric
+(both sides of the surface, total internal reflection), fr_conductor and
+Schlick's approximation; every microfacet function for Beckmann and
+Trowbridge-Reitz (isotropic and anisotropic alphas) with
+distribution_sample_wh on seeded u; each non-specular lobe's f and pdf;
+sample_lobe for every ported type; and bsdf_f, bsdf_pdf and bsdf_sample_f
+on seeded mixed stacks (M = 2, types drawn from the ported set, some lobes
+inactive, wo on both sides, random shading frames). A type outside the
+ported set is refused by name.
+
+Inputs are seeded numpy arrays handed to both packages. Tolerances:
+floats within 1e-5 relative with a 1e-7 absolute floor, plus, on a lane
+where the evaluation is ill-conditioned, 8 times the port's own float32
+error there (its distance to the port's float64 evaluation of the same
+inputs; the test prints how many values take that term). Sampled
+directions: at least 90% of the lanes within 1e-5 relative and 1e-7, and
+every lane within 5e-3 radians of the reference's. Heitz's slope inversion
+subtracts two float32 numbers of up to about 1e4 where A clips at
++-0.9999, so an ulp of difference upstream (XLA's rsqrt) moves such a
+lane's half vector by up to about 1e-3 radians (2e-3 once reflected), in
+either package against a float64 evaluation; near grazing, where G1 is
+small, most values of u[0] clip A. The f and pdf bsdf_sample_f returns are held to the
+reference's bsdf_f and bsdf_pdf at the port's own sampled direction.
+Integer and bool outputs (refract's validity, the sampled flags,
+``valid``, the chosen lobe's type) are bit-exact; FRESNEL_SPECULAR's
+per-lane choice of reflection or refraction (``u[0] < F``) is counted apart
+and must not flip on these inputs. XLA on the CPU flushes denormals to
+zero; the tests run PyTorch's CPU ops with ``torch.set_flush_denormal(True)``
+likewise.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rustracer_tpu.core import math as JM
+from rustracer_tpu.ops import bsdf as JB
+from rustracer_tpu.ops import fresnel as JF
+from rustracer_tpu.ops import microfacet as JMF
+from rustracer_tpu_torch.core import math as PM
+from rustracer_tpu_torch.ops import bsdf as PB
+from rustracer_tpu_torch.ops import fresnel as PF
+from rustracer_tpu_torch.ops import microfacet as PMF
+
+torch.set_num_threads(1)
+
+N = 4096
+RTOL, ATOL = 1e-5, 1e-7
+NONSPEC = (PB.LAMBERTIAN_REFL, PB.OREN_NAYAR, PB.MICROFACET_REFL,
+           PB.MICROFACET_TRANS)
+PORTED = tuple(sorted(PB.PORTED_TYPES))
+
+
+# the port's float32 error on a lane, times this, is the allowance for an
+# ill-conditioned lane
+K_COND = 8
+
+
+@pytest.fixture(autouse=True)
+def flush_denormals():
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+def _np(x):
+    return np.asarray(x.detach() if isinstance(x, torch.Tensor) else x,
+                      np.float64)
+
+
+def close(out, ref, msg="", out64=None):
+    """out within RTOL |ref| + ATOL of ref, plus K_COND |out - out64| where
+    the port's float64 result ``out64`` is given."""
+    out, ref = _np(out), _np(ref)
+    tol = RTOL * np.abs(ref) + ATOL
+    if out64 is not None:
+        extra = K_COND * np.abs(out - _np(out64))
+        print(f"{msg}: {int((np.abs(out - ref) > tol).sum())} of "
+              f"{out.size} values take the conditioning term")
+        tol = tol + extra
+    d = np.abs(out - ref)
+    bad = ~((d <= tol) | (np.isnan(out) & np.isnan(ref)))
+    assert not bad.any(), (f"{msg}: {int(bad.sum())} of {out.size} off, "
+                           f"max {d[bad].max()}")
+
+
+def close_dirs(out, ref, msg=""):
+    """Unit directions: at least 90% of the lanes within RTOL and ATOL,
+    every lane within 5e-3 radians. -> bool mask of the lanes within."""
+    out, ref = _np(out), _np(ref)
+    ok = (np.abs(out - ref) <= RTOL * np.abs(ref) + ATOL).all(-1)
+    cos = (out * ref).sum(-1) / (np.linalg.norm(out, axis=-1)
+                                 * np.linalg.norm(ref, axis=-1) + 1e-30)
+    ang = np.arccos(np.clip(cos, -1.0, 1.0))
+    print(f"{msg}: {int((~ok).sum())} of {len(ok)} lanes beyond the "
+          f"tolerance, max angle {ang.max():.3g}")
+    assert ok.mean() >= 0.9 and ang.max() <= 5e-3, (
+        msg, int((~ok).sum()), ang.max())
+    return ok
+
+
+def in64(fn, *args):
+    """fn on the float32 tensors ``args`` and on their float64 copies."""
+    return fn(*args), fn(*[a.double() if a.is_floating_point() else a
+                           for a in args])
+
+
+def same(out, ref, msg=""):
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref), err_msg=msg)
+
+
+def both(*arrays):
+    """numpy arrays -> (jax arrays, torch tensors)."""
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(np.array(a)) for a in arrays])
+
+
+def dirs(rs, n=N, upper=None):
+    """Unit vectors, both hemispheres (upper True: z > 0)."""
+    v = rs.normal(size=(n, 3))
+    if upper is not None:
+        v[:, 2] = np.abs(v[:, 2]) * (1 if upper else -1)
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_shading_trig_refract_erf():
+    rs = np.random.RandomState(0)
+    w = dirs(rs)
+    w[:16] = [0.0, 0.0, 1.0]           # sin theta 0: the phi fallbacks
+    n = dirs(rs)
+    eta = rs.uniform(0.4, 2.5, N).astype(np.float32)
+    (jw, jn, je), (pw, pn, pe) = both(w, n, eta)
+    for name in ("cos_theta", "cos2_theta", "abs_cos_theta", "sin2_theta",
+                 "sin_theta", "tan_theta", "tan2_theta", "cos_phi",
+                 "sin_phi", "cos2_phi", "sin2_phi"):
+        close(getattr(PM, name)(pw), getattr(JM, name)(jw), name)
+    same(PM.same_hemisphere(pw, pn), JM.same_hemisphere(jw, jn))
+    close(PM.reflect(pw, pn), JM.reflect(jw, jn), "reflect")
+    wt, ok = PM.refract(pw, pn, pe)
+    jwt, jok = JM.refract(jw, jn, je)
+    same(ok, jok)
+    assert 0.05 < ok.float().mean() < 0.95    # TIR on some lanes
+    close(wt[ok], np.asarray(jwt)[np.asarray(jok)], "refract")
+    x = rs.uniform(-1.0, 1.0, N).astype(np.float32)
+    x[:4] = [-1.0, 1.0, 0.0, 0.999999]
+    close(PM.erf_inv(torch.from_numpy(x)), JM.erf_inv(jnp.asarray(x)),
+          "erf_inv")
+    y = rs.normal(size=N).astype(np.float32) * 2
+    close(PM.erf(torch.from_numpy(y)), JM.erf(jnp.asarray(y)), "erf")
+
+
+def test_fresnel():
+    rs = np.random.RandomState(1)
+    cos_i = rs.uniform(-1.0, 1.0, N).astype(np.float32)
+    cos_i[:4] = [-1.0, 0.0, 1.0, -0.0]
+    eta_t = rs.uniform(1.05, 2.5, N).astype(np.float32)
+    (jc, je), (pc, pe) = both(cos_i, eta_t)
+    ones = np.ones(N, np.float32)
+    out = PF.fr_dielectric(pc, torch.ones(N), pe)
+    close(out, JF.fr_dielectric(jc, jnp.asarray(ones), je), "dielectric")
+    # leaving the medium past the critical angle: total internal reflection
+    tir = (cos_i < 0) & (np.sqrt(1 - cos_i ** 2) * eta_t >= 1.0)
+    assert tir.sum() > 100 and (out.numpy()[tir] == 1.0).all()
+    eta = rs.uniform(0.1, 2.0, (N, 3)).astype(np.float32)
+    k = rs.uniform(0.5, 5.0, (N, 3)).astype(np.float32)
+    (jeta, jk), (peta, pk) = both(eta, k)
+    close(PF.fr_conductor(pc, torch.ones(N, 3), peta, pk),
+          JF.fr_conductor(jc, jnp.ones((N, 3)), jeta, jk), "conductor")
+    r0 = rs.uniform(0.0, 1.0, (N, 3)).astype(np.float32)
+    close(PF.schlick_fresnel(pc.abs()[:, None], torch.from_numpy(r0)),
+          JF.schlick_fresnel(jnp.abs(jc)[:, None], jnp.asarray(r0)),
+          "schlick")
+
+
+def _alphas(rs, aniso):
+    ax = rs.uniform(0.02, 0.9, N).astype(np.float32)
+    ay = rs.uniform(0.02, 0.9, N).astype(np.float32) if aniso else ax.copy()
+    return ax, ay
+
+
+@pytest.mark.parametrize("dist", [JMF.BECKMANN, JMF.TROWBRIDGE])
+@pytest.mark.parametrize("aniso", [False, True])
+def test_microfacet(dist, aniso):
+    rs = np.random.RandomState(2 + dist * 2 + aniso)
+    wo = dirs(rs)
+    wh = dirs(rs)
+    ax, ay = _alphas(rs, aniso)
+    u = rs.uniform(0.0, 1.0, (N, 2)).astype(np.float32)
+    d = np.full(N, dist, np.int32)
+    (jwo, jwh, jax_, jay, ju, jd), (pwo, pwh, pax, pay, pu, pd) = both(
+        wo, wh, ax, ay, u, d)
+    close(PMF.distribution_d(pd, pwh, pax, pay),
+          JMF.distribution_d(jd, jwh, jax_, jay), "D")
+    close(PMF.distribution_lambda(pd, pwo, pax, pay),
+          JMF.distribution_lambda(jd, jwo, jax_, jay), "Lambda")
+    close(PMF.distribution_g1(pd, pwo, pax, pay),
+          JMF.distribution_g1(jd, jwo, jax_, jay), "G1")
+    close(PMF.distribution_g(pd, pwo, pwh, pax, pay),
+          JMF.distribution_g(jd, jwo, jwh, jax_, jay), "G")
+    close(PMF.distribution_pdf(pd, pwo, pwh, pax, pay),
+          JMF.distribution_pdf(jd, jwo, jwh, jax_, jay), "pdf")
+    sample = PMF.distribution_sample_wh(pd, pwo, pu, pax, pay)
+    close_dirs(sample, JMF.distribution_sample_wh(jd, jwo, ju, jax_, jay),
+               "sample_wh")
+    # a sampled wh lies in wo's hemisphere
+    assert (np.sign(sample.numpy()[:, 2]) == np.sign(wo[:, 2])).mean() > 0.99
+    close_dirs(PMF._sample_tr_full(pu, pax, pay),
+               JMF._sample_tr_full(ju, jax_, jay), "tr full")
+    close_dirs(PMF._sample_beckmann_full(pu, pax, pay),
+               JMF._sample_beckmann_full(ju, jax_, jay), "beckmann full")
+    close_dirs(PMF._sample_gtr1(pu, pax), JMF._sample_gtr1(ju, jax_), "gtr1")
+    rough = rs.uniform(0.0, 1.0, N).astype(np.float32)
+    close(PMF.roughness_to_alpha(torch.from_numpy(rough)),
+          JMF.roughness_to_alpha(jnp.asarray(rough)), "roughness_to_alpha")
+
+
+def _params(rs, n, types):
+    """Seeded (n, 16) params valid for each lane's lobe type."""
+    p = np.zeros((n, 16), np.float32)
+    p[:, 0:3] = rs.uniform(0.05, 1.0, (n, 3))
+    p[:, 3:6] = rs.uniform(0.05, 1.0, (n, 3))
+    p[:, 6:9] = rs.uniform(0.5, 4.0, (n, 3))
+    p[:, 9] = rs.uniform(1.2, 2.2, n)
+    p[:, 10] = rs.uniform(0.05, 0.6, n)
+    p[:, 11] = np.where(rs.uniform(size=n) < 0.5, p[:, 10],
+                        rs.uniform(0.05, 0.6, n))
+    p[:, 12] = rs.randint(0, 2, n)
+    p[:, 13] = rs.randint(0, 3, n)
+    # Oren-Nayar's A and B from a sigma in (0, 40] degrees
+    s2 = np.deg2rad(rs.uniform(1.0, 40.0, n)) ** 2
+    on = types == PB.OREN_NAYAR
+    p[on, 14] = 1.0 - s2[on] / (2.0 * (s2[on] + 0.33))
+    p[on, 15] = 0.45 * s2[on] / (s2[on] + 0.09)
+    # mirrors take no Fresnel, glass lobes the dielectric one
+    p[types == PB.SPECULAR_REFL, 13] = rs.randint(
+        0, 3, int((types == PB.SPECULAR_REFL).sum()))
+    p[np.isin(types, [PB.MICROFACET_TRANS, PB.FRESNEL_SPECULAR]), 13] = 1
+    return p
+
+
+@pytest.mark.parametrize("T", NONSPEC)
+def test_f_and_pdf_one_type(T):
+    rs = np.random.RandomState(10 + T)
+    wo, wi = dirs(rs), dirs(rs)
+    p = _params(rs, N, np.full(N, T))
+    (jwo, jwi, jp), (pwo, pwi, pp) = both(wo, wi, p)
+    f, f64 = in64(lambda *a: PB._f_one_type(T, *a), pp, pwo, pwi)
+    pdf, pdf64 = in64(lambda *a: PB._pdf_one_type(T, *a), pp, pwo, pwi)
+    close(f, JB._f_one_type(T, jp, jwo, jwi), "f", f64)
+    close(pdf, JB._pdf_one_type(T, jp, jwo, jwi), "pdf", pdf64)
+    nonzero = (f.sum(-1) > 0).float().mean()
+    assert 0.1 < nonzero < 0.9, nonzero     # both sides of the surface
+
+
+@pytest.mark.parametrize("T", PORTED)
+def test_sample_lobe(T):
+    rs = np.random.RandomState(20 + T)
+    wo = dirs(rs)
+    u = rs.uniform(0.0, 1.0, (N, 2)).astype(np.float32)
+    p = _params(rs, N, np.full(N, T))
+    lt = np.full(N, T, np.int32)
+    (jlt, jp, jwo, ju), (plt, pp, pwo, pu) = both(lt, p, wo, u)
+    (wi, f, pdf, spec), (_, f64, pdf64, _) = in64(
+        lambda *a: PB.sample_lobe(*a, PORTED), plt, pp, pwo, pu)
+    jwi, jf, jpdf, jspec = JB.sample_lobe(jlt, jp, jwo, ju, PORTED)
+    same(spec, jspec)
+    if T == PB.FRESNEL_SPECULAR:
+        # the pick: reflection keeps wo's side of the surface
+        refl = wi.numpy()[:, 2] * wo[:, 2] > 0
+        flips = int((refl != (np.asarray(jwi)[:, 2] * wo[:, 2] > 0)).sum())
+        print(f"FRESNEL_SPECULAR: {flips} of {N} lanes flip the pick")
+        assert flips == 0 and 0.02 < refl.mean() < 0.98
+    close_dirs(wi, jwi, "wi")
+    close(f, jf, "specular f", f64)
+    close(pdf, jpdf, "specular pdf", pdf64)
+
+
+class Frame:
+    """A seeded shading frame per lane; the geometric normal tilted off
+    the shading normal."""
+
+    def __init__(self, rs, n, lib):
+        ns = dirs(rs, n)
+        a = np.cross(ns, dirs(rs, n))
+        ss = a / np.linalg.norm(a, axis=1, keepdims=True)
+        ts = np.cross(ns, ss)
+        g = ns + 0.2 * dirs(rs, n)
+        g /= np.linalg.norm(g, axis=1, keepdims=True)
+        conv = jnp.asarray if lib == "jax" else torch.from_numpy
+        for k, v in dict(ss=ss, ts=ts, ns=ns, n=g).items():
+            setattr(self, k, conv(np.ascontiguousarray(v, np.float32)))
+
+
+def _stack(seed, n=N):
+    """Mixed M = 2 stacks: the types drawn from the ported set, a fifth
+    of the lobes inactive, wo on both sides of each frame."""
+    rs = np.random.RandomState(seed)
+    types = rs.choice(PORTED, (n, 2)).astype(np.int32)
+    params = np.stack([_params(rs, n, types[:, j]) for j in range(2)], 1)
+    active = rs.uniform(size=(n, 2)) > 0.2
+    eta = params[:, 0, 9].copy()
+    wo, wi = dirs(rs, n), dirs(rs, n)
+    u_lobe = rs.uniform(0.0, 1.0, n).astype(np.float32)
+    u2 = rs.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
+    st = np.random.RandomState(seed + 1000)
+    jf, pf = Frame(st, n, "jax"), Frame(np.random.RandomState(seed + 1000),
+                                       n, "torch")
+    (jt, jp, ja, je, jwo, jwi, jul, ju2), (pt, pp, pa, pe, pwo, pwi, pul,
+                                           pu2) = both(
+        types, params, active, eta, wo, wi, u_lobe, u2)
+    return (JB.LobeStack(type=jt, params=jp, active=ja, eta=je), jf, jwo,
+            jwi, jul, ju2), (PB.LobeStack(type=pt, params=pp, active=pa,
+                                          eta=pe), pf, pwo, pwi, pul, pu2)
+
+
+def _double(lobes, frame, *vectors):
+    """The port's stack, frame and vectors in float64."""
+    f64 = Frame.__new__(Frame)
+    for k in ("ss", "ts", "ns", "n"):
+        setattr(f64, k, getattr(frame, k).double())
+    return (lobes._replace(params=lobes.params.double(),
+                           eta=lobes.eta.double()), f64,
+            *[v.double() for v in vectors])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bsdf_f_pdf_mixed_stacks(seed):
+    (jl, jf, jwo, jwi, _, _), (pl, pf, pwo, pwi, _, _) = _stack(30 + seed)
+    pl64, pf64, pwo64, pwi64 = _double(pl, pf, pwo, pwi)
+    for flags in (PB.ALL, PB.ALL & ~PB.SPECULAR, PB.REFLECTION | PB.GLOSSY):
+        f = PB.bsdf_f(pl, pf, pwo, pwi, PORTED, flags)
+        close(f, JB.bsdf_f(jl, jf, jwo, jwi, PORTED, flags), f"f {flags}",
+              PB.bsdf_f(pl64, pf64, pwo64, pwi64, PORTED, flags))
+        close(PB.bsdf_pdf(pl, pf, pwo, pwi, PORTED, flags),
+              JB.bsdf_pdf(jl, jf, jwo, jwi, PORTED, flags), f"pdf {flags}",
+              PB.bsdf_pdf(pl64, pf64, pwo64, pwi64, PORTED, flags))
+        same(PB.num_matching(pl, flags), JB.num_matching(jl, flags))
+    assert 0.05 < (f.sum(-1) > 0).float().mean() < 0.9
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bsdf_sample_f_mixed_stacks(seed):
+    (jl, jf, jwo, _, jul, ju2), (pl, pf, pwo, _, pul, pu2) = _stack(40 + seed)
+    wi, f, pdf, flags, valid = PB.bsdf_sample_f(pl, pf, pwo, pul, pu2,
+                                                PORTED)
+    jwi, jff, jpdf, jflags, jvalid = JB.bsdf_sample_f(jl, jf, jwo, jul, ju2,
+                                                      PORTED)
+    same(flags, jflags)
+    same(valid, jvalid)
+    v = valid.numpy()
+    assert 0.3 < v.mean() < 0.95
+    # every ported type is chosen on some valid lane
+    chosen = set((flags.numpy()[v]).tolist())
+    assert {int(PB.LOBE_FLAGS[T]) for T in PORTED} <= chosen
+    close_dirs(wi[v], np.asarray(jwi)[v], "wi")
+    # f and pdf: the specular lobes' own, the others' the reference's
+    # bsdf_f and bsdf_pdf at the port's sampled direction
+    spec = (flags.numpy() & PB.SPECULAR) != 0
+    jwi_p = jnp.asarray(wi.numpy())
+    ref_f = np.where((spec | ~v)[:, None], np.asarray(jff), np.asarray(
+        JB.bsdf_f(jl, jf, jwo, jwi_p, PORTED)))
+    ref_pdf = np.where(spec | ~v, np.asarray(jpdf), np.asarray(
+        JB.bsdf_pdf(jl, jf, jwo, jwi_p, PORTED)))
+    l64, f64_, wo64, wi64 = _double(pl, pf, pwo, wi)
+    out64_f = torch.where(torch.from_numpy(spec | ~v)[:, None],
+                          f.double(), PB.bsdf_f(l64, f64_, wo64, wi64, PORTED))
+    out64_pdf = torch.where(torch.from_numpy(spec | ~v), pdf.double(),
+                            PB.bsdf_pdf(l64, f64_, wo64, wi64, PORTED))
+    close(f, ref_f, "f", out64_f)
+    close(pdf, ref_pdf, "pdf", out64_pdf)
+
+
+def test_choose_lobe_is_the_kth_match():
+    """The running count picks what the reference's cumsum rank picks,
+    M = 3, with lanes whose k has no match (lobe 0)."""
+    rs = np.random.RandomState(7)
+    n = 512
+    m = rs.uniform(size=(n, 3)) < 0.5
+    k = rs.randint(0, 3, n).astype(np.int32)
+    lobes = PB.LobeStack(type=torch.from_numpy(rs.randint(0, 8, (n, 3))
+                                               .astype(np.int32)),
+                         params=torch.from_numpy(rs.uniform(
+                             size=(n, 3, 16)).astype(np.float32)),
+                         active=torch.from_numpy(m), eta=torch.ones(n))
+    ct, cp = PB.choose_lobe(lobes, torch.from_numpy(m), torch.from_numpy(k))
+    rank = np.cumsum(m, -1) - 1
+    idx = np.argmax(m & (rank == k[:, None]), -1)
+    same(ct, lobes.type.numpy()[np.arange(n), idx])
+    same(cp, lobes.params.numpy()[np.arange(n), idx])
+
+
+@pytest.mark.parametrize("T", [PB.LAMBERTIAN_TRANS, PB.FRESNEL_BLEND,
+                               PB.DISNEY_DIFFUSE, PB.FOURIER])
+def test_unported_type_refused_by_name(T):
+    (_, _, _, _, _, _), (pl, pf, pwo, pwi, pul, pu2) = _stack(50, n=8)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        PB.bsdf_f(pl, pf, pwo, pwi, (PB.LAMBERTIAN_REFL, T))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        PB.bsdf_sample_f(pl, pf, pwo, pul, pu2, (T,))

@@ -32,7 +32,9 @@ quadric id, t within 1e-6 relative (the same float operations; atan2f
 is the one call that may round apart from torch.atan2 on the card), K2's
 quadric lanes as its triangle lanes (1e-5 absolute or relative: acosf,
 sinf, atan2f and the normalisations), the parsed testball-matte's render
-within the golden-image tolerance of the all-plain render."""
+within the golden-image tolerance of the all-plain render, and those of
+the glass, roughglass, plastic and textured testballs (rays leaving a
+ball from inside, 32-float material rows, K5 on a sphere) likewise."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -1132,3 +1134,24 @@ def test_testball_render_matches_plain(dev):
                                  sample_stop=1)
     for k in K.QUADRIC_KERNELS + ("build_interaction",):
         assert K.LAUNCHES[k] > 0, K.LAUNCHES
+
+
+@pytest.mark.parametrize("name", ["glass", "roughglass", "plastic",
+                                  "textured"])
+def test_material_testball_render_matches_plain(dev, name):
+    """A material testball on the card, 1 sample: rays leaving the glass
+    ball from inside through K14 and K2, the plastic's 32-float material
+    rows through K8, the textured ball through K5; the image within the
+    golden-image tolerance of the all-plain render."""
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", f"testball-{name}.pbrt")
+    bundle = parse_scene(path, device=dev).scene
+    K.reset_launches()
+    _assert_render_matches_plain(bundle.renderer(), bundle.context(),
+                                 sample_stop=1)
+    for k in K.QUADRIC_KERNELS + ("build_interaction", "row_gather"):
+        assert K.LAUNCHES[k] > 0, K.LAUNCHES
+    if name == "textured":
+        assert K.LAUNCHES["atlas_lookup_ewa"] > 0, K.LAUNCHES

@@ -209,11 +209,20 @@ REFUSED = {
     "disk": ('', 'AreaLightSource "diffuse" "rgb L" [2 2 2]\n'
              'Shape "disk" "float radius" [0.5]', "an area light on Shape "
              "'disk'", 14),
-    "plastic": ('', 'Material "plastic"', "Material 'plastic'", 13),
-    "glass": ('', 'Material "glass"', "Material 'glass'", 13),
+    # plastic, glass and Oren-Nayar render: a bump map on each is refused
+    "plastic": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
+                'Material "plastic" "texture bumpmap" "b"',
+                "Material 'plastic' with a bumpmap", 13),
+    "glass": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
+              'Material "glass" "texture bumpmap" "b"',
+              "Material 'glass' with a bumpmap", 13),
+    "substrate": ('', 'Material "substrate"', "Material 'substrate'", 13),
+    "translucent": ('', 'Material "translucent"', "Material 'translucent'",
+                    13),
     "mix": ('', 'Material "mix"', "Material 'mix'", 13),
-    "oren-nayar": ('', 'Material "matte" "float sigma" [20]',
-                   "Oren-Nayar", 13),
+    "oren-nayar": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
+                   'Material "matte" "float sigma" [20] '
+                   '"texture bumpmap" "b"', "bumpmap", 13),
     "bumpmap": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
                 'Material "matte" "texture bumpmap" "b"', "bumpmap", 13),
     "marble": ('', 'Texture "m" "spectrum" "marble"', "'marble'", 13),
@@ -270,7 +279,7 @@ def test_reference_unimplemented_shape_keeps_its_error():
 
 
 @pytest.mark.parametrize("name,feature", [
-    ("testball-glass.pbrt", "Material 'glass'"),
+    ("testball-substrate.pbrt", "Material 'substrate'"),
     ("simple.pbrt", "LightSource 'point'")])
 def test_repo_scenes_refused_by_feature(name, feature):
     with pytest.raises(NotImplementedError, match=feature):
