@@ -129,10 +129,26 @@ Phases, each printing its lines:
      full-width textured step, its sphere lanes counted; then
      testball-glass through the port's command line in a subprocess
      against its golden;
- 18. a JSON line of the kernels (times, bounds, library yardsticks,
+ 18. the other analytic materials: testball-substrate and testball-disney
+     parsed and rendered in process at their own 64^2, 16 spp, depth 7,
+     counted (K14, K2 and K8 launched on each), each against its golden
+     (mean 2e-3, p99 2e-2), and testball-disney through the port's command
+     line against its golden; a translucent, an uber (opacity 0.5, Kr and
+     Kt) and a mix of substrate and Disney over a checkerboard amount
+     (tools/profile_step.py BALLS) each rendered at 128^2, 4 spp, counted,
+     through the kernels and through the all-plain path, held within the
+     crop tolerance of phase 16; testball-disney with its film at 1024^2,
+     8 samples, 2^18-lane tiles, compaction on, counted and timed (camera
+     rays/s beside testball-matte's of phase 16 and testball-glass's of
+     phase 17); K8 on the material rows of a full-width Disney step (96
+     floats a row) and of a full-width mix step (112), bit for bit, timed
+     and bounded; one tile-2 step of each of testball-matte, -glass and
+     -disney at 1024^2 profiled (tools/profile_step.profile_tile: device
+     kernels, busy share, hand-kernel ms);
+ 19. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
-     row for the tool's shape and ones for the render's at 16 and 32
-     floats, K7 rows for its moves and for its transposes, K4 and K9 rows
+     row for the tool's shape and ones for the render's at 16, 32, 96 and
+     112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
      for the filters, on the Cornell splat and at full width, K12 rows
      for both grids, K14 and K2 rows on the quadric table, the testball
      step and the glass steps, K5 rows on the dragon and the textured
@@ -143,7 +159,8 @@ Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
 phases 13-15, the testball render and step of phase 16, each testball
-render and the glass render and steps of phase 17) is
+render and the glass render and steps of phase 17, each render and step
+of phase 18) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -329,6 +346,16 @@ ROWS = {
                                       "rows of 32 float32 (two lobes), "
                                       "bounce 0 of a full-width "
                                       "testball-plastic step"),
+    "row_gather material rows W=96": ("row_gather",
+                                      "the render: 2^18 lanes' material "
+                                      "rows of 96 float32 (Disney's six "
+                                      "lobes), bounce 0 of a full-width "
+                                      "testball-disney step"),
+    "row_gather material rows W=112": ("row_gather",
+                                       "the render: 2^18 lanes' material "
+                                       "rows of 112 float32 (a mix of "
+                                       "substrate and Disney), bounce 0 of "
+                                       "a full-width step of that ball"),
     "atlas_lookup_ewa testball-textured": (
         "atlas_lookup_ewa", "mean of the calls of a full-width "
         "testball-textured step (tile 2): the ball's and the floor's "
@@ -337,6 +364,11 @@ ROWS = {
 # the material testballs of phase 17
 TESTBALLS = ("glass", "mirror", "plastic", "metal", "roughglass",
              "roughmetal", "textured")
+# phase 18: the testballs with a golden, and the balls without one
+# (tools/profile_step.py BALLS) rendered at 128^2, 4 spp
+LAYERED = ("substrate", "disney")
+PLAIN_BALLS = ("translucent", "uber", "mix")
+BALL_RES, BALL_SPP = (128, 128), 4
 # the pixel filters the parsed Cornell box is rendered with (no file of
 # scenes/ names a PixelFilter)
 FILTER_KINDS = ("triangle", "gaussian", "mitchell")
@@ -1871,15 +1903,15 @@ def testball_cli(name, phase):
                              "golden image")
 
 
-def testball_goldens(dev, card):
-    """Phase 17: the seven material testballs parsed and rendered in
-    process on the card at their own 64^2, counted, each against its
-    golden. -> {name: launches of its render}."""
+def testball_goldens(dev, card, names=TESTBALLS, phase=17):
+    """The material testballs ``names`` parsed and rendered in process on
+    the card at their own 64^2, counted, each against its golden. ->
+    {name: launches of its render}."""
     from rustracer_tpu_torch import cuda as K
     counts = {}
-    for name in TESTBALLS:
+    for name in names:
         bundle, _ = parse_counted(
-            f"[17] testball-{name}",
+            f"[{phase}] testball-{name}",
             path=os.path.join(REPO, "scenes", f"testball-{name}.pbrt"),
             dev=dev)
         torch.cuda.synchronize()
@@ -1893,26 +1925,27 @@ def testball_goldens(dev, card):
                                    f"testball-{name}.npz"))["img"]
         img = img.cpu().numpy()
         if img.shape != ref.shape or not np.isfinite(img).all():
-            raise AssertionError(f"[17] testball-{name}: image {img.shape} "
-                                 "not finite or not the golden's")
+            raise AssertionError(f"[{phase}] testball-{name}: image "
+                                 f"{img.shape} not finite or not the "
+                                 "golden's")
         mean_err, p99 = image_errors(img, ref)
         ms = bundle.material_set
-        log(f"[17] testball-{name} {bundle.film.full_resolution}, "
+        log(f"[{phase}] testball-{name} {bundle.film.full_resolution}, "
             f"{bundle.sampler.spp} spp, depth {bundle.integrator.max_depth}: "
             f"{wall:.3f} s; M {ms.max_lobes}, lobe types "
             f"{ms.types_present()}; against tests/goldens/testball-{name}"
             f".npz: mean err {mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< "
-            f"2e-2); launches {launches}")
+            f"2e-2) on {card}; launches {launches}")
         need = K.QUADRIC_KERNELS + ("build_interaction", "row_gather")
         if name == "textured":
             need += ("atlas_lookup_ewa",)
         missing = [k for k in need if launches[k] <= 0]
         if missing:
-            raise AssertionError(f"[17] testball-{name} did not launch "
-                                 f"{missing}")
+            raise AssertionError(f"[{phase}] testball-{name} did not "
+                                 f"launch {missing}")
         if not (mean_err < 2e-3 and p99 < 2e-2):
-            raise AssertionError(f"[17] testball-{name} differs from its "
-                                 "golden image")
+            raise AssertionError(f"[{phase}] testball-{name} differs from "
+                                 "its golden image")
     return counts
 
 
@@ -1996,28 +2029,29 @@ def check_atlas_testball(ctx, cap, ball_reg, results):
         bound_by=max(set(by), key=by.count), library_ms=None)
 
 
-def check_gather_w32(cap, results):
-    """K8 at 32 floats a row: the material rows of a full-width plastic
-    step's bounce 0, bit for bit, timed with its yardstick."""
+def check_gather_rows(cap, results, width, phase, card=""):
+    """K8 at ``width`` floats a row: the material rows of a recorded
+    full-width step's bounce 0, bit for bit, timed with its yardstick."""
     from rustracer_tpu_torch.ops.gather import row_gather
     from rustracer_tpu_torch.tools.timing import queued_ms
     tab, mid = cap["k8"][0]
-    if tab.shape[1] != 32:
-        raise AssertionError(f"the plastic's material rows are {tab.shape}")
+    if tab.shape[1] != width:
+        raise AssertionError(f"the material rows are {tab.shape}, not "
+                             f"{width} floats wide")
     out, ref, ms, pms = both(lambda: row_gather(tab, mid),
                              "row_gather_kernel")
     if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
-        raise AssertionError("row_gather differs on 32-float rows")
+        raise AssertionError(f"row_gather differs on {width}-float rows")
     lib_ms = queued_ms(lambda: torch.index_select(tab, 0, mid), 20)
     rows = torch.unique(mid).numel()
-    r = results["row_gather material rows W=32"] = dict(
+    r = results[f"row_gather material rows W={width}"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
         **bound(nbytes(mid, out) + rows * tab.shape[1] * 4))
-    log(f"[17] row_gather material rows ({tab.shape[0]} x {tab.shape[1]} "
-        f"float32, {mid.shape[0]} lanes, {rows} distinct): bit for bit; "
-        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.index_select "
-        f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({100 * r['bound_ms'] / ms:.1f}%)")
+    log(f"[{phase}] row_gather material rows ({tab.shape[0]} x "
+        f"{tab.shape[1]} float32, {mid.shape[0]} lanes, {rows} distinct): "
+        f"bit for bit; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"torch.index_select {lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / ms:.1f}%){card and ' on ' + card}")
 
 
 def glass_steps(dev, card, results, counts):
@@ -2075,7 +2109,8 @@ def glass_steps(dev, card, results, counts):
 
     plastic = testball_at_res("[17]", "plastic", dev)
     pr, pctx = plastic.renderer(LANES), plastic.context()
-    check_gather_w32(capture_step(pr, pctx, pr.tiles[2]), results)
+    check_gather_rows(capture_step(pr, pctx, pr.tiles[2]), results, 32, 17,
+                      card)
     results["row_gather material rows W=32"].update(
         launches=counts["plastic"]["row_gather"],
         launches_per_step=step_launches(pr, pctx, pr.tiles[2])["row_gather"],
@@ -2096,6 +2131,110 @@ def glass_steps(dev, card, results, counts):
     return rays
 
 
+def plain_balls(dev, card):
+    """Phase 18: the balls without a golden (PLAIN_BALLS) at BALL_RES and
+    BALL_SPP, counted, through the kernels and through the all-plain path,
+    held within the crop tolerance. -> {name: launches of its render}."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.profile_step import testball_text
+    from rustracer_tpu_torch.utils import fileutil
+    counts = {}
+    for name in PLAIN_BALLS:
+        text, scenes = testball_text(f"testball-{name}", BALL_RES, BALL_SPP)
+        fileutil.set_search_directory(scenes)
+        bundle, _ = parse_counted(f"[18] testball-{name}", text=text,
+                                  dev=dev)
+        runs = []
+        for plain in (False, True):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            with K.plain_reference() if plain else contextlib.nullcontext():
+                img = bundle.render()
+            torch.cuda.synchronize()
+            runs.append((img.cpu().numpy(), time.perf_counter() - t0,
+                         dict(K.LAUNCHES)))
+        (img, wall, launches), (ref, plain_wall, _) = runs
+        counts[name] = launches
+        if not np.isfinite(img).all() or not img.mean() > 1e-4:
+            raise AssertionError(f"[18] testball-{name}: the image is not "
+                                 "finite or is black")
+        mean_err, p99 = image_errors(img, ref)
+        ms = bundle.material_set
+        log(f"[18] testball-{name} {BALL_RES[0]}^2, {BALL_SPP} spp, depth "
+            f"{bundle.integrator.max_depth}: M {ms.max_lobes}, lobe types "
+            f"{ms.types_present()}; kernel path {wall:.3f} s, plain path "
+            f"{plain_wall:.3f} s on {card}; kernel against plain: mean err "
+            f"{mean_err:.3g} (<= 2e-3), p99 {p99:.3g} (<= 2e-2); launches "
+            f"{launches}")
+        missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",
+                                                   "row_gather")
+                   if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"[18] testball-{name} did not launch "
+                                 f"{missing}")
+        if not (mean_err <= 2e-3 and p99 <= 2e-2):
+            raise AssertionError(f"[18] testball-{name}: kernel and plain "
+                                 "renders disagree")
+    return counts
+
+
+def layered_steps(dev, card, results, counts, rays):
+    """Phase 18 at full width: the counted and timed Disney render beside
+    matte's and glass's rays/s (``rays``), K8 at 96 and 112 floats on the
+    Disney and mix steps, and one profiled tile-2 step of testball-matte,
+    -glass and -disney."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.bench_step_kernels import capture_step
+    from rustracer_tpu_torch.tools.profile_step import profile_tile
+    bundle = testball_at_res("[18]", "disney", dev)
+    renderer, ctx = bundle.renderer(LANES), bundle.context()
+    renderer.render_state(ctx, sample_stop=1)
+    launches, _, _, rays["disney"] = render_counted(
+        "[18] testball-disney", renderer, bundle.film, ctx, SAMPLES, card,
+        depth=bundle.integrator.max_depth)
+    missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",
+                                               "row_gather")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the Disney render did not launch {missing}")
+    log(f"[18] camera rays/s at {RES[0]}^2, {SAMPLES} samples, on {card}: "
+        + ", ".join(f"testball-{k} {v:.1f}" for k, v in rays.items()))
+    tile = renderer.tiles[2]
+    per_step = step_launches(renderer, ctx, tile)
+    log(f"[18] launches in one full-width Disney step (tile 2): {per_step}")
+    check_gather_rows(capture_step(renderer, ctx, tile), results, 96, 18,
+                      card)
+    results["row_gather material rows W=96"].update(
+        launches=launches["row_gather"],
+        launches_per_step=per_step["row_gather"],
+        counted_in=f"testball-disney render at {RES[0]}^2")
+    mix = testball_at_res("[18]", "mix", dev)
+    mr, mctx = mix.renderer(LANES), mix.context()
+    check_gather_rows(capture_step(mr, mctx, mr.tiles[2]), results, 112, 18,
+                      card)
+    results["row_gather material rows W=112"].update(
+        launches=counts["mix"]["row_gather"],
+        launches_per_step=step_launches(mr, mctx, mr.tiles[2])["row_gather"],
+        counted_in=f"testball-mix render at {BALL_RES[0]}^2 (phase 18)")
+    steps = {"disney": (renderer, ctx)}
+    for name in ("matte", "glass"):
+        b = testball_at_res("[18]", name, dev)
+        steps[name] = (b.renderer(LANES), b.context())
+    for name in ("matte", "glass", "disney"):
+        r, c = steps[name]
+        prof = profile_tile(r, c, r.tiles[2])
+        log(f"[18] profiled step of testball-{name} (tile 2, {LANES} lanes) "
+            f"on {card}: {prof['n_kernels']} device kernels, busy "
+            f"{prof['device_busy_ms']:.3f} ms of "
+            f"{prof['profiled_step_ms']:.3f} ms "
+            f"({100 * prof['busy_share']:.1f}%), step median "
+            f"{prof['step_ms_median']:.3f} ms, hand kernels "
+            f"{sum(prof['hand_kernels_ms'].values()):.4f} ms "
+            f"{json.dumps(prof['hand_kernels_ms'])}; top "
+            f"{json.dumps(prof['top_device_ms'][:5])}")
+
+
 def no_quadric_launches(label, launches):
     """A path without quadrics launches no K14."""
     from rustracer_tpu_torch import cuda as K
@@ -2105,7 +2244,7 @@ def no_quadric_launches(label, launches):
 
 
 def run(dev, card):
-    """Phases 3 to 17 on device ``dev``."""
+    """Phases 3 to 19 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -2207,13 +2346,18 @@ def run(dev, card):
 
     # 16: the quadrics
     check_quadric_table(dev, results)
-    testball_full(dev, card, results)
+    rays = {"matte": testball_full(dev, card, results)}
     testball_cli("matte", 16)
 
     # 17: the specular and microfacet lobes
     counts = testball_goldens(dev, card)
-    glass_steps(dev, card, results, counts)
+    rays["glass"] = glass_steps(dev, card, results, counts)
     testball_cli("glass", 17)
+
+    # 18: substrate, translucent, uber, mix and Disney
+    testball_goldens(dev, card, LAYERED, 18)
+    testball_cli("disney", 18)
+    layered_steps(dev, card, results, plain_balls(dev, card), rays)
 
     kernels = []
     for key, (name, case) in ROWS.items():

@@ -16,8 +16,7 @@ from .render.filters import Filter
 from .render.sampler import SamplerConfig
 from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
-from .scene.materials import (GlassMaterial, MaterialSet, MatteMaterial,
-                              MetalMaterial, MirrorMaterial, PlasticMaterial)
+from .scene import materials as M
 from .scene.tables import QUADRIC_KEYS, GeometryTables
 from .scene.textures import (CheckerboardTexture, ConstantTexture,
                              ImageTexture, UVMapping2D)
@@ -166,7 +165,28 @@ def _opt_texture(tex):
     return None if tex is None else _texture_from_jax(tex)
 
 
-def _material_from_jax(m, textures):
+# the texture attributes of each material (both packages name them alike)
+_MATERIAL_TEXTURES = {
+    "PlasticMaterial": ("kd", "ks", "roughness"),
+    "MirrorMaterial": ("kr",),
+    "GlassMaterial": ("kr", "kt", "index", "urough", "vrough"),
+    "MetalMaterial": ("eta", "k", "roughness", "urough", "vrough"),
+    "SubstrateMaterial": ("kd", "ks", "urough", "vrough"),
+    "TranslucentMaterial": ("kd", "ks", "roughness", "reflect", "transmit"),
+    "UberMaterial": ("kd", "ks", "kr", "kt", "roughness", "urough", "vrough",
+                     "opacity", "eta"),
+    "DisneyMaterial": ("color", "metallic", "eta", "roughness",
+                       "specular_tint", "anisotropic", "sheen", "sheen_tint",
+                       "clearcoat", "clearcoat_gloss", "spec_trans",
+                       "flatness", "diff_trans"),
+}
+
+
+def _material_from_jax(m, textures, memo):
+    """The port's material for the JAX one ``m``; a material held by a mix
+    and by the set is converted once (``memo``: id -> port material)."""
+    if id(m) in memo:
+        return memo[id(m)]
     kind = type(m).__name__
     if m.bump_tex is not None:
         raise NotImplementedError(f"material {kind} with a bump map is not "
@@ -174,34 +194,35 @@ def _material_from_jax(m, textures):
     if kind == "MatteMaterial":
         sigma = None if m.sigma is None or _zero_sigma(m.sigma, textures) \
             else _texture_from_jax(m.sigma)
-        return MatteMaterial(kd=_texture_from_jax(m.kd), sigma=sigma)
-    if kind == "PlasticMaterial":
-        return PlasticMaterial(_texture_from_jax(m.kd),
-                               _texture_from_jax(m.ks),
-                               _texture_from_jax(m.roughness), m.remap)
-    if kind == "MirrorMaterial":
-        return MirrorMaterial(_texture_from_jax(m.kr))
-    if kind == "GlassMaterial":
-        return GlassMaterial(_texture_from_jax(m.kr), _texture_from_jax(m.kt),
-                             _texture_from_jax(m.index),
-                             _opt_texture(m.urough), _opt_texture(m.vrough),
-                             m.remap)
-    if kind == "MetalMaterial":
-        return MetalMaterial(_texture_from_jax(m.eta), _texture_from_jax(m.k),
-                             _texture_from_jax(m.roughness),
-                             _opt_texture(m.urough), _opt_texture(m.vrough),
-                             m.remap)
-    raise NotImplementedError(f"material {kind} is not ported")
+        out = M.MatteMaterial(kd=_texture_from_jax(m.kd), sigma=sigma)
+    elif kind == "MixMaterial":
+        out = M.MixMaterial(_material_from_jax(m.m1, textures, memo),
+                            _material_from_jax(m.m2, textures, memo),
+                            _texture_from_jax(m.amount))
+    elif kind in _MATERIAL_TEXTURES:
+        kw = {k: _opt_texture(getattr(m, k)) for k in _MATERIAL_TEXTURES[kind]}
+        if kind == "DisneyMaterial":
+            kw["thin"] = m.thin
+        elif kind != "MirrorMaterial":
+            kw["remap_roughness"] = m.remap
+        out = getattr(M, kind)(**kw)
+    else:
+        raise NotImplementedError(f"material {kind} is not ported")
+    memo[id(m)] = out
+    return out
 
 
-def material_set_from_jax(ms, textures=None) -> MaterialSet:
-    """JAX MaterialSet of matte (with sigma), plastic, mirror, glass and
-    metal materials over constant, checkerboard or UV-mapped image
-    textures -> port's; raises on anything else (and on a bump map). A
-    parsed scene's mattes carry a sigma texture: with the JAX ``textures``
-    dict given, a sigma that is the constant 0 is the Lambertian lobe."""
-    return MaterialSet([_material_from_jax(m, textures)
-                        for m in ms.materials])
+def material_set_from_jax(ms, textures=None) -> M.MaterialSet:
+    """JAX MaterialSet of matte (with sigma), plastic, mirror, glass,
+    metal, substrate, translucent, uber, Disney and mix materials over
+    constant, checkerboard or UV-mapped image textures -> port's; raises on
+    anything else (and on a bump map). A mix's materials are the set's own
+    where the set holds them. A parsed scene's mattes carry a sigma
+    texture: with the JAX ``textures`` dict given, a sigma that is the
+    constant 0 is the Lambertian lobe."""
+    memo = {}
+    return M.MaterialSet([_material_from_jax(m, textures, memo)
+                          for m in ms.materials])
 
 
 def camera_from_jax(cam) -> PerspectiveCamera:

@@ -1,6 +1,7 @@
 """Lobe-stack BSDF evaluation (port of rustracer_tpu/ops/bsdf.py: the
-Lambertian, Oren-Nayar, microfacet reflection and transmission lobes and
-the three specular lobes).
+Lambertian reflection and transmission, Oren-Nayar, microfacet reflection
+and transmission, FresnelBlend and the five Disney lobes, and the three
+specular lobes; every lobe type but FOURIER).
 
 Every lane carries up to M lobes as (type, params[16], active) rows; f and
 pdf sum or average the active matching lobes over the lobe types statically
@@ -12,7 +13,8 @@ Param slots (the reference's layout):
   [0:3] primary color, [3:6] secondary color (T, conductor eta),
   [6:9] tertiary color (conductor k), [9] eta, [10] alpha_x, [11] alpha_y,
   [12] microfacet distribution code, [13] fresnel code,
-  [14] Oren-Nayar A, [15] Oren-Nayar B.
+  [14] Oren-Nayar A, Disney metallic or roughness,
+  [15] Oren-Nayar B, the clearcoat's GTR1 alpha.
 """
 from __future__ import annotations
 
@@ -21,12 +23,13 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core.math import (INV_PI, abs_cos_theta, cos_theta, dot, normalize,
-                         reflect, refract, same_hemisphere)
+from ..core.math import (INV_PI, PI, abs_cos_theta, cos_theta, dot,
+                         normalize, reflect, refract, same_hemisphere)
 from ..core.sampling import cosine_sample_hemisphere
-from .fresnel import FR_CONDUCTOR, FR_DIELECTRIC, fr_conductor, fr_dielectric
-from .microfacet import (distribution_d, distribution_g, distribution_pdf,
-                         distribution_sample_wh)
+from .fresnel import (FR_CONDUCTOR, FR_DIELECTRIC, FR_DISNEY, fr_conductor,
+                      fr_dielectric, schlick_fresnel)
+from .microfacet import (GTR1, TROWBRIDGE, distribution_d, distribution_g,
+                         distribution_pdf, distribution_sample_wh)
 
 # --- lobe type codes (the reference's) ---
 LAMBERTIAN_REFL = 0
@@ -67,14 +70,14 @@ LOBE_FLAGS[MICROFACET_TRANS] = TRANSMISSION | GLOSSY
 LOBE_FLAGS[FOURIER] = REFLECTION | TRANSMISSION | GLOSSY
 
 SPECULAR_TYPES = (SPECULAR_REFL, SPECULAR_TRANS, FRESNEL_SPECULAR)
-DIFFUSE_LIKE = (LAMBERTIAN_REFL, OREN_NAYAR)
-PORTED_TYPES = frozenset(DIFFUSE_LIKE + SPECULAR_TYPES
-                         + (MICROFACET_REFL, MICROFACET_TRANS))
-_NAMES = {FRESNEL_BLEND: "FRESNEL_BLEND (substrate)",
-          LAMBERTIAN_TRANS: "LAMBERTIAN_TRANS (translucent)",
-          DISNEY_DIFFUSE: "DISNEY_DIFFUSE", DISNEY_RETRO: "DISNEY_RETRO",
-          DISNEY_SHEEN: "DISNEY_SHEEN", DISNEY_CLEARCOAT: "DISNEY_CLEARCOAT",
-          DISNEY_FAKE_SS: "DISNEY_FAKE_SS", FOURIER: "FOURIER"}
+# the lobes sampled from the cosine-weighted hemisphere on wo's side
+DIFFUSE_LIKE = (LAMBERTIAN_REFL, OREN_NAYAR, DISNEY_DIFFUSE, DISNEY_RETRO,
+                DISNEY_SHEEN, DISNEY_FAKE_SS)
+DISNEY_TYPES = (DISNEY_DIFFUSE, DISNEY_RETRO, DISNEY_SHEEN, DISNEY_CLEARCOAT,
+                DISNEY_FAKE_SS)
+PORTED_TYPES = frozenset(range(N_LOBE_TYPES)) - {FOURIER}
+# FresnelBlend's diffuse constant, as the reference rounds it
+_FB_DIFFUSE = float(28.0 / (23.0 * PI))
 
 
 class LobeStack(NamedTuple):
@@ -89,8 +92,9 @@ def check_types(types_present: Sequence[int]):
     evaluate yet."""
     for T in types_present:
         if T not in PORTED_TYPES:
+            name = "FOURIER" if T == FOURIER else T
             raise NotImplementedError(
-                f"the lobe type {_NAMES.get(T, T)} is not ported yet "
+                f"the lobe type {name} is not ported yet "
                 "(ROADMAP.md, section A, item 13)")
 
 
@@ -115,8 +119,15 @@ def _is_specular(ltype):
     return (lobe_flags(ltype) & SPECULAR) != 0
 
 
-def _fresnel(code, cos_i, params):
-    """(..., 3) reflectance by the fresnel code of slot 13 (FR_NOOP: 1)."""
+def _has_disney(types_present) -> bool:
+    """FR_DISNEY comes only with the Disney lobes: without them the Disney
+    Fresnel is not computed (a static choice)."""
+    return any(T in DISNEY_TYPES for T in types_present)
+
+
+def _fresnel(code, cos_i, params, disney=False):
+    """(..., 3) reflectance by the fresnel code of slot 13 (FR_NOOP: 1);
+    FR_DISNEY only where ``disney``."""
     s0 = params[..., 9]
     pb = params[..., 3:6]
     pc = params[..., 6:9]
@@ -124,18 +135,87 @@ def _fresnel(code, cos_i, params):
     fc = fr_conductor(cos_i, torch.ones_like(pb), pb, pc)
     out = torch.ones_like(fc)
     out = torch.where((code == FR_DIELECTRIC)[..., None], fd, out)
-    # FR_DISNEY comes only with the Disney lobes, which check_types refuses
-    return torch.where((code == FR_CONDUCTOR)[..., None], fc, out)
+    out = torch.where((code == FR_CONDUCTOR)[..., None], fc, out)
+    if not disney:
+        return out
+    # the metallic lerp of the dielectric and Schlick to cspec0
+    metallic = params[..., 14]
+    schlick = schlick_fresnel(torch.abs(cos_i)[..., None], pc)
+    fdisney = (1.0 - metallic)[..., None] * fd + metallic[..., None] * schlick
+    return torch.where((code == FR_DISNEY)[..., None], fdisney, out)
 
 
-def _f_one_type(T, params, wo, wi):
+def _schlick_weight(c):
+    m = torch.clamp(1.0 - c, 0.0, 1.0)
+    return (m * m) * (m * m) * m
+
+
+def _pow5(x):
+    """x ** 5 as XLA's integer_pow multiplies it out."""
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def _half(wo, wi):
+    """-> (the unit half vector, |wo + wi|^2)."""
+    wh = wi + wo
+    wh_len2 = wh[..., 0] * wh[..., 0] + wh[..., 1] * wh[..., 1] \
+        + wh[..., 2] * wh[..., 2]
+    inv = 1.0 / torch.sqrt(torch.clamp(wh_len2, min=1e-20))
+    return wh * inv[..., None], wh_len2
+
+
+def _full(like, v):
+    return torch.full_like(like, v, dtype=torch.int32) \
+        if isinstance(v, int) else torch.full_like(like, v)
+
+
+def _f_one_type(T, params, wo, wi, disney=False):
     """Non-specular f of lobe type T (a static int) -> (..., 3)."""
     pa = params[..., 0:3]
     same = same_hemisphere(wo, wi)
     if T == LAMBERTIAN_REFL:
         return torch.where(same[..., None], pa * INV_PI, 0.0)
+    if T == LAMBERTIAN_TRANS:
+        return torch.where(same[..., None], 0.0, pa * INV_PI)
     aci = abs_cos_theta(wi)
     aco = abs_cos_theta(wo)
+    if T in (DISNEY_DIFFUSE, DISNEY_RETRO, DISNEY_FAKE_SS):
+        fo = _schlick_weight(aco)
+        fi = _schlick_weight(aci)
+    if T == DISNEY_DIFFUSE:
+        f = pa * (INV_PI * (1.0 - 0.5 * fo) * (1.0 - 0.5 * fi))[..., None]
+        return torch.where(same[..., None], f, 0.0)
+    if T in (DISNEY_RETRO, DISNEY_SHEEN, DISNEY_CLEARCOAT, DISNEY_FAKE_SS):
+        wh_n, wh_len2 = _half(wo, wi)
+        keep = (same & (wh_len2 > 1e-16))[..., None]
+        if T == DISNEY_RETRO:
+            cos_d = dot(wi, wh_n)
+            rr = 2.0 * params[..., 14] * cos_d * cos_d
+            f = pa * (INV_PI * rr
+                      * (fo + fi + fo * fi * (rr - 1.0)))[..., None]
+        elif T == DISNEY_SHEEN:
+            f = pa * _schlick_weight(dot(wi, wh_n))[..., None]
+        elif T == DISNEY_CLEARCOAT:
+            # GTR1 at the gloss alpha, Schlick at 0.04 and Trowbridge-Reitz
+            # shadowing at a fixed alpha of 0.25
+            weight = pa[..., 0]
+            gloss = params[..., 15]
+            dr = distribution_d(_full(weight, GTR1), wh_n, gloss, gloss)
+            fr = schlick_fresnel(torch.abs(dot(wi, wh_n)), 0.04)
+            gr = distribution_g(_full(weight, TROWBRIDGE), wo, wi,
+                                _full(weight, 0.25), _full(weight, 0.25))
+            v = weight * gr * fr * dr * 0.25
+            f = torch.stack([v, v, v], -1)
+        else:
+            # Hanrahan-Krueger's subsurface approximation
+            cos_d = dot(wi, wh_n)
+            fss90 = cos_d * cos_d * params[..., 14]
+            fss = (1.0 + (fss90 - 1.0) * fo) * (1.0 + (fss90 - 1.0) * fi)
+            ss = 1.25 * (fss * (1.0 / torch.clamp(aco + aci, min=1e-4) - 0.5)
+                         + 0.5)
+            f = pa * (INV_PI * ss)[..., None]
+        return torch.where(keep, f, 0.0)
     if T == OREN_NAYAR:
         A = params[..., 14]
         B = params[..., 15]
@@ -164,7 +244,7 @@ def _f_one_type(T, params, wo, wi):
             wh[..., 0] * wh[..., 0] + wh[..., 1] * wh[..., 1]
             + wh[..., 2] * wh[..., 2], min=1e-20))
         wh_n = wh / wh_len[..., None]
-        F = _fresnel(params[..., 13].int(), dot(wi, wh_n), params)
+        F = _fresnel(params[..., 13].int(), dot(wi, wh_n), params, disney)
         d = distribution_d(dist, wh_n, ax, ay)
         g = distribution_g(dist, wo, wi, ax, ay)
         f = pa * F * (d * g / torch.clamp(4.0 * aci * aco, min=1e-8))[..., None]
@@ -188,6 +268,20 @@ def _f_one_type(T, params, wo, wi):
                   * torch.abs(wo_dot) * factor * factor
                   / torch.clamp(aci * aco * denom, min=1e-10))[..., None]
         return torch.where(ok[..., None], f, 0.0)
+    if T == FRESNEL_BLEND:
+        rs = params[..., 3:6]
+        diffuse = _FB_DIFFUSE * pa * (1.0 - rs) \
+            * ((1.0 - _pow5(1.0 - 0.5 * aci))
+               * (1.0 - _pow5(1.0 - 0.5 * aco)))[..., None]
+        wh_n, wh_len2 = _half(wo, wi)
+        d = distribution_d(dist, wh_n, ax, ay)
+        f_schlick = rs + _schlick_weight(dot(wi, wh_n))[..., None] * (1.0 - rs)
+        spec = (d / torch.clamp(4.0 * torch.abs(dot(wi, wh_n))
+                                * torch.maximum(aci, aco), min=1e-8)
+                )[..., None] * f_schlick
+        long = (wh_len2 > 1e-16)[..., None]
+        ok = same[..., None] & ~degenerate[..., None] & long
+        return torch.where(ok, diffuse + torch.where(long, spec, 0.0), 0.0)
     check_types((T,))
     raise AssertionError(f"lobe type {T} has no f")
 
@@ -196,12 +290,19 @@ def _pdf_one_type(T, params, wo, wi):
     same = same_hemisphere(wo, wi)
     if T in DIFFUSE_LIKE:
         return torch.where(same, abs_cos_theta(wi) * INV_PI, 0.0)
+    if T == LAMBERTIAN_TRANS:
+        return torch.where(same, 0.0, abs_cos_theta(wi) * INV_PI)
     ax, ay = params[..., 10], params[..., 11]
     dist = params[..., 12].int()
-    if T == MICROFACET_REFL:
+    if T == DISNEY_CLEARCOAT:
+        ax = ay = params[..., 15]
+        dist = _full(ax, GTR1)
+    if T in (MICROFACET_REFL, DISNEY_CLEARCOAT, FRESNEL_BLEND):
         wh = normalize(wo + wi)
         pdf = distribution_pdf(dist, wo, wh, ax, ay) \
             / torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-8)
+        if T == FRESNEL_BLEND:
+            pdf = 0.5 * (abs_cos_theta(wi) * INV_PI + pdf)
         return torch.where(same, pdf, 0.0)
     if T == MICROFACET_TRANS:
         eta = params[..., 9]
@@ -226,11 +327,12 @@ def eval_f(ltype, params, wo, wi, types_present: Sequence[int]):
     """Masked dispatch of _f_one_type over the present types (the specular
     ones have f 0)."""
     check_types(types_present)
+    disney = _has_disney(types_present)
     out = wo.new_zeros(_batch(ltype, wo) + (3,))
     for T in types_present:
         if T not in SPECULAR_TYPES:
             out = torch.where((ltype == T)[..., None],
-                              _f_one_type(T, params, wo, wi), out)
+                              _f_one_type(T, params, wo, wi, disney), out)
     return out
 
 
@@ -242,6 +344,13 @@ def eval_pdf(ltype, params, wo, wi, types_present: Sequence[int]):
             out = torch.where(ltype == T, _pdf_one_type(T, params, wo, wi),
                               out)
     return out
+
+
+def _any_type(ltype, types):
+    mask = ltype == types[0]
+    for T in types[1:]:
+        mask = mask | (ltype == T)
+    return mask
 
 
 def _normal_by_side(entering):
@@ -269,20 +378,31 @@ def sample_lobe(ltype, params, wo, u, types_present: Sequence[int]):
     eta = params[..., 9]
 
     diffuse_like = [T for T in types_present if T in DIFFUSE_LIKE]
+    if diffuse_like or LAMBERTIAN_TRANS in types_present:
+        w_cos = cosine_sample_hemisphere(u)
+        flip = w_cos.new_tensor([1.0, 1.0, -1.0])
     if diffuse_like:
-        w = cosine_sample_hemisphere(u)
-        w = torch.where((cos_o < 0.0)[..., None],
-                        w * w.new_tensor([1.0, 1.0, -1.0]), w)
-        mask = ltype == diffuse_like[0]
-        for T in diffuse_like[1:]:
-            mask = mask | (ltype == T)
-        wi = torch.where(mask[..., None], w, wi)
-    if MICROFACET_REFL in types_present or MICROFACET_TRANS in types_present:
+        w = torch.where((cos_o < 0.0)[..., None], w_cos * flip, w_cos)
+        wi = torch.where(_any_type(ltype, diffuse_like)[..., None], w, wi)
+    if LAMBERTIAN_TRANS in types_present:
+        # the hemisphere opposite wo
+        w = torch.where((cos_o > 0.0)[..., None], w_cos * flip, w_cos)
+        wi = torch.where((ltype == LAMBERTIAN_TRANS)[..., None], w, wi)
+    glossy = [T for T in (MICROFACET_REFL, DISNEY_CLEARCOAT)
+              if T in types_present]
+    if glossy or MICROFACET_TRANS in types_present:
+        # one sampler call for every microfacet lobe; the clearcoat's lanes
+        # take GTR1 at their gloss alpha
         ax, ay = params[..., 10], params[..., 11]
         dist = params[..., 12].int()
+        if DISNEY_CLEARCOAT in types_present:
+            is_cc = ltype == DISNEY_CLEARCOAT
+            ax = torch.where(is_cc, params[..., 15], ax)
+            ay = torch.where(is_cc, params[..., 15], ay)
+            dist = torch.where(is_cc, GTR1, dist)
         wh = distribution_sample_wh(dist, wo, u, ax, ay)
-    if MICROFACET_REFL in types_present:
-        wi = torch.where((ltype == MICROFACET_REFL)[..., None],
+    if glossy:
+        wi = torch.where(_any_type(ltype, glossy)[..., None],
                          reflect(wo, wh), wi)
     if MICROFACET_TRANS in types_present:
         e = torch.where(cos_o > 0.0, 1.0 / eta, eta)
@@ -290,11 +410,26 @@ def sample_lobe(ltype, params, wo, u, types_present: Sequence[int]):
         w, ok = refract(wo, wh_f, e)
         w = torch.where(ok[..., None], w, -wo)  # TIR: degenerate, f 0
         wi = torch.where((ltype == MICROFACET_TRANS)[..., None], w, wi)
+    if FRESNEL_BLEND in types_present:
+        # u[0] picks the half: below 0.5 the cosine lobe, else the
+        # microfacet one, each on u[0] stretched back to [0, 0.9999]
+        u0 = u[..., 0]
+        u_d = torch.stack([torch.clamp(2.0 * u0, max=0.9999), u[..., 1]], -1)
+        u_s = torch.stack([torch.clamp(2.0 * (u0 - 0.5), max=0.9999),
+                           u[..., 1]], -1)
+        w_d = cosine_sample_hemisphere(u_d)
+        w_d = torch.where((cos_o < 0.0)[..., None],
+                          w_d * w_d.new_tensor([1.0, 1.0, -1.0]), w_d)
+        w_s = reflect(wo, distribution_sample_wh(
+            params[..., 12].int(), wo, u_s, params[..., 10], params[..., 11]))
+        w = torch.where((u0 >= 0.5)[..., None], w_s, w_d)
+        wi = torch.where((ltype == FRESNEL_BLEND)[..., None], w, wi)
 
     # specular lobes: wi, f and pdf directly
     if SPECULAR_REFL in types_present:
         w = _mirror(wo)
-        F = _fresnel(params[..., 13].int(), cos_theta(w), params)
+        F = _fresnel(params[..., 13].int(), cos_theta(w), params,
+                     _has_disney(types_present))
         f = pa * F / torch.clamp(abs_cos_theta(w), min=1e-8)[..., None]
         m = ltype == SPECULAR_REFL
         wi = torch.where(m[..., None], w, wi)
@@ -391,15 +526,22 @@ def choose_lobe(lobes: LobeStack, m, k):
     return ct, cp
 
 
+def lobe_pick(lobes: LobeStack, u_lobe, flags):
+    """-> (the matching lobes (B, M), their count n_match, the rank k =
+    floor(u_lobe * n_match) of the one to sample)."""
+    m = lobes.active & _matches(lobes.type, flags)
+    n_match = m.sum(-1, dtype=torch.int32)
+    k = torch.minimum((u_lobe * n_match.float()).int(),
+                      torch.clamp(n_match - 1, min=0))
+    return m, n_match, k
+
+
 def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, types_present,
                   flags=ALL):
     """Sample a direction from the k-th matching lobe, k = floor(u_lobe *
     n_match). -> (wi_w, f (B,3), pdf (B,), sampled flags (B,), valid)."""
     wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
-    m = lobes.active & _matches(lobes.type, flags)
-    n_match = m.sum(-1, dtype=torch.int32)
-    k = torch.minimum((u_lobe * n_match.float()).int(),
-                      torch.clamp(n_match - 1, min=0))
+    m, n_match, k = lobe_pick(lobes, u_lobe, flags)
     ct, cp = choose_lobe(lobes, m, k)
     specular = any(T in SPECULAR_TYPES for T in types_present)
     # the specular lobes take u[0] unclamped (FRESNEL_SPECULAR picks on it)

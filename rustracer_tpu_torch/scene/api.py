@@ -11,8 +11,10 @@ What renders: transforms and LookAt; ``Texture`` of class ``constant`` and
 ``imagemap`` (uv mapping, served through the shared atlas) as float and
 spectrum, and the 2D ``checkerboard`` spectrum texture over constant
 textures; ``Material`` ``"matte"`` (Oren-Nayar where ``sigma`` is not 0),
-``"plastic"``, ``"mirror"``, ``"glass"`` (smooth and rough) and
-``"metal"``; ``Shape "trianglemesh"``,
+``"plastic"``, ``"mirror"``, ``"glass"`` (smooth and rough), ``"metal"``,
+``"substrate"``, ``"translucent"``, ``"uber"``, ``"disney"`` (thin too)
+and ``"mix"`` (over materials without an image texture);
+``Shape "trianglemesh"``,
 ``"plymesh"``, ``"sphere"``, ``"cylinder"`` and ``"disk"``;
 ``AreaLightSource "diffuse"`` on triangle meshes. Every other shape, material,
 texture, light, instancing and alpha raises NotImplementedError naming the
@@ -485,14 +487,14 @@ class RealApi:
 
     def _build_material(self, name, params) -> int:
         """The material id of ``name`` with ``params``: the reference's
-        factories (rustracer_tpu/scene/api.py:605-644), their defaults
+        factories (rustracer_tpu/scene/api.py:605-703), their defaults
         and the order in which they register textures."""
         if name in ("", "none"):
             return -1
-        if name in ("substrate", "translucent", "uber", "disney", "mix",
-                    "fourier"):
+        if name == "fourier":
             raise not_ported(f"Material {name!r}", SHADING)
-        if name not in ("matte", "plastic", "mirror", "glass", "metal"):
+        if name not in ("matte", "plastic", "mirror", "glass", "metal",
+                        "substrate", "translucent", "uber", "disney", "mix"):
             log.warning("material %r unknown; using matte", name)
             return self._build_material("matte", ParamSet())
         tp = self._tp(params)
@@ -523,7 +525,7 @@ class RealApi:
                 urough=ur or self.textures.constant_float(0.0),
                 vrough=vr or self.textures.constant_float(0.0),
                 remap_roughness=tp.find_bool("remaproughness", True))
-        else:
+        elif name == "metal":
             cu_eta, cu_k = metal_eta_k("Cu")
             m = M.MetalMaterial(
                 eta=tp.get_spectrum_texture("eta", tuple(cu_eta)),
@@ -532,6 +534,62 @@ class RealApi:
                 urough=tp.get_float_texture_or_none("uroughness"),
                 vrough=tp.get_float_texture_or_none("vroughness"),
                 remap_roughness=tp.find_bool("remaproughness", True))
+        elif name == "substrate":
+            m = M.SubstrateMaterial(
+                kd=tp.get_spectrum_texture("Kd", (0.5,) * 3),
+                ks=tp.get_spectrum_texture("Ks", (0.5,) * 3),
+                urough=tp.get_float_texture("uroughness", 0.1),
+                vrough=tp.get_float_texture("vroughness", 0.1),
+                remap_roughness=tp.find_bool("remaproughness", True))
+        elif name == "translucent":
+            m = M.TranslucentMaterial(
+                kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
+                ks=tp.get_spectrum_texture("Ks", (0.25,) * 3),
+                roughness=tp.get_float_texture("roughness", 0.1),
+                reflect=tp.get_spectrum_texture("reflect", (0.5,) * 3),
+                transmit=tp.get_spectrum_texture("transmit", (0.5,) * 3),
+                remap_roughness=tp.find_bool("remaproughness", True))
+        elif name == "uber":
+            m = M.UberMaterial(
+                kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
+                ks=tp.get_spectrum_texture("Ks", (0.25,) * 3),
+                kr=tp.get_spectrum_texture("Kr", (0.0,) * 3),
+                kt=tp.get_spectrum_texture("Kt", (0.0,) * 3),
+                roughness=tp.get_float_texture("roughness", 0.1),
+                urough=tp.get_float_texture_or_none("uroughness"),
+                vrough=tp.get_float_texture_or_none("vroughness"),
+                opacity=tp.get_spectrum_texture("opacity", (1.0,) * 3),
+                eta=tp.get_float_texture("eta", 1.5),
+                remap_roughness=tp.find_bool("remaproughness", True))
+        elif name == "disney":
+            m = M.DisneyMaterial(
+                color=tp.get_spectrum_texture("color", (0.5,) * 3),
+                metallic=tp.get_float_texture("metallic", 0.0),
+                eta=tp.get_float_texture("eta", 1.5),
+                roughness=tp.get_float_texture("roughness", 0.5),
+                specular_tint=tp.get_float_texture("speculartint", 0.0),
+                anisotropic=tp.get_float_texture("anisotropic", 0.0),
+                sheen=tp.get_float_texture("sheen", 0.0),
+                sheen_tint=tp.get_float_texture("sheentint", 0.5),
+                clearcoat=tp.get_float_texture("clearcoat", 0.0),
+                clearcoat_gloss=tp.get_float_texture("clearcoatgloss", 1.0),
+                spec_trans=tp.get_float_texture("spectrans", 0.0),
+                flatness=tp.get_float_texture("flatness", 0.0),
+                diff_trans=tp.get_float_texture("difftrans", 1.0),
+                thin=tp.find_bool("thin", False))
+        else:
+            # the two named materials, shared with the set (the reference
+            # logs and takes a matte where either name is missing)
+            ids = [self.graphics.named_materials.get(
+                params.find_one_string(k, ""))
+                for k in ("namedmaterial1", "namedmaterial2")]
+            if None in ids:
+                log.error("mix material needs two named materials; "
+                          "falling back to matte")
+                return self._build_material("matte", ParamSet())
+            m1, m2 = (self.material_set.materials[i] for i in ids)
+            m = M.MixMaterial(m1, m2,
+                              tp.get_spectrum_texture("amount", (0.5,) * 3))
         if tp.get_float_texture_or_none("bumpmap") is not None:
             raise not_ported(f"Material {name!r} with a bumpmap", SHADING)
         return self.material_set.add(m)

@@ -1,6 +1,7 @@
 """Materials (port of rustracer_tpu/scene/materials.py: matte with its
-Oren-Nayar sigma, plastic, mirror, glass (smooth and rough) and metal over
-constant, checkerboard and image textures, and the batched dispatch).
+Oren-Nayar sigma, plastic, mirror, glass (smooth and rough), metal,
+substrate, translucent, uber, Disney (thin too) and mix over constant,
+checkerboard and image textures, and the batched dispatch).
 
 A material's ``lobe_rows`` gives its lobes as (type, params (..., 16),
 active) rows in the reference's slot layout; the number of rows is
@@ -22,6 +23,7 @@ import torch
 
 from ..core.spectrum import is_black
 from ..ops import bsdf as B
+from ..ops.fresnel import FR_DISNEY
 from ..ops.gather import row_gather
 from ..ops.microfacet import TROWBRIDGE, roughness_to_alpha
 from . import atlas as A
@@ -207,10 +209,294 @@ class MetalMaterial(Material):
                  torch.ones(bs, dtype=torch.bool, device=dev))]
 
 
+class SubstrateMaterial(Material):
+    """Ashikhmin-Shirley's FresnelBlend: diffuse kd under glossy ks."""
+
+    def __init__(self, kd, ks, urough, vrough, remap_roughness=True):
+        self.kd, self.ks = kd, ks
+        self.urough, self.vrough = urough, vrough
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.FRESNEL_BLEND}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kd = _color(self.kd, si, textures, atlas)
+        ks = _color(self.ks, si, textures, atlas)
+        ur = self.urough.evaluate(si, textures, atlas)
+        vr = self.vrough.evaluate(si, textures, atlas)
+        ax = roughness_to_alpha(ur) if self.remap else ur
+        ay = roughness_to_alpha(vr) if self.remap else vr
+        return [(B.FRESNEL_BLEND,
+                 _mk_params(_lanes(si), kd.device, pa=kd, pb=ks, s1=ax,
+                            s2=ay, s3=float(TROWBRIDGE)),
+                 ~(is_black(kd) & is_black(ks)))]
+
+
+class TranslucentMaterial(Material):
+    """Diffuse and glossy lobes split between reflection (``reflect``) and
+    transmission (``transmit``), eta 1.5."""
+    n_rows = 4
+
+    def __init__(self, kd, ks, roughness, reflect, transmit,
+                 remap_roughness=True):
+        self.kd, self.ks, self.roughness = kd, ks, roughness
+        self.reflect, self.transmit = reflect, transmit
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.LAMBERTIAN_REFL, B.LAMBERTIAN_TRANS, B.MICROFACET_REFL,
+                B.MICROFACET_TRANS}
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kd = _color(self.kd, si, textures, atlas)
+        ks = _color(self.ks, si, textures, atlas)
+        r = _color(self.reflect, si, textures, atlas)
+        t = _color(self.transmit, si, textures, atlas)
+        bs, dev = _lanes(si), kd.device
+        rough = self.roughness.evaluate(si, textures, atlas)
+        alpha = roughness_to_alpha(rough) if self.remap else rough
+        return [(B.LAMBERTIAN_REFL, _mk_params(bs, dev, pa=kd * r),
+                 ~is_black(kd * r)),
+                (B.LAMBERTIAN_TRANS, _mk_params(bs, dev, pa=kd * t),
+                 ~is_black(kd * t)),
+                (B.MICROFACET_REFL,
+                 _mk_params(bs, dev, pa=ks * r, s0=1.5, s1=alpha, s2=alpha,
+                            s3=float(TROWBRIDGE), s4=1.0),
+                 ~is_black(ks * r)),
+                (B.MICROFACET_TRANS,
+                 _mk_params(bs, dev, pa=ks * t, s0=1.5, s1=alpha, s2=alpha,
+                            s3=float(TROWBRIDGE)),
+                 ~is_black(ks * t))]
+
+
+class UberMaterial(Material):
+    """Diffuse kd, glossy ks, specular kr and kt behind an opacity whose
+    complement passes straight through (a SPECULAR_TRANS row of eta 1 in
+    slot 9; the lane's eta, which eta_scale reads, stays ``eta``)."""
+    n_rows = 5
+
+    def __init__(self, kd, ks, kr, kt, roughness, urough=None, vrough=None,
+                 opacity=None, eta=None, remap_roughness=True):
+        self.kd, self.ks, self.kr, self.kt = kd, ks, kr, kt
+        self.roughness = roughness
+        self.urough, self.vrough = urough, vrough
+        self.opacity = opacity
+        self.eta = eta
+        self.remap = remap_roughness
+
+    def lobe_types(self):
+        return {B.SPECULAR_TRANS, B.LAMBERTIAN_REFL, B.MICROFACET_REFL,
+                B.SPECULAR_REFL}
+
+    def eta_value(self, si, textures, atlas=None):
+        if self.eta is None:
+            return torch.full(_lanes(si), 1.5, device=None if si is None
+                              else si.t.device)
+        return torch.broadcast_to(self.eta.evaluate(si, textures, atlas),
+                                  _lanes(si))
+
+    def lobe_rows(self, si, textures, atlas=None):
+        kd = _color(self.kd, si, textures, atlas)
+        ks = _color(self.ks, si, textures, atlas)
+        kr = _color(self.kr, si, textures, atlas)
+        kt = _color(self.kt, si, textures, atlas)
+        bs, dev = _lanes(si), kd.device
+        op = torch.clamp(self.opacity.evaluate(si, textures, atlas), 0.0,
+                         1.0) if self.opacity is not None \
+            else torch.ones(bs + (3,), device=dev)
+        eta = self.eta_value(si, textures, atlas).to(dev)
+        ur = (self.urough or self.roughness).evaluate(si, textures, atlas)
+        vr = (self.vrough or self.roughness).evaluate(si, textures, atlas)
+        ax = roughness_to_alpha(ur) if self.remap else ur
+        ay = roughness_to_alpha(vr) if self.remap else vr
+        one_m_op = 1.0 - op
+        return [(B.SPECULAR_TRANS, _mk_params(bs, dev, pa=one_m_op, s0=1.0),
+                 ~is_black(one_m_op)),
+                (B.LAMBERTIAN_REFL, _mk_params(bs, dev, pa=op * kd),
+                 ~is_black(op * kd)),
+                (B.MICROFACET_REFL,
+                 _mk_params(bs, dev, pa=op * ks, s0=eta, s1=ax, s2=ay,
+                            s3=float(TROWBRIDGE), s4=1.0),
+                 ~is_black(op * ks)),
+                (B.SPECULAR_REFL,
+                 _mk_params(bs, dev, pa=op * kr, s0=eta, s4=1.0),
+                 ~is_black(op * kr)),
+                (B.SPECULAR_TRANS, _mk_params(bs, dev, pa=op * kt, s0=eta),
+                 ~is_black(op * kt))]
+
+
+# the luminance of a linear RGB color
+_LUMINANCE = (0.212671, 0.715160, 0.072169)
+
+
+class DisneyMaterial(Material):
+    """Disney's principled BSDF without its subsurface lobe, as the
+    reference: diffuse, retro-reflection, sheen, a Trowbridge-Reitz
+    specular with the Disney Fresnel, clearcoat and specular transmission;
+    ``thin`` adds the fake subsurface lobe and diffuse transmission."""
+
+    def __init__(self, color, metallic, eta, roughness, specular_tint,
+                 anisotropic, sheen, sheen_tint, clearcoat, clearcoat_gloss,
+                 spec_trans, flatness=None, diff_trans=None, thin=False):
+        self.color, self.metallic, self.eta = color, metallic, eta
+        self.roughness = roughness
+        self.specular_tint, self.anisotropic = specular_tint, anisotropic
+        self.sheen, self.sheen_tint = sheen, sheen_tint
+        self.clearcoat, self.clearcoat_gloss = clearcoat, clearcoat_gloss
+        self.spec_trans = spec_trans
+        self.flatness, self.diff_trans = flatness, diff_trans
+        self.thin = thin
+
+    @property
+    def n_rows(self):
+        return 8 if self.thin else 6
+
+    def lobe_types(self):
+        t = {B.DISNEY_DIFFUSE, B.DISNEY_RETRO, B.DISNEY_SHEEN,
+             B.MICROFACET_REFL, B.DISNEY_CLEARCOAT, B.MICROFACET_TRANS}
+        if self.thin:
+            t |= {B.DISNEY_FAKE_SS, B.LAMBERTIAN_TRANS}
+        return t
+
+    def eta_value(self, si, textures, atlas=None):
+        return torch.broadcast_to(self.eta.evaluate(si, textures, atlas),
+                                  _lanes(si))
+
+    def lobe_rows(self, si, textures, atlas=None):
+        def ev(tex):
+            return tex.evaluate(si, textures, atlas)
+
+        c = _color(self.color, si, textures, atlas)
+        bs, dev = _lanes(si), c.device
+        zeros = torch.zeros(bs, device=dev)
+        metallic = ev(self.metallic)
+        eta = ev(self.eta)
+        strans = ev(self.spec_trans)
+        rough = ev(self.roughness)
+        dt = ev(self.diff_trans) / 2.0 if self.diff_trans is not None \
+            else zeros
+        diff_weight = (1.0 - metallic) * (1.0 - strans)
+        lum = c[..., 0] * _LUMINANCE[0] + c[..., 1] * _LUMINANCE[1] \
+            + c[..., 2] * _LUMINANCE[2]
+        ctint = torch.where(lum[..., None] > 0.0,
+                            c / torch.clamp(lum[..., None], min=1e-8), 1.0)
+        sheen_w = ev(self.sheen)
+        stint = ev(self.sheen_tint)
+        csheen = (1.0 - stint)[..., None] + stint[..., None] * ctint
+        if self.thin:
+            flat = ev(self.flatness) if self.flatness is not None else zeros
+            diff_scale = diff_weight * (1.0 - flat) * (1.0 - dt)
+            ss_scale = diff_weight * flat * (1.0 - dt)
+        else:
+            diff_scale = diff_weight
+        aniso = ev(self.anisotropic)
+        aspect = torch.sqrt(torch.clamp(1.0 - 0.9 * aniso, min=1e-4))
+        ax = torch.clamp(rough * rough / aspect, min=1e-3)
+        ay = torch.clamp(rough * rough * aspect, min=1e-3)
+        # cspec0, the Disney Fresnel's color at normal incidence
+        spec_tint = ev(self.specular_tint)
+        r0_eta = (eta - 1.0) / (eta + 1.0)
+        r0_eta = r0_eta * r0_eta
+        cspec0 = (1.0 - metallic[..., None]) * r0_eta[..., None] \
+            * ((1.0 - spec_tint)[..., None] + spec_tint[..., None] * ctint) \
+            + metallic[..., None] * c
+        cc = ev(self.clearcoat)
+        gloss = ev(self.clearcoat_gloss)
+        gloss = (1.0 - gloss) * 0.1 + gloss * 0.001
+        diffuse = diff_weight > 0.0
+        rows = [(B.DISNEY_DIFFUSE,
+                 _mk_params(bs, dev, pa=diff_scale[..., None] * c), diffuse),
+                (B.DISNEY_RETRO,
+                 _mk_params(bs, dev, pa=diff_scale[..., None] * c, s5=rough),
+                 diffuse),
+                (B.DISNEY_SHEEN,
+                 _mk_params(bs, dev,
+                            pa=(diff_weight * sheen_w)[..., None] * csheen),
+                 (diff_weight * sheen_w) > 0.0),
+                (B.MICROFACET_REFL,
+                 _mk_params(bs, dev, pa=1.0, pc=cspec0, s0=eta, s1=ax, s2=ay,
+                            s3=float(TROWBRIDGE), s4=float(FR_DISNEY),
+                            s5=metallic),
+                 torch.ones(bs, dtype=torch.bool, device=dev)),
+                (B.DISNEY_CLEARCOAT,
+                 _mk_params(bs, dev, pa=cc[..., None], s6=gloss), cc > 0.0),
+                (B.MICROFACET_TRANS,
+                 _mk_params(bs, dev, pa=strans[..., None] * torch.sqrt(
+                     torch.clamp(c, min=0.0)), s0=eta, s1=ax, s2=ay,
+                     s3=float(TROWBRIDGE)),
+                 strans > 0.0)]
+        if self.thin:
+            rows += [(B.DISNEY_FAKE_SS,
+                      _mk_params(bs, dev, pa=ss_scale[..., None] * c,
+                                 s5=rough), ss_scale > 0.0),
+                     (B.LAMBERTIAN_TRANS,
+                      _mk_params(bs, dev, pa=dt[..., None] * c), dt > 0.0)]
+        return rows
+
+
+class MixMaterial(Material):
+    """Two materials' rows: ``m1``'s colors (slots 0:3 and 3:6) scaled by
+    ``amount`` and ``m2``'s by 1 - amount; a row stays active where some
+    channel of its weight is above 0. The lane's eta is ``m1``'s.
+
+    The sub-materials are shaded on the lanes the mix shades, but only the
+    mix's own textures are atlas slots: a sub-material with an image
+    texture would need the per-texture lookups, which are not ported."""
+
+    def __init__(self, m1: Material, m2: Material, amount):
+        for m in (m1, m2):
+            if _holds_image(m):
+                raise NotImplementedError(
+                    "Material 'mix' over a material with an imagemap "
+                    "texture is not ported yet (ROADMAP.md, section A, "
+                    "item 13)")
+        self.m1, self.m2, self.amount = m1, m2, amount
+
+    @property
+    def n_rows(self):
+        return self.m1.n_rows + self.m2.n_rows
+
+    def lobe_types(self):
+        return self.m1.lobe_types() | self.m2.lobe_types()
+
+    def eta_value(self, si, textures, atlas=None):
+        return self.m1.eta_value(si, textures, atlas)
+
+    def lobe_rows(self, si, textures, atlas=None):
+        amt = torch.clamp(self.amount.evaluate(si, textures, atlas), 0.0, 1.0)
+
+        def scale(rows, w):
+            on = (w > 0.0).any(-1)
+            return [(t, torch.cat([p[..., 0:3] * w, p[..., 3:6] * w,
+                                   p[..., 6:]], -1), a & on)
+                    for t, p, a in rows]
+
+        return scale(self.m1.lobe_rows(si, textures, atlas), amt) \
+            + scale(self.m2.lobe_rows(si, textures, atlas), 1.0 - amt)
+
+
+def _textures(m):
+    """The textures ``m`` and the materials it holds evaluate (a
+    checkerboard's own two included)."""
+    for v in vars(m).values():
+        if isinstance(v, Material):
+            yield from _textures(v)
+        elif hasattr(v, "evaluate"):
+            yield v
+            for sub in ("tex1", "tex2"):
+                if hasattr(v, sub):
+                    yield getattr(v, sub)
+
+
+def _holds_image(m) -> bool:
+    return any(isinstance(t, ImageTexture) for t in _textures(m))
+
+
 def _is_uniform(m) -> bool:
-    """Every texture of ``m`` is constant: its lobe rows are the same on
-    every lane (its other attributes, a flag or None, do not count)."""
-    return all(getattr(v, "is_constant", True) for v in vars(m).values())
+    """Every texture of ``m`` and of the materials it holds is constant: its
+    lobe rows are the same on every lane."""
+    return all(t.is_constant for t in _textures(m))
 
 
 def _atlas_eligible(t) -> bool:

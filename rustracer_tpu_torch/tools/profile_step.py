@@ -7,9 +7,10 @@ dragon or of a testball scene file, one GPU.
 Builds the scene at 1024^2 in 2^18-lane tiles (the textured headline: the
 64-spp config, compaction on; ``testball-<material>``:
 scenes/testball-<material>.pbrt with its film at 1024^2, its own spp and
-depth). For ``textured``, ``matte`` and a testball it renders one
-sample of every tile as a warm-up, then times five 8-sample renders (host
-clock ending in ``torch.cuda.synchronize()``) and prints them as one JSON
+depth, or a ball of ``BALLS`` on testball-glass's stage). For
+``textured``, ``matte`` and a testball it renders one sample of every
+tile as a warm-up, then times five 8-sample renders (host clock ending in
+``torch.cuda.synchronize()``) and prints them as one JSON
 line. Then, for each tile index (default 0 and 2; tile 0 holds the sky and
 takes a slab tier, tile 2 is all floor and dragon), it times one step at
 sample 1 (median of 5) and profiles one more, and prints one JSON line per
@@ -45,18 +46,76 @@ LANES = 1 << 18
 SAMPLES = 8      # the timed slice of the 64-spp config
 
 
-def testball_text(name, res):
-    """-> (the text of scenes/<name>.pbrt with its 64^2 film at ``res``,
-    the directory its textures are found from)."""
-    d = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "scenes")
-    with open(os.path.join(d, f"{name}.pbrt")) as f:
+_MIX = ('MakeNamedMaterial "a" "string type" "substrate" {kd}'
+        '"rgb Ks" [0.3 0.3 0.3] "float uroughness" [0.08] '
+        '"float vroughness" [0.2]\n'
+        'MakeNamedMaterial "b" "string type" "disney" '
+        '"rgb color" [0.2 0.4 0.7] "float metallic" [0.3] '
+        '"float roughness" [0.35] "float clearcoat" [0.6] "float sheen" [0.4]'
+        '\n{amount_texture}'
+        'Material "mix" "string namedmaterial1" "a" '
+        '"string namedmaterial2" "b" {amount}')
+_CHECKS = ('Texture "amt" "spectrum" "checkerboard" "float uscale" [8] '
+           '"float vscale" [8] "rgb tex1" [0.15 0.2 0.25] '
+           '"rgb tex2" [0.85 0.9 0.7]\n')
+# balls without a scene file: testball-<name> is testball-glass with its
+# ball's Material line replaced by BALLS[name]
+BALLS = {
+    "oren-nayar": 'Material "matte" "rgb Kd" [0.6 0.5 0.4] "float sigma" [20]',
+    "translucent": 'Material "translucent" "rgb Kd" [0.5 0.3 0.2] '
+                   '"rgb Ks" [0.3 0.3 0.3] "float roughness" [0.2] '
+                   '"rgb reflect" [0.6 0.5 0.6] "rgb transmit" [0.4 0.4 0.3]',
+    "uber": 'Material "uber" "rgb Kd" [0.4 0.3 0.2] "rgb Ks" [0.2 0.2 0.2] '
+            '"rgb Kr" [0.2 0.2 0.2] "rgb Kt" [0.3 0.3 0.3] '
+            '"rgb opacity" [0.5 0.5 0.5] "float roughness" [0.1]',
+    "disney-thin": 'Material "disney" "rgb color" [0.3 0.5 0.7] '
+                   '"float metallic" [0.2] "float roughness" [0.4] '
+                   '"float spectrans" [0.3] "float flatness" [0.5] '
+                   '"float difftrans" [0.6] "bool thin" "true" '
+                   '"float sheen" [0.5] "float clearcoat" [0.5] '
+                   '"float anisotropic" [0.4]',
+    # substrate and Disney with a constant amount, with a checkerboard
+    # amount (the mix shaded per lane), and over a substrate whose Kd is
+    # the floor's checkerboard
+    "mix-constant": _MIX.format(kd='"rgb Kd" [0.4 0.2 0.1] ',
+                                amount_texture="",
+                                amount='"rgb amount" [0.3 0.5 0.7]'),
+    "mix": _MIX.format(kd='"rgb Kd" [0.4 0.2 0.1] ', amount_texture=_CHECKS,
+                       amount='"texture amount" "amt"'),
+    "mix-textured": _MIX.format(kd='"texture Kd" "checks" ',
+                                amount_texture="",
+                                amount='"rgb amount" [0.6 0.6 0.6]'),
+}
+_SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "scenes")
+
+
+def scene_text(name):
+    """The text of scenes/<name>.pbrt, or for testball-<b> with b in BALLS
+    testball-glass's with that ball."""
+    ball = BALLS.get(name[len("testball-"):])
+    with open(os.path.join(_SCENES, "testball-glass.pbrt" if ball
+                           else f"{name}.pbrt")) as f:
         text = f.read()
+    return text.replace('Material "glass"', ball) if ball else text
+
+
+def testball_text(name, res, spp=None):
+    """-> (scene_text(name) with its 64^2 film at ``res`` (and ``spp``
+    samples a pixel where given), the directory its textures are found
+    from)."""
+    text = scene_text(name)
     small = '"integer xresolution" [64] "integer yresolution" [64]'
     if small not in text:
         raise ValueError(f"{name}.pbrt's Film line changed")
-    return text.replace(small, f'"integer xresolution" [{res[0]}] '
-                        f'"integer yresolution" [{res[1]}]'), d
+    text = text.replace(small, f'"integer xresolution" [{res[0]}] '
+                        f'"integer yresolution" [{res[1]}]')
+    if spp is not None:
+        if '"integer pixelsamples" [16]' not in text:
+            raise ValueError(f"{name}.pbrt's Sampler line changed")
+        text = text.replace('"integer pixelsamples" [16]',
+                            f'"integer pixelsamples" [{spp}]')
+    return text, _SCENES
 
 
 def _device_events(prof):

@@ -3,11 +3,16 @@ shading-space trigonometry, refract and the PBRT erf_inv; fr_dielectric
 (both sides of the surface, total internal reflection), fr_conductor and
 Schlick's approximation; every microfacet function for Beckmann and
 Trowbridge-Reitz (isotropic and anisotropic alphas) with
-distribution_sample_wh on seeded u; each non-specular lobe's f and pdf;
-sample_lobe for every ported type; and bsdf_f, bsdf_pdf and bsdf_sample_f
-on seeded mixed stacks (M = 2, types drawn from the ported set, some lobes
-inactive, wo on both sides, random shading frames). A type outside the
-ported set is refused by name.
+distribution_sample_wh on seeded u; the Disney Fresnel (FR_DISNEY); each
+non-specular lobe's f and pdf (Lambertian reflection and transmission,
+Oren-Nayar, microfacet reflection and transmission, FresnelBlend and the
+five Disney lobes); sample_lobe for every ported type, FresnelBlend's two
+halves on u[0] below, at and above 0.5; and bsdf_f, bsdf_pdf and
+bsdf_sample_f on seeded mixed stacks (M = 2, types drawn from the ported
+set, some lobes inactive, wo on both sides, random shading frames) and on
+Disney's stacks (M = 6, and M = 8 with ``thin``), where the index of the
+sampled lobe is bit for bit the reference's. Only FOURIER is refused, by
+name.
 
 Inputs are seeded numpy arrays handed to both packages. Tolerances:
 floats within 1e-5 relative with a 1e-7 absolute floor, plus, on a lane
@@ -22,6 +27,15 @@ lane's half vector by up to about 1e-3 radians (2e-3 once reflected), in
 either package against a float64 evaluation; near grazing, where G1 is
 small, most values of u[0] clip A. The f and pdf bsdf_sample_f returns are held to the
 reference's bsdf_f and bsdf_pdf at the port's own sampled direction.
+On the stacks with the new lobe types (every type drawn, and Disney's)
+the conditioning term is 8 times the larger of the port's float32 error
+and the reference's own (its distance to the JAX package's float64
+evaluation of the same inputs): GTR1's D near a normal half vector divides
+by 1 + (alpha^2 - 1) cos^2, which cancels to about alpha^2, so the one-ulp
+difference of XLA's rsqrt and PyTorch's in cos^2 moves D by up to about
+1e-4 relative there, and on such a lane the port can land nearer the
+float64 value than the reference does. The index of the sampled lobe on
+Disney's stacks is bit for bit.
 Integer and bool outputs (refract's validity, the sampled flags,
 ``valid``, the chosen lobe's type) are bit-exact; FRESNEL_SPECULAR's
 per-lane choice of reflection or refraction (``u[0] < F``) is counted apart
@@ -29,6 +43,7 @@ and must not flip on these inputs. XLA on the CPU flushes denormals to
 zero; the tests run PyTorch's CPU ops with ``torch.set_flush_denormal(True)``
 likewise.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,8 +63,20 @@ torch.set_num_threads(1)
 N = 4096
 RTOL, ATOL = 1e-5, 1e-7
 NONSPEC = (PB.LAMBERTIAN_REFL, PB.OREN_NAYAR, PB.MICROFACET_REFL,
-           PB.MICROFACET_TRANS)
+           PB.MICROFACET_TRANS, PB.LAMBERTIAN_TRANS, PB.FRESNEL_BLEND,
+           PB.DISNEY_DIFFUSE, PB.DISNEY_RETRO, PB.DISNEY_SHEEN,
+           PB.DISNEY_CLEARCOAT, PB.DISNEY_FAKE_SS)
 PORTED = tuple(sorted(PB.PORTED_TYPES))
+# the types the first mixed stacks draw from (the glass and metal lobes)
+FIRST = (PB.LAMBERTIAN_REFL, PB.OREN_NAYAR, PB.SPECULAR_REFL,
+         PB.SPECULAR_TRANS, PB.FRESNEL_SPECULAR, PB.MICROFACET_REFL,
+         PB.MICROFACET_TRANS)
+# the lobe types whose params take more slots than the first ports' did
+LAYERED = (PB.FRESNEL_BLEND,) + PB.DISNEY_TYPES
+# Disney's rows (DisneyMaterial.lobe_rows), and with ``thin``
+DISNEY_ROWS = (PB.DISNEY_DIFFUSE, PB.DISNEY_RETRO, PB.DISNEY_SHEEN,
+               PB.MICROFACET_REFL, PB.DISNEY_CLEARCOAT, PB.MICROFACET_TRANS)
+THIN_ROWS = DISNEY_ROWS + (PB.DISNEY_FAKE_SS, PB.LAMBERTIAN_TRANS)
 
 
 # the port's float32 error on a lane, times this, is the allowance for an
@@ -69,13 +96,17 @@ def _np(x):
                       np.float64)
 
 
-def close(out, ref, msg="", out64=None):
+def close(out, ref, msg="", out64=None, ref64=None):
     """out within RTOL |ref| + ATOL of ref, plus K_COND |out - out64| where
-    the port's float64 result ``out64`` is given."""
+    the port's float64 result ``out64`` is given; with ``ref64``, the
+    reference's own float64 result, K_COND times the larger of that and
+    the reference's float32 error |ref - ref64|."""
     out, ref = _np(out), _np(ref)
     tol = RTOL * np.abs(ref) + ATOL
     if out64 is not None:
         extra = K_COND * np.abs(out - _np(out64))
+        if ref64 is not None:
+            extra = np.maximum(extra, K_COND * np.abs(ref - _np(ref64)))
         print(f"{msg}: {int((np.abs(out - ref) > tol).sum())} of "
               f"{out.size} values take the conditioning term")
         tol = tol + extra
@@ -173,6 +204,30 @@ def test_fresnel():
           "schlick")
 
 
+def test_fresnel_disney():
+    """_fresnel over every code, FR_DISNEY's metallic lerp included; with
+    the static flag off (no Disney lobe in the scene) every other code is
+    unchanged."""
+    rs = np.random.RandomState(3)
+    cos_i = rs.uniform(-1.0, 1.0, N).astype(np.float32)
+    p = np.zeros((N, 16), np.float32)
+    p[:, 3:6] = rs.uniform(0.1, 2.0, (N, 3))
+    p[:, 6:9] = rs.uniform(0.02, 1.0, (N, 3))
+    p[:, 9] = rs.uniform(1.2, 2.2, N)
+    p[:, 14] = rs.uniform(0.0, 1.0, N)
+    code = rs.randint(0, 4, N).astype(np.int32)
+    (jc, jp, jcode), (pc, pp, pcode) = both(cos_i, p, code)
+    ref = JB._fresnel(jcode, jc, jp)
+    out, out64 = in64(lambda c, q: PB._fresnel(pcode, c, q, True), pc, pp)
+    close(out, ref, "FR_DISNEY", out64)
+    other = code != 3
+    assert other.mean() < 0.8
+    close(PB._fresnel(pcode, pc, pp)[other], np.asarray(ref)[other],
+          "without the Disney flag")
+    # the flag off leaves FR_DISNEY lanes at FR_NOOP's 1
+    assert (PB._fresnel(pcode, pc, pp)[~other] == 1.0).all()
+
+
 def _alphas(rs, aniso):
     ax = rs.uniform(0.02, 0.9, N).astype(np.float32)
     ay = rs.uniform(0.02, 0.9, N).astype(np.float32) if aniso else ax.copy()
@@ -236,6 +291,17 @@ def _params(rs, n, types):
     p[types == PB.SPECULAR_REFL, 13] = rs.randint(
         0, 3, int((types == PB.SPECULAR_REFL).sum()))
     p[np.isin(types, [PB.MICROFACET_TRANS, PB.FRESNEL_SPECULAR]), 13] = 1
+    if np.isin(types, LAYERED).any():
+        # Disney's roughness (retro, fake SS) or metallic in slot 14, the
+        # clearcoat's GTR1 alpha (the gloss remap's range) in slot 15, and
+        # the Disney Fresnel on a third of the microfacet reflection lobes
+        disney = np.isin(types, PB.DISNEY_TYPES)
+        p[disney, 14] = rs.uniform(0.0, 1.0, int(disney.sum()))
+        cc = types == PB.DISNEY_CLEARCOAT
+        p[cc, 15] = rs.uniform(0.001, 0.1, int(cc.sum()))
+        mr = (types == PB.MICROFACET_REFL) & (rs.uniform(size=n) < 1 / 3)
+        p[mr, 13] = 3
+        p[mr, 14] = rs.uniform(0.0, 1.0, int(mr.sum()))
     return p
 
 
@@ -251,6 +317,35 @@ def test_f_and_pdf_one_type(T):
     close(pdf, JB._pdf_one_type(T, jp, jwo, jwi), "pdf", pdf64)
     nonzero = (f.sum(-1) > 0).float().mean()
     assert 0.1 < nonzero < 0.9, nonzero     # both sides of the surface
+
+
+@pytest.mark.parametrize("u0", ["below", "at", "above"])
+def test_sample_fresnel_blend_halves(u0):
+    """FresnelBlend's u[0] picks the cosine half below 0.5 and the
+    microfacet half from 0.5 on, each on u[0] stretched back to [0,
+    0.9999]; the diffuse half lands on wo's side of the surface."""
+    rs = np.random.RandomState(60)
+    wo = dirs(rs)
+    u = rs.uniform(0.0, 1.0, (N, 2)).astype(np.float32)
+    u[:, 0] = {"below": rs.uniform(0.0, 0.5, N), "at": 0.5,
+               "above": rs.uniform(0.5, 1.0, N)}[u0]
+    u[:8, 0] = {"below": [0.0, 0.25, 0.4999, 0.49999997, 1e-8, 0.1, 0.3,
+                          0.45],
+                "at": 0.5, "above": [0.5, 0.50000006, 0.75, 0.99999,
+                                     0.999999, 0.6, 0.9, 0.99995]}[u0]
+    p = _params(rs, N, np.full(N, PB.FRESNEL_BLEND))
+    lt = np.full(N, PB.FRESNEL_BLEND, np.int32)
+    (jlt, jp, jwo, ju), (plt, pp, pwo, pu) = both(lt, p, wo, u)
+    wi = PB.sample_lobe(plt, pp, pwo, pu, PORTED)[0]
+    jwi = JB.sample_lobe(jlt, jp, jwo, ju, PORTED)[0]
+    close_dirs(wi, jwi, f"FRESNEL_BLEND u[0] {u0} 0.5")
+    if u0 == "below":
+        assert (wi.numpy()[:, 2] * wo[:, 2] >= 0).all()
+    # the two halves sample different directions from the same u[1]
+    other = u.copy()
+    other[:, 0] = np.where(u[:, 0] < 0.5, u[:, 0] + 0.5, u[:, 0] - 0.5)
+    wi2 = PB.sample_lobe(plt, pp, pwo, torch.from_numpy(other), PORTED)[0]
+    assert (np.abs(wi2.numpy() - wi.numpy()).max(-1) > 1e-3).mean() > 0.5
 
 
 @pytest.mark.parametrize("T", PORTED)
@@ -292,11 +387,11 @@ class Frame:
             setattr(self, k, conv(np.ascontiguousarray(v, np.float32)))
 
 
-def _stack(seed, n=N):
-    """Mixed M = 2 stacks: the types drawn from the ported set, a fifth
-    of the lobes inactive, wo on both sides of each frame."""
+def _stack(seed, n=N, drawn=FIRST):
+    """Mixed M = 2 stacks: the types drawn from ``drawn``, a fifth of the
+    lobes inactive, wo on both sides of each frame."""
     rs = np.random.RandomState(seed)
-    types = rs.choice(PORTED, (n, 2)).astype(np.int32)
+    types = rs.choice(drawn, (n, 2)).astype(np.int32)
     params = np.stack([_params(rs, n, types[:, j]) for j in range(2)], 1)
     active = rs.uniform(size=(n, 2)) > 0.2
     eta = params[:, 0, 9].copy()
@@ -324,6 +419,20 @@ def _double(lobes, frame, *vectors):
             *[v.double() for v in vectors])
 
 
+def _jax64(fn, lobes, frame, *vectors):
+    """``fn`` of the JAX package on float64 copies of its stack, frame and
+    vectors (its own float64 evaluation)."""
+    with jax.enable_x64(True):
+        def d(x):
+            return jnp.asarray(np.asarray(x, np.float64))
+        f = Frame.__new__(Frame)
+        for k in ("ss", "ts", "ns", "n"):
+            setattr(f, k, d(getattr(frame, k)))
+        return np.asarray(fn(lobes._replace(params=d(lobes.params),
+                                            eta=d(lobes.eta)), f,
+                             *[d(v) for v in vectors]))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_bsdf_f_pdf_mixed_stacks(seed):
     (jl, jf, jwo, jwi, _, _), (pl, pf, pwo, pwi, _, _) = _stack(30 + seed)
@@ -339,9 +448,12 @@ def test_bsdf_f_pdf_mixed_stacks(seed):
     assert 0.05 < (f.sum(-1) > 0).float().mean() < 0.9
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_bsdf_sample_f_mixed_stacks(seed):
-    (jl, jf, jwo, _, jul, ju2), (pl, pf, pwo, _, pul, pu2) = _stack(40 + seed)
+def check_sample_f(jax_stack, port_stack, ref64=False):
+    """bsdf_sample_f of both packages on one stack -> (the port's
+    sampled flags, valid); ``ref64``: close's term for the reference's
+    own float32 error."""
+    (jl, jf, jwo, _, jul, ju2), (pl, pf, pwo, _, pul, pu2) = \
+        jax_stack, port_stack
     wi, f, pdf, flags, valid = PB.bsdf_sample_f(pl, pf, pwo, pul, pu2,
                                                 PORTED)
     jwi, jff, jpdf, jflags, jvalid = JB.bsdf_sample_f(jl, jf, jwo, jul, ju2,
@@ -349,10 +461,6 @@ def test_bsdf_sample_f_mixed_stacks(seed):
     same(flags, jflags)
     same(valid, jvalid)
     v = valid.numpy()
-    assert 0.3 < v.mean() < 0.95
-    # every ported type is chosen on some valid lane
-    chosen = set((flags.numpy()[v]).tolist())
-    assert {int(PB.LOBE_FLAGS[T]) for T in PORTED} <= chosen
     close_dirs(wi[v], np.asarray(jwi)[v], "wi")
     # f and pdf: the specular lobes' own, the others' the reference's
     # bsdf_f and bsdf_pdf at the port's sampled direction
@@ -367,8 +475,123 @@ def test_bsdf_sample_f_mixed_stacks(seed):
                           f.double(), PB.bsdf_f(l64, f64_, wo64, wi64, PORTED))
     out64_pdf = torch.where(torch.from_numpy(spec | ~v), pdf.double(),
                             PB.bsdf_pdf(l64, f64_, wo64, wi64, PORTED))
-    close(f, ref_f, "f", out64_f)
-    close(pdf, ref_pdf, "pdf", out64_pdf)
+    ref64_f = ref64_pdf = None
+    if ref64:
+        keep = spec | ~v
+        ref64_f = np.where(keep[:, None], ref_f, _jax64(
+            lambda *a: JB.bsdf_f(*a, PORTED), jl, jf, jwo, wi))
+        ref64_pdf = np.where(keep, ref_pdf, _jax64(
+            lambda *a: JB.bsdf_pdf(*a, PORTED), jl, jf, jwo, wi))
+    close(f, ref_f, "f", out64_f, ref64_f)
+    close(pdf, ref_pdf, "pdf", out64_pdf, ref64_pdf)
+    return flags, v
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bsdf_sample_f_mixed_stacks(seed):
+    flags, v = check_sample_f(*_stack(40 + seed))
+    assert 0.3 < v.mean() < 0.95
+    # every type drawn is chosen on some valid lane
+    chosen = set((flags.numpy()[v]).tolist())
+    assert {int(PB.LOBE_FLAGS[T]) for T in FIRST} <= chosen
+
+
+def check_f_pdf(jax_stack, port_stack, flag_sets):
+    """bsdf_f and bsdf_pdf of both packages on one stack for each of
+    ``flag_sets``, with close's term for the reference's own float32
+    error. -> the port's last f."""
+    (jl, jf, jwo, jwi, _, _), (pl, pf, pwo, pwi, _, _) = \
+        jax_stack, port_stack
+    pl64, pf64, pwo64, pwi64 = _double(pl, pf, pwo, pwi)
+    for flags in flag_sets:
+        f = PB.bsdf_f(pl, pf, pwo, pwi, PORTED, flags)
+        close(f, JB.bsdf_f(jl, jf, jwo, jwi, PORTED, flags), f"f {flags}",
+              PB.bsdf_f(pl64, pf64, pwo64, pwi64, PORTED, flags),
+              _jax64(lambda *a: JB.bsdf_f(*a, PORTED, flags), jl, jf, jwo,
+                     jwi))
+        close(PB.bsdf_pdf(pl, pf, pwo, pwi, PORTED, flags),
+              JB.bsdf_pdf(jl, jf, jwo, jwi, PORTED, flags), f"pdf {flags}",
+              PB.bsdf_pdf(pl64, pf64, pwo64, pwi64, PORTED, flags),
+              _jax64(lambda *a: JB.bsdf_pdf(*a, PORTED, flags), jl, jf, jwo,
+                     jwi))
+    return f
+
+
+FLAG_SETS = (PB.ALL, PB.ALL & ~PB.SPECULAR, PB.REFLECTION | PB.GLOSSY)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bsdf_mixed_stacks_of_every_type(seed):
+    """bsdf_f, bsdf_pdf and bsdf_sample_f on M = 2 stacks drawn from every
+    ported type (FresnelBlend, the Disney lobes and Lambertian
+    transmission among them)."""
+    f = check_f_pdf(*_stack(80 + seed, drawn=PORTED), FLAG_SETS)
+    assert 0.05 < (f.sum(-1) > 0).float().mean() < 0.9
+    flags, v = check_sample_f(*_stack(90 + seed, drawn=PORTED),
+                              ref64=True)
+    assert 0.3 < v.mean() < 0.95
+    chosen = set((flags.numpy()[v]).tolist())
+    assert {int(PB.LOBE_FLAGS[T]) for T in PORTED} <= chosen
+
+
+def _disney_stack(seed, rows, n=N):
+    """Seeded stacks with Disney's rows in its order: its microfacet
+    reflection lobe always active and on the Disney Fresnel, the others
+    active on four lanes in five; wo on both sides of each frame."""
+    rs = np.random.RandomState(seed)
+    M = len(rows)
+    types = np.tile(np.asarray(rows, np.int32), (n, 1))
+    params = np.stack([_params(rs, n, types[:, j]) for j in range(M)], 1)
+    mr = rows.index(PB.MICROFACET_REFL)
+    params[:, mr, 13] = 3
+    params[:, mr, 14] = rs.uniform(0.0, 1.0, n)          # metallic
+    params[:, mr, 6:9] = rs.uniform(0.02, 1.0, (n, 3))   # cspec0
+    params[:, :, 12] = 1                       # Trowbridge-Reitz
+    active = rs.uniform(size=(n, M)) > 0.2
+    active[:, mr] = True
+    eta = params[:, mr, 9].copy()
+    wo = dirs(rs, n)
+    u_lobe = rs.uniform(0.0, 1.0, n).astype(np.float32)
+    u2 = rs.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
+    jf = Frame(np.random.RandomState(seed + 1000), n, "jax")
+    pf = Frame(np.random.RandomState(seed + 1000), n, "torch")
+    (jt, jp, ja, je, jwo, jwi, jul, ju2), (pt, pp, pa, pe, pwo, pwi, pul,
+                                           pu2) = both(
+        types, params, active, eta, wo, dirs(rs, n), u_lobe, u2)
+    return (JB.LobeStack(type=jt, params=jp, active=ja, eta=je), jf, jwo,
+            jwi, jul, ju2), (PB.LobeStack(type=pt, params=pp, active=pa,
+                                          eta=pe), pf, pwo, pwi, pul, pu2)
+
+
+@pytest.mark.parametrize("thin", [False, True])
+def test_bsdf_disney_stacks(thin):
+    """bsdf_f and bsdf_pdf for three flag sets, bsdf_sample_f, and the
+    index of the lobe it samples, bit for bit: the port's running count
+    against the reference's cumsum rank, at M = 6 and 8."""
+    rows = THIN_ROWS if thin else DISNEY_ROWS
+    jax_stack, port_stack = _disney_stack(70 + thin, rows)
+    (jl, jf, jwo, jwi, jul, _), (pl, pf, pwo, pwi, pul, _) = \
+        jax_stack, port_stack
+    check_f_pdf(jax_stack, port_stack, FLAG_SETS)
+    for flags in FLAG_SETS:
+        m, n, k = PB.lobe_pick(pl, pul, flags)
+        index = torch.arange(len(rows), dtype=torch.int32).expand(
+            pl.type.shape)
+        idx, _ = PB.choose_lobe(pl._replace(type=index), m, k)
+        jm = jl.active & JB._matches(jl.type, flags)
+        jn = jnp.sum(jm.astype(jnp.int32), -1)
+        jk = jnp.minimum((jul * jn.astype(jnp.float32)).astype(jnp.int32),
+                         jnp.maximum(jn - 1, 0))
+        rank = jnp.cumsum(jm.astype(jnp.int32), -1) - 1
+        jidx = jnp.argmax(jm & (rank == jk[:, None]), -1)
+        same(n, jn)
+        same(idx, jidx.astype(jnp.int32), f"sampled lobe, flags {flags}")
+        # every row is the sampled one on some lane
+        assert set(idx.numpy()[n.numpy() > 0].tolist()) == set(
+            range(len(rows))) or flags != PB.ALL
+    sampled, v = check_sample_f(jax_stack, port_stack, ref64=True)
+    assert v.mean() > 0.9
+    assert len(set(sampled.numpy()[v].tolist())) == (4 if thin else 3)
 
 
 def test_choose_lobe_is_the_kth_match():
@@ -393,8 +616,16 @@ def test_choose_lobe_is_the_kth_match():
 @pytest.mark.parametrize("T", [PB.LAMBERTIAN_TRANS, PB.FRESNEL_BLEND,
                                PB.DISNEY_DIFFUSE, PB.FOURIER])
 def test_unported_type_refused_by_name(T):
+    """FOURIER is refused by name beside any other type, alone too."""
     (_, _, _, _, _, _), (pl, pf, pwo, pwi, pul, pu2) = _stack(50, n=8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PB.bsdf_f(pl, pf, pwo, pwi, (PB.LAMBERTIAN_REFL, T))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PB.bsdf_sample_f(pl, pf, pwo, pul, pu2, (T,))
+    with pytest.raises(NotImplementedError, match="FOURIER.*item 13"):
+        PB.bsdf_f(pl, pf, pwo, pwi, (PB.LAMBERTIAN_REFL, T, PB.FOURIER))
+    with pytest.raises(NotImplementedError, match="FOURIER.*item 13"):
+        PB.bsdf_sample_f(pl, pf, pwo, pul, pu2, tuple({T, PB.FOURIER}))
+
+
+def test_check_types_refuses_only_fourier():
+    assert PB.PORTED_TYPES == set(range(PB.N_LOBE_TYPES)) - {PB.FOURIER}
+    PB.check_types(PORTED)
+    with pytest.raises(NotImplementedError, match="FOURIER"):
+        PB.check_types((PB.FOURIER,))

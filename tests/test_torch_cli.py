@@ -56,7 +56,7 @@ def test_cpu_render_of_a_glass_scene(tmp_path):
 
 
 @pytest.mark.parametrize("scene,feature", [
-    ("scenes/testball-substrate.pbrt", "Material 'substrate'"),
+    ("scenes/veach-mis.pbrt", "an area light on Shape 'sphere'"),
     ("scenes/simple.pbrt", "LightSource 'point'")])
 def test_unsupported_scene_exits_with_the_feature(tmp_path, scene, feature):
     proc = run_cli(scene, "--cpu", "-o", str(tmp_path / "x.exr"))

@@ -693,6 +693,24 @@ def test_row_gather_equal(dev, width):
         row_gather(table[:, :width // 2 + 1], idx)
 
 
+@pytest.mark.parametrize("width", [96, 112])
+def test_row_gather_layered_widths(dev, width):
+    """K8 at the widths of Disney's rows (6 lobes of 16 floats) and a mix
+    of substrate and Disney (7): few distinct rows over 2^18 lanes, as a
+    render gathers them, bit for bit with the plain version."""
+    from rustracer_tpu_torch.ops.gather import row_gather_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(width)
+    table = torch.rand((5, width), generator=gen, device=dev)
+    idx = torch.randint(0, 5, (1 << 18,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n0 = K.LAUNCHES["row_gather"]
+    out = row_gather(table, idx)
+    assert K.LAUNCHES["row_gather"] == n0 + 1
+    assert torch.equal(out.view(torch.int32),
+                       row_gather_plain(table, idx).view(torch.int32))
+
+
 def test_textured_render_matches_plain(textured, monkeypatch):
     """The 64^2 textured dragon, 1 sample, with the slab tiers opened to
     its 4096-lane tile: every forward kernel launches, a slab tier runs."""
@@ -1137,12 +1155,13 @@ def test_testball_render_matches_plain(dev):
 
 
 @pytest.mark.parametrize("name", ["glass", "roughglass", "plastic",
-                                  "textured"])
+                                  "textured", "substrate", "disney"])
 def test_material_testball_render_matches_plain(dev, name):
     """A material testball on the card, 1 sample: rays leaving the glass
     ball from inside through K14 and K2, the plastic's 32-float material
-    rows through K8, the textured ball through K5; the image within the
-    golden-image tolerance of the all-plain render."""
+    rows through K8 (Disney's 96-float rows), the textured ball through
+    K5; the image within the golden-image tolerance of the all-plain
+    render."""
     import os
     from rustracer_tpu_torch.scene.api import parse_scene
     path = os.path.join(os.path.dirname(os.path.dirname(

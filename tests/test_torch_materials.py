@@ -3,15 +3,22 @@ package, on the CPU.
 
 ``MaterialSet.shade`` of the port against the JAX one on the interactions
 of a 16 x 16 camera wavefront (every fourth pixel of the 64^2 film, sample
-0, the renderer's differential scale) of each of the seven testball scenes
-(glass, mirror, plastic, metal, roughglass, roughmetal, textured) and of a
-matte ball with ``"float sigma" [20]`` (Oren-Nayar) from a scene string.
+0, the renderer's differential scale) of each of the nine testball scenes
+(glass, mirror, plastic, metal, roughglass, roughmetal, textured,
+substrate, disney) and of the balls of ``tools/profile_step.py``'s BALLS
+(testball-glass with another ball material): a matte with ``"float
+sigma" [20]`` (Oren-Nayar), translucent, uber (opacity 0.5, Kr and Kt), a
+thin Disney, and a mix of substrate and Disney with a constant
+``amount``, with a checkerboard ``amount`` (per lane) and over a
+substrate whose Kd is the floor's checkerboard (a textured sub-material
+without images: the mix is shaded per lane).
 Each scene is parsed by both packages; the port shades with its own parse
 and with the JAX scene's materials and textures carried over by
 ``convert.py``. The interactions are the JAX package's, handed to both.
 Tolerances: lobe types, active flags and eta bit for bit; params bit for
 bit in the slots the reference copies from a constant, the computed ones
-(alpha from ``roughness_to_alpha``, Oren-Nayar's A and B) within 1e-5
+(alpha from ``roughness_to_alpha`` or Disney's roughness and anisotropy,
+Oren-Nayar's A and B, the clearcoat's gloss) within 1e-5
 relative, the per-lane textures (checkerboard, atlas imagemap) within
 1e-5 absolute, as ``tests/test_torch_textured.py`` holds K5's plain
 version; a Lambertian lobe's A and B, which it never reads, are not
@@ -41,37 +48,29 @@ from rustracer_tpu.scene.tables import scene_intersect
 from rustracer_tpu_torch import convert
 from rustracer_tpu_torch.core.interaction import Interaction
 from rustracer_tpu_torch.ops import bsdf as PB
+from rustracer_tpu_torch.scene import materials as PMAT
 from rustracer_tpu_torch.scene.api import parse_scene_string
+from rustracer_tpu_torch.tools.profile_step import BALLS, scene_text
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ("glass", "mirror", "plastic", "metal", "roughglass", "roughmetal",
-          "textured")
+          "textured", "substrate", "disney")
 # the slots of a lobe's params that a material computes: alpha_x, alpha_y,
-# Oren-Nayar's A and B
+# Oren-Nayar's A and B (Disney's roughness or metallic, the clearcoat's
+# gloss)
 COMPUTED = [10, 11, 14, 15]
-
-
-def scene_text(name):
-    with open(os.path.join(REPO, "scenes", f"testball-{name}.pbrt")) as f:
-        return f.read()
-
-
-def oren_nayar_text():
-    return scene_text("glass").replace(
-        'Material "glass"', 'Material "matte" "rgb Kd" [0.6 0.5 0.4] '
-        '"float sigma" [20]')
 
 
 _cache = {}
 
 
 def parsed(name):
-    """-> (JAX bundle, port bundle) of a testball (or "oren-nayar"), parsed
-    from the scene's directory."""
+    """-> (JAX bundle, port bundle) of a testball (or a ball of BALLS),
+    parsed from the scene's directory."""
     if name not in _cache:
-        text = oren_nayar_text() if name == "oren-nayar" else scene_text(name)
+        text = scene_text(f"testball-{name}")
         cwd = os.getcwd()
         os.chdir(os.path.join(REPO, "scenes"))
         try:
@@ -122,7 +121,7 @@ def assert_lobes_match(lobes, jl, jsi, per_lane_mats):
     np.testing.assert_allclose(p[lane], jp[lane], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", SCENES + ("oren-nayar",))
+@pytest.mark.parametrize("name", SCENES + tuple(BALLS))
 def test_shade_matches_jax(name):
     jb, pb = parsed(name)
     jms, pms = jb.integrator.mat_set, pb.material_set
@@ -135,8 +134,9 @@ def test_shade_matches_jax(name):
     jsi = wavefront(jb)
     _, jl = jms.shade(jsi, jb.context())
     per_lane = [i for i, m in enumerate(pms.materials)
-                if not all(getattr(t, "is_constant", True)
-                           for t in vars(m).values())]
+                if not PMAT._is_uniform(m)]
+    if name in ("mix", "mix-textured"):
+        assert per_lane[-1] == len(pms.materials) - 1
     si = port_si(jsi)
     for ms, textures in ((pms, pb.textures), (
             convert.material_set_from_jax(jms, jb.textures),
@@ -153,7 +153,8 @@ def test_shade_matches_jax(name):
 
 
 def slice_text(name):
-    return scene_text(name).replace(
+    """testball-<name> at 16^2, 2 spp."""
+    return scene_text(f"testball-{name}").replace(
         '"integer xresolution" [64] "integer yresolution" [64]',
         '"integer xresolution" [16] "integer yresolution" [16]').replace(
         '"integer pixelsamples" [16]', '"integer pixelsamples" [2]')
@@ -161,6 +162,10 @@ def slice_text(name):
 
 @pytest.mark.parametrize("name", ["glass", "plastic"])
 def test_slice_renders_match_jax(name):
+    assert_slice_matches_jax(name)
+
+
+def assert_slice_matches_jax(name):
     text = slice_text(name)
     assert "[16]" in text and "[2]" in text
     ref = np.asarray(jax_parse_string(text).scene.render())

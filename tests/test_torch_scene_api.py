@@ -216,10 +216,22 @@ REFUSED = {
     "glass": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
               'Material "glass" "texture bumpmap" "b"',
               "Material 'glass' with a bumpmap", 13),
-    "substrate": ('', 'Material "substrate"', "Material 'substrate'", 13),
-    "translucent": ('', 'Material "translucent"', "Material 'translucent'",
-                    13),
-    "mix": ('', 'Material "mix"', "Material 'mix'", 13),
+    # substrate and translucent render: a bump map on each is refused
+    "substrate": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
+                  'Material "substrate" "texture bumpmap" "b"',
+                  "Material 'substrate' with a bumpmap", 13),
+    "translucent": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
+                    'Material "translucent" "texture bumpmap" "b"',
+                    "Material 'translucent' with a bumpmap", 13),
+    # a mix renders over materials without an image texture
+    "mix": ('', 'Texture "g" "spectrum" "imagemap" "string filename" '
+            f'"{os.path.join(REPO, "scenes", "textures", "grid.png")}"\n'
+            'MakeNamedMaterial "a" "string type" "matte" "texture Kd" "g"\n'
+            'MakeNamedMaterial "b" "string type" "disney"\n'
+            'Material "mix" "string namedmaterial1" "a" '
+            '"string namedmaterial2" "b"',
+            "Material 'mix' over a material with an imagemap texture", 13),
+    "fourier": ('', 'Material "fourier"', "Material 'fourier'", 13),
     "oren-nayar": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
                    'Material "matte" "float sigma" [20] '
                    '"texture bumpmap" "b"', "bumpmap", 13),
@@ -269,6 +281,20 @@ def test_unbuilt_accelerator_raises(accel):
                            device="cpu")
 
 
+def test_mix_missing_a_named_material_is_matte():
+    """A mix naming a material the scene does not define takes a matte,
+    as the reference's does; the named one it finds stays in the set."""
+    text = _HEAD.format(options="", world=(
+        'MakeNamedMaterial "a" "string type" "plastic"\n'
+        'Material "mix" "string namedmaterial1" "a" '
+        '"string namedmaterial2" "nowhere"'))
+    jms = jax_parse_string(text).scene.integrator.mat_set
+    pms = parse_scene_string(text, device="cpu").scene.material_set
+    names = [type(m).__name__ for m in pms.materials]
+    assert names == [type(m).__name__ for m in jms.materials]
+    assert names[-2:] == ["PlasticMaterial", "MatteMaterial"]
+
+
 def test_reference_unimplemented_shape_keeps_its_error():
     text = _HEAD.format(options="", world='Shape "cone"')
     with pytest.raises(NotImplementedError) as j:
@@ -279,7 +305,7 @@ def test_reference_unimplemented_shape_keeps_its_error():
 
 
 @pytest.mark.parametrize("name,feature", [
-    ("testball-substrate.pbrt", "Material 'substrate'"),
+    ("veach-mis.pbrt", "an area light on Shape 'sphere'"),
     ("simple.pbrt", "LightSource 'point'")])
 def test_repo_scenes_refused_by_feature(name, feature):
     with pytest.raises(NotImplementedError, match=feature):
