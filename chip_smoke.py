@@ -7,7 +7,9 @@ Phases, each printing its lines:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand kernels from rustracer_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, with the
-     kernel's device time (torch.profiler, by kernel name; K1's from CUDA
+     kernel's device time (torch.profiler, by kernel name, or where three
+     traces lost every record of it, CUDA events around the call, which
+     the row's ms_by says; K1's from CUDA
      events around 20 launches; K4's with L2 evicted before each launch,
      as a render's one splat a step finds it), the plain version's (CUDA
      events around 20 calls; K1's around one) and its bound (the larger of its bytes over 3.35
@@ -69,7 +71,8 @@ Phases, each printing its lines:
  13. the same scene parsed and rendered (16 spp) in this process, counted,
      against the golden; K12 in one launch over its whole 64 x 63 x
      64-voxel grid (the parse launched it once) against its plain version
-     (each sum within 1e-5 relative), timed and bounded;
+     (each sum within 1e-5 relative), timed and bounded; K12's lights
+     kernel on the same table, bit for bit with it, timed beside it;
  14. the headline dragon through a scene file (tools/dragon_scene.py: the
      327,680-triangle mesh as a binary PLY, the hero texture as EXR) at
      1024^2, samples [0, 8) in 2^18-lane tiles: with the uniform strategy
@@ -145,22 +148,45 @@ Phases, each printing its lines:
      and bounded; one tile-2 step of each of testball-matte, -glass and
      -disney at 1024^2 profiled (tools/profile_step.profile_tile: device
      kernels, busy share, hand-kernel ms);
- 19. a JSON line of the kernels (times, bounds, library yardsticks,
+ 19. the lights: scenes/veach-mis.pbrt (sphere lights: the cone, K12's
+     lights kernel), envmap-dof.pbrt (the sky: K15, K16) and
+     bathroom.pbrt (triangle, sphere and sky lights under the spatial
+     grid, 18 imagemaps) through the port's command line in a subprocess
+     and parsed and rendered in process, as written, counted, each
+     against its golden (mean 2e-3, p99 2e-2); the bathroom with its film
+     at 1920 x 1080, one sample in 2^18-lane tiles, counted and timed
+     (camera rays/s beside testball-matte's of phase 16); every K15 and
+     K16 call of one full-width step (tile 2) against the plain versions
+     (K15's radiance bit for bit, which pins its integer searches; the
+     rest within 1e-5 relative, K16 plus 1e-5 / sin theta near a pole
+     and off the texel edges of the map's pdf), bounce 0's K15 call, the
+     camera rays' K16 call and bounce 1's timed and bounded
+     (tools/light_work.py); K12's lights kernel on the bathroom's whole
+     grid and on each branch alone (each light of tools/light_work.py
+     MIXED_SCENE in a scene of its own, light_scene, over the mixed
+     scene's grid: point, distant, the full sphere's cone, clipped
+     sphere, disk, cylinder, triangle, sky), each sum within 1e-5
+     relative of the plain version, timed and bounded;
+ 20. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and ones for the render's at 16, 32, 96 and
      112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
      for the filters, on the Cornell splat and at full width, K12 rows
      for both grids, K14 and K2 rows on the quadric table, the testball
      step and the glass steps, K5 rows on the dragon and the textured
-     testball), the card line, and the result line.
+     testball, K15, K16 and the rows of K12's light branches; each row's
+     ms_by: "profiler", "queued" or, for K8 at the tool's shape,
+     "events"), the card line, and the result line.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
-every testball does.
+every testball does. Only the light scenes launch K15, K16 and K12's
+lights kernel.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
 phases 13-15, the testball render and step of phase 16, each testball
 render and the glass render and steps of phase 17, each render and step
-of phase 18) is
+of phase 18, each light scene's parse and render and the bathroom's
+full-width render and step of phase 19) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -225,6 +251,12 @@ SOURCES = {
                         "rustracer_tpu/scene/tables.py:234"),
     "quadric_any": ("rustracer_tpu_torch/csrc/quadrics.cu",
                     "rustracer_tpu/scene/tables.py:522"),
+    "infinite_sample": ("rustracer_tpu_torch/csrc/lights.cu",
+                        "rustracer_tpu/scene/lights.py:461"),
+    "infinite_escape": ("rustracer_tpu_torch/csrc/lights.cu",
+                        "rustracer_tpu/scene/lights.py:593"),
+    "spatial_grid_contrib_lights": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
+                                    "rustracer_tpu/scene/lightdistrib.py:91"),
 }
 # K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
 QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
@@ -232,6 +264,11 @@ QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
 # _perm_put_bwd)
 TRANSPOSES = {"slab_take transpose": "rustracer_tpu/integrators/path.py:74",
               "slab_put transpose": "rustracer_tpu/integrators/path.py:96"}
+# rows whose kernel replaces another line than its SOURCES entry: the
+# transposes, and K16's camera-ray form (infinite_le)
+ROW_REPLACES = dict(TRANSPOSES, **{
+    "infinite_escape": "rustracer_tpu/scene/lights.py:391",
+    "infinite_escape envmap-dof": "rustracer_tpu/scene/lights.py:391"})
 # the rows of the kernels line: result key -> (kernel, the inputs timed)
 ROWS = {
     "sample_1d": ("sample_1d", "2^18 lanes of the matte render's tile 2"),
@@ -360,7 +397,72 @@ ROWS = {
         "atlas_lookup_ewa", "mean of the calls of a full-width "
         "testball-textured step (tile 2): the ball's and the floor's "
         "imagemaps, quad rows"),
+    "infinite_sample": ("infinite_sample",
+                        "bounce 0's NEE in a full-width bathroom step (tile "
+                        "2, 2^18 lanes, 1920 x 1080)"),
+    "infinite_escape": ("infinite_escape",
+                        "the camera rays of that step (weight 1)"),
+    "infinite_escape mis": ("infinite_escape",
+                            "bounce 1's rays of that step, MIS against the "
+                            "grid's pmfs"),
+    "infinite_escape envmap-dof": ("infinite_escape",
+                                   "the camera rays of a full-width "
+                                   "envmap-dof step at 1024^2 (tile 0, the "
+                                   "sky in view; weight 1)"),
+    "spatial_grid_contrib_lights": (
+        "spatial_grid_contrib_lights", "the bathroom's whole grid (35 x 21 "
+        "x 64 voxels, 2 sphere, 2 triangle and 1 infinite lights), one "
+        "launch"),
+    "spatial_grid_contrib_lights point": (
+        "spatial_grid_contrib_lights", "tools/light_work.py light_scene's "
+        "point light alone, over MIXED_SCENE's grid (64 x 32 x 64 voxels)"),
+    "spatial_grid_contrib_lights distant": (
+        "spatial_grid_contrib_lights", "light_scene's distant light alone"),
+    "spatial_grid_contrib_lights sphere": (
+        "spatial_grid_contrib_lights", "light_scene's full sphere alone "
+        "(the cone from outside)"),
+    "spatial_grid_contrib_lights clipped sphere": (
+        "spatial_grid_contrib_lights", "light_scene's clipped two-sided "
+        "sphere alone (uniform area)"),
+    "spatial_grid_contrib_lights disk": (
+        "spatial_grid_contrib_lights", "light_scene's disk alone"),
+    "spatial_grid_contrib_lights cylinder": (
+        "spatial_grid_contrib_lights", "light_scene's cylinder alone"),
+    "spatial_grid_contrib_lights triangle": (
+        "spatial_grid_contrib_lights", "light_scene's triangle light alone "
+        "(two triangles; the triangle kernel's code)"),
+    "spatial_grid_contrib_lights infinite": (
+        "spatial_grid_contrib_lights", "light_scene's sky alone"),
 }
+# the kernels a testball's CLI render must launch (phases 16-18)
+TESTBALL_NEED = ("quadric_closest", "quadric_any", "build_interaction")
+# phase 19: the scenes of the lights through the CLI and in process, as
+# written, each against its golden; the kernels each one's parse and
+# render must launch
+LIGHT_SCENES = ("veach-mis", "envmap-dof", "bathroom")
+LIGHT_NEEDS = {
+    "veach-mis": (("spatial_grid_contrib_lights",),
+                  ("quadric_closest", "quadric_any", "spatial_light_pick")),
+    "envmap-dof": ((), ("infinite_sample", "infinite_escape",
+                        "quadric_closest")),
+    "bathroom": (("spatial_grid_contrib_lights",),
+                 ("infinite_sample", "infinite_escape", "quadric_closest",
+                  "atlas_lookup_ewa", "spatial_light_pick")),
+}
+# the full-width bathroom, 1 sample
+BATH_RES = (1920, 1080)
+# the rows of K12's lights kernel on each branch: row key -> the light of
+# tools/light_work.py's MIXED_SCENE that it computes alone (light_scene),
+# over the mixed scene's grid
+K12_BRANCHES = {
+    "spatial_grid_contrib_lights point": "point",
+    "spatial_grid_contrib_lights distant": "distant",
+    "spatial_grid_contrib_lights sphere": "full sphere (cone)",
+    "spatial_grid_contrib_lights clipped sphere": "clipped sphere",
+    "spatial_grid_contrib_lights disk": "disk",
+    "spatial_grid_contrib_lights cylinder": "cylinder",
+    "spatial_grid_contrib_lights triangle": "triangle",
+    "spatial_grid_contrib_lights infinite": "infinite"}
 # the material testballs of phase 17
 TESTBALLS = ("glass", "mirror", "plastic", "metal", "roughglass",
              "roughmetal", "textured")
@@ -373,6 +475,10 @@ BALL_RES, BALL_SPP = (128, 128), 4
 # scenes/ names a PixelFilter)
 FILTER_KINDS = ("triangle", "gaussian", "mitchell")
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the rows of the kernels line whose kernel time (one of the times behind
+# it) was taken by CUDA events around the call, the profiler having lost
+# every record of the kernel in three traces (kernel_time): ms_by "queued"
+QUEUED_ROWS = set()
 CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
 CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell-box.npz")
 # the rows whose launches are counted in the dragon train step
@@ -419,18 +525,33 @@ def k2_off(field, a, b):
     return (d > 1e-5) & (d > 1e-5 * b.abs())
 
 
-def both(fn, kernel, reps=20):
+def kernel_time(row, fn, reps, names, cold=False):
+    """The device time of the kernels ``names`` in one call of ``fn`` for
+    the kernels line's row ``row`` (tools/timing.py device_ms, L2 cold
+    where ``cold``): torch.profiler's records, or where three traces lost
+    them all, CUDA events around the call, and the row then reads ms_by
+    "queued" (QUEUED_ROWS)."""
+    from rustracer_tpu_torch.tools.timing import device_ms
+    ms, by = device_ms(fn, reps, names, cold)
+    if by != "profiler":
+        QUEUED_ROWS.add(row)
+        log(f"{row}: the profiler lost every record of {names} in 3 traces; "
+            f"{ms:.4f} ms by CUDA events around the call")
+    return ms
+
+
+def both(fn, kernel, reps=20, *, row):
     """-> (kernel output, plain output, kernel ms, plain ms): the device
-    time of the kernel named ``kernel`` under torch.profiler
-    (tools/timing.py), and CUDA events around ``reps`` plain calls (the
-    host's issue time included where the plain version is host-bound)."""
+    time of the kernel named ``kernel`` (``kernel_time`` for row ``row``),
+    and CUDA events around ``reps`` plain calls (the host's issue time
+    included where the plain version is host-bound)."""
     from rustracer_tpu_torch.cuda import plain_reference
-    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    from rustracer_tpu_torch.tools.timing import events_ms
     out = fn()
     with plain_reference():
         ref = fn()
         plain_ms = events_ms(fn, reps)
-    return out, ref, kernel_ms(fn, reps, kernel), plain_ms
+    return out, ref, kernel_time(row, fn, reps, kernel), plain_ms
 
 
 def check_kernels(ctx, cam, film, sampler, renderer, results):
@@ -452,7 +573,7 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
                                                           sample_idx, 5)),
                      ("sample_2d", lambda: sampler.get_2d(pixel_idx,
                                                           sample_idx, 6))):
-        out, ref, ms, pms = both(fn, "sample_kernel")
+        out, ref, ms, pms = both(fn, "sample_kernel", row=name)
         if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError(f"{name}: kernel and plain differ in bits")
         results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
@@ -509,7 +630,8 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
     # K2: every interaction field within 1e-5 abs or rel (p_error rel)
     def k2():
         return build_interaction(ctx.geom, cam_ray, hit, t, prim)
-    out, ref, ms, pms = both(k2, "build_interaction_kernel")
+    out, ref, ms, pms = both(k2, "build_interaction_kernel",
+                             row="build_interaction")
     err = 0.0
     for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
               "dndu", "dndv", "wo"):
@@ -552,7 +674,8 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
 
     def k4():
         return film.add_samples(acc, p_film, rad, valid=valid)
-    ms = cold_ms(k4, 20, name="film_add_kernel")
+    ms = kernel_time("film_add_samples", k4, 20, "film_add_kernel",
+                     cold=True)
     with K.plain_reference():
         pms = cold_ms(k4, 20)
     d = (out.rgb - ref.rgb).abs()
@@ -626,7 +749,8 @@ def check_atlas(ctx, cap, results):
             def fn(q=q, tex=tex):
                 return A.atlas_lookup_ewa(tex, c["meta"], c["levels"],
                                           c["regs"], reg, si, quad=q)
-            out, ref, ms_k, ms_p = both(fn, "atlas_ewa_kernel")
+            out, ref, ms_k, ms_p = both(fn, "atlas_ewa_kernel",
+                                        row="atlas_lookup_ewa")
             d = (out - ref).abs().max(-1).values
             off = (d > 1e-5).float().mean().item()
             work = k5_work(c["meta"], c["levels"], c["regs"], reg, si, q)
@@ -686,7 +810,7 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
             f"{alive.shape[0]} lanes alive, bit-equal three calls in a row")
     # timed on the step's mask
     out, _, ms, pms = both(lambda: C.alive_first_order(step_alive),
-                           "alive_first_kernel")
+                           "alive_first_kernel", row="alive_first_order")
     q_ms = queued_ms(lambda: C.alive_first_order(step_alive), 20)
     lib_ms = queued_ms(lambda: torch.argsort(~step_alive, stable=True), 20)
     results["alive_first_order"] = dict(
@@ -706,7 +830,7 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
     fields = [getattr(st, f).contiguous() for f in SLAB_FIELDS] \
         + [lanes.pixel_idx, lanes.sample_idx]
     subs, ref, ms, pms = both(lambda: C.slab_take(fields, order, w),
-                              "slab_kernel")
+                              "slab_kernel", row="slab_take")
     if not all(torch.equal(a, b) for a, b in zip(subs, ref)):
         raise AssertionError("slab_take differs from the plain take")
     # the slab's order entries, and each field's slab read and written once
@@ -724,7 +848,7 @@ def check_compaction(ctx, cam, sampler, integ, tile, cap, results):
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
         raise AssertionError("slab_put differs from the plain put")
     _, _, ms, pms = both(lambda: C.slab_put(zeros, subs, order, w),
-                         "slab_kernel")
+                         "slab_kernel", row="slab_put")
     results["slab_put"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                **bound(moved))
     log(f"[3] slab_put: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
@@ -751,7 +875,7 @@ def check_gather(geom, cap, results):
         raise AssertionError("the gather tool did not run K8 or it differs")
     # the plain version is the library call, table[idx]; 2^20 indices
     # in, 2^20 rows of 512 bytes read and written
-    results["row_gather"] = dict(max_abs_err=0.0, ms=r["ms"],
+    results["row_gather"] = dict(max_abs_err=0.0, ms=r["ms"], ms_by="events",
                                  plain_ms=r["plain_ms"],
                                  library_ms=r["plain_ms"],
                                  **bound((1 << 20) * (4 + 2 * 512)))
@@ -768,7 +892,8 @@ def check_gather(geom, cap, results):
 
     tab, mid = cap["k8"][0]
     out, ref, ms, pms = both(lambda: row_gather(tab, mid),
-                             "row_gather_kernel")
+                             "row_gather_kernel",
+                             row="row_gather material rows")
     if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
         raise AssertionError("row_gather differs on the material rows")
     lib_ms = queued_ms(lambda: torch.index_select(tab, 0, mid), 20)
@@ -826,8 +951,10 @@ def step_launches(renderer, ctx, tile):
     return dict(K.LAUNCHES)
 
 
-def render_counted(label, renderer, film, ctx, samples, card, depth=5):
-    """One counted render of the main path -> (image, launches, tiers)."""
+def render_counted(label, renderer, film, ctx, samples, card, depth=5,
+                   res=RES):
+    """One counted render of the main path -> (launches, tiers, image,
+    camera rays/s)."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.integrators import path as P
     torch.cuda.synchronize()
@@ -839,15 +966,15 @@ def render_counted(label, renderer, film, ctx, samples, card, depth=5):
     wall = time.perf_counter() - t0
     launches, tiers = dict(K.LAUNCHES), dict(P.TIERS)
     mean = img.mean().item()
-    log(f"{label} render {RES[0]}x{RES[1]} {samples} samples depth {depth}: "
-        f"{wall:.3f} s wall, {RES[0] * RES[1] * samples / wall:.1f} camera "
+    log(f"{label} render {res[0]}x{res[1]} {samples} samples depth {depth}: "
+        f"{wall:.3f} s wall, {res[0] * res[1] * samples / wall:.1f} camera "
         f"rays/s, image mean {mean:.5f} on {card}")
     log(f"{label} launches: {launches}; slab tiers {tiers}")
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("non-finite radiance in the render")
     if not mean > 1e-4:
         raise AssertionError(f"render is black (mean {mean})")
-    return launches, tiers, img, RES[0] * RES[1] * samples / wall
+    return launches, tiers, img, res[0] * res[1] * samples / wall
 
 
 def check_backward(renderer, ctx, results):
@@ -862,7 +989,7 @@ def check_backward(renderer, ctx, results):
                                                       k5_bound)
     from rustracer_tpu_torch.tools.bench_step_kernels import (
         capture_grad_step, k4_touched, k7_moved)
-    from rustracer_tpu_torch.tools.timing import kernel_ms, queued_ms
+    from rustracer_tpu_torch.tools.timing import queued_ms
 
     cap = capture_grad_step(renderer, ctx, renderer.tiles[2])
     slab = capture_grad_step(renderer, ctx, renderer.tiles[0])
@@ -875,7 +1002,7 @@ def check_backward(renderer, ctx, results):
     (film, g_acc, p_film, rad, valid), _ = cap["k9"][0]
     out, ref, ms, pms = both(
         lambda: film.add_samples_bwd(g_acc, p_film, rad, valid),
-        "film_add_bwd_kernel")
+        "film_add_bwd_kernel", row="film_add_samples_bwd")
     if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
         raise AssertionError("film_add_samples_bwd differs in bits from "
                              "the plain gather")
@@ -904,7 +1031,8 @@ def check_backward(renderer, ctx, results):
                 reg=reg, si=si, qidx=qidx):
             return A.atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg,
                                           si, qidx)
-        out, ref, ms, pms = both(k10, "atlas_ewa_bwd_kernel")
+        out, ref, ms, pms = both(k10, "atlas_ewa_bwd_kernel",
+                                 row="atlas_lookup_ewa_bwd")
         err = (out - ref).abs().max().item()
         top = ref.abs().max().item()
         work = k10_work(meta, levels, regs, reg, si, texels.shape[0])
@@ -940,7 +1068,8 @@ def check_backward(renderer, ctx, results):
         (g, idx, n_rows), _ = cap["k11"][i]
         out, ref, ms, pms = both(lambda g=g, idx=idx, n_rows=n_rows:
                                  row_gather_bwd(g, idx, n_rows),
-                                 "row_gather_bwd_kernel")
+                                 "row_gather_bwd_kernel",
+                                 row="row_gather_bwd")
         with K.plain_reference():
             ref_abs = row_gather_bwd(g.abs(), idx, n_rows)
         d = (out - ref).abs()
@@ -972,7 +1101,8 @@ def check_backward(renderer, ctx, results):
     fields = [torch.empty(s_, dtype=d, device=order.device)
               for s_, d in shapes]
     out, ref, ms, pms = both(lambda: C.take_transpose(order, w, g_subs,
-                                                      shapes), "slab_kernel")
+                                                      shapes), "slab_kernel",
+                             row="slab_take transpose")
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
         raise AssertionError("the take's transpose differs from the plain")
     results["slab_take transpose"] = dict(
@@ -982,14 +1112,15 @@ def check_backward(renderer, ctx, results):
         f"{results['slab_take transpose']['bound_ms']:.4f} ms")
     (order, w, g_full), _ = slab["put_t"][0]
     out, ref, _, pms = both(lambda: C.put_transpose(order, w, g_full),
-                            "slab_kernel")
+                            "slab_kernel", row="slab_put transpose")
     if not all(torch.equal(a, b) for a, b in zip(out[0] + out[1],
                                                  ref[0] + ref[1])):
         raise AssertionError("the put's transpose differs from the plain")
     # two K7 launches a call (the take, the put of zeros): their mean by
     # name, twice
-    ms = 2 * kernel_ms(lambda: C.put_transpose(order, w, g_full), 20,
-                       "slab_kernel")
+    ms = 2 * kernel_time("slab_put transpose",
+                         lambda: C.put_transpose(order, w, g_full), 20,
+                         "slab_kernel")
     results["slab_put transpose"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=pms,
         **bound(2 * k7_moved(g_full, w)))
@@ -1215,7 +1346,7 @@ def check_grid_contrib(label, key, scene, bundle, launches, results):
     ``results[key]``, its launches those of the scene's parse."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.scene import lightdistrib as LD
-    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    from rustracer_tpu_torch.tools.timing import events_ms
     lt, dev = bundle.lights, bundle.device
     lo = bundle.geom.tv_p.min(0).values.cpu().numpy()
     hi = bundle.geom.tv_p.max(0).values.cpu().numpy()
@@ -1244,7 +1375,7 @@ def check_grid_contrib(label, key, scene, bundle, launches, results):
             or launches["spatial_grid_contrib"] != 1:
         raise AssertionError("spatial_grid_contrib differs from its plain "
                              "version or the parse did not launch it once")
-    ms = kernel_ms(fn, 20, "grid_contrib_kernel")
+    ms = kernel_time(key, fn, 20, "grid_contrib_kernel")
     with K.plain_reference():
         pms = events_ms(fn, 3)
     probes = v * lt.n_lights * LD.N_SAMPLES
@@ -1255,6 +1386,22 @@ def check_grid_contrib(label, key, scene, bundle, launches, results):
         max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
         launches=launches["spatial_grid_contrib"],
         counted_in=f"the parse of {scene}", **b)
+    # the lights kernel on the same table: a triangle row runs the
+    # triangle kernel's code, so the same bits; its time beside the
+    # triangle kernel's says whether a scene of triangle lights needs a
+    # kernel of its own
+    n0 = K.LAUNCHES["spatial_grid_contrib_lights"]
+    lout = LD.grid_contrib_lights(lt, lo, ext, nv, halton)
+    if K.LAUNCHES["spatial_grid_contrib_lights"] != n0 + 1 \
+            or not torch.equal(lout, out):
+        raise AssertionError("the lights kernel's triangle rows differ from "
+                             "spatial_grid_contrib")
+    lms = kernel_time(f"{key}, lights kernel",
+                      lambda: LD.grid_contrib_lights(lt, lo, ext, nv, halton),
+                      20, "grid_contrib_lights_kernel")
+    log(f"{label} the same grid through spatial_grid_contrib_lights: bit "
+        f"for bit; kernel {lms:.4f} ms against spatial_grid_contrib's "
+        f"{ms:.4f} ms ({lms / ms:.3f}x)")
     log(f"{label} spatial_grid_contrib, the whole grid ({probes} probes): "
         f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} "
         f"ms ({b['bound_by']}, {LD.K12_PROBE_OPS} operations a probe; "
@@ -1270,8 +1417,7 @@ def check_grid_picks(cap, results, launches):
     already gathered."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.scene import lightdistrib as LD
-    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms, \
-        queued_ms
+    from rustracer_tpu_torch.tools.timing import events_ms, queued_ms
     for i, ((grid, p, u), _) in enumerate(cap["pick"]):
         lid, pmf = LD.sample_light(grid, p, u)
         with K.plain_reference():
@@ -1291,8 +1437,9 @@ def check_grid_picks(cap, results, launches):
     lid, _ = LD.sample_light(grid, p, u)
     rows = torch.unique(flat).numel()
     pairs = torch.unique(flat * n_l + lid.long()).numel()
-    ms = kernel_ms(lambda: LD.sample_light(grid, p, u), 20,
-                   "light_pick_kernel")
+    ms = kernel_time("spatial_light_pick",
+                     lambda: LD.sample_light(grid, p, u), 20,
+                     "light_pick_kernel")
     with K.plain_reference():
         pms = events_ms(lambda: LD.sample_light(grid, p, u), 20)
     gathered = grid.cdf[flat]
@@ -1312,8 +1459,9 @@ def check_grid_picks(cap, results, launches):
     n = p.shape[0]
     flat = LD.voxel_index(grid, p)
     pairs = torch.unique(flat * n_l + q.long().clamp(0, n_l - 1)).numel()
-    ms = kernel_ms(lambda: LD.pmf_lookup(grid, p, q), 20,
-                   "pmf_lookup_kernel")
+    ms = kernel_time("spatial_pmf_lookup",
+                     lambda: LD.pmf_lookup(grid, p, q), 20,
+                     "pmf_lookup_kernel")
     with K.plain_reference():
         pms = events_ms(lambda: LD.pmf_lookup(grid, p, q), 20)
     b = bound(n * (12 + 4 + 4) + pairs * 4)
@@ -1366,7 +1514,8 @@ def check_k4_full(kind, full, launches, results):
             pcall()
         err = check_k4_filtered(sums(), psums(), f"film_add_samples {kind} "
                                 f"full width, {path}")
-        ms = cold_ms(call, 20, name="film_add_kernel")
+        ms = kernel_time(f"film_add_samples {kind} full width", call, 20,
+                         "film_add_kernel", cold=True)
         with K.plain_reference():
             pms = cold_ms(pcall, 5)
         log(f"[15] film_add_samples {kind}, the dragon file's full-width "
@@ -1394,7 +1543,7 @@ def check_k9_full(kind, case, launches, counted_in, results):
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.tools.bench_step_kernels import (
         check_k9, k4_touched, k9_call, k9_moved, k9_ops)
-    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    from rustracer_tpu_torch.tools.timing import events_ms
     (film, g_acc, p_film, rad, valid), _ = case
     n = p_film.shape[0]
     label = f"film_add_samples_bwd {kind} full width"
@@ -1403,7 +1552,8 @@ def check_k9_full(kind, case, launches, counted_in, results):
         ref = k9_call(None, case)
     err = check_k9(out, ref, kind, label)
     held = "bit for bit" if kind == "triangle" else "within 1e-5 relative"
-    ms = kernel_ms(lambda: k9_call(None, case), 20, "film_add_bwd_kernel")
+    ms = kernel_time(label, lambda: k9_call(None, case), 20,
+                     "film_add_bwd_kernel")
     with K.plain_reference():
         pms = events_ms(lambda: k9_call(None, case), 5)
     b = bound(k9_moved(film, p_film, rad, valid), k9_ops(film, n))
@@ -1438,7 +1588,7 @@ def filter_cornells(dev, card, results, splats, grads):
                                                               k4_ops,
                                                               k9_moved,
                                                               k9_ops)
-    from rustracer_tpu_torch.tools.timing import events_ms, kernel_ms
+    from rustracer_tpu_torch.tools.timing import events_ms
     text = open(CORNELL_PBRT).read()
     for kind in FILTER_KINDS:
         bundle, _ = parse_counted(
@@ -1478,7 +1628,8 @@ def filter_cornells(dev, card, results, splats, grads):
                 and torch.allclose(out.wsum, ref.wsum, rtol=1e-5,
                                    atol=1e-6)):
             raise AssertionError(f"film_add_samples {kind} differs")
-        ms = kernel_ms(k4, 20, "film_add_kernel")
+        ms = kernel_time(f"film_add_samples {kind}", k4, 20,
+                         "film_add_kernel")
         with K.plain_reference():
             pms = events_ms(k4, 20)
         nx, ny = film._footprint()
@@ -1508,7 +1659,8 @@ def filter_cornells(dev, card, results, splats, grads):
         err = check_k9(out, ref, kind, f"film_add_samples_bwd {kind}")
         held = "bit for bit" if kind == "triangle" else \
             "within 1e-5 relative"
-        ms = kernel_ms(k9, 20, "film_add_bwd_kernel")
+        ms = kernel_time(f"film_add_samples_bwd {kind}", k9, 20,
+                         "film_add_bwd_kernel")
         with K.plain_reference():
             pms = events_ms(k9, 20)
         b = bound(k9_moved(film, p_film, rad, valid),
@@ -1712,7 +1864,7 @@ def check_k14(label, geom, o, d, t_max, key, any_hit, results):
         if any_hit:
             return quadrics_any_hit(geom, o, d, t_max)
         return intersect_quadrics_all(geom, o, d, t_max)
-    out, ref, ms, pms = both(fn, name + "_kernel")
+    out, ref, ms, pms = both(fn, name + "_kernel", row=key)
     if any_hit:
         from rustracer_tpu_torch.cuda import plain_reference
         with plain_reference():
@@ -1754,7 +1906,7 @@ def check_k2_quadrics(label, geom, ray, hit, t, prim, key, results):
 
     def fn():
         return build_interaction(geom, ray, hit, t, prim)
-    out, ref, ms, pms = both(fn, "build_interaction_kernel")
+    out, ref, ms, pms = both(fn, "build_interaction_kernel", row=key)
     quad = hit & (prim < geom.n_quadrics)
     err = qerr = 0.0
     for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
@@ -1859,50 +2011,6 @@ def testball_full(dev, card, results):
     return rays
 
 
-def testball_cli(name, phase):
-    """scenes/testball-<name>.pbrt through the port's command line on the
-    card, in a subprocess, at its own 64^2, 16 spp: K14 and K2 launched,
-    the image held to its golden."""
-    from rustracer_tpu_torch.render.imageio import read_image
-    scene = os.path.join(REPO, "scenes", f"testball-{name}.pbrt")
-    with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "testball.exr")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli",
-             scene, "-o", out, "-v"], cwd=REPO, capture_output=True,
-            text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            log(f"[{phase}] cli: {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
-                                 f"{proc.stderr[-4000:]}")
-        img = read_image(out)
-    launches = json.loads(next(
-        line for line in proc.stdout.splitlines()
-        if line.startswith("launches "))[len("launches "):])
-    ref = np.load(os.path.join(REPO, "tests", "goldens",
-                               f"testball-{name}.npz"))["img"]
-    if img.shape != ref.shape or not np.isfinite(img).all():
-        raise AssertionError(f"the CLI's image {img.shape} not finite or not "
-                             f"the golden's {ref.shape}")
-    mean_err, p99 = image_errors(img, ref)
-    log(f"[{phase}] python -m rustracer_tpu_torch.utils.cli "
-        f"scenes/testball-{name}.pbrt -o testball.exr: {wall:.2f} s in all; "
-        f"K14 {launches['quadric_closest']} closest and "
-        f"{launches['quadric_any']} any-hit launches, K2 "
-        f"{launches['build_interaction']}; against "
-        f"tests/goldens/testball-{name}.npz: mean err {mean_err:.3g} (< "
-        f"2e-3), p99 {p99:.3g} (< 2e-2)")
-    if min(launches[k] for k in ("quadric_closest", "quadric_any",
-                                 "build_interaction")) <= 0:
-        raise AssertionError("the CLI's render did not launch K14 and K2")
-    if not (mean_err < 2e-3 and p99 < 2e-2):
-        raise AssertionError(f"the CLI's testball-{name} differs from its "
-                             "golden image")
-
-
 def testball_goldens(dev, card, names=TESTBALLS, phase=17):
     """The material testballs ``names`` parsed and rendered in process on
     the card at their own 64^2, counted, each against its golden. ->
@@ -1921,14 +2029,8 @@ def testball_goldens(dev, card, names=TESTBALLS, phase=17):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[name] = launches = dict(K.LAUNCHES)
-        ref = np.load(os.path.join(REPO, "tests", "goldens",
-                                   f"testball-{name}.npz"))["img"]
         img = img.cpu().numpy()
-        if img.shape != ref.shape or not np.isfinite(img).all():
-            raise AssertionError(f"[{phase}] testball-{name}: image "
-                                 f"{img.shape} not finite or not the "
-                                 "golden's")
-        mean_err, p99 = image_errors(img, ref)
+        mean_err, p99 = image_errors(img, golden(f"testball-{name}", img))
         ms = bundle.material_set
         log(f"[{phase}] testball-{name} {bundle.film.full_resolution}, "
             f"{bundle.sampler.spp} spp, depth {bundle.integrator.max_depth}: "
@@ -1998,7 +2100,8 @@ def check_atlas_testball(ctx, cap, ball_reg, results):
         def fn(c=c):
             return A.atlas_lookup_ewa(c["texels"], c["meta"], c["levels"],
                                       c["regs"], reg, si, quad=c["quad"])
-        out, ref, ms_k, ms_p = both(fn, "atlas_ewa_kernel")
+        out, ref, ms_k, ms_p = both(
+            fn, "atlas_ewa_kernel", row="atlas_lookup_ewa testball-textured")
         d = (out - ref).abs().max(-1).values
         off = (d > 1e-5).float().mean().item()
         ball = reg == ball_reg
@@ -2039,7 +2142,8 @@ def check_gather_rows(cap, results, width, phase, card=""):
         raise AssertionError(f"the material rows are {tab.shape}, not "
                              f"{width} floats wide")
     out, ref, ms, pms = both(lambda: row_gather(tab, mid),
-                             "row_gather_kernel")
+                             "row_gather_kernel",
+                             row=f"row_gather material rows W={width}")
     if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
         raise AssertionError(f"row_gather differs on {width}-float rows")
     lib_ms = queued_ms(lambda: torch.index_select(tab, 0, mid), 20)
@@ -2235,6 +2339,370 @@ def layered_steps(dev, card, results, counts, rays):
             f"{json.dumps(prof['top_device_ms'][:5])}")
 
 
+def scene_cli(name, phase, need):
+    """scenes/<name>.pbrt through the port's command line on the card, in a
+    subprocess, as written: the kernels ``need`` launched (the parse's and
+    the render's, which the CLI prints as one line), the image held to its
+    golden (mean 2e-3, p99 2e-2)."""
+    from rustracer_tpu_torch.render.imageio import read_image
+    scene = os.path.join(REPO, "scenes", f"{name}.pbrt")
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, f"{name}.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli",
+             scene, "-o", out, "-v"], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[{phase}] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_image(out)
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    mean_err, p99 = image_errors(img, golden(name, img))
+    log(f"[{phase}] python -m rustracer_tpu_torch.utils.cli "
+        f"scenes/{name}.pbrt: {wall:.2f} s in all; launches of {need}: "
+        f"{[launches[k] for k in need]}; against tests/goldens/{name}.npz: "
+        f"mean err {mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< 2e-2)")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the CLI's {name} did not launch {missing}")
+    if not (mean_err < 2e-3 and p99 < 2e-2):
+        raise AssertionError(f"the CLI's {name} differs from its golden")
+
+
+def golden(name, img):
+    """tests/goldens/<name>.npz, checked against ``img``'s shape and
+    finiteness."""
+    ref = np.load(os.path.join(REPO, "tests", "goldens", f"{name}.npz"))["img"]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"{name}: image {img.shape} not finite or not "
+                             f"the golden's {ref.shape}")
+    return ref
+
+
+def light_goldens(dev, card):
+    """Phase 19: veach-mis, envmap-dof and bathroom parsed and rendered in
+    process on the card as written, each parse and render counted (the
+    kernels of LIGHT_NEEDS launched), each image against its golden."""
+    from rustracer_tpu_torch import cuda as K
+    for name in LIGHT_SCENES:
+        bundle, parse = parse_counted(
+            f"[19] scenes/{name}.pbrt",
+            path=os.path.join(REPO, "scenes", f"{name}.pbrt"), dev=dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        img = bundle.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        img = img.cpu().numpy()
+        mean_err, p99 = image_errors(img, golden(name, img))
+        lt = bundle.lights
+        w, h = bundle.film.full_resolution
+        log(f"[19] {name} {w}x{h}, {bundle.sampler.spp} spp, depth "
+            f"{bundle.integrator.max_depth}: {lt.n_lights} lights "
+            f"({sorted(lt.kinds)}), grid "
+            f"{None if bundle.light_grid is None else bundle.light_grid.host[2].tolist()}; "
+            f"render {wall:.3f} s on {card}; against tests/goldens/"
+            f"{name}.npz: mean err {mean_err:.3g} (< 2e-3), p99 {p99:.3g} "
+            f"(< 2e-2); parse launches {parse}; render launches {launches}")
+        parse_needs, render_needs = LIGHT_NEEDS[name]
+        missing = [k for k in parse_needs if parse[k] <= 0] + \
+            [k for k in render_needs if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name} did not launch {missing}")
+        if not (mean_err < 2e-3 and p99 < 2e-2):
+            raise AssertionError(f"{name} differs from its golden")
+
+
+def check_k15(calls, results, counts):
+    """K15 on every infinite_sample call of the recorded step against its
+    plain version: li bit for bit (a function of the sample's uv alone, so
+    it pins the marginal's and the row's find_interval and the uv), wi,
+    the target and the pdf within 1e-5 relative (sinf and cosf against
+    torch's); the first call (bounce 0's NEE) timed and bounded."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene import lights as L
+    from rustracer_tpu_torch.tools import light_work as LW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    worst = 0.0
+    for i, (lt_, lid, p, u) in enumerate(calls):
+        out = L.infinite_sample(lt_, lid, p, u)
+        with K.plain_reference():
+            ref = L.infinite_sample(lt_, lid, p, u)
+        wi, pdf, li, pt = out
+        rwi, rpdf, rli, rpt = ref
+        errs = []
+        for a, b in ((wi, rwi), (pt, rpt)):
+            errs.append(((a - b).abs().max(-1).values
+                         / b.abs().max(-1).values.clamp(min=1e-30)).max()
+                        .item())
+        errs.append(((pdf - rpdf).abs() / rpdf.abs().clamp(min=1e-30))
+                    .max().item())
+        n_inf = int(sum(int((lid == r).sum()) for r in lt_.inf_rows))
+        log(f"[19] K15 call {i}: {lid.shape[0]} lanes, {n_inf} on the "
+            f"sky; li bit for bit: {torch.equal(li, rli)}; relative err wi "
+            f"{errs[0]:.3g}, target {errs[1]:.3g}, pdf {errs[2]:.3g} "
+            "(<= 1e-5)")
+        if not torch.equal(li, rli) or max(errs) > 1e-5:
+            raise AssertionError("infinite_sample differs from its plain "
+                                 "version")
+        worst = max(worst, (wi - rwi).abs().max().item(),
+                    (pt - rpt).abs().max().item(),
+                    (pdf - rpdf).abs().max().item())
+    lt_, lid, p, u = calls[0]
+
+    def fn():
+        return L.infinite_sample(lt_, lid, p, u)
+    ms = kernel_time("infinite_sample", fn, 20, "infinite_sample_kernel")
+    with K.plain_reference():
+        pms = events_ms(fn, 5)
+    work = LW.k15_work(lt_, lid)
+    b = bound(work["moved"], work["ops"])
+    b_ms, by = b["bound_ms"], b["bound_by"]
+    results["infinite_sample"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=pms, **b, **counts)
+    log(f"[19] K15 infinite_sample, bounce 0's NEE ({work['lanes']} lanes, "
+        f"{work['infinite_lanes']} on the sky): kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by}: {work['moved']} bytes, "
+        f"{work['ops']} operations), {100 * b_ms / ms:.1f}% of it")
+
+
+def check_k16(label, calls, results, counts,
+              keys=("infinite_escape", "infinite_escape mis")):
+    """K16 on every infinite_escape call of the recorded step against its
+    plain version: the radiance within 1e-5 relative plus 1e-5 / sin theta
+    (acos near a pole, tests/test_torch_lights.py) on the lanes whose
+    direction is not within 1e-4 of a texel edge of a light's map (the
+    piecewise-constant pdf may pick the neighbour on an ulp: counted, at
+    most 1%); the camera rays' call and the first call after a bounce
+    timed and bounded as rows ``keys`` (None: not timed)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene import lights as L
+    from rustracer_tpu_torch.tools import light_work as LW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    worst = {False: 0.0, True: 0.0}
+    for i, args in enumerate(calls):
+        lt_, d, mask = args[:3]
+        out = L.infinite_escape(*args)
+        with K.plain_reference():
+            ref = L.infinite_escape(*args)
+            st = torch.stack([L._inf_dir_to_uv(lt_, k, d)[1]
+                              for k in range(lt_.n_infinite)]).min(0).values
+            edge = torch.zeros_like(mask)
+            for k in range(lt_.n_infinite):
+                h, w = lt_.inf_maps[k].shape[:2]
+                x = L._inf_dir_to_uv(lt_, k, d)[0] * torch.tensor(
+                    [w, h], device=d.device)
+                edge |= ((x - x.round()).abs() < 1e-4).any(-1)
+        keep = mask & ~edge
+        err = (out - ref).abs().max(-1).values
+        bound_ = (1e-5 + 1e-5 / st.clamp(min=1e-12)) \
+            * ref.abs().max(-1).values + 1e-7
+        bad = keep & (err > bound_)
+        mis = len(args) > 3
+        worst[mis] = max(worst[mis], err[keep].max().item()
+                         if bool(keep.any()) else 0.0)
+        log(f"{label} K16 call {i} ({'MIS' if mis else 'camera'}): "
+            f"{int(mask.sum())} of {mask.shape[0]} lanes escaped, "
+            f"{int((mask & edge).sum())} at a texel edge; max abs err "
+            f"{err[keep].max().item() if bool(keep.any()) else 0.0:.3g}, "
+            f"{int(bad.sum())} lanes beyond the bound; zero off the mask: "
+            f"{bool((out[~mask] == 0).all())}")
+        if bad.any() or not bool((out[~mask] == 0).all()) \
+                or int((mask & edge).sum()) > 0.01 * max(int(mask.sum()), 1):
+            raise AssertionError("infinite_escape differs from its plain "
+                                 "version")
+    for key, args in zip(keys, calls):
+        if key is None:
+            continue
+
+        def fn(args=args):
+            return L.infinite_escape(*args)
+        ms = kernel_time(key, fn, 20, "infinite_escape_kernel")
+        with K.plain_reference():
+            pms = events_ms(fn, 5)
+        mis = len(args) > 3
+        work = LW.k16_work(args[0], args[2], mis)
+        b = bound(work["moved"], work["ops"])
+        b_ms, by = b["bound_ms"], b["bound_by"]
+        results[key] = dict(max_abs_err=worst[mis], ms=ms, plain_ms=pms,
+                            **b, **counts)
+        log(f"{label} K16 {key}, {ROWS[key][1]} ({work['escaped']} "
+            f"of {work['lanes']} lanes escaped): kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by}: {work['moved']} "
+            f"bytes, {work['ops']} operations), {100 * b_ms / ms:.1f}% of "
+            "it")
+
+
+def check_k12_lights(label, key, lt, grid, results, counts):
+    """K12's lights kernel (scene/lightdistrib.py grid_contrib_lights) on
+    table ``lt`` over ``grid`` = (lo, voxel extent, voxel counts), one
+    launch, against the plain version on the card (each sum within 1e-5
+    relative or 1e-6 of the column's largest), timed and bounded
+    (tools/light_work.py k12_light_work): row ``results[key]``."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.tools import light_work as LW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    lo, ext, nv = grid
+    dev = lt.l_emit.device
+    v = int(np.prod(nv))
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+
+    def fn():
+        return LD.grid_contrib_lights(lt, lo, ext, nv, halton)
+    n0 = K.LAUNCHES["spatial_grid_contrib_lights"]
+    out = fn()
+    if K.LAUNCHES["spatial_grid_contrib_lights"] != n0 + 1:
+        raise AssertionError(f"{key} is not one launch")
+    with K.plain_reference():
+        ref = fn()
+    d = (out - ref).abs()
+    top = ref.abs().max(0).values
+    bad = (d > 1e-5 * ref.abs()) & (d > 1e-6 * top)
+    ms = kernel_time(key, fn, 10, "grid_contrib_lights_kernel")
+    with K.plain_reference():
+        pms = events_ms(fn, 2)
+    moved, ops = nbytes(halton), 0
+    for j in range(lt.n_lights):
+        cone = 0
+        if bool(lt.l_cone[j]):
+            corners = LD.voxel_corners(lo, ext, nv, 0, v, dev)
+            pts = corners[None] + halton[:, None, :3] * torch.as_tensor(
+                ext, device=dev)
+            c = lt.l_q_o2w[j, :3, 3]
+            r = lt.l_q_params[j, 0]
+            cone = int((((pts - c) ** 2).sum(-1) > r * r).sum())
+        w = LW.k12_light_work(lt, j, v, LD.N_SAMPLES, cone)
+        moved, ops = moved + w["moved"], ops + w["ops"]
+    b = bound(moved, ops)
+    results[key] = dict(max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
+                        **b, **counts)
+    log(f"{label} K12 {key}: {tuple(int(x) for x in nv)} voxels x "
+        f"{LD.N_SAMPLES} probes, {ROWS[key][1]}; max abs err "
+        f"{d.max().item():.3g} of max {top.max().item():.3g}, "
+        f"{int(bad.sum())} sums beyond 1e-5 relative; kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {moved} bytes, {ops} operations), "
+        f"{100 * b['bound_ms'] / ms:.1f}% of it")
+    if bad.any() or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{key} differs from its plain version")
+
+
+def grid_of(bundle):
+    """(lo, voxel extent, voxel counts) of the spatial grid over
+    ``bundle``'s world bounds (scene/lightdistrib.py voxels)."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    lo, hi = bundle.world_bounds
+    nv, _, ext = LD.voxels(lo, hi)
+    return lo, ext, nv
+
+
+def bathroom_full(dev, card, results, rays):
+    """Phase 19 at full width: the bathroom with its film at BATH_RES, one
+    sample in 2^18-lane tiles, counted and timed (camera rays/s beside
+    testball-matte's); one step (tile 2) recorded: K15 and K16 on its
+    calls; K12's lights kernel on the bathroom's whole grid, and on each
+    branch: one light of tools/light_work.py's MIXED_SCENE alone
+    (light_scene) over the mixed scene's grid (K12_BRANCHES)."""
+    from rustracer_tpu_torch.tools import light_work as LW
+    from rustracer_tpu_torch.utils import fileutil
+    with open(os.path.join(REPO, "scenes", "bathroom.pbrt")) as f:
+        text = f.read()
+    small = '"integer xresolution" [320] "integer yresolution" [180]'
+    if small not in text:
+        raise AssertionError("bathroom.pbrt's Film line changed")
+    text = text.replace(small, f'"integer xresolution" [{BATH_RES[0]}] '
+                        f'"integer yresolution" [{BATH_RES[1]}]')
+    fileutil.set_search_directory(os.path.join(REPO, "scenes"))
+    bundle, parse = parse_counted(f"[19] bathroom at {BATH_RES[0]}x"
+                                  f"{BATH_RES[1]}", text=text, dev=dev)
+    renderer, ctx = bundle.renderer(LANES), bundle.context()
+    renderer.render_state(ctx, sample_stop=1)
+    launches, tiers, _, rays["bathroom"] = render_counted(
+        "[19] bathroom", renderer, bundle.film, ctx, 1, card,
+        depth=bundle.integrator.max_depth, res=BATH_RES)
+    missing = [k for k in ("infinite_sample", "infinite_escape")
+               if launches[k] <= 0]
+    if missing or parse["spatial_grid_contrib_lights"] != 1:
+        raise AssertionError(f"the bathroom did not launch {missing} or its "
+                             "grid not once")
+    log(f"[19] camera rays/s on {card}: bathroom at {BATH_RES[0]}x"
+        f"{BATH_RES[1]}, 1 sample, {rays['bathroom']:.1f}; testball-matte "
+        f"at {RES[0]}^2, {SAMPLES} samples (phase 16), {rays['matte']:.1f}")
+    tile = renderer.tiles[2]
+    per_step = step_launches(renderer, ctx, tile)
+    log(f"[19] launches in one full-width bathroom step (tile 2): "
+        f"{per_step}")
+    cap = LW.capture_light_step(renderer, ctx, tile)
+    where = f"bathroom render at {BATH_RES[0]}x{BATH_RES[1]}, 1 sample"
+    check_k15(cap["infinite_sample"], results, dict(
+        launches=launches["infinite_sample"],
+        launches_per_step=per_step["infinite_sample"], counted_in=where))
+    check_k16("[19] bathroom", cap["infinite_escape"], results, dict(
+        launches=launches["infinite_escape"],
+        launches_per_step=per_step["infinite_escape"], counted_in=where))
+    check_k12_lights("[19] bathroom", "spatial_grid_contrib_lights",
+                     bundle.lights, grid_of(bundle), results,
+                     dict(launches=parse["spatial_grid_contrib_lights"],
+                          launches_per_step=0,
+                          counted_in="the parse of scenes/bathroom.pbrt"))
+    sky = os.path.join(REPO, "scenes", "textures", "sky.exr")
+
+    def scene(text):
+        return text.replace('"textures/sky.exr"', f'"{sky}"')
+    mixed, mparse = parse_counted(
+        "[19] tools/light_work.py MIXED_SCENE", dev=dev,
+        text=scene(LW.MIXED_SCENE).replace(
+            '"string lightsamplestrategy" "uniform"',
+            '"string lightsamplestrategy" "spatial"'))
+    if mparse["spatial_grid_contrib_lights"] != 1:
+        raise AssertionError("the mixed scene's grid is not one launch")
+    counts = dict(launches=mparse["spatial_grid_contrib_lights"],
+                  launches_per_step=0,
+                  counted_in="the parse of tools/light_work.py MIXED_SCENE")
+    for key, name in K12_BRANCHES.items():
+        one, _ = parse_counted(f"[19] light_scene({name!r})",
+                               text=scene(LW.light_scene(name)), dev=dev)
+        check_k12_lights("[19] mixed scene", key, one.lights,
+                         grid_of(mixed), results, counts)
+    envmap_step(dev, results)
+
+
+def envmap_step(dev, results):
+    """K16's camera-ray form where camera rays see the sky: one step of
+    scenes/envmap-dof.pbrt with its film at RES (tile 0: the top rows),
+    recorded, checked and timed as on the bathroom (whose camera sees no
+    sky)."""
+    from rustracer_tpu_torch.tools import light_work as LW
+    with open(os.path.join(REPO, "scenes", "envmap-dof.pbrt")) as f:
+        text = f.read()
+    small = '"integer xresolution" [64] "integer yresolution" [64]'
+    if small not in text:
+        raise AssertionError("envmap-dof.pbrt's Film line changed")
+    text = text.replace(small, f'"integer xresolution" [{RES[0]}] '
+                        f'"integer yresolution" [{RES[1]}]')
+    bundle, _ = parse_counted(f"[19] envmap-dof at {RES[0]}^2", text=text,
+                              dev=dev)
+    renderer, ctx = bundle.renderer(LANES), bundle.context()
+    tile = renderer.tiles[0]
+    per_step = step_launches(renderer, ctx, tile)
+    cap = LW.capture_light_step(renderer, ctx, tile)
+    check_k16("[19] envmap-dof", cap["infinite_escape"], results, dict(
+        launches_per_step=per_step["infinite_escape"],
+        counted_in=f"a full-width envmap-dof step at {RES[0]}^2 (tile 0)",
+        launches=per_step["infinite_escape"]),
+        keys=("infinite_escape envmap-dof", None))
+
+
 def no_quadric_launches(label, launches):
     """A path without quadrics launches no K14."""
     from rustracer_tpu_torch import cuda as K
@@ -2244,7 +2712,7 @@ def no_quadric_launches(label, launches):
 
 
 def run(dev, card):
-    """Phases 3 to 19 on device ``dev``."""
+    """Phases 3 to 20 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -2347,17 +2815,23 @@ def run(dev, card):
     # 16: the quadrics
     check_quadric_table(dev, results)
     rays = {"matte": testball_full(dev, card, results)}
-    testball_cli("matte", 16)
+    scene_cli("testball-matte", 16, TESTBALL_NEED)
 
     # 17: the specular and microfacet lobes
     counts = testball_goldens(dev, card)
     rays["glass"] = glass_steps(dev, card, results, counts)
-    testball_cli("glass", 17)
+    scene_cli("testball-glass", 17, TESTBALL_NEED)
 
     # 18: substrate, translucent, uber, mix and Disney
     testball_goldens(dev, card, LAYERED, 18)
-    testball_cli("disney", 18)
+    scene_cli("testball-disney", 18, TESTBALL_NEED)
     layered_steps(dev, card, results, plain_balls(dev, card), rays)
+
+    # 19: the lights
+    for name in LIGHT_SCENES:
+        scene_cli(name, 19, sum(LIGHT_NEEDS[name], ()))
+    light_goldens(dev, card)
+    bathroom_full(dev, card, results, rays)
 
     kernels = []
     for key, (name, case) in ROWS.items():
@@ -2365,13 +2839,16 @@ def run(dev, card):
         train = key in TRAIN_ROWS
         own = "launches" in r
         replaces = QUADRIC_BRANCH if key.startswith("build_interaction ") \
-            else TRANSPOSES.get(key, SOURCES[name][1])
+            else ROW_REPLACES.get(key, SOURCES[name][1])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0],
             replaces=replaces,
             launches=r["launches"] if own
             else (train_launches if train else launches)[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            ms_by=r.get("ms_by", "queued" if key in QUEUED_ROWS
+                        else "profiler"),
+            plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
             launches_per_step=r.get("launches_per_step",

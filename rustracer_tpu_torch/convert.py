@@ -14,6 +14,8 @@ from .render.camera import PerspectiveCamera
 from .render.film import Film
 from .render.filters import Filter
 from .render.sampler import SamplerConfig
+from .core.sampling import Distribution1D, Distribution2D
+from .scene import lights as L
 from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
 from .scene import materials as M
@@ -61,24 +63,42 @@ def geometry_from_jax(geom, device="cuda") -> GeometryTables:
         q_reverse=_t(q["q_reverse"], torch.bool, device))
 
 
-def lights_from_jax(lt, device="cuda") -> LightTables:
-    """JAX LightTables built with ``geom=`` (the per-light precompute),
-    area lights only -> port's."""
-    l_type = np.asarray(lt.l_type)
-    if np.any(l_type != LIGHT_AREA) or np.asarray(lt.pre_flag).shape[0] == 0:
-        raise NotImplementedError("only precomputed area lights are ported")
-    if len(lt.inf_maps):
-        raise NotImplementedError("infinite lights are not ported")
+def lights_from_jax(lt, geom=None, device="cuda") -> LightTables:
+    """JAX LightTables built with ``geom=`` (the per-light precompute), of
+    any light types, with its infinite lights' maps and distributions ->
+    port's. An area light on a quadric takes its quadric's rows from
+    ``geom`` (the JAX GeometryTables the lights were built on)."""
+    if np.asarray(lt.pre_flag).shape[0] == 0:
+        raise NotImplementedError("only precomputed light tables are ported")
+    l_type = np.array(lt.l_type, np.int32)
+    l_prim = np.array(lt.l_prim, np.int32)
+    l_emit = np.array(lt.l_emit, np.float32)
+    area = l_type == LIGHT_AREA
+    if geom is not None:
+        pre = L.area_precompute(l_type, l_prim, L.geom_arrays(geom))
+    else:
+        if np.any(area & ~np.asarray(lt.l_tri_p).any(axis=(1, 2))):
+            raise ValueError("an area light on a quadric: pass geom")
+        pre = L.area_precompute(np.where(area, -1, l_type), l_prim,
+                                dict(n_quadrics=0))
+    # the JAX package's own precompute, bit for bit
+    pre.update(l_area=np.array(lt.l_area, np.float32),
+               l_tri_p=np.array(lt.l_tri_p, np.float32),
+               l_tri_rev=np.array(lt.l_tri_rev, bool))
+    dists = [Distribution2D(
+        *(Distribution1D(*(torch.as_tensor(np.array(a, np.float32))
+                           for a in x)) for x in (d.conditional, d.marginal)))
+        for d in lt.inf_dists]
     return LightTables(
-        l_type=_t(l_type, torch.int32, device),
-        l_emit=_t(lt.l_emit, torch.float32, device),
-        l_prim=_t(lt.l_prim, torch.int32, device),
-        l_twosided=_t(lt.l_twosided, torch.bool, device),
-        l_area=_t(lt.l_area, torch.float32, device),
-        l_tri_p=_t(lt.l_tri_p, torch.float32, device),
-        l_tri_rev=_t(lt.l_tri_rev, torch.bool, device),
-        world_center=_t(lt.world_center, torch.float32, device),
-        world_radius=float(np.asarray(lt.world_radius)))
+        **L.light_tensors(l_type, np.array(lt.l_pos, np.float32), l_emit,
+                          l_prim, np.array(lt.l_twosided, bool), pre,
+                          np.asarray(lt.world_center),
+                          float(np.asarray(lt.world_radius)), device),
+        **L.infinite_tensors(
+            [np.array(m, np.float32) for m in lt.inf_maps], dists,
+            list(np.array(lt.inf_l2w, np.float32)),
+            list(np.array(lt.inf_w2l, np.float32)),
+            [int(r) for r in np.asarray(lt.inf_rows)], l_emit, device))
 
 
 def light_grid_from_jax(grid, device="cuda") -> SpatialLightGrid:

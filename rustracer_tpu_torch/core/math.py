@@ -14,6 +14,7 @@ MACHINE_EPSILON = np.float32(np.finfo(np.float32).eps * 0.5)
 INFINITY = float("inf")
 PI = np.float32(np.pi)
 INV_PI = float(np.float32(1.0 / np.pi))
+TWO_PI = float(np.float32(2.0) * PI)
 
 
 def gamma(n) -> float:
@@ -48,6 +49,27 @@ def normalize(v, eps=1e-20):
     """Safe normalize: zero vectors stay finite."""
     n2 = length_squared(v)[..., None]
     return v * torch.rsqrt(torch.clamp(n2, min=eps))
+
+
+def spherical_theta(v):
+    """Polar angle of unit vectors v (..., 3)."""
+    return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    """Azimuth of v (..., 3) in [0, 2 pi)."""
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + TWO_PI, p)
+
+
+def find_interval(cdf, x):
+    """The largest i with cdf[..., i] <= x, clipped to [0, N - 2]: the
+    reference's count sum(cdf <= x) - 1 over the row, integer for integer
+    (on a non-decreasing cdf the same number as a bisection's). cdf (N,)
+    or (..., N) row per x; x (...) -> int64."""
+    n = cdf.shape[-1]
+    idx = (cdf <= x[..., None]).sum(-1) - 1
+    return torch.clamp(idx, 0, n - 2)
 
 
 def face_forward(n, v):

@@ -36,7 +36,7 @@ from ._build import CSRC, compile_shared
 CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
               "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu",
-              "quadrics.cu")
+              "quadrics.cu", "lights.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -76,6 +76,11 @@ SIGNATURES = {
     # light tables, n_lights, out, stream
     "spatial_grid_contrib": [_F] * 6 + [_I] * 3 + [_P, _I] + [_P] * 5
     + [_I, _P, _P],
+    # the grid as above, halton, n_probes, the 17 light tables of
+    # scene/lights.py (types, quadrics, infinite maps), n_lights, out,
+    # stream
+    "spatial_grid_contrib_lights": [_F] * 6 + [_I] * 3 + [_P, _I]
+    + [_P] * 17 + [_I, _P, _P],
     "spatial_light_pick": [_P, _P, _I] + [_F] * 6 + [_I] * 3
     + [_P, _P, _I, _P, _P, _P],
     "spatial_pmf_lookup": [_P, _P, _I] + [_F] * 6 + [_I] * 3
@@ -83,6 +88,13 @@ SIGNATURES = {
     # q_type, q_w2o, q_params, nq, o, d, t_max, n, outputs, stream
     "quadric_closest": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "quadric_any": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
+    # lid, p, u, n, row_inf, n_lights, emit, the infinite lights' flat
+    # table, descriptors and l2w, world_radius, 4 outputs, stream
+    "infinite_sample": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _F]
+    + [_P] * 4 + [_P],
+    # d, mask, prev_pdf, prev_spec, pmfs, pmf_const, mis, n, n_inf, scale,
+    # flat table, descriptors, w2l, out, stream
+    "infinite_escape": [_P] * 5 + [_F, _I, _I, _I] + [_P] * 5 + [_P],
 }
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
@@ -98,9 +110,16 @@ GRID_KERNELS = ("spatial_grid_contrib", "spatial_light_pick",
 # the quadrics' hit search (K14), launched only for a scene with a sphere,
 # cylinder or disk; the dragon and the Cornell box have none
 QUADRIC_KERNELS = ("quadric_closest", "quadric_any")
+# the kernels of the lights other than triangle area lights: K12's
+# branches for point, distant, quadric area and infinite lights (a grid
+# over a scene that holds one) and the infinite lights' sample and escape
+# radiance (K15, K16, a scene with an infinite light)
+LIGHT_KERNELS = ("spatial_grid_contrib_lights", "infinite_sample",
+                 "infinite_escape")
 # the kernels of the textured dragon's forward render
 FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
-                        BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS)
+                        BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS
+                        + LIGHT_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()

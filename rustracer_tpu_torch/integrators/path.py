@@ -21,11 +21,17 @@ the spatial light grid (scene/lightdistrib.py, hand kernel K13): the pick
 at the scattering point and the emission-hit MIS weight's selection pmf at
 the point the ray left (``prev_p``).
 
+A ray that leaves the scene under infinite lights adds their radiance
+(scene/lights.py, hand kernel K16): a camera ray at weight 1, a bounce
+ray (and the final emission-only bounce) weighted by the power heuristic
+against each infinite light's sampling density times its selection pmf at
+``prev_p`` (1/n for the uniform pick, K13's lookup under the grid). A
+scene without an infinite light runs none of this.
+
 Russian roulette reads the throughput times ``eta_scale``, the product
 of the squared relative IORs of the specular transmissions taken.
 
-Not ported: passes through medium interfaces, infinite lights and the
-stats counters.
+Not ported: passes through medium interfaces and the stats counters.
 """
 from __future__ import annotations
 
@@ -128,8 +134,28 @@ class PathIntegrator:
                                 power_heuristic(1.0, st.prev_pdf, 1.0, lpdf))
         le = torch.where((si.valid & (si.arealight >= 0))[:, None],
                          w_hit[:, None] * le, 0.0)
+        if lt.has_infinite:
+            le = le + self._escape(ctx, ray, st, si, first)
         alive = st.alive & si.valid & (si.material >= 0)
         return si, dataclasses.replace(st, L=st.L + st.beta * le, alive=alive)
+
+    def _escape(self, ctx, ray: Ray, st: _PathState, si, first: bool):
+        """The infinite lights' radiance on the lanes whose ray escaped
+        (alive, no hit): weight 1 on camera rays, else MIS against each
+        light's density times its selection pmf at prev_p (K16)."""
+        lt = ctx.lights
+        escaped = st.alive & ~si.valid
+        d = ray.d.contiguous()
+        if first:
+            return L.infinite_le(lt, d, escaped)
+        if getattr(ctx, "light_grid", None) is None:
+            pmfs = [1.0 / lt.n_lights] * lt.n_infinite
+        else:
+            pmfs = [self._sel_pmf(ctx, st.prev_p, torch.full(
+                escaped.shape, row, dtype=torch.int32, device=d.device))
+                for row in lt.inf_rows]
+        return L.infinite_le_mis(lt, d, st.prev_pdf.contiguous(),
+                                 st.prev_spec.contiguous(), pmfs, escaped)
 
     def _scatter(self, ctx, sampler, lanes, si, st: _PathState,
                  d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool):

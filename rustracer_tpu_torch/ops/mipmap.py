@@ -1,5 +1,6 @@
-"""MIP pyramids (port of rustracer_tpu/ops/mipmap.py: the wrap modes and
-the host-side pyramid build).
+"""MIP pyramids (port of rustracer_tpu/ops/mipmap.py: the wrap modes, the
+host-side pyramid build and the one-level bilinear lookup, which the
+infinite lights' maps use).
 
 The per-texture lookups (``lookup_trilinear``, ``lookup_ewa``,
 ``lookup_ewa_exact``) are not ported yet (ROADMAP.md, section A, item 13);
@@ -8,6 +9,7 @@ image textures are served through the shared atlas (scene/atlas.py).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP = 0, 1, 2
 
@@ -50,3 +52,37 @@ def build_pyramid(img: np.ndarray):
         levels.append(nxt.astype(np.float32))
         h, w = nh, nw
     return levels
+
+
+def _texel(level, s_i, t_i, wrap):
+    """Texels (B, C) of one level (H, W, C) at integer (s_i, t_i) (B,)
+    under ``wrap`` (REPEAT a floor modulo, CLAMP to the edge, BLACK zero
+    outside)."""
+    h, w = level.shape[0], level.shape[1]
+    mask = None
+    if wrap == WRAP_REPEAT:
+        s_i, t_i = torch.remainder(s_i, w), torch.remainder(t_i, h)
+    else:
+        if wrap == WRAP_BLACK:
+            mask = (s_i >= 0) & (s_i < w) & (t_i >= 0) & (t_i < h)
+        s_i, t_i = torch.clamp(s_i, 0, w - 1), torch.clamp(t_i, 0, h - 1)
+    v = level[t_i.long(), s_i.long()]
+    return v if mask is None else torch.where(mask[:, None], v, 0.0)
+
+
+def bilerp_level(level, st, wrap):
+    """Bilinear lookup of one level (H, W, C) at continuous st (B, 2) in
+    texel units of [0, 1)^2, centres at half-integers -> (B, C)."""
+    h, w = level.shape[0], level.shape[1]
+    s = st[:, 0] * w - 0.5
+    t = st[:, 1] * h - 0.5
+    s0 = torch.floor(s).int()
+    t0 = torch.floor(t).int()
+    ds = (s - s0)[:, None]
+    dt = (t - t0)[:, None]
+    v00 = _texel(level, s0, t0, wrap)
+    v10 = _texel(level, s0 + 1, t0, wrap)
+    v01 = _texel(level, s0, t0 + 1, wrap)
+    v11 = _texel(level, s0 + 1, t0 + 1, wrap)
+    return (1 - ds) * (1 - dt) * v00 + ds * (1 - dt) * v10 + \
+        (1 - ds) * dt * v01 + ds * dt * v11

@@ -253,6 +253,19 @@ def quadric_intersect(q_type, o, d, t_max, params):
     return QuadricHit(*(sel(k) for k in range(len(QuadricHit._fields))))
 
 
+def quadric_area(q_type, params):
+    """Surface area of the clipped quadric (..., 4) parameter rows: the
+    sphere's zone phi_max r (z1 - z0), the cylinder's, the annulus'
+    phi_max (r^2 - r_i^2) / 2."""
+    radius, z0, z1, phi_max = (params[..., i] for i in range(4))
+    sphere_a = phi_max * radius * (z1 - z0)
+    cyl_a = (z1 - z0) * radius * phi_max
+    disk_a = params[..., 3] * 0.5 * (params[..., 1] * params[..., 1]
+                                     - params[..., 2] * params[..., 2])
+    return torch.where(q_type == SPHERE, sphere_a,
+                       torch.where(q_type == CYLINDER, cyl_a, disk_a))
+
+
 def quadric_world_bounds_np(q_type, o2w, params):
     """Host-side conservative world AABBs (numpy) -> (lo (Q, 3), hi)."""
     n = q_type.shape[0]

@@ -16,7 +16,10 @@ textures; ``Material`` ``"matte"`` (Oren-Nayar where ``sigma`` is not 0),
 and ``"mix"`` (over materials without an image texture);
 ``Shape "trianglemesh"``,
 ``"plymesh"``, ``"sphere"``, ``"cylinder"`` and ``"disk"``;
-``AreaLightSource "diffuse"`` on triangle meshes. Every other shape, material,
+``LightSource`` ``"point"``, ``"distant"`` and ``"infinite"`` (a
+latitude-longitude map from ``mapname``, several such lights summed) and
+``AreaLightSource "diffuse"`` on triangle meshes and quadrics. Every other
+shape, material,
 texture, light, instancing and alpha raises NotImplementedError naming the
 feature and the ROADMAP.md item (section A) that ports it; nothing is
 substituted. The reference's own unimplemented shapes keep its error, and
@@ -41,6 +44,7 @@ from . import atlas as A
 from . import materials as M
 from . import textures as T
 from .lexer import tokenize, tokenize_file
+from .lights import LIGHT_DISTANT, LIGHT_POINT
 from .paramset import ParamSet, TextureParams
 from .parser import parse
 
@@ -49,7 +53,7 @@ log = logging.getLogger(__name__)
 STATE_UNINITIALIZED, STATE_OPTIONS, STATE_WORLD = 0, 1, 2
 
 # ROADMAP.md section A items that port what this module refuses
-SHADING, LIGHTS, GEOMETRY, INTEGRATORS, RUN_SURFACE = 13, 14, 15, 16, 17
+SHADING, GEOMETRY, INTEGRATORS, RUN_SURFACE = 13, 15, 16, 17
 
 
 class ApiError(Exception):
@@ -129,6 +133,7 @@ class QuadricRecord:
     params: np.ndarray          # (4,) float32, ops/quadrics.py's layout
     material: int
     reverse: bool
+    arealight_spec: Optional[tuple] = None   # (emit rgb, twosided, nsamples)
 
 
 @dataclasses.dataclass
@@ -160,6 +165,7 @@ class RenderOptions:
     camera_params: ParamSet = dataclasses.field(default_factory=ParamSet)
     camera_to_world: Transform = dataclasses.field(default_factory=Transform)
     lights: List[dict] = dataclasses.field(default_factory=list)
+    infinite_lights: List[dict] = dataclasses.field(default_factory=list)
     meshes: List[MeshRecord] = dataclasses.field(default_factory=list)
     quadrics: List[QuadricRecord] = dataclasses.field(default_factory=list)
 
@@ -353,10 +359,36 @@ class RealApi:
 
     def lightsource(self, name, params):
         self._verify_world("lightsource")
-        if name in ("point", "distant", "infinite"):
-            raise not_ported(f"LightSource {name!r}", LIGHTS)
-        log.error("light type %r unknown (the reference supports point, "
-                  "distant, infinite and area lights)", name)
+        ro = self.render_options
+        if name == "point":
+            i = params.find_one_spectrum("I", (1, 1, 1))
+            sc = params.find_one_spectrum("scale", (1, 1, 1))
+            p_from = params.find_one_point3f("from", (0, 0, 0))
+            p = self.cur_transform.apply_point(p_from)
+            ro.lights.append(dict(type=LIGHT_POINT, pos=tuple(p),
+                                  emit=tuple(i * sc), prim=-1))
+        elif name == "distant":
+            l_emit = params.find_one_spectrum("L", (1, 1, 1))
+            sc = params.find_one_spectrum("scale", (1, 1, 1))
+            p_from = params.find_one_point3f("from", (0, 0, 0))
+            p_to = params.find_one_point3f("to", (0, 0, 1))
+            w = self.cur_transform.apply_point(p_from) - \
+                self.cur_transform.apply_point(p_to)
+            w = w / max(np.linalg.norm(w), 1e-12)
+            ro.lights.append(dict(type=LIGHT_DISTANT, pos=tuple(w),
+                                  emit=tuple(l_emit * sc), prim=-1))
+        elif name == "infinite":
+            l_emit = params.find_one_spectrum("L", (1, 1, 1))
+            sc = params.find_one_spectrum("scale", (1, 1, 1))
+            mapname = params.find_one_filename("mapname", "")
+            ns = params.find_one_int("nsamples",
+                                     params.find_one_int("samples", 1))
+            ro.infinite_lights.append(dict(
+                scale=tuple(l_emit * sc), mapname=mapname,
+                l2w=self.cur_transform.m.copy(), nsamples=max(1, int(ns))))
+        else:
+            log.error("light type %r unknown (the reference supports point, "
+                      "distant, infinite and area lights)", name)
 
     def arealightsource(self, name, params):
         self._verify_world("arealightsource")
@@ -406,12 +438,10 @@ class RealApi:
         o2w = self.cur_transform
         rev = self.graphics.reverse_orientation ^ o2w.swaps_handedness()
         if name in ("sphere", "cylinder", "disk"):
-            if al_spec is not None:
-                raise not_ported(f"an area light on Shape {name!r} (quadric "
-                                 "area lights)", LIGHTS)
             self.render_options.quadrics.append(
                 QuadricRecord(("sphere", "cylinder", "disk").index(name), o2w,
-                              self._quadric_params(name, params), mid, rev))
+                              self._quadric_params(name, params), mid, rev,
+                              al_spec))
             return
         for alpha in ("alpha", "shadowalpha"):
             if params.has(alpha):

@@ -3,8 +3,9 @@ rustracer_tpu/scene/bundle.py for triangle and quadric scenes).
 
 ``build_bundle`` freezes the parsed records into the port's tables on the
 api's device: the quadrics' tables (their prim ids first, as the
-reference numbers them), the meshes transformed to world space and
-concatenated (one area-light row a triangle of an emissive mesh), the wide
+reference numbers them; an area light on a quadric is one light row), the
+meshes transformed to world space and concatenated (one area-light row a
+triangle of an emissive mesh), the infinite lights' maps, the wide
 BVH over the triangles from the port's copy of the SAH builder (always:
 the reference tests scenes of at most 8 primitives one by one, which
 renders the same; the quadrics are searched brute force, as there), the
@@ -30,6 +31,7 @@ from ..ops.quadrics import quadric_world_bounds_np
 from ..render.camera import PerspectiveCamera
 from ..render.film import Film
 from ..render.filters import make_filter
+from ..render.imageio import read_image
 from ..render.renderer import RenderConfig, RenderContext, Renderer
 from ..render.sampler import SamplerConfig
 from ..scenes import textures_on
@@ -57,6 +59,7 @@ class SceneBundle:
     filename: str
     light_grid: object = None
     device: torch.device = torch.device("cuda")
+    world_bounds: tuple = None   # (lo (3,), hi (3,)) the grid's, numpy
 
     def context(self) -> RenderContext:
         return RenderContext(geom=self.geom, lights=self.lights,
@@ -76,28 +79,37 @@ class SceneBundle:
                                                  sample_stop=sample_stop))
 
 
-def _emit_quadrics(api):
+def _emit_quadrics(api, light_rows):
     """Quadric records -> the numpy ``quadrics`` dict of make_geometry, or
-    None (the reference's bundle.py:117-129; no quadric here carries an
-    area light)."""
+    None (the reference's bundle.py:117-142); a quadric with an area light
+    appends its row to ``light_rows`` (its prim id, the quadric's index)."""
     recs = api.render_options.quadrics
     if not recs:
         return None
+    q_al = []
+    for i, r in enumerate(recs):
+        if r.arealight_spec is None:
+            q_al.append(-1)
+            continue
+        emit, two, nsamp = r.arealight_spec
+        light_rows.append(dict(type=LIGHT_AREA, pos=(0, 0, 0), emit=emit,
+                               prim=i, twosided=two, nsamples=nsamp))
+        q_al.append(len(light_rows) - 1)
     return dict(
         q_type=np.array([r.qtype for r in recs], np.int32),
         q_o2w=np.stack([r.o2w.m for r in recs]),
         q_w2o=np.stack([r.o2w.m_inv for r in recs]),
         q_params=np.stack([r.params for r in recs]),
         q_material=np.array([r.material for r in recs], np.int32),
-        q_arealight=np.full(len(recs), -1, np.int32),
+        q_arealight=np.array(q_al, np.int32),
         q_reverse=np.array([r.reverse for r in recs], bool))
 
 
-def _emit_geometry(api):
-    """Mesh records -> the numpy ``tris`` dict and the light rows (one a
-    triangle of an emissive mesh, its prim id after the quadrics')."""
+def _emit_geometry(api, light_rows):
+    """Mesh records -> the numpy ``tris`` dict, or None for a scene of
+    quadrics alone; each triangle of an emissive mesh appends a light row
+    to ``light_rows`` (its prim id after the quadrics')."""
     ro = api.render_options
-    light_rows = list(ro.lights)
     # the quadrics' ids come first; the dummy takes id 0 when there are none
     n_quad_slots = max(len(ro.quadrics), 1)
     vs, ns_, uvs, ss_, idxs = [], [], [], [], []
@@ -136,7 +148,7 @@ def _emit_geometry(api):
             t_al += [-1] * nt
         v_off += nv
     if not idxs:
-        raise ValueError("the scene has no triangle mesh: nothing to render")
+        return None
     n = sum(len(x) for x in idxs)
     tris = dict(
         tv_p=np.concatenate(vs), tv_n=np.concatenate(ns_),
@@ -149,18 +161,35 @@ def _emit_geometry(api):
         t_has_uv=np.array(t_has_uv, bool),
         t_alpha_tex=np.full(n, -1, np.int32),
         t_shadow_alpha_tex=np.full(n, -1, np.int32))
-    return tris, light_rows
+    return tris
+
+
+def _infinite_lights(ro):
+    """The infinite lights' maps (the port's image reader; a 4 x 8 map of
+    ones without ``mapname``), frames and scales."""
+    out = []
+    for inf in ro.infinite_lights:
+        m = read_image(inf["mapname"]) if inf["mapname"] \
+            else np.ones((4, 8, 3), np.float32)
+        out.append(dict(map=m, l2w=inf["l2w"], scale=inf["scale"]))
+    return out
 
 
 def _world_bounds(tris, quad):
     """-> (center, radius, lo, hi) of the triangles' vertices and the
-    quadrics' world boxes."""
-    los, his = [tris["tv_p"].min(0)], [tris["tv_p"].max(0)]
+    quadrics' world boxes (the unit box of an empty scene)."""
+    los, his = [], []
+    if tris is not None:
+        los.append(tris["tv_p"].min(0))
+        his.append(tris["tv_p"].max(0))
     if quad is not None:
         lo, hi = quadric_world_bounds_np(quad["q_type"], quad["q_o2w"],
                                          quad["q_params"])
         los.append(lo.min(0))
         his.append(hi.max(0))
+    if not los:
+        z = np.zeros(3, np.float32)
+        return z, 1.0, z, np.ones(3, np.float32)
     lo, hi = np.min(np.stack(los), 0), np.max(np.stack(his), 0)
     center = 0.5 * (lo + hi)
     radius = float(np.linalg.norm(hi - center)) or 1.0
@@ -168,13 +197,17 @@ def _world_bounds(tris, quad):
 
 
 def _bvh(ro, tris):
-    """The wide BVH; refuses what the port's builder does not build."""
+    """The wide BVH over the triangles (None without: make_geometry's
+    dummy triangle takes its own); refuses what the port's builder does
+    not build."""
     split = ro.accelerator_params.find_one_string("splitmethod", "sah")
     if ro.accelerator_name != "bvh" or split != "sah":
         raise NotImplementedError(
             f"Accelerator {ro.accelerator_name!r} with splitmethod "
             f"{split!r}: the port builds the SAH BVH only (the reference "
             "builds the middle split as well)")
+    if tris is None:
+        return None
     with time_phase("scene/BVH build"):
         return build_wide_arrays(tris["tv_p"], tris["t_idx"])
 
@@ -238,13 +271,18 @@ def build_bundle(api, device="cuda") -> SceneBundle:
     if iname in ("directlighting", "whitted", "ao", "ambientocclusion",
                  "normal"):
         raise not_ported(f"Integrator {iname!r}", INTEGRATORS)
-    quad = _emit_quadrics(api)
-    tris, light_rows = _emit_geometry(api)
+    # the light rows in the reference's order: point and distant lights,
+    # quadric area lights, triangle area lights; make_lights appends the
+    # infinite lights
+    light_rows = list(ro.lights)
+    quad = _emit_quadrics(api, light_rows)
+    tris = _emit_geometry(api, light_rows)
     bvh = _bvh(ro, tris)
     geom = make_geometry(tris, bvh=bvh, quadrics=quad, device=dev)
     center, radius, world_lo, world_hi = _world_bounds(tris, quad)
     lights = make_lights(light_rows, geom, world_center=center,
-                         world_radius=radius, device=dev)
+                         world_radius=radius,
+                         infinite=_infinite_lights(ro), device=dev)
     film = _film(ro)
     camera = _camera(ro, film.full_resolution)
     sampler = _sampler(ro, api.opts.get("quick_render"))
@@ -275,4 +313,5 @@ def build_bundle(api, device="cuda") -> SceneBundle:
         geom=geom, lights=lights, material_set=ms,
         textures=textures_on(tex, dev), camera=camera, film=film,
         sampler=sampler, integrator=integ, integrator_name=iname,
-        filename=film.filename, light_grid=light_grid, device=dev)
+        filename=film.filename, light_grid=light_grid, device=dev,
+        world_bounds=(world_lo, world_hi))

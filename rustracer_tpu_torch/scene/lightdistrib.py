@@ -8,7 +8,10 @@ it stands in. The host part of ``build_spatial_grid`` (voxel counts, the
 Halton table, the floor, pmf and cdf in numpy float32) is the reference's,
 line for line; the voxels' contribution sums come from K12
 ``spatial_grid_contrib``, one launch over the whole grid (plain version
-``grid_contrib_all_plain``).
+``grid_contrib_all_plain``), or, for a scene with point, distant, quadric
+area or infinite lights, its sibling ``spatial_grid_contrib_lights``
+(``grid_contrib_lights``), which adds a branch for each of those types (a
+light a block row, so a block's type is uniform).
 ``sample_light`` and ``pmf_lookup`` are K13 ``spatial_light_pick`` and
 ``spatial_pmf_lookup`` (plain versions beside them).
 """
@@ -24,6 +27,8 @@ from .. import cuda
 from ..core.math import dot
 from ..ops.triangle import triangle_sample
 from ..utils.stats import time_phase
+from . import lights as L
+from .lights import Y_WEIGHTS
 
 PRIMES = (2, 3, 5, 7, 11)
 N_SAMPLES = 128          # probes a voxel
@@ -77,10 +82,41 @@ class SpatialLightGrid:
         return self.pmf.shape[1]
 
 
+def _y_over_pdf(li, pdf):
+    y = Y_WEIGHTS[0] * li[..., 0] + Y_WEIGHTS[1] * li[..., 1] \
+        + Y_WEIGHTS[2] * li[..., 2]
+    return torch.where(pdf > 0.0, y / torch.clamp(pdf, min=1e-20), 0.0)
+
+
+def _probe_contrib(lt, j, pts, u):
+    """y(li) / pdf of light row j's sample_li at the probe points pts (S,
+    C, 3) with the probes' u (S, 2) -> (S, C). A distant or infinite
+    light's sample does not depend on the point: its S values are computed
+    once and broadcast over the voxels."""
+    n_s, c = pts.shape[0], pts.shape[1]
+    kinds = L.row_kinds(lt, j)
+    if kinds & {"distant", "infinite"}:
+        probe = _Probe(pts[:, 0])
+        ls = L.sample_li(lt, torch.full((n_s,), j, dtype=torch.int32,
+                                        device=pts.device), probe, u, kinds)
+        return _y_over_pdf(ls.li, ls.pdf)[:, None].expand(n_s, c)
+    probe = _Probe(pts.reshape(-1, 3))
+    ls = L.sample_li(lt, torch.full((n_s * c,), j, dtype=torch.int32,
+                                    device=pts.device), probe,
+                     u[:, None].expand(n_s, c, 2).reshape(-1, 2), kinds)
+    return _y_over_pdf(ls.li, ls.pdf).reshape(n_s, c)
+
+
+@dataclasses.dataclass
+class _Probe:
+    """The interaction of a grid probe: its point only."""
+    p: torch.Tensor
+
+
 def grid_contrib_plain(lt, vox_lo, vox_ext, halton):
     """The contribution sums of voxels with lower corners ``vox_lo`` (C, 3)
     -> (C, n_lights): over the probes, y(li) / pdf where pdf > 0, each
-    light's sample as scene/lights.py sample_li computes it (the light
+    light's sample as scene/lights.py sample_li computes it (a triangle's
     point and normal of a probe, which depend on the probe and the light
     only, computed once; the probes summed in order)."""
     n_s = halton.shape[0]
@@ -88,6 +124,13 @@ def grid_contrib_plain(lt, vox_lo, vox_ext, halton):
     pts = vox_lo[None] + (halton[:, None, :3] * ext)   # (S, C, 3)
     cols = []
     for j in range(lt.n_lights):
+        if int(lt.l_type[j]) != L.LIGHT_AREA or int(lt.l_q_type[j]) >= 0:
+            contrib = _probe_contrib(lt, j, pts, halton[:, 3:5])
+            acc = torch.zeros_like(contrib[0])
+            for s in range(n_s):
+                acc = acc + contrib[s]
+            cols.append(acc)
+            continue
         tri = lt.l_tri_p[j]
         u = halton[:, 3:5]
         p_a, n_a, _ = triangle_sample(u, tri[0].expand(n_s, 3),
@@ -141,13 +184,9 @@ def grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton,
         for s in range(0, v, chunk_voxels)], 0)
 
 
-def grid_contrib(lt, world_lo, vox_ext, nv, halton):
-    """K12: the contribution sums (V, n_lights) of every voxel of the grid
-    with lower corner ``world_lo``, voxel extent ``vox_ext`` (3,) float32
-    and ``nv`` (3,) voxels an axis, in C order; one launch. CPU tensors
-    take the plain version."""
-    if not cuda.use_kernel(halton):
-        return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
+def _grid_args(lt, world_lo, vox_ext, nv, halton):
+    """The grid's scalars of a K12 launch (lo, voxel extent, voxel counts),
+    after the tables both kernels read are checked -> (grid, out)."""
     dev = halton.device
     n_l, n_s = lt.n_lights, halton.shape[0]
     cuda.check(halton, "halton", torch.float32, (n_s, 5), dev)
@@ -158,13 +197,61 @@ def grid_contrib(lt, world_lo, vox_ext, nv, halton):
         cuda.check(t, name, torch.bool, (n_l,), dev)
     cuda.check(lt.l_area, "l_area", torch.float32, (n_l,), dev)
     nv = [int(x) for x in nv]
+    grid = [*[float(x) for x in np.asarray(world_lo, np.float32)],
+            *[float(x) for x in np.asarray(vox_ext, np.float32)], *nv]
     out = torch.empty((int(np.prod(nv)), n_l), dtype=torch.float32,
                       device=dev)
-    cuda.launch("spatial_grid_contrib",
-                *[float(x) for x in np.asarray(world_lo, np.float32)],
-                *[float(x) for x in np.asarray(vox_ext, np.float32)], *nv,
-                halton, n_s, lt.l_tri_p, lt.l_tri_rev, lt.l_twosided,
-                lt.l_emit, lt.l_area, n_l, out)
+    return grid, out
+
+
+def grid_contrib(lt, world_lo, vox_ext, nv, halton):
+    """K12: the contribution sums (V, n_lights) of every voxel of the grid
+    with lower corner ``world_lo``, voxel extent ``vox_ext`` (3,) float32
+    and ``nv`` (3,) voxels an axis, in C order; one launch. A scene of
+    triangle lights launches ``spatial_grid_contrib``, any other
+    ``grid_contrib_lights``. CPU tensors take the plain version."""
+    if not cuda.use_kernel(halton):
+        return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
+    if lt.kinds != {"tri"}:
+        return grid_contrib_lights(lt, world_lo, vox_ext, nv, halton)
+    grid, out = _grid_args(lt, world_lo, vox_ext, nv, halton)
+    cuda.launch("spatial_grid_contrib", *grid, halton, halton.shape[0],
+                lt.l_tri_p, lt.l_tri_rev, lt.l_twosided, lt.l_emit,
+                lt.l_area, lt.n_lights, out)
+    return out
+
+
+def grid_contrib_lights(lt, world_lo, vox_ext, nv, halton):
+    """K12 ``spatial_grid_contrib_lights``, ``grid_contrib`` for a table of
+    any light types (a light a block row, so a block's type picks its
+    branch); one launch. It takes a table of triangle lights too, through
+    the triangle kernel's code. CPU tensors take the plain version."""
+    if not cuda.use_kernel(halton):
+        return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
+    dev = halton.device
+    n_l = lt.n_lights
+    grid, out = _grid_args(lt, world_lo, vox_ext, nv, halton)
+    for t, name, dt, shape in (
+            (lt.l_type, "l_type", torch.int32, (n_l,)),
+            (lt.l_pos, "l_pos", torch.float32, (n_l, 3)),
+            (lt.l_q_type, "l_q_type", torch.int32, (n_l,)),
+            (lt.l_q_o2w, "l_q_o2w", torch.float32, (n_l, 4, 4)),
+            (lt.l_q_w2o, "l_q_w2o", torch.float32, (n_l, 4, 4)),
+            (lt.l_q_params, "l_q_params", torch.float32, (n_l, 4)),
+            (lt.l_q_rev, "l_q_rev", torch.bool, (n_l,)),
+            (lt.l_cone, "l_cone", torch.bool, (n_l,)),
+            (lt.row_inf, "row_inf", torch.int32, (n_l,)),
+            (lt.inf_desc, "inf_desc", torch.int32, (lt.n_infinite, 9)),
+            (lt.inf_l2w, "inf_l2w", torch.float32, (lt.n_infinite, 4, 4)),
+            (lt.inf_flat, "inf_flat", torch.float32,
+             tuple(lt.inf_flat.shape))):
+        cuda.check(t, name, dt, shape, dev)
+    cuda.launch("spatial_grid_contrib_lights", *grid, halton,
+                halton.shape[0], lt.l_type, lt.l_pos, lt.l_emit,
+                lt.l_twosided, lt.l_area, lt.l_tri_p, lt.l_tri_rev,
+                lt.l_q_type, lt.l_q_o2w, lt.l_q_w2o, lt.l_q_params,
+                lt.l_q_rev, lt.l_cone, lt.row_inf, lt.inf_flat, lt.inf_desc,
+                lt.inf_l2w, n_l, out)
     return out
 
 

@@ -289,7 +289,7 @@ def k2_bound(geom, hit, prim):
 
 
 @contextlib.contextmanager
-def _calls(module, name, into, every):
+def record_calls(module, name, into, every):
     """Within the scope, the first call (``every``: each call, in order)
     of ``module.name`` stores its arguments, tensors cloned, under
     ``into[name]`` (``every``: a list of them)."""
@@ -327,9 +327,9 @@ def capture_quadric_step(renderer, ctx, tile, sample=1, every=False) -> dict:
     calls = {}
     px, py, v = tile
     fs = renderer.film.init_state(renderer.device)
-    with _calls(tables, "intersect_quadrics_all", calls, every), \
-            _calls(tables, "quadrics_any_hit", calls, every), \
-            _calls(tables, "build_interaction", calls, every):
+    with record_calls(tables, "intersect_quadrics_all", calls, every), \
+            record_calls(tables, "quadrics_any_hit", calls, every), \
+            record_calls(tables, "build_interaction", calls, every):
         renderer.step(ctx, fs, px, py, sample, v)
     return calls
 

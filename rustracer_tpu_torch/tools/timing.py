@@ -6,7 +6,8 @@ kernel benchmarks of this package.
   under torch.profiler: each name's mean duration over the launches the
   trace holds, summed over the names. A trace now and then comes back
   without some of the launches, so a sum over all of a trace's device
-  events divided by the calls reads low.
+  events divided by the calls reads low. Where three traces in a row
+  hold none of them, it raises ``NoDeviceRecords``.
 - ``queued_ms``: the device time of a call with its launches queued ahead
   of the device (the host enqueues them behind a sleeping kernel), between
   CUDA events: the call's kernels and the device's gaps between dependent
@@ -14,18 +15,27 @@ kernel benchmarks of this package.
 - ``cold_ms``: the time of a call that finds the L2 cache cold, as a
   render's one splat a step does: a buffer larger than the 50 MB L2 is
   written before every call, outside the timed span.
+- ``device_ms``: ``kernel_ms`` (or ``cold_ms`` by name), or where the
+  profiler lost every record, CUDA events around the call, and which of
+  the two it took.
 
 Each refuses to run without a CUDA device.
 """
 from __future__ import annotations
 
 import time
+import warnings
 
 import torch
 
 L2_BYTES = 50 * 2 ** 20       # H100 SXM (NVIDIA data sheet)
 FLUSH_BYTES = 128 * 2 ** 20   # written between cold calls: evicts all of L2
 SLEEP_CYCLES = 50_000_000     # about 25 ms at 1.98 GHz
+
+
+class NoDeviceRecords(AssertionError):
+    """Three torch.profiler traces in a row held no device record of the
+    named kernels."""
 
 
 def _need_card():
@@ -82,7 +92,7 @@ def kernel_ms(fn, reps, names):
                     spans.setdefault(name, []).append(_span_us(e))
         if spans:
             return sum(sum(v) / len(v) for v in spans.values()) * 1e-3
-    raise AssertionError(f"the profiler saw none of {names}")
+    raise NoDeviceRecords(f"the profiler saw none of {names}")
 
 
 def queued_ms(fn, reps):
@@ -144,3 +154,30 @@ def cold_ms(fn, reps=20, name=None, flush_bytes=FLUSH_BYTES):
         b.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in ev) / reps
+
+
+def device_ms(fn, reps, names, cold=False):
+    """-> (ms, by): the device time of the kernels ``names`` in one call of
+    ``fn``, by "profiler": ``kernel_ms``, or ``cold_ms`` by name where
+    ``cold``. Where three traces in a row lose every record of them
+    (``NoDeviceRecords``: torch.profiler now and then does), by "queued":
+    CUDA events around the call (``queued_ms``, or ``cold_ms`` without a
+    name where ``cold``), which also hold the call's other device work and
+    the gaps between its launches; only after a call of ``fn`` is seen to
+    launch a kernel of this package (rustracer_tpu_torch.cuda's counts),
+    else it raises."""
+    from .. import cuda
+    try:
+        if cold:
+            return cold_ms(fn, reps, name=names), "profiler"
+        return kernel_ms(fn, reps, names), "profiler"
+    except NoDeviceRecords as e:
+        n0 = sum(cuda.LAUNCHES.values())
+        fn()
+        torch.cuda.synchronize()
+        if sum(cuda.LAUNCHES.values()) == n0:
+            raise AssertionError(f"{e}, and the call launches no kernel of "
+                                 "this package") from e
+        warnings.warn(f"{e} in 3 traces: timed with CUDA events around the "
+                      "call", RuntimeWarning, stacklevel=2)
+        return (cold_ms(fn, reps) if cold else queued_ms(fn, reps)), "queued"

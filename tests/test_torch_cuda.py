@@ -34,7 +34,14 @@ quadric lanes as its triangle lanes (1e-5 absolute or relative: acosf,
 sinf, atan2f and the normalisations), the parsed testball-matte's render
 within the golden-image tolerance of the all-plain render, and those of
 the glass, roughglass, plastic and textured testballs (rays leaving a
-ball from inside, 32-float material rows, K5 on a sphere) likewise."""
+ball from inside, 32-float material rows, K5 on a sphere) likewise. The
+lights: K15 (an infinite light's sample) with its radiance bit for bit
+(which pins its integer searches) and the rest within 1e-5 relative
+(sinf, cosf); K16 (the escaped rays' sky) within 1e-5 relative plus
+1e-5 / sin theta near a pole, off the texel edges of the map's pdf; K12's
+lights kernel within 1e-5 relative like its triangle kernel; the
+veach-mis and envmap-dof renders within the golden-image tolerance of the
+all-plain render."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -1174,3 +1181,197 @@ def test_material_testball_render_matches_plain(dev, name):
         assert K.LAUNCHES[k] > 0, K.LAUNCHES
     if name == "textured":
         assert K.LAUNCHES["atlas_lookup_ewa"] > 0, K.LAUNCHES
+
+
+@pytest.fixture(scope="module")
+def mixed_lights(dev):
+    """tools/light_work.py's MIXED_SCENE (every light type) parsed on the
+    card with the uniform pick -> its bundle."""
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene_string
+    from rustracer_tpu_torch.tools import light_work as LW
+    sky = os.path.join(LW.SCENES, "textures", "sky.exr")
+    text = LW.MIXED_SCENE.replace('"textures/sky.exr"', f'"{sky}"')
+    return parse_scene_string(text, device=dev).scene
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 18) + 3])
+def test_infinite_sample_matches_plain(mixed_lights, n):
+    """K15 on lanes of every row of the mixed scene (two infinite lights,
+    one under a rotation): the radiance bit for bit (it depends on the
+    sample's uv alone, so it pins both find_intervals), the direction,
+    target and pdf within 1e-5 relative (sinf, cosf), zeros on the lanes
+    of other rows."""
+    from rustracer_tpu_torch.scene import lights as L
+    lt, dev = mixed_lights.lights, mixed_lights.device
+    g = torch.Generator(device="cpu").manual_seed(n)
+    lid = torch.randint(0, lt.n_lights, (n,), generator=g).int().to(dev)
+    p = (torch.rand(n, 3, generator=g) * 6 - 3).to(dev)
+    u = torch.rand(n, 2, generator=g).to(dev)
+    n0 = K.LAUNCHES["infinite_sample"]
+    out = L.infinite_sample(lt, lid, p, u)
+    assert K.LAUNCHES["infinite_sample"] == n0 + 1
+    ref = _plain(lambda: L.infinite_sample(lt, lid, p, u))
+    assert torch.equal(out[2], ref[2])
+    for a, b in zip(out, ref):
+        scale = b.abs().reshape(n, -1).max(-1).values.clamp(min=1e-30)
+        assert ((a - b).abs().reshape(n, -1).max(-1).values / scale
+                <= 1e-5).all()
+    other = ~torch.isin(lid, torch.tensor(lt.inf_rows, device=dev,
+                                          dtype=torch.int32))
+    assert (out[1][other] == 0).all() and (out[2][other] == 0).all()
+
+
+@pytest.mark.parametrize("form", ["camera", "mis uniform", "mis per lane"])
+def test_infinite_escape_matches_plain(mixed_lights, form):
+    """K16 on 2^18 + 5 directions (poles and the seam among them), half of
+    them escaped: the radiance within 1e-5 relative plus 1e-5 / sin theta
+    (acos near a pole) off the texel edges of the maps' pdfs (where an ulp
+    may pick the neighbouring texel: at most 1% of the lanes), 0 on the
+    other lanes."""
+    from rustracer_tpu_torch.scene import lights as L
+    lt, dev = mixed_lights.lights, mixed_lights.device
+    n = (1 << 18) + 5
+    g = torch.Generator(device="cpu").manual_seed(3)
+    d = torch.randn(n, 3, generator=g)
+    d[:6] = torch.tensor([[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0],
+                          [0, -1, 0], [1, 1e-7, 0]], dtype=torch.float32)
+    d = d.to(dev)
+    mask = (torch.rand(n, generator=g) < 0.5).to(dev)
+    args = [lt, d, mask]
+    if form != "camera":
+        prev_pdf = (torch.rand(n, generator=g) * 3).to(dev)
+        prev_spec = (torch.rand(n, generator=g) < 0.2).to(dev)
+        pmfs = [0.1, 0.1] if form == "mis uniform" else \
+            [torch.rand(n, generator=g).to(dev) for _ in range(2)]
+        args += [prev_pdf, prev_spec, pmfs]
+    n0 = K.LAUNCHES["infinite_escape"]
+    out = L.infinite_escape(*args)
+    assert K.LAUNCHES["infinite_escape"] == n0 + 1
+    ref = _plain(lambda: L.infinite_escape(*args))
+    st = torch.stack([L._inf_dir_to_uv(lt, k, d)[1]
+                      for k in range(lt.n_infinite)]).min(0).values
+    edge = torch.zeros_like(mask)
+    for k in range(lt.n_infinite):
+        h, w = lt.inf_maps[k].shape[:2]
+        x = L._inf_dir_to_uv(lt, k, d)[0] * torch.tensor([w, h], device=dev)
+        edge |= ((x - x.round()).abs() < 1e-4).any(-1)
+    assert (edge & mask).sum() <= 0.01 * mask.sum()
+    keep = mask & ~edge
+    err = (out - ref).abs().max(-1).values
+    bound = (1e-5 + 1e-5 / st.clamp(min=1e-12)) * ref.abs().max(-1).values
+    assert (err[keep] <= bound[keep] + 1e-7).all()
+    assert (out[~mask] == 0).all()
+
+
+def test_grid_contrib_lights_matches_plain(mixed_lights):
+    """K12's lights kernel on the mixed scene's grid (16 voxels on its
+    widest axis) in one launch: each sum within 1e-5 relative of the plain
+    version, 1e-6 of the column's largest (the point, cone and quadric
+    branches' divides, sqrtf, sinf and cosf); on each light of
+    tools/light_work.py's light_scene alone, its columns bit for bit those
+    of the whole table (a block row is one light)."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    b = mixed_lights
+    lt, dev = b.lights, b.device
+    lo, hi = b.world_bounds
+    nv, _, ext = LD.voxels(lo, hi, 16)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+    n0 = K.LAUNCHES["spatial_grid_contrib_lights"]
+    out = LD.grid_contrib(lt, lo, ext, nv, halton)
+    assert K.LAUNCHES["spatial_grid_contrib_lights"] == n0 + 1
+    ref = _plain(lambda: LD.grid_contrib(lt, lo, ext, nv, halton))
+    top = ref.abs().max(0).values
+    assert ((out - ref).abs() <= torch.maximum(1e-5 * ref.abs(),
+                                               1e-6 * top)).all()
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene_string
+    from rustracer_tpu_torch.tools import light_work as LW
+    sky = os.path.join(LW.SCENES, "textures", "sky.exr")
+    rows = {"point": [0], "distant": [1], "full sphere (cone)": [2],
+            "clipped sphere": [3], "disk": [4], "cylinder": [5],
+            "triangle": [6, 7], "infinite": [8], "infinite ones": [9]}
+    for name, js in rows.items():
+        one = parse_scene_string(LW.light_scene(name).replace(
+            '"textures/sky.exr"', f'"{sky}"'), device=dev).scene.lights
+        n0 = K.LAUNCHES["spatial_grid_contrib_lights"]
+        col = LD.grid_contrib_lights(one, lo, ext, nv, halton)
+        assert K.LAUNCHES["spatial_grid_contrib_lights"] == n0 + 1
+        assert torch.equal(col, out[:, js]), name
+
+
+@pytest.mark.parametrize("scene", ["cornell-box", "light_scene triangle"])
+def test_grid_contrib_lights_takes_triangle_tables(dev, scene):
+    """A table of triangle lights alone (scenes/cornell-box.pbrt's, and
+    tools/light_work.py's triangle light) through the lights kernel
+    (grid_contrib_lights) and the triangle kernel (grid_contrib): the same
+    code for a triangle row, so the same bits; grid_contrib launches the
+    triangle kernel only."""
+    import os
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.scene.api import parse_scene, parse_scene_string
+    from rustracer_tpu_torch.tools import light_work as LW
+    if scene == "cornell-box":
+        b = parse_scene(os.path.join(os.path.dirname(LW.SCENES), "scenes",
+                                     "cornell-box.pbrt"), device=dev).scene
+    else:
+        b = parse_scene_string(LW.light_scene("triangle"), device=dev).scene
+    lt = b.lights
+    assert lt.kinds == {"tri"}
+    lo, hi = b.world_bounds
+    nv, _, ext = LD.voxels(lo, hi, 16)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+    K.reset_launches()
+    tri = LD.grid_contrib(lt, lo, ext, nv, halton)
+    assert K.LAUNCHES["spatial_grid_contrib"] == 1
+    assert K.LAUNCHES["spatial_grid_contrib_lights"] == 0
+    assert torch.equal(LD.grid_contrib_lights(lt, lo, ext, nv, halton), tri)
+
+
+@pytest.mark.parametrize("name", ["veach-mis", "envmap-dof"])
+def test_light_scene_render_matches_plain(dev, name):
+    """veach-mis (sphere lights: the cone, K12's lights kernel in the
+    parse) and envmap-dof (the sky: K15, K16) on the card, 1 sample, the
+    image within the golden-image tolerance of the all-plain render."""
+    import os
+    from rustracer_tpu_torch.scene.api import parse_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", f"{name}.pbrt")
+    K.reset_launches()
+    bundle = parse_scene(path, device=dev).scene
+    if name == "veach-mis":
+        assert K.LAUNCHES["spatial_grid_contrib_lights"] == 1
+    K.reset_launches()
+    _assert_render_matches_plain(bundle.renderer(), bundle.context(),
+                                 sample_stop=1)
+    need = ("quadric_closest",) + (("infinite_sample", "infinite_escape")
+                                   if name == "envmap-dof" else ())
+    for k in need:
+        assert K.LAUNCHES[k] > 0, K.LAUNCHES
+
+
+def test_device_ms_says_how_it_timed(dev, monkeypatch):
+    """device_ms times K8 by the profiler's records; where three traces
+    hold none, kernel_ms raises NoDeviceRecords and device_ms times the
+    call by CUDA events and says "queued" (cold too), and a call that
+    launches no kernel of the port is refused, not timed."""
+    from rustracer_tpu_torch.tools import timing
+    tab = torch.rand(4096, 128, device=dev)
+    idx = torch.randint(0, 4096, (1 << 16,), device=dev, dtype=torch.int32)
+    ms, by = timing.device_ms(lambda: row_gather(tab, idx), 5,
+                              "row_gather_kernel")
+    assert by == "profiler" and 0.0 < ms < 25.0
+    monkeypatch.setattr(timing, "_device_events", lambda prof: [])
+    with pytest.raises(timing.NoDeviceRecords, match="saw none"):
+        timing.kernel_ms(lambda: row_gather(tab, idx), 5,
+                         "row_gather_kernel")
+    for cold in (False, True):
+        with pytest.warns(RuntimeWarning, match="CUDA events"):
+            ms, by = timing.device_ms(lambda: row_gather(tab, idx), 5,
+                                      "row_gather_kernel", cold=cold)
+        assert by == "queued" and 0.0 < ms < 25.0
+    x = torch.zeros(1 << 20, device=dev)
+    with pytest.raises(AssertionError, match="launches no kernel"):
+        timing.device_ms(lambda: x.add_(1.0), 5, "no_such_kernel")

@@ -20,6 +20,9 @@ lights of different sizes, emissions and orientations, one two-sided.
   the neighbouring light. The test places 64 lanes' u on such an entry (a
   tie, which both packages count as passed) and counts the others: 1 of
   the 2^14 random lanes here.
+- A grid over every light type (point, distant, triangle, full and
+  clipped sphere, disk, cylinder, two infinite lights): its pmf and cdf
+  within 1e-5 relative of JAX's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -220,3 +223,33 @@ def test_grid_tables_and_picks():
     assert not differ[~near].any()
     same = ~differ
     np.testing.assert_allclose(pmf2.numpy()[same], jpmf[same], rtol=1e-5)
+
+
+def test_grid_over_every_light_type():
+    """The grid over test_torch_lights.py's SCENE (point, distant, triangle,
+    sphere (the cone), clipped sphere, disk, cylinder and two infinite
+    lights) at 12 voxels on the widest axis: the plain contributions of
+    each light type (sample_li's), the port's pmf and cdf within 1e-5
+    relative of the JAX package's build_spatial_grid over the same light
+    table (its tables carried across, so that both sample the same
+    infinite-light cdfs), and every column present (no light's
+    probability 0)."""
+    from test_torch_lights import SCENE
+    jb = jax_parse_string(SCENE).scene
+    lt = convert.lights_from_jax(jb.lights, geom=jb.geom, device="cpu")
+    assert lt.kinds >= {"point", "distant", "tri", "cone", "infinite"}
+    lo = np.array([-4.0, 0.0, -4.0], np.float32)
+    hi = np.array([4.0, 4.0, 4.0], np.float32)
+    jgrid = JLD.build_spatial_grid(jb.lights, jb.geom, lo, hi, max_voxels=12)
+    grid = LD.build_spatial_grid(lt, lo, hi, max_voxels=12)
+    conv = convert.light_grid_from_jax(jgrid, device="cpu")
+    assert grid.pmf.shape == conv.pmf.shape == (12 * 6 * 12, 10)
+    np.testing.assert_allclose(grid.pmf.numpy(), conv.pmf.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(grid.cdf.numpy(), conv.cdf.numpy(), rtol=1e-5)
+    assert (grid.pmf > 0).all()
+    # the distant and infinite lights' sums do not depend on the voxel
+    nv, _, ext = LD.voxels(lo, hi, 12)
+    c = LD.grid_contrib_all_plain(
+        lt, lo, ext, nv, torch.as_tensor(LD._radical_inverse_table(128)))
+    for j in (1, 8, 9):
+        assert bool((c[:, j] == c[0, j]).all()) and float(c[0, j]) > 0

@@ -12,9 +12,12 @@ holds the testball-matte scene to): geometry with the quadric tables, BVH bytes,
 and integrator settings bit-equal, the texture constants bit-equal, the
 texel pyramids within 1e-6. The spatial grid's tables are compared in
 tests/test_torch_lightdistrib.py. Every directive the port refuses raises
-NotImplementedError naming itself and its ROADMAP.md item; transforms and
-LookAt come out bit-equal; the camera of a LookAt scene equals
-``scenes.py``'s ``Transform.look_at``.
+NotImplementedError naming itself and its ROADMAP.md item; each light
+directive it refused until the lights were ported (point, distant,
+infinite, an area light on a sphere or a disk) builds the JAX package's
+light table, and is refused under the direct and Whitted integrators
+(section A, item 16); transforms and LookAt come out bit-equal; the
+camera of a LookAt scene equals ``scenes.py``'s ``Transform.look_at``.
 """
 import os
 
@@ -204,11 +207,20 @@ Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 1 1 0 1 0 1 1]
 WorldEnd
 '''
 REFUSED = {
-    "sphere": ('', 'AreaLightSource "diffuse"\nShape "sphere"',
-               "an area light on Shape 'sphere'", 14),
-    "disk": ('', 'AreaLightSource "diffuse" "rgb L" [2 2 2]\n'
-             'Shape "disk" "float radius" [0.5]', "an area light on Shape "
-             "'disk'", 14),
+    # every light renders under the path integrator; under the direct and
+    # Whitted integrators (estimate_direct, with the lights' pdf_li and
+    # infinite_le_one) each is refused
+    "sphere": ('Integrator "directlighting"',
+               'AreaLightSource "diffuse"\nShape "sphere"',
+               "'directlighting'", 16),
+    "disk": ('Integrator "whitted"', 'AreaLightSource "diffuse" "rgb L" '
+             '[2 2 2]\nShape "disk" "float radius" [0.5]', "'whitted'", 16),
+    "point light": ('Integrator "directlighting"', 'LightSource "point"',
+                    "'directlighting'", 16),
+    "distant light": ('Integrator "whitted"', 'LightSource "distant"',
+                      "'whitted'", 16),
+    "infinite light": ('Integrator "directlighting"',
+                       'LightSource "infinite"', "'directlighting'", 16),
     # plastic, glass and Oren-Nayar render: a bump map on each is refused
     "plastic": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
                 'Material "plastic" "texture bumpmap" "b"',
@@ -244,9 +256,6 @@ REFUSED = {
                        '"string mapping" "planar"', "planar", 13),
     "trilinear": ('', 'Texture "t" "spectrum" "imagemap" '
                   '"bool trilinear" "true"', "trilinear", 13),
-    "point light": ('', 'LightSource "point"', "'point'", 14),
-    "distant light": ('', 'LightSource "distant"', "'distant'", 14),
-    "infinite light": ('', 'LightSource "infinite"', "'infinite'", 14),
     "instancing": ('', 'ObjectBegin "o"', "ObjectBegin 'o'", 15),
     "instance": ('', 'ObjectInstance "o"', "ObjectInstance", 15),
     "alpha": ('', 'Shape "trianglemesh" "integer indices" [0 1 2] '
@@ -304,12 +313,38 @@ def test_reference_unimplemented_shape_keeps_its_error():
     assert str(j.value) == str(p.value)
 
 
-@pytest.mark.parametrize("name,feature", [
-    ("veach-mis.pbrt", "an area light on Shape 'sphere'"),
-    ("simple.pbrt", "LightSource 'point'")])
-def test_repo_scenes_refused_by_feature(name, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        parse_scene(os.path.join(REPO, "scenes", name), device="cpu")
+# the light directives the port refused until it ported them (ROADMAP.md
+# section A, item 14): each now builds the JAX package's light table
+LIGHTS = {
+    "sphere": 'AreaLightSource "diffuse"\nShape "sphere"',
+    "disk": 'AreaLightSource "diffuse" "rgb L" [2 2 2]\n'
+            'Shape "disk" "float radius" [0.5]',
+    "point light": 'LightSource "point"',
+    "distant light": 'LightSource "distant"',
+    "infinite light": 'LightSource "infinite"',
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIGHTS))
+def test_light_directive_builds_the_reference_table(case):
+    """One light directive over _HEAD's triangle (an area light applies to
+    it too): the port's light rows, their order, types, positions and
+    emissions are the JAX package's; an infinite light without a map
+    carries the 4 x 8 map of ones."""
+    text = _HEAD.format(options='Integrator "path" '
+                        '"string lightsamplestrategy" "uniform"',
+                        world=LIGHTS[case])
+    jb = jax_parse_string(text).scene
+    plt = parse_scene_string(text, device="cpu").scene.lights
+    clt = convert.lights_from_jax(jb.lights, geom=jb.geom, device="cpu")
+    assert plt.kinds == clt.kinds and plt.inf_rows == clt.inf_rows
+    for f in ("l_type", "l_prim", "l_twosided", "l_q_type", "l_cone"):
+        assert torch.equal(getattr(plt, f), getattr(clt, f)), f
+    for f in ("l_pos", "l_emit", "l_area"):
+        np.testing.assert_allclose(getattr(plt, f).numpy(),
+                                   getattr(clt, f).numpy(), rtol=1e-6)
+    for m in plt.inf_maps:
+        assert m.shape == (4, 8, 3) and bool((m == 1).all())
 
 
 DIRECTIVES = [

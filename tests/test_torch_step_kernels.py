@@ -302,6 +302,15 @@ def test_cold_ms_argument_handling():
                 fn()
 
 
+def test_device_ms_needs_a_card():
+    """device_ms refuses to time without a CUDA device, as kernel_ms does,
+    and a lost trace is an AssertionError of its own."""
+    assert issubclass(timing.NoDeviceRecords, AssertionError)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            timing.device_ms(lambda: None, 1, "k")
+
+
 def test_capture_step_records_the_step(monkeypatch):
     """A 32^2 textured dragon in one 1024-lane tile, with the slab tiers
     opened to it: the step makes 1 splat, 4 K5 calls (bounce 0 and 3
