@@ -167,7 +167,24 @@ Phases, each printing its lines:
      scene's grid: point, distant, the full sphere's cone, clipped
      sphere, disk, cylinder, triangle, sky), each sum within 1e-5
      relative of the plain version, timed and bounded;
- 20. a JSON line of the kernels (times, bounds, library yardsticks,
+ 20. textures, bump maps and the Fourier BSDF: tools/texture_work.py's
+     three scenes (textures-procedural: every noise texture, a scale, a
+     mix, a uv and checkerboards of textures, a noise bump map;
+     textures-image: imagemaps through K17's three modes, a float
+     imagemap bump, the planar mapping, a mix over imagemap materials;
+     testball-fourier: a Fourier ball from a table written at run time) at
+     1024^2, 8 samples, depth 7, each parsed and rendered counted (K18,
+     K17 or K19 launched, the other two not), camera rays/s beside
+     testball-matte's of phase 16, its 128^2 crop at 1 spp against the
+     all-plain path (mean 2e-3, p99 2e-2), and every K17, K18 or K19 call
+     of one recorded full-width step (tile 2) against the plain versions
+     (tools/texture_work.py compare_with_plain, as tests/test_torch_cuda.py:
+     every lane within its tolerance but for rare flips of the exact
+     level, the octave count or a sampled direction, each held at the
+     other choice), the first call of each kind timed and bounded
+     (tools/texture_work.py), each mode's launches counted
+     (texture_work.count_calls) in the render and in the step;
+ 21. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and ones for the render's at 16, 32, 96 and
      112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
@@ -179,14 +196,15 @@ Phases, each printing its lines:
      "events"), the card line, and the result line.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
-lights kernel.
+lights kernel; only phase 20's scenes launch K17, K18 and K19.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
 phases 13-15, the testball render and step of phase 16, each testball
 render and the glass render and steps of phase 17, each render and step
 of phase 18, each light scene's parse and render and the bathroom's
-full-width render and step of phase 19) is
+full-width render and step of phase 19, each texture scene's render and
+step of phase 20) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -257,6 +275,12 @@ SOURCES = {
                         "rustracer_tpu/scene/lights.py:593"),
     "spatial_grid_contrib_lights": ("rustracer_tpu_torch/csrc/lightdistrib.cu",
                                     "rustracer_tpu/scene/lightdistrib.py:91"),
+    "mipmap_lookup": ("rustracer_tpu_torch/csrc/mipmap.cu",
+                      "rustracer_tpu/ops/mipmap.py:128"),
+    "noise_fbm": ("rustracer_tpu_torch/csrc/noise.cu",
+                  "rustracer_tpu/core/noise.py:52"),
+    "fourier_bsdf": ("rustracer_tpu_torch/csrc/fourier.cu",
+                     "rustracer_tpu/ops/fourier.py:274"),
 }
 # K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
 QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
@@ -268,7 +292,15 @@ TRANSPOSES = {"slab_take transpose": "rustracer_tpu/integrators/path.py:74",
 # transposes, and K16's camera-ray form (infinite_le)
 ROW_REPLACES = dict(TRANSPOSES, **{
     "infinite_escape": "rustracer_tpu/scene/lights.py:391",
-    "infinite_escape envmap-dof": "rustracer_tpu/scene/lights.py:391"})
+    "infinite_escape envmap-dof": "rustracer_tpu/scene/lights.py:391",
+    "mipmap_lookup trilinear": "rustracer_tpu/ops/mipmap.py:100",
+    "mipmap_lookup ewa": "rustracer_tpu/ops/mipmap.py:128",
+    "mipmap_lookup exact": "rustracer_tpu/ops/mipmap.py:167",
+    "noise_fbm fbm": "rustracer_tpu/core/noise.py:52",
+    "noise_fbm turbulence": "rustracer_tpu/core/noise.py:72",
+    "fourier_bsdf f": "rustracer_tpu/ops/fourier.py:274",
+    "fourier_bsdf pdf": "rustracer_tpu/ops/fourier.py:322",
+    "fourier_bsdf sample_f": "rustracer_tpu/ops/fourier.py:342"})
 # the rows of the kernels line: result key -> (kernel, the inputs timed)
 ROWS = {
     "sample_1d": ("sample_1d", "2^18 lanes of the matte render's tile 2"),
@@ -433,7 +465,39 @@ ROWS = {
         "(two triangles; the triangle kernel's code)"),
     "spatial_grid_contrib_lights infinite": (
         "spatial_grid_contrib_lights", "light_scene's sky alone"),
+    "mipmap_lookup trilinear": (
+        "mipmap_lookup", "the first trilinear call of a full-width "
+        "textures-image step (tile 2): the floor's planar imagemap"),
+    "mipmap_lookup ewa": (
+        "mipmap_lookup", "the first 8-tap call of that step (the clamped "
+        "imagemap at anisotropy 4, or a moved bump lookup)"),
+    "mipmap_lookup exact": (
+        "mipmap_lookup", "the first exact (128-texel) call of that step: "
+        "the ball's imagemap at anisotropy 16"),
+    "noise_fbm fbm": (
+        "noise_fbm", "the first fbm call of a full-width "
+        "textures-procedural step (tile 2)"),
+    "noise_fbm turbulence": (
+        "noise_fbm", "the first turbulence call of that step (the bump's "
+        "wrinkles)"),
+    "fourier_bsdf f": (
+        "fourier_bsdf", "the first f call of a full-width testball-fourier "
+        "step (tile 2): NEE's, the FOURIER rows"),
+    "fourier_bsdf pdf": ("fourier_bsdf", "the first pdf call of that step"),
+    "fourier_bsdf sample_f": ("fourier_bsdf",
+                              "the first sample_f call of that step"),
 }
+# phase 20: tools/texture_work.py's scenes, the kernel each must launch, and
+# the rows of its kernel
+TEXTURE_NEEDS = {
+    "textures-procedural": ("noise_fbm", ("noise_fbm fbm",
+                                          "noise_fbm turbulence")),
+    "textures-image": ("mipmap_lookup", ("mipmap_lookup trilinear",
+                                         "mipmap_lookup ewa",
+                                         "mipmap_lookup exact")),
+    "testball-fourier": ("fourier_bsdf", ("fourier_bsdf f",
+                                          "fourier_bsdf pdf",
+                                          "fourier_bsdf sample_f"))}
 # the kernels a testball's CLI render must launch (phases 16-18)
 TESTBALL_NEED = ("quadric_closest", "quadric_any", "build_interaction")
 # phase 19: the scenes of the lights through the CLI and in process, as
@@ -952,9 +1016,11 @@ def step_launches(renderer, ctx, tile):
 
 
 def render_counted(label, renderer, film, ctx, samples, card, depth=5,
-                   res=RES):
+                   res=RES, shading=()):
     """One counted render of the main path -> (launches, tiers, image,
-    camera rays/s)."""
+    camera rays/s). Of K17, K18 and K19 (cuda.SHADING_KERNELS) only those
+    of ``shading`` may launch: a scene without their textures or Fourier
+    BSDF launches none."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.integrators import path as P
     torch.cuda.synchronize()
@@ -974,6 +1040,9 @@ def render_counted(label, renderer, film, ctx, samples, card, depth=5,
         raise AssertionError("non-finite radiance in the render")
     if not mean > 1e-4:
         raise AssertionError(f"render is black (mean {mean})")
+    if any(launches[k] for k in K.SHADING_KERNELS if k not in shading):
+        raise AssertionError(f"{label} launched a shading kernel beyond "
+                             f"{shading}: {launches}")
     return launches, tiers, img, res[0] * res[1] * samples / wall
 
 
@@ -2041,10 +2110,11 @@ def testball_goldens(dev, card, names=TESTBALLS, phase=17):
         need = K.QUADRIC_KERNELS + ("build_interaction", "row_gather")
         if name == "textured":
             need += ("atlas_lookup_ewa",)
-        missing = [k for k in need if launches[k] <= 0]
+        missing = [k for k in need if launches[k] <= 0] + \
+            [k for k in K.SHADING_KERNELS if launches[k] > 0]
         if missing:
             raise AssertionError(f"[{phase}] testball-{name} did not "
-                                 f"launch {missing}")
+                                 f"launch {missing}, or launched K17-K19")
         if not (mean_err < 2e-3 and p99 < 2e-2):
             raise AssertionError(f"[{phase}] testball-{name} differs from "
                                  "its golden image")
@@ -2414,7 +2484,8 @@ def light_goldens(dev, card):
             f"(< 2e-2); parse launches {parse}; render launches {launches}")
         parse_needs, render_needs = LIGHT_NEEDS[name]
         missing = [k for k in parse_needs if parse[k] <= 0] + \
-            [k for k in render_needs if launches[k] <= 0]
+            [k for k in render_needs if launches[k] <= 0] + \
+            [k for k in K.SHADING_KERNELS if launches[k] > 0]
         if missing:
             raise AssertionError(f"{name} did not launch {missing}")
         if not (mean_err < 2e-3 and p99 < 2e-2):
@@ -2704,15 +2775,144 @@ def envmap_step(dev, results):
 
 
 def no_quadric_launches(label, launches):
-    """A path without quadrics launches no K14."""
+    """A path without quadrics launches no K14 (and, without the textures
+    of phase 20, no K17, K18 or K19)."""
     from rustracer_tpu_torch import cuda as K
-    if any(launches[k] for k in K.QUADRIC_KERNELS):
-        raise AssertionError(f"{label} launched K14 without a quadric: "
-                             f"{launches}")
+    if any(launches[k] for k in K.QUADRIC_KERNELS + K.SHADING_KERNELS):
+        raise AssertionError(f"{label} launched K14 without a quadric, or "
+                             f"K17-K19 without their textures: {launches}")
+
+
+def check_texture_calls(name, cap, results, counts):
+    """Phase 20: every K17, K18 or K19 call of a recorded full-width step
+    against its plain version (tools/texture_work.py compare_with_plain:
+    every lane within its tolerance, K17 trilinear and 8-tap 1e-5, exact
+    2e-5 absolute, K18 1e-5 absolute, K19 f and pdf 1e-5 of the largest
+    magnitude plus 1e-6, the sampled direction 1e-4 absolute; but for at
+    most 1e-4 of a call's lanes whose exact level, octave count or sampled
+    direction a last-bit difference flipped, each held to the plain value
+    at the other choice); the first call of each kind timed
+    (tools/timing.py kernel_ms) and bounded (tools/texture_work.py).
+    ``counts[fname]``: the row's launches, launches a step and where."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.ops import fourier as FO
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.scene import textures as T
+    from rustracer_tpu_torch.tools import texture_work as TW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    kinds = {
+        "lookup_trilinear": ("mipmap_lookup trilinear", T.lookup_trilinear,
+                             "mipmap_kernel", MM.TRILINEAR),
+        "lookup_ewa": ("mipmap_lookup ewa", T.lookup_ewa, "mipmap_kernel",
+                       MM.EWA),
+        "lookup_ewa_exact": ("mipmap_lookup exact", T.lookup_ewa_exact,
+                             "mipmap_kernel", MM.EWA_EXACT),
+        "fbm": ("noise_fbm fbm", T.fbm, "fbm_kernel", None),
+        "turbulence": ("noise_fbm turbulence", T.turbulence, "fbm_kernel",
+                       None),
+        "fourier_f": ("fourier_bsdf f", FO.fourier_f, "fourier_kernel",
+                      FO.F),
+        "fourier_pdf": ("fourier_bsdf pdf", FO.fourier_pdf,
+                        "fourier_kernel", FO.PDF),
+        "fourier_sample_f": ("fourier_bsdf sample_f", FO.fourier_sample_f,
+                             "fourier_kernel", FO.SAMPLE_F)}
+    for fname, calls in cap.items():
+        row, fn, kname, mode = kinds[fname]
+        worst, n_flip, lanes = 0.0, 0, 0
+        for args in calls:
+            r = TW.compare_with_plain(fname, args, fn(*args))
+            n_flip += r["flipped"]
+            worst = max(worst, r["max_abs_err"])
+            lanes += r["lanes"]
+        args = calls[0]
+
+        def call():
+            return fn(*args)
+        ms = kernel_time(row, call, 20, kname)
+        with K.plain_reference():
+            pms = events_ms(call, 5)
+        if fname.startswith("lookup"):
+            work = TW.k17_work(args[0], mode, args[-1], args[1],
+                               *((None, None, args[2]) if mode == MM.TRILINEAR
+                                 else (args[2], args[3])),
+                               **({} if mode == MM.TRILINEAR
+                                  else dict(max_anisotropy=args[4])))
+        elif fname in ("fbm", "turbulence"):
+            work = TW.k18_work(args[1], args[2], args[4])
+        else:
+            work = TW.k19_work(args[0], mode, args[1], args[2], args[3],
+                               args[4])
+        b = bound(work["moved"], work["ops"])
+        results[row] = dict(max_abs_err=worst, ms=ms, plain_ms=pms, **b,
+                            **counts[fname])
+        log(f"[20] {name} {fname}: {len(calls)} calls, {lanes} lanes, "
+            f"{n_flip} flipped lanes held at the other choice, max abs err "
+            f"{worst:.3g} on the rest; first call ({args[1].shape[0]} lanes, "
+            f"{work}): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it")
+
+
+def texture_scenes(dev, card, results, rays):
+    """Phase 20: tools/texture_work.py's three scenes at RES, SAMPLES
+    samples, depth 7, each parsed and rendered counted (its kernel of
+    TEXTURE_NEEDS launched, no other of the three), camera rays/s beside
+    testball-matte's (phase 16), the 128^2 crop at 1 spp against the
+    all-plain path, one full-width step (tile 2) recorded and its K17, K18
+    or K19 calls checked, timed and bounded (check_texture_calls)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools import texture_work as TW
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TW.TEXTURE_SCENES:
+            need, rows = TEXTURE_NEEDS[name]
+            text = TW.scene_text(name, res=RES[0], spp=SAMPLES, bsdf_dir=tmp)
+            bundle, _ = parse_counted(f"[20] {name} at {RES[0]}^2", text=text,
+                                      dev=dev)
+            renderer, ctx = bundle.renderer(LANES), bundle.context()
+            renderer.render_state(ctx, sample_stop=1)
+            with TW.count_calls({}) as modes:
+                launches, _, _, rays[name] = render_counted(
+                    f"[20] {name}", renderer, bundle.film, ctx, SAMPLES,
+                    card, depth=bundle.integrator.max_depth, shading=(need,))
+            others = [k for k in K.SHADING_KERNELS
+                      if (launches[k] > 0) != (k == need)]
+            if others:
+                raise AssertionError(f"[20] {name}: shading kernels launched "
+                                     f"or missing against {need}: {launches}")
+            log(f"[20] camera rays/s on {card}: {name} {rays[name]:.1f}; "
+                f"testball-matte (phase 16) {rays['matte']:.1f}")
+            crop_film = Film(full_resolution=RES, crop_window=CROP,
+                             filter=bundle.film.filter)
+            compare_crop(f"[20] {name}", Renderer(
+                bundle.integrator.li, bundle.camera, crop_film,
+                bundle.sampler, RenderConfig(max_lanes=LANES), device=dev),
+                crop_film, ctx)
+            tile = renderer.tiles[2]
+            with TW.count_calls({}) as step_modes:
+                per_step = step_launches(renderer, ctx, tile)
+            log(f"[20] launches in one full-width {name} step (tile 2): "
+                f"{per_step}; {need} by mode: {step_modes} a step, {modes} "
+                f"in the render")
+            # each call on a lane launches the kernel once, in its mode
+            if sum(modes.values()) != launches[need] or \
+                    sum(step_modes.values()) != per_step[need]:
+                raise AssertionError(f"[20] {name}: {need}'s launches by "
+                                     "mode do not add up to its count")
+            cap = TW.capture_texture_step(renderer, ctx, tile)
+            counted_in = f"{name} render at {RES[0]}^2, {SAMPLES} samples"
+            counts = {f: dict(launches=modes.get(f, 0),
+                              launches_per_step=step_modes.get(f, 0),
+                              counted_in=counted_in) for f in cap}
+            check_texture_calls(name, cap, results, counts)
+            missing = [r for r in rows if r not in results]
+            if missing:
+                raise AssertionError(f"[20] {name}: no call for {missing}")
 
 
 def run(dev, card):
-    """Phases 3 to 20 on device ``dev``."""
+    """Phases 3 to 21 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -2832,6 +3032,9 @@ def run(dev, card):
         scene_cli(name, 19, sum(LIGHT_NEEDS[name], ()))
     light_goldens(dev, card)
     bathroom_full(dev, card, results, rays)
+
+    # 20: textures, bump maps and the Fourier BSDF
+    texture_scenes(dev, card, results, rays)
 
     kernels = []
     for key, (name, case) in ROWS.items():

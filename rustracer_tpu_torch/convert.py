@@ -20,8 +20,8 @@ from .scene.lightdistrib import SpatialLightGrid
 from .scene.lights import LIGHT_AREA, LightTables
 from .scene import materials as M
 from .scene.tables import QUADRIC_KEYS, GeometryTables
-from .scene.textures import (CheckerboardTexture, ConstantTexture,
-                             ImageTexture, UVMapping2D)
+from .ops.fourier import FourierTableSet
+from .scene import textures as T
 
 
 def _t(x, dtype, device):
@@ -146,29 +146,61 @@ def textures_from_jax(textures, device="cuda",
     for key in ("atlas_meta", "atlas_levels"):
         if key in textures:
             out[key] = _t(textures[key], torch.int32, device)
+    if textures.get("fourier") is not None:
+        out["fourier"] = fourier_from_jax(textures["fourier"], device)
     return out
 
 
-def _uv_mapping(m):
-    if type(m).__name__ != "UVMapping2D":
-        raise NotImplementedError(f"mapping {type(m).__name__} is not ported")
-    return UVMapping2D(m.su, m.sv, m.du, m.dv)
+def fourier_from_jax(ts, device="cuda"):
+    """JAX FourierTableSet -> port's (the same tables; m_pad from its
+    k_pad)."""
+    return FourierTableSet(
+        *(np.array(getattr(ts, k)) for k in FourierTableSet._fields[:-1]),
+        m_pad=int(np.asarray(ts.k_pad).shape[-1])).to(device)
+
+
+def _mapping(m):
+    kind = type(m).__name__
+    if kind == "UVMapping2D":
+        return T.UVMapping2D(m.su, m.sv, m.du, m.dv)
+    if kind == "PlanarMapping2D":
+        return T.PlanarMapping2D(m.vs, m.vt, m.ds, m.dt)
+    if kind == "IdentityMapping3D":
+        return T.IdentityMapping3D(m.w2t)
+    raise NotImplementedError(f"mapping {kind} is not ported")
 
 
 def _texture_from_jax(tex):
+    """The port's texture for the JAX one ``tex`` (every class; the
+    attributes of both packages are named alike)."""
     kind = type(tex).__name__
     if kind == "ConstantTexture":
-        return ConstantTexture(tex.key)
+        return T.ConstantTexture(tex.key, tex.is_spectrum)
+    if kind in ("ScaleTexture", "MixTexture"):
+        subs = [_texture_from_jax(tex.tex1), _texture_from_jax(tex.tex2)]
+        if kind == "MixTexture":
+            subs.append(_texture_from_jax(tex.amount))
+        return getattr(T, kind)(*subs)
+    if kind == "UVTexture":
+        return T.UVTexture(_mapping(tex.mapping))
     if kind == "CheckerboardTexture":
-        return CheckerboardTexture(_texture_from_jax(tex.tex1),
-                                   _texture_from_jax(tex.tex2),
-                                   _uv_mapping(tex.mapping), aa=tex.aa,
-                                   is_spectrum=tex.is_spectrum)
+        return T.CheckerboardTexture(_texture_from_jax(tex.tex1),
+                                     _texture_from_jax(tex.tex2),
+                                     _mapping(tex.mapping), aa=tex.aa,
+                                     is_spectrum=tex.is_spectrum)
+    if kind in ("FbmTexture", "WrinkledTexture"):
+        return getattr(T, kind)(tex.octaves, tex.roughness,
+                                _mapping(tex.mapping), tex.is_spectrum)
+    if kind == "WindyTexture":
+        return T.WindyTexture(_mapping(tex.mapping), tex.is_spectrum)
+    if kind == "MarbleTexture":
+        return T.MarbleTexture(tex.octaves, tex.roughness, tex.scale,
+                               tex.variation, _mapping(tex.mapping))
     if kind == "ImageTexture":
-        return ImageTexture(tex.image_id, _uv_mapping(tex.mapping),
-                            trilinear=tex.trilinear, max_aniso=tex.max_aniso,
-                            wrap=tex.wrap, scale=tex.scale,
-                            is_spectrum=tex.is_spectrum)
+        return T.ImageTexture(tex.image_id, _mapping(tex.mapping),
+                              trilinear=tex.trilinear,
+                              max_aniso=tex.max_aniso, wrap=tex.wrap,
+                              scale=tex.scale, is_spectrum=tex.is_spectrum)
     raise NotImplementedError(f"texture {kind} is not ported")
 
 
@@ -208,13 +240,14 @@ def _material_from_jax(m, textures, memo):
     if id(m) in memo:
         return memo[id(m)]
     kind = type(m).__name__
-    if m.bump_tex is not None:
-        raise NotImplementedError(f"material {kind} with a bump map is not "
-                                  "ported")
+    bump = _opt_texture(m.bump_tex)
     if kind == "MatteMaterial":
         sigma = None if m.sigma is None or _zero_sigma(m.sigma, textures) \
             else _texture_from_jax(m.sigma)
-        out = M.MatteMaterial(kd=_texture_from_jax(m.kd), sigma=sigma)
+        out = M.MatteMaterial(kd=_texture_from_jax(m.kd), sigma=sigma,
+                              bump=bump)
+    elif kind == "FourierMaterial":
+        out = M.FourierMaterial(m.table_id, m.eta, bump=bump)
     elif kind == "MixMaterial":
         out = M.MixMaterial(_material_from_jax(m.m1, textures, memo),
                             _material_from_jax(m.m2, textures, memo),
@@ -225,7 +258,7 @@ def _material_from_jax(m, textures, memo):
             kw["thin"] = m.thin
         elif kind != "MirrorMaterial":
             kw["remap_roughness"] = m.remap
-        out = getattr(M, kind)(**kw)
+        out = getattr(M, kind)(**kw, bump=bump)
     else:
         raise NotImplementedError(f"material {kind} is not ported")
     memo[id(m)] = out
@@ -233,10 +266,8 @@ def _material_from_jax(m, textures, memo):
 
 
 def material_set_from_jax(ms, textures=None) -> M.MaterialSet:
-    """JAX MaterialSet of matte (with sigma), plastic, mirror, glass,
-    metal, substrate, translucent, uber, Disney and mix materials over
-    constant, checkerboard or UV-mapped image textures -> port's; raises on
-    anything else (and on a bump map). A mix's materials are the set's own
+    """JAX MaterialSet (every material class, over every texture class,
+    with their bump maps) -> port's. A mix's materials are the set's own
     where the set holds them. A parsed scene's mattes carry a sigma
     texture: with the JAX ``textures`` dict given, a sigma that is the
     constant 0 is the Lambertian lobe."""

@@ -26,7 +26,10 @@ __device__ __forceinline__ Level level_of(const int* meta, int lmax, int img, in
     return {__ldg(m), __ldg(m + 1), __ldg(m + 2)};
 }
 
-// one wrapped texel of the (T, 3) atlas (_texel_at)
+// one wrapped texel of the atlas (_texel_at): rows of STRIDE floats whose
+// first three are the texel, 3 for the (T, 3) layout, 12 for the quad rows
+// (K17 reads single texels of either)
+template <int STRIDE = 3>
 __device__ __forceinline__ Tex texel_at(const float* texels, Level lv, int wrap, int s_i, int t_i) {
     int s_f, t_f;
     if (wrap == 0) {  // WRAP_REPEAT
@@ -38,12 +41,13 @@ __device__ __forceinline__ Tex texel_at(const float* texels, Level lv, int wrap,
     }
     bool inside = s_i >= 0 && s_i < lv.w && t_i >= 0 && t_i < lv.h;
     if (wrap == 1 && !inside) return {0.0f, 0.0f, 0.0f};  // WRAP_BLACK
-    const float* p = texels + 3 * (long long)(lv.off + t_f * lv.w + s_f);
+    const float* p = texels + STRIDE * (long long)(lv.off + t_f * lv.w + s_f);
     return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
-// bilinear filtering of one level at st (_bilerp_at / _bilerp_at_quad)
-template <bool QUAD>
+// bilinear filtering of one level at st (_bilerp_at / _bilerp_at_quad);
+// without QUAD, the four texels of rows of STRIDE floats (texel_at)
+template <bool QUAD, int STRIDE = 3>
 __device__ __forceinline__ Tex bilerp(const float* texels, Level lv, int wrap, float ss, float tt) {
     float s = ss * (float)lv.w - 0.5f;
     float t = tt * (float)lv.h - 0.5f;
@@ -65,10 +69,10 @@ __device__ __forceinline__ Tex bilerp(const float* texels, Level lv, int wrap, f
         v01 = {b.z, b.w, c.x};
         v11 = {c.y, c.z, c.w};
     } else {
-        v00 = texel_at(texels, lv, wrap, s0, t0);
-        v10 = texel_at(texels, lv, wrap, s0 + 1, t0);
-        v01 = texel_at(texels, lv, wrap, s0, t0 + 1);
-        v11 = texel_at(texels, lv, wrap, s0 + 1, t0 + 1);
+        v00 = texel_at<STRIDE>(texels, lv, wrap, s0, t0);
+        v10 = texel_at<STRIDE>(texels, lv, wrap, s0 + 1, t0);
+        v01 = texel_at<STRIDE>(texels, lv, wrap, s0, t0 + 1);
+        v11 = texel_at<STRIDE>(texels, lv, wrap, s0 + 1, t0 + 1);
     }
     return {w00 * v00.r + w10 * v10.r + w01 * v01.r + w11 * v11.r,
             w00 * v00.g + w10 * v10.g + w01 * v01.g + w11 * v11.g,

@@ -126,6 +126,29 @@ __device__ __forceinline__ TriHit tri_intersect(V3 o, V3 d, float t_max, V3 p0, 
     return h;
 }
 
+// the word hash of core/rng.py hash_u32: a murmur3-style finalizer over the
+// words in turn (K3's sampler, K18's noise lattice)
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+__device__ __forceinline__ uint32_t hash_step(uint32_t h, uint32_t w) {
+    return mix32(h ^ w) + 0x7F4A7C15u;
+}
+
+__device__ __forceinline__ uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
+    return mix32(hash_step(hash_step(hash_step(0x9E3779B9u, a), b), c));
+}
+
+__device__ __forceinline__ uint32_t hash4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+    return mix32(hash_step(hash_step(hash_step(hash_step(0x9E3779B9u, a), b), c), d));
+}
+
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
 
 }  // namespace rt

@@ -3,7 +3,8 @@
 // Replaces rustracer_tpu/render/sampler.py get_1d (:34) and get_2d (:40)
 // with the hash of rustracer_tpu/core/rng.py and the van der Corput /
 // Sobol' pair of rustracer_tpu/core/lowdiscrepancy.py. Bit-exact with the
-// plain versions in rustracer_tpu_torch/render/sampler.py.
+// plain versions in rustracer_tpu_torch/render/sampler.py. The word hash
+// (rt::hash4) is common.cuh's, shared with K18 (noise.cu).
 //
 // Bound: memory traffic (two int64 loads and one or two float stores per
 // lane against a few dozen integer operations); the design keeps the whole
@@ -19,24 +20,6 @@ __constant__ uint32_t kPascalCols[32] = {
     0xa000a000u, 0xf000f000u, 0x88008800u, 0xcc00cc00u, 0xaa00aa00u, 0xff00ff00u,
     0x80808080u, 0xc0c0c0c0u, 0xa0a0a0a0u, 0xf0f0f0f0u, 0x88888888u, 0xccccccccu,
     0xaaaaaaaau, 0xffffffffu};
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return h;
-}
-
-__device__ __forceinline__ uint32_t hash4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-    uint32_t h = 0x9E3779B9u;
-    h = mix32(h ^ a) + 0x7F4A7C15u;
-    h = mix32(h ^ b) + 0x7F4A7C15u;
-    h = mix32(h ^ c) + 0x7F4A7C15u;
-    h = mix32(h ^ d) + 0x7F4A7C15u;
-    return mix32(h);
-}
 
 // uint32 -> float32 rounding to nearest even (astype(float32)), * 2^-32,
 // clamped below 1
@@ -61,10 +44,10 @@ __global__ void sample_kernel(const long long* __restrict__ pixel,
     uint32_t p = static_cast<uint32_t>(pixel[i]);
     uint32_t s = static_cast<uint32_t>(sample[i]);
     if (!TWO_D) {
-        out[i] = bits_to_float(__brev(s) ^ hash4(seed, p, dim, 0x1Du));
+        out[i] = bits_to_float(__brev(s) ^ rt::hash4(seed, p, dim, 0x1Du));
     } else {
-        out[2 * i] = bits_to_float(__brev(s) ^ hash4(seed, p, dim, 0x2D0u));
-        out[2 * i + 1] = bits_to_float(sobol_bits(s) ^ hash4(seed, p, dim, 0x2D1u));
+        out[2 * i] = bits_to_float(__brev(s) ^ rt::hash4(seed, p, dim, 0x2D0u));
+        out[2 * i + 1] = bits_to_float(sobol_bits(s) ^ rt::hash4(seed, p, dim, 0x2D1u));
     }
 }
 

@@ -36,11 +36,13 @@ from ._build import CSRC, compile_shared
 CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
               "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu",
-              "quadrics.cu", "lights.cu")
+              "quadrics.cu", "lights.cu", "mipmap.cu", "noise.cu",
+              "fourier.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_D = ctypes.c_double
 # C entry point -> argument types (the trailing stream argument included)
 SIGNATURES = {
     "sample_1d": [_P, _P, _I, _U, _U, _P, _P],
@@ -95,6 +97,16 @@ SIGNATURES = {
     # d, mask, prev_pdf, prev_spec, pmfs, pmf_const, mis, n, n_inf, scale,
     # flat table, descriptors, w2l, out, stream
     "infinite_escape": [_P] * 5 + [_F, _I, _I, _I] + [_P] * 5 + [_P],
+    # texels, stride, meta, n_levels, wrap, mode, st, dst0, dst1, width,
+    # max_aniso, n, the 8 tap weights, their sum, exp(-2), out, stream
+    "mipmap_lookup": [_P, _I, _P, _I, _I, _I] + [_P] * 4 + [_F, _I]
+    + [_F] * 10 + [_P, _P],
+    # p, dpdx, dpdy, n, omega, max_octaves, turbulence, out, stream
+    "noise_fbm": [_P, _P, _P, _I, _D, _I, _I, _P, _P],
+    # mode, the table set's 8 tables, n_mu, nc, m_pad, tid, wo, wi or u,
+    # mask, n, f, pdf, wi out, stream
+    "fourier_bsdf": [_I] + [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I]
+    + [_P] * 3 + [_P],
 }
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
@@ -116,10 +128,15 @@ QUADRIC_KERNELS = ("quadric_closest", "quadric_any")
 # radiance (K15, K16, a scene with an infinite light)
 LIGHT_KERNELS = ("spatial_grid_contrib_lights", "infinite_sample",
                  "infinite_escape")
+# the kernels of shading beyond the dragon's: the per-texture mipmap
+# lookups (K17: image textures outside the atlas, a bump map's moved
+# lookups), the noise textures (K18) and the Fourier BSDF (K19), launched
+# only for a scene that holds them
+SHADING_KERNELS = ("mipmap_lookup", "noise_fbm", "fourier_bsdf")
 # the kernels of the textured dragon's forward render
 FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
                         BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS
-                        + LIGHT_KERNELS)
+                        + LIGHT_KERNELS + SHADING_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()

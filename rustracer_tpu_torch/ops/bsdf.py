@@ -1,20 +1,21 @@
 """Lobe-stack BSDF evaluation (port of rustracer_tpu/ops/bsdf.py: the
 Lambertian reflection and transmission, Oren-Nayar, microfacet reflection
-and transmission, FresnelBlend and the five Disney lobes, and the three
-specular lobes; every lobe type but FOURIER).
+and transmission, FresnelBlend and the five Disney lobes, the three
+specular lobes and the Fourier BSDF: every lobe type of the reference).
 
 Every lane carries up to M lobes as (type, params[16], active) rows; f and
 pdf sum or average the active matching lobes over the lobe types statically
 present in the scene (``types_present``, a tuple), and sampling picks the
-k-th matching lobe. A type the port does not evaluate yet raises
-NotImplementedError naming it; it is never treated as black.
+k-th matching lobe. A FOURIER lobe reads the scene's table set
+(``LobeStack.fourier``, ops/fourier.py; its rows only, hand kernel K19);
+one without a table set raises, where the reference would leave it black.
 
 Param slots (the reference's layout):
   [0:3] primary color, [3:6] secondary color (T, conductor eta),
   [6:9] tertiary color (conductor k), [9] eta, [10] alpha_x, [11] alpha_y,
   [12] microfacet distribution code, [13] fresnel code,
   [14] Oren-Nayar A, Disney metallic or roughness,
-  [15] Oren-Nayar B, the clearcoat's GTR1 alpha.
+  [15] Oren-Nayar B, the clearcoat's GTR1 alpha, the Fourier table id.
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ DIFFUSE_LIKE = (LAMBERTIAN_REFL, OREN_NAYAR, DISNEY_DIFFUSE, DISNEY_RETRO,
                 DISNEY_SHEEN, DISNEY_FAKE_SS)
 DISNEY_TYPES = (DISNEY_DIFFUSE, DISNEY_RETRO, DISNEY_SHEEN, DISNEY_CLEARCOAT,
                 DISNEY_FAKE_SS)
-PORTED_TYPES = frozenset(range(N_LOBE_TYPES)) - {FOURIER}
+PORTED_TYPES = frozenset(range(N_LOBE_TYPES))
 # FresnelBlend's diffuse constant, as the reference rounds it
 _FB_DIFFUSE = float(28.0 / (23.0 * PI))
 
@@ -85,17 +86,35 @@ class LobeStack(NamedTuple):
     params: torch.Tensor   # (B, M, 16) float32
     active: torch.Tensor   # (B, M) bool
     eta: torch.Tensor      # (B,) float32: the lane's relative IOR
+    fourier: object = None  # the scene's FourierTableSet (FOURIER lobes)
 
 
 def check_types(types_present: Sequence[int]):
-    """Raise NotImplementedError for a lobe type the port does not
-    evaluate yet."""
+    """Raise for a lobe type the port does not evaluate: every type of
+    the reference is ported, so only an unknown code raises."""
     for T in types_present:
         if T not in PORTED_TYPES:
-            name = "FOURIER" if T == FOURIER else T
-            raise NotImplementedError(
-                f"the lobe type {name} is not ported yet "
-                "(ROADMAP.md, section A, item 13)")
+            raise NotImplementedError(f"the lobe type {T} is not a lobe type "
+                                      "of the reference")
+
+
+def _table_set(fourier):
+    if fourier is None:
+        raise ValueError("a FOURIER lobe without a Fourier table set: a "
+                         "parsed scene's LobeStack carries its tables")
+    return fourier
+
+
+def _fourier_lanes(fn, ltype, params, wo, wi, fourier):
+    """``fn`` (fourier_f or fourier_pdf) on the FOURIER rows of (ltype
+    (...), params (..., 16)) at wo, wi broadcast to them, flattened to
+    lanes; zeros elsewhere."""
+    batch = _batch(ltype, wo)
+    mask = (ltype == FOURIER).expand(batch).reshape(-1)
+    tid = params[..., 15].expand(batch).reshape(-1)
+    out = fn(_table_set(fourier), tid, wo.expand(batch + (3,)).reshape(-1, 3),
+             wi.expand(batch + (3,)).reshape(-1, 3), mask)
+    return out.view(batch + out.shape[1:])
 
 
 _FLAG_TABLES = {}
@@ -323,26 +342,38 @@ def _batch(ltype, wo):
     return torch.broadcast_shapes(ltype.shape, wo.shape[:-1])
 
 
-def eval_f(ltype, params, wo, wi, types_present: Sequence[int]):
+def eval_f(ltype, params, wo, wi, types_present: Sequence[int],
+           fourier=None):
     """Masked dispatch of _f_one_type over the present types (the specular
-    ones have f 0)."""
+    ones have f 0); FOURIER through the table set ``fourier``."""
     check_types(types_present)
     disney = _has_disney(types_present)
     out = wo.new_zeros(_batch(ltype, wo) + (3,))
     for T in types_present:
-        if T not in SPECULAR_TYPES:
-            out = torch.where((ltype == T)[..., None],
-                              _f_one_type(T, params, wo, wi, disney), out)
+        if T == FOURIER:
+            from .fourier import fourier_f
+            val = _fourier_lanes(fourier_f, ltype, params, wo, wi, fourier)
+        elif T in SPECULAR_TYPES:
+            continue
+        else:
+            val = _f_one_type(T, params, wo, wi, disney)
+        out = torch.where((ltype == T)[..., None], val, out)
     return out
 
 
-def eval_pdf(ltype, params, wo, wi, types_present: Sequence[int]):
+def eval_pdf(ltype, params, wo, wi, types_present: Sequence[int],
+             fourier=None):
     check_types(types_present)
     out = wo.new_zeros(_batch(ltype, wo))
     for T in types_present:
-        if T not in SPECULAR_TYPES:
-            out = torch.where(ltype == T, _pdf_one_type(T, params, wo, wi),
-                              out)
+        if T == FOURIER:
+            from .fourier import fourier_pdf
+            val = _fourier_lanes(fourier_pdf, ltype, params, wo, wi, fourier)
+        elif T in SPECULAR_TYPES:
+            continue
+        else:
+            val = _pdf_one_type(T, params, wo, wi)
+        out = torch.where(ltype == T, val, out)
     return out
 
 
@@ -364,7 +395,8 @@ def _mirror(wo):
     return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], -1)
 
 
-def sample_lobe(ltype, params, wo, u, types_present: Sequence[int]):
+def sample_lobe(ltype, params, wo, u, types_present: Sequence[int],
+                fourier=None):
     """wi from the chosen lobe (ltype (B,), params (B, 16)) ->
     (wi, specular f, specular pdf, is specular). A non-specular lobe's f
     and pdf are summed over all lobes afterwards."""
@@ -410,6 +442,12 @@ def sample_lobe(ltype, params, wo, u, types_present: Sequence[int]):
         w, ok = refract(wo, wh_f, e)
         w = torch.where(ok[..., None], w, -wo)  # TIR: degenerate, f 0
         wi = torch.where((ltype == MICROFACET_TRANS)[..., None], w, wi)
+    if FOURIER in types_present:
+        from .fourier import fourier_sample_f
+        m = ltype == FOURIER
+        w, _, _ = fourier_sample_f(_table_set(fourier), params[..., 15], wo,
+                                   u, m)
+        wi = torch.where(m[..., None], w, wi)
     if FRESNEL_BLEND in types_present:
         # u[0] picks the half: below 0.5 the cosine lobe, else the
         # microfacet one, each on u[0] stretched back to [0, 0.9999]
@@ -494,7 +532,7 @@ def bsdf_f(lobes: LobeStack, si, wo_w, wi_w, types_present, flags=ALL):
                           (lf & TRANSMISSION) != 0)
     m = lobes.active & ((lf & flags) == lf) & hemi_ok
     f = eval_f(lobes.type, lobes.params, wo[..., None, :], wi[..., None, :],
-               types_present)
+               types_present, lobes.fourier)
     f = torch.where(m[..., None], f, 0.0).sum(-2)
     return torch.where(ok_wo[..., None], f, 0.0)
 
@@ -506,7 +544,7 @@ def bsdf_pdf(lobes: LobeStack, si, wo_w, wi_w, types_present, flags=ALL):
     ok_wo = torch.abs(wo[..., 2]) > 1e-8
     m = lobes.active & _matches(lobes.type, flags)
     pdf = eval_pdf(lobes.type, lobes.params, wo[..., None, :],
-                   wi[..., None, :], types_present)
+                   wi[..., None, :], types_present, lobes.fourier)
     pdf = torch.where(m, pdf, 0.0)
     n = m.sum(-1, dtype=torch.int32)
     out = pdf.sum(-1) / torch.clamp(n.float(), min=1.0)
@@ -549,7 +587,8 @@ def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, types_present,
     if specular:
         u0 = torch.where(_is_specular(ct), u2[..., 0], u0)
     u = torch.stack([u0, u2[..., 1]], -1)
-    wi, spec_f, spec_pdf, is_spec = sample_lobe(ct, cp, wo, u, types_present)
+    wi, spec_f, spec_pdf, is_spec = sample_lobe(ct, cp, wo, u, types_present,
+                                                lobes.fourier)
     wi_w = local_to_world(si.ss, si.ts, si.ns, wi)
     # a non-specular lobe: f sums all lobes, pdf averages them
     f = bsdf_f(lobes, si, wo_w, wi_w, types_present, flags)

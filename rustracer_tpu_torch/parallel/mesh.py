@@ -7,7 +7,10 @@ The step renders one sample index over every pixel into the film, takes
 respect to the float leaves of ``ctx.textures`` (the constant kd vectors
 and every pyramid level; the int32 atlas metadata rides along) and applies
 SGD. The gradient runs through the hand kernels' autograd Functions: K4's
-backward K9, K5's K10, K8's K11 and K7 as its own transpose.
+backward K9, K5's K10, K8's K11 and K7 as its own transpose. A scene
+whose materials look an image up per texture (K17) or hold a Fourier BSDF
+(K19) is refused when the step is built: those kernels have no backward
+yet (ROADMAP.md, section B, item B11).
 """
 from __future__ import annotations
 
@@ -52,6 +55,25 @@ def float_leaves(tree):
     return leaves, rebuild
 
 
+def check_differentiable(li_fn):
+    """Raise NotImplementedError where the integrator of ``li_fn`` shades
+    through a kernel without a backward: a per-texture image lookup (K17)
+    or a Fourier BSDF (K19). The step is never run with such a gradient
+    dropped."""
+    from ..ops.bsdf import FOURIER
+    from ..scene.materials import K17_NO_GRAD
+    mat_set = getattr(getattr(li_fn, "__self__", None), "mat_set", None)
+    if mat_set is None:
+        return
+    if mat_set.per_texture_images():
+        raise NotImplementedError(f"this train step: {K17_NO_GRAD}")
+    if FOURIER in mat_set.types_present():
+        raise NotImplementedError(
+            "this train step: a gradient through the Fourier BSDF (hand "
+            "kernel K19, which has no backward yet) is not ported yet "
+            "(ROADMAP.md, section B, item B11)")
+
+
 def make_train_step(li_fn, camera, film, sampler, lr=0.1,
                     config: Optional[RenderConfig] = None, device="cuda"):
     """-> step(ctx, target, sample_lo=0) -> (new_ctx, loss (0-d tensor)):
@@ -59,6 +81,7 @@ def make_train_step(li_fn, camera, film, sampler, lr=0.1,
     ``sample_lo`` of every pixel, rendered by ``Renderer`` (``config``:
     its tiles) on ``device``. The new context carries new float leaves
     ``p - lr * grad``; a leaf the render does not reach keeps its value."""
+    check_differentiable(li_fn)
     renderer = Renderer(li_fn, camera, film, sampler, config, device=device)
 
     def step(ctx, target, sample_lo: int = 0):

@@ -7,24 +7,25 @@ directive the parser (scene/parser.py, the reference's copy) calls are the
 reference's. Factories append flat records that ``world_end`` freezes into
 the port's tables (scene/bundle.py).
 
-What renders: transforms and LookAt; ``Texture`` of class ``constant`` and
-``imagemap`` (uv mapping, served through the shared atlas) as float and
-spectrum, and the 2D ``checkerboard`` spectrum texture over constant
-textures; ``Material`` ``"matte"`` (Oren-Nayar where ``sigma`` is not 0),
-``"plastic"``, ``"mirror"``, ``"glass"`` (smooth and rough), ``"metal"``,
-``"substrate"``, ``"translucent"``, ``"uber"``, ``"disney"`` (thin too)
-and ``"mix"`` (over materials without an image texture);
-``Shape "trianglemesh"``,
-``"plymesh"``, ``"sphere"``, ``"cylinder"`` and ``"disk"``;
-``LightSource`` ``"point"``, ``"distant"`` and ``"infinite"`` (a
-latitude-longitude map from ``mapname``, several such lights summed) and
-``AreaLightSource "diffuse"`` on triangle meshes and quadrics. Every other
-shape, material,
-texture, light, instancing and alpha raises NotImplementedError naming the
-feature and the ROADMAP.md item (section A) that ports it; nothing is
-substituted. The reference's own unimplemented shapes keep its error, and
-what it only warns about (an unknown material, texture class, light or
-camera) it still only warns about.
+What renders: transforms and LookAt; every ``Texture`` class of the
+reference (``constant``, ``scale``, ``mix``, ``imagemap``, ``fbm``,
+``wrinkled`` and ``windy`` as float and spectrum, ``uv``, ``checkerboard``
+and ``marble`` as spectrum) over the ``uv`` and ``planar`` 2D mappings and
+the 3D mapping of the transform where the texture is declared; every
+``Material`` of the reference (``"matte"`` with Oren-Nayar where
+``sigma`` is not 0, ``"plastic"``, ``"mirror"``, ``"glass"``, ``"metal"``,
+``"substrate"``, ``"translucent"``, ``"uber"``, ``"disney"``,
+``"fourier"`` from a ``bsdffile`` and ``"mix"``), each with its
+``bumpmap``; ``Shape "trianglemesh"``, ``"plymesh"``, ``"sphere"``,
+``"cylinder"`` and ``"disk"``; ``LightSource`` ``"point"``, ``"distant"``
+and ``"infinite"`` (a latitude-longitude map from ``mapname``, several
+such lights summed) and ``AreaLightSource "diffuse"`` on triangle meshes
+and quadrics. Instancing, alpha cutouts, medium interfaces (ROADMAP.md
+section A, item 15), the other integrators (item 16) and the ``random``
+sampler (item 17) raise NotImplementedError naming the feature and the
+item; nothing is substituted. The reference's own unimplemented shapes
+keep its error, and what it only warns about (an unknown material,
+texture class, light or camera) it still only warns about.
 """
 from __future__ import annotations
 
@@ -37,10 +38,10 @@ import numpy as np
 
 from ..core.spectrum import metal_eta_k, srgb_decode_np
 from ..core.transform import Transform
-from ..ops.mipmap import WRAP_REPEAT, build_pyramid
+from ..ops.fourier import make_table_set, read_bsdf_table
+from ..ops.mipmap import WRAP_BLACK, WRAP_CLAMP, WRAP_REPEAT, build_pyramid
 from ..utils import fileutil
 from ..utils.stats import time_phase
-from . import atlas as A
 from . import materials as M
 from . import textures as T
 from .lexer import tokenize, tokenize_file
@@ -53,7 +54,7 @@ log = logging.getLogger(__name__)
 STATE_UNINITIALIZED, STATE_OPTIONS, STATE_WORLD = 0, 1, 2
 
 # ROADMAP.md section A items that port what this module refuses
-SHADING, GEOMETRY, INTEGRATORS, RUN_SURFACE = 13, 15, 16, 17
+GEOMETRY, INTEGRATORS, RUN_SURFACE = 15, 16, 17
 
 
 class ApiError(Exception):
@@ -66,27 +67,30 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 
 class TextureRegistry:
-    """Constants and image pyramids of the scene's textures, as numpy
-    (the keys and their order are the reference's)."""
+    """Constants, image pyramids and Fourier tables of the scene's textures
+    and materials, as numpy (the keys and their order are the
+    reference's)."""
 
     def __init__(self):
         self.const: Dict[str, np.ndarray] = {}
         self.images: List[list] = []
+        self.fourier_tables: List[dict] = []
         self._n = 0
         self._image_cache: Dict[tuple, int] = {}
+        self._fourier_cache: Dict[str, int] = {}
 
     def constant_spectrum(self, value) -> T.ConstantTexture:
         key = f"c{self._n}"
         self._n += 1
         self.const[key] = np.broadcast_to(np.asarray(value, np.float32),
                                           (3,)).copy()
-        return T.ConstantTexture(key)
+        return T.ConstantTexture(key, is_spectrum=True)
 
     def constant_float(self, value) -> T.ConstantTexture:
         key = f"c{self._n}"
         self._n += 1
         self.const[key] = np.float32(value)
-        return T.ConstantTexture(key)
+        return T.ConstantTexture(key, is_spectrum=False)
 
     def image(self, filename, gamma=None) -> int:
         from ..render.imageio import read_image
@@ -101,9 +105,21 @@ class TextureRegistry:
         self._image_cache[key] = idx
         return idx
 
+    def fourier_table(self, filename) -> int:
+        """The id of the .bsdf table ``filename``, read once."""
+        if filename in self._fourier_cache:
+            return self._fourier_cache[filename]
+        self.fourier_tables.append(read_bsdf_table(filename))
+        self._fourier_cache[filename] = len(self.fourier_tables) - 1
+        return len(self.fourier_tables) - 1
+
     def tables(self):
-        """{"const", "images"} of numpy arrays."""
-        return {"const": dict(self.const), "images": list(self.images)}
+        """{"const", "images"[, "fourier"]} of numpy arrays (the Fourier
+        tables stacked into one set)."""
+        out = {"const": dict(self.const), "images": list(self.images)}
+        if self.fourier_tables:
+            out["fourier"] = make_table_set(self.fourier_tables)
+        return out
 
 
 @dataclasses.dataclass
@@ -324,11 +340,11 @@ class RealApi:
         self._verify_world("texture")
         tp = self._tp(params)
         if ty == "float":
-            tex = self._make_texture(cls, tp, is_spectrum=False)
+            tex = self._make_float_texture(cls, tp)
             if tex is not None:
                 self.graphics.float_textures[name] = tex
         elif ty in ("spectrum", "color"):
-            tex = self._make_texture(cls, tp, is_spectrum=True)
+            tex = self._make_spectrum_texture(cls, tp)
             if tex is not None:
                 self.graphics.spectrum_textures[name] = tex
         else:
@@ -521,27 +537,32 @@ class RealApi:
         and the order in which they register textures."""
         if name in ("", "none"):
             return -1
-        if name == "fourier":
-            raise not_ported(f"Material {name!r}", SHADING)
         if name not in ("matte", "plastic", "mirror", "glass", "metal",
-                        "substrate", "translucent", "uber", "disney", "mix"):
+                        "substrate", "translucent", "uber", "disney", "mix",
+                        "fourier"):
             log.warning("material %r unknown; using matte", name)
             return self._build_material("matte", ParamSet())
         tp = self._tp(params)
+
+        def bump():
+            return tp.get_float_texture_or_none("bumpmap")
         if name == "matte":
             kd = tp.get_spectrum_texture("Kd", (0.5, 0.5, 0.5))
             sigma = tp.get_float_texture("sigma", 0.0)
             # a constant 0 is the Lambertian lobe the reference picks for it
             m = M.MatteMaterial(kd=kd,
-                                sigma=None if self._is_zero(sigma) else sigma)
+                                sigma=None if self._is_zero(sigma) else sigma,
+                                bump=bump())
         elif name == "plastic":
             m = M.PlasticMaterial(
                 kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
                 ks=tp.get_spectrum_texture("Ks", (0.25,) * 3),
                 roughness=tp.get_float_texture("roughness", 0.1),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "mirror":
-            m = M.MirrorMaterial(kr=tp.get_spectrum_texture("Kr", (0.9,) * 3))
+            m = M.MirrorMaterial(kr=tp.get_spectrum_texture("Kr", (0.9,) * 3),
+                                 bump=bump())
         elif name == "glass":
             ur = tp.get_float_texture_or_none("uroughness")
             vr = tp.get_float_texture_or_none("vroughness")
@@ -554,7 +575,8 @@ class RealApi:
                 kr=kr, kt=kt, index=eta,
                 urough=ur or self.textures.constant_float(0.0),
                 vrough=vr or self.textures.constant_float(0.0),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "metal":
             cu_eta, cu_k = metal_eta_k("Cu")
             m = M.MetalMaterial(
@@ -563,14 +585,16 @@ class RealApi:
                 roughness=tp.get_float_texture("roughness", 0.01),
                 urough=tp.get_float_texture_or_none("uroughness"),
                 vrough=tp.get_float_texture_or_none("vroughness"),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "substrate":
             m = M.SubstrateMaterial(
                 kd=tp.get_spectrum_texture("Kd", (0.5,) * 3),
                 ks=tp.get_spectrum_texture("Ks", (0.5,) * 3),
                 urough=tp.get_float_texture("uroughness", 0.1),
                 vrough=tp.get_float_texture("vroughness", 0.1),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "translucent":
             m = M.TranslucentMaterial(
                 kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
@@ -578,7 +602,8 @@ class RealApi:
                 roughness=tp.get_float_texture("roughness", 0.1),
                 reflect=tp.get_spectrum_texture("reflect", (0.5,) * 3),
                 transmit=tp.get_spectrum_texture("transmit", (0.5,) * 3),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "uber":
             m = M.UberMaterial(
                 kd=tp.get_spectrum_texture("Kd", (0.25,) * 3),
@@ -590,7 +615,8 @@ class RealApi:
                 vrough=tp.get_float_texture_or_none("vroughness"),
                 opacity=tp.get_spectrum_texture("opacity", (1.0,) * 3),
                 eta=tp.get_float_texture("eta", 1.5),
-                remap_roughness=tp.find_bool("remaproughness", True))
+                remap_roughness=tp.find_bool("remaproughness", True),
+                bump=bump())
         elif name == "disney":
             m = M.DisneyMaterial(
                 color=tp.get_spectrum_texture("color", (0.5,) * 3),
@@ -606,7 +632,17 @@ class RealApi:
                 spec_trans=tp.get_float_texture("spectrans", 0.0),
                 flatness=tp.get_float_texture("flatness", 0.0),
                 diff_trans=tp.get_float_texture("difftrans", 1.0),
-                thin=tp.find_bool("thin", False))
+                thin=tp.find_bool("thin", False),
+                bump=bump())
+        elif name == "fourier":
+            fname = params.find_one_filename("bsdffile", "")
+            if not fname:
+                log.error("fourier material missing bsdffile; using matte")
+                return self._build_material("matte", ParamSet())
+            tid = self.textures.fourier_table(fname)
+            m = M.FourierMaterial(
+                table_id=tid, eta=float(self.textures.fourier_tables[tid]["eta"]),
+                bump=bump())
         else:
             # the two named materials, shared with the set (the reference
             # logs and takes a matte where either name is missing)
@@ -620,65 +656,103 @@ class RealApi:
             m1, m2 = (self.material_set.materials[i] for i in ids)
             m = M.MixMaterial(m1, m2,
                               tp.get_spectrum_texture("amount", (0.5,) * 3))
-        if tp.get_float_texture_or_none("bumpmap") is not None:
-            raise not_ported(f"Material {name!r} with a bumpmap", SHADING)
         return self.material_set.add(m)
 
-    # --- textures ---
+    # --- textures (the reference's factories, api.py:716-829) ---
     def _mapping_2d(self, tp: TextureParams):
         mtype = tp.find_string("mapping", "uv")
+        if mtype == "uv":
+            return T.UVMapping2D(tp.find_float("uscale", 1.0),
+                                 tp.find_float("vscale", 1.0),
+                                 tp.find_float("udelta", 0.0),
+                                 tp.find_float("vdelta", 0.0))
         if mtype == "planar":
-            raise not_ported("the planar texture mapping", SHADING)
-        if mtype != "uv":
-            log.warning("2D mapping %r unsupported; using uv", mtype)
-            return T.UVMapping2D()
-        return T.UVMapping2D(tp.find_float("uscale", 1.0),
-                             tp.find_float("vscale", 1.0),
-                             tp.find_float("udelta", 0.0),
-                             tp.find_float("vdelta", 0.0))
+            return T.PlanarMapping2D(
+                tuple(tp.geom.find_one_vector3f("v1", (1, 0, 0))),
+                tuple(tp.geom.find_one_vector3f("v2", (0, 1, 0))),
+                tp.find_float("udelta", 0.0), tp.find_float("vdelta", 0.0))
+        log.warning("2D mapping %r unsupported; using uv", mtype)
+        return T.UVMapping2D()
 
-    def _make_texture(self, cls, tp: TextureParams, is_spectrum: bool):
+    def _mapping_3d(self):
+        return T.IdentityMapping3D(self.cur_transform.m_inv)
+
+    def _image(self, tp: TextureParams, is_spectrum: bool):
+        fname = tp.find_filename("filename", "")
+        gamma = tp.find_bool("gamma", fname.lower().endswith((".png", ".tga")))
+        img_id = self.textures.image(fname, gamma)
+        return T.ImageTexture(
+            img_id, self._mapping_2d(tp),
+            trilinear=tp.find_bool("trilinear", False),
+            max_aniso=tp.find_float("maxanisotropy", 8.0),
+            wrap={"repeat": WRAP_REPEAT, "black": WRAP_BLACK,
+                  "clamp": WRAP_CLAMP}.get(tp.find_string("wrap", "repeat"),
+                                           WRAP_REPEAT),
+            scale=tp.find_float("scale", 1.0), is_spectrum=is_spectrum)
+
+    def _make_float_texture(self, cls, tp: TextureParams):
         reg = self.textures
-        kind = "spectrum" if is_spectrum else "float"
         if cls == "constant":
-            if is_spectrum:
-                return reg.constant_spectrum(tp.find_spectrum("value",
-                                                              (1, 1, 1)))
             return reg.constant_float(tp.find_float("value", 1.0))
+        if cls == "scale":
+            return T.ScaleTexture(tp.get_float_texture("tex1", 1.0),
+                                  tp.get_float_texture("tex2", 1.0))
+        if cls == "mix":
+            return T.MixTexture(tp.get_float_texture("tex1", 0.0),
+                                tp.get_float_texture("tex2", 1.0),
+                                tp.get_float_texture("amount", 0.5))
         if cls == "imagemap":
-            fname = tp.find_filename("filename", "")
-            gamma = tp.find_bool("gamma",
-                                 fname.lower().endswith((".png", ".tga")))
-            mapping = self._mapping_2d(tp)
-            trilinear = tp.find_bool("trilinear", False)
-            max_aniso = tp.find_float("maxanisotropy", 8.0)
-            if trilinear or max_aniso != A.MAX_ANISOTROPY:
-                raise not_ported("imagemap textures with trilinear "
-                                 "filtering or a maxanisotropy other than "
-                                 f"{A.MAX_ANISOTROPY:g} (the per-texture "
-                                 "mipmap lookups)", SHADING)
-            img_id = reg.image(fname, gamma)
-            return T.ImageTexture(
-                img_id, mapping, trilinear=trilinear, max_aniso=max_aniso,
-                wrap={"repeat": WRAP_REPEAT, "black": 1, "clamp": 2}
-                .get(tp.find_string("wrap", "repeat"), WRAP_REPEAT),
-                scale=tp.find_float("scale", 1.0), is_spectrum=is_spectrum)
-        if is_spectrum and cls == "checkerboard":
+            return self._image(tp, False)
+        if cls in ("fbm", "wrinkled"):
+            kind = T.FbmTexture if cls == "fbm" else T.WrinkledTexture
+            return kind(tp.find_int("octaves", 8),
+                        tp.find_float("roughness", 0.5), self._mapping_3d(),
+                        is_spectrum=False)
+        if cls == "windy":
+            return T.WindyTexture(self._mapping_3d(), is_spectrum=False)
+        # bilerp / dots / ptex: unimplemented in the reference too
+        log.error("float texture %r unimplemented (reference "
+                  "api.rs:1201-1259)", cls)
+        return None
+
+    def _make_spectrum_texture(self, cls, tp: TextureParams):
+        reg = self.textures
+        if cls == "constant":
+            return reg.constant_spectrum(tp.find_spectrum("value", (1, 1, 1)))
+        if cls == "scale":
+            return T.ScaleTexture(tp.get_spectrum_texture("tex1", (1,) * 3),
+                                  tp.get_spectrum_texture("tex2", (1,) * 3))
+        if cls == "mix":
+            return T.MixTexture(tp.get_spectrum_texture("tex1", (0,) * 3),
+                                tp.get_spectrum_texture("tex2", (1,) * 3),
+                                tp.get_float_texture("amount", 0.5))
+        if cls == "uv":
+            return T.UVTexture(self._mapping_2d(tp))
+        if cls == "checkerboard":
             if tp.find_int("dimension", 2) != 2:
                 log.warning("3D checkerboard unsupported; using 2D")
             aa = tp.find_string("aamode", "closedform")
-            tex1 = tp.get_spectrum_texture("tex1", (1,) * 3)
-            tex2 = tp.get_spectrum_texture("tex2", (0,) * 3)
-            if not (tex1.is_constant and tex2.is_constant):
-                raise not_ported("a checkerboard of textures that are not "
-                                 "constant", SHADING)
-            return T.CheckerboardTexture(tex1, tex2, self._mapping_2d(tp),
-                                         aa=aa)
-        if cls in ("scale", "mix", "fbm", "wrinkled", "windy") or (
-                is_spectrum and cls in ("uv", "marble")):
-            raise not_ported(f"{kind} Texture class {cls!r}", SHADING)
-        log.error("%s texture %r unimplemented (reference "
-                  "api.rs:1201-1259)", kind, cls)
+            return T.CheckerboardTexture(
+                tp.get_spectrum_texture("tex1", (1,) * 3),
+                tp.get_spectrum_texture("tex2", (0,) * 3),
+                self._mapping_2d(tp), aa=aa)
+        if cls in ("fbm", "wrinkled"):
+            kind = T.FbmTexture if cls == "fbm" else T.WrinkledTexture
+            return kind(tp.find_int("octaves", 8),
+                        tp.find_float("roughness", 0.5), self._mapping_3d(),
+                        is_spectrum=True)
+        if cls == "windy":
+            return T.WindyTexture(self._mapping_3d(), is_spectrum=True)
+        if cls == "marble":
+            return T.MarbleTexture(tp.find_int("octaves", 8),
+                                   tp.find_float("roughness", 0.5),
+                                   tp.find_float("scale", 1.0),
+                                   tp.find_float("variation", 0.2),
+                                   self._mapping_3d())
+        if cls == "imagemap":
+            return self._image(tp, True)
+        log.error("spectrum texture %r unimplemented (reference "
+                  "api.rs:1201-1259)", cls)
         return None
 
     # --- world_end: freeze tables and build the render bundle ---

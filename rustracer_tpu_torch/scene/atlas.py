@@ -29,27 +29,12 @@ import numpy as np
 import torch
 
 from .. import cuda
-from ..ops.mipmap import WRAP_BLACK, WRAP_REPEAT
+from ..ops.mipmap import (TAP_WEIGHTS32, TAPS, WRAP_BLACK, WRAP_REPEAT,
+                          WSUM, WSUM32)
 
-N_TAPS = 8
 MAX_ANISOTROPY = 8.0
 
 
-def _taps(n_taps=N_TAPS):
-    """-> [(offset a along the major axis, float64 weight)], float64 sum."""
-    taps, wsum = [], 0.0
-    for i in range(n_taps):
-        a = (i + 0.5) / n_taps - 0.5
-        r2 = (2.0 * a) ** 2
-        wgt = float(np.exp(-2.0 * r2) - np.exp(-2.0))
-        taps.append((a, wgt))
-        wsum += wgt
-    return taps, wsum
-
-
-TAPS, WSUM = _taps()
-TAP_WEIGHTS32 = [float(np.float32(w)) for _, w in TAPS]
-WSUM32 = float(np.float32(WSUM))
 
 
 def build_atlas_meta(images: List[list]):

@@ -1,35 +1,45 @@
 """Materials (port of rustracer_tpu/scene/materials.py: matte with its
 Oren-Nayar sigma, plastic, mirror, glass (smooth and rough), metal,
-substrate, translucent, uber, Disney (thin too) and mix over constant,
-checkerboard and image textures, and the batched dispatch).
+substrate, translucent, uber, Disney (thin too), Fourier and mix over any
+texture, bump mapping, and the batched dispatch).
 
 A material's ``lobe_rows`` gives its lobes as (type, params (..., 16),
 active) rows in the reference's slot layout; the number of rows is
 structural (``n_rows``). ``MaterialSet.shade`` builds one (n_materials,
 M * 16) parameter table from the materials whose textures are all constant
-and gathers it by material id (hand kernel K8), with the (n_materials, M)
-types and active flags and the (n_materials,) eta beside it. Materials
-with a texture whose value depends on the interaction (``is_constant``
-False: checkerboards, images) are evaluated per lane and written over
-their lanes; their image textures are served by one atlas EWA lookup (hand
-kernel K5) per parameter slot for the whole wavefront.
+and that have no bump map, and gathers it by material id (hand kernel K8),
+with the (n_materials, M) types and active flags and the (n_materials,)
+eta beside it. Every other material (a texture whose value depends on the
+interaction, or a bump map) is evaluated per lane and written over its
+lanes, its bump map first (``Material.apply_bump``: the shading frame of
+its lanes comes back bumped). The image textures a material holds
+directly (UV-mapped, 8:1 anisotropy) are served by one atlas EWA lookup
+(hand kernel K5) per parameter slot for the whole wavefront; every other
+image evaluation takes the per-texture lookups (hand kernel K17).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from ..core.interaction import make_shading_frame
+from ..core.math import cross, dot, normalize
 from ..core.spectrum import is_black
 from ..ops import bsdf as B
 from ..ops.fresnel import FR_DISNEY
 from ..ops.gather import row_gather
 from ..ops.microfacet import TROWBRIDGE, roughness_to_alpha
 from . import atlas as A
-from .textures import ImageTexture, UVMapping2D
+from .textures import ImageTexture, Lookups, UVMapping2D, image_textures
 
 _DEG2RAD = float(np.float32(np.pi / 180.0))
+# the refusal of a gradient through a per-texture lookup
+K17_NO_GRAD = ("a gradient through the per-texture image lookups (hand kernel "
+               "K17, which has no backward yet) is not ported yet (ROADMAP.md,"
+               " section B, item B11)")
 
 
 def _mk_params(bs, dev, pa=None, pb=None, pc=None, **slots):
@@ -49,9 +59,11 @@ def _lanes(si):
 
 
 class Material:
-    """A material: its lobe rows, the lobe types they can take and the
-    relative IOR of the lanes it shades (None: 1)."""
+    """A material: its lobe rows, the lobe types they can take, the
+    relative IOR of the lanes it shades (None: 1) and its bump map (a float
+    texture, or None)."""
     n_rows = 1
+    bump_tex = None
 
     def lobe_rows(self, si, textures, atlas=None) -> List[tuple]:
         raise NotImplementedError
@@ -61,6 +73,36 @@ class Material:
 
     def eta_value(self, si, textures, atlas=None):
         return None
+
+    def apply_bump(self, si, textures, atlas=None):
+        """``si`` with the shading frame of the bump map (finite
+        differences of the displacement at the hit and at the hit moved by
+        du along dpdu and by dv along dpdv, each half the sum of |du/dx|
+        and |du/dy| or 0.0005 where that is 0; the normal flipped to the
+        side of ``si.n``); ``si`` itself without a bump map."""
+        d = self.bump_tex
+        if d is None:
+            return si
+        du = 0.5 * (torch.abs(si.dudx) + torch.abs(si.dudy))
+        du = torch.where(du == 0.0, 0.0005, du)
+        dv = 0.5 * (torch.abs(si.dvdx) + torch.abs(si.dvdy))
+        dv = torch.where(dv == 0.0, 0.0005, dv)
+        zero = torch.zeros_like(du)
+        si_u = dataclasses.replace(si, p=si.p + du[:, None] * si.dpdu,
+                                   uv=si.uv + torch.stack([du, zero], -1))
+        si_v = dataclasses.replace(si, p=si.p + dv[:, None] * si.dpdv,
+                                   uv=si.uv + torch.stack([zero, dv], -1))
+        disp = d.evaluate(si, textures, atlas)
+        disp_u = d.evaluate(si_u, textures, atlas)
+        disp_v = d.evaluate(si_v, textures, atlas)
+        dddu = (disp_u - disp) / du
+        dddv = (disp_v - disp) / dv
+        dpdu = si.dpdu + dddu[:, None] * si.ns
+        dpdv = si.dpdv + dddv[:, None] * si.ns
+        ns = normalize(cross(dpdu, dpdv))
+        ns = torch.where((dot(ns, si.n) < 0.0)[:, None], -ns, ns)
+        ss, ts = make_shading_frame(ns, dpdu)
+        return dataclasses.replace(si, ns=ns, ss=ss, ts=ts)
 
 
 def _color(tex, si, textures, atlas):
@@ -72,9 +114,10 @@ class MatteMaterial(Material):
     """Lambertian reflection with color kd, or Oren-Nayar where the
     texture sigma (degrees) is not 0; sigma None is the Lambertian lobe."""
 
-    def __init__(self, kd, sigma=None):
+    def __init__(self, kd, sigma=None, bump=None):
         self.kd = kd
         self.sigma = sigma
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.LAMBERTIAN_REFL} if self.sigma is None \
@@ -102,9 +145,10 @@ class PlasticMaterial(Material):
     """Lambertian kd under a Trowbridge-Reitz microfacet ks (eta 1.5)."""
     n_rows = 2
 
-    def __init__(self, kd, ks, roughness, remap_roughness=True):
+    def __init__(self, kd, ks, roughness, remap_roughness=True, bump=None):
         self.kd, self.ks, self.roughness = kd, ks, roughness
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.LAMBERTIAN_REFL, B.MICROFACET_REFL}
@@ -126,8 +170,9 @@ class PlasticMaterial(Material):
 class MirrorMaterial(Material):
     """Perfect specular reflection kr, no Fresnel."""
 
-    def __init__(self, kr):
+    def __init__(self, kr, bump=None):
         self.kr = kr
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.SPECULAR_REFL}
@@ -145,10 +190,11 @@ class GlassMaterial(Material):
     n_rows = 2
 
     def __init__(self, kr, kt, index, urough=None, vrough=None,
-                 remap_roughness=True):
+                 remap_roughness=True, bump=None):
         self.kr, self.kt, self.index = kr, kt, index
         self.urough, self.vrough = urough, vrough
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.FRESNEL_SPECULAR, B.MICROFACET_REFL, B.MICROFACET_TRANS}
@@ -186,11 +232,12 @@ class MetalMaterial(Material):
     """Conductor Trowbridge-Reitz microfacet with RGB eta and k."""
 
     def __init__(self, eta, k, roughness, urough=None, vrough=None,
-                 remap_roughness=True):
+                 remap_roughness=True, bump=None):
         self.eta, self.k = eta, k
         self.roughness = roughness
         self.urough, self.vrough = urough, vrough
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.MICROFACET_REFL}
@@ -212,10 +259,12 @@ class MetalMaterial(Material):
 class SubstrateMaterial(Material):
     """Ashikhmin-Shirley's FresnelBlend: diffuse kd under glossy ks."""
 
-    def __init__(self, kd, ks, urough, vrough, remap_roughness=True):
+    def __init__(self, kd, ks, urough, vrough, remap_roughness=True,
+                 bump=None):
         self.kd, self.ks = kd, ks
         self.urough, self.vrough = urough, vrough
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.FRESNEL_BLEND}
@@ -239,10 +288,11 @@ class TranslucentMaterial(Material):
     n_rows = 4
 
     def __init__(self, kd, ks, roughness, reflect, transmit,
-                 remap_roughness=True):
+                 remap_roughness=True, bump=None):
         self.kd, self.ks, self.roughness = kd, ks, roughness
         self.reflect, self.transmit = reflect, transmit
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.LAMBERTIAN_REFL, B.LAMBERTIAN_TRANS, B.MICROFACET_REFL,
@@ -277,13 +327,14 @@ class UberMaterial(Material):
     n_rows = 5
 
     def __init__(self, kd, ks, kr, kt, roughness, urough=None, vrough=None,
-                 opacity=None, eta=None, remap_roughness=True):
+                 opacity=None, eta=None, remap_roughness=True, bump=None):
         self.kd, self.ks, self.kr, self.kt = kd, ks, kr, kt
         self.roughness = roughness
         self.urough, self.vrough = urough, vrough
         self.opacity = opacity
         self.eta = eta
         self.remap = remap_roughness
+        self.bump_tex = bump
 
     def lobe_types(self):
         return {B.SPECULAR_TRANS, B.LAMBERTIAN_REFL, B.MICROFACET_REFL,
@@ -338,7 +389,8 @@ class DisneyMaterial(Material):
 
     def __init__(self, color, metallic, eta, roughness, specular_tint,
                  anisotropic, sheen, sheen_tint, clearcoat, clearcoat_gloss,
-                 spec_trans, flatness=None, diff_trans=None, thin=False):
+                 spec_trans, flatness=None, diff_trans=None, thin=False,
+                 bump=None):
         self.color, self.metallic, self.eta = color, metallic, eta
         self.roughness = roughness
         self.specular_tint, self.anisotropic = specular_tint, anisotropic
@@ -347,6 +399,7 @@ class DisneyMaterial(Material):
         self.spec_trans = spec_trans
         self.flatness, self.diff_trans = flatness, diff_trans
         self.thin = thin
+        self.bump_tex = bump
 
     @property
     def n_rows(self):
@@ -435,22 +488,41 @@ class DisneyMaterial(Material):
         return rows
 
 
+class FourierMaterial(Material):
+    """A measured BSDF from a .bsdf table (ops/fourier.py): one FOURIER
+    lobe whose slot 15 holds the table's id in the scene's table set
+    (``textures["fourier"]``), eta the table's."""
+
+    def __init__(self, table_id: int, eta: float = 1.0, bump=None):
+        self.table_id = int(table_id)
+        self.eta = float(eta)
+        self.bump_tex = bump
+
+    def lobe_types(self):
+        return {B.FOURIER}
+
+    def eta_value(self, si, textures, atlas=None):
+        return torch.full(_lanes(si), self.eta, device=None if si is None
+                          else si.t.device)
+
+    def lobe_rows(self, si, textures, atlas=None):
+        bs = _lanes(si)
+        dev = None if si is None else si.t.device
+        return [(B.FOURIER, _mk_params(bs, dev, s0=self.eta,
+                                       s6=float(self.table_id)),
+                 torch.ones(bs, dtype=torch.bool, device=dev))]
+
+
 class MixMaterial(Material):
     """Two materials' rows: ``m1``'s colors (slots 0:3 and 3:6) scaled by
     ``amount`` and ``m2``'s by 1 - amount; a row stays active where some
     channel of its weight is above 0. The lane's eta is ``m1``'s.
 
-    The sub-materials are shaded on the lanes the mix shades, but only the
-    mix's own textures are atlas slots: a sub-material with an image
-    texture would need the per-texture lookups, which are not ported."""
+    The sub-materials are shaded on the lanes the mix shades, without their
+    bump maps, as the reference does; only the mix's own textures are atlas
+    slots, so their image textures take the per-texture lookups (K17)."""
 
     def __init__(self, m1: Material, m2: Material, amount):
-        for m in (m1, m2):
-            if _holds_image(m):
-                raise NotImplementedError(
-                    "Material 'mix' over a material with an imagemap "
-                    "texture is not ported yet (ROADMAP.md, section A, "
-                    "item 13)")
         self.m1, self.m2, self.amount = m1, m2, amount
 
     @property
@@ -476,27 +548,39 @@ class MixMaterial(Material):
             + scale(self.m2.lobe_rows(si, textures, atlas), 1.0 - amt)
 
 
-def _textures(m):
-    """The textures ``m`` and the materials it holds evaluate (a
-    checkerboard's own two included)."""
-    for v in vars(m).values():
+def _parts(m):
+    """-> (the textures ``m`` holds directly, its bump map aside; the
+    materials it holds)."""
+    tex, mats = [], []
+    for k, v in vars(m).items():
         if isinstance(v, Material):
-            yield from _textures(v)
-        elif hasattr(v, "evaluate"):
-            yield v
-            for sub in ("tex1", "tex2"):
-                if hasattr(v, sub):
-                    yield getattr(v, sub)
-
-
-def _holds_image(m) -> bool:
-    return any(isinstance(t, ImageTexture) for t in _textures(m))
+            mats.append(v)
+        elif hasattr(v, "evaluate") and k != "bump_tex":
+            tex.append(v)
+    return tex, mats
 
 
 def _is_uniform(m) -> bool:
-    """Every texture of ``m`` and of the materials it holds is constant: its
-    lobe rows are the same on every lane."""
-    return all(t.is_constant for t in _textures(m))
+    """``m`` has no bump map and every texture of it and of the materials
+    it holds is constant: its lobe rows are the same on every lane."""
+    tex, mats = _parts(m)
+    return m.bump_tex is None and all(t.is_constant for t in tex) \
+        and all(_is_uniform(x) for x in mats)
+
+
+def _per_texture_images(m, held=False):
+    """The image textures that shading ``m`` looks up per texture (K17):
+    any not held directly or not atlas-eligible, any inside a bump map
+    (its moved evaluations), all of a material held by a mix (``held``:
+    without its bump map, which the mix does not apply)."""
+    tex, mats = _parts(m)
+    out = [i for t in tex for i in image_textures(t)
+           if held or i is not t or not _atlas_eligible(i)]
+    if m.bump_tex is not None and not held:
+        out += list(image_textures(m.bump_tex))
+    for x in mats:
+        out += _per_texture_images(x, True)
+    return out
 
 
 def _atlas_eligible(t) -> bool:
@@ -528,6 +612,11 @@ class MaterialSet:
         self._atlas_info = None
         self._cache = {}
         return len(self.materials) - 1
+
+    def per_texture_images(self) -> list:
+        """The image textures some material looks up per texture (K17),
+        outside the atlas slots."""
+        return [t for m in self.materials for t in _per_texture_images(m)]
 
     @property
     def max_lobes(self) -> int:
@@ -680,10 +769,40 @@ class MaterialSet:
         return [{id(t): vals[s] for s, t in enumerate(texs)}
                 for texs in self.atlas_prep()[3]]
 
+    def lookups(self, textures, dev) -> Lookups:
+        """What the scene's textures take when evaluated outside
+        ``shade``: the scene's texel rows (``_texel_rows``) and no atlas
+        values, so that each image texture makes its per-texture lookup."""
+        return Lookups({}, None, self._texel_rows(textures, dev)
+                       if "atlas_meta" in textures else None)
+
+    def _k17_texels(self, textures, dev):
+        """The texel rows K17 reads in ``shade``; None where no material
+        needs a per-texture lookup or ``textures`` has no atlas."""
+        if "atlas_meta" not in textures or not self.per_texture_images():
+            return None
+        return self._texel_rows(textures, dev)
+
+    def _texel_rows(self, textures, dev):
+        """The atlas's texel rows where the scene has atlas slots, else the
+        (T, 3) texels of ``textures["images"]`` (built once per images list
+        and level versions)."""
+        if torch.is_grad_enabled() and any(
+                lv.requires_grad for pyr in textures["images"] for lv in pyr):
+            raise NotImplementedError(K17_NO_GRAD)
+        tables = self.atlas_tables(textures, dev)
+        if tables is not None:
+            return tables[1]
+        images = textures["images"]
+        return self._cached(("texels", False, dev), images,
+                            lambda: A.atlas_texels(images).to(dev),
+                            [lv._version for pyr in images for lv in pyr])
+
     def shade(self, si, ctx):
         """-> (si, LobeStack) of every lane; lanes without a material or
-        hit get inactive lobes. ``si`` comes back unchanged (its place is
-        for bump mapping, which is not ported)."""
+        hit get inactive lobes. ``si`` comes back with the bumped shading
+        frame (ns, ss, ts) on the lanes of a material with a bump map,
+        unchanged where no material has one."""
         textures = ctx.textures
         dev = si.t.device
         n, n_mat, M = si.t.shape[0], len(self.materials), self.max_lobes
@@ -696,18 +815,32 @@ class MaterialSet:
         eta = torch.ones_like(si.t) if tab_e is None else tab_e[mid]
         textured = [i for i, m in enumerate(self.materials)
                     if not _is_uniform(m)]
+        frame = None
         if textured:
             atlas = self._atlas_values(si, textures, mid)
+            texels = self._k17_texels(textures, dev)
             for i in textured:
                 m = self.materials[i]
                 sel = si.material == i
-                a_i = None if atlas is None else atlas[i]
-                t, p, a = self._lane_rows(m, si, textures, a_i)
+                look = None if atlas is None and texels is None else \
+                    Lookups(atlas[i] if atlas is not None else {}, si.uv,
+                            texels)
+                si_b = m.apply_bump(si, textures, look)
+                t, p, a = self._lane_rows(m, si_b, textures, look)
                 lt = torch.where(sel[:, None], t, lt)
                 lp = torch.where(sel[:, None, None], p, lp)
                 la = torch.where(sel[:, None], a, la)
-                e = m.eta_value(si, textures, a_i)
+                e = m.eta_value(si_b, textures, look)
                 if e is not None:
                     eta = torch.where(sel, e, eta)
+                if si_b is not si:
+                    frame = frame or (si.ns, si.ss, si.ts)
+                    frame = tuple(torch.where(sel[:, None], new, old)
+                                  for new, old in zip(
+                                      (si_b.ns, si_b.ss, si_b.ts), frame))
         active = la & (si.material >= 0)[:, None] & si.valid[:, None]
-        return si, B.LobeStack(type=lt, params=lp, active=active, eta=eta)
+        if frame is not None:
+            si = dataclasses.replace(si, ns=frame[0], ss=frame[1],
+                                     ts=frame[2])
+        return si, B.LobeStack(type=lt, params=lp, active=active, eta=eta,
+                               fourier=textures.get("fourier"))

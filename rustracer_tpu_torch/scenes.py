@@ -258,7 +258,8 @@ def cornell_materials(imagemap_walls=(), seed_base=10):
 
 def textures_on(textures, device):
     """A textures dict of numpy arrays ("const", optional "images",
-    "atlas_meta", "atlas_levels") as tensors on ``device``."""
+    "atlas_meta", "atlas_levels" and "fourier", a FourierTableSet) as
+    tensors on ``device``."""
     out = {"const": {k: torch.as_tensor(v, device=device)
                      for k, v in textures["const"].items()}}
     if "images" in textures:
@@ -267,6 +268,8 @@ def textures_on(textures, device):
     for key in ("atlas_meta", "atlas_levels"):
         if key in textures:
             out[key] = torch.as_tensor(textures[key], device=device)
+    if "fourier" in textures:
+        out["fourier"] = textures["fourier"].to(device)
     return out
 
 

@@ -1,0 +1,567 @@
+"""The shading scenes and the inputs and bounds of their hand kernels: K17
+(the per-texture mipmap lookups), K18 (fbm and turbulence) and K19 (the
+Fourier BSDF); shared by chip_smoke.py and the tests.
+
+- ``TEXTURE_SCENES``: three scenes on the testball layout
+  (``scenes/testball-matte.pbrt``'s camera, light and floor) that read only
+  ``scenes/textures/grid.png``: ``textures-procedural`` (a marble ball
+  bumped by a scaled wrinkled texture over a floor that mixes two
+  checkerboards of textures, one a ``uv`` and one a ``windy``, by an
+  ``fbm``), ``textures-image`` (a plastic ball with an imagemap at
+  ``maxanisotropy`` 16 and a float imagemap bump, over a mix of a matte
+  with a trilinear planar imagemap and a substrate with a clamped imagemap
+  at ``maxanisotropy`` 4) and ``testball-fourier`` (a Fourier ball from a
+  table ``write_fourier_table`` writes). ``scene_text`` formats one at a
+  film size and sample count.
+- ``fourier_table``: a seeded glossy table (3 channels, orders up to 8 or
+  more, optionally a transmission lobe), not Lambertian.
+- ``k17_work``, ``k18_work``, ``k19_work``: a call's bytes (each input read
+  once, each output written once, each table entry or texel it needs read
+  once) and operations, counted on its data; ``bound`` (chip_smoke.py)
+  turns them into the least time on one H100.
+- ``capture_texture_step``: every K17, K18 and K19 call of one renderer
+  step; ``count_calls``: the calls of each entry point (mode) in a scope.
+- ``compare_with_plain``: a K17, K18 or K19 call's outputs against its
+  plain version, with the tolerances and the flips it allows.
+
+Operations are float32 or int32 operations at one each (a divide, a square
+root, compares and selects included); expf, log2f, sinf, cosf and acosf at
+the light tools' SIN_OPS.
+"""
+from __future__ import annotations
+
+import contextlib
+import inspect
+import os
+
+import numpy as np
+import torch
+
+from ..core.interpolation import catmull_rom_weights
+from ..core.noise import octaves
+from ..ops import mipmap as MM
+from ..ops.fourier import integrate_catmull_rom_np, write_bsdf_table
+from . import atlas_work
+from .light_work import SCENES, SIN_OPS
+from .quadric_work import record_calls
+
+GRID = os.path.join(SCENES, "textures", "grid.png")
+
+_STAGE = '''LookAt 0 1.7 -4.4   0 0.7 0   0 1 0
+Camera "perspective" "float fov" [32]
+Sampler "02sequence" "integer pixelsamples" [{spp}]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Integrator "path" "integer maxdepth" [7]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [11 11 11]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1.6 5.2 -1.6   1.6 5.2 -1.6   1.6 5.2 1.6   -1.6 5.2 1.6]
+AttributeEnd
+'''
+_FLOOR = '''Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-8 0 -8   8 0 -8   8 0 8   -8 0 8]
+  "float uv" [0 0  1 0  1 1  0 1]
+'''
+_BALL = '''AttributeBegin
+  Translate 0 0.75 0
+  {material}
+  Shape "sphere" "float radius" [0.75]
+AttributeEnd
+WorldEnd
+'''
+
+TEXTURE_SCENES = {
+    "textures-procedural": _STAGE + '''Texture "uvs" "spectrum" "uv" "float uscale" [16] "float vscale" [16]
+Texture "wind" "spectrum" "windy"
+Texture "checks1" "spectrum" "checkerboard"
+  "float uscale" [16] "float vscale" [16]
+  "texture tex1" "uvs" "rgb tex2" [0.75 0.75 0.75]
+Texture "checks2" "spectrum" "checkerboard"
+  "float uscale" [8] "float vscale" [8] "string aamode" "none"
+  "texture tex1" "wind" "rgb tex2" [0.2 0.3 0.45]
+Texture "amount" "float" "fbm" "integer octaves" [5] "float roughness" [0.6]
+Texture "floor" "spectrum" "mix"
+  "texture tex1" "checks1" "texture tex2" "checks2" "texture amount" "amount"
+Material "matte" "texture Kd" "floor"
+''' + _FLOOR + '''AttributeBegin
+  Translate 0 0.75 0
+  Texture "marble" "spectrum" "marble" "float scale" [3]
+    "float variation" [0.8] "integer octaves" [6]
+  Texture "wrinkles" "float" "wrinkled" "integer octaves" [6]
+    "float roughness" [0.6]
+  Texture "bump" "float" "scale" "texture tex1" "wrinkles" "float tex2" [0.02]
+  Material "matte" "texture Kd" "marble" "texture bumpmap" "bump"
+  Shape "sphere" "float radius" [0.75]
+AttributeEnd
+WorldEnd
+''',
+    "textures-image": _STAGE + '''Texture "planar" "spectrum" "imagemap" "string filename" "{grid}"
+  "string mapping" "planar" "vector v1" [0.5 0 0] "vector v2" [0 0 0.5]
+  "bool trilinear" "true"
+Texture "clamped" "spectrum" "imagemap" "string filename" "{grid}"
+  "string wrap" "clamp" "float maxanisotropy" [4]
+  "float uscale" [1.5] "float vscale" [1.5] "float udelta" [-0.25]
+MakeNamedMaterial "floor-matte" "string type" "matte" "texture Kd" "planar"
+MakeNamedMaterial "floor-substrate" "string type" "substrate"
+  "texture Kd" "clamped" "rgb Ks" [0.3 0.3 0.3] "float uroughness" [0.05]
+  "float vroughness" [0.05]
+Material "mix" "string namedmaterial1" "floor-matte"
+  "string namedmaterial2" "floor-substrate" "rgb amount" [0.6 0.5 0.4]
+''' + _FLOOR + _BALL.format(material='''Texture "ball" "spectrum" "imagemap" "string filename" "{grid}"
+    "float maxanisotropy" [16] "float uscale" [4] "float vscale" [2]
+  Texture "bumps" "float" "imagemap" "string filename" "{grid}"
+    "float uscale" [8] "float vscale" [4] "float scale" [0.004]
+  Material "plastic" "texture Kd" "ball" "texture bumpmap" "bumps"
+    "rgb Ks" [0.3 0.3 0.3] "float roughness" [0.05]'''),
+    "testball-fourier": _STAGE + '''Texture "checks" "spectrum" "checkerboard"
+  "float uscale" [16] "float vscale" [16]
+  "rgb tex1" [0.2 0.2 0.2] "rgb tex2" [0.75 0.75 0.75]
+Material "matte" "texture Kd" "checks"
+''' + _FLOOR + _BALL.format(
+        material='Material "fourier" "string bsdffile" "{bsdf}"'),
+}
+# the Fourier ball's table (fourier_table's defaults)
+FOURIER_FILE = "ball.bsdf"
+
+
+def scene_text(name, res=64, spp=16, bsdf_dir=None) -> str:
+    """``TEXTURE_SCENES[name]`` with its film at res^2 and ``spp``
+    samples; testball-fourier writes its table into ``bsdf_dir``."""
+    bsdf = ""
+    if name == "testball-fourier":
+        bsdf = os.path.join(bsdf_dir, FOURIER_FILE)
+        write_fourier_table(bsdf)
+    return TEXTURE_SCENES[name].format(res=res, spp=spp, grid=GRID,
+                                       bsdf=bsdf)
+
+
+def fourier_table(n_mu=16, m_max=8, seed=5, transmission=0.0, eta=1.0):
+    """A seeded glossy table: on the reflection pairs (muI muO < 0) the
+    luminance's orders a_k = c |muI| r^k (a truncated Poisson kernel, the
+    glossier the closer the pair lies to the mirror direction), orders
+    m = 1 + (oo + oi) % m_max (so up to m_max), R and B tinted per order;
+    with ``transmission`` > 0 a 2-order lobe on the pairs of equal signs.
+    -> the dict of ``read_bsdf_table``."""
+    rs = np.random.RandomState(seed)
+    mu = np.linspace(-1.0, 1.0, n_mu).astype(np.float32)
+    tint_r = 1.0 + 0.1 * rs.rand(m_max)
+    tint_b = 0.8 + 0.1 * rs.rand(m_max)
+    a, a_offset = [], np.zeros(n_mu * n_mu, np.int32)
+    m = np.zeros(n_mu * n_mu, np.int32)
+    vals_y = np.zeros((n_mu, n_mu), np.float32)
+    for oo in range(n_mu):
+        for oi in range(n_mu):
+            pair = oo * n_mu + oi
+            mui, muo = float(mu[oi]), float(mu[oo])
+            a_offset[pair] = len(a)
+            if mui * muo < 0.0:
+                k = 1 + (oo + oi) % m_max
+                r = 0.3 + 0.6 * max(0.0, 1.0 - abs(abs(mui) - abs(muo)))
+                y = 0.25 / np.pi * abs(mui) * r ** np.arange(k)
+            elif transmission > 0.0 and mui * muo > 0.0:
+                k = 2
+                y = transmission / np.pi * abs(mui) * np.array([1.0, 0.5])
+            else:
+                continue
+            m[pair] = k
+            a += list(y) + list(y * tint_r[:k]) + list(y * tint_b[:k])
+            vals_y[oo, oi] = y[0]
+    cdf, _ = integrate_catmull_rom_np(mu, vals_y)
+    return dict(mu=mu, cdf=cdf.astype(np.float32),
+                a=np.asarray(a, np.float32), a_offset=a_offset, m=m,
+                a0=vals_y, eta=float(eta), m_max=int(m.max()), n_channels=3)
+
+
+def write_fourier_table(path, **kw):
+    """Write ``fourier_table(**kw)`` as a .bsdf file at ``path``."""
+    t = fourier_table(**kw)
+    write_bsdf_table(path, t["mu"], t["a"], t["a_offset"], t["m"], t["cdf"],
+                     eta=t["eta"], n_channels=t["n_channels"])
+    return path
+
+
+# --- K17 ---
+
+# a bilinear lookup's weights, its texel coordinates and the blend of its
+# four texels' three channels; a trilinear lookup's level (log2f and the
+# clamps) and its blend of two bilinear lookups
+BILERP_OPS = 10 + 6 + 21
+LEVEL_OPS = SIN_OPS + 6
+BLEND_OPS = 2 * BILERP_OPS + 9
+TRILINEAR_OPS = LEVEL_OPS + BLEND_OPS
+# the 8-tap lookup's axes (two lengths with their square roots, the
+# selects, the clamp), its one level (the taps share the minor axis), its
+# taps (the position, two bilinear lookups blended, the weighted sum) and
+# the final divide
+EWA_OPS = 16 + LEVEL_OPS + 8 * (4 + BLEND_OPS + 6) + 3
+# the exact lookup's set-up (axes, clamp, level, the ellipse's coefficients
+# and box; about 70), a visited tap (its texel, r^2: 12), a tap inside
+# (expf, the weight, three weighted channels and the sum: SIN_OPS + 8)
+EXACT_SETUP_OPS = 70 + SIN_OPS
+EXACT_TAP_OPS = 12
+EXACT_IN_OPS = SIN_OPS + 8
+TEXEL_BYTES = 12
+
+
+def _texel_index(off, w, h, wrap, s, t):
+    """The texel indices of ops/mipmap.py _texel_rows (-1 where
+    WRAP_BLACK reads none)."""
+    idx, read = atlas_work._texel_index(off, w, h, torch.tensor(wrap), s, t)
+    return torch.where(read, idx, -1)
+
+
+def _corners(tx, li, st, wrap, into):
+    off, w, h, s0, t0, _, _ = MM.bilerp_corner(tx, li, st)
+    for ds, dt in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        into.append(_texel_index(off, w, h, wrap, s0 + ds, t0 + dt))
+
+
+def k17_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
+             max_anisotropy=8.0) -> dict:
+    """-> dict(lanes, texels (distinct texels read), taps (exact: box taps
+    visited), inside (exact: taps inside the ellipse), moved, ops) of one
+    K17 call in ``mode`` (ops/mipmap.py TRILINEAR, EWA, EWA_EXACT) on these
+    inputs: each lane's st and differentials (or width) read and its (3,)
+    result written, each distinct texel its lookups read (12 B)."""
+    n = st.shape[0]
+    idx, taps, inside = [], 0, 0
+    if mode == MM.TRILINEAR:
+        l0, l1, _ = MM.tri_levels(tx, width)
+        for li in (l0, l1):
+            _corners(tx, li, st, wrap, idx)
+        ops = n * TRILINEAR_OPS
+        lane_in = 12
+    elif mode == MM.EWA:
+        major, minor_len = MM.ewa_axes(dst0, dst1, max_anisotropy)
+        l0, l1, _ = MM.tri_levels(tx, minor_len)
+        for a, _ in MM.TAPS:
+            for li in (l0, l1):
+                _corners(tx, li, st + a * major, wrap, idx)
+        ops = n * EWA_OPS
+        lane_in = 24
+    else:
+        e = MM.ellipse(tx, st, dst0, dst1, max_anisotropy)
+        any_in = torch.zeros(n, dtype=torch.bool, device=st.device)
+        for k in range(MM.N_TAPS_EXACT):
+            ss, tt, ok, _ = MM.ellipse_tap(e, k)
+            taps += int((k < e.n_box).sum())
+            inside += int(ok.sum())
+            any_in |= ok
+            idx.append(torch.where(ok, _texel_index(e.off, e.w, e.h, wrap,
+                                                    ss, tt), -1))
+        none = ~any_in
+        if bool(none.any()):
+            _corners(tx, e.li[none], st[none], wrap, idx)
+        ops = n * EXACT_SETUP_OPS + taps * EXACT_TAP_OPS \
+            + inside * EXACT_IN_OPS
+        lane_in = 24
+    flat = torch.unique(torch.cat([i.reshape(-1) for i in idx]))
+    texels = int((flat >= 0).sum())
+    return dict(lanes=n, texels=texels, taps=taps, inside=inside,
+                moved=n * (lane_in + 12) + texels * TEXEL_BYTES, ops=ops)
+
+
+# --- K18 ---
+
+# noise3: the floor and fraction (9), three quintic fades (18), eight
+# corners' hash of 3 words (3 rounds of a 7-operation mix with its xor and
+# add, and the final mix: 34) and gradient (10), seven lerps (21); an
+# octave adds the point's scaling (3) and its weighted sum (3)
+NOISE3_OPS = 9 + 18 + 8 * (34 + 10) + 21
+OCTAVE_OPS = NOISE3_OPS + 6
+# the footprint's octave count: two squared lengths, log2f, the clamp
+K18_SETUP_OPS = 12 + SIN_OPS + 4
+
+
+def k18_work(dpdx, dpdy, max_octaves) -> dict:
+    """-> dict(lanes, octaves (the noise3 evaluations: each lane's full
+    octaves and its partial one), moved, ops) of one K18 call: each lane's
+    p, dpdx, dpdy read (36 B) and its value written (4 B)."""
+    _, n_int = octaves(dpdx, dpdy, max_octaves)
+    n = dpdx.shape[0]
+    evals = int(n_int.sum().item()) + n
+    return dict(lanes=n, octaves=evals, moved=n * 40,
+                ops=n * K18_SETUP_OPS + evals * OCTAVE_OPS)
+
+
+# --- K19 ---
+
+# a channel's series term: its a_k summed over the 16 neighbours (a
+# compare, a load's address and a multiply-add each: 4) and the cosine
+# (SIN_OPS) with its product and sum
+K19_TERM_OPS = 16 * 4 + SIN_OPS + 3
+# the angles (muI, muO, cos phi: 16), two Catmull-Rom weight sets (the
+# knots' compares N each, then about 40), the neighbours' 16 runs (6 each),
+# acosf, the RGB (12)
+K19_LANE_OPS = 16 + 2 * 40 + 16 * 6 + SIN_OPS + 12
+# sample_f: the 2D spline's bisection and interpolations (4 rows, 3
+# operations each, some 20 of them) and its 30 Newton steps (25 each);
+# the direction (30 with sinf, cosf)
+K19_SAMPLE_OPS = 20 * 12 + 30 * 25 + 30 + 2 * SIN_OPS
+# sample_fourier on the luminance: its a_k summed once over the 16
+# neighbours (K19_AK_OPS a term), then 30 + 1 evaluations of F and f, a
+# term each a sine and a cosine with their products and sums (K19_FF_OPS)
+K19_AK_OPS = 16 * 4
+K19_FF_OPS = 2 * SIN_OPS + 6
+
+
+def _runs(ts, tid, mu_i, mu_o):
+    """The lanes' neighbour runs: -> (valid (B,), runs (B, 16) int64 index
+    of (table, pair), orders (B, 16) with 0 where the weight is 0)."""
+    t = tid.long()
+    mu_t = ts.mu[t]
+    oi, wi_w, ok_i = catmull_rom_weights(mu_t, mu_i)
+    oo, wo_w, ok_o = catmull_rom_weights(mu_t, mu_o)
+    n = ts.n_mu
+    runs, orders = [], []
+    for b in range(4):
+        row = torch.clamp(oo + b, 0, n - 1)
+        for a in range(4):
+            col = torch.clamp(oi + a, 0, n - 1)
+            pair = (row * n + col).long()
+            w = wi_w[:, a] * wo_w[:, b]
+            runs.append(t * n * n + pair)
+            orders.append(torch.where(w != 0.0, ts.m[t, pair], 0))
+    return ok_i & ok_o, torch.stack(runs, 1), torch.stack(orders, 1)
+
+
+def k19_work(ts, mode, tid, wo, second, mask) -> dict:
+    """-> dict(lanes, active (masked-in lanes with valid weights), terms
+    (series terms summed over channels and lanes), moved, ops) of one K19
+    call in ``mode`` (ops/fourier.py F, PDF, SAMPLE_F) on these inputs:
+    each lane's tid, wo, wi or u and mask read and its outputs written;
+    each active lane's table knots (4 N B, once a table) and each distinct
+    neighbour run's coefficients (channels x order x 4 B) read once. For
+    sample_f the runs are those of the sampled direction's muI (the
+    plain version's)."""
+    from ..ops import fourier as FO
+    n = tid.shape[0]
+    on = torch.ones(n, dtype=torch.bool, device=tid.device) \
+        if mask is None else mask
+    t = torch.clamp(tid.long(), 0, ts.mu.shape[0] - 1)
+    if mode == FO.SAMPLE_F:
+        wi, _, _ = FO.sample_f_plain(ts, t.int(), wo, second)
+        mu_i = -wi[:, 2]
+    else:
+        mu_i = -second[:, 2]
+    ok, runs, orders = _runs(ts, t.int(), mu_i, wo[:, 2])
+    act = ok & on
+    channels = 1 if mode == FO.PDF else 3
+    kmax = orders.max(1).values.clamp(max=ts.m_pad)
+    terms = int(kmax[act].sum()) * channels
+    r, o = runs[act].reshape(-1), orders[act].reshape(-1)
+    keep = o > 0
+    uniq, inv = torch.unique(r[keep], return_inverse=True)
+    run_m = torch.zeros(uniq.shape[0], dtype=o.dtype, device=o.device)
+    run_m.scatter_reduce_(0, inv, o[keep], "amax")
+    tables = int(torch.unique(t[act]).numel())
+    lane_io = {FO.F: 4 + 12 + 12 + 1 + 12, FO.PDF: 4 + 12 + 12 + 1 + 4,
+               FO.SAMPLE_F: 4 + 12 + 8 + 1 + 12 + 12 + 4}[mode]
+    moved = n * lane_io + tables * 4 * ts.n_mu \
+        + int(run_m.sum()) * channels * 4
+    n_act = int(act.sum())
+    ops = n_act * K19_LANE_OPS + terms * K19_TERM_OPS
+    if mode == FO.SAMPLE_F:
+        k_lum = int(kmax[act].sum())
+        ops += int(on.sum()) * K19_SAMPLE_OPS \
+            + k_lum * (K19_AK_OPS + 31 * K19_FF_OPS)
+    return dict(lanes=n, active=n_act, terms=terms, moved=moved, ops=ops)
+
+
+# --- K17-K19 against their plain versions ---
+
+# the tolerances, absolute, on every lane held: the trilinear and 8-tap
+# lookups and the noise 1e-5 (a level's floor may flip at an integer lod,
+# but the blend of the two levels is continuous there), the exact lookup
+# 2e-5 (expf near the ellipse's edge); the Fourier f and pdf 1e-5 of the
+# largest magnitude plus 1e-6, a sampled direction 1e-4
+TOLERANCE = {"lookup_trilinear": 1e-5, "lookup_ewa": 1e-5,
+             "lookup_ewa_exact": 2e-5, "fbm": 1e-5, "turbulence": 1e-5}
+DIRECTION_TOL = 1e-4
+# discrete choices that a last-bit difference can flip: the exact lookup's
+# rounded level (its lod within NEAR_FLIP of a half-integer), the noise's
+# octave count (within NEAR_FLIP of an integer) and a sampled Fourier
+# direction (its bisections' and Newton steps' compares). At most
+# FLIP_SHARE of a call's lanes may flip; each is held to the plain version
+# at the other choice: the neighbouring level, the octave count on the
+# other side, the plain f at the kernel's own direction (within FLIP_F_TOL
+# of the largest magnitude plus 1e-6: mu_i and cos phi recomputed from the
+# normalized vector) with a unit direction and a finite pdf >= 0
+NEAR_FLIP = 1e-4
+FLIP_SHARE = 1e-4
+FLIP_F_TOL = 1e-3
+# the footprint scale that moves the octave count by 1e-3 across a flip
+_OCTAVE_NUDGE = float(np.float32(2.0 ** 1e-3))
+
+
+def _entry(fname):
+    from ..core import noise
+    from ..ops import fourier
+    if fname in ("fbm", "turbulence"):
+        return getattr(noise, fname)
+    return getattr(fourier if fname.startswith("fourier") else MM, fname)
+
+
+def _plain(fname, *args):
+    from .. import cuda
+    with cuda.plain_reference():
+        return _entry(fname)(*args)
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _off(a, b, tol):
+    return ((a - b).abs() > tol).reshape(a.shape[0], -1).any(-1)
+
+
+def _near_flip(fname, a, offs):
+    """The lanes whose discrete choice a last-bit difference can flip."""
+    if fname == "lookup_ewa_exact":
+        _, _, lod = MM.exact_lod(a["tx"], a["dst0"], a["dst1"],
+                                 a["max_anisotropy"])
+        return (lod - torch.floor(lod) - 0.5).abs() < NEAR_FLIP
+    if fname in ("fbm", "turbulence"):
+        n, _ = octaves(a["dpdx"], a["dpdy"], a["max_octaves"])
+        return (n - torch.round(n)).abs() < NEAR_FLIP
+    if fname == "fourier_sample_f":
+        return offs[0]
+    return torch.zeros_like(offs[0])
+
+
+def _flip_held(fname, a, outs, refs, tols, i):
+    """-> (k,) bool: the flipped lanes ``i`` agree with the plain version
+    at the other choice."""
+    if fname == "lookup_ewa_exact":
+        tx, meta = a["tx"], a["tx"].meta
+        ok = torch.zeros(i.shape[0], dtype=torch.bool, device=i.device)
+        for shifted in (torch.cat([meta[1:], meta[-1:]]),
+                        torch.cat([meta[:1], meta[:-1]])):
+            alt = _plain(fname, MM.Texels(tx.texels, shifted, tx.channels),
+                         a["st"][i], a["dst0"][i], a["dst1"][i],
+                         a["max_anisotropy"], a["wrap"])
+            ok |= ~_off(outs[0][i], alt, tols[0])
+        return ok
+    if fname in ("fbm", "turbulence"):
+        ok = torch.zeros(i.shape[0], dtype=torch.bool, device=i.device)
+        for s in (_OCTAVE_NUDGE, 1.0 / _OCTAVE_NUDGE):
+            alt = _plain(fname, a["p"][i], a["dpdx"][i] * s,
+                         a["dpdy"][i] * s, a["omega"], a["max_octaves"])
+            ok |= ~_off(outs[0][i], alt, tols[0])
+        return ok
+    wi, f, pdf = (o[i] for o in outs)
+    mask = None if a["mask"] is None else a["mask"][i]
+    f_at = _plain("fourier_f", a["ts"], a["tid"][i], a["wo"][i], wi, mask)
+    tol = FLIP_F_TOL * max(refs[1].abs().max().item(), 1.0) + 1e-6
+    unit = ((wi * wi).sum(-1).sqrt() - 1.0).abs() < 1e-5
+    return unit & ~_off(f, f_at, tol) & torch.isfinite(pdf) & (pdf >= 0.0)
+
+
+def compare_with_plain(fname, args, out) -> dict:
+    """The outputs ``out`` of one call of K17-K19's entry point ``fname``
+    (``lookup_trilinear``, ``lookup_ewa``, ``lookup_ewa_exact``, ``fbm``,
+    ``turbulence``, ``fourier_f``, ``fourier_pdf``, ``fourier_sample_f``)
+    on ``args`` against its plain version on the same inputs: every lane
+    within TOLERANCE, but for at most FLIP_SHARE of the lanes whose
+    discrete choice flipped, each held to the plain version at the other
+    choice. Raises AssertionError otherwise. -> dict(lanes, flipped,
+    max_abs_err (over the lanes held to the tolerance))."""
+    a = inspect.signature(_entry(fname)).bind(*args)
+    a.apply_defaults()
+    a = dict(a.arguments)
+    outs, refs = _tuple(out), _tuple(_plain(fname, *args))
+    n = outs[0].shape[0]
+    if fname.startswith("fourier"):
+        tols = [1e-5 * max(b.abs().max().item() if b.numel() else 0.0, 1.0)
+                + 1e-6 for b in refs]
+        if fname == "fourier_sample_f":
+            tols[0] = DIRECTION_TOL
+    else:
+        tols = [TOLERANCE[fname]]
+    offs = [_off(o, r, t) for o, r, t in zip(outs, refs, tols)]
+    off = torch.stack(offs).any(0)
+    near = _near_flip(fname, a, offs)
+    bad = int((off & ~near).sum())
+    if bad:
+        raise AssertionError(f"{fname}: {bad} of {n} lanes beyond {tols} "
+                             "where no choice can flip")
+    flipped = off & near
+    n_flip = int(flipped.sum())
+    if n_flip > FLIP_SHARE * n:
+        raise AssertionError(f"{fname}: {n_flip} of {n} lanes flipped, "
+                             f"more than {FLIP_SHARE} of them")
+    if n_flip:
+        i = flipped.nonzero()[:, 0]
+        held = int(_flip_held(fname, a, outs, refs, tols, i).sum())
+        if held < n_flip:
+            raise AssertionError(f"{fname}: {n_flip - held} flipped lanes "
+                                 "differ from the plain version at the "
+                                 "other choice")
+    err = 0.0
+    for o, r in zip(outs, refs):
+        d = (o - r).abs().reshape(n, -1)[~flipped]
+        err = max(err, d.max().item() if d.numel() else 0.0)
+    return dict(lanes=n, flipped=n_flip, max_abs_err=err)
+
+
+# --- capture ---
+
+# K17-K19's entry points, as scene/textures.py (K17, K18) and ops/bsdf.py
+# (K19, from ops/fourier.py) call them
+TEXTURE_CALLS = ("lookup_trilinear", "lookup_ewa", "lookup_ewa_exact",
+                 "fbm", "turbulence")
+FOURIER_CALLS = ("fourier_f", "fourier_pdf", "fourier_sample_f")
+
+
+def _lanes(name, args):
+    return args[0 if name in ("fbm", "turbulence") else 1].shape[0]
+
+
+@contextlib.contextmanager
+def count_calls(into):
+    """Within the scope, ``into[name]`` counts the calls of each entry
+    point of TEXTURE_CALLS and FOURIER_CALLS on at least one lane: on CUDA
+    tensors each launches its kernel once, in that mode."""
+    from ..ops import fourier
+    from ..scene import textures
+    saved = []
+
+    def counted(name, orig):
+        def call(*args):
+            if _lanes(name, args):
+                into[name] = into.get(name, 0) + 1
+            return orig(*args)
+        return call
+    for module, names in ((textures, TEXTURE_CALLS),
+                          (fourier, FOURIER_CALLS)):
+        for name in names:
+            saved.append((module, name, getattr(module, name)))
+            setattr(module, name, counted(name, saved[-1][2]))
+    try:
+        yield into
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+
+
+def capture_texture_step(renderer, ctx, tile, sample=1) -> dict:
+    """One step of ``tile`` at ``sample`` -> the arguments of every call,
+    in order, of the per-texture lookups (``lookup_trilinear``,
+    ``lookup_ewa``, ``lookup_ewa_exact``: K17), of ``fbm`` and
+    ``turbulence`` (K18) as scene/textures.py calls them, and of
+    ops/fourier.py ``fourier_f``, ``fourier_pdf`` and ``fourier_sample_f``
+    (K19), under those names."""
+    from ..ops import fourier
+    from ..scene import textures
+    calls = {}
+    px, py, v = tile
+    fs = renderer.film.init_state(renderer.device)
+    with contextlib.ExitStack() as stack:
+        for name in TEXTURE_CALLS:
+            stack.enter_context(record_calls(textures, name, calls, True))
+        for name in FOURIER_CALLS:
+            stack.enter_context(record_calls(fourier, name, calls, True))
+        renderer.step(ctx, fs, px, py, sample, v)
+    return calls

@@ -11,8 +11,11 @@ halves on u[0] below, at and above 0.5; and bsdf_f, bsdf_pdf and
 bsdf_sample_f on seeded mixed stacks (M = 2, types drawn from the ported
 set, some lobes inactive, wo on both sides, random shading frames) and on
 Disney's stacks (M = 6, and M = 8 with ``thin``), where the index of the
-sampled lobe is bit for bit the reference's. Only FOURIER is refused, by
-name.
+sampled lobe is bit for bit the reference's. FOURIER lobes, beside each
+of three other types, through the table set the stack carries: f and pdf
+at given directions within 1e-5 of the largest magnitude (plus 1e-6),
+and on the lanes that sample a FOURIER lobe the direction within 1e-5
+and f and pdf as above.
 
 Inputs are seeded numpy arrays handed to both packages. Tolerances:
 floats within 1e-5 relative with a 1e-7 absolute floor, plus, on a lane
@@ -66,7 +69,9 @@ NONSPEC = (PB.LAMBERTIAN_REFL, PB.OREN_NAYAR, PB.MICROFACET_REFL,
            PB.MICROFACET_TRANS, PB.LAMBERTIAN_TRANS, PB.FRESNEL_BLEND,
            PB.DISNEY_DIFFUSE, PB.DISNEY_RETRO, PB.DISNEY_SHEEN,
            PB.DISNEY_CLEARCOAT, PB.DISNEY_FAKE_SS)
-PORTED = tuple(sorted(PB.PORTED_TYPES))
+# the analytic lobe types: FOURIER reads a table set, its parity is in
+# test_unported_type_refused_by_name's cases and tests/test_torch_fourier.py
+PORTED = tuple(sorted(PB.PORTED_TYPES - {PB.FOURIER}))
 # the types the first mixed stacks draw from (the glass and metal lobes)
 FIRST = (PB.LAMBERTIAN_REFL, PB.OREN_NAYAR, PB.SPECULAR_REFL,
          PB.SPECULAR_TRANS, PB.FRESNEL_SPECULAR, PB.MICROFACET_REFL,
@@ -613,19 +618,65 @@ def test_choose_lobe_is_the_kth_match():
     same(cp, lobes.params.numpy()[np.arange(n), idx])
 
 
+def _fourier_stack(T, n=2048):
+    """Mixed M = 2 stacks of ``T`` and FOURIER lobes (table ids 0-2 in slot
+    15) with the table sets of tests/test_torch_fourier.py's three
+    tables."""
+    from rustracer_tpu.ops import fourier as JFO
+    from rustracer_tpu_torch.ops import fourier as PFO
+    from test_torch_fourier import _tables
+    (jl, jf, jwo, jwi, jul, ju2), (pl, pf, pwo, pwi, pul, pu2) = _stack(
+        50, n=n, drawn=(T, PB.FOURIER))
+    tid = np.random.RandomState(51).randint(0, 3, (n, 2))
+    params = np.array(pl.params)
+    params[..., 15] = np.where(np.array(pl.type) == PB.FOURIER, tid,
+                               params[..., 15])
+    jl = jl._replace(params=jnp.asarray(params),
+                     fourier=JFO.make_table_set(_tables()))
+    pl = pl._replace(params=torch.from_numpy(params),
+                     fourier=PFO.make_table_set(_tables()).to("cpu"))
+    return (jl, jf, jwo, jwi, jul, ju2), (pl, pf, pwo, pwi, pul, pu2)
+
+
+def _near(a, b, label):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    err = float(np.abs(a - b).max())
+    scale = float(np.abs(b).max())
+    print(f"{label}: max error {err:.3g} of {scale:.3g}")
+    assert err <= 1e-5 * scale + 1e-6, label
+
+
 @pytest.mark.parametrize("T", [PB.LAMBERTIAN_TRANS, PB.FRESNEL_BLEND,
                                PB.DISNEY_DIFFUSE, PB.FOURIER])
 def test_unported_type_refused_by_name(T):
-    """FOURIER is refused by name beside any other type, alone too."""
-    (_, _, _, _, _, _), (pl, pf, pwo, pwi, pul, pu2) = _stack(50, n=8)
-    with pytest.raises(NotImplementedError, match="FOURIER.*item 13"):
-        PB.bsdf_f(pl, pf, pwo, pwi, (PB.LAMBERTIAN_REFL, T, PB.FOURIER))
-    with pytest.raises(NotImplementedError, match="FOURIER.*item 13"):
-        PB.bsdf_sample_f(pl, pf, pwo, pul, pu2, tuple({T, PB.FOURIER}))
+    """FOURIER lobes beside another type (alone too), through the stack's
+    table set: bsdf_f and bsdf_pdf, and bsdf_sample_f on the lanes that
+    sample a FOURIER lobe, match the reference; without a table set a
+    FOURIER lobe raises (the reference would leave it black)."""
+    (jl, jf, jwo, jwi, jul, ju2), (pl, pf, pwo, pwi, pul, pu2) = \
+        _fourier_stack(T)
+    types = tuple(sorted({T, PB.FOURIER}))
+    _near(PB.bsdf_f(pl, pf, pwo, pwi, types),
+          JB.bsdf_f(jl, jf, jwo, jwi, types), "f")
+    _near(PB.bsdf_pdf(pl, pf, pwo, pwi, types),
+          JB.bsdf_pdf(jl, jf, jwo, jwi, types), "pdf")
+    wi, f, pdf, flags, valid = PB.bsdf_sample_f(pl, pf, pwo, pul, pu2, types)
+    jw, jff, jpdf, jflags, jvalid = JB.bsdf_sample_f(jl, jf, jwo, jul, ju2,
+                                                     types)
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(jflags))
+    four = flags.numpy() == PB.LOBE_FLAGS[PB.FOURIER]
+    assert four.sum() > 100
+    _near(wi.numpy()[four], np.asarray(jw)[four], "sampled wi")
+    _near(f.numpy()[four], np.asarray(jff)[four], "sampled f")
+    _near(pdf.numpy()[four], np.asarray(jpdf)[four], "sampled pdf")
+    with pytest.raises(ValueError, match="table set"):
+        PB.bsdf_f(pl._replace(fourier=None), pf, pwo, pwi, types)
 
 
 def test_check_types_refuses_only_fourier():
-    assert PB.PORTED_TYPES == set(range(PB.N_LOBE_TYPES)) - {PB.FOURIER}
-    PB.check_types(PORTED)
-    with pytest.raises(NotImplementedError, match="FOURIER"):
-        PB.check_types((PB.FOURIER,))
+    """Every lobe type of the reference is ported, FOURIER included; only a
+    code that is no lobe type raises."""
+    assert PB.PORTED_TYPES == set(range(PB.N_LOBE_TYPES))
+    PB.check_types(tuple(sorted(PB.PORTED_TYPES)))
+    with pytest.raises(NotImplementedError, match="not a lobe type"):
+        PB.check_types((PB.N_LOBE_TYPES,))

@@ -4,7 +4,7 @@ written as EXR is read back by both packages' readers, and one of
 testball-glass prints its phases and launches; ``scenes/simple.pbrt``
 (spheres and a disk alone: no triangle, a point light and a disk light)
 renders at 1 spp (about 25 s); a scene with a feature the port does not
-render (a bump map, the Fourier material) exits non-zero naming the
+render (instancing, an alpha cutout) exits non-zero naming the
 feature; the flags that are not ported exit non-zero saying so."""
 import os
 import subprocess
@@ -70,9 +70,9 @@ def test_cpu_render_of_a_scene_of_quadrics(tmp_path):
 
 
 UNPORTED = {
-    "bumpmap": ('Texture "b" "float" "constant" "float value" [1]\n'
-                'Material "matte" "texture bumpmap" "b"', "bumpmap"),
-    "fourier": ('Material "fourier"', "Material 'fourier'"),
+    "instancing": ('ObjectBegin "o"', "ObjectBegin 'o'"),
+    "alpha": ('Shape "trianglemesh" "integer indices" [0 1 2] '
+              '"point P" [0 0 1 1 0 1 0 1 1] "float alpha" [0]', "'alpha'"),
 }
 
 

@@ -41,7 +41,14 @@ lights: K15 (an infinite light's sample) with its radiance bit for bit
 1e-5 / sin theta near a pole, off the texel edges of the map's pdf; K12's
 lights kernel within 1e-5 relative like its triangle kernel; the
 veach-mis and envmap-dof renders within the golden-image tolerance of the
-all-plain render."""
+all-plain render. The rest of shading: K17 (the per-texture lookups, each
+mode, flat and quad texel rows, each wrap) within 1e-5 absolute (the exact
+mode 2e-5: expf near the ellipse's edge), K18 (fbm, turbulence) within
+1e-5 absolute, K19's f and pdf within 1e-5 of the largest magnitude plus
+1e-6 and its sampled direction within 1e-4, each on all but 1e-4 of the
+lanes (a mip level, an octave count or a bisection step flipped by a
+last-bit difference); the three scenes of tools/texture_work.py within
+the golden-image tolerance of the all-plain render."""
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -1375,3 +1382,137 @@ def test_device_ms_says_how_it_timed(dev, monkeypatch):
     x = torch.zeros(1 << 20, device=dev)
     with pytest.raises(AssertionError, match="launches no kernel"):
         timing.device_ms(lambda: x.add_(1.0), 5, "no_such_kernel")
+
+
+# --- the rest of shading: K17 (the per-texture lookups), K18 (noise), K19
+# (the Fourier BSDF) ---
+
+def _held_to_plain(fn, args, out):
+    """``out`` of K17-K19's entry point ``fn`` on ``args`` against its
+    plain version: tools/texture_work.py compare_with_plain (every lane
+    within its tolerance, but for the rare lanes whose discrete choice a
+    last-bit difference flipped, each held to the plain version at the
+    other choice)."""
+    from rustracer_tpu_torch.tools.texture_work import compare_with_plain
+    return compare_with_plain(fn.__name__, args, out)
+
+
+@pytest.mark.parametrize("layout", ["flat", "quad"])
+@pytest.mark.parametrize("wrap", [WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP])
+def test_mipmap_lookup_matches_plain(dev, wrap, layout):
+    """K17 in each mode on a non-power-of-two image (flat (T, 3) and quad
+    (T, 12) texel rows), 2^16 lanes of footprints of anisotropy 1 to 32:
+    within 1e-5 absolute on every lane (the exact mode 2e-5: expf near the
+    ellipse's edge; a lane whose rounded level flipped, at most 1e-4 of
+    them, within that of the neighbouring level's plain value)."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    rs = np.random.RandomState(wrap)
+    img = rs.rand(37, 50, 3).astype(np.float32)
+    pyr = [torch.from_numpy(lv).to(dev) for lv in build_pyramid(img)]
+    tx = MM.pyramid_texels(pyr)
+    if layout == "quad":
+        tx = MM.Texels(A.atlas_quad_texels([pyr]), tx.meta, 3)
+    n = 1 << 16
+    st = torch.from_numpy(rs.uniform(-0.5, 1.5, (n, 2)).astype(
+        np.float32)).to(dev)
+    ang = rs.uniform(0, 2 * np.pi, n)
+    minor = 10 ** rs.uniform(-3.5, -0.5, n)
+    major = minor * 10 ** rs.uniform(0, np.log10(32.0), n)
+    d0 = torch.from_numpy(np.stack([np.cos(ang) * major, np.sin(ang) * major],
+                                   -1).astype(np.float32)).to(dev)
+    d1 = torch.from_numpy(np.stack([-np.sin(ang) * minor, np.cos(ang) * minor],
+                                   -1).astype(np.float32)).to(dev)
+    width = torch.from_numpy((10 ** rs.uniform(-4, 0.5, n)).astype(
+        np.float32)).to(dev)
+    calls = [(MM.lookup_trilinear, (tx, st, width, wrap)),
+             (MM.lookup_ewa, (tx, st, d0, d1, 4.0, wrap)),
+             (MM.lookup_ewa, (tx, st, d0, d1, 8.0, wrap)),
+             (MM.lookup_ewa_exact, (tx, st, d0, d1, 16.0, wrap)),
+             (MM.lookup_ewa_exact, (tx, st, d0, d1, 32.0, wrap))]
+    for fn, args in calls:
+        K.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mipmap_lookup"] == 1
+        _held_to_plain(fn, args, out)
+
+
+@pytest.mark.parametrize("turbulence", [False, True])
+def test_noise_matches_plain(dev, turbulence):
+    """K18 (fbm, turbulence) on 2^18 seeded points and footprints over six
+    decades: within 1e-5 absolute on every lane (a lane whose octave count
+    log2f flipped at an integer, at most 1e-4 of them, within that of the
+    plain value on the other side of it)."""
+    from rustracer_tpu_torch.core import noise as NZ
+    rs = np.random.RandomState(3)
+    n = 1 << 18
+    p = torch.from_numpy(rs.uniform(-40, 40, (n, 3)).astype(np.float32))
+    scale = 10 ** rs.uniform(-5, 1, (n, 1))
+    dx = torch.from_numpy((rs.normal(size=(n, 3)) * scale).astype(np.float32))
+    dy = torch.from_numpy((rs.normal(size=(n, 3)) * scale).astype(np.float32))
+    p, dx, dy = p.to(dev), dx.to(dev), dy.to(dev)
+    fn = NZ.turbulence if turbulence else NZ.fbm
+    for omega, octaves in ((0.5, 8), (0.6, 5), (0.5, 3)):
+        K.reset_launches()
+        out = fn(p, dx, dy, omega, octaves)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["noise_fbm"] == 1
+        _held_to_plain(fn, (p, dx, dy, omega, octaves), out)
+
+
+def test_fourier_matches_plain(dev):
+    """K19 (f, pdf, sample_f) on 2^16 lanes over a Lambertian, a
+    multi-order 3-channel and a 1-channel table (tests/test_torch_fourier
+    .py's set), a third of the lanes masked off: f and pdf within 1e-5 of
+    the largest magnitude plus 1e-6 on every lane; the sampled direction
+    within 1e-4, and its f and pdf as f and pdf, on every lane but those
+    whose bisections' or Newton steps' compares flipped (at most 1e-4 of
+    them: a unit direction, its f within 1e-3 of the plain f there, a
+    finite pdf >= 0); zeros off the mask."""
+    from rustracer_tpu_torch.ops import fourier as FO
+    from rustracer_tpu_torch.tools.texture_work import fourier_table
+    t3 = fourier_table(n_mu=20, m_max=11, seed=9)
+    t3["n_channels"] = 1
+    tabs = [FO.make_lambertian_table((0.6, 0.4, 0.2), n_mu=12),
+            fourier_table(transmission=0.1, eta=1.5), t3]
+    ts = FO.make_table_set(tabs).to(dev)
+    rs = np.random.RandomState(7)
+    n = 1 << 16
+
+    def dirs():
+        v = rs.normal(size=(n, 3))
+        return torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True))
+                                .astype(np.float32)).to(dev)
+    tid = torch.from_numpy(rs.randint(0, 3, n).astype(np.int32)).to(dev)
+    wo, wi = dirs(), dirs()
+    u = torch.from_numpy(rs.uniform(size=(n, 2)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(np.arange(n) % 3 != 0).to(dev)
+    for fn, second in ((FO.fourier_f, wi), (FO.fourier_pdf, wi),
+                       (FO.fourier_sample_f, u)):
+        K.reset_launches()
+        out = fn(ts, tid, wo, second, mask)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fourier_bsdf"] == 1
+        _held_to_plain(fn, (ts, tid, wo, second, mask), out)
+        for a in (out if isinstance(out, tuple) else (out,)):
+            assert bool((a[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["textures-procedural", "textures-image",
+                                  "testball-fourier"])
+def test_texture_scene_render_matches_plain(dev, name, tmp_path):
+    """tools/texture_work.py's scenes at 64^2, 2 samples: launching K17
+    (textures-image), K18 (textures-procedural) or K19 (testball-fourier),
+    the image within the golden-image tolerance of the all-plain render."""
+    from rustracer_tpu_torch.scene.api import parse_scene_string
+    from rustracer_tpu_torch.tools.texture_work import scene_text
+    bundle = parse_scene_string(scene_text(name, res=64, spp=2,
+                                           bsdf_dir=str(tmp_path)),
+                                device=dev).scene
+    K.reset_launches()
+    _assert_render_matches_plain(bundle.renderer(), bundle.context(),
+                                 sample_stop=2)
+    need = {"textures-procedural": "noise_fbm",
+            "textures-image": "mipmap_lookup",
+            "testball-fourier": "fourier_bsdf"}[name]
+    assert K.LAUNCHES[need] > 0, K.LAUNCHES

@@ -1,0 +1,18 @@
+"""The slice on the CPU: tools/texture_work.py's ``textures-image``, a plastic ball with an imagemap at maxanisotropy 16 (the exact
+lookup) and a float imagemap bump (the atlas at the hit, the 8-tap lookup
+at the moved hits) over a mix of a matte with a trilinear planar imagemap
+and a substrate with a clamped imagemap at maxanisotropy 4,
+rendered by both packages' path integrators at 16^2, 2 spp, depth 7 from
+one scene text, every pixel within tests/test_golden.py's measure (mean
+relative error below 2e-3, 99th percentile below 2e-2); the observed
+numbers are printed. A file of its own, so that xdist spreads the JAX
+compiles (about a minute a scene here)."""
+import torch
+
+from test_torch_textures import assert_scene_matches_jax
+
+torch.set_num_threads(1)
+
+
+def test_render_matches_jax(tmp_path):
+    assert_scene_matches_jax("textures-image", tmp_path)

@@ -4,8 +4,10 @@ the textured dragon, takes a train step of the textured dragon and of the
 Cornell box with imagemap walls and the Cornell's fwd+bwd loss, parses
 ``scenes/cornell-box.pbrt`` (its spatial light grid included) and
 ``scenes/testball-matte.pbrt`` (a sphere, a checkerboard) and renders one
-sample of each, then checks that neither ``jax`` nor the JAX package was
-ever imported."""
+sample of each, renders the three scenes of tools/texture_work.py (every
+texture class, bump maps, the Fourier BSDF: core/noise.py,
+core/interpolation.py, ops/fourier.py and the per-texture lookups) at 8^2,
+then checks that neither ``jax`` nor the JAX package was ever imported."""
 import os
 import subprocess
 import sys
@@ -51,6 +53,13 @@ bundle = parse_scene("scenes/testball-matte.pbrt", device="cpu").scene
 assert bundle.geom.has_quadrics
 img = bundle.render(sample_stop=1)
 assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+import tempfile
+from rustracer_tpu_torch.scene.api import parse_scene_string
+from rustracer_tpu_torch.tools.texture_work import TEXTURE_SCENES, scene_text
+for name in TEXTURE_SCENES:
+    text = scene_text(name, res=8, spp=1, bsdf_dir=tempfile.mkdtemp())
+    img = parse_scene_string(text, device="cpu").scene.render()
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "rustracer_tpu."))
              or m == "rustracer_tpu")

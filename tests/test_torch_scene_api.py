@@ -12,7 +12,11 @@ holds the testball-matte scene to): geometry with the quadric tables, BVH bytes,
 and integrator settings bit-equal, the texture constants bit-equal, the
 texel pyramids within 1e-6. The spatial grid's tables are compared in
 tests/test_torch_lightdistrib.py. Every directive the port refuses raises
-NotImplementedError naming itself and its ROADMAP.md item; each light
+NotImplementedError naming itself and its ROADMAP.md item; what it refused
+until the rest of shading was ported (bump maps, a mix over a material
+with an imagemap, the procedural textures, the planar mapping, trilinear
+filtering, the Fourier material) builds the same materials and textures as
+the JAX package; each light
 directive it refused until the lights were ported (point, distant,
 infinite, an area light on a sphere or a disk) builds the JAX package's
 light table, and is refused under the direct and Whitted integrators
@@ -29,6 +33,7 @@ from PIL import Image
 from rustracer_tpu.scene.api import parse_scene as jax_parse
 from rustracer_tpu.scene.api import parse_scene_string as jax_parse_string
 from rustracer_tpu_torch import convert
+from rustracer_tpu_torch.ops import bsdf as PB
 from rustracer_tpu_torch.scene import textures as PT
 from rustracer_tpu_torch.scene.api import parse_scene, parse_scene_string
 from rustracer_tpu_torch.scene.tables import QUADRIC_KEYS
@@ -221,41 +226,6 @@ REFUSED = {
                       "'whitted'", 16),
     "infinite light": ('Integrator "directlighting"',
                        'LightSource "infinite"', "'directlighting'", 16),
-    # plastic, glass and Oren-Nayar render: a bump map on each is refused
-    "plastic": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-                'Material "plastic" "texture bumpmap" "b"',
-                "Material 'plastic' with a bumpmap", 13),
-    "glass": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-              'Material "glass" "texture bumpmap" "b"',
-              "Material 'glass' with a bumpmap", 13),
-    # substrate and translucent render: a bump map on each is refused
-    "substrate": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-                  'Material "substrate" "texture bumpmap" "b"',
-                  "Material 'substrate' with a bumpmap", 13),
-    "translucent": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-                    'Material "translucent" "texture bumpmap" "b"',
-                    "Material 'translucent' with a bumpmap", 13),
-    # a mix renders over materials without an image texture
-    "mix": ('', 'Texture "g" "spectrum" "imagemap" "string filename" '
-            f'"{os.path.join(REPO, "scenes", "textures", "grid.png")}"\n'
-            'MakeNamedMaterial "a" "string type" "matte" "texture Kd" "g"\n'
-            'MakeNamedMaterial "b" "string type" "disney"\n'
-            'Material "mix" "string namedmaterial1" "a" '
-            '"string namedmaterial2" "b"',
-            "Material 'mix' over a material with an imagemap texture", 13),
-    "fourier": ('', 'Material "fourier"', "Material 'fourier'", 13),
-    "oren-nayar": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-                   'Material "matte" "float sigma" [20] '
-                   '"texture bumpmap" "b"', "bumpmap", 13),
-    "bumpmap": ('', 'Texture "b" "float" "constant" "float value" [1]\n'
-                'Material "matte" "texture bumpmap" "b"', "bumpmap", 13),
-    "marble": ('', 'Texture "m" "spectrum" "marble"', "'marble'", 13),
-    "fbm": ('', 'Texture "f" "float" "fbm"', "'fbm'", 13),
-    "scale texture": ('', 'Texture "s" "spectrum" "scale"', "'scale'", 13),
-    "planar mapping": ('', 'Texture "p" "spectrum" "imagemap" '
-                       '"string mapping" "planar"', "planar", 13),
-    "trilinear": ('', 'Texture "t" "spectrum" "imagemap" '
-                  '"bool trilinear" "true"', "trilinear", 13),
     "instancing": ('', 'ObjectBegin "o"', "ObjectBegin 'o'", 15),
     "instance": ('', 'ObjectInstance "o"', "ObjectInstance", 15),
     "alpha": ('', 'Shape "trianglemesh" "integer indices" [0 1 2] '
@@ -269,6 +239,87 @@ REFUSED = {
     "normal": ('Integrator "normal"', '', "'normal'", 16),
     "random sampler": ('Sampler "random"', '', "'random'", 17),
 }
+
+
+# what the port refused until the rest of shading was ported: each parses on
+# both packages into the same textures and materials
+_BUMP = 'Texture "b" "float" "constant" "float value" [1]\n'
+_GRID = os.path.join(REPO, "scenes", "textures", "grid.png")
+SHADING = {
+    "plastic": _BUMP + 'Material "plastic" "texture bumpmap" "b"',
+    "glass": _BUMP + 'Material "glass" "texture bumpmap" "b"',
+    "substrate": _BUMP + 'Material "substrate" "texture bumpmap" "b"',
+    "translucent": _BUMP + 'Material "translucent" "texture bumpmap" "b"',
+    "oren-nayar": _BUMP + 'Material "matte" "float sigma" [20] '
+    '"texture bumpmap" "b"',
+    "bumpmap": _BUMP + 'Material "matte" "texture bumpmap" "b"',
+    "mix": (f'Texture "g" "spectrum" "imagemap" "string filename" "{_GRID}"\n'
+            'MakeNamedMaterial "a" "string type" "matte" "texture Kd" "g"\n'
+            'MakeNamedMaterial "b" "string type" "disney"\n'
+            'Material "mix" "string namedmaterial1" "a" '
+            '"string namedmaterial2" "b"'),
+    "marble": 'Translate 1 2 3\nTexture "m" "spectrum" "marble" '
+    '"float scale" [2]\nMaterial "matte" "texture Kd" "m"',
+    "fbm": 'Rotate 30 0 1 0\nTexture "f" "float" "fbm" "integer octaves" '
+    '[4]\nMaterial "metal" "texture roughness" "f"',
+    "scale texture": 'Texture "w" "float" "wrinkled"\nTexture "s" "spectrum" '
+    '"scale" "texture tex1" "w" "rgb tex2" [0.5 0.2 0.1]\n'
+    'Material "matte" "texture Kd" "s"',
+    "planar mapping": (f'Texture "p" "spectrum" "imagemap" "string filename" '
+                       f'"{_GRID}" "string mapping" "planar" "vector v1" '
+                       '[0 0 2] "vector v2" [1 1 0] "float udelta" [0.5]\n'
+                       'Material "matte" "texture Kd" "p"'),
+    "trilinear": (f'Texture "t" "spectrum" "imagemap" "string filename" '
+                  f'"{_GRID}" "bool trilinear" "true" "string wrap" "black"'
+                  '\nMaterial "matte" "texture Kd" "t"'),
+    "fourier": 'Material "fourier" "string bsdffile" "{bsdf}"',
+}
+
+
+def assert_same_objects(p, j, path="m"):
+    """The port's material or texture ``p`` and the JAX one ``j`` carried
+    over by convert.py: the same classes, and every attribute of the JAX
+    one equal in the port's (floats and arrays bit for bit)."""
+    assert type(p).__name__ == type(j).__name__, path
+    for k, jv in vars(j).items():
+        pv = getattr(p, k)
+        if isinstance(jv, (bool, int, float, str)) or jv is None:
+            assert pv == jv, (path, k, pv, jv)
+        elif isinstance(jv, np.ndarray):
+            _eq(pv, jv)
+        else:
+            assert_same_objects(pv, jv, f"{path}.{k}")
+
+
+@pytest.mark.parametrize("case", sorted(SHADING))
+def test_shading_directive_builds_the_references(case, tmp_path):
+    """Bump maps on plastic, glass, substrate, translucent, Oren-Nayar and
+    Lambertian mattes, a mix over a material with an imagemap, the marble,
+    fbm and scale textures (the 3D mapping of the transform where each is
+    declared), the planar mapping, a trilinear imagemap and the Fourier
+    material build the same materials and textures in both packages, and
+    the same texture tables (a Fourier table set included)."""
+    from rustracer_tpu_torch.tools.texture_work import write_fourier_table
+    world = SHADING[case].format(bsdf=write_fourier_table(
+        str(tmp_path / "t.bsdf")))
+    text = _HEAD.format(options="", world=world)
+    jb = jax_parse_string(text).scene
+    pb = parse_scene_string(text, device="cpu").scene
+    ref = convert.material_set_from_jax(jb.integrator.mat_set, jb.textures)
+    assert len(pb.material_set.materials) == len(ref.materials)
+    for i, (pm, jm) in enumerate(zip(pb.material_set.materials,
+                                     ref.materials)):
+        assert_same_objects(pm, jm, f"material {i}")
+    assert sorted(pb.textures["const"]) == sorted(jb.textures["const"])
+    for k, v in jb.textures["const"].items():
+        _eq(pb.textures["const"][k].numpy(), np.asarray(v))
+    assert len(pb.textures.get("images", [])) == \
+        len(jb.textures.get("images", []))
+    if case == "fourier":
+        ts = convert.fourier_from_jax(jb.textures["fourier"], "cpu")
+        for a, b in zip(pb.textures["fourier"], ts):
+            _eq(np.asarray(a), np.asarray(b))
+        assert pb.material_set.types_present() == (PB.FOURIER,)
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
