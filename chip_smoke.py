@@ -184,7 +184,28 @@ Phases, each printing its lines:
      other choice), the first call of each kind timed and bounded
      (tools/texture_work.py), each mode's launches counted
      (texture_work.count_calls) in the render and in the step;
- 21. a JSON line of the kernels (times, bounds, library yardsticks,
+ 21. the rest of the geometry: (a) the instanced gallery
+     (scenes.build_instanced: 25 instances of one 81,920-triangle bumpy
+     sphere through the two-level BVH) at 1024 x 768, its 16-spp config
+     timed on a 4-sample slice in 2^18-lane tiles, depth 5, counted (K1's
+     instanced walks and K2's instance branch launched, K1's plain walk
+     not), camera rays/s beside the matte dragon's of phase 4; (b)
+     tools/geometry_work.py's alpha-cards (instanced cards with alpha and
+     shadow-alpha cut-outs, a medium-interface sphere, the middle split)
+     through the port's command line in a subprocess at 1024^2, 8 samples,
+     and parsed and rendered in process likewise (K1's instanced-alpha
+     walks, K2's instance branch, K14), the CLI's image within the golden
+     tolerance of the in-process one; alpha-cards-static (the same cards
+     without instances, Accelerator "hlbvh": K1's alpha walks) at 1024^2,
+     2 samples, and through the CLI at 256^2, 2 spp. For the
+     gallery and alpha-cards, every K1 call of one recorded full-width
+     step (tile 2) bit for bit with the plain walk (hit, t, prim,
+     instance) and every K2 call within 1e-5 (k2_off), the first closest
+     and any K1 call and the first K2 call timed and bounded
+     (tools/geometry_work.py k1_work, k1_bound, k2_inst_work), the 128^2
+     crop at 1 spp against the all-plain path (mean 2e-3, p99 2e-2);
+     alpha-cards-static's first closest and any calls likewise;
+ 22. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and ones for the render's at 16, 32, 96 and
      112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
@@ -196,7 +217,8 @@ Phases, each printing its lines:
      "events"), the card line, and the result line.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
-lights kernel; only phase 20's scenes launch K17, K18 and K19.
+lights kernel; only phase 20's scenes launch K17, K18 and K19; only phase
+21's launch K1's instanced and alpha walks and K2's instance branch.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
@@ -204,7 +226,7 @@ phases 13-15, the testball render and step of phase 16, each testball
 render and the glass render and steps of phase 17, each render and step
 of phase 18, each light scene's parse and render and the bathroom's
 full-width render and step of phase 19, each texture scene's render and
-step of phase 20) is
+step of phase 20, each geometry render and step of phase 21) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -281,6 +303,21 @@ SOURCES = {
                   "rustracer_tpu/core/noise.py:52"),
     "fourier_bsdf": ("rustracer_tpu_torch/csrc/fourier.cu",
                      "rustracer_tpu/ops/fourier.py:274"),
+    "traverse16_inst_closest": ("rustracer_tpu_torch/csrc/traverse16.cu",
+                                "rustracer_tpu/accel/traverse16.py:196"),
+    "traverse16_inst_any": ("rustracer_tpu_torch/csrc/traverse16.cu",
+                            "rustracer_tpu/accel/traverse16.py:196"),
+    "traverse16_alpha_closest": ("rustracer_tpu_torch/csrc/traverse16.cu",
+                                 "rustracer_tpu/scene/tables.py:394"),
+    "traverse16_alpha_any": ("rustracer_tpu_torch/csrc/traverse16.cu",
+                             "rustracer_tpu/scene/tables.py:394"),
+    "traverse16_inst_alpha_closest": (
+        "rustracer_tpu_torch/csrc/traverse16.cu",
+        "rustracer_tpu/accel/traverse16.py:196"),
+    "traverse16_inst_alpha_any": ("rustracer_tpu_torch/csrc/traverse16.cu",
+                                  "rustracer_tpu/accel/traverse16.py:196"),
+    "build_interaction_inst": ("rustracer_tpu_torch/csrc/interaction.cu",
+                               "rustracer_tpu/scene/tables.py:597"),
 }
 # K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
 QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
@@ -486,6 +523,25 @@ ROWS = {
     "fourier_bsdf pdf": ("fourier_bsdf", "the first pdf call of that step"),
     "fourier_bsdf sample_f": ("fourier_bsdf",
                               "the first sample_f call of that step"),
+    "traverse16_inst_closest": (
+        "traverse16_inst_closest", "the camera rays of a full-width step "
+        "of the instanced gallery (tile 2, 2^18 lanes, 1024 x 768)"),
+    "traverse16_inst_any": ("traverse16_inst_any",
+                            "the first shadow rays of that step"),
+    "build_interaction_inst": ("build_interaction_inst",
+                               "the camera hits of that step (instanced "
+                               "and static lanes)"),
+    "traverse16_inst_alpha_closest": (
+        "traverse16_inst_alpha_closest", "the camera rays of a full-width "
+        "alpha-cards step (tile 2, 2^18 lanes, 1024^2)"),
+    "traverse16_inst_alpha_any": ("traverse16_inst_alpha_any",
+                                  "the first shadow rays of that step "
+                                  "(alpha and shadow alpha)"),
+    "traverse16_alpha_closest": (
+        "traverse16_alpha_closest", "the camera rays of a full-width "
+        "alpha-cards-static step (tile 2, 2^18 lanes, 1024^2)"),
+    "traverse16_alpha_any": ("traverse16_alpha_any",
+                             "the first shadow rays of that step"),
 }
 # phase 20: tools/texture_work.py's scenes, the kernel each must launch, and
 # the rows of its kernel
@@ -498,6 +554,25 @@ TEXTURE_NEEDS = {
     "testball-fourier": ("fourier_bsdf", ("fourier_bsdf f",
                                           "fourier_bsdf pdf",
                                           "fourier_bsdf sample_f"))}
+# phase 21: the gallery's film, its config's spp and the slice timed
+GALLERY_RES = (1024, 768)
+GALLERY_SPP, GALLERY_SAMPLES = 16, 4
+# the kernels each geometry scene's render must launch (phase 21), and its
+# K1 rows (closest, any)
+GEOMETRY_NEEDS = {
+    "gallery": (("traverse16_inst_closest", "traverse16_inst_any",
+                 "build_interaction_inst"),
+                ("traverse16_inst_closest", "traverse16_inst_any")),
+    "alpha-cards": (("traverse16_inst_alpha_closest",
+                     "traverse16_inst_alpha_any", "build_interaction_inst",
+                     "quadric_closest"),
+                    ("traverse16_inst_alpha_closest",
+                     "traverse16_inst_alpha_any")),
+    "alpha-cards-static": (("traverse16_alpha_closest",
+                            "traverse16_alpha_any"),
+                           ("traverse16_alpha_closest",
+                            "traverse16_alpha_any")),
+}
 # the kernels a testball's CLI render must launch (phases 16-18)
 TESTBALL_NEED = ("quadric_closest", "quadric_any", "build_interaction")
 # phase 19: the scenes of the lights through the CLI and in process, as
@@ -1016,11 +1091,12 @@ def step_launches(renderer, ctx, tile):
 
 
 def render_counted(label, renderer, film, ctx, samples, card, depth=5,
-                   res=RES, shading=()):
+                   res=RES, shading=(), geometry=()):
     """One counted render of the main path -> (launches, tiers, image,
     camera rays/s). Of K17, K18 and K19 (cuda.SHADING_KERNELS) only those
     of ``shading`` may launch: a scene without their textures or Fourier
-    BSDF launches none."""
+    BSDF launches none; of K1's instanced and alpha walks and K2's
+    instance branch (cuda.GEOMETRY_KERNELS) only those of ``geometry``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.integrators import path as P
     torch.cuda.synchronize()
@@ -1043,6 +1119,9 @@ def render_counted(label, renderer, film, ctx, samples, card, depth=5,
     if any(launches[k] for k in K.SHADING_KERNELS if k not in shading):
         raise AssertionError(f"{label} launched a shading kernel beyond "
                              f"{shading}: {launches}")
+    if any(launches[k] for k in K.GEOMETRY_KERNELS if k not in geometry):
+        raise AssertionError(f"{label} launched a geometry kernel beyond "
+                             f"{geometry}: {launches}")
     return launches, tiers, img, res[0] * res[1] * samples / wall
 
 
@@ -2911,8 +2990,228 @@ def texture_scenes(dev, card, results, rays):
                 raise AssertionError(f"[20] {name}: no call for {missing}")
 
 
+def check_geometry_step(label, scene, renderer, ctx, counts, results,
+                        every=True):
+    """Phase 21: one recorded full-width step (tile 2) of ``scene``: every
+    K1 call (or, not ``every``, the first closest and any) bit for bit with
+    the plain walk (hit, t, prim, instance), every K2 call within 1e-5
+    (k2_off); the first closest and any K1 call and (instanced) the first
+    K2 call timed and bounded into the rows ``GEOMETRY_NEEDS[scene][1]`` and
+    build_interaction_inst. ``counts[name]``: the row's launches, launches
+    a step and where."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.accel.traverse16 import traverse16
+    from rustracer_tpu_torch.core.ray import Ray
+    from rustracer_tpu_torch.scene.tables import build_interaction
+    from rustracer_tpu_torch.tools import geometry_work as GW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    cap = GW.capture_geometry_step(renderer, ctx, renderer.tiles[2])
+    k1 = cap["traverse16"]
+    firsts = {any_hit: next(c for c in k1 if c[1]["any_hit"] == any_hit)
+              for any_hit in (False, True)}
+    lanes = off = 0
+    for args, kw in (k1 if every else firsts.values()):
+        n, bad = GW.compare_k1(args, kw)
+        lanes, off = lanes + n, off + bad
+    log(f"{label} {scene}: {len(k1)} K1 calls in one full-width step (tile "
+        f"2); {'all' if every else 'the first closest and any'} held "
+        f"against the plain walk: {lanes} lanes, {off} differ in hit, t "
+        f"bits, prim or instance")
+    if off:
+        raise AssertionError(f"{label} {scene}: K1 differs from its plain "
+                             "twin")
+    for (args, kw), row in zip(firsts.values(), GEOMETRY_NEEDS[scene][1]):
+        geom, o, d, t_max = args
+        any_hit = kw["any_hit"]
+
+        def call(args=args, any_hit=any_hit):
+            return traverse16(*args, any_hit=any_hit)
+        ms = events_ms(call, 20)
+        with K.plain_reference():
+            pms = events_ms(call, 1)
+        _, work = GW.k1_work(geom, Ray(o=o, d=d, t_max=t_max), any_hit)
+        bms, by = GW.k1_bound(work, 1 + int(any_hit and geom.has_alpha))
+        results[row] = dict(max_abs_err=0.0, ms=ms, ms_by="events",
+                            plain_ms=pms, bound_ms=bms, bound_by=by,
+                            **counts[row])
+        log(f"{label} {row}: {work}; kernel {ms:.4f} ms, plain {pms:.3f} "
+            f"ms, bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of it")
+    k2 = cap.get("build_interaction", [])
+    worst = 0.0
+    for args, kw in k2:
+        def k2call(args=args, kw=kw):
+            return build_interaction(*args, **kw)
+        out = k2call()
+        with K.plain_reference():
+            ref = k2call()
+        for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss",
+                  "ts", "dndu", "dndv", "wo"):
+            a, b = getattr(out, f), getattr(ref, f)
+            bad = k2_off(f, a, b)
+            if bad.any():
+                raise AssertionError(f"{label} {scene} K2: {f} differs on "
+                                     f"{int(bad.sum())} lanes")
+            worst = max(worst, (a - b).abs().max().item())
+        for f in ("material", "arealight", "prim_id"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"{label} {scene} K2: {f} differs")
+    log(f"{label} {scene}: {len(k2)} K2 calls held within 1e-5 of the plain "
+        f"version, max abs err {worst:.3g}")
+    if ctx.geom.has_instances and "build_interaction_inst" not in results:
+        args, kw = k2[0]
+        geom, ray, hit, t, prim = args[:5]
+        inst = args[5] if len(args) > 5 else kw.get("inst")
+
+        def k2first():
+            return build_interaction(*args, **kw)
+        ms = kernel_time("build_interaction_inst", k2first, 20,
+                         "build_interaction_kernel")
+        with K.plain_reference():
+            pms = events_ms(k2first, 5)
+        out = k2first()
+        lane_bytes = (nbytes(ray.o, ray.d, ray.t_max, hit, t, prim) + nbytes(
+            *[getattr(out, f) for f in (
+                "p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+                "dndu", "dndv", "wo", "material", "arealight",
+                "prim_id")])) / hit.shape[0]
+        moved, ops = GW.k2_inst_work(geom, hit, inst,
+                                     LANE_OPS["build_interaction"],
+                                     lane_bytes)
+        moved += torch.unique(prim[hit]).numel() * geom.t_shade.shape[1] * 4
+        results["build_interaction_inst"] = dict(
+            max_abs_err=worst, ms=ms, plain_ms=pms, **bound(moved, ops),
+            **counts["build_interaction_inst"])
+        log(f"{label} build_interaction_inst: {int((inst >= 0).sum())} "
+            f"instanced lanes of {hit.shape[0]}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound "
+            f"{results['build_interaction_inst']['bound_ms']:.4f} ms")
+
+
+def geometry_scene(label, scene, bundle_or_parts, dev, card, results,
+                   samples, res, every=True):
+    """Phase 21: one geometry scene's counted render (after a 1-sample
+    warm-up), its launches a step, its recorded step (check_geometry_step)
+    and its 128^2 crop against the all-plain path -> (camera rays/s,
+    image)."""
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    li, cam, film, sampler, ctx, depth = bundle_or_parts
+    renderer = Renderer(li, cam, film, sampler, RenderConfig(max_lanes=LANES),
+                        device=dev)
+    renderer.render_state(ctx, sample_stop=1)
+    need, _ = GEOMETRY_NEEDS[scene]
+    geometry = tuple(k for k in need if k.startswith(("traverse16_",
+                                                      "build_interaction_")))
+    launches, _, img, rays = render_counted(
+        f"{label} {scene}", renderer, film, ctx, samples, card, depth=depth,
+        res=res, geometry=geometry)
+    missing = [k for k in need if launches[k] <= 0]
+    if missing or launches["traverse16_closest"] or \
+            launches["traverse16_any"]:
+        raise AssertionError(f"{label} {scene}: missing {missing} or the "
+                             f"plain walk launched: {launches}")
+    per_step = step_launches(renderer, ctx, renderer.tiles[2])
+    log(f"{label} launches in one full-width {scene} step (tile 2): "
+        f"{per_step}")
+    counted_in = f"{scene} render at {res[0]}x{res[1]}, {samples} samples"
+    counts = {k: dict(launches=launches[k], launches_per_step=per_step[k],
+                      counted_in=counted_in) for k in geometry}
+    check_geometry_step(label, scene, renderer, ctx, counts, results, every)
+    crop_film = Film(full_resolution=res, crop_window=CROP,
+                     filter=film.filter)
+    compare_crop(f"{label} {scene}", Renderer(
+        li, cam, crop_film, sampler, RenderConfig(max_lanes=LANES),
+        device=dev), crop_film, ctx)
+    return rays, img
+
+
+def geometry_cli(scene, text, tmp, ref_img=None):
+    """Phase 21: ``scene`` (tools/geometry_work.py) through the port's
+    command line in a subprocess: the kernels of GEOMETRY_NEEDS launched,
+    the image finite and lit, and within the golden tolerance of the
+    in-process render ``ref_img`` where given."""
+    from rustracer_tpu_torch.render.imageio import read_image
+    path = os.path.join(tmp, f"{scene}.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    out = os.path.join(tmp, f"{scene}.exr")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rustracer_tpu_torch.utils.cli", path, "-o",
+         out, "-v"], cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[21] cli: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    img = read_image(out)
+    need = GEOMETRY_NEEDS[scene][0]
+    msg = f"image mean {img.mean():.5f}"
+    if ref_img is not None:
+        mean_err, p99 = image_errors(img, ref_img)
+        msg = (f"against the in-process render: mean err {mean_err:.3g} (< "
+               f"2e-3), p99 {p99:.3g} (< 2e-2)")
+    log(f"[21] python -m rustracer_tpu_torch.utils.cli {scene}.pbrt: "
+        f"{wall:.2f} s in all; launches of {need}: "
+        f"{[launches[k] for k in need]}; {msg}")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the CLI's {scene} did not launch {missing}")
+    if not (np.isfinite(img).all() and img.mean() > 1e-4):
+        raise AssertionError(f"the CLI's {scene} is not finite and lit")
+    if ref_img is not None and not (mean_err < 2e-3 and p99 < 2e-2):
+        raise AssertionError(f"the CLI's {scene} differs from the "
+                             "in-process render")
+
+
+def geometry_scenes(dev, card, results, rays):
+    """Phase 21 (see the module docstring): the instanced gallery,
+    alpha-cards in process and through the CLI, alpha-cards-static."""
+    from rustracer_tpu_torch.scenes import build_instanced
+    from rustracer_tpu_torch.tools import geometry_work as GW
+    t0 = time.perf_counter()
+    ctx, cam, film, sampler, integ = build_instanced(
+        res=GALLERY_RES, spp=GALLERY_SPP, device=dev)
+    g = ctx.geom
+    log(f"[21] gallery: {g.inst_o2w.shape[0]} instances, "
+        f"{g.n_triangles} triangle rows, BVH depth {g.bvh16_depth}, "
+        f"{g.bvh16_table.shape[0]} records, built in "
+        f"{time.perf_counter() - t0:.1f} s; {sampler.spp}-spp config, "
+        f"{GALLERY_SAMPLES} samples rendered")
+    rays["gallery"], _ = geometry_scene(
+        "[21]", "gallery", (integ.li, cam, film, sampler, ctx, 5), dev, card,
+        results, GALLERY_SAMPLES, GALLERY_RES)
+    log(f"[21] camera rays/s on {card}: instanced gallery "
+        f"{rays['gallery']:.1f}; matte dragon (phase 4) "
+        f"{rays['dragon matte']:.1f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for scene, samples, every in (("alpha-cards", SAMPLES, True),
+                                      ("alpha-cards-static", 2, False)):
+            text = GW.scene_text(scene, res=RES[0], spp=SAMPLES, tex_dir=tmp)
+            bundle, _ = parse_counted(f"[21] {scene} at {RES[0]}^2",
+                                      text=text, dev=dev)
+            parts = (bundle.integrator.li, bundle.camera, bundle.film,
+                     bundle.sampler, bundle.context(),
+                     bundle.integrator.max_depth)
+            rays[scene], img = geometry_scene(
+                "[21]", scene, parts, dev, card, results, samples, RES,
+                every)
+            if scene == "alpha-cards":
+                geometry_cli(scene, text, tmp, img.cpu().numpy())
+        # the hlbvh accelerator name through the command line on the card
+        geometry_cli("alpha-cards-static", GW.scene_text(
+            "alpha-cards-static", res=256, spp=2, tex_dir=tmp), tmp)
+    log(f"[21] camera rays/s on {card}: alpha-cards {rays['alpha-cards']:.1f}"
+        f", alpha-cards-static {rays['alpha-cards-static']:.1f}; "
+        f"testball-matte (phase 16) {rays['matte']:.1f}")
+
+
 def run(dev, card):
-    """Phases 3 to 21 on device ``dev``."""
+    """Phases 3 to 22 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -2947,8 +3246,8 @@ def run(dev, card):
     check_gather(ctx.geom, cap, results)
 
     # 4-5: the matte path, counted, and its crop against the plain path
-    launches, _, _, _ = render_counted("[4]", renderer, film, ctx, SPP,
-                                       card)
+    launches, _, _, matte_rays = render_counted("[4]", renderer, film, ctx,
+                                                SPP, card)
     missing = [k for k in MATTE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the render: {missing}")
@@ -3035,6 +3334,10 @@ def run(dev, card):
 
     # 20: textures, bump maps and the Fourier BSDF
     texture_scenes(dev, card, results, rays)
+
+    # 21: instances, alpha cutouts, medium interfaces, the middle split
+    rays["dragon matte"] = matte_rays
+    geometry_scenes(dev, card, results, rays)
 
     kernels = []
     for key, (name, case) in ROWS.items():

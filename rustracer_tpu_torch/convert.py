@@ -30,15 +30,10 @@ def _t(x, dtype, device):
 
 
 def geometry_from_jax(geom, device="cuda") -> GeometryTables:
-    """JAX GeometryTables of a scene of triangles and quadrics -> port's.
-    A scene the JAX package intersects without a wide BVH (8 primitives
-    or fewer) gets the port's own over its triangles."""
-    if np.asarray(geom.inst_o2w).shape[0] > 1:
-        raise NotImplementedError("instancing is not ported")
-    if np.asarray(geom.alpha_atlas).shape[0] > 1:
-        raise NotImplementedError("alpha cutouts are not ported")
-    if np.asarray(geom.iface_flag).shape[0] > 0:
-        raise NotImplementedError("medium interfaces are not ported")
+    """JAX GeometryTables -> port's: the triangles, quadrics, wide BVH,
+    instance tables, alpha maps and the medium-interface flag. A scene the
+    JAX package intersects without a wide BVH (8 primitives or fewer) gets
+    the port's own over its triangles."""
     table = np.asarray(geom.bvh16_table)
     if table.shape[0] > 1:
         bvh = dict(bvh16_table=table, bvh16_roots=geom.bvh16_roots,
@@ -60,7 +55,15 @@ def geometry_from_jax(geom, device="cuda") -> GeometryTables:
         q_params=_t(q["q_params"], torch.float32, device),
         q_material=_t(q["q_material"], torch.int32, device),
         q_arealight=_t(q["q_arealight"], torch.int32, device),
-        q_reverse=_t(q["q_reverse"], torch.bool, device))
+        q_reverse=_t(q["q_reverse"], torch.bool, device),
+        t_alpha_tex=_t(geom.t_alpha_tex, torch.int32, device),
+        t_shadow_alpha_tex=_t(geom.t_shadow_alpha_tex, torch.int32, device),
+        alpha_atlas=_t(geom.alpha_atlas, torch.float32, device),
+        alpha_meta=_t(geom.alpha_meta, torch.int32, device),
+        inst_o2w=_t(geom.inst_o2w, torch.float32, device),
+        inst_w2o=_t(geom.inst_w2o, torch.float32, device),
+        inst_flip=_t(geom.inst_flip, torch.bool, device),
+        has_interfaces=np.asarray(geom.iface_flag).shape[0] > 0)
 
 
 def lights_from_jax(lt, geom=None, device="cuda") -> LightTables:

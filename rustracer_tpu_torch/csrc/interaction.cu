@@ -40,6 +40,13 @@ struct Quadrics {
     const bool* reverse;
 };
 
+// the hits' instances and the instance tables (rustracer_tpu/accel/wide.py)
+struct Instances {
+    const int* inst;
+    const float *o2w, *w2o;  // (I, 4, 4)
+    const bool* flip;
+};
+
 struct Outs {
     float *p, *p_error, *n, *uv, *dpdu, *dpdv, *ns, *ss, *ts, *dndu, *dndv, *wo;
     int *material, *arealight, *prim_id;
@@ -137,9 +144,9 @@ __device__ __forceinline__ void shading_frame(V3 ns, V3 dpdu, V3* ss, V3* ts) {
     *ts = rt::cross(ns, *ss);
 }
 
-template <bool kQuadrics>
+template <bool kQuadrics, bool kInstances>
 __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int n_tris, int nq,
-                                         Quadrics qs,
+                                         Quadrics qs, Instances is,
                                          const float* __restrict__ o_in,
                                          const float* __restrict__ d_in,
                                          const float* __restrict__ t_max,
@@ -197,10 +204,22 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
     int tid = min(max(prim - nq, 0), n_tris - 1);
     const float* rec = t_shade + (size_t)tid * 32;
     V3 p0 = rt::load3(rec), p1 = rt::load3(rec + 3), p2 = rt::load3(rec + 6);
+    // an instanced hit's vertices move to world space before the test (the
+    // normals after it, as late as the triangle-only kernel loads them)
+    const int inst = kInstances ? is.inst[i] : -1;
+    if (kInstances && inst >= 0) {
+        float m[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) m[k] = is.o2w[16 * inst + k];
+        p0 = xform_point(m, p0);
+        p1 = xform_point(m, p1);
+        p2 = xform_point(m, p2);
+    }
     rt::TriHit th = rt::tri_intersect(o, d, t * 1.0001f + 1e-4f, p0, p1, p2);
     float b0 = th.b0, b1 = th.b1, b2 = th.b2;
     int flags = __float_as_int(rec[24]);
     bool has_uv = flags & 1, has_n = flags & 2, rev = flags & 4;
+    if (kInstances && inst >= 0) rev = rev != is.flip[inst];
     float u0 = has_uv ? rec[18] : 0.0f, v0 = has_uv ? rec[19] : 0.0f;
     float u1 = has_uv ? rec[20] : 1.0f, v1 = has_uv ? rec[21] : 0.0f;
     float u2 = has_uv ? rec[22] : 1.0f, v2 = has_uv ? rec[23] : 1.0f;
@@ -228,6 +247,14 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
     V3 ng = rt::normalize(rt::cross(p0 - p2, p1 - p2));
     if (rev) ng = -ng;
     V3 nv0 = rt::load3(rec + 9), nv1 = rt::load3(rec + 12), nv2 = rt::load3(rec + 15);
+    if (kInstances && inst >= 0) {
+        float m[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) m[k] = is.w2o[16 * inst + k];
+        nv0 = xform_normal(m, nv0);
+        nv1 = xform_normal(m, nv1);
+        nv2 = xform_normal(m, nv2);
+    }
     V3 n_interp = rt::normalize(bary(b0, b1, b2, nv0, nv1, nv2));
     if (rev) n_interp = -n_interp;
     V3 ns = has_n ? n_interp : ng;
@@ -264,26 +291,48 @@ __global__ void build_interaction_kernel(const float* __restrict__ t_shade, int 
     out.prim_id[i] = prim;
 }
 
-}  // namespace
-
-extern "C" int rt_build_interaction(
-    const void* t_shade, int n_tris, int nq, int with_quadrics, const void* q_type, const void* q_o2w,
-    const void* q_w2o, const void* q_params, const void* q_material, const void* q_arealight,
-    const void* q_reverse, const void* o, const void* d, const void* t_max, const void* hit,
-    const void* t, const void* prim, int n, void* p, void* p_error, void* ng, void* uv,
-    void* dpdu, void* dpdv, void* ns, void* ss, void* ts, void* dndu, void* dndv, void* wo,
-    void* material, void* arealight, void* prim_id, void* stream) {
-    Quadrics qs{(const int*)q_type,     (const float*)q_o2w,      (const float*)q_w2o,
-                (const float*)q_params, (const int*)q_material, (const int*)q_arealight,
-                (const bool*)q_reverse};
-    Outs out{(float*)p,    (float*)p_error, (float*)ng,       (float*)uv,
-             (float*)dpdu, (float*)dpdv,    (float*)ns,       (float*)ss,
-             (float*)ts,   (float*)dndu,    (float*)dndv,     (float*)wo,
-             (int*)material, (int*)arealight, (int*)prim_id};
+template <bool kInstances>
+int launch(const void* t_shade, int n_tris, int nq, int with_quadrics, const Quadrics& qs,
+           const Instances& is, const void* o, const void* d, const void* t_max, const void* hit,
+           const void* t, const void* prim, int n, const Outs& out, void* stream) {
     constexpr int kThreads = 128;
-    auto kernel = with_quadrics ? build_interaction_kernel<true> : build_interaction_kernel<false>;
+    auto kernel = with_quadrics ? build_interaction_kernel<true, kInstances>
+                                : build_interaction_kernel<false, kInstances>;
     kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)t_shade, n_tris, nq, qs, (const float*)o, (const float*)d,
+        (const float*)t_shade, n_tris, nq, qs, is, (const float*)o, (const float*)d,
         (const float*)t_max, (const bool*)hit, (const float*)t, (const int*)prim, n, out);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define RT_BUILD_INTERACTION_ARGS                                                               \
+    const void *t_shade, int n_tris, int nq, int with_quadrics, const void *q_type,              \
+        const void *q_o2w, const void *q_w2o, const void *q_params, const void *q_material,      \
+        const void *q_arealight, const void *q_reverse, const void *o, const void *d,           \
+        const void *t_max, const void *hit, const void *t, const void *prim, int n, void *p,    \
+        void *p_error, void *ng, void *uv, void *dpdu, void *dpdv, void *ns, void *ss, void *ts, \
+        void *dndu, void *dndv, void *wo, void *material, void *arealight, void *prim_id
+#define RT_BUILD_INTERACTION_TABLES                                                             \
+    Quadrics qs{(const int*)q_type,     (const float*)q_o2w,    (const float*)q_w2o,             \
+                (const float*)q_params, (const int*)q_material, (const int*)q_arealight,         \
+                (const bool*)q_reverse};                                                         \
+    Outs out{(float*)p,      (float*)p_error,  (float*)ng,  (float*)uv,   (float*)dpdu,          \
+             (float*)dpdv,   (float*)ns,       (float*)ss,  (float*)ts,   (float*)dndu,          \
+             (float*)dndv,   (float*)wo,       (int*)material, (int*)arealight, (int*)prim_id};
+
+extern "C" int rt_build_interaction(RT_BUILD_INTERACTION_ARGS, void* stream) {
+    RT_BUILD_INTERACTION_TABLES
+    return launch<false>(t_shade, n_tris, nq, with_quadrics, qs, Instances{}, o, d, t_max, hit, t,
+                         prim, n, out, stream);
+}
+
+extern "C" int rt_build_interaction_inst(RT_BUILD_INTERACTION_ARGS, const void* inst,
+                                         const void* inst_o2w, const void* inst_w2o,
+                                         const void* inst_flip, void* stream) {
+    RT_BUILD_INTERACTION_TABLES
+    Instances is{(const int*)inst, (const float*)inst_o2w, (const float*)inst_w2o,
+                 (const bool*)inst_flip};
+    return launch<true>(t_shade, n_tris, nq, with_quadrics, qs, is, o, d, t_max, hit, t, prim, n,
+                        out, stream);
 }

@@ -55,11 +55,22 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P],
     "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
                        _P, _P, _P, _P, _P, _P],
+    # K1's instanced, alpha and instanced-alpha walks: table, n_rows,
+    # roots, depth, o, d, t_max, n, hit, t, prim, inst, counts, next_ray,
+    # then t_shade, the two alpha columns, the atlas and its meta, stream
+    **{f"traverse16_{kind}_{q}": [_P, _I, _P, _I, _P, _P, _P, _I]
+       + [_P] * 6 + [_P] * 5 + [_P]
+       for kind in ("inst", "alpha", "inst_alpha")
+       for q in ("closest", "any")},
     # t_shade, n_tris, nq, whether a quadric is real (the kernel with the
     # quadric branch), the 7 quadric tables (scene/tables.py QUADRIC_KEYS),
     # the rays and hits, n, 15 outputs, stream
     "build_interaction": [_P, _I, _I, _I] + [_P] * 7 + [_P] * 6 + [_I]
     + [_P] * 15 + [_P],
+    # K2's instance branch: the arguments of build_interaction, then the
+    # hits' instances and the instance tables (o2w, w2o, flip), stream
+    "build_interaction_inst": [_P, _I, _I, _I] + [_P] * 7 + [_P] * 6 + [_I]
+    + [_P] * 15 + [_P] * 4 + [_P],
     "atlas_lookup_ewa": [_P, _I, _P, _I] + [_P] * 11 + [_I] + [_F] * 9
     + [_P, _P],
     "alive_first_order": [_P, _I, _P, _P, _P, _P, _P],
@@ -133,10 +144,16 @@ LIGHT_KERNELS = ("spatial_grid_contrib_lights", "infinite_sample",
 # lookups), the noise textures (K18) and the Fourier BSDF (K19), launched
 # only for a scene that holds them
 SHADING_KERNELS = ("mipmap_lookup", "noise_fbm", "fourier_bsdf")
+# the geometry beyond triangles and quadrics: K1's walks of instanced
+# tables and of tables with alpha cutouts, and K2's instance branch,
+# launched only for a scene that holds instances or alpha maps
+GEOMETRY_KERNELS = tuple(
+    f"traverse16_{kind}_{q}" for kind in ("inst", "alpha", "inst_alpha")
+    for q in ("closest", "any")) + ("build_interaction_inst",)
 # the kernels of the textured dragon's forward render
 FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
                         BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS
-                        + LIGHT_KERNELS + SHADING_KERNELS)
+                        + LIGHT_KERNELS + SHADING_KERNELS + GEOMETRY_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()

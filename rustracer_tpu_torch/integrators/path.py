@@ -31,7 +31,12 @@ scene without an infinite light runs none of this.
 Russian roulette reads the throughput times ``eta_scale``, the product
 of the squared relative IORs of the specular transmissions taken.
 
-Not ported: passes through medium interfaces and the stats counters.
+A hit on a medium interface (a prim with neither material nor area
+light) is passed through without spending a bounce, up to
+``max_interface_skips`` times (scene/tables.py
+scene_intersect_passthrough; a scene without interfaces intersects once).
+
+Not ported: the stats counters.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from ..ops import bsdf as B
 from ..ops import compact as C
 from ..scene import lightdistrib as LD
 from ..scene import lights as L
-from ..scene.tables import scene_intersect
+from ..scene.tables import scene_intersect_passthrough
 from .common import estimate_direct_light_side
 
 # wavefronts at least this wide may run the interior bounces on a slab
@@ -89,6 +94,7 @@ class PathIntegrator:
     mat_set: object
     max_depth: int = 5
     rr_threshold: float = 1.0   # Russian roulette for throughput below this
+    max_interface_skips: int = 8
     # alive-first slab compaction of the interior bounces; compact_tiers 1
     # offers the B/2 slab only, 2 adds the B/4 slab
     compact_interior: bool = True
@@ -119,7 +125,8 @@ class PathIntegrator:
     def _hit_and_emit(self, ctx, ray: Ray, st: _PathState, first: bool):
         """Closest hit and MIS-weighted emission -> (si, state)."""
         lt = ctx.lights
-        si = scene_intersect(ctx.geom, ray)
+        si = scene_intersect_passthrough(ctx.geom, ray,
+                                         self.max_interface_skips)
         if first:
             si = compute_differentials(si, ray)
         si = dataclasses.replace(si, valid=si.valid & st.alive)

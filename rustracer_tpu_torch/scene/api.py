@@ -17,18 +17,22 @@ the 3D mapping of the transform where the texture is declared; every
 ``"substrate"``, ``"translucent"``, ``"uber"``, ``"disney"``,
 ``"fourier"`` from a ``bsdffile`` and ``"mix"``), each with its
 ``bumpmap``; ``Shape "trianglemesh"``, ``"plymesh"``, ``"sphere"``,
-``"cylinder"`` and ``"disk"``; ``LightSource`` ``"point"``, ``"distant"``
-and ``"infinite"`` (a latitude-longitude map from ``mapname``, several
-such lights summed) and ``AreaLightSource "diffuse"`` on triangle meshes
-and quadrics. Instancing, alpha cutouts, medium interfaces (ROADMAP.md
-section A, item 15), the other integrators (item 16) and the ``random``
-sampler (item 17) raise NotImplementedError naming the feature and the
-item; nothing is substituted. The reference's own unimplemented shapes
+``"cylinder"`` and ``"disk"``, with ``"alpha"`` and ``"shadowalpha"``
+cutouts on the meshes and ``Material "none"`` for medium interfaces;
+``ObjectBegin`` / ``ObjectEnd`` / ``ObjectInstance`` (the meshes of an
+object shared by its instances, its quadrics and emissive meshes cloned
+per instance); ``LightSource`` ``"point"``, ``"distant"`` and
+``"infinite"`` (a latitude-longitude map from ``mapname``, several such
+lights summed) and ``AreaLightSource "diffuse"`` on triangle meshes and
+quadrics. The other integrators (ROADMAP.md section A, item 16) and the
+``random`` sampler (item 17) raise NotImplementedError naming the feature
+and the item; nothing is substituted. The reference's own unimplemented shapes
 keep its error, and what it only warns about (an unknown material,
 texture class, light or camera) it still only warns about.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import os
@@ -54,7 +58,7 @@ log = logging.getLogger(__name__)
 STATE_UNINITIALIZED, STATE_OPTIONS, STATE_WORLD = 0, 1, 2
 
 # ROADMAP.md section A items that port what this module refuses
-GEOMETRY, INTEGRATORS, RUN_SURFACE = 15, 16, 17
+INTEGRATORS, RUN_SURFACE = 16, 17
 
 
 class ApiError(Exception):
@@ -163,6 +167,10 @@ class MeshRecord:
     material: int
     arealight_spec: Optional[tuple]   # (emit rgb, twosided, nsamples)
     reverse: bool
+    # float textures (scene/textures.py) or None, baked to the alpha atlas
+    # by scene/bundle.py (the reference's mesh.rs:38-39 masks)
+    alpha_tex: object = None
+    shadow_alpha_tex: object = None
 
 
 @dataclasses.dataclass
@@ -184,6 +192,16 @@ class RenderOptions:
     infinite_lights: List[dict] = dataclasses.field(default_factory=list)
     meshes: List[MeshRecord] = dataclasses.field(default_factory=list)
     quadrics: List[QuadricRecord] = dataclasses.field(default_factory=list)
+    # object instancing: the records of each named object, the object
+    # being defined, and the shared objects: instance_objects[i] the mesh
+    # records of object i, instance_list (object id, instance-to-world) a
+    # row per instance
+    instances: Dict[str, list] = dataclasses.field(default_factory=dict)
+    current_instance: Optional[str] = None
+    instanced_objects: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    instance_objects: List[list] = dataclasses.field(default_factory=list)
+    instance_list: List[tuple] = dataclasses.field(default_factory=list)
 
 
 class RealApi:
@@ -419,18 +437,58 @@ class RealApi:
         self.graphics.reverse_orientation = \
             not self.graphics.reverse_orientation
 
-    # --- object instancing ---
+    # --- object instancing (rustracer_tpu/scene/api.py:430-474) ---
     def object_begin(self, name):
         self._verify_world("object_begin")
-        raise not_ported(f"ObjectBegin {name!r} (instancing)", GEOMETRY)
+        self.attribute_begin()
+        if self.render_options.current_instance is not None:
+            raise ApiError("ObjectBegin called inside instance definition")
+        self.render_options.instances[name] = []
+        self.render_options.current_instance = name
 
     def object_end(self):
         self._verify_world("object_end")
-        raise not_ported("ObjectEnd (instancing)", GEOMETRY)
+        if self.render_options.current_instance is None:
+            raise ApiError("ObjectEnd without ObjectBegin")
+        self.render_options.current_instance = None
+        self.attribute_end()
 
     def object_instance(self, name):
+        """The current transform places the named object: its meshes are
+        shared (one copy in object space, a transform an instance), its
+        quadrics and emissive meshes (a light row names concrete prims)
+        cloned per instance. An unknown name is logged and ignored."""
         self._verify_world("object_instance")
-        raise not_ported(f"ObjectInstance {name!r} (instancing)", GEOMETRY)
+        ro = self.render_options
+        records = ro.instances.get(name)
+        if records is None:
+            log.error("unknown object instance %r", name)
+            return
+        inst = self.cur_transform
+        shared = []
+        for rec in records:
+            if isinstance(rec, MeshRecord) and rec.arealight_spec is None:
+                shared.append(rec)
+                continue
+            rec2 = copy.copy(rec)
+            rec2.o2w = inst * rec.o2w
+            self._push_record(rec2)
+        if shared:
+            oid = ro.instanced_objects.get(name)
+            if oid is None:
+                oid = len(ro.instance_objects)
+                ro.instanced_objects[name] = oid
+                ro.instance_objects.append(shared)
+            ro.instance_list.append((oid, inst))
+
+    def _push_record(self, rec):
+        ro = self.render_options
+        if ro.current_instance is not None:
+            ro.instances[ro.current_instance].append(rec)
+        elif isinstance(rec, QuadricRecord):
+            ro.quadrics.append(rec)
+        else:
+            ro.meshes.append(rec)
 
     # --- shapes ---
     def shape(self, name, params):
@@ -448,21 +506,14 @@ class RealApi:
                         "disk"):
             log.error("shape %r unknown", name)
             return
-        if mid < 0 and al_spec is None:
-            raise not_ported("a shape with material \"none\" (medium "
-                             "interfaces)", GEOMETRY)
         o2w = self.cur_transform
         rev = self.graphics.reverse_orientation ^ o2w.swaps_handedness()
         if name in ("sphere", "cylinder", "disk"):
-            self.render_options.quadrics.append(
+            self._push_record(
                 QuadricRecord(("sphere", "cylinder", "disk").index(name), o2w,
                               self._quadric_params(name, params), mid, rev,
                               al_spec))
             return
-        for alpha in ("alpha", "shadowalpha"):
-            if params.has(alpha):
-                raise not_ported(f"Shape {name!r} with {alpha!r} (alpha "
-                                 "cutouts)", GEOMETRY)
         if name == "trianglemesh":
             idx = params.find_int("indices")
             p = params.find_point3("P")
@@ -482,7 +533,26 @@ class RealApi:
             with time_phase("scene/PLY read"):
                 p, n, uv, idx = read_ply(fname)
             rec = MeshRecord(o2w, p, n, None, uv, idx, mid, al_spec, rev)
-        self.render_options.meshes.append(rec)
+        rec.alpha_tex = self._resolve_alpha_texture(params, "alpha")
+        rec.shadow_alpha_tex = self._resolve_alpha_texture(params,
+                                                           "shadowalpha")
+        self._push_record(rec)
+
+    def _resolve_alpha_texture(self, params, name):
+        """A mesh's alpha mask (the reference's mesh.rs:134-156): the named
+        float texture, else a literal float 0, fully masked (the constant
+        ``__zero_alpha``), else none."""
+        tex_name = params.find_texture_name(name, "")
+        if tex_name:
+            tex = self.graphics.float_textures.get(tex_name)
+            if tex is None:
+                log.error("couldn't find float texture %r for %r",
+                          tex_name, name)
+            return tex
+        if params.find_one_float(name, 1.0) == 0.0:
+            self.textures.const.setdefault("__zero_alpha", np.float32(0.0))
+            return T.ConstantTexture("__zero_alpha", is_spectrum=False)
+        return None
 
     @staticmethod
     def _quadric_params(name, params) -> np.ndarray:

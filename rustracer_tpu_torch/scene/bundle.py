@@ -1,15 +1,20 @@
 """SceneBundle: the frozen, renderable scene that WorldEnd produces (port of
-rustracer_tpu/scene/bundle.py for triangle and quadric scenes).
+rustracer_tpu/scene/bundle.py).
 
 ``build_bundle`` freezes the parsed records into the port's tables on the
 api's device: the quadrics' tables (their prim ids first, as the
 reference numbers them; an area light on a quadric is one light row), the
 meshes transformed to world space and concatenated (one area-light row a
-triangle of an emissive mesh), the infinite lights' maps, the wide
-BVH over the triangles from the port's copy of the SAH builder (always:
-the reference tests scenes of at most 8 primitives one by one, which
-renders the same; the quadrics are searched brute force, as there), the
-light tables with the scene's bounds (quadrics included), the film,
+triangle of an emissive mesh), then each instanced object's meshes once,
+in object space; the alpha masks baked into one atlas; the infinite
+lights' maps; the wide BVH over the triangles from the port's copy of the
+native builder (always: the reference tests scenes of at most 8
+primitives one by one, which renders the same; the quadrics are searched
+brute force, as there), with the ``Accelerator``'s split method (the
+middle split for "middle", SAH for any other name; the accelerator's name
+is not read, as the reference does not), two-level with instance records
+when the scene instances an object; the light tables with the scene's
+bounds (quadrics and instances included), the film,
 filter, camera and sampler, and the path integrator with its spatial light
 grid (scene/lightdistrib.py) unless the scene asks for the uniform
 strategy or has a single light. The
@@ -25,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..accel.bvh_build import build_wide_arrays
+from ..accel.bvh_build import build_wide_arrays, build_wide_scene, xform_aabb
+from ..core.interaction import Interaction
 from ..integrators.path import PathIntegrator
 from ..ops.quadrics import quadric_world_bounds_np
 from ..render.camera import PerspectiveCamera
@@ -41,6 +47,7 @@ from .atlas import build_atlas_meta
 from .lightdistrib import build_spatial_grid
 from .lights import LIGHT_AREA, make_lights
 from .tables import make_geometry
+from .textures import ConstantTexture, ImageTexture, full
 
 log = logging.getLogger(__name__)
 
@@ -105,17 +112,63 @@ def _emit_quadrics(api, light_rows):
         q_reverse=np.array([r.reverse for r in recs], bool))
 
 
-def _emit_geometry(api, light_rows):
-    """Mesh records -> the numpy ``tris`` dict, or None for a scene of
-    quadrics alone; each triangle of an emissive mesh appends a light row
-    to ``light_rows`` (its prim id after the quadrics')."""
+def bake_alpha(tex, textures, lookups, dev) -> np.ndarray:
+    """A float alpha texture baked to an (H, W) grid of the alpha atlas
+    (rustracer_tpu/scene/bundle.py _bake_alpha): a constant as 2 x 2, an
+    ImageTexture at its level-0 size, any other texture on a 64 x 64 grid,
+    each at its texel centres, through the texture's own ``evaluate``
+    (``textures`` on device ``dev``, ``lookups`` MaterialSet.lookups of
+    them)."""
+    if isinstance(tex, ConstantTexture):
+        v = float(np.asarray(textures["const"][tex.key].cpu()).reshape(-1)[0])
+        return np.full((2, 2), v, np.float32)
+    if isinstance(tex, ImageTexture):
+        res_v, res_u = textures["images"][tex.image_id][0].shape[:2]
+    else:
+        res_v = res_u = 64
+    us = (np.arange(res_u, dtype=np.float32) + 0.5) / res_u
+    vs = (np.arange(res_v, dtype=np.float32) + 0.5) / res_v
+    uu, vv = np.meshgrid(us, vs)
+    n = uu.size
+    uv = torch.as_tensor(np.stack([uu.ravel(), vv.ravel()], -1), device=dev)
+    z = torch.zeros(n, dtype=torch.float32, device=dev)
+    z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
+    si = Interaction(valid=torch.ones(n, dtype=torch.bool, device=dev), t=z,
+                     p=z3, p_error=z3, wo=z3, n=z3, uv=uv, dpdu=z3, dpdv=z3,
+                     ns=z3, ss=z3, ts=z3, material=zi, arealight=zi,
+                     prim_id=zi, dndu=z3, dndv=z3)
+    val = full(tex, tex.evaluate(si, textures, lookups), si)
+    return val.reshape(-1)[:n].cpu().numpy().astype(np.float32) \
+        .reshape(res_v, res_u)
+
+
+def _emit_geometry(api, light_rows, bake):
+    """Mesh records -> (the numpy ``tris`` dict, or None for a scene of
+    quadrics alone; the alpha dict of make_geometry or None; the
+    instances, or None); each triangle of an emissive mesh appends a light
+    row to ``light_rows`` (its prim id after the quadrics'). Instanced
+    objects follow the static meshes, in object space. ``bake`` bakes an
+    alpha texture (``bake_alpha``)."""
     ro = api.render_options
     # the quadrics' ids come first; the dummy takes id 0 when there are none
     n_quad_slots = max(len(ro.quadrics), 1)
     vs, ns_, uvs, ss_, idxs = [], [], [], [], []
     t_mat, t_al, t_rev, t_has_n, t_has_uv = [], [], [], [], []
+    t_alpha, t_shadow_alpha = [], []
+    alpha_maps, alpha_ids = [], {}
     v_off = 0
-    for rec in ro.meshes:
+
+    def alpha_id(tex):
+        if tex is None:
+            return -1
+        if id(tex) not in alpha_ids:
+            alpha_maps.append(bake(tex))
+            alpha_ids[id(tex)] = len(alpha_maps) - 1
+        return alpha_ids[id(tex)]
+
+    def emit_mesh(rec, arealights=True):
+        nonlocal v_off
         p = rec.o2w.apply_point(rec.p)
         nv = p.shape[0]
         vs.append(p.astype(np.float32))
@@ -132,11 +185,13 @@ def _emit_geometry(api, light_rows):
         tris = np.asarray(rec.indices, np.int32) + v_off
         idxs.append(tris)
         nt = tris.shape[0]
-        t_mat += [rec.material] * nt
-        t_rev += [rec.reverse] * nt
-        t_has_n += [has_n] * nt
-        t_has_uv += [has_uv] * nt
-        if rec.arealight_spec is not None:
+        t_mat.extend([rec.material] * nt)
+        t_rev.extend([rec.reverse] * nt)
+        t_has_n.extend([has_n] * nt)
+        t_has_uv.extend([has_uv] * nt)
+        t_alpha.extend([alpha_id(rec.alpha_tex)] * nt)
+        t_shadow_alpha.extend([alpha_id(rec.shadow_alpha_tex)] * nt)
+        if arealights and rec.arealight_spec is not None:
             emit, two, nsamp = rec.arealight_spec
             for k in range(nt):
                 light_rows.append(dict(
@@ -145,11 +200,27 @@ def _emit_geometry(api, light_rows):
                     nsamples=nsamp))
                 t_al.append(len(light_rows) - 1)
         else:
-            t_al += [-1] * nt
+            t_al.extend([-1] * nt)
         v_off += nv
+
+    for rec in ro.meshes:
+        emit_mesh(rec)
+    inst = None
+    if ro.instance_list:
+        n_static_verts = v_off
+        objects = []
+        for obj_recs in ro.instance_objects:
+            tri_lo = sum(len(x) for x in idxs)
+            for rec in obj_recs:
+                emit_mesh(rec, arealights=False)
+            objects.append((tri_lo, sum(len(x) for x in idxs)))
+        instances = [dict(obj=oid, o2w=t.m, w2o=t.m_inv,
+                          flip=bool(t.swaps_handedness()))
+                     for oid, t in ro.instance_list]
+        inst = dict(objects=objects, instances=instances,
+                    n_static_verts=n_static_verts)
     if not idxs:
-        return None
-    n = sum(len(x) for x in idxs)
+        return None, None, inst
     tris = dict(
         tv_p=np.concatenate(vs), tv_n=np.concatenate(ns_),
         tv_uv=np.concatenate(uvs), tv_s=np.concatenate(ss_),
@@ -159,9 +230,19 @@ def _emit_geometry(api, light_rows):
         t_reverse=np.array(t_rev, bool),
         t_has_n=np.array(t_has_n, bool),
         t_has_uv=np.array(t_has_uv, bool),
-        t_alpha_tex=np.full(n, -1, np.int32),
-        t_shadow_alpha_tex=np.full(n, -1, np.int32))
-    return tris
+        t_alpha_tex=np.array(t_alpha, np.int32),
+        t_shadow_alpha_tex=np.array(t_shadow_alpha, np.int32))
+    alpha = None
+    if alpha_maps:
+        flats = [m.ravel() for m in alpha_maps]
+        offs = np.concatenate([[0], np.cumsum([f.size for f in flats])[:-1]])
+        atlas = np.concatenate(flats).astype(np.float32)
+        meta = np.array([[o, m.shape[1], m.shape[0]]
+                         for o, m in zip(offs, alpha_maps)], np.int32)
+        if atlas.size <= 1:      # has_alpha counts more than one texel
+            atlas = np.concatenate([atlas, np.zeros(1, np.float32)])
+        alpha = dict(alpha_atlas=atlas, alpha_meta=meta)
+    return tris, alpha, inst
 
 
 def _infinite_lights(ro):
@@ -175,13 +256,29 @@ def _infinite_lights(ro):
     return out
 
 
-def _world_bounds(tris, quad):
-    """-> (center, radius, lo, hi) of the triangles' vertices and the
+def _world_bounds(tris, quad, inst=None):
+    """-> (center, radius, lo, hi) of the triangles' vertices (static
+    vertices and each instance's transformed object box where the scene
+    has instances: the objects' rows are in object space) and the
     quadrics' world boxes (the unit box of an empty scene)."""
     los, his = [], []
     if tris is not None:
-        los.append(tris["tv_p"].min(0))
-        his.append(tris["tv_p"].max(0))
+        if inst is None:
+            los.append(tris["tv_p"].min(0))
+            his.append(tris["tv_p"].max(0))
+        else:
+            nsv = inst["n_static_verts"]
+            if nsv:
+                los.append(tris["tv_p"][:nsv].min(0))
+                his.append(tris["tv_p"][:nsv].max(0))
+            for r in inst["instances"]:
+                alo, ahi = inst["objects"][r["obj"]]
+                vids = tris["t_idx"][alo:ahi].ravel()
+                ov = tris["tv_p"][vids.min():vids.max() + 1]
+                lo, hi = xform_aabb(np.asarray(r["o2w"], np.float32),
+                                    ov.min(0), ov.max(0))
+                los.append(lo)
+                his.append(hi)
     if quad is not None:
         lo, hi = quadric_world_bounds_np(quad["q_type"], quad["q_o2w"],
                                          quad["q_params"])
@@ -196,20 +293,18 @@ def _world_bounds(tris, quad):
     return center, radius, lo, hi
 
 
-def _bvh(ro, tris):
-    """The wide BVH over the triangles (None without: make_geometry's
-    dummy triangle takes its own); refuses what the port's builder does
-    not build."""
-    split = ro.accelerator_params.find_one_string("splitmethod", "sah")
-    if ro.accelerator_name != "bvh" or split != "sah":
-        raise NotImplementedError(
-            f"Accelerator {ro.accelerator_name!r} with splitmethod "
-            f"{split!r}: the port builds the SAH BVH only (the reference "
-            "builds the middle split as well)")
+def _bvh(ro, tris, inst):
+    """The wide BVH over the triangles with the Accelerator's split method
+    (None without triangles: make_geometry's dummy triangle takes its
+    own); two-level, with the instance tables, for an instanced scene."""
     if tris is None:
         return None
+    split = ro.accelerator_params.find_one_string("splitmethod", "sah")
     with time_phase("scene/BVH build"):
-        return build_wide_arrays(tris["tv_p"], tris["t_idx"])
+        if inst is not None:
+            return build_wide_scene(tris, inst["objects"], inst["instances"],
+                                    split_method=split)
+        return build_wide_arrays(tris["tv_p"], tris["t_idx"], split)
 
 
 def _film(ro):
@@ -275,11 +370,21 @@ def build_bundle(api, device="cuda") -> SceneBundle:
     # quadric area lights, triangle area lights; make_lights appends the
     # infinite lights
     light_rows = list(ro.lights)
+    ms = api.material_set
+    tex = api.textures.tables()
+    if tex["images"]:
+        am = build_atlas_meta(tex["images"])
+        tex["atlas_meta"] = am["atlas_meta"]
+        tex["atlas_levels"] = am["atlas_levels"]
+    textures = textures_on(tex, dev)
     quad = _emit_quadrics(api, light_rows)
-    tris = _emit_geometry(api, light_rows)
-    bvh = _bvh(ro, tris)
-    geom = make_geometry(tris, bvh=bvh, quadrics=quad, device=dev)
-    center, radius, world_lo, world_hi = _world_bounds(tris, quad)
+    tris, alpha, inst = _emit_geometry(
+        api, light_rows,
+        lambda t: bake_alpha(t, textures, ms.lookups(textures, dev), dev))
+    bvh = _bvh(ro, tris, inst)
+    geom = make_geometry(tris, bvh=bvh, quadrics=quad, device=dev,
+                         alpha=alpha)
+    center, radius, world_lo, world_hi = _world_bounds(tris, quad, inst)
     lights = make_lights(light_rows, geom, world_center=center,
                          world_radius=radius,
                          infinite=_infinite_lights(ro), device=dev)
@@ -288,7 +393,6 @@ def build_bundle(api, device="cuda") -> SceneBundle:
     sampler = _sampler(ro, api.opts.get("quick_render"))
 
     ip = ro.integrator_params
-    ms = api.material_set
     light_grid = None
     if iname != "path":
         log.warning("integrator %r unknown; using path", iname)
@@ -304,14 +408,9 @@ def build_bundle(api, device="cuda") -> SceneBundle:
             with time_phase("scene/spatial light distribution"):
                 light_grid = build_spatial_grid(lights, world_lo, world_hi)
 
-    tex = api.textures.tables()
-    if tex["images"]:
-        am = build_atlas_meta(tex["images"])
-        tex["atlas_meta"] = am["atlas_meta"]
-        tex["atlas_levels"] = am["atlas_levels"]
     return SceneBundle(
         geom=geom, lights=lights, material_set=ms,
-        textures=textures_on(tex, dev), camera=camera, film=film,
+        textures=textures, camera=camera, film=film,
         sampler=sampler, integrator=integ, integrator_name=iname,
         filename=film.filename, light_grid=light_grid, device=dev,
         world_bounds=(world_lo, world_hi))

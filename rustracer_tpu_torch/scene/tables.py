@@ -1,12 +1,18 @@
 """Scene geometry tables and the closest-hit / any-hit / interaction path
-(port of rustracer_tpu/scene/tables.py for triangle and quadric scenes)
-with hand kernels K1 (accel/traverse16.py), K14 (csrc/quadrics.cu) and K2
-(csrc/interaction.cu).
+(port of rustracer_tpu/scene/tables.py) with hand kernels K1
+(accel/traverse16.py), K14 (csrc/quadrics.cu) and K2 (csrc/interaction.cu).
 
 Global primitive ids keep the reference's layout: [0, nq) are quadrics and
 [nq, nq + T) triangles. A scene without a sphere, cylinder or disk carries
 the reference's one never-hit dummy quadric (nq = 1); its quadric search
 is skipped (no K14 launch), which leaves every result as it was.
+
+Instanced triangles (the rows of instanced objects hold object-space
+vertices) are hit through K1's instance records; a hit carries its
+instance (-1 for static geometry), and K2 moves the triangle to world space
+by the instance's transforms. Alpha cutouts are dropped inside K1's walk.
+A prim with neither material nor area light is a medium interface: the
+path integrator passes through it (``scene_intersect_passthrough``).
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import cuda
-from ..accel.bvh_build import build_wide_arrays
+from ..accel.bvh_build import build_wide_arrays, identity_instances
 from ..accel.traverse16 import traverse16
 from ..core.interaction import Interaction, make_shading_frame
 from ..core.math import INFINITY, cross, face_forward, gamma, normalize
@@ -88,10 +94,30 @@ class GeometryTables:
     # material or an area light (make_geometry refuses one with neither),
     # the dummy neither. Read once here, on the host.
     has_quadrics: bool = dataclasses.field(init=False)
+    # alpha cutouts: per-triangle alpha and shadow-alpha map ids (-1 none)
+    # into the baked atlas (scene/bundle.py bake_alpha); a one-texel atlas
+    # means the scene has none
+    t_alpha_tex: torch.Tensor         # (T,) i32
+    t_shadow_alpha_tex: torch.Tensor  # (T,) i32
+    alpha_atlas: torch.Tensor         # (A,) f32 texels
+    alpha_meta: torch.Tensor          # (K, 3) i32 offset, width, height
+    # instances (accel/bvh_build.py build_wide_scene): one identity row
+    # means the scene has none
+    inst_o2w: torch.Tensor            # (I, 4, 4) f32
+    inst_w2o: torch.Tensor            # (I, 4, 4) f32
+    inst_flip: torch.Tensor           # (I,) bool: swaps handedness
+    # a real prim has neither material nor area light (a medium interface)
+    has_interfaces: bool
+    # the reference's shape tests, read once here on the host: more than
+    # one instance row, more than one atlas texel
+    has_instances: bool = dataclasses.field(init=False)
+    has_alpha: bool = dataclasses.field(init=False)
 
     def __post_init__(self):
         self.has_quadrics = bool((self.q_material[0] >= 0)
                                  | (self.q_arealight[0] >= 0))
+        self.has_instances = self.inst_o2w.shape[0] > 1
+        self.has_alpha = self.alpha_atlas.shape[0] > 1
 
     @property
     def n_quadrics(self):
@@ -123,29 +149,33 @@ def pack_shade_rows(t: dict) -> np.ndarray:
 
 
 def make_geometry(tris: dict = None, bvh: dict = None, quadrics: dict = None,
-                  device="cuda") -> GeometryTables:
+                  device="cuda", alpha: dict = None) -> GeometryTables:
     """Host arrays (numpy, the reference's ``tris`` and ``quadrics`` dicts)
     -> device tables; no quadric gives the dummy row, no triangle the
     dummy triangle. ``bvh`` is the output of
-    ``accel.bvh_build.build_wide_arrays``, built here when absent. The
-    caller's dicts are read, never modified."""
+    ``accel.bvh_build.build_wide_arrays`` (built here when absent) or of
+    ``build_wide_scene``, with the instance tables; ``alpha`` holds
+    ``alpha_atlas`` and ``alpha_meta`` (scene/bundle.py). The caller's
+    dicts are read, never modified."""
     has_q = quadrics is not None and len(quadrics.get("q_type", [])) > 0
     has_t = tris is not None and len(tris.get("t_idx", [])) > 0
-    for src, has, mk, ak in ((tris, has_t, "t_material", "t_arealight"),
-                             (quadrics, has_q, "q_material", "q_arealight")):
-        if has and np.any((np.asarray(src[mk]) < 0)
-                          & (np.asarray(src[ak]) < 0)):
-            raise NotImplementedError("medium-interface primitives (no "
-                                      "material, no area light) are not "
-                                      "ported yet")
+    # medium interfaces among the real prims (the dummies have neither
+    # material nor area light but are never hit)
+    iface = any(
+        has and bool(np.any((np.asarray(src[mk]) < 0)
+                            & (np.asarray(src[ak]) < 0)))
+        for src, has, mk, ak in ((tris, has_t, "t_material", "t_arealight"),
+                                 (quadrics, has_q, "q_material",
+                                  "q_arealight")))
     q = quadrics if has_q else dummy_quadric()
     tris = tris if has_t else dummy_tris()
-    for key in ("t_alpha_tex", "t_shadow_alpha_tex"):
-        if key in tris and np.any(np.asarray(tris[key]) >= 0):
-            raise NotImplementedError(f"{key}: alpha cutouts are not ported "
-                                      "yet (ROADMAP.md, section A, item 15)")
+    n_t = len(tris["t_idx"])
     if bvh is None:
         bvh = build_wide_arrays(tris["tv_p"], tris["t_idx"])
+    inst = {k: bvh.get(k, v) for k, v in identity_instances().items()}
+    if alpha is None:
+        alpha = dict(alpha_atlas=np.ones(1, np.float32),
+                     alpha_meta=np.zeros((1, 3), np.int32))
 
     def tens(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
@@ -165,7 +195,17 @@ def make_geometry(tris: dict = None, bvh: dict = None, quadrics: dict = None,
         q_params=tens(q["q_params"], torch.float32),
         q_material=tens(q["q_material"], torch.int32),
         q_arealight=tens(q["q_arealight"], torch.int32),
-        q_reverse=tens(q["q_reverse"], torch.bool))
+        q_reverse=tens(q["q_reverse"], torch.bool),
+        t_alpha_tex=tens(tris.get("t_alpha_tex", np.full(n_t, -1)),
+                         torch.int32),
+        t_shadow_alpha_tex=tens(tris.get("t_shadow_alpha_tex",
+                                         np.full(n_t, -1)), torch.int32),
+        alpha_atlas=tens(alpha["alpha_atlas"], torch.float32),
+        alpha_meta=tens(alpha["alpha_meta"], torch.int32),
+        inst_o2w=tens(inst["inst_o2w"], torch.float32),
+        inst_w2o=tens(inst["inst_w2o"], torch.float32),
+        inst_flip=tens(inst["inst_flip"], torch.bool),
+        has_interfaces=iface)
 
 
 # ---------------------------------------------------------------------------
@@ -244,33 +284,76 @@ def quadrics_any_hit(geom: GeometryTables, o, d, t_max):
     return hit
 
 
-def closest_prim(geom: GeometryTables, ray: Ray):
-    """-> (hit, t (INF on a miss), global prim id int32 (0 on a miss)):
-    the quadrics' closest hit tightens the triangles' t_max (K1), the
-    triangle wins only when it is strictly nearer (the reference's
-    _closest_prim)."""
+def closest_prim(geom: GeometryTables, ray: Ray, with_inst: bool = False):
+    """-> (hit, t (INF on a miss), global prim id int32 (0 on a miss)) and,
+    ``with_inst``, the hit's instance (-1 for a static or quadric hit and a
+    miss): the quadrics' closest hit tightens the triangles' t_max (K1,
+    which drops cut-out triangles), the triangle wins only when it is
+    strictly nearer (the reference's _closest_prim)."""
     nq = geom.n_quadrics
     if not geom.has_quadrics:
-        hit, t, tid = traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=False)
-        return hit, t, torch.where(hit, tid + nq, 0)
+        hit, t, tid, inst = traverse16(geom, ray.o, ray.d, ray.t_max,
+                                       any_hit=False, with_inst=True)
+        out = (hit, t, torch.where(hit, tid + nq, 0))
+        return out + (inst,) if with_inst else out
     qhit, qt, qid = intersect_quadrics_all(geom, ray.o, ray.d, ray.t_max)
-    thit, tt, tid = traverse16(geom, ray.o, ray.d,
-                               torch.where(qhit, qt, ray.t_max),
-                               any_hit=False)
+    thit, tt, tid, inst = traverse16(geom, ray.o, ray.d,
+                                     torch.where(qhit, qt, ray.t_max),
+                                     any_hit=False, with_inst=True)
     use_tri = thit & (~qhit | (tt < qt))
-    return (qhit | thit, torch.where(use_tri, tt, qt),
-            torch.where(use_tri, tid + nq, qid))
+    out = (qhit | thit, torch.where(use_tri, tt, qt),
+           torch.where(use_tri, tid + nq, qid))
+    return out + (torch.where(use_tri, inst, -1),) if with_inst else out
 
 
 def scene_intersect(geom: GeometryTables, ray: Ray) -> Interaction:
-    """Closest hit over the scene -> full surface interaction batch."""
-    hit, t, prim = closest_prim(geom, ray)
-    return build_interaction(geom, ray, hit, t, prim)
+    """Closest hit over the scene -> full surface interaction batch (alpha
+    cutouts skipped inside K1, so the interaction is rebuilt against the
+    caller's ray at the accepted t)."""
+    if not geom.has_instances:
+        return build_interaction(geom, ray, *closest_prim(geom, ray))
+    return build_interaction(geom, ray, *closest_prim(geom, ray,
+                                                      with_inst=True))
+
+
+def _si_where(mask, a: Interaction, b: Interaction) -> Interaction:
+    """Per-lane select of two interaction batches (mask (B,))."""
+    out = {}
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+        out[f.name] = torch.where(m, x, y)
+    return Interaction(**out)
+
+
+def scene_intersect_passthrough(geom: GeometryTables, ray: Ray,
+                                max_skips: int = 8) -> Interaction:
+    """Closest hit that passes through medium interfaces (a prim with
+    neither material nor area light; the reference's path.rs:143-152):
+    lanes whose hit is one re-trace from ``spawn_ray(ray.d)`` there, up to
+    ``max_skips`` rounds, while the other lanes get t_max 0 (K1 ends them
+    at once); one host test a round. A scene without interfaces takes one
+    intersection."""
+    si = scene_intersect(geom, ray)
+    if not geom.has_interfaces or max_skips <= 0:
+        return si
+    o_cur = ray.o
+    for _ in range(max_skips):
+        pend = si.valid & (si.material < 0) & (si.arealight < 0)
+        if not bool(pend.any()):
+            break
+        r2 = si.spawn_ray(ray.d)
+        o_cur = torch.where(pend[:, None], r2.o, o_cur)
+        s2 = scene_intersect(geom, Ray(o=o_cur, d=ray.d, t_max=torch.where(
+            pend, r2.t_max, 0.0)))
+        si = _si_where(pend, s2, si)
+    return si
 
 
 def scene_intersect_p(geom: GeometryTables, ray: Ray):
     """Any-hit (shadow) test -> (B,) bool occluded: a quadric occluder
-    zeroes the triangles' t_max (K1 then ends the ray at once)."""
+    zeroes the triangles' t_max (K1 then ends the ray at once); K1 drops
+    triangles cut out by their alpha or shadow-alpha map."""
     if not geom.has_quadrics:
         return traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=True)[0]
     qhit = quadrics_any_hit(geom, ray.o, ray.d, ray.t_max)
@@ -322,20 +405,35 @@ def _quadric_branch(geom: GeometryTables, ray: Ray, hit, t, prim):
         material=geom.q_material[qid], arealight=geom.q_arealight[qid])
 
 
-def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
+def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim,
+                            inst=None):
     """Plain PyTorch version of K2: the reference's build_interaction, the
     quadric branch (when the scene has quadrics) and the triangle branch
     selected per lane, then the shading frame and the miss-lane
-    placeholders."""
+    placeholders. ``inst`` (an instanced scene's hits): a triangle of
+    instance inst >= 0 has its vertices moved to world space by
+    inst_o2w[inst], its vertex normals by inst_w2o[inst], and its
+    orientation flipped by inst_flip[inst] (the reference's :606-647)."""
     is_tri = prim >= geom.n_quadrics
     tid = torch.where(is_tri, prim - geom.n_quadrics, 0) \
         .clamp(0, geom.n_triangles - 1)
     rec = geom.t_shade[tid.long()]                           # (B, 32)
     p0, p1, p2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+    nv0, nv1, nv2 = rec[:, 9:12], rec[:, 12:15], rec[:, 15:18]
+    flags = rec[:, 24].view(torch.int32)
+    rev = ((flags & 4) != 0)[:, None]
+    if inst is not None:
+        use = (inst >= 0)[:, None]
+        i = inst.clamp(min=0).long()
+        o2w, w2o = geom.inst_o2w[i], geom.inst_w2o[i]
+        p0, p1, p2 = (torch.where(use, xform_point(o2w, v), v)
+                      for v in (p0, p1, p2))
+        nv0, nv1, nv2 = (torch.where(use, xform_normal(w2o, v), v)
+                         for v in (nv0, nv1, nv2))
+        rev = rev ^ (use & geom.inst_flip[i][:, None])
     th = triangle_intersect(ray.o, ray.d,
                             torch.where(hit, t * 1.0001 + 1e-4, ray.t_max),
                             p0, p1, p2)
-    flags = rec[:, 24].view(torch.int32)
     has_uv = ((flags & 1) != 0)[:, None]
     zero, one = torch.zeros_like(t), torch.ones_like(t)
     uv0 = torch.where(has_uv, rec[:, 18:20], torch.stack([zero, zero], -1))
@@ -345,11 +443,9 @@ def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
     p, p_error = triangle_point_error(th.b0, th.b1, th.b2, p0, p1, p2)
     uv = b0 * uv0 + b1 * uv1 + b2 * uv2
     dpdu, dpdv = triangle_partial_derivs(p0, p1, p2, uv0, uv1, uv2)
-    rev = ((flags & 4) != 0)[:, None]
     ng = normalize(cross(p0 - p2, p1 - p2))
     ng = torch.where(rev, -ng, ng)
     has_n = ((flags & 2) != 0)[:, None]
-    nv0, nv1, nv2 = rec[:, 9:12], rec[:, 12:15], rec[:, 15:18]
     n_interp = normalize(b0 * nv0 + b1 * nv1 + b2 * nv2)
     n_interp = torch.where(rev, -n_interp, n_interp)
     ns = torch.where(has_n, n_interp, ng)
@@ -392,12 +488,16 @@ def build_interaction_plain(geom: GeometryTables, ray: Ray, hit, t, prim):
         dndv=torch.where(h & torch.isfinite(dndv), dndv, z3))
 
 
-def build_interaction(geom: GeometryTables, ray: Ray, hit, t, prim):
+def build_interaction(geom: GeometryTables, ray: Ray, hit, t, prim,
+                      inst=None):
     """Surface interactions of closest hits (hit (B,) bool, t (B,) f32,
-    prim (B,) int32 global ids). CPU tensors take the plain version, CUDA
-    tensors launch K2 (triangle and quadric lanes in one launch)."""
+    prim (B,) int32 global ids; ``inst`` (B,) int32 the hits' instances in
+    an instanced scene, else None). CPU tensors take the plain version,
+    CUDA tensors launch K2 (triangle and quadric lanes in one launch; the
+    instantiation with the instance branch, ``build_interaction_inst``,
+    where ``inst`` is given)."""
     if not cuda.use_kernel(t):
-        return build_interaction_plain(geom, ray, hit, t, prim)
+        return build_interaction_plain(geom, ray, hit, t, prim, inst)
     n = t.shape[0]
     dev = t.device
     cuda.check(geom.t_shade, "t_shade", torch.float32,
@@ -421,12 +521,21 @@ def build_interaction(geom: GeometryTables, ray: Ray, hit, t, prim):
           for k in _FIELDS3}
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
     ids = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    extra = ()
+    if inst is not None:
+        ni = geom.inst_o2w.shape[0]
+        cuda.check(inst, "inst", torch.int32, (n,), dev)
+        cuda.check(geom.inst_o2w, "inst_o2w", torch.float32, (ni, 4, 4), dev)
+        cuda.check(geom.inst_w2o, "inst_w2o", torch.float32, (ni, 4, 4), dev)
+        cuda.check(geom.inst_flip, "inst_flip", torch.bool, (ni,), dev)
+        extra = (inst, geom.inst_o2w, geom.inst_w2o, geom.inst_flip)
     if n:
-        cuda.launch("build_interaction", geom.t_shade, geom.n_triangles, nq,
+        cuda.launch("build_interaction_inst" if extra else
+                    "build_interaction", geom.t_shade, geom.n_triangles, nq,
                     int(geom.has_quadrics), *(getattr(geom, k) for k in QUADRIC_KEYS), ray.o, ray.d,
                     ray.t_max, hit, t, prim, n,
                     f3["p"], f3["p_error"], f3["n"], uv, f3["dpdu"],
                     f3["dpdv"], f3["ns"], f3["ss"], f3["ts"], f3["dndu"],
-                    f3["dndv"], f3["wo"], *ids)
+                    f3["dndv"], f3["wo"], *ids, *extra)
     return Interaction(valid=hit, t=t, uv=uv, material=ids[0],
                        arealight=ids[1], prim_id=ids[2], **f3)

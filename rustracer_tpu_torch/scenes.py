@@ -1,5 +1,6 @@
 """Scenes of the port: the benchmark dragon of ``bench.py`` build_dragon,
-and the Cornell box of ``bench.py`` build_cornell (``build_cornell``).
+the Cornell box of ``bench.py`` build_cornell (``build_cornell``), and the
+instanced gallery of ``tools/gen_instanced_gallery.py`` (``build_instanced``).
 
 Both variants share the geometry (the 327,680-triangle bumpy sphere that
 stands in for the dragon scan, a ground quad and a two-triangle area
@@ -38,6 +39,7 @@ from .ops.mipmap import build_pyramid
 from .scene.atlas import build_atlas_meta
 from .scene.lights import LIGHT_AREA, make_lights
 from .scene.materials import MaterialSet, MatteMaterial
+from .accel.bvh_build import build_wide_scene
 from .scene.tables import N_DUMMY_QUADRICS, make_geometry
 from .scene.textures import ConstantTexture, ImageTexture
 from .utils.meshgen import bumpy_sphere
@@ -285,3 +287,85 @@ def build_cornell(res=CORNELL_RES, spp=CORNELL_SPP, max_depth=MAX_DEPTH,
     return (ctx, cornell_camera(res), film,
             SamplerConfig(kind="02sequence", spp=spp),
             PathIntegrator(mat_set=ms, max_depth=max_depth))
+
+
+def instanced_tris(subdiv=6, grid=5):
+    """Host tables of the instanced gallery (tools/gen_instanced_gallery.py
+    build): a ground quad and a 3 x 3 light quad (world space), then the
+    bumpy sphere of radius 0.45 once in object space, placed by grid x grid
+    instances (a seeded rotation about y, a scale in [0.8, 1.25], on a
+    1.6-spaced grid) -> (tris dict, objects, instances)."""
+    mv, mn, mf = bumpy_sphere(subdivisions=subdiv, radius=0.45)
+    static_v = np.array([
+        [-9, 0, -9], [9, 0, -9], [9, 0, 9], [-9, 0, 9],
+        [-1.5, 6.0, -1.5], [1.5, 6.0, -1.5], [1.5, 6.0, 1.5], [-1.5, 6.0, 1.5],
+    ], np.float32)
+    # the light's two triangles are wound so that their normal points -y
+    static_f = np.array([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]],
+                        np.int32)
+    gv = np.concatenate([static_v, mv])
+    gi = np.concatenate([static_f, mf + len(static_v)])
+    n_static, n_mesh = len(static_f), len(mf)
+    n = n_static + n_mesh
+    tris = dict(
+        tv_p=gv,
+        tv_n=np.concatenate([np.zeros((8, 3), np.float32), mn]),
+        tv_uv=np.zeros((len(gv), 2), np.float32),
+        tv_s=np.zeros((len(gv), 3), np.float32),
+        t_idx=gi,
+        t_material=np.concatenate([np.array([0, 0, 2, 2], np.int32),
+                                   np.full(n_mesh, 1, np.int32)]),
+        t_arealight=np.concatenate([np.array([-1, -1, 0, 1], np.int32),
+                                    np.full(n_mesh, -1, np.int32)]),
+        t_reverse=np.zeros(n, bool),
+        t_has_n=np.concatenate([np.zeros(n_static, bool),
+                                np.ones(n_mesh, bool)]),
+        t_has_uv=np.zeros(n, bool),
+        t_alpha_tex=np.full(n, -1, np.int32))
+    rng = np.random.default_rng(7)
+    instances = []
+    for i in range(grid):
+        for j in range(grid):
+            ang = rng.uniform(0, 2 * np.pi)
+            c, s = np.cos(ang), np.sin(ang)
+            sc = rng.uniform(0.8, 1.25)
+            m = np.eye(4, dtype=np.float32)
+            m[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                                 np.float32) * sc
+            m[:3, 3] = (1.6 * (i - (grid - 1) / 2), 0.45 * sc + 0.02,
+                        1.6 * (j - (grid - 1) / 2))
+            instances.append(dict(obj=0, o2w=m, w2o=np.linalg.inv(m),
+                                  flip=False))
+    return tris, [(n_static, n)], instances
+
+
+def build_instanced(subdiv=6, res=(1024, 768), spp=16, grid=5,
+                    device="cuda"):
+    """The instanced gallery (tools/gen_instanced_gallery.py, its flagship:
+    25 instances of one 81,920-triangle bumpy sphere, 2.05 M triangles in
+    effect) through the two-level BVH, under the two-triangle area light
+    (emission 30), matte floor, hero and light, look-at camera with fov 52,
+    the box 0.5 filter, the (0,2)-sequence sampler, path tracing to depth
+    5 -> (ctx, camera, film, sampler, integrator)."""
+    tris, objects, instances = instanced_tris(subdiv, grid)
+    geom = make_geometry(tris, bvh=build_wide_scene(tris, objects,
+                                                    instances),
+                         device=device)
+    emit = (30.0, 30.0, 30.0)
+    rows = [dict(type=LIGHT_AREA, pos=(0, 0, 0), emit=emit,
+                 prim=N_DUMMY_QUADRICS + 2 + k, twosided=False)
+            for k in range(2)]
+    lights = make_lights(rows, geom, world_center=(0, 1, 0),
+                         world_radius=15.0, device=device)
+    const = {"kd_floor": np.array([0.55, 0.55, 0.58], np.float32),
+             "kd_hero": np.array([0.6, 0.42, 0.3], np.float32),
+             "kd_black": np.array([0.0, 0.0, 0.0], np.float32)}
+    ms = MaterialSet([MatteMaterial(kd=ConstantTexture(k))
+                      for k in ("kd_floor", "kd_hero", "kd_black")])
+    ctx = RenderContext(geom=geom, lights=lights,
+                        textures=textures_on({"const": const}, device))
+    c2w = Transform.look_at([5.5, 5.0, -6.5], [0.0, 0.4, 0.0], [0, 1, 0])
+    cam = PerspectiveCamera.create(c2w, fov=52.0, resolution=res)
+    film = Film(full_resolution=res, filter=Filter("box", 0.5, 0.5))
+    return (ctx, cam, film, SamplerConfig(kind="02sequence", spp=spp),
+            PathIntegrator(mat_set=ms, max_depth=MAX_DEPTH))

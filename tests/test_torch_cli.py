@@ -3,9 +3,11 @@ in a fresh interpreter on the CPU: a 1-spp render of the Cornell box
 written as EXR is read back by both packages' readers, and one of
 testball-glass prints its phases and launches; ``scenes/simple.pbrt``
 (spheres and a disk alone: no triangle, a point light and a disk light)
-renders at 1 spp (about 25 s); a scene with a feature the port does not
-render (instancing, an alpha cutout) exits non-zero naming the
-feature; the flags that are not ported exit non-zero saying so."""
+renders at 1 spp (about 25 s); scenes with instances and with alpha and
+shadow-alpha cut-outs render at 1 spp under the middle split and the
+hlbvh name; a scene with a feature the port does not render (the Whitted
+integrator, the random sampler) exits non-zero naming the feature; the
+flags that are not ported exit non-zero saying so."""
 import os
 import subprocess
 import sys
@@ -69,25 +71,69 @@ def test_cpu_render_of_a_scene_of_quadrics(tmp_path):
     assert img.mean() > 1e-2
 
 
+# the options each refused case adds, and what its message names: the
+# Whitted integrator (ROADMAP.md section A, item 16) and the random sampler
+# (item 17)
 UNPORTED = {
-    "instancing": ('ObjectBegin "o"', "ObjectBegin 'o'"),
-    "alpha": ('Shape "trianglemesh" "integer indices" [0 1 2] '
-              '"point P" [0 0 1 1 0 1 0 1 1] "float alpha" [0]', "'alpha'"),
+    "whitted": ('Integrator "whitted"', "'whitted'", 16),
+    "random": ('Sampler "random"', "'random'", 17),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unsupported_scene_exits_with_the_feature(tmp_path, case):
-    world, feature = UNPORTED[case]
+    options, feature, item = UNPORTED[case]
     scene = tmp_path / f"{case}.pbrt"
     scene.write_text(
         'Camera "perspective"\nFilm "image" "integer xresolution" [8] '
-        '"integer yresolution" [8]\nWorldBegin\n' + world
-        + '\nShape "trianglemesh" "integer indices" [0 1 2] '
+        '"integer yresolution" [8]\n' + options + '\nWorldBegin\n'
+        'Shape "trianglemesh" "integer indices" [0 1 2] '
         '"point P" [0 0 1 1 0 1 0 1 1]\nWorldEnd\n')
     proc = run_cli(str(scene), "--cpu", "-o", str(tmp_path / "x.exr"))
     assert proc.returncode != 0
     assert feature in proc.stderr and "not ported yet" in proc.stderr
+    assert f"item {item}" in proc.stderr
+
+
+_CARD = ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" '
+         '[-0.5 -0.5 0  0.5 -0.5 0  0.5 0.5 0  -0.5 0.5 0] '
+         '"float uv" [0 0 1 0 1 1 0 1]')
+# what the port refused until the rest of the geometry was ported: the
+# world block of each case and its Accelerator
+GEOMETRY = {
+    "instancing": ('Accelerator "bvh" "string splitmethod" "middle"',
+                   f'ObjectBegin "card"\n{_CARD}\nObjectEnd\n'
+                   + "".join(f'TransformBegin\nTranslate {x} 0 0\n'
+                             'ObjectInstance "card"\nTransformEnd\n'
+                             for x in (-0.6, 0.6))),
+    "alpha": ('Accelerator "hlbvh"',
+              'Texture "g" "float" "imagemap" "string filename" '
+              '"scenes/textures/grid.png"\n'
+              f'{_CARD} "float alpha" [0]\nTranslate 0 0 1\n'
+              f'{_CARD} "texture shadowalpha" "g"\n'
+              'Material "none"\nShape "sphere" "float radius" [2.5]'),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY))
+def test_cpu_render_of_a_geometry_scene(tmp_path, case):
+    """Instanced cards under the middle split, and a cut-out card before
+    a shadow-alpha card inside a medium-interface sphere under the hlbvh
+    name, through the command line at 1 spp: a finite, lit image."""
+    options, world = GEOMETRY[case]
+    scene = tmp_path / f"{case}.pbrt"
+    scene.write_text(
+        'LookAt 0 0 -3  0 0 0  0 1 0\nCamera "perspective" "float fov" [50]\n'
+        'Film "image" "integer xresolution" [16] "integer yresolution" [16]\n'
+        'Sampler "02sequence" "integer pixelsamples" [1]\n' + options
+        + '\nWorldBegin\nLightSource "point" "rgb I" [20 20 20] '
+        '"point from" [0 0 -2]\n' + world + '\nWorldEnd\n')
+    out = str(tmp_path / "x.exr")
+    proc = run_cli(str(scene), "--cpu", "-o", out, "-v")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    img = read_image(out)
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 1e-3
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "ck.npz"],

@@ -161,9 +161,10 @@ def random_rays(n, seed=1, spread=6.0):
     return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
 
 
-def _chain_binary(lo, hi, max_prims):
+def _chain_binary(lo, hi, max_prims, split_method="sah"):
     """A binary tree in the SAH builder's layout that is a chain: interior
-    2s holds leaf 2s+1 (triangle s) and the interior 2s+2 (the rest)."""
+    2s holds leaf 2s+1 (triangle s) and the interior 2s+2 (the rest); the
+    split method is not read."""
     n = lo.shape[0]
     m = 2 * n - 1
     nodes_lo = np.empty((m, 3), np.float32)
@@ -1516,3 +1517,164 @@ def test_texture_scene_render_matches_plain(dev, name, tmp_path):
             "textures-image": "mipmap_lookup",
             "testball-fourier": "fourier_bsdf"}[name]
     assert K.LAUNCHES[need] > 0, K.LAUNCHES
+
+
+def _instanced_soup(dev, n_obj=60, n_static=25, n_inst=7, seed=3,
+                    flip=False, alpha=False):
+    """tests/test_instancing.py's scene built by the port: a static soup,
+    then one object soup (scaled by 0.3) placed by n_inst seeded affine
+    transforms (a mirror on half of them where ``flip``), through
+    build_wide_scene; with ``alpha``, uv on every triangle and a 4 x 4
+    checkerboard alpha map on half of them, a shadow-alpha map of zeros on
+    a quarter. -> GeometryTables on ``dev``."""
+    rng = np.random.default_rng(seed)
+    static = random_soup(n_static, seed=seed + 1) if n_static else None
+    obj = random_soup(n_obj, seed=seed + 2)
+    xforms = []
+    for _ in range(n_inst):
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        r = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                       2 * (x * z + w * y)],
+                      [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                       2 * (y * z - w * x)],
+                      [2 * (x * z - w * y), 2 * (y * z + w * x),
+                       1 - 2 * (x * x + y * y)]])
+        s = rng.uniform(0.4, 1.6, 3)
+        if flip and rng.random() < 0.5:
+            s[0] = -s[0]
+        m = np.eye(4)
+        m[:3, :3] = r @ np.diag(s)
+        m[:3, 3] = rng.uniform(-4, 4, 3)
+        xforms.append(m.astype(np.float32))
+    sv = static["tv_p"] if static else np.zeros((0, 3), np.float32)
+    v = np.concatenate([sv, obj["tv_p"] * 0.3]).astype(np.float32)
+    tris = _soup_dict(v)
+    nt = len(tris["t_idx"])
+    bvh = bvh_build.build_wide_scene(
+        tris, [(len(sv) // 3, nt)],
+        [dict(obj=0, o2w=m, w2o=np.linalg.inv(m),
+              flip=bool(np.linalg.det(m[:3, :3]) < 0)) for m in xforms])
+    kw = {}
+    if alpha:
+        tris["tv_uv"] = rng.uniform(-0.5, 1.5, (len(v), 2)).astype(np.float32)
+        tris["t_has_uv"] = np.arange(nt) % 5 != 0
+        tris["t_alpha_tex"] = np.where(np.arange(nt) % 2 == 0, 0, -1) \
+            .astype(np.int32)
+        tris["t_shadow_alpha_tex"] = np.where(np.arange(nt) % 4 == 1, 1, -1) \
+            .astype(np.int32)
+        m0 = (np.add.outer(np.arange(4), np.arange(4)) % 2).astype(np.float32)
+        kw["alpha"] = dict(
+            alpha_atlas=np.concatenate([m0.ravel(), np.zeros(16, np.float32)]),
+            alpha_meta=np.array([[0, 4, 4], [16, 4, 4]], np.int32))
+    return make_geometry(tris, bvh=bvh, device=dev, **kw)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["instanced", "instanced flip",
+                                  "no static", "one instance", "alpha",
+                                  "instanced alpha"])
+def test_traverse16_geometry_matches_plain(dev, case, any_hit):
+    """K1's instanced, alpha and instanced-alpha walks: hit, t bits, prim,
+    instance and the counts bit for bit with the plain walk, on 16384
+    random rays (every 7th dead), of which some hundreds hit."""
+    kw = {"instanced": {}, "instanced flip": dict(flip=True),
+          "no static": dict(n_static=0, n_inst=5, seed=40),
+          "one instance": dict(n_inst=1, seed=30),
+          "alpha": dict(n_inst=0, alpha=True),
+          "instanced alpha": dict(flip=True, alpha=True)}[case]
+    if case == "alpha":
+        tris = random_soup(400, seed=8)
+        nt = 400
+        rng = np.random.default_rng(9)
+        tris["tv_uv"] = rng.uniform(-0.5, 1.5, (3 * nt, 2)).astype(np.float32)
+        tris["t_has_uv"] = np.arange(nt) % 5 != 0
+        tris["t_alpha_tex"] = np.where(np.arange(nt) % 2 == 0, 0, -1) \
+            .astype(np.int32)
+        tris["t_shadow_alpha_tex"] = np.where(np.arange(nt) % 4 == 1, 1, -1) \
+            .astype(np.int32)
+        m0 = (np.add.outer(np.arange(4), np.arange(4)) % 2).astype(np.float32)
+        g = make_geometry(tris, device=dev, alpha=dict(
+            alpha_atlas=np.concatenate([m0.ravel(), np.zeros(16, np.float32)]),
+            alpha_meta=np.array([[0, 4, 4], [16, 4, 4]], np.int32)))
+    else:
+        g = _instanced_soup(dev, **kw)
+    assert g.has_instances == (case != "alpha")
+    assert g.has_alpha == ("alpha" in case)
+    o, d = random_rays(16384, seed=5)
+    t_max = np.where(np.arange(16384) % 7 == 0, 0.0, np.inf)
+    o, d, t_max = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                   for a in (o, d, t_max))
+    from rustracer_tpu_torch.accel.traverse16 import k1_entry
+    name = k1_entry(g, any_hit)
+
+    def fn():
+        return traverse16(g, o, d, t_max, any_hit=any_hit, with_counts=True,
+                          with_inst=True)
+    n0 = K.LAUNCHES[name]
+    h, t, p, i, c = fn()
+    assert K.LAUNCHES[name] == n0 + 1
+    rh, rt, rp, ri, rc = _plain(fn)
+    assert torch.equal(h, rh) and torch.equal(p, rp) and torch.equal(c, rc)
+    assert torch.equal(i, ri)
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert h.sum() > 50
+    if g.has_instances and not any_hit:
+        assert (i[h] >= 0).any()
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_build_interaction_instances_matches_plain(dev, flip):
+    """K2's instance branch (build_interaction_inst) on the closest hits of
+    an instanced soup, static and instanced lanes: each field within 1e-5
+    absolute or relative (p_error relative) of the plain version."""
+    from rustracer_tpu_torch.core.ray import Ray
+    from rustracer_tpu_torch.scene.tables import closest_prim
+    g = _instanced_soup(dev, flip=flip, seed=12)
+    o, d = random_rays(16384, seed=13)
+    ray = Ray(o=torch.as_tensor(o, device=dev), d=torch.as_tensor(d,
+                                                                  device=dev),
+              t_max=torch.full((16384,), float("inf"), device=dev))
+    hit, t, prim, inst = closest_prim(g, ray, with_inst=True)
+    assert (inst[hit] >= 0).any() and (inst[hit] < 0).any()
+
+    def fn():
+        return build_interaction(g, ray, hit, t, prim, inst)
+    n0 = K.LAUNCHES["build_interaction_inst"]
+    out, ref = fn(), _plain(fn)
+    assert K.LAUNCHES["build_interaction_inst"] == n0 + 1
+    for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+              "dndu", "dndv", "wo"):
+        assert not _k2_off(f, getattr(out, f), getattr(ref, f)).any(), f
+    for f in ("material", "arealight", "prim_id", "valid"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("name", ["alpha-cards", "alpha-cards-static",
+                                  "gallery"])
+def test_geometry_scene_render_matches_plain(dev, name, tmp_path):
+    """tools/geometry_work.py's scenes at 64^2, 2 samples, and the
+    instanced gallery (subdivision 3, a 3 x 3 grid) at 64 x 48: the
+    image within the golden-image tolerance of the all-plain render, the
+    scene's K1 walk and (instanced) K2's instance branch launched."""
+    from rustracer_tpu_torch.scene.api import parse_scene_string
+    from rustracer_tpu_torch.scenes import build_instanced
+    from rustracer_tpu_torch.tools.geometry_work import scene_text
+    if name == "gallery":
+        ctx, cam, film, sampler, integ = build_instanced(
+            subdiv=3, res=(64, 48), spp=2, grid=3, device=dev)
+        renderer = Renderer(integ.li, cam, film, sampler,
+                            RenderConfig(max_lanes=4096), device=dev)
+    else:
+        bundle = parse_scene_string(scene_text(name, res=64, spp=2,
+                                               tex_dir=str(tmp_path)),
+                                    device=dev).scene
+        renderer, ctx = bundle.renderer(), bundle.context()
+    K.reset_launches()
+    _assert_render_matches_plain(renderer, ctx, sample_stop=2)
+    inst = ctx.geom.has_instances
+    kind = "_".join(k for k, on in (("inst", inst),
+                                    ("alpha", ctx.geom.has_alpha)) if on)
+    for q in ("closest", "any"):
+        assert K.LAUNCHES[f"traverse16_{kind}_{q}"] > 0, K.LAUNCHES
+    assert (K.LAUNCHES["build_interaction_inst"] > 0) == inst, K.LAUNCHES

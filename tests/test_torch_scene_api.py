@@ -16,7 +16,10 @@ NotImplementedError naming itself and its ROADMAP.md item; what it refused
 until the rest of shading was ported (bump maps, a mix over a material
 with an imagemap, the procedural textures, the planar mapping, trilinear
 filtering, the Fourier material) builds the same materials and textures as
-the JAX package; each light
+the JAX package; what it refused until the rest of the geometry was
+ported (instances, an unknown instance, alpha cut-outs, a medium
+interface) builds the JAX package's tables, and so do a kdtree and the
+middle split; each light
 directive it refused until the lights were ported (point, distant,
 infinite, an area light on a sphere or a disk) builds the JAX package's
 light table, and is refused under the direct and Whitted integrators
@@ -226,12 +229,6 @@ REFUSED = {
                       "'whitted'", 16),
     "infinite light": ('Integrator "directlighting"',
                        'LightSource "infinite"', "'directlighting'", 16),
-    "instancing": ('', 'ObjectBegin "o"', "ObjectBegin 'o'", 15),
-    "instance": ('', 'ObjectInstance "o"', "ObjectInstance", 15),
-    "alpha": ('', 'Shape "trianglemesh" "integer indices" [0 1 2] '
-              '"point P" [0 0 1 1 0 1 0 1 1] "float alpha" [0]', "'alpha'",
-              15),
-    "medium interface": ('', 'Material "none"', "medium interfaces", 15),
     "whitted": ('Integrator "whitted"', '', "'whitted'", 16),
     "directlighting": ('Integrator "directlighting"', '',
                        "'directlighting'", 16),
@@ -322,6 +319,48 @@ def test_shading_directive_builds_the_references(case, tmp_path):
         assert pb.material_set.types_present() == (PB.FOURIER,)
 
 
+# what the port refused until the rest of the geometry was ported
+# (ROADMAP.md section A, item 15): each parses on both packages into the
+# same tables
+_CARD = ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" '
+         '[0 0 2  1 0 2  1 1 2  0 1 2] "float uv" [0 0 1 0 1 1 0 1]')
+GEOMETRY = {
+    "instancing": (f'ObjectBegin "o"\n{_CARD}\nObjectEnd\n'
+                   'TransformBegin\nTranslate 1 0 0\nObjectInstance "o"\n'
+                   'TransformEnd\nTransformBegin\nRotate 30 0 1 0\n'
+                   'Scale -1 1 1\nObjectInstance "o"\nTransformEnd'),
+    "instance": 'ObjectInstance "o"',
+    "alpha": (f'{_CARD} "float alpha" [0]\nTexture "g" "float" "imagemap" '
+              f'"string filename" "{_GRID}"\n'
+              f'{_CARD} "texture shadowalpha" "g"'),
+    "medium interface": 'Material "none"',
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY))
+def test_geometry_directive_builds_the_references(case):
+    """Instances of an object (one mirrored), an ObjectInstance of an
+    unknown name, alpha and shadow-alpha cut-outs (a literal 0 and an
+    imagemap) and a Material "none" shape build the JAX package's tables:
+    the bundles equal, and the instance tables, the alpha atlas and ids
+    and the medium-interface flag carried by convert.py equal the port's
+    own."""
+    text = _HEAD.format(options="", world=GEOMETRY[case])
+    jb = jax_parse_string(text).scene
+    pb = parse_scene_string(text, device="cpu").scene
+    assert_bundles_equal(jb, pb)
+    g, cg = pb.geom, convert.geometry_from_jax(jb.geom, device="cpu")
+    for f in ("inst_o2w", "inst_w2o", "inst_flip", "alpha_atlas",
+              "alpha_meta", "t_alpha_tex", "t_shadow_alpha_tex"):
+        _eq(getattr(cg, f).numpy(), getattr(g, f).numpy())
+    for f in ("has_instances", "has_alpha", "has_interfaces"):
+        assert getattr(cg, f) == getattr(g, f), f
+    assert (g.has_instances, g.has_alpha, g.has_interfaces) == {
+        "instancing": (True, False, False), "instance": (False,) * 3,
+        "alpha": (False, True, False),
+        "medium interface": (False, False, True)}[case]
+
+
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_directive_raises_naming_itself(case):
     options, world, what, item = REFUSED[case]
@@ -336,9 +375,21 @@ def test_unported_directive_raises_naming_itself(case):
                                    'Accelerator "bvh" "string splitmethod" '
                                    '"middle"'])
 def test_unbuilt_accelerator_raises(accel):
-    with pytest.raises(NotImplementedError, match="SAH"):
-        parse_scene_string(_HEAD.format(options=accel, world=""),
-                           device="cpu")
+    """The accelerators the port refused until the middle split was ported
+    now build: over 40 triangles (more than the 8 primitives below which
+    the JAX package builds no BVH), the port's wide BVH is the JAX
+    package's bit for bit (a kdtree's the SAH one: neither package reads
+    the accelerator's name)."""
+    rs = np.random.RandomState(4)
+    p = rs.uniform(-1, 1, (40, 3)).repeat(3, 0) + rs.normal(0, 0.2, (120, 3))
+    world = ('Shape "trianglemesh" "integer indices" ['
+             + " ".join(map(str, range(120))) + '] "point P" ['
+             + " ".join(f"{v:.5f}" for v in p.ravel()) + "]")
+    text = _HEAD.format(options=accel, world=world)
+    g = parse_scene_string(text, device="cpu").scene.geom
+    jg = jax_parse_string(text).scene.geom
+    _eq(g.bvh16_table.numpy(), np.asarray(jg.bvh16_table))
+    assert g.bvh16_depth == np.asarray(jg.bvh16_depth_pad).shape[0]
 
 
 def test_mix_missing_a_named_material_is_matte():
