@@ -205,7 +205,28 @@ Phases, each printing its lines:
      (tools/geometry_work.py k1_work, k1_bound, k2_inst_work), the 128^2
      crop at 1 spp against the all-plain path (mean 2e-3, p99 2e-2);
      alpha-cards-static's first closest and any calls likewise;
- 22. a JSON line of the kernels (times, bounds, library yardsticks,
+ 22. train steps through the per-texture lookups' backward:
+     tools/texture_work.py's textures-train (the Cornell box's walls with
+     a planar 8-tap imagemap floor, a trilinear wall, a mix of imagemaps
+     by a float imagemap, an exact-EWA wall, an atlas imagemap block) at
+     256^2, its images 1024^2, 3 train steps (make_train_step, lr 1),
+     counted: K17 forward
+     and K20 backward launched, K20 in each mode, the loss and every
+     leaf finite; every K20 call of one more step's recorded backward
+     against the plain version (within 1e-5 of the largest sum of its
+     terms' magnitudes), the first call of each mode timed and bounded
+     (tools/texture_work.py k20_work);
+ 23. the direct-lighting, Whitted, ambient-occlusion and normal
+     integrators: tools/integrator_work.py's CASES (the Cornell box under
+     each, direct lighting with the strategies "all" and "one";
+     testball-glass under Whitted; veach-mis under direct lighting with
+     per-light sample counts) at 1024^2, 8 samples (testball-glass and
+     veach-mis 4), each counted (camera
+     rays/s beside testball-matte's of phase 16) and its 128^2 crop at 1
+     spp against the all-plain path (mean 2e-3, p99 2e-2); the Cornell
+     box under direct lighting through the port's command line at 256^2
+     against the in-process render of the same file;
+ 24. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and ones for the render's at 16, 32, 96 and
      112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
@@ -217,8 +238,9 @@ Phases, each printing its lines:
      "events"), the card line, and the result line.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
-lights kernel; only phase 20's scenes launch K17, K18 and K19; only phase
-21's launch K1's instanced and alpha walks and K2's instance branch.
+lights kernel; only phase 20's scenes and phase 22's launch K17 (phase 22
+K20), only phase 20's K18 and K19; only phase 21's launch K1's instanced
+and alpha walks and K2's instance branch.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
@@ -226,7 +248,8 @@ phases 13-15, the testball render and step of phase 16, each testball
 render and the glass render and steps of phase 17, each render and step
 of phase 18, each light scene's parse and render and the bathroom's
 full-width render and step of phase 19, each texture scene's render and
-step of phase 20, each geometry render and step of phase 21) is
+step of phase 20, each geometry render and step of phase 21, the train
+steps of phase 22, each integrator's render of phase 23) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own.
 Any failed check raises; there is no CPU fallback.
@@ -303,6 +326,8 @@ SOURCES = {
                   "rustracer_tpu/core/noise.py:52"),
     "fourier_bsdf": ("rustracer_tpu_torch/csrc/fourier.cu",
                      "rustracer_tpu/ops/fourier.py:274"),
+    "mipmap_lookup_bwd": ("rustracer_tpu_torch/csrc/mipmap_bwd.cu",
+                          "rustracer_tpu/ops/mipmap.py:128"),
     "traverse16_inst_closest": ("rustracer_tpu_torch/csrc/traverse16.cu",
                                 "rustracer_tpu/accel/traverse16.py:196"),
     "traverse16_inst_any": ("rustracer_tpu_torch/csrc/traverse16.cu",
@@ -337,7 +362,10 @@ ROW_REPLACES = dict(TRANSPOSES, **{
     "noise_fbm turbulence": "rustracer_tpu/core/noise.py:72",
     "fourier_bsdf f": "rustracer_tpu/ops/fourier.py:274",
     "fourier_bsdf pdf": "rustracer_tpu/ops/fourier.py:322",
-    "fourier_bsdf sample_f": "rustracer_tpu/ops/fourier.py:342"})
+    "fourier_bsdf sample_f": "rustracer_tpu/ops/fourier.py:342",
+    "mipmap_lookup_bwd trilinear": "rustracer_tpu/ops/mipmap.py:100",
+    "mipmap_lookup_bwd ewa": "rustracer_tpu/ops/mipmap.py:128",
+    "mipmap_lookup_bwd exact": "rustracer_tpu/ops/mipmap.py:167"})
 # the rows of the kernels line: result key -> (kernel, the inputs timed)
 ROWS = {
     "sample_1d": ("sample_1d", "2^18 lanes of the matte render's tile 2"),
@@ -542,6 +570,16 @@ ROWS = {
         "alpha-cards-static step (tile 2, 2^18 lanes, 1024^2)"),
     "traverse16_alpha_any": ("traverse16_alpha_any",
                              "the first shadow rays of that step"),
+    "mipmap_lookup_bwd trilinear": (
+        "mipmap_lookup_bwd", "the first trilinear call of a recorded "
+        "backward of a textures-train train step at 256^2, its images "
+        "1024^2 (the back wall, the green wall's nested trilinear maps)"),
+    "mipmap_lookup_bwd ewa": (
+        "mipmap_lookup_bwd", "the first 8-tap call of that backward (the "
+        "planar floor or the green wall's clamped map)"),
+    "mipmap_lookup_bwd exact": (
+        "mipmap_lookup_bwd", "the first exact (128-texel) call of that "
+        "backward: the red wall at anisotropy 16"),
 }
 # phase 20: tools/texture_work.py's scenes, the kernel each must launch, and
 # the rows of its kernel
@@ -590,6 +628,14 @@ LIGHT_NEEDS = {
 }
 # the full-width bathroom, 1 sample
 BATH_RES = (1920, 1080)
+# phase 22: textures-train's film, its train steps and learning rate, and
+# the side of its two images (11 levels, 1.4 M texels each)
+TRAIN_RES, TRAIN_STEPS, TRAIN_LR = 256, 3, 1.0
+TRAIN_IMAGE = 1024
+# phase 23: the samples of each integrator's render of the Cornell box, and
+# of testball-glass's and veach-mis's (31 and 10 wavefronts a node or
+# estimate: about 12 and 15 s for 8 samples)
+INTEGRATOR_SAMPLES, TREE_SAMPLES = 8, 4
 # the rows of K12's lights kernel on each branch: row key -> the light of
 # tools/light_work.py's MIXED_SCENE that it computes alone (light_scene),
 # over the mixed scene's grid
@@ -2944,8 +2990,7 @@ def texture_scenes(dev, card, results, rays):
     from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
     from rustracer_tpu_torch.tools import texture_work as TW
     with tempfile.TemporaryDirectory() as tmp:
-        for name in TW.TEXTURE_SCENES:
-            need, rows = TEXTURE_NEEDS[name]
+        for name, (need, rows) in TEXTURE_NEEDS.items():
             text = TW.scene_text(name, res=RES[0], spp=SAMPLES, bsdf_dir=tmp)
             bundle, _ = parse_counted(f"[20] {name} at {RES[0]}^2", text=text,
                                       dev=dev)
@@ -3210,8 +3255,173 @@ def geometry_scenes(dev, card, results, rays):
         f"testball-matte (phase 16) {rays['matte']:.1f}")
 
 
+def texture_train(dev, card, results):
+    """Phase 22: TRAIN_STEPS train steps of tools/texture_work.py's
+    textures-train at TRAIN_RES^2, its images TRAIN_IMAGE^2 (make_train_step, sample s of step s,
+    LANES-lane tiles), counted: K17 forward and K20 backward launched, K20
+    in each mode (texture_work.count_bwd_calls: its calls by mode add up to
+    its launches), the loss and every updated leaf finite; then one more
+    step's backward recorded and every K20 call of it held against the
+    plain version (texture_work.compare_bwd_with_plain: within 1e-5 of the
+    largest sum of magnitudes), the first call of each mode timed and
+    bounded (texture_work.k20_work)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.parallel.mesh import (float_leaves,
+                                                   make_train_step)
+    from rustracer_tpu_torch.render.renderer import RenderConfig
+    from rustracer_tpu_torch.tools import texture_work as TW
+    from rustracer_tpu_torch.tools.timing import events_ms
+    with tempfile.TemporaryDirectory() as tmp:
+        text = TW.scene_text("textures-train", res=TRAIN_RES, spp=1,
+                             bsdf_dir=tmp, image_size=TRAIN_IMAGE)
+        bundle, _ = parse_counted(f"[22] textures-train at {TRAIN_RES}^2",
+                                  text=text, dev=dev)
+    ctx = bundle.context()
+    target = torch.full((TRAIN_RES, TRAIN_RES, 3), 0.2, device=dev)
+    step = make_train_step(bundle.integrator.li, bundle.camera, bundle.film,
+                           bundle.sampler, lr=TRAIN_LR,
+                           config=RenderConfig(max_lanes=LANES), device=dev)
+    step(ctx, target, 0)
+    losses = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with TW.count_bwd_calls({}) as modes:
+        for s in range(TRAIN_STEPS):
+            new, loss = step(ctx, target, s)
+            leaves = float_leaves(new.textures)[0]
+            if not (_finite(leaves) and bool(torch.isfinite(loss))):
+                raise AssertionError("[22] a non-finite loss or leaf")
+            losses.append(loss.item())
+            ctx = new
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    log(f"[22] textures-train {TRAIN_RES}^2, images {TRAIN_IMAGE}^2, "
+        f"{TRAIN_STEPS} train steps (lr "
+        f"{TRAIN_LR}) in {wall:.3f} s on {card}: losses {losses}; K20 by "
+        f"mode {modes}; launches {launches}")
+    if sorted(modes) != sorted(TW.BWD_MODES.values()) or \
+            sum(modes.values()) != launches["mipmap_lookup_bwd"] or \
+            launches["mipmap_lookup"] <= 0:
+        raise AssertionError("[22] K17 and K20 in each mode were not all "
+                             "launched, or K20's modes do not add up")
+    rec = {}
+    with TW.count_bwd_calls({}, rec) as step_modes:
+        step(ctx, target, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counted_in = (f"textures-train {TRAIN_STEPS} train steps at "
+                  f"{TRAIN_RES}^2, images {TRAIN_IMAGE}^2")
+    for name, calls in rec.items():
+        row = f"mipmap_lookup_bwd {name}"
+        worst, flipped, lanes = 0.0, 0, 0
+        for args in calls:
+            r = TW.compare_bwd_with_plain(*args, MM.mipmap_lookup_bwd(*args))
+            worst = max(worst, r["max_abs_err"])
+            flipped += r["flipped"]
+            lanes += r["lanes"]
+        args = calls[0]
+
+        def call(args=args):
+            return MM.mipmap_lookup_bwd(*args)
+        ms = kernel_time(row, call, 20, "mipmap_bwd_kernel")
+        with K.plain_reference():
+            pms = events_ms(call, 5)
+        work = TW.k20_work(*args[1:])
+        b = bound(work["moved"], work["ops"])
+        results[row] = dict(max_abs_err=worst, ms=ms, plain_ms=pms,
+                            library_ms=None, launches=modes[name],
+                            launches_per_step=step_modes[name],
+                            counted_in=counted_in, **b)
+        log(f"[22] {row}: {len(calls)} calls of one recorded backward, "
+            f"{lanes} lanes, {flipped} near a level flip held apart, max "
+            f"abs err {worst:.3g}; first call ({work}): kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f}% of it; no "
+            f"library call scatters a mip footprint")
+
+
+def integrator_scenes(dev, card, rays):
+    """Phase 23: tools/integrator_work.py's CASES (the Cornell box under
+    each integrator, testball-glass under Whitted, veach-mis under direct
+    lighting with per-light sample counts) at RES, INTEGRATOR_SAMPLES
+    samples (the latter two TREE_SAMPLES), each parsed and rendered
+    counted (K1's closest walk and K2 launched, K1's any hit where the
+    integrator traces shadow or occlusion rays, K14 on the quadric
+    scenes; no grid kernel, no shading kernel), camera rays/s beside
+    testball-matte's of phase 16, its 128^2 crop at 1 spp against the
+    all-plain path (mean 2e-3, p99 2e-2); then the Cornell box under
+    direct lighting at 256^2 through the port's command line in a
+    subprocess, its image within that tolerance of the in-process render
+    of the same file."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.render.film import Film
+    from rustracer_tpu_torch.render.imageio import read_image
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools import integrator_work as IW
+    for name, integ in IW.CASES:
+        label = f"[23] {name} under {integ}"
+        spp = INTEGRATOR_SAMPLES if name == "cornell-box" else TREE_SAMPLES
+        text = IW.scene_text(name, integ, res=RES, spp=spp)
+        bundle, _ = parse_counted(label, text=text, dev=dev)
+        renderer, ctx = bundle.renderer(LANES), bundle.context()
+        renderer.render_state(ctx, sample_stop=1)
+        launches, _, _, rays[f"{name} {integ}"] = render_counted(
+            label, renderer, bundle.film, ctx, spp, card,
+            depth=getattr(bundle.integrator, "max_depth", 1))
+        need = ["traverse16_closest", "build_interaction"]
+        if integ != "normal":
+            need.append("traverse16_any")
+        if name != "cornell-box":
+            need.append("quadric_closest")
+        missing = [k for k in need if launches[k] <= 0]
+        grid = [k for k in K.GRID_KERNELS if launches[k] > 0]
+        if missing or grid:
+            raise AssertionError(f"{label}: not launched {missing}, or grid "
+                                 f"kernels launched {grid}")
+        log(f"{label}: camera rays/s on {card}: {rays[f'{name} {integ}']:.1f}"
+            f"; testball-matte (phase 16) {rays['matte']:.1f}")
+        crop_film = Film(full_resolution=RES, crop_window=CROP,
+                         filter=bundle.film.filter)
+        compare_crop(label, Renderer(
+            bundle.integrator.li, bundle.camera, crop_film, bundle.sampler,
+            RenderConfig(max_lanes=LANES), device=dev), crop_film, ctx)
+    text = IW.scene_text("cornell-box", "directlighting", res=(256, 256),
+                         spp=INTEGRATOR_SAMPLES)
+    with tempfile.TemporaryDirectory() as d:
+        scene, out = os.path.join(d, "cornell-direct.pbrt"), \
+            os.path.join(d, "cornell-direct.exr")
+        with open(scene, "w") as f:
+            f.write(text)
+        proc = subprocess.run(
+            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli", scene,
+             "-o", out, "-v"], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        for line in proc.stdout.splitlines():
+            log(f"[23] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_image(out)
+        ref = parse_counted("[23] the CLI's Cornell box", path=scene,
+                            dev=dev)[0].render().cpu().numpy()
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    mean_err, p99 = image_errors(img, ref)
+    log(f"[23] python -m rustracer_tpu_torch.utils.cli (the Cornell box "
+        f"under directlighting, 256^2, {INTEGRATOR_SAMPLES} spp): K1 "
+        f"closest / any {launches['traverse16_closest']} / "
+        f"{launches['traverse16_any']}; against the in-process render: mean "
+        f"err {mean_err:.3g} (< 2e-3), p99 {p99:.3g} (< 2e-2)")
+    if launches["traverse16_any"] <= 0 or not (mean_err < 2e-3
+                                               and p99 < 2e-2):
+        raise AssertionError("the CLI's direct-lighting render differs")
+
+
 def run(dev, card):
-    """Phases 3 to 22 on device ``dev``."""
+    """Phases 3 to 24 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -3339,6 +3549,13 @@ def run(dev, card):
     rays["dragon matte"] = matte_rays
     geometry_scenes(dev, card, results, rays)
 
+    # 22: train steps through the per-texture lookups' backward (K20)
+    texture_train(dev, card, results)
+
+    # 23: the direct-lighting, Whitted, ambient-occlusion and normal
+    # integrators
+    integrator_scenes(dev, card, rays)
+
     kernels = []
     for key, (name, case) in ROWS.items():
         r = results[key]
@@ -3362,7 +3579,9 @@ def run(dev, card):
             launches_counted_in=r["counted_in"] if own
             else "dragon train step" if train else "textured render",
             case=case))
-    missing = [k for k in K.BACKWARD_KERNELS if train_launches[k] <= 0]
+    # the dragon looks no image up per texture: K20 has its own rows
+    missing = [k for k in K.BACKWARD_KERNELS if train_launches[k] <= 0
+               and k != "mipmap_lookup_bwd"]
     if missing:
         raise AssertionError(f"backward kernels not launched: {missing}")
     print(json.dumps({"kernels": kernels}))

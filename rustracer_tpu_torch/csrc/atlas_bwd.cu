@@ -42,14 +42,17 @@
 //  (d) a quad's corners that wrap or clamp onto one texel are summed first;
 //      then the lanes of the warp that add into one texel at once find
 //      each other (__match_any_sync), sum in a tree of shuffles, and one of
-//      them adds with one global atomic a channel.
+//      them adds with one global atomic a channel (texel_grad.cuh, shared
+//      with K20).
 // The sums go in no fixed order: the result agrees with autograd of the
 // plain lookup to float rounding.
 #include "atlas.cuh"
+#include "texel_grad.cuh"
 
 namespace {
 
 using namespace rt_atlas;
+using rt_grad::add_texel;
 
 constexpr int kThreads = 256;  // threads a block
 constexpr int kTile = 1024;    // lanes a tile
@@ -75,39 +78,6 @@ struct Args {
     float wsum;
     float* __restrict__ g_tex;
 };
-
-// adds (r, g, b) into texel `key` of g_tex (key < 0: nothing); every lane
-// of the warp calls it. The lanes with the same key find each other
-// (__match_any_sync) and sum their values in a tree of shuffles; the first
-// of them adds the sum with one atomic a channel (an add of exactly 0 is
-// left out: it would change no bit, the gradient starts at +0)
-__device__ __forceinline__ void add_texel(float* g_tex, int key, float r, float g, float b) {
-    const int lane = threadIdx.x & 31;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    unsigned rel = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
-    // peers above it; lanes without a texel sum nothing
-    unsigned higher = key < 0 ? 0u : peers & ~((2u << lane) - 1u);
-    // each round a lane adds its next remaining peer's partial sum, then
-    // the lanes at odd positions drop out; the first lane ends with all
-    while (__any_sync(0xffffffffu, higher)) {
-        int next = __ffs(higher);
-        float tr = __shfl_sync(0xffffffffu, r, (next - 1) & 31);
-        float tg = __shfl_sync(0xffffffffu, g, (next - 1) & 31);
-        float tb = __shfl_sync(0xffffffffu, b, (next - 1) & 31);
-        if (next) {
-            r += tr;
-            g += tg;
-            b += tb;
-        }
-        higher &= ~__ballot_sync(0xffffffffu, rel & 1u);
-        rel >>= 1;
-    }
-    if (lane != __ffs(peers) - 1 || key < 0) return;
-    float* p = g_tex + 3 * (long long)key;
-    if (r != 0.0f) atomicAdd(p, r);
-    if (g != 0.0f) atomicAdd(p + 1, g);
-    if (b != 0.0f) atomicAdd(p + 2, b);
-}
 
 // with `emit`, the 2x2 quad at (s0, t0) of level lv with corner weights
 // w: each corner's texel (wrapped as the lookup wraps; -1 outside a

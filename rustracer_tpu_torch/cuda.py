@@ -37,7 +37,7 @@ CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
               "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu",
               "quadrics.cu", "lights.cu", "mipmap.cu", "noise.cu",
-              "fourier.cu")
+              "fourier.cu", "mipmap_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -112,6 +112,10 @@ SIGNATURES = {
     # max_aniso, n, the 8 tap weights, their sum, exp(-2), out, stream
     "mipmap_lookup": [_P, _I, _P, _I, _I, _I] + [_P] * 4 + [_F, _I]
     + [_F] * 10 + [_P, _P],
+    # g_out, meta, n_levels, wrap, mode, st, dst0, dst1, width, max_aniso,
+    # n, the 8 tap weights, their sum, exp(-2), g_tex, n_texels, stream
+    "mipmap_lookup_bwd": [_P, _P, _I, _I, _I] + [_P] * 4 + [_F, _I]
+    + [_F] * 10 + [_P, _I, _P],
     # p, dpdx, dpdy, n, omega, max_octaves, turbulence, out, stream
     "noise_fbm": [_P, _P, _P, _I, _D, _I, _I, _P, _P],
     # mode, the table set's 8 tables, n_mu, nc, m_pad, tid, wo, wi or u,
@@ -122,10 +126,11 @@ SIGNATURES = {
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
 HOST_SIGNATURES = {"row_gather_bwd_blocks": [_I, _I, _I]}
-# the backward kernels (K9-K11), launched only by autograd's backward pass;
-# K7 is its own transpose and counts as slab_take / slab_put
+# the backward kernels (K9-K11, K20), launched only by autograd's backward
+# pass (K20 only for a scene with per-texture image lookups); K7 is its own
+# transpose and counts as slab_take / slab_put
 BACKWARD_KERNELS = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
-                    "row_gather_bwd")
+                    "row_gather_bwd", "mipmap_lookup_bwd")
 # the spatial light grid's kernels (K12, K13), launched only for a scene
 # with a grid (scene/lightdistrib.py); the scenes built in code have none
 GRID_KERNELS = ("spatial_grid_contrib", "spatial_light_pick",
@@ -162,23 +167,27 @@ _lib_error = None
 
 
 class _Route(threading.local):
-    plain = False
     function = False
 
 
 _route = _Route()
+# the plain_reference() scope; one for the process, not a thread's: autograd
+# runs a CUDA backward pass in a thread of its own, whose kernels' plain
+# versions the scope must reach too
+_plain = [False]
 
 
 @contextlib.contextmanager
 def plain_reference():
     """Run the plain PyTorch versions, also on CUDA tensors, inside this
-    scope: the reference the kernels are checked against."""
-    prev = _route.plain
-    _route.plain = True
+    scope (the backward passes it starts included): the reference the
+    kernels are checked against."""
+    prev = _plain[0]
+    _plain[0] = True
     try:
         yield
     finally:
-        _route.plain = prev
+        _plain[0] = prev
 
 
 @contextlib.contextmanager
@@ -206,12 +215,22 @@ def check_grad(name: str, tensors):
             "differentiable wrapper")
 
 
+def refuse_grad(what: str, tensors):
+    """Raise NotImplementedError naming ROADMAP item B12 if grad mode is on
+    and one of ``tensors`` requires grad: ``what`` carries no gradient in
+    the port yet, on the CPU as on the card."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP.md, section B, item B12)")
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True when a wrapper given ``t`` must launch its kernel."""
     if t.device.type == "cpu":
         return False
     if t.device.type == "cuda":
-        return not _route.plain
+        return not _plain[0]
     raise ValueError(f"no kernel or plain route for device {t.device}")
 
 

@@ -600,3 +600,67 @@ def bsdf_sample_f(lobes: LobeStack, si, wo_w, u_lobe, u2, types_present,
     valid = (n_match > 0) & (torch.abs(wo[..., 2]) > 1e-8) & (pdf > 0.0)
     return (wi_w, torch.where(valid[..., None], f, 0.0),
             torch.where(valid, pdf, 0.0), lobe_flags(ct), valid)
+
+
+def specular_reflect_branch(lobes: LobeStack, si, wo_w, types_present):
+    """The deterministic mirror branch of the Whitted and direct-lighting
+    integrators: wi the mirror of wo about the shading normal, weight the
+    sum over the active specular-reflective lobes of R times their Fresnel
+    (f |cos| / pdf of a single such lobe of pdf 1). -> (wi_w, weight
+    (B, 3), present (B,))."""
+    wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
+    wi = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], -1)
+    wi_w = local_to_world(si.ss, si.ts, si.ns, wi)
+    cos_i = cos_theta(wi)
+    weight = torch.zeros(wo.shape[:-1] + (3,), dtype=torch.float32,
+                         device=wo.device)
+    present = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+    p = lobes.params
+    for T in (SPECULAR_REFL, FRESNEL_SPECULAR):
+        if T not in types_present:
+            continue
+        m = lobes.active & (lobes.type == T)
+        cos_m = cos_i[..., None] * torch.ones_like(p[..., 9])
+        if T == SPECULAR_REFL:
+            F = _fresnel(p[..., 13].int(), cos_m, p,
+                         _has_disney(types_present))
+        else:
+            F = fr_dielectric(cos_m, torch.ones_like(p[..., 9]),
+                              p[..., 9])[..., None]
+        weight = weight + torch.where(m[..., None], p[..., 0:3] * F,
+                                      0.0).sum(-2)
+        present = present | m.any(-1)
+    ok = present & (torch.abs(wo[..., 2]) > 1e-8)
+    return wi_w, torch.where(ok[..., None], weight, 0.0), ok
+
+
+def specular_transmit_branch(lobes: LobeStack, si, wo_w, types_present):
+    """The deterministic refraction branch: wi refracted through the
+    shading normal by the lane's eta, weight the sum over the active
+    specular-transmissive lobes of T times (1 - F) eta^2; total internal
+    reflection zeroes it. -> (wi_w, weight (B, 3), present (B,))."""
+    wo = world_to_local(si.ss, si.ts, si.ns, wo_w)
+    cos_o = cos_theta(wo)
+    entering = cos_o > 0.0
+    eta = lobes.eta
+    e = torch.where(entering, 1.0 / eta, eta)
+    z = torch.zeros_like(wo)
+    z[..., 2] = 1.0
+    n = torch.where(entering[..., None], z, -z)
+    wi, refr_ok = refract(wo, n, e)
+    wi_w = local_to_world(si.ss, si.ts, si.ns, wi)
+    F = fr_dielectric(cos_o, torch.ones_like(eta), eta)
+    scale = ((1.0 - F) * e * e)[..., None]
+    weight = torch.zeros(wo.shape[:-1] + (3,), dtype=torch.float32,
+                         device=wo.device)
+    present = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+    for T in (SPECULAR_TRANS, FRESNEL_SPECULAR):
+        if T not in types_present:
+            continue
+        m = lobes.active & (lobes.type == T)
+        kt = lobes.params[..., 0:3] if T == SPECULAR_TRANS \
+            else lobes.params[..., 3:6]
+        weight = weight + torch.where(m[..., None], kt, 0.0).sum(-2)
+        present = present | m.any(-1)
+    ok = present & refr_ok & (torch.abs(wo[..., 2]) > 1e-8)
+    return wi_w, torch.where(ok[..., None], weight * scale, 0.0), ok

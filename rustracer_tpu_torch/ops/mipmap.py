@@ -21,6 +21,17 @@ versions (``trilinear_plain``, ``ewa_plain``, ``ewa_exact_plain``) take
 each lane's own level(s) from the level rows; the reference's masked loop
 over every level gives the same sums. CPU tensors take them, CUDA tensors
 launch K17. The result has the image's C channels (1 or 3).
+
+The texel gradient (the reference's by JAX's autodiff) is hand kernel K20
+(csrc/mipmap_bwd.cu, ``mipmap_lookup_bwd``; plain version
+``mipmap_lookup_bwd_plain``, autograd of the plain lookups): with grad mode
+on and texel rows that require grad, a lookup runs as the autograd
+Function ``_MipmapLookup``, K17 forward and K20 backward. Its texels are
+then the (T, 3) rows (a scene whose atlas holds quad rows hands its (T, 3)
+rows in grad mode: a quad row's corners are the very texels the stride-3
+addressing reaches), and the gradient lands in them. The lookup's
+coordinates (st, the width, the differentials) carry no gradient: one that
+requires grad raises NotImplementedError (ROADMAP item B12).
 """
 from __future__ import annotations
 
@@ -371,41 +382,128 @@ def _contig(*ts):
     return [None if t is None else t.contiguous() for t in ts]
 
 
+_PLAIN = {TRILINEAR: lambda tx, st, d0, d1, w, ma, wrap:
+          trilinear_plain(tx, st, w, wrap),
+          EWA: lambda tx, st, d0, d1, w, ma, wrap:
+          ewa_plain(tx, st, d0, d1, ma, wrap),
+          EWA_EXACT: lambda tx, st, d0, d1, w, ma, wrap:
+          ewa_exact_plain(tx, st, d0, d1, ma, wrap)}
+
+
+def _lookup(tx: Texels, mode, wrap, st, dst0, dst1, width, max_anisotropy):
+    """K17 (CUDA) or its plain version (CPU) -> (B, 3)."""
+    if not cuda.use_kernel(st):
+        return _PLAIN[mode](tx, st, dst0, dst1, width, max_anisotropy, wrap)
+    st, dst0, dst1, width = _contig(st, dst0, dst1, width)
+    return _k17(tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
+
+
+def mipmap_lookup_bwd_plain(g, tx: Texels, mode, wrap, st, dst0=None,
+                            dst1=None, width=None, max_anisotropy=8.0):
+    """Plain version of K20: autograd of ``trilinear_plain``,
+    ``ewa_plain`` or ``ewa_exact_plain`` (``mode``) with respect to the
+    (T, 3) texel rows ``tx.texels`` -> their (T, 3) gradient for the
+    lookups' gradient ``g`` (B, 3)."""
+    with torch.enable_grad():
+        t = tx.texels.detach().requires_grad_()
+        out = _PLAIN[mode](tx._replace(texels=t), st, dst0, dst1, width,
+                           max_anisotropy, wrap)
+        return torch.autograd.grad(out, t, g)[0]
+
+
+def mipmap_lookup_bwd(g, tx: Texels, mode, wrap, st, dst0=None, dst1=None,
+                      width=None, max_anisotropy=8.0):
+    """The (T, 3) gradient of the texel rows ``tx.texels`` of one K17 call
+    (``mode``, ``wrap``, its st and width or differentials) for the
+    lookups' gradient ``g`` (B, 3). CPU tensors take the plain version,
+    CUDA tensors launch K20."""
+    if not cuda.use_kernel(st):
+        return mipmap_lookup_bwd_plain(g, tx, mode, wrap, st, dst0, dst1,
+                                       width, max_anisotropy)
+    n, dev = st.shape[0], st.device
+    g, st, dst0, dst1, width = _contig(g, st, dst0, dst1, width)
+    n_texels = tx.texels.shape[0]
+    cuda.check(g, "g", torch.float32, (n, 3), dev)
+    cuda.check(tx.texels, "texels", torch.float32, (n_texels, 3), dev)
+    cuda.check(tx.meta, "meta", torch.int32, (tx.meta.shape[0], 3), dev)
+    cuda.check(st, "st", torch.float32, (n, 2), dev)
+    if mode == TRILINEAR:
+        cuda.check(width, "width", torch.float32, (n,), dev)
+    else:
+        cuda.check(dst0, "dst0", torch.float32, (n, 2), dev)
+        cuda.check(dst1, "dst1", torch.float32, (n, 2), dev)
+    out = torch.zeros((n_texels, 3), dtype=torch.float32, device=dev)
+    if n:
+        cuda.launch("mipmap_lookup_bwd", g, tx.meta, tx.meta.shape[0],
+                    int(wrap), mode, st, dst0, dst1, width,
+                    float(np.float32(max_anisotropy)), n, *TAP_WEIGHTS32,
+                    WSUM32, _E2, out, n_texels)
+    return out
+
+
+class _MipmapLookup(torch.autograd.Function):
+    """K17 forward, K20 backward (gradient to the (T, 3) texel rows only;
+    the coordinates are refused beforehand, ``_route``)."""
+
+    @staticmethod
+    def forward(ctx, texels, tx, mode, wrap, st, dst0, dst1, width,
+                max_anisotropy):
+        tx = tx._replace(texels=texels)
+        with cuda.differentiable():
+            out = _lookup(tx, mode, wrap, st, dst0, dst1, width,
+                          max_anisotropy)
+        ctx.save_for_backward(texels, st, dst0, dst1, width)
+        ctx.args = (tx.meta, tx.channels, mode, wrap, max_anisotropy)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        texels, st, dst0, dst1, width = ctx.saved_tensors
+        meta, channels, mode, wrap, ma = ctx.args
+        with cuda.differentiable():
+            g_tex = mipmap_lookup_bwd(g.contiguous(),
+                                      Texels(texels, meta, channels),
+                                      mode, wrap, st, dst0, dst1, width, ma)
+        return (g_tex,) + (None,) * 8
+
+
+def _route(tx: Texels, mode, wrap, st, dst0=None, dst1=None, width=None,
+           max_anisotropy=8.0):
+    """One lookup of ``tx`` in ``mode`` -> (B, C): differentiable in the
+    texel rows (``_MipmapLookup``) where grad mode is on and they require
+    grad, else K17 or its plain version; coordinates that require grad
+    raise (ROADMAP item B12)."""
+    cuda.refuse_grad("a gradient through a texture lookup's coordinates "
+                     "(st, its width or differentials)", (st, dst0, dst1,
+                                                          width))
+    if torch.is_grad_enabled() and tx.texels.requires_grad:
+        out = _MipmapLookup.apply(tx.texels, tx, mode, wrap, st, dst0, dst1,
+                                  width, max_anisotropy)
+    else:
+        out = _lookup(tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
+    return out[:, :tx.channels]
+
+
 def lookup_trilinear(tx: Texels, st, width, wrap=WRAP_REPEAT):
     """Trilinear (isotropic) lookup of one image's pyramid ``tx`` at st
     (B, 2) with filter width (B,) -> (B, C). CPU tensors take the plain
-    version, CUDA tensors launch K17."""
-    if not cuda.use_kernel(st):
-        out = trilinear_plain(tx, st, width, wrap)
-    else:
-        st, width = _contig(st, width)
-        out = _k17(tx, TRILINEAR, wrap, st, width=width)
-    return out[:, :tx.channels]
+    version, CUDA tensors launch K17 (K20 in the backward)."""
+    return _route(tx, TRILINEAR, wrap, st, width=width)
 
 
 def lookup_ewa(tx: Texels, st, dst0, dst1, max_anisotropy=8.0,
                wrap=WRAP_REPEAT):
     """The 8-tap anisotropic lookup of ``tx`` at st (B, 2) with texture
     differentials dst0, dst1 (B, 2) -> (B, C). CPU tensors take the plain
-    version, CUDA tensors launch K17."""
-    if not cuda.use_kernel(st):
-        out = ewa_plain(tx, st, dst0, dst1, max_anisotropy, wrap)
-    else:
-        st, dst0, dst1 = _contig(st, dst0, dst1)
-        out = _k17(tx, EWA, wrap, st, dst0, dst1,
-                   max_anisotropy=max_anisotropy)
-    return out[:, :tx.channels]
+    version, CUDA tensors launch K17 (K20 in the backward)."""
+    return _route(tx, EWA, wrap, st, dst0, dst1,
+                  max_anisotropy=max_anisotropy)
 
 
 def lookup_ewa_exact(tx: Texels, st, dst0, dst1, max_anisotropy=16.0,
                      wrap=WRAP_REPEAT):
     """The EWA texel loop (128 texels) of ``tx`` at st (B, 2) with texture
     differentials dst0, dst1 (B, 2) -> (B, C). CPU tensors take the plain
-    version, CUDA tensors launch K17."""
-    if not cuda.use_kernel(st):
-        out = ewa_exact_plain(tx, st, dst0, dst1, max_anisotropy, wrap)
-    else:
-        st, dst0, dst1 = _contig(st, dst0, dst1)
-        out = _k17(tx, EWA_EXACT, wrap, st, dst0, dst1,
-                   max_anisotropy=max_anisotropy)
-    return out[:, :tx.channels]
+    version, CUDA tensors launch K17 (K20 in the backward)."""
+    return _route(tx, EWA_EXACT, wrap, st, dst0, dst1,
+                  max_anisotropy=max_anisotropy)

@@ -7,10 +7,12 @@ The step renders one sample index over every pixel into the film, takes
 respect to the float leaves of ``ctx.textures`` (the constant kd vectors
 and every pyramid level; the int32 atlas metadata rides along) and applies
 SGD. The gradient runs through the hand kernels' autograd Functions: K4's
-backward K9, K5's K10, K8's K11 and K7 as its own transpose. A scene
-whose materials look an image up per texture (K17) or hold a Fourier BSDF
-(K19) is refused when the step is built: those kernels have no backward
-yet (ROADMAP.md, section B, item B11).
+backward K9, K5's K10, K8's K11, K17's K20 (the per-texture image
+lookups) and K7 as its own transpose. A scene whose materials hold a
+Fourier BSDF (K19, no backward yet: ROADMAP.md, section B, item B11b) is
+refused when the step is built; a step whose gradient would run through a
+sampled ray direction or a texture lookup's coordinates raises when it
+gets there (item B12).
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ from ..render.renderer import RenderConfig, Renderer
 
 
 def float_leaves(tree):
-    """-> (the float tensors of a pytree of dicts, lists and tensors, in
-    the order of jax.tree.flatten: dict keys sorted; rebuild(new) -> the
-    tree with those leaves replaced by ``new``, in that order)."""
+    """-> (the float tensors of a pytree of dicts, lists, tuples
+    (NamedTuples too) and tensors, in the order of jax.tree.flatten: dict
+    keys sorted; rebuild(new) -> the tree with those leaves replaced by
+    ``new``, in that order)."""
     leaves = []
 
     def walk(t):
@@ -44,6 +47,8 @@ def float_leaves(tree):
         def put(t):
             if isinstance(t, dict):
                 return {k: put(t[k]) for k in sorted(t)}
+            if hasattr(t, "_fields"):   # a NamedTuple: field by field
+                return type(t)(*[put(x) for x in t])
             if isinstance(t, (list, tuple)):
                 return type(t)(put(x) for x in t)
             if isinstance(t, torch.Tensor) and t.is_floating_point():
@@ -57,21 +62,17 @@ def float_leaves(tree):
 
 def check_differentiable(li_fn):
     """Raise NotImplementedError where the integrator of ``li_fn`` shades
-    through a kernel without a backward: a per-texture image lookup (K17)
-    or a Fourier BSDF (K19). The step is never run with such a gradient
-    dropped."""
+    through a kernel without a backward: a Fourier BSDF (K19). The step is
+    never run with such a gradient dropped."""
     from ..ops.bsdf import FOURIER
-    from ..scene.materials import K17_NO_GRAD
     mat_set = getattr(getattr(li_fn, "__self__", None), "mat_set", None)
     if mat_set is None:
         return
-    if mat_set.per_texture_images():
-        raise NotImplementedError(f"this train step: {K17_NO_GRAD}")
     if FOURIER in mat_set.types_present():
         raise NotImplementedError(
             "this train step: a gradient through the Fourier BSDF (hand "
             "kernel K19, which has no backward yet) is not ported yet "
-            "(ROADMAP.md, section B, item B11)")
+            "(ROADMAP.md, section B, item B11b)")
 
 
 def make_train_step(li_fn, camera, film, sampler, lr=0.1,

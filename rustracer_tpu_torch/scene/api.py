@@ -57,8 +57,8 @@ log = logging.getLogger(__name__)
 
 STATE_UNINITIALIZED, STATE_OPTIONS, STATE_WORLD = 0, 1, 2
 
-# ROADMAP.md section A items that port what this module refuses
-INTEGRATORS, RUN_SURFACE = 16, 17
+# the ROADMAP.md section A item that ports what this module refuses
+RUN_SURFACE = 17
 
 
 class ApiError(Exception):

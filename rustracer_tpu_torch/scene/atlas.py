@@ -264,12 +264,19 @@ def _check_lookup(meta, levels, regs, reg, si):
         cuda.check(getattr(si, name), name, torch.float32, (n,), dev)
 
 
+UV_GRAD = ("a gradient through an atlas lookup's coordinates (the "
+           "interaction's uv or its differentials)")
+
+
 def atlas_lookup_ewa(texels, meta, levels, regs, reg, si, quad=False):
     """EWA lookups of registrations ``reg`` (B,) int32 at the lanes of
     ``si`` (uv and the four texture differentials) -> (B, 3) float32.
     ``texels`` is the (T, 12) quad array when ``quad`` else the (T, 3)
     array; ``meta``, ``levels`` and ``regs`` are tensors on its device.
-    CPU tensors take the plain version, CUDA tensors launch K5."""
+    CPU tensors take the plain version, CUDA tensors launch K5. With grad
+    mode on, a uv or differential that requires grad raises (ROADMAP item
+    B12)."""
+    cuda.refuse_grad(UV_GRAD, [getattr(si, f) for f in SI_FIELDS])
     if not cuda.use_kernel(reg):
         return atlas_lookup_ewa_plain(texels, meta, levels, regs, reg, si,
                                       quad)
@@ -330,7 +337,8 @@ def atlas_lookup_ewa_bwd(g, texels, meta, levels, regs, reg, si,
 
 
 class _AtlasEWA(torch.autograd.Function):
-    """K5 forward, K10 backward (gradient to the (T, 3) texels only)."""
+    """K5 forward, K10 backward (gradient to the (T, 3) texels only; the
+    coordinates are refused beforehand, ``atlas_lookup_ewa_grad``)."""
 
     @staticmethod
     def forward(ctx, texels, quad_index, meta, levels, regs, reg, si):
@@ -358,5 +366,8 @@ def atlas_lookup_ewa_grad(texels, quad_index, meta, levels, regs, reg, si):
     """``atlas_lookup_ewa`` differentiable in ``texels`` (T, 3): on the
     quad rows ``texels[quad_index]`` when ``quad_index`` ((T, 4),
     ``atlas_quad_index``) is given, else on ``texels``. Forward K5,
-    backward K10 (their plain versions for CPU tensors)."""
+    backward K10 (their plain versions for CPU tensors). A uv or
+    differential that requires grad raises (ROADMAP item B12): the
+    Function carries no gradient to them."""
+    cuda.refuse_grad(UV_GRAD, [getattr(si, f) for f in SI_FIELDS])
     return _AtlasEWA.apply(texels, quad_index, meta, levels, regs, reg, si)

@@ -15,9 +15,11 @@ middle split for "middle", SAH for any other name; the accelerator's name
 is not read, as the reference does not), two-level with instance records
 when the scene instances an object; the light tables with the scene's
 bounds (quadrics and instances included), the film,
-filter, camera and sampler, and the path integrator with its spatial light
-grid (scene/lightdistrib.py) unless the scene asks for the uniform
-strategy or has a single light. The
+filter, camera and sampler, and the integrator: the path integrator with
+its spatial light grid (scene/lightdistrib.py) unless the scene asks for
+the uniform strategy or has a single light, the direct-lighting (its
+strategy and the lights' sample counts), Whitted, ambient-occlusion and
+normal integrators. The
 reference's quirks stay: the film's ``rt-`` filename prefix and the crop
 window's PBRT order [x0 x1 y0 y1].
 """
@@ -32,7 +34,11 @@ import torch
 
 from ..accel.bvh_build import build_wide_arrays, build_wide_scene, xform_aabb
 from ..core.interaction import Interaction
+from ..integrators.ao import AOIntegrator
+from ..integrators.direct import DirectLightingIntegrator
+from ..integrators.normal import NormalIntegrator
 from ..integrators.path import PathIntegrator
+from ..integrators.whitted import WhittedIntegrator
 from ..ops.quadrics import quadric_world_bounds_np
 from ..render.camera import PerspectiveCamera
 from ..render.film import Film
@@ -42,7 +48,7 @@ from ..render.renderer import RenderConfig, RenderContext, Renderer
 from ..render.sampler import SamplerConfig
 from ..scenes import textures_on
 from ..utils.stats import time_phase
-from .api import INTEGRATORS, RUN_SURFACE, not_ported
+from .api import RUN_SURFACE, not_ported
 from .atlas import build_atlas_meta
 from .lightdistrib import build_spatial_grid
 from .lights import LIGHT_AREA, make_lights
@@ -359,13 +365,49 @@ def _sampler(ro, quick):
     return SamplerConfig(kind="02sequence", spp=spp)
 
 
+def _integrator(ro, ms, lights, light_rows, world_lo, world_hi):
+    """-> (the integrator of the scene's Integrator directive, the spatial
+    light grid or None); the reference's bundle.py:384-428. ``light_rows``:
+    the light rows before the infinite lights'. An unknown name takes the
+    path integrator at depth 5."""
+    ip, iname = ro.integrator_params, ro.integrator_name
+    depth = ip.find_one_int("maxdepth", 5)
+    if iname == "path":
+        integ = PathIntegrator(
+            mat_set=ms, max_depth=depth,
+            rr_threshold=ip.find_one_float("rrthreshold", 1.0))
+        # light-sampling strategy: "spatial" by default; uniform when asked
+        # for or when there is one light
+        strategy = ip.find_one_string("lightsamplestrategy", "spatial")
+        if strategy != "uniform" and lights.n_lights > 1:
+            with time_phase("scene/spatial light distribution"):
+                return integ, build_spatial_grid(lights, world_lo, world_hi)
+        return integ, None
+    if iname == "directlighting":
+        # per-light sample counts aligned with the final light rows (the
+        # infinite lights' rows last)
+        nsamp = tuple(r.get("nsamples", 1) for r in light_rows) + tuple(
+            inf.get("nsamples", 1) for inf in ro.infinite_lights)
+        strategy = ip.find_one_string("strategy", "all")
+        return DirectLightingIntegrator(
+            mat_set=ms, strategy="one" if strategy == "one" else "all",
+            max_depth=depth,
+            light_nsamples=nsamp if any(n > 1 for n in nsamp) else ()), None
+    if iname == "whitted":
+        return WhittedIntegrator(mat_set=ms, max_depth=depth), None
+    if iname in ("ao", "ambientocclusion"):
+        return AOIntegrator(mat_set=ms,
+                            n_samples=ip.find_one_int("nsamples", 16)), None
+    if iname == "normal":
+        return NormalIntegrator(mat_set=ms), None
+    log.warning("integrator %r unknown; using path", iname)
+    return PathIntegrator(mat_set=ms, max_depth=5), None
+
+
 def build_bundle(api, device="cuda") -> SceneBundle:
     ro = api.render_options
     dev = torch.device(device)
     iname = ro.integrator_name
-    if iname in ("directlighting", "whitted", "ao", "ambientocclusion",
-                 "normal"):
-        raise not_ported(f"Integrator {iname!r}", INTEGRATORS)
     # the light rows in the reference's order: point and distant lights,
     # quadric area lights, triangle area lights; make_lights appends the
     # infinite lights
@@ -392,22 +434,8 @@ def build_bundle(api, device="cuda") -> SceneBundle:
     camera = _camera(ro, film.full_resolution)
     sampler = _sampler(ro, api.opts.get("quick_render"))
 
-    ip = ro.integrator_params
-    light_grid = None
-    if iname != "path":
-        log.warning("integrator %r unknown; using path", iname)
-        integ = PathIntegrator(mat_set=ms, max_depth=5)
-    else:
-        integ = PathIntegrator(
-            mat_set=ms, max_depth=ip.find_one_int("maxdepth", 5),
-            rr_threshold=ip.find_one_float("rrthreshold", 1.0))
-        # light-sampling strategy: "spatial" by default; uniform when asked
-        # for or when there is one light
-        strategy = ip.find_one_string("lightsamplestrategy", "spatial")
-        if strategy != "uniform" and lights.n_lights > 1:
-            with time_phase("scene/spatial light distribution"):
-                light_grid = build_spatial_grid(lights, world_lo, world_hi)
-
+    integ, light_grid = _integrator(ro, ms, lights, light_rows, world_lo,
+                                    world_hi)
     return SceneBundle(
         geom=geom, lights=lights, material_set=ms,
         textures=textures, camera=camera, film=film,

@@ -18,9 +18,11 @@ Hand kernels: K15 ``infinite_sample`` (the infinite light's sample of
 ``sample_li``) and K16 ``infinite_escape`` (``infinite_le`` and
 ``infinite_le_mis``), csrc/lights.cu, with their plain versions here.
 
-``pdf_li`` and ``infinite_le_one`` of the reference are used only by its
-``estimate_direct`` (the direct and Whitted integrators) and wait for them
-(ROADMAP.md, section A, item 16).
+``pdf_li`` (the density of a light row at a direction, given the ray's
+closest hit) and ``infinite_le_one`` (one infinite light's radiance, K16 on
+that light's tables) serve the BSDF-sampling half of
+integrators/common.py ``estimate_direct`` (the direct-lighting and
+Whitted integrators).
 """
 from __future__ import annotations
 
@@ -697,6 +699,50 @@ def pdf_li_hit(lt: LightTables, lid, prev_p, d, p_hit, n_hit):
         cpdf, cvalid = cone_pdf_wi(lt, lid_c, prev_p)
         pdf = torch.where((lid >= 0) & cvalid, cpdf, pdf)
     return pdf
+
+
+def pdf_li(lt: LightTables, lid, p, wi, p_hit, n_hit, hits_light):
+    """Solid-angle pdf with which sample_li at p picks direction wi from
+    light row ``lid`` (B,): an area row's density at the point where the
+    ray (p, wi) meets it (``pdf_li_hit`` at the ray's closest hit p_hit,
+    n_hit, where ``hits_light`` says that hit is on that light; 0
+    elsewhere), an infinite row's density of its map at wi (0 where sin
+    theta <= 1e-7), 0 for point and distant rows. The closest hit stands
+    for the reference's intersection of the light's own shape
+    (rustracer_tpu/scene/lights.py:517 pdf_li): where another surface lies
+    nearer, the estimator adds nothing, whatever this density."""
+    pdf = torch.zeros_like(p[:, 0])
+    if lt.kinds & {"tri", "quadric"}:
+        pdf = torch.where(hits_light, pdf_li_hit(lt, lid, p, wi, p_hit,
+                                                 n_hit), 0.0)
+    for k, row in enumerate(lt.inf_rows):
+        uv, sin_t = _inf_dir_to_uv(lt, k, wi)
+        pdf = torch.where(lid == row, _inf_pdf(lt.inf_dists[k].pdf(uv),
+                                                sin_t), pdf)
+    return pdf
+
+
+def _infinite_alone(lt: LightTables, k: int) -> LightTables:
+    """The tables with infinite light k as the only infinite light."""
+    if lt.n_infinite == 1:
+        return lt
+    return dataclasses.replace(
+        lt, inf_maps=lt.inf_maps[k:k + 1], inf_l2w=lt.inf_l2w[k:k + 1],
+        inf_w2l=lt.inf_w2l[k:k + 1], inf_dists=lt.inf_dists[k:k + 1],
+        inf_rows=lt.inf_rows[k:k + 1], inf_scale=lt.inf_scale[k:k + 1],
+        inf_desc=lt.inf_desc[k:k + 1])
+
+
+def infinite_le_one(lt: LightTables, lid, d, mask):
+    """Radiance of escaped rays d (B, 3) from the one infinite light of
+    each lane's row ``lid`` (0 on lanes whose row is no infinite light or
+    where ``mask`` is False): K16's camera-ray form on each infinite
+    light's own tables, over its lanes."""
+    out = torch.zeros_like(d)
+    for k, row in enumerate(lt.inf_rows):
+        out = out + infinite_le(_infinite_alone(lt, k), d,
+                                (mask & (lid == row)).contiguous())
+    return out
 
 
 def arealight_le(lt: LightTables, arealight_id, n, w):

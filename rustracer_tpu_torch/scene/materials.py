@@ -15,7 +15,10 @@ lanes, its bump map first (``Material.apply_bump``: the shading frame of
 its lanes comes back bumped). The image textures a material holds
 directly (UV-mapped, 8:1 anisotropy) are served by one atlas EWA lookup
 (hand kernel K5) per parameter slot for the whole wavefront; every other
-image evaluation takes the per-texture lookups (hand kernel K17).
+image evaluation takes the per-texture lookups (hand kernel K17). With
+grad mode on and a pyramid level requiring grad, both read texel rows
+built from the levels on every call, and their gradients (K10, K20) reach
+the levels.
 """
 from __future__ import annotations
 
@@ -36,10 +39,12 @@ from . import atlas as A
 from .textures import ImageTexture, Lookups, UVMapping2D, image_textures
 
 _DEG2RAD = float(np.float32(np.pi / 180.0))
-# the refusal of a gradient through a per-texture lookup
-K17_NO_GRAD = ("a gradient through the per-texture image lookups (hand kernel "
-               "K17, which has no backward yet) is not ported yet (ROADMAP.md,"
-               " section B, item B11)")
+
+
+def _levels_require_grad(textures) -> bool:
+    """Grad mode is on and a pyramid level of ``textures`` requires grad."""
+    return torch.is_grad_enabled() and any(
+        lv.requires_grad for pyr in textures["images"] for lv in pyr)
 
 
 def _mk_params(bs, dev, pa=None, pb=None, pc=None, **slots):
@@ -600,7 +605,8 @@ class MaterialSet:
     levels (a new list, or a level changed in place, rebuilds it; a list
     changed in place does not). With grad mode on and a level requiring
     grad it is built on every call instead, from the levels, so the
-    lookups' gradient reaches them (``atlas.atlas_lookup_ewa_grad``)."""
+    lookups' gradient reaches them (``atlas.atlas_lookup_ewa_grad``, and
+    ops/mipmap.py's lookups through K20)."""
 
     def __init__(self, materials: List[Material] = None):
         self.materials = list(materials or [])
@@ -735,20 +741,19 @@ class MaterialSet:
                              lambda: torch.as_tensor(slot_tab, device=dev))
         return regs_t, slots
 
-    def _atlas_values(self, si, textures, midc):
-        """One EWA lookup per slot -> {id(texture): (B, 3)} per material."""
+    def _atlas_values(self, si, textures, midc, texels):
+        """One EWA lookup per slot -> {id(texture): (B, 3)} per material;
+        ``texels``: ``_texel_rows``'s."""
         n_slots, slot_tab, regs, _ = self.atlas_prep()
         if not n_slots or "atlas_meta" not in textures:
             return None
         dev = si.t.device
-        images = textures["images"]
         meta, levels = textures["atlas_meta"], textures["atlas_levels"]
-        if torch.is_grad_enabled() and any(lv.requires_grad for pyr in images
-                                           for lv in pyr):
-            # built from the levels on every call: the graph reaches them
-            texels = A.atlas_texels(images).to(dev)
+        if _levels_require_grad(textures):
+            # rows built from the levels: the graph reaches them
             qidx = None
             if A.all_repeat(regs):
+                images = textures["images"]
                 qidx = self._cached(
                     ("quad_index", dev), None,
                     lambda: A.atlas_quad_index(images).to(dev),
@@ -776,24 +781,20 @@ class MaterialSet:
         return Lookups({}, None, self._texel_rows(textures, dev)
                        if "atlas_meta" in textures else None)
 
-    def _k17_texels(self, textures, dev):
-        """The texel rows K17 reads in ``shade``; None where no material
-        needs a per-texture lookup or ``textures`` has no atlas."""
-        if "atlas_meta" not in textures or not self.per_texture_images():
-            return None
-        return self._texel_rows(textures, dev)
-
     def _texel_rows(self, textures, dev):
-        """The atlas's texel rows where the scene has atlas slots, else the
-        (T, 3) texels of ``textures["images"]`` (built once per images list
-        and level versions)."""
-        if torch.is_grad_enabled() and any(
-                lv.requires_grad for pyr in textures["images"] for lv in pyr):
-            raise NotImplementedError(K17_NO_GRAD)
+        """The texel rows the lookups read: the atlas's rows where the
+        scene has atlas slots, else the (T, 3) texels of
+        ``textures["images"]`` (built once per images list and level
+        versions). While a level requires grad (grad mode on) they are the
+        (T, 3) texels built from the levels on every call, so that the
+        lookups' gradient reaches the levels (K17 reads them at stride 3
+        where the atlas holds quad rows: the same texels)."""
+        images = textures["images"]
+        if _levels_require_grad(textures):
+            return A.atlas_texels(images).to(dev)
         tables = self.atlas_tables(textures, dev)
         if tables is not None:
             return tables[1]
-        images = textures["images"]
         return self._cached(("texels", False, dev), images,
                             lambda: A.atlas_texels(images).to(dev),
                             [lv._version for pyr in images for lv in pyr])
@@ -817,8 +818,12 @@ class MaterialSet:
                     if not _is_uniform(m)]
         frame = None
         if textured:
-            atlas = self._atlas_values(si, textures, mid)
-            texels = self._k17_texels(textures, dev)
+            rows = self._texel_rows(textures, dev) \
+                if "atlas_meta" in textures else None
+            atlas = self._atlas_values(si, textures, mid, rows)
+            # the texel rows K17 reads; none where no material needs a
+            # per-texture lookup
+            texels = rows if self.per_texture_images() else None
             for i in textured:
                 m = self.materials[i]
                 sel = si.material == i

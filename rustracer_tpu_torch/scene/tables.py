@@ -306,10 +306,16 @@ def closest_prim(geom: GeometryTables, ray: Ray, with_inst: bool = False):
     return out + (torch.where(use_tri, inst, -1),) if with_inst else out
 
 
+RAY_GRAD = "a gradient through a sampled ray direction"
+
+
 def scene_intersect(geom: GeometryTables, ray: Ray) -> Interaction:
     """Closest hit over the scene -> full surface interaction batch (alpha
     cutouts skipped inside K1, so the interaction is rebuilt against the
-    caller's ray at the accepted t)."""
+    caller's ray at the accepted t). A ray whose o or d requires grad
+    (grad mode on) raises: the hit carries no gradient to it yet (ROADMAP
+    item B12)."""
+    cuda.refuse_grad(RAY_GRAD, (ray.o, ray.d))
     if not geom.has_instances:
         return build_interaction(geom, ray, *closest_prim(geom, ray))
     return build_interaction(geom, ray, *closest_prim(geom, ray,
@@ -333,7 +339,7 @@ def scene_intersect_passthrough(geom: GeometryTables, ray: Ray,
     lanes whose hit is one re-trace from ``spawn_ray(ray.d)`` there, up to
     ``max_skips`` rounds, while the other lanes get t_max 0 (K1 ends them
     at once); one host test a round. A scene without interfaces takes one
-    intersection."""
+    intersection. A ray that requires grad raises (``scene_intersect``)."""
     si = scene_intersect(geom, ray)
     if not geom.has_interfaces or max_skips <= 0:
         return si
@@ -353,7 +359,9 @@ def scene_intersect_passthrough(geom: GeometryTables, ray: Ray,
 def scene_intersect_p(geom: GeometryTables, ray: Ray):
     """Any-hit (shadow) test -> (B,) bool occluded: a quadric occluder
     zeroes the triangles' t_max (K1 then ends the ray at once); K1 drops
-    triangles cut out by their alpha or shadow-alpha map."""
+    triangles cut out by their alpha or shadow-alpha map. A ray that
+    requires grad raises (``scene_intersect``)."""
+    cuda.refuse_grad(RAY_GRAD, (ray.o, ray.d))
     if not geom.has_quadrics:
         return traverse16(geom, ray.o, ray.d, ray.t_max, any_hit=True)[0]
     qhit = quadrics_any_hit(geom, ray.o, ray.d, ray.t_max)

@@ -1,8 +1,10 @@
 """The shading scenes and the inputs and bounds of their hand kernels: K17
-(the per-texture mipmap lookups), K18 (fbm and turbulence) and K19 (the
-Fourier BSDF); shared by chip_smoke.py and the tests.
+(the per-texture mipmap lookups), K20 (their texel gradient), K18 (fbm and
+turbulence) and K19 (the Fourier BSDF); shared by chip_smoke.py and the
+tests.
 
-- ``TEXTURE_SCENES``: three scenes on the testball layout
+- ``TEXTURE_SCENES``: three scenes on the testball layout (and
+  textures-train, below)
   (``scenes/testball-matte.pbrt``'s camera, light and floor) that read only
   ``scenes/textures/grid.png``: ``textures-procedural`` (a marble ball
   bumped by a scaled wrinkled texture over a floor that mixes two
@@ -20,7 +22,16 @@ Fourier BSDF); shared by chip_smoke.py and the tests.
   once) and operations, counted on its data; ``bound`` (chip_smoke.py)
   turns them into the least time on one H100.
 - ``capture_texture_step``: every K17, K18 and K19 call of one renderer
-  step; ``count_calls``: the calls of each entry point (mode) in a scope.
+  step; ``count_calls``: the calls of each entry point (mode) in a scope;
+  ``count_bwd_calls``: K20's calls by mode in a scope, recorded on demand.
+- ``TEXTURE_SCENES["textures-train"]``: a matte scene to train through
+  the per-texture lookups (the Cornell box's walls of
+  ``scenes/cornell-box.pbrt``: a planar imagemap floor (8-tap EWA), a
+  trilinear back wall, a mix of a trilinear and an 8-tap imagemap by a
+  trilinear float imagemap on the green wall, the exact EWA on the red
+  wall, an atlas imagemap on the short block); ``k20_work`` and
+  ``compare_bwd_with_plain``: K20's bytes and operations, and its check
+  against its plain version.
 - ``compare_with_plain``: a K17, K18 or K19 call's outputs against its
   plain version, with the tolerances and the flips it allows.
 
@@ -121,19 +132,126 @@ Material "matte" "texture Kd" "checks"
 ''' + _FLOOR + _BALL.format(
         material='Material "fourier" "string bsdffile" "{bsdf}"'),
 }
+# the walls and blocks' top faces of scenes/cornell-box.pbrt
+CORNELL_WALLS = {
+    "floor": "552.8 0.0 0.0   0.0 0.0 0.0   0.0 0.0 559.2   549.6 0.0 559.2",
+    "ceiling": "556.0 548.8 0.0   556.0 548.8 559.2   0.0 548.8 559.2   "
+               "0.0 548.8 0.0",
+    "back": "549.6 0.0 559.2   0.0 0.0 559.2   0.0 548.8 559.2   "
+            "556.0 548.8 559.2",
+    "green": "552.8 0.0 0.0   549.6 0.0 559.2   556.0 548.8 559.2   "
+             "556.0 548.8 0.0",
+    "red": "0.0 0.0 559.2   0.0 0.0 0.0   0.0 548.8 0.0   0.0 548.8 559.2",
+    "short": "130.0 165.0 65.0   82.0 165.0 225.0   240.0 165.0 272.0   "
+             "290.0 165.0 114.0",
+    "tall": "423.0 330.0 247.0   265.0 330.0 296.0   314.0 330.0 456.0   "
+            "472.0 330.0 406.0"}
+
+
+def _quad(name):
+    return ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]\n'
+            f'  "point P" [{CORNELL_WALLS[name]}]\n')
+
+
+TEXTURE_SCENES["textures-train"] = (
+    '''LookAt 278 273 -800   278 273 0   0 1 0
+Camera "perspective" "float fov" [39.5]
+Sampler "02sequence" "integer pixelsamples" [{spp}]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Integrator "path" "integer maxdepth" [3]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [18.4 15.6 8.0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [343.0 548.7 227.0   343.0 548.7 332.0
+               213.0 548.7 332.0   213.0 548.7 227.0]
+AttributeEnd
+Texture "floor" "spectrum" "imagemap" "string filename" "{tiles}"
+  "string mapping" "planar" "vector v1" [0.004 0 0] "vector v2" [0 0 0.004]
+Material "matte" "texture Kd" "floor"
+''' + _quad("floor") + '''Material "matte" "rgb Kd" [0.725 0.71 0.68]
+''' + _quad("ceiling") + '''Texture "back" "spectrum" "imagemap" "string filename" "{tiles}"
+  "bool trilinear" "true" "float uscale" [2] "float vscale" [2]
+Material "matte" "texture Kd" "back"
+''' + _quad("back") + '''Texture "wall-a" "spectrum" "imagemap" "string filename" "{tiles}"
+  "float uscale" [3] "float vscale" [3] "bool trilinear" "true"
+Texture "wall-b" "spectrum" "imagemap" "string filename" "{tiles}"
+  "float udelta" [0.5] "string wrap" "clamp"
+Texture "amount" "float" "imagemap" "string filename" "{amount}"
+  "float uscale" [2] "float vscale" [2] "bool trilinear" "true"
+Texture "green" "spectrum" "mix" "texture tex1" "wall-a"
+  "texture tex2" "wall-b" "texture amount" "amount"
+Material "matte" "texture Kd" "green"
+''' + _quad("green") + '''Texture "red" "spectrum" "imagemap" "string filename" "{tiles}"
+  "float maxanisotropy" [16] "float uscale" [1.5] "string wrap" "black"
+Material "matte" "texture Kd" "red"
+''' + _quad("red") + '''Texture "block" "spectrum" "imagemap" "string filename" "{grid}"
+  "float uscale" [2] "float vscale" [2]
+Material "matte" "texture Kd" "block"
+''' + _quad("short") + '''Material "matte" "rgb Kd" [0.725 0.71 0.68]
+''' + _quad("tall") + "WorldEnd\n")
 # the Fourier ball's table (fourier_table's defaults)
 FOURIER_FILE = "ball.bsdf"
+# textures-train's images: a seeded size^2 colour tiling of the walls and
+# floor, and a seeded grey amount map of 3/4 x 5/8 of it (resampled to
+# size^2 by the pyramid build). The default 32^2 (6 levels) keeps the JAX
+# package's gradient of the scene (every level of every lookup, in the
+# CPU parity test) quick to compile; a train step on the card takes
+# 1024^2 (11 levels, 1.4 M texels an image), an imagemap's real size
+TILES_FILE, AMOUNT_FILE = "tiles.exr", "amount.exr"
 
 
-def scene_text(name, res=64, spp=16, bsdf_dir=None) -> str:
+def write_train_images(out_dir, size=32):
+    """Write textures-train's two images, at ``size`` (a multiple of 8),
+    as EXRs into ``out_dir`` (the readers give the grey map 3 equal
+    channels; the float texture takes the first) -> (tiles path, amount
+    path)."""
+    from ..render.imageio import write_exr
+    rs = np.random.RandomState(17)
+    yy, xx = np.mgrid[0:size, 0:size]
+    tiles = np.stack([0.5 + 0.4 * np.sin(xx / 2.5), 0.5 + 0.4 * np.cos(
+        yy / 3.5), 0.3 + 0.5 * rs.rand(size, size)], -1)
+    ah, aw = size * 3 // 4, size * 5 // 8
+    yy, xx = np.mgrid[0:ah, 0:aw]
+    v = 0.5 + 0.3 * np.sin(xx / 3.0) * np.cos(yy / 4.0) \
+        + 0.2 * rs.rand(ah, aw)
+    paths = (os.path.join(out_dir, TILES_FILE),
+             os.path.join(out_dir, AMOUNT_FILE))
+    write_exr(paths[0], np.clip(tiles, 0, 1).astype(np.float32))
+    write_exr(paths[1], np.repeat(np.clip(v, 0, 1)[..., None], 3,
+                                  -1).astype(np.float32))
+    return paths
+
+
+def scene_text(name, res=64, spp=16, bsdf_dir=None, image_size=32) -> str:
     """``TEXTURE_SCENES[name]`` with its film at res^2 and ``spp``
-    samples; testball-fourier writes its table into ``bsdf_dir``."""
-    bsdf = ""
+    samples; testball-fourier writes its table, textures-train its
+    images (at ``image_size``, write_train_images) into the directory
+    ``bsdf_dir``."""
+    bsdf = tiles = amount = ""
     if name == "testball-fourier":
         bsdf = os.path.join(bsdf_dir, FOURIER_FILE)
         write_fourier_table(bsdf)
+    if name == "textures-train":
+        tiles, amount = write_train_images(bsdf_dir, image_size)
     return TEXTURE_SCENES[name].format(res=res, spp=spp, grid=GRID,
-                                       bsdf=bsdf)
+                                       bsdf=bsdf, tiles=tiles, amount=amount)
+
+
+def plastic_cornell_text(res=16) -> str:
+    """scenes/cornell-box.pbrt at res^2 with the short block's white matte
+    made plastic (roughness 0.1): a glossy lobe whose sampled bounce
+    directions depend on a trained leaf, so a train step over it reaches
+    the refusal of ROADMAP item B12."""
+    with open(os.path.join(SCENES, "cornell-box.pbrt")) as f:
+        text = f.read()
+    white = 'Material "matte" "rgb Kd" [0.725 0.71 0.68]'
+    head, block, rest = text.split(white, 2)
+    text = head + white + block + white.replace(
+        '"matte"', '"plastic"') + ' "float roughness" [0.1]' + rest
+    return text.replace('"integer xresolution" [64] "integer yresolution" '
+                        '[64]', f'"integer xresolution" [{res}] '
+                        f'"integer yresolution" [{res}]')
 
 
 def fourier_table(n_mu=16, m_max=8, seed=5, transmission=0.0, eta=1.0):
@@ -225,7 +343,7 @@ def k17_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
     inputs: each lane's st and differentials (or width) read and its (3,)
     result written, each distinct texel its lookups read (12 B)."""
     n = st.shape[0]
-    idx, taps, inside = [], 0, 0
+    idx, taps, inside, fallback = [], 0, 0, 0
     if mode == MM.TRILINEAR:
         l0, l1, _ = MM.tri_levels(tx, width)
         for li in (l0, l1):
@@ -251,7 +369,8 @@ def k17_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
             idx.append(torch.where(ok, _texel_index(e.off, e.w, e.h, wrap,
                                                     ss, tt), -1))
         none = ~any_in
-        if bool(none.any()):
+        fallback = int(none.sum())
+        if fallback:
             _corners(tx, e.li[none], st[none], wrap, idx)
         ops = n * EXACT_SETUP_OPS + taps * EXACT_TAP_OPS \
             + inside * EXACT_IN_OPS
@@ -259,7 +378,25 @@ def k17_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
     flat = torch.unique(torch.cat([i.reshape(-1) for i in idx]))
     texels = int((flat >= 0).sum())
     return dict(lanes=n, texels=texels, taps=taps, inside=inside,
+                fallback=fallback,
                 moved=n * (lane_in + 12) + texels * TEXEL_BYTES, ops=ops)
+
+
+def k20_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
+             max_anisotropy=8.0) -> dict:
+    """-> dict(lanes, texels (distinct texel rows written), adds (texel
+    adds of all lanes), moved, ops) of one K20 call, the backward of the
+    K17 call of these inputs: each lane's gradient (12 B), st and width or
+    differentials read once, each distinct texel row it adds into written
+    once (12 B, the (T, 3) rows: the texels the forward read), so the
+    forward's bytes (k17_work); its operations (the same set-up and
+    weights) and 3 more a texel add (the scaled gradient's channels)."""
+    w = k17_work(tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
+    n = w["lanes"]
+    adds = {MM.TRILINEAR: 8 * n, MM.EWA: 64 * n}.get(
+        mode, w["inside"] + 4 * w["fallback"])
+    return dict(lanes=n, texels=w["texels"], adds=adds,
+                moved=w["moved"], ops=w["ops"] + 3 * adds)
 
 
 # --- K18 ---
@@ -506,6 +643,48 @@ def compare_with_plain(fname, args, out) -> dict:
     return dict(lanes=n, flipped=n_flip, max_abs_err=err)
 
 
+# K20 against its plain version: each texel's gradient within BWD_TOL of
+# the largest sum of its terms' magnitudes (the plain backward of |g|; the
+# lanes' adds land in another order)
+BWD_TOL = 1e-5
+
+
+def compare_bwd_with_plain(g, tx, mode, wrap, st, dst0, dst1, width,
+                           max_anisotropy, out) -> dict:
+    """K20's texel gradient ``out`` for the lookups' gradient ``g`` of one
+    K17 call (``mode``, ``wrap``, its coordinates) against its plain
+    version on the same inputs: every entry within BWD_TOL of the largest
+    sum of magnitudes. Where a call of the exact mode disagrees, its lanes
+    whose rounded level a last-bit difference can flip (within NEAR_FLIP
+    of a half-integer), at most FLIP_SHARE of them, are held apart: both
+    sides are taken again without their gradient, and must agree. Raises
+    AssertionError otherwise. -> dict(lanes, flipped, max_abs_err,
+    scale)."""
+    from .. import cuda
+    args = (tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
+    with cuda.plain_reference():
+        ref = MM.mipmap_lookup_bwd(g, *args)
+        scale = MM.mipmap_lookup_bwd(g.abs(), *args).max().item()
+    err = (out - ref).abs().max().item()
+    n, flipped = g.shape[0], 0
+    if not err <= BWD_TOL * scale and mode == MM.EWA_EXACT:
+        _, _, lod = MM.exact_lod(tx, dst0, dst1, max_anisotropy)
+        near = (lod - torch.floor(lod) - 0.5).abs() < NEAR_FLIP
+        flipped = int(near.sum())
+        if flipped > FLIP_SHARE * n:
+            raise AssertionError(f"K20: {flipped} of {n} lanes near a level "
+                                 f"flip, more than {FLIP_SHARE} of them")
+        g = torch.where(near[:, None], 0.0, g)
+        out = MM.mipmap_lookup_bwd(g, *args)
+        with cuda.plain_reference():
+            ref = MM.mipmap_lookup_bwd(g, *args)
+        err = (out - ref).abs().max().item()
+    if not err <= BWD_TOL * scale or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K20 (mode {mode}, wrap {wrap}): max abs err "
+                             f"{err:.3g} beyond {BWD_TOL} of {scale:.3g}")
+    return dict(lanes=n, flipped=flipped, max_abs_err=err, scale=scale)
+
+
 # --- capture ---
 
 # K17-K19's entry points, as scene/textures.py (K17, K18) and ops/bsdf.py
@@ -544,6 +723,34 @@ def count_calls(into):
     finally:
         for module, name, orig in saved:
             setattr(module, name, orig)
+
+
+# K20's modes by name, as chip_smoke's rows and count_bwd_calls name them
+BWD_MODES = {MM.TRILINEAR: "trilinear", MM.EWA: "ewa", MM.EWA_EXACT: "exact"}
+
+
+@contextlib.contextmanager
+def count_bwd_calls(into, record=None):
+    """Within the scope, ``into[mode name]`` counts the calls of
+    ops/mipmap.py ``mipmap_lookup_bwd`` (K20 on CUDA tensors, one launch a
+    call) on at least one lane, by BWD_MODES name; with ``record`` (a
+    dict), ``record[mode name]`` lists each call's arguments (g, tx, mode,
+    wrap, st, dst0, dst1, width, max_anisotropy). autograd's backward
+    calls it through the module, in whatever thread it runs."""
+    orig = MM.mipmap_lookup_bwd
+
+    def counted(g, tx, mode, *rest):
+        if g.shape[0]:
+            name = BWD_MODES[mode]
+            into[name] = into.get(name, 0) + 1
+            if record is not None:
+                record.setdefault(name, []).append((g, tx, mode) + rest)
+        return orig(g, tx, mode, *rest)
+    MM.mipmap_lookup_bwd = counted
+    try:
+        yield into
+    finally:
+        MM.mipmap_lookup_bwd = orig
 
 
 def capture_texture_step(renderer, ctx, tile, sample=1) -> dict:

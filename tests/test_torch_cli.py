@@ -71,9 +71,9 @@ def test_cpu_render_of_a_scene_of_quadrics(tmp_path):
     assert img.mean() > 1e-2
 
 
-# the options each refused case adds, and what its message names: the
-# Whitted integrator (ROADMAP.md section A, item 16) and the random sampler
-# (item 17)
+# the options each case adds, and what a refusal's message names: the
+# random sampler (ROADMAP.md section A, item 17) is refused; the Whitted
+# integrator, refused until item 16 ported it, renders
 UNPORTED = {
     "whitted": ('Integrator "whitted"', "'whitted'", 16),
     "random": ('Sampler "random"', "'random'", 17),
@@ -82,14 +82,25 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unsupported_scene_exits_with_the_feature(tmp_path, case):
+    """The random sampler exits non-zero naming itself and its item; the
+    Whitted integrator's scene (a point light added) renders a finite
+    image."""
     options, feature, item = UNPORTED[case]
     scene = tmp_path / f"{case}.pbrt"
     scene.write_text(
         'Camera "perspective"\nFilm "image" "integer xresolution" [8] '
         '"integer yresolution" [8]\n' + options + '\nWorldBegin\n'
+        'LightSource "point" "rgb I" [2 2 2]\n'
         'Shape "trianglemesh" "integer indices" [0 1 2] '
         '"point P" [0 0 1 1 0 1 0 1 1]\nWorldEnd\n')
-    proc = run_cli(str(scene), "--cpu", "-o", str(tmp_path / "x.exr"))
+    out = str(tmp_path / "x.exr")
+    proc = run_cli(str(scene), "--cpu", "-o", out)
+    if item == 16:
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        img = read_image(out)
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+        assert img.mean() > 1e-3
+        return
     assert proc.returncode != 0
     assert feature in proc.stderr and "not ported yet" in proc.stderr
     assert f"item {item}" in proc.stderr

@@ -48,7 +48,10 @@ mode 2e-5: expf near the ellipse's edge), K18 (fbm, turbulence) within
 1e-6 and its sampled direction within 1e-4, each on all but 1e-4 of the
 lanes (a mip level, an octave count or a bisection step flipped by a
 last-bit difference); the three scenes of tools/texture_work.py within
-the golden-image tolerance of the all-plain render."""
+the golden-image tolerance of the all-plain render. K20 (K17's texel
+gradient) within 1e-5 of the largest sum of its terms' magnitudes
+(atomic adds in another order)."""
+import contextlib
 import dataclasses
 from types import SimpleNamespace
 from unittest import mock
@@ -923,7 +926,9 @@ def test_train_step_matches_plain(textured, monkeypatch):
     P.reset_tiers()
     new, loss = step(t["ctx"], target)
     torch.cuda.synchronize()
-    assert all(K.LAUNCHES[k] > 0 for k in K.BACKWARD_KERNELS), K.LAUNCHES
+    # the dragon looks no image up per texture: no K20
+    assert all(K.LAUNCHES[k] > 0 for k in K.BACKWARD_KERNELS
+               if k != "mipmap_lookup_bwd"), K.LAUNCHES
     # a slab step: take and put forward; a put (the take's transpose), a
     # take and a put (the put's) backward
     slabs = P.TIERS[2] + P.TIERS[4]
@@ -1436,6 +1441,99 @@ def test_mipmap_lookup_matches_plain(dev, wrap, layout):
         torch.cuda.synchronize()
         assert K.LAUNCHES["mipmap_lookup"] == 1
         _held_to_plain(fn, args, out)
+
+
+@pytest.mark.parametrize("layout", ["flat", "quad"])
+@pytest.mark.parametrize("wrap", [WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP])
+def test_mipmap_bwd_matches_plain(dev, wrap, layout):
+    """K20, the texel gradient of K17's lookups, in each mode on a
+    non-power-of-two image's (T, 3) rows, 2^16 lanes of footprints of
+    anisotropy 1 to 32 and a seeded gradient of both signs: every texel's
+    gradient within 1e-5 of the largest sum of its terms' magnitudes
+    (tools/texture_work.py compare_bwd_with_plain: atomic adds in another
+    order; an exact lane whose rounded level can flip held apart), one
+    launch a call. "quad": the forward a train step runs, K17 on the
+    (T, 3) rows, equals K17 on the quad rows a render of a scene whose
+    atlas wraps REPEAT reads, bit for bit."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.tools.texture_work import compare_bwd_with_plain
+    rs = np.random.RandomState(10 + wrap)
+    img = rs.rand(37, 50, 3).astype(np.float32)
+    pyr = [torch.from_numpy(lv).to(dev) for lv in build_pyramid(img)]
+    tx = MM.pyramid_texels(pyr)
+    quad = tx._replace(texels=A.atlas_quad_texels([pyr]))
+    n = 1 << 16
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    st = t(rs.uniform(-0.5, 1.5, (n, 2)))
+    ang = rs.uniform(0, 2 * np.pi, n)
+    minor = 10 ** rs.uniform(-3.5, -0.5, n)
+    major = minor * 10 ** rs.uniform(0, np.log10(32.0), n)
+    d0 = t(np.stack([np.cos(ang) * major, np.sin(ang) * major], -1))
+    d1 = t(np.stack([-np.sin(ang) * minor, np.cos(ang) * minor], -1))
+    width = t(10 ** rs.uniform(-4, 0.5, n))
+    g = t(rs.uniform(-1, 1, (n, 3)))
+    for mode, ma in ((MM.TRILINEAR, 8.0), (MM.EWA, 4.0), (MM.EWA, 8.0),
+                     (MM.EWA_EXACT, 16.0), (MM.EWA_EXACT, 32.0)):
+        args = (tx, mode, wrap, st, d0, d1, width, ma)
+        if layout == "quad" and wrap == WRAP_REPEAT:
+            fwd = [MM._lookup(x, mode, wrap, st, d0, d1, width, ma)
+                   for x in (tx, quad)]
+            assert torch.equal(fwd[0], fwd[1])
+        K.reset_launches()
+        out = MM.mipmap_lookup_bwd(g, *args)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mipmap_lookup_bwd"] == 1
+        compare_bwd_with_plain(g, *args, out)
+
+
+def test_mipmap_lookup_trains_through_k20(dev):
+    """A lookup of texel rows that require grad runs as the autograd
+    Function: K17 forward, K20 backward, the gradient reaching the levels
+    (a 1-channel image through its replication to 3) as the all-plain
+    path's within 1e-5 of the sums."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    rs = np.random.RandomState(3)
+    n = 1 << 14
+    st = torch.from_numpy(rs.rand(n, 2).astype(np.float32)).to(dev)
+    width = torch.from_numpy(rs.uniform(1e-3, 0.1, n).astype(
+        np.float32)).to(dev)
+    grads = []
+    for plain in (False, True):
+        levels = [torch.from_numpy(lv).to(dev).requires_grad_()
+                  for lv in build_pyramid(rs.rand(32, 32, 1))]
+        K.reset_launches()
+        with K.plain_reference() if plain else contextlib.nullcontext():
+            out = MM.lookup_trilinear(MM.pyramid_texels(levels), st, width)
+            out.sum().backward()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mipmap_lookup_bwd"] == (0 if plain else 1)
+        assert out.shape == (n, 1)
+        grads.append(torch.cat([lv.grad.reshape(-1) for lv in levels]))
+    top = grads[1].abs().max().item()
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * top
+
+
+@pytest.mark.parametrize("name", ["textures-image", "plastic-cornell"])
+def test_gradient_through_a_sampled_direction_is_refused(dev, name,
+                                                         tmp_path):
+    """One 16^2 train step on the card of textures-image (its ball's image
+    bump map) and of the plastic Cornell box (a glossy lobe's roughness):
+    their bounce directions depend on a trained leaf, and the step raises
+    naming ROADMAP item B12 before any kernel is handed a tensor that
+    requires grad."""
+    from rustracer_tpu_torch.parallel.mesh import make_train_step
+    from rustracer_tpu_torch.scene.api import parse_scene_string
+    from rustracer_tpu_torch.tools import texture_work as TW
+    text = TW.plastic_cornell_text(16) if name == "plastic-cornell" else \
+        TW.scene_text(name, res=16, spp=1, bsdf_dir=str(tmp_path))
+    pb = parse_scene_string(text, device=dev).scene
+    step = make_train_step(pb.integrator.li, pb.camera, pb.film, pb.sampler,
+                           lr=1.0, device=dev)
+    with pytest.raises(NotImplementedError,
+                       match="sampled ray direction.*B12"):
+        step(pb.context(), torch.zeros(16, 16, 3, device=dev))
 
 
 @pytest.mark.parametrize("turbulence", [False, True])

@@ -25,10 +25,12 @@ parsed by both packages.
   K17's plain twin at the moved hits (the image bump), the textured
   materials' lobes within 2e-5 absolute, types and active flags bit for
   bit, the bumped frame within 1e-4.
-- A train step over a scene with a per-texture lookup or a Fourier BSDF is
-  refused by name when it is built, for either device; the scenes that
-  rendered before these textures call no lookup of ops/mipmap.py, no
-  noise and no Fourier function.
+- A train step over a Fourier BSDF is refused by name when it is built,
+  for either device; one whose sampled directions depend on a trained
+  leaf (a bump map over images, a glossy lobe's roughness) raises naming
+  ROADMAP item B12 when it traces such a ray; the scenes that rendered
+  before these textures call no lookup of ops/mipmap.py, no noise and no
+  Fourier function.
 """
 import dataclasses
 import os
@@ -107,7 +109,8 @@ def test_every_texture_matches(name):
         "ScaleTexture", "MixTexture", "UVTexture", "CheckerboardTexture",
         "FbmTexture", "WrinkledTexture", "WindyTexture", "MarbleTexture"},
         "textures-image": {"ImageTexture"},
-        "testball-fourier": {"CheckerboardTexture"}}[name]
+        "testball-fourier": {"CheckerboardTexture"},
+        "textures-train": {"ImageTexture", "MixTexture"}}[name]
     assert expected <= kinds, kinds
 
 
@@ -227,11 +230,54 @@ def assert_scene_matches_jax(name, tmp_path):
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("name", ["textures-image", "testball-fourier"])
 def test_train_step_refused(name, device):
+    """testball-fourier: the step is refused when it is built, for either
+    device (K19 has no backward: ROADMAP item B11b). textures-image: its
+    ball's image bump map makes the bounce directions depend on the texels,
+    so a step raises naming item B12 when it traces such a ray: on the CPU
+    one step at 16^2; for the card, the refusal stands before any launch
+    (a ray that requires grad raises there whatever its device, here the
+    meta device's), and the step builds (K17's lookups have K20)."""
+    from rustracer_tpu_torch.core.ray import Ray
     from rustracer_tpu_torch.parallel.mesh import make_train_step
-    _, pb = scene(name)
-    with pytest.raises(NotImplementedError, match="K1[79].*B11"):
-        make_train_step(pb.integrator.li, pb.camera, pb.film, pb.sampler,
-                        device=device)
+    from rustracer_tpu_torch.scene import tables as TB
+    if name == "testball-fourier":
+        _, pb = scene(name)
+        with pytest.raises(NotImplementedError, match="K19.*B11b"):
+            make_train_step(pb.integrator.li, pb.camera, pb.film,
+                            pb.sampler, device=device)
+        return
+    pb = parsed(TW.scene_text(name, res=16, spp=1,
+                              bsdf_dir=tempfile.mkdtemp()))[1]
+    if device == "cpu":
+        step = make_train_step(pb.integrator.li, pb.camera, pb.film,
+                               pb.sampler, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="sampled ray direction.*B12"):
+            step(pb.context(), torch.zeros(16, 16, 3))
+        return
+    d = torch.ones((4, 3), device="meta", requires_grad=True)
+    ray = Ray(o=torch.zeros((4, 3), device="meta"), d=d,
+              t_max=torch.ones(4, device="meta"))
+    for fn in (TB.scene_intersect, TB.scene_intersect_passthrough,
+               TB.scene_intersect_p):
+        with pytest.raises(NotImplementedError,
+                           match="sampled ray direction.*B12"):
+            fn(pb.geom, ray)
+
+
+def test_gradient_through_a_sampled_direction_is_refused():
+    """The plastic Cornell box at 16^2 (the short block's white matte made
+    plastic, roughness 0.1): its glossy lobe's sampled directions depend on
+    the trained roughness, so one train step on the CPU raises naming
+    ROADMAP item B12 where the reference returns NaN gradients."""
+    from rustracer_tpu_torch.parallel.mesh import make_train_step
+    pb = parse_scene_string(TW.plastic_cornell_text(16), device="cpu").scene
+    assert type(pb.material_set.materials[-1]).__name__ == "PlasticMaterial"
+    step = make_train_step(pb.integrator.li, pb.camera, pb.film, pb.sampler,
+                           lr=1.0, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="sampled ray direction.*B12"):
+        step(pb.context(), torch.zeros(16, 16, 3))
 
 
 def test_earlier_scenes_take_no_new_route():
