@@ -226,7 +226,28 @@ Phases, each printing its lines:
      spp against the all-plain path (mean 2e-3, p99 2e-2); the Cornell
      box under direct lighting through the port's command line at 256^2
      against the in-process render of the same file;
- 24. a JSON line of the kernels (times, bounds, library yardsticks,
+ 24. the run surface: K3r (the random sampler's 1D and 2D kernels) on
+     2^18 lanes of seeded pixel and sample ids against its plain version,
+     bit for bit, timed and bounded; the textured headline dragon at
+     1024^2 in 2^18-lane tiles, compaction on, its sampler at 8 spp,
+     rendered checkpointed every 2 spp (K4d, counted, its counter table
+     printed: camera rays 1024^2 x 8, the observed regular tests at least
+     those and below 5 times them, shadow tests above 0) and stopped
+     after 4 samples and resumed from the file by a fresh Renderer, bit
+     for bit the same, the file gone; camera rays/s of its plain render
+     with the counters on and off, in turns; the uniform dragon file with
+     PixelFilter mitchell at 1024^2, 4 samples, checkpointed, stopped at
+     2 and resumed, twice, the same bits both times and as the run
+     through, within the golden tolerance of the atomic K4 render; K4d on
+     phase 15's recorded full-width Mitchell splat, bit for bit with its
+     plain version and over two launches, timed with L2 evicted beside K4
+     on the same splat, with its yardstick (index_put_ of the precomputed
+     taps, accumulate, deterministic algorithms); the Cornell box with
+     Sampler "random" through the port's command line in a subprocess at
+     8 spp with --checkpoint, --checkpoint-every 4, --profile and -v: exit
+     0, no checkpoint left, a finite image, the table's camera rays W x H
+     x 8, the trace naming traverse16_closest, K3r's launches;
+ 25. a JSON line of the kernels (times, bounds, library yardsticks,
      launches in the counted path that runs them and per step; K8 has a
      row for the tool's shape and ones for the render's at 16, 32, 96 and
      112 floats, K7 rows for its moves and for its transposes, K4 and K9 rows
@@ -240,7 +261,8 @@ The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
 lights kernel; only phase 20's scenes and phase 22's launch K17 (phase 22
 K20), only phase 20's K18 and K19; only phase 21's launch K1's instanced
-and alpha walks and K2's instance branch.
+and alpha walks and K2's instance branch; only phase 24's checkpointed
+renders K4d and its CLI run K3r.
 Each path (the gather tool, the matte render, the textured render, the
 textured step, the Cornell train steps, the dragon train steps, each scene
 parse and render and each filtered dragon-file step and backward of
@@ -249,12 +271,15 @@ render and the glass render and steps of phase 17, each render and step
 of phase 18, each light scene's parse and render and the bathroom's
 full-width render and step of phase 19, each texture scene's render and
 step of phase 20, each geometry render and step of phase 21, the train
-steps of phase 22, each integrator's render of phase 23) is
+steps of phase 22, each integrator's render of phase 23, each
+checkpointed render run through of phase 24) is
 run with the launch counts set to 0 just before it and read just after;
-the CLI's subprocess prints its own.
+the CLI's subprocess prints its own. "[time]" lines give the seconds
+run() has taken after each group of phases.
 Any failed check raises; there is no CPU fallback.
 """
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -343,6 +368,12 @@ SOURCES = {
                                   "rustracer_tpu/accel/traverse16.py:196"),
     "build_interaction_inst": ("rustracer_tpu_torch/csrc/interaction.cu",
                                "rustracer_tpu/scene/tables.py:597"),
+    "sample_random_1d": ("rustracer_tpu_torch/csrc/sampler.cu",
+                         "rustracer_tpu/render/sampler.py:35"),
+    "sample_random_2d": ("rustracer_tpu_torch/csrc/sampler.cu",
+                         "rustracer_tpu/render/sampler.py:41"),
+    "film_add_samples_det": ("rustracer_tpu_torch/csrc/film.cu",
+                             "rustracer_tpu/render/film.py:67"),
 }
 # K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
 QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
@@ -580,6 +611,14 @@ ROWS = {
     "mipmap_lookup_bwd exact": (
         "mipmap_lookup_bwd", "the first exact (128-texel) call of that "
         "backward: the red wall at anisotropy 16"),
+    "sample_random_1d": ("sample_random_1d", "2^18 lanes of seeded pixel "
+                         "and sample ids"),
+    "sample_random_2d": ("sample_random_2d", "2^18 lanes of seeded pixel "
+                         "and sample ids"),
+    "film_add_samples_det": ("film_add_samples_det",
+                             "phase 15's full-width Mitchell splat of the "
+                             "dragon file (tile 2, 2^18 samples, 1024^2 "
+                             "film), L2 evicted before each launch"),
 }
 # phase 20: tools/texture_work.py's scenes, the kernel each must launch, and
 # the rows of its kernel
@@ -678,7 +717,8 @@ MATTE_PATH = ("sample_1d", "sample_2d", "traverse16_closest",
 # (5 mixing rounds of 7 operations, plus the 2D dimension's 32-step Sobol'
 # loop), K2's rebuild of the surface frame; K1's and K5's bounds count the
 # work of their inputs (tools/traverse_work.py, tools/atlas_work.py)
-LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction": 300}
+LANE_OPS = {"sample_1d": 45, "sample_2d": 190, "build_interaction": 300,
+            "sample_random_1d": 40, "sample_random_2d": 95}
 
 
 def log(msg):
@@ -3420,8 +3460,339 @@ def integrator_scenes(dev, card, rays):
         raise AssertionError("the CLI's direct-lighting render differs")
 
 
+def check_random_sampler(dev, results):
+    """K3r (the random sampler) against its plain version on 2^18 lanes of
+    seeded pixel and sample ids, bit for bit, 1D and 2D; timed, bounded
+    (bytes: two int64 ids in, one or two floats out a lane)."""
+    from rustracer_tpu_torch.render.sampler import SamplerConfig
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    pix = torch.randint(0, 1 << 32, (LANES,), generator=gen, device=dev,
+                        dtype=torch.int64)
+    smp = torch.randint(0, 1 << 32, (LANES,), generator=gen, device=dev,
+                        dtype=torch.int64)
+    s = SamplerConfig(kind="random", spp=8, seed=0)
+    for name, fn in (("sample_random_1d", lambda: s.get_1d(pix, smp, 5)),
+                     ("sample_random_2d", lambda: s.get_2d(pix, smp, 6))):
+        out, ref, ms, pms = both(fn, "random_kernel", row=name)
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"{name}: kernel and plain differ in bits")
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                             **bound(nbytes(pix, smp, out),
+                                     LANES * LANE_OPS[name]))
+        log(f"[24] {name}: bit-equal with its plain version on {LANES} "
+            f"seeded lanes; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{results[name]['bound_ms']:.4f} ms "
+            f"({results[name]['bound_by']}), "
+            f"{100 * results[name]['bound_ms'] / ms:.1f}% of it")
+
+
+def stats_renderer(integ, cam, film, sampler, dev, collect=True):
+    """A Renderer of the path integrator's li_aux with its test bounds, in
+    2^18-lane tiles, the counters on or off."""
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    return Renderer(integ.li_aux, cam, film, sampler,
+                    RenderConfig(max_lanes=LANES, collect_stats=collect),
+                    device=dev, tests_per_lane=integ.tests_per_lane())
+
+
+def checkpoint_stopped(renderer, ctx, path, stop, every):
+    """The checkpointed render of ``renderer`` stopped after ``stop``
+    samples: its chunks of ``every`` samples through K4d and the snapshot
+    render_checkpointed writes after them."""
+    from rustracer_tpu_torch.render.checkpoint import save_film_checkpoint
+    state, done = None, 0
+    while done < stop:
+        nxt = min(done + every, stop)
+        state = renderer.render_state(ctx, state, done, nxt,
+                                      deterministic=True)
+        done = nxt
+    save_film_checkpoint(path, state, done)
+
+
+def resumed_render(make_renderer, ctx, path, stop, every):
+    """A checkpointed render stopped after ``stop`` samples, then resumed
+    from its file by a fresh Renderer -> the image; the file must be gone
+    at the end."""
+    checkpoint_stopped(make_renderer(), ctx, path, stop, every)
+    img = make_renderer().render_checkpointed(ctx, path, every_spp=every)
+    torch.cuda.synchronize()
+    if os.path.exists(path):
+        raise AssertionError(f"the checkpoint {path} was left behind")
+    return img
+
+
+def same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def dragon_checkpointed(dev, card, tctx, tcam, tfilm, tsampler, tinteg):
+    """Phase 24.2: the textured headline dragon at 1024^2 in 2^18-lane
+    tiles, compaction on, its sampler at 8 spp: the checkpointed render
+    run through (counted, its counter table printed and checked), and
+    stopped after 4 samples (every 2) and resumed by a fresh Renderer: the
+    same bits, the file gone; camera rays/s of the plain render with the
+    counters on and off, in turns."""
+    import dataclasses
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.utils import stats as S
+    sampler = dataclasses.replace(tsampler, spp=8)
+
+    def make():
+        return stats_renderer(tinteg, tcam, tfilm, sampler, dev)
+    with tempfile.TemporaryDirectory() as d:
+        S.init_stats()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        want = make().render_checkpointed(tctx, os.path.join(d, "a.npz"),
+                                          every_spp=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        buf = io.StringIO()
+        S.print_stats(buf)
+        for line in buf.getvalue().splitlines():
+            log(f"[24] dragon counters: {line}")
+        c = dict(S._counters)
+        got = resumed_render(make, tctx, os.path.join(d, "b.npz"), 4, 2)
+    cam = RES[0] * RES[1] * 8
+    reg = c["Intersections/Regular ray intersection tests (observed)"]
+    shadow = c["Intersections/Shadow ray intersection tests (observed)"]
+    log(f"[24] textured dragon checkpointed every 2 spp, 8 spp at "
+        f"{RES[0]}x{RES[1]}: {wall:.3f} s wall, {cam / wall:.1f} camera "
+        f"rays/s on {card}; launches {launches}; resumed after 4 spp by a "
+        f"fresh Renderer: bit for bit {same_bits(got, want)}")
+    if not same_bits(got, want):
+        d = (got - want).abs().max().item()
+        raise AssertionError(f"the resumed dragon differs (max {d})")
+    if not (c["Integrator/Camera rays traced"] == cam
+            and cam <= reg < 5 * cam and shadow > 0):
+        raise AssertionError(f"dragon counters off: {c}")
+    if launches["film_add_samples_det"] <= 0 or \
+            launches["film_add_samples"] != 0:
+        raise AssertionError("the checkpointed render did not splat "
+                             f"through K4d alone: {launches}")
+    if not (bool(torch.isfinite(want).all()) and want.mean().item() > 1e-4):
+        raise AssertionError("the checkpointed dragon is black or not "
+                             "finite")
+    # the counters' cost: the plain render (K4), 2 samples, on and off
+    renders = {on: stats_renderer(tinteg, tcam, tfilm, sampler, dev, on)
+               for on in (True, False)}
+    secs = {True: [], False: []}
+    for on in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renders[on].render_state(tctx, sample_stop=2)
+        torch.cuda.synchronize()
+        secs[on].append(time.perf_counter() - t0)
+    rate = {on: [RES[0] * RES[1] * 2 / t for t in v]
+            for on, v in secs.items()}
+    log(f"[24] textured dragon, 2 samples in turns on, off, off, on: camera "
+        f"rays/s with collect_stats on {rate[True][0]:.1f} / "
+        f"{rate[True][1]:.1f}, off {rate[False][0]:.1f} / "
+        f"{rate[False][1]:.1f} on {card}")
+
+
+def det_taps(film, full):
+    """The taps of the recorded splat ``full`` as one accumulate: the flat
+    pixel index (T,) and value (T, 4) of every tap that lands (the
+    luminance clamp applied)."""
+    p_film, rad, valid = full["p_film"], full["radiance"], full["valid"]
+    w, h = film.cropped_resolution
+    rad = film._clamped(rad)
+    idx, vals = [], []
+    for iy, ix, fw, ok in film.taps(p_film, valid, h, w):
+        idx.append((iy * w + ix)[ok].long())
+        vals.append(torch.cat([fw[:, None] * rad, fw[:, None]], -1)[ok])
+    return torch.cat(idx), torch.cat(vals)
+
+
+def check_k4d_full(full, k4_launches, k4d_launches, counted_in, results):
+    """K4d on phase 15's recorded full-width Mitchell splat of the dragon
+    file (tile 2, 2^18 samples, 1024^2), bit for bit with its plain version
+    and with itself on a second launch; timed with L2 evicted before each
+    launch beside K4 on the same splat, bounded (bytes, as K4's), with the
+    yardstick: index_put_ of the precomputed taps, accumulate, under
+    torch.use_deterministic_algorithms(True) (the taps' computation not
+    counted)."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.bench_step_kernels import (k4_call,
+                                                              k4_moved)
+    from rustracer_tpu_torch.tools.timing import cold_ms
+    film, p_film = full["film"], full["p_film"]
+    rad, valid = full["radiance"], full["valid"]
+    dev = p_film.device
+    first = 2 * LANES
+
+    def k4d(state):
+        return film._add_samples_det(state, p_film, rad, valid, first)
+    film.check_det_layout(p_film, valid, first)
+    a, b = k4d(film.init_state(dev)), k4d(film.init_state(dev))
+    with K.plain_reference():
+        ref = film.add_samples_det(film.init_state(dev), p_film, rad, valid,
+                                   first)
+    err = max((a.rgb - ref.rgb).abs().max().item(),
+              (a.wsum - ref.wsum).abs().max().item())
+    if not (same_bits(a.rgb, ref.rgb) and same_bits(a.wsum, ref.wsum)
+            and same_bits(a.rgb, b.rgb) and same_bits(a.wsum, b.wsum)):
+        raise AssertionError(f"film_add_samples_det differs in bits from its "
+                             f"plain version or from itself (max {err})")
+    acc = film.init_state(dev)
+    ms = kernel_time("film_add_samples_det", lambda: k4d(acc), 20,
+                     "film_add_det_kernel", cold=True)
+    k4_run, _ = k4_call(None, full)
+    k4_ms = kernel_time("film_add_samples_det (K4 beside it)", k4_run, 20,
+                        "film_add_kernel", cold=True)
+    with K.plain_reference():
+        pms = cold_ms(lambda: film.add_samples_det_plain(
+            film.init_state(dev), p_film, rad, valid, first), 5)
+    idx, vals = det_taps(film, full)
+    w, h = film.cropped_resolution
+    flat = torch.zeros((h * w, 4), device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        lib_ms = cold_ms(lambda: flat.index_put_((idx,), vals,
+                                                 accumulate=True), 20)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    b_ = bound(k4_moved(film, p_film, rad, valid))
+    results["film_add_samples_det"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lib_ms,
+        launches=k4d_launches, counted_in=counted_in, **b_)
+    log(f"[24] film_add_samples_det on phase 15's full-width Mitchell splat "
+        f"({p_film.shape[0]} samples, {idx.shape[0]} taps, 1024^2 film): bit "
+        f"for bit with its plain version and over two launches; L2 evicted "
+        f"before each launch: K4d {ms:.4f} ms, K4 on the same splat "
+        f"{k4_ms:.4f} ms, plain {pms:.4f} ms, deterministic index_put_ of "
+        f"the taps {lib_ms:.4f} ms; bound {b_['bound_ms']:.4f} ms "
+        f"({b_['bound_by']}), {100 * b_['bound_ms'] / ms:.1f}% of it; "
+        f"launches {k4d_launches} in {counted_in} (K4 {k4_launches} in "
+        "phase 14's step)")
+
+
+def mitchell_file_checkpointed(dev, card, splats, results):
+    """Phase 24.3: the dragon scene file (tools/dragon_scene.py, uniform
+    strategy) with PixelFilter mitchell at 1024^2, 4 samples in 2^18-lane
+    tiles: the checkpointed render stopped at 2 and resumed, twice, the
+    same bits both times and as the checkpointed render run through
+    (counted: K4d's launches); within the golden tolerance of the plain
+    render (K4, atomic); then K4d on phase 15's recorded splat
+    (check_k4d_full)."""
+    import dataclasses
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools.dragon_scene import write_dragon_scene
+    with tempfile.TemporaryDirectory() as d:
+        path = write_dragon_scene(os.path.join(d, "file"), SUB, RES,
+                                  "uniform")
+        with open(path) as f:
+            text = f.read().replace("WorldBegin", 'PixelFilter "mitchell"\n'
+                                    "WorldBegin", 1)
+        with open(path, "w") as f:
+            f.write(text)
+        bundle, _ = parse_counted("[24] dragon file, PixelFilter mitchell:",
+                                  path=path, dev=dev)
+        integ, ctx = bundle.integrator, bundle.context()
+        sampler = dataclasses.replace(bundle.sampler, spp=4)
+
+        def make():
+            return stats_renderer(integ, bundle.camera, bundle.film,
+                                  sampler, dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        want = make().render_checkpointed(ctx, os.path.join(d, "a.npz"),
+                                          every_spp=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        runs = [resumed_render(make, ctx, os.path.join(d, f"r{i}.npz"), 2,
+                               2) for i in range(2)]
+        atomic = bundle.film.to_image(make().render_state(ctx))
+    same = [same_bits(r, want) for r in runs]
+    mean_err, p99 = image_errors(want.cpu().numpy(), atomic.cpu().numpy())
+    log(f"[24] dragon file, Mitchell, 4 spp checkpointed every 2: {wall:.3f} "
+        f"s wall on {card}; launches {launches}; stopped at 2 and resumed, "
+        f"twice: bit for bit with the run through {same}; against the "
+        f"atomic K4 render: mean err {mean_err:.3g} (<= 2e-3), p99 "
+        f"{p99:.3g} (<= 2e-2)")
+    if not all(same):
+        raise AssertionError("a resumed Mitchell render differs in bits")
+    if not (mean_err <= 2e-3 and p99 <= 2e-2
+            and bool(torch.isfinite(want).all())):
+        raise AssertionError("the checkpointed Mitchell render differs from "
+                             "the atomic one")
+    if launches["film_add_samples_det"] <= 0:
+        raise AssertionError("the checkpointed render did not launch K4d")
+    full, n_k4 = splats["mitchell"]
+    check_k4d_full(full, n_k4, launches["film_add_samples_det"],
+                   "the checkpointed 4-spp render of the Mitchell dragon "
+                   "file (phase 24)", results)
+
+
+def run_surface_cli(results):
+    """Phase 24.4: scenes/cornell-box.pbrt with its sampler replaced by
+    Sampler "random", through the port's command line on the card in a
+    subprocess at 8 spp with --checkpoint, --checkpoint-every 4, --profile
+    and -v: exit 0, no checkpoint left, a finite image of mean above 1e-4,
+    the counter table's camera rays W x H x 8, the trace naming
+    traverse16_closest; K3r's launches in that run go to its rows."""
+    import re
+    from rustracer_tpu_torch.render.imageio import read_image
+    text = open(CORNELL_PBRT).read()
+    text = re.sub(r'Sampler "02sequence"[^\n]*', 'Sampler "random"', text)
+    with tempfile.TemporaryDirectory() as d:
+        scene, out = os.path.join(d, "cornell-random.pbrt"), \
+            os.path.join(d, "c.exr")
+        ck, trace = os.path.join(d, "ck.npz"), os.path.join(d, "trace")
+        with open(scene, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rustracer_tpu_torch.utils.cli", scene,
+             "-o", out, "--spp", "8", "--checkpoint", ck,
+             "--checkpoint-every", "4", "--profile", trace, "-v"], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if not line.startswith("launches "):
+                log(f"[24] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_image(out)
+        left = os.path.exists(ck)
+        names = ""
+        for fn in os.listdir(trace):
+            with open(os.path.join(trace, fn)) as f:
+                names += f.read()
+        traced = "traverse16_closest" in names
+        trace_mb = len(names) / 2 ** 20
+    launches = json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("launches "))[len("launches "):])
+    m = re.search(r"^ +Camera rays traced +(\d+)$", proc.stdout, re.M)
+    rays = int(m.group(1)) if m else None
+    log(f"[24] python -m rustracer_tpu_torch.utils.cli (the Cornell box, "
+        f"Sampler random, 8 spp, --checkpoint-every 4 --profile): {wall:.2f}"
+        f" s; checkpoint left {left}; image mean {img.mean():.5f}; camera "
+        f"rays traced {rays}; trace {trace_mb:.1f} MiB naming "
+        f"traverse16_closest {traced}; K3r launches "
+        f"{launches['sample_random_1d']} / {launches['sample_random_2d']}")
+    if left or not (np.isfinite(img).all() and img.mean() > 1e-4) \
+            or rays != img.shape[0] * img.shape[1] * 8 or not traced:
+        raise AssertionError("the run-surface CLI run failed its checks")
+    for name in ("sample_random_1d", "sample_random_2d"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the CLI's render did not launch {name}")
+        results[name].update(launches=launches[name], counted_in=(
+            "the CLI's 8-spp render of the Cornell box with Sampler random "
+            "(phase 24)"))
+
+
 def run(dev, card):
-    """Phases 3 to 24 on device ``dev``."""
+    """Phases 3 to 25 on device ``dev``."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -3430,7 +3801,11 @@ def run(dev, card):
                                             dragon_geometry)
     from rustracer_tpu_torch.tools.bench_step_kernels import capture_step
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
+
+    def lap(phase):
+        log(f"[time] phases up to {phase} done {time.perf_counter() - t_run:.1f}"
+            " s into run()")
     geometry = dragon_geometry(SUB, dev)
     ctx, cam, film, sampler, integ, n_tris = build_dragon_matte(
         sub=SUB, res=RES, spp=SPP, device=dev, geometry=geometry)
@@ -3454,6 +3829,7 @@ def run(dev, card):
     check_compaction(tctx, tcam, tsampler, tinteg, trenderer.tiles[0], cap,
                      results)
     check_gather(ctx.geom, cap, results)
+    lap(3)
 
     # 4-5: the matte path, counted, and its crop against the plain path
     launches, _, _, matte_rays = render_counted("[4]", renderer, film, ctx,
@@ -3487,6 +3863,7 @@ def run(dev, card):
         if tiers[2] == 0 or tiers[4] == 0:
             raise AssertionError(f"the crop missed a slab tier: {tiers}")
 
+    lap(7)
     # launches per step: tile 2 of the textured render, all floor and
     # dragon, at full width
     per_step = step_launches(trenderer, tctx, trenderer.tiles[2])
@@ -3498,6 +3875,7 @@ def run(dev, card):
     train_launches = dragon_train(dev, card, geometry, tctx, tcam, tsampler,
                                   tinteg)
 
+    lap(11)
     # 12-15: the scene front end
     cornell_cli()
     bundle, parse_launches = parse_counted("[13] scenes/cornell-box.pbrt",
@@ -3521,6 +3899,7 @@ def run(dev, card):
                                 dragon_img, dragon_rays, results)
     filter_cornells(dev, card, results, splats, grads)
 
+    lap(15)
     # 16: the quadrics
     check_quadric_table(dev, results)
     rays = {"matte": testball_full(dev, card, results)}
@@ -3536,25 +3915,40 @@ def run(dev, card):
     scene_cli("testball-disney", 18, TESTBALL_NEED)
     layered_steps(dev, card, results, plain_balls(dev, card), rays)
 
+    lap(18)
     # 19: the lights
     for name in LIGHT_SCENES:
         scene_cli(name, 19, sum(LIGHT_NEEDS[name], ()))
     light_goldens(dev, card)
     bathroom_full(dev, card, results, rays)
 
+    lap(19)
     # 20: textures, bump maps and the Fourier BSDF
     texture_scenes(dev, card, results, rays)
+    lap(20)
 
     # 21: instances, alpha cutouts, medium interfaces, the middle split
     rays["dragon matte"] = matte_rays
     geometry_scenes(dev, card, results, rays)
 
+    lap(21)
     # 22: train steps through the per-texture lookups' backward (K20)
     texture_train(dev, card, results)
+    lap(22)
 
     # 23: the direct-lighting, Whitted, ambient-occlusion and normal
     # integrators
     integrator_scenes(dev, card, rays)
+    lap(23)
+
+    # 24: the run surface: the random sampler (K3r), checkpoints through
+    # the deterministic splat (K4d), the counters, --checkpoint and
+    # --profile
+    check_random_sampler(dev, results)
+    dragon_checkpointed(dev, card, tctx, tcam, tfilm, tsampler, tinteg)
+    mitchell_file_checkpointed(dev, card, splats, results)
+    run_surface_cli(results)
+    lap(24)
 
     kernels = []
     for key, (name, case) in ROWS.items():

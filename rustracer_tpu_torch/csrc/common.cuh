@@ -127,7 +127,7 @@ __device__ __forceinline__ TriHit tri_intersect(V3 o, V3 d, float t_max, V3 p0, 
 }
 
 // the word hash of core/rng.py hash_u32: a murmur3-style finalizer over the
-// words in turn (K3's sampler, K18's noise lattice)
+// words in turn (K3's samplers, K18's noise lattice)
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
     h ^= h >> 16;
     h *= 0x85EBCA6Bu;
@@ -147,6 +147,11 @@ __device__ __forceinline__ uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
 
 __device__ __forceinline__ uint32_t hash4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
     return mix32(hash_step(hash_step(hash_step(hash_step(0x9E3779B9u, a), b), c), d));
+}
+
+__device__ __forceinline__ uint32_t hash5(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                          uint32_t e) {
+    return mix32(hash_step(hash_step(hash_step(hash_step(hash_step(0x9E3779B9u, a), b), c), d), e));
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }

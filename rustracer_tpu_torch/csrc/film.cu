@@ -45,6 +45,26 @@
 // filter_weight, as the box does. The warp's sums fall
 // in another order than the plain version's: within float rounding (1e-5
 // relative).
+//
+// K4d (film_add_samples_det): the same splat with every pixel's sum in a
+// stated fixed order, for the checkpointed render (render/renderer.py
+// render_checkpointed), so that a render gives the same bits on every run
+// and a resumed render those of an uninterrupted one for every filter (the
+// JAX package's checkpointed render is deterministic, render/checkpoint.py
+// there). It replaces rustracer_tpu/render/film.py Film.add_samples
+// (:67-111) as K4 does: the same taps, filter_weight's weights, luminance
+// clamp, valid mask and crop. It takes the renderer's lanes: a tile is a
+// contiguous run of the row-major pixels of the film's sample bounds, one
+// sample a lane, so the lanes that can reach a pixel are those of the
+// pixels within the filter's tap window of it, and their lane index is
+// arithmetic. One thread a film pixel of the rows the tile reaches gathers
+// its taps from those lanes in ascending lane order (a lane has at most one
+// tap on a pixel), sums them from 0 and adds the sum to the pixel once: no
+// atomics, each pixel read and written at most once a launch. Its plain
+// version (Film.add_samples_det_plain) sums in the same order, so the two
+// agree bit for bit. Bound: bytes, as K4's (the samples in, each touched
+// pixel read and written once); a lane's sample is read once a pixel of its
+// window, from L1 or L2.
 #include "common.cuh"
 #include "filter.cuh"
 
@@ -191,6 +211,70 @@ struct LaunchAdd {
     }
 };
 
+// one thread a film pixel (iy, ix) of rows [row0, row0 + rows): the taps
+// of the lanes whose pixel lies within the window [olx, ohx] x [oly, ohy]
+// of offsets from it, in ascending lane order (descending offset), summed
+// from 0 and added to the pixel once
+template <int Kind>
+__global__ void __launch_bounds__(kThreads)
+    film_add_det_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
+                        const bool* __restrict__ valid, int n, float4* __restrict__ acc, int h,
+                        int w, int x0, int y0, rt::FilterParams f, int nx, int ny, float max_lum,
+                        int first, int sx0, int sy0, int sw, int sh, int olx, int ohx, int oly,
+                        int ohy, int row0, int rows) {
+    const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (t >= (long long)rows * w) return;
+    const int iy = row0 + (int)(t / w), ix = (int)(t % w);
+    const int X = ix + x0, Y = iy + y0;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bool any = false;
+    for (int oy = ohy; oy >= oly; --oy) {
+        const int ly = Y - oy - sy0;
+        if (ly < 0 || ly >= sh) continue;
+        for (int ox = ohx; ox >= olx; --ox) {
+            const int lx = X - ox - sx0;
+            if (lx < 0 || lx >= sw) continue;
+            const long long lane = (long long)ly * sw + lx - first;
+            if (lane < 0 || lane >= n || (valid != nullptr && !valid[lane])) continue;
+            const float2 p = p_film[lane];
+            const int k = X - (int)ceilf((p.x - 0.5f) - f.rx);
+            const int j = Y - (int)ceilf((p.y - 0.5f) - f.ry);
+            if (k < 0 || k >= nx || j < 0 || j >= ny) continue;
+            const float fw = rt::filter_weight<Kind>(f, ((float)X + 0.5f) - p.x,
+                                                     ((float)Y + 0.5f) - p.y);
+            if (!(fw > 0.0f)) continue;
+            float r = rad[3 * lane], g = rad[3 * lane + 1], b = rad[3 * lane + 2];
+            if (isfinite(max_lum)) {
+                float lum = r * 0.212671f + g * 0.715160f + b * 0.072169f;
+                float scale = lum > max_lum ? max_lum / fmaxf(lum, 1e-20f) : 1.0f;
+                r = r * scale;
+                g = g * scale;
+                b = b * scale;
+            }
+            sum = add4(sum, scaled(fw, r, g, b));
+            any = true;
+        }
+    }
+    if (any) {
+        float4* a = acc + ((size_t)iy * w + ix);
+        *a = add4(*a, sum);
+    }
+}
+
+template <int Kind>
+struct LaunchDet {
+    void operator()(const void* p_film, const void* rad, const void* valid, int n, void* rgb,
+                    int h, int w, int x0, int y0, rt::FilterParams f, int nx, int ny,
+                    float max_lum, int first, int sx0, int sy0, int sw, int sh, int olx, int ohx,
+                    int oly, int ohy, int row0, int rows, cudaStream_t stream) {
+        const long long threads = (long long)rows * w;
+        const int blocks = (int)((threads + kThreads - 1) / kThreads);
+        film_add_det_kernel<Kind><<<blocks, kThreads, 0, stream>>>(
+            (const float2*)p_film, (const float*)rad, (const bool*)valid, n, (float4*)rgb, h, w,
+            x0, y0, f, nx, ny, max_lum, first, sx0, sy0, sw, sh, olx, ohx, oly, ohy, row0, rows);
+    }
+};
+
 }  // namespace
 
 // rgb: the (H, W, 4) film's base, 16-byte aligned; wsum: the same buffer
@@ -207,6 +291,29 @@ extern "C" int rt_film_add_samples(const void* p_film, const void* rad, const vo
     const float p8[8] = {p0, p1, p2, p3, p4, p5, p6, p7};
     return rt::dispatch_filter<LaunchAdd>(kind, p_film, rad, valid, n, rgb, h, w, x0, y0,
                                           rt::filter_params(rx, ry, p8), nx, ny, max_lum,
+                                          (cudaStream_t)stream);
+}
+
+// K4d: the arguments of rt_film_add_samples, then the lanes' layout (first:
+// lane 0's row-major index in the sample bounds, whose first column and row
+// are sx0, sy0 and size sw x sh), the window of offsets of a target pixel
+// from a lane's pixel that holds every tap, and the film rows [row0, row0 +
+// rows) the launch covers (rows 0 launches nothing)
+extern "C" int rt_film_add_samples_det(const void* p_film, const void* rad, const void* valid,
+                                       int n, void* rgb, void* wsum, int h, int w, int x0,
+                                       int y0, float rx, float ry, int nx, int ny, float max_lum,
+                                       int kind, float p0, float p1, float p2, float p3,
+                                       float p4, float p5, float p6, float p7, int first,
+                                       int sx0, int sy0, int sw, int sh, int olx, int ohx,
+                                       int oly, int ohy, int row0, int rows, void* stream) {
+    if ((uintptr_t)rgb % 16 || (float*)wsum != (float*)rgb + 3 || (uintptr_t)p_film % 8 ||
+        rows < 0 || row0 < 0 || row0 + rows > h)
+        return (int)cudaErrorInvalidValue;
+    if (rows == 0 || w == 0) return (int)cudaSuccess;
+    const float p8[8] = {p0, p1, p2, p3, p4, p5, p6, p7};
+    return rt::dispatch_filter<LaunchDet>(kind, p_film, rad, valid, n, rgb, h, w, x0, y0,
+                                          rt::filter_params(rx, ry, p8), nx, ny, max_lum, first,
+                                          sx0, sy0, sw, sh, olx, ohx, oly, ohy, row0, rows,
                                           (cudaStream_t)stream);
 }
 

@@ -6,6 +6,11 @@
 // plain versions in rustracer_tpu_torch/render/sampler.py. The word hash
 // (rt::hash4) is common.cuh's, shared with K18 (noise.cu).
 //
+// K3r (sample_random_1d, sample_random_2d): the "random" sampler's branches
+// of the same functions (rustracer_tpu/render/sampler.py:35-36 and :41-44):
+// hash_float(seed, p, s, dim) for 1D, hash_float(seed, p, s, dim, k) for
+// k = 0, 1 for 2D (rt::hash4, rt::hash5), bit for bit with core/rng.py.
+//
 // Bound: memory traffic (two int64 loads and one or two float stores per
 // lane against a few dozen integer operations); the design keeps the whole
 // chain in registers so each lane touches device memory once each way.
@@ -52,10 +57,27 @@ __global__ void sample_kernel(const long long* __restrict__ pixel,
 }
 
 template <bool TWO_D>
+__global__ void random_kernel(const long long* __restrict__ pixel,
+                              const long long* __restrict__ sample, int n, uint32_t seed,
+                              uint32_t dim, float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    uint32_t p = static_cast<uint32_t>(pixel[i]);
+    uint32_t s = static_cast<uint32_t>(sample[i]);
+    if (!TWO_D) {
+        out[i] = bits_to_float(rt::hash4(seed, p, s, dim));
+    } else {
+        out[2 * i] = bits_to_float(rt::hash5(seed, p, s, dim, 0u));
+        out[2 * i + 1] = bits_to_float(rt::hash5(seed, p, s, dim, 1u));
+    }
+}
+
+template <bool TWO_D, bool RANDOM>
 int launch(const void* pixel, const void* sample, int n, uint32_t seed, uint32_t dim, void* out,
            void* stream) {
     constexpr int kThreads = 256;
-    sample_kernel<TWO_D><<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = RANDOM ? random_kernel<TWO_D> : sample_kernel<TWO_D>;
+    kernel<<<rt::blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
         (const long long*)pixel, (const long long*)sample, n, seed, dim, (float*)out);
     return (int)cudaGetLastError();
 }
@@ -64,10 +86,20 @@ int launch(const void* pixel, const void* sample, int n, uint32_t seed, uint32_t
 
 extern "C" int rt_sample_1d(const void* pixel, const void* sample, int n, uint32_t seed,
                             uint32_t dim, void* out, void* stream) {
-    return launch<false>(pixel, sample, n, seed, dim, out, stream);
+    return launch<false, false>(pixel, sample, n, seed, dim, out, stream);
 }
 
 extern "C" int rt_sample_2d(const void* pixel, const void* sample, int n, uint32_t seed,
                             uint32_t dim, void* out, void* stream) {
-    return launch<true>(pixel, sample, n, seed, dim, out, stream);
+    return launch<true, false>(pixel, sample, n, seed, dim, out, stream);
+}
+
+extern "C" int rt_sample_random_1d(const void* pixel, const void* sample, int n, uint32_t seed,
+                                   uint32_t dim, void* out, void* stream) {
+    return launch<false, true>(pixel, sample, n, seed, dim, out, stream);
+}
+
+extern "C" int rt_sample_random_2d(const void* pixel, const void* sample, int n, uint32_t seed,
+                                   uint32_t dim, void* out, void* stream) {
+    return launch<true, true>(pixel, sample, n, seed, dim, out, stream);
 }

@@ -13,6 +13,9 @@ explicit ``plain_reference()`` scope, which checks the kernels against
 their plain versions.
 
 ``LAUNCHES`` counts, per C entry point, the launches made outside that scope.
+Inside ``annotated()`` each launch is also a torch.profiler range named
+after its entry point, so that a trace names the kernels by the port's
+names (the command line's ``--profile``).
 
 Autograd cannot see through a ctypes call: a kernel handed a tensor that
 requires grad would cut the graph without a word. So ``launch`` raises for
@@ -47,10 +50,20 @@ _D = ctypes.c_double
 SIGNATURES = {
     "sample_1d": [_P, _P, _I, _U, _U, _P, _P],
     "sample_2d": [_P, _P, _I, _U, _U, _P, _P],
+    "sample_random_1d": [_P, _P, _I, _U, _U, _P, _P],
+    "sample_random_2d": [_P, _P, _I, _U, _U, _P, _P],
     # ..., max_lum, the filter's kind and 8 parameters (filters.py
     # Filter.kernel_params), stream
     "film_add_samples": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                          _F, _F, _I, _I, _F, _I] + [_F] * 8 + [_P],
+    # the arguments of film_add_samples, then the lanes' layout (the first
+    # lane's row-major index in the sample bounds, their first column and
+    # row, width and height), the tap window (first and last offset of a
+    # target pixel from a lane's pixel, x and y) and the film rows the
+    # launch covers (first, count), stream
+    "film_add_samples_det": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _F, _I] + [_F] * 8
+    + [_I] * 5 + [_I] * 4 + [_I] * 2 + [_P],
     "traverse16_closest": [_P, _I, _P, _I, _P, _P, _P, _I,
                            _P, _P, _P, _P, _P, _P],
     "traverse16_any": [_P, _I, _P, _I, _P, _P, _P, _I,
@@ -155,10 +168,16 @@ SHADING_KERNELS = ("mipmap_lookup", "noise_fbm", "fourier_bsdf")
 GEOMETRY_KERNELS = tuple(
     f"traverse16_{kind}_{q}" for kind in ("inst", "alpha", "inst_alpha")
     for q in ("closest", "any")) + ("build_interaction_inst",)
+# the run surface's kernels: the random sampler's (K3r), launched only for
+# a scene with Sampler "random", and the deterministic splat (K4d) of the
+# checkpointed render
+RUN_KERNELS = ("sample_random_1d", "sample_random_2d",
+               "film_add_samples_det")
 # the kernels of the textured dragon's forward render
 FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
                         BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS
-                        + LIGHT_KERNELS + SHADING_KERNELS + GEOMETRY_KERNELS)
+                        + LIGHT_KERNELS + SHADING_KERNELS + GEOMETRY_KERNELS
+                        + RUN_KERNELS)
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
@@ -188,6 +207,21 @@ def plain_reference():
         yield
     finally:
         _plain[0] = prev
+
+
+_annotate = [False]
+
+
+@contextlib.contextmanager
+def annotated():
+    """Name each launch inside this scope as a torch.profiler range (its C
+    entry point's name)."""
+    prev = _annotate[0]
+    _annotate[0] = True
+    try:
+        yield
+    finally:
+        _annotate[0] = prev
 
 
 @contextlib.contextmanager
@@ -302,7 +336,9 @@ def launch(name: str, *args, lib=None):
     check_grad(name, args)
     fn = getattr(lib or library(), "rt_" + name)
     stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*[_arg(a) for a in args], stream)
+    with torch.profiler.record_function(name) if _annotate[0] \
+            else contextlib.nullcontext():
+        rc = fn(*[_arg(a) for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
     if lib is None:

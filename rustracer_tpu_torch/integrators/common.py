@@ -56,7 +56,8 @@ def estimate_direct_light_side(ctx, mat_set, si, lobes, lid, u_light,
     """NEE toward light ``lid`` with MIS weight against the BSDF density
     over ``mat_set``'s lobe types (1 toward a point or distant light,
     which no bounce ray hits); the light-selection pmf is folded into the
-    light pdf. -> (B, 3)."""
+    light pdf. -> ((B, 3) radiance, (B,) bool: the lanes whose shadow ray
+    was traced, the reference's observed shadow tests)."""
     types = mat_set.types_present()
     ls = L.sample_li(ctx.lights, lid, si, u_light)
     light_pdf = ls.pdf * sel_pmf
@@ -71,7 +72,7 @@ def estimate_direct_light_side(ctx, mat_set, si, lobes, lid, u_light,
         weight = torch.where(ls.is_delta, 1.0, weight)
     pdf_safe = torch.where(possible, torch.clamp(light_pdf, min=1e-12), 1.0)
     return torch.where(possible[:, None],
-                       f * li * (weight / pdf_safe)[:, None], 0.0)
+                       f * li * (weight / pdf_safe)[:, None], 0.0), possible
 
 
 def estimate_direct(ctx, mat_set, si, lobes, lid, u_light, u_scatter_lobe,

@@ -36,7 +36,14 @@ light) is passed through without spending a bounce, up to
 ``max_interface_skips`` times (scene/tables.py
 scene_intersect_passthrough; a scene without interfaces intersects once).
 
-Not ported: the stats counters.
+``li_aux`` returns the radiance and each lane's path length (the bounces
+that hit a surface, the reference's path.rs:18-19 distribution), and
+while a device tape of utils/stats.py is open each closest-hit call adds
+its regular intersection tests (the lanes with t_max > 0: on a slab
+bounce, the slab's) and each NEE its shadow tests (the lanes whose shadow
+ray was traced) as device scalars: the reference's observed counters
+(scene.rs:9-20), with no host sync. ``tests_per_lane`` gives the
+dispatched bounds beside them.
 """
 from __future__ import annotations
 
@@ -54,7 +61,11 @@ from ..ops import compact as C
 from ..scene import lightdistrib as LD
 from ..scene import lights as L
 from ..scene.tables import scene_intersect_passthrough
+from ..utils import stats as S
 from .common import estimate_direct_light_side
+
+REGULAR_TESTS = "Intersections/Regular ray intersection tests (observed)"
+SHADOW_TESTS = "Intersections/Shadow ray intersection tests (observed)"
 
 # wavefronts at least this wide may run the interior bounces on a slab
 PATH_COMPACT_MIN_B = 1 << 16
@@ -81,12 +92,13 @@ class _PathState:
     prev_pdf: torch.Tensor    # (B,) BSDF pdf of ray_d (solid angle)
     prev_spec: torch.Tensor   # (B,) bool: ray_d came from a delta lobe
     prev_p: torch.Tensor      # (B, 3) scattering point that spawned ray_d
+    path_len: torch.Tensor    # (B,) int32 bounces that hit a surface
 
 
 # state fields moved into and out of a slab (pixel and sample indices move
 # in besides, and come back unchanged)
 SLAB_FIELDS = ("ray_o", "ray_d", "ray_tmax", "L", "beta", "eta_scale",
-               "alive", "prev_pdf", "prev_spec", "prev_p")
+               "alive", "prev_pdf", "prev_spec", "prev_p", "path_len")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +114,16 @@ class PathIntegrator:
 
     def li(self, ctx, ray: Ray, lanes, sampler, dims):
         return self._run(ctx, ray, lanes, sampler, dims)
+
+    def li_aux(self, ctx, ray: Ray, lanes, sampler, dims):
+        """-> (radiance (B, 3), path length (B,) int32)."""
+        st = self._trace(ctx, ray, lanes, sampler, dims)
+        return st.L, st.path_len
+
+    def tests_per_lane(self):
+        """Intersection tests a camera ray dispatches at most: one closest
+        hit a bounce, one shadow ray a NEE (the JAX package's bounds)."""
+        return {"regular": self.max_depth, "shadow": self.max_depth - 1}
 
     def _pick_light(self, ctx, sampler, lanes, si, d_sel):
         """Light selection at the scattering point -> (light row, pmf):
@@ -125,6 +147,8 @@ class PathIntegrator:
     def _hit_and_emit(self, ctx, ray: Ray, st: _PathState, first: bool):
         """Closest hit and MIS-weighted emission -> (si, state)."""
         lt = ctx.lights
+        if S.counting():
+            S.device_count(REGULAR_TESTS, (ray.t_max > 0.0).sum())
         si = scene_intersect_passthrough(ctx.geom, ray,
                                          self.max_interface_skips)
         if first:
@@ -144,7 +168,8 @@ class PathIntegrator:
         if lt.has_infinite:
             le = le + self._escape(ctx, ray, st, si, first)
         alive = st.alive & si.valid & (si.material >= 0)
-        return si, dataclasses.replace(st, L=st.L + st.beta * le, alive=alive)
+        return si, dataclasses.replace(st, L=st.L + st.beta * le, alive=alive,
+                                       path_len=st.path_len + alive)
 
     def _escape(self, ctx, ray: Ray, st: _PathState, si, first: bool):
         """The infinite lights' radiance on the lanes whose ray escaped
@@ -173,8 +198,10 @@ class PathIntegrator:
         n_nonspec = B.num_matching(lobes, B.ALL & ~B.SPECULAR)
         lid, pmf = self._pick_light(ctx, sampler, lanes, si, d_sel)
         u_light = sampler.get_2d(lanes.pixel_idx, lanes.sample_idx, d_light)
-        ld = estimate_direct_light_side(ctx, self.mat_set, si, lobes, lid,
-                                        u_light, pmf)
+        ld, traced = estimate_direct_light_side(ctx, self.mat_set, si, lobes,
+                                                lid, u_light, pmf)
+        if S.counting():
+            S.device_count(SHADOW_TESTS, traced.sum())
         Lrad = st.L + torch.where((st.alive & (n_nonspec > 0))[:, None],
                                   st.beta * ld, 0.0)
 
@@ -211,7 +238,8 @@ class PathIntegrator:
                                beta)
         return _PathState(ray_o=ray.o, ray_d=ray.d, ray_tmax=t_max, L=Lrad,
                           beta=beta, eta_scale=eta_scale, alive=alive,
-                          prev_pdf=pdf, prev_spec=spec, prev_p=si.p)
+                          prev_pdf=pdf, prev_spec=spec, prev_p=si.p,
+                          path_len=st.path_len)
 
     @staticmethod
     def _initial_state(ray: Ray) -> _PathState:
@@ -228,7 +256,8 @@ class PathIntegrator:
             # prev_spec True: weight-1 emission on camera hits
             prev_pdf=ones, prev_spec=torch.ones(n, dtype=torch.bool,
                                                 device=dev),
-            prev_p=ray.o)
+            prev_p=ray.o,
+            path_len=torch.zeros(n, dtype=torch.int32, device=dev))
 
     def bounce0(self, ctx, ray: Ray, lanes, sampler, dims) -> _PathState:
         """Camera hit, emission and the bounce-0 scatter: the state whose
@@ -241,10 +270,14 @@ class PathIntegrator:
 
     def _run(self, ctx, ray: Ray, lanes, sampler, dims):
         """Radiance (B, 3) of the camera rays."""
+        return self._trace(ctx, ray, lanes, sampler, dims).L
+
+    def _trace(self, ctx, ray: Ray, lanes, sampler, dims):
+        """The final path state of the camera rays."""
         if self.max_depth == 1:
             _, st = self._hit_and_emit(ctx, ray, self._initial_state(ray),
                                        first=True)
-            return st.L
+            return st
         st = self.bounce0(ctx, ray, lanes, sampler, dims)
         # interior bounces 1..max_depth-2, dims laid out as the reference's
         # scanned body allocates them
@@ -257,7 +290,7 @@ class PathIntegrator:
         # final bounce: emission only
         r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
         _, st = self._hit_and_emit(ctx, r, st, first=False)
-        return st.L
+        return st
 
     def _bounces(self, ctx, sampler, lanes, st, base1, base2):
         for b in range(1, self.max_depth - 1):

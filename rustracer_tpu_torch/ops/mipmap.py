@@ -32,6 +32,10 @@ rows in grad mode: a quad row's corners are the very texels the stride-3
 addressing reaches), and the gradient lands in them. The lookup's
 coordinates (st, the width, the differentials) carry no gradient: one that
 requires grad raises NotImplementedError (ROADMAP item B12).
+
+While a render counts (utils/stats.py), each lookup adds its lane count to
+"Textures/Trilinear lookups" or "Textures/EWA lookups" (the reference's
+mipmap.rs:17-19 counters): the lanes it was called with, a host int.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import cuda
+from ..utils import stats as S
 
 WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP = 0, 1, 2
 # K17's modes
@@ -476,6 +481,8 @@ def _route(tx: Texels, mode, wrap, st, dst0=None, dst1=None, width=None,
     cuda.refuse_grad("a gradient through a texture lookup's coordinates "
                      "(st, its width or differentials)", (st, dst0, dst1,
                                                           width))
+    S.device_count("Textures/Trilinear lookups" if mode == TRILINEAR
+                   else "Textures/EWA lookups", st.shape[0])
     if torch.is_grad_enabled() and tx.texels.requires_grad:
         out = _MipmapLookup.apply(tx.texels, tx, mode, wrap, st, dst0, dst1,
                                   width, max_anisotropy)

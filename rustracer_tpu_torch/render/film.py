@@ -19,6 +19,13 @@ radiance's gradient is hand kernel K9 (csrc/film_bwd.cu), the gather of
 the film's gradient at the same taps, times the filter weights, through
 the VJP of the luminance clamp. ``wsum`` takes no gradient: it depends on
 ``p_film`` only.
+
+``add_samples_det`` is the splat of the checkpointed render, hand kernel
+K4d (csrc/film.cu): the same taps as K4, each pixel's sum taken in a fixed
+order (ascending lane) and added once, so that its bits do not depend on
+the order in which the card runs the taps. It takes the renderer's lanes
+(a contiguous run of the row-major pixels of ``get_sample_bounds``, one
+sample a lane) and raises for any other layout.
 """
 from __future__ import annotations
 
@@ -125,6 +132,15 @@ class Film:
                     & (fw > 0.0)
                 yield iy, ix, fw, ok
 
+    def _clamped(self, radiance):
+        """The radiance scaled down to ``max_sample_luminance``."""
+        if not np.isfinite(self.max_sample_luminance):
+            return radiance
+        lum = luminance(radiance)
+        m = self.max_sample_luminance
+        scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
+        return radiance * scale[:, None]
+
     def add_samples_plain(self, state: FilmState, p_film, radiance,
                           valid=None) -> FilmState:
         """Plain PyTorch version of K4: scatter-add of the filter taps, in
@@ -132,11 +148,7 @@ class Film:
         differentiates) when grad mode is on and the radiance or the state
         requires grad."""
         h, w = state.wsum.shape
-        if np.isfinite(self.max_sample_luminance):
-            lum = luminance(radiance)
-            m = self.max_sample_luminance
-            scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
-            radiance = radiance * scale[:, None]
+        radiance = self._clamped(radiance)
         rgb, wsum = state.rgb, state.wsum
         graph = torch.is_grad_enabled() and (radiance.requires_grad
                                              or rgb.requires_grad)
@@ -188,6 +200,125 @@ class Film:
             cuda.launch("film_add_samples", p_film, radiance, valid, n,
                         state.rgb, state.wsum, h, w, x0, y0, rx, ry, nx, ny,
                         self.max_sample_luminance, kind, *fp)
+        return state
+
+    def det_window(self):
+        """-> (olx, ohx, oly, ohy): the offsets of a tap's pixel from the
+        pixel P of its sample (P <= p_film <= P + 1 on each axis), widened
+        by one on each side against rounding; every tap lies within."""
+        nx, ny = self._footprint()
+        rx, ry = self.filter.radius
+        return (math.ceil(-0.5 - rx) - 1, math.ceil(0.5 - rx) + nx,
+                math.ceil(-0.5 - ry) - 1, math.ceil(0.5 - ry) + ny)
+
+    def lane_pixels(self, first: int, n: int, device):
+        """The pixel (x, y) (B,) int64 each and the row-major index in the
+        sample bounds of lanes [first, first + n) of the renderer's
+        layout."""
+        sx0, sy0, sx1, _ = self.get_sample_bounds()
+        g = first + torch.arange(n, device=device)
+        return sx0 + g % (sx1 - sx0), sy0 + g // (sx1 - sx0), g
+
+    def check_det_layout(self, p_film, valid, first: int):
+        """Raise unless every valid lane of ``p_film`` lies in its pixel of
+        the renderer's layout from lane ``first`` (one host sync)."""
+        sx0, sy0, sx1, sy1 = self.get_sample_bounds()
+        n = p_film.shape[0]
+        lx, ly, g = self.lane_pixels(first, n, p_film.device)
+        ok = (g < (sx1 - sx0) * (sy1 - sy0)) \
+            & (p_film[:, 0] >= lx) & (p_film[:, 0] <= lx + 1) \
+            & (p_film[:, 1] >= ly) & (p_film[:, 1] <= ly + 1)
+        if valid is not None:
+            ok = ok | ~valid
+        if not bool(ok.all()):
+            raise ValueError(
+                "add_samples_det: the samples are not the renderer's lanes "
+                f"from lane {first} (row-major pixels of the sample bounds "
+                f"{(sx0, sy0, sx1, sy1)}, each sample inside its pixel)")
+
+    def add_samples_det_plain(self, state: FilmState, p_film, radiance,
+                              valid=None, first: int = 0) -> FilmState:
+        """Plain PyTorch version of K4d, in place: each film pixel's taps
+        summed in ascending lane order from 0 (one ``index_put_`` pass per
+        offset of the window, from the last offset to the first: a pass's
+        targets are distinct lanes' pixels), the sums added once."""
+        h, w = state.wsum.shape
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        rx, ry = self.filter.radius
+        nx, ny = self._footprint()
+        radiance = self._clamped(radiance)
+        lx, ly, _ = self.lane_pixels(first, p_film.shape[0], p_film.device)
+        lo_x = torch.ceil(p_film[:, 0] - 0.5 - rx).long()
+        lo_y = torch.ceil(p_film[:, 1] - 0.5 - ry).long()
+        lane_ok = torch.ones_like(lx, dtype=torch.bool) if valid is None \
+            else valid
+        tmp = torch.zeros((h, w, 4), dtype=torch.float32,
+                          device=p_film.device)
+        olx, ohx, oly, ohy = self.det_window()
+        for oy in range(ohy, oly - 1, -1):
+            for ox in range(ohx, olx - 1, -1):
+                tx, ty = lx + ox, ly + oy
+                fw = self.filter.evaluate(tx.float() + 0.5 - p_film[:, 0],
+                                          ty.float() + 0.5 - p_film[:, 1])
+                ix, iy = tx - x0, ty - y0
+                ok = lane_ok & (tx - lo_x >= 0) & (tx - lo_x < nx) \
+                    & (ty - lo_y >= 0) & (ty - lo_y < ny) & (ix >= 0) \
+                    & (ix < w) & (iy >= 0) & (iy < h) & (fw > 0.0)
+                vals = torch.cat([fw[:, None] * radiance, fw[:, None]], -1)
+                tmp.index_put_((iy[ok], ix[ok]), vals[ok], accumulate=True)
+        state.rgb.add_(tmp[..., :3])
+        state.wsum.add_(tmp[..., 3])
+        return state
+
+    def add_samples_det(self, state: FilmState, p_film, radiance,
+                        valid=None, first: int = 0) -> FilmState:
+        """Splat the renderer's lanes [first, first + n) (p_film (B, 2),
+        radiance (B, 3), valid (B,) bool or None) into ``state`` in place,
+        each pixel's sum in a fixed order: the same bits on every run. CPU
+        tensors take the plain version, CUDA tensors launch K4d (given a
+        state of ``init_state``). Raises for lanes outside that layout."""
+        self.check_det_layout(p_film, valid, first)
+        if not cuda.use_kernel(p_film):
+            return self.add_samples_det_plain(state, p_film, radiance, valid,
+                                              first)
+        return self._add_samples_det(state, p_film, radiance, valid, first)
+
+    def det_rows(self, first: int, n: int):
+        """-> (row0, rows): the film rows the taps of lanes [first, first +
+        n) can reach."""
+        w, h = self.cropped_resolution
+        sx0, sy0, sx1, sy1 = self.get_sample_bounds()
+        _, y0, _, _ = self.cropped_pixel_bounds
+        sw, sh = sx1 - sx0, sy1 - sy0
+        _, _, oly, ohy = self.det_window()
+        ga = min(first // sw, sh - 1)
+        gb = min((first + max(n, 1) - 1) // sw, sh - 1)
+        row0 = max(sy0 + ga + oly - y0, 0)
+        row1 = min(sy0 + gb + ohy - y0 + 1, h)
+        return row0, max(row1 - row0, 0)
+
+    def _add_samples_det(self, state, p_film, radiance, valid, first):
+        """K4d's launch (``add_samples_det`` without the layout check)."""
+        n = p_film.shape[0]
+        dev = p_film.device
+        h, w = state.wsum.shape
+        cuda.check(p_film, "p_film", torch.float32, (n, 2), dev, align=8)
+        cuda.check(radiance, "radiance", torch.float32, (n, 3), dev)
+        if valid is not None:
+            cuda.check(valid, "valid", torch.bool, (n,), dev)
+        _check_film(state, h, w, dev)
+        x0, y0, _, _ = self.cropped_pixel_bounds
+        sx0, sy0, sx1, sy1 = self.get_sample_bounds()
+        rx, ry = self.filter.radius
+        nx, ny = self._footprint()
+        kind, fp = self.filter.kernel_params()
+        row0, rows = self.det_rows(first, n)
+        if n and rows:
+            cuda.launch("film_add_samples_det", p_film, radiance, valid, n,
+                        state.rgb, state.wsum, h, w, x0, y0, rx, ry, nx, ny,
+                        self.max_sample_luminance, kind, *fp, first, sx0,
+                        sy0, sx1 - sx0, sy1 - sy0, *self.det_window(), row0,
+                        rows)
         return state
 
     def clamp_vjp(self, radiance, g):

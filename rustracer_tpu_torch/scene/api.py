@@ -24,11 +24,11 @@ object shared by its instances, its quadrics and emissive meshes cloned
 per instance); ``LightSource`` ``"point"``, ``"distant"`` and
 ``"infinite"`` (a latitude-longitude map from ``mapname``, several such
 lights summed) and ``AreaLightSource "diffuse"`` on triangle meshes and
-quadrics. The other integrators (ROADMAP.md section A, item 16) and the
-``random`` sampler (item 17) raise NotImplementedError naming the feature
-and the item; nothing is substituted. The reference's own unimplemented shapes
-keep its error, and what it only warns about (an unknown material,
-texture class, light or camera) it still only warns about.
+quadrics; the path, direct-lighting, Whitted, ambient-occlusion and
+normal integrators; the (0,2)-sequence and random samplers. The
+reference's own unimplemented shapes keep its error, and what it only
+warns about (an unknown material, texture class, light or camera) it
+still only warns about.
 """
 from __future__ import annotations
 
@@ -57,17 +57,8 @@ log = logging.getLogger(__name__)
 
 STATE_UNINITIALIZED, STATE_OPTIONS, STATE_WORLD = 0, 1, 2
 
-# the ROADMAP.md section A item that ports what this module refuses
-RUN_SURFACE = 17
-
-
 class ApiError(Exception):
     pass
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"section A, item {item})")
 
 
 class TextureRegistry:

@@ -19,6 +19,9 @@ texels, an autograd Function whose backward is hand kernel K10
 are float64 Python numbers in the reference, rounded to float32 where they
 meet float32 tensors (JAX's weak typing); ``TAP_WEIGHTS32`` and ``WSUM32``
 are those roundings.
+
+While a render counts (utils/stats.py), each lookup adds its lane count to
+"Textures/EWA lookups" (the reference's mipmap.rs:17-19 counter).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from .. import cuda
 from ..ops.mipmap import (TAP_WEIGHTS32, TAPS, WRAP_BLACK, WRAP_REPEAT,
                           WSUM, WSUM32)
+from ..utils import stats as S
 
 MAX_ANISOTROPY = 8.0
 
@@ -277,6 +281,7 @@ def atlas_lookup_ewa(texels, meta, levels, regs, reg, si, quad=False):
     mode on, a uv or differential that requires grad raises (ROADMAP item
     B12)."""
     cuda.refuse_grad(UV_GRAD, [getattr(si, f) for f in SI_FIELDS])
+    S.device_count("Textures/EWA lookups", reg.shape[0])
     if not cuda.use_kernel(reg):
         return atlas_lookup_ewa_plain(texels, meta, levels, regs, reg, si,
                                       quad)

@@ -22,6 +22,16 @@ strategy and the lights' sample counts), Whitted, ambient-occlusion and
 normal integrators. The
 reference's quirks stay: the film's ``rt-`` filename prefix and the crop
 window's PBRT order [x0 x1 y0 y1].
+
+The build adds the reference's scene counters to utils/stats.py (its
+_report_build_stats): triangles, quadrics, lights, materials, the memory
+of the meshes, the film and the texture pyramids, and, where the JAX
+package builds a BVH (more than 8 primitives, or instances; the reference
+tests fewer one by one, and the port's tree of such a scene is one leaf
+standing for that list), the port's 16-wide tree under names of its own,
+since the JAX package's BVH/ entries count its binary tree: the 16-wide
+interior nodes (one octant copy each), the 8-triangle leaf records, the
+triangles per leaf record and the table's bytes.
 """
 from __future__ import annotations
 
@@ -45,10 +55,10 @@ from ..render.film import Film
 from ..render.filters import make_filter
 from ..render.imageio import read_image
 from ..render.renderer import RenderConfig, RenderContext, Renderer
-from ..render.sampler import SamplerConfig
+from ..render.sampler import SEQUENCE_KINDS, SamplerConfig
 from ..scenes import textures_on
+from ..utils import stats as S
 from ..utils.stats import time_phase
-from .api import RUN_SURFACE, not_ported
 from .atlas import build_atlas_meta
 from .lightdistrib import build_spatial_grid
 from .lights import LIGHT_AREA, make_lights
@@ -79,15 +89,29 @@ class SceneBundle:
                              textures=self.textures,
                              light_grid=self.light_grid)
 
-    def renderer(self, max_lanes=1 << 16) -> Renderer:
-        return Renderer(self.integrator.li, self.camera, self.film,
-                        self.sampler, RenderConfig(max_lanes=max_lanes),
-                        device=self.device)
+    def renderer(self, max_lanes=1 << 16, progress=False) -> Renderer:
+        """The scene's Renderer: the integrator's ``li_aux`` where it has
+        one, so that the path lengths are counted, and its dispatched
+        test bounds."""
+        li = getattr(self.integrator, "li_aux", None) or self.integrator.li
+        tests = getattr(self.integrator, "tests_per_lane", None)
+        return Renderer(li, self.camera, self.film, self.sampler,
+                        RenderConfig(max_lanes=max_lanes,
+                                     report_progress=progress),
+                        device=self.device,
+                        tests_per_lane=tests() if tests else None)
 
-    def render(self, max_lanes=1 << 16, sample_stop: Optional[int] = None):
+    def render(self, progress=False, max_lanes=1 << 16, checkpoint=None,
+               checkpoint_every=8, sample_stop: Optional[int] = None):
         """Samples [0, sample_stop) (all by default) -> (H, W, 3) linear
-        RGB on the bundle's device."""
-        r = self.renderer(max_lanes)
+        RGB on the bundle's device; with ``checkpoint`` a path, the
+        checkpointed render (resumed from the file if it exists, a
+        snapshot every ``checkpoint_every`` samples, the file removed at
+        the end; all samples)."""
+        r = self.renderer(max_lanes, progress)
+        if checkpoint:
+            return r.render_checkpointed(self.context(), checkpoint,
+                                         every_spp=checkpoint_every)
         return self.film.to_image(r.render_state(self.context(),
                                                  sample_stop=sample_stop))
 
@@ -354,15 +378,16 @@ def _camera(ro, res):
 
 
 def _sampler(ro, quick):
+    """The (0,2)-sequence sampler (16 spp by default) or the random one
+    (4); any other name warns and takes the (0,2)-sequence."""
     sp, name = ro.sampler_params, ro.sampler_name
-    if name == "random":
-        raise not_ported(f"Sampler {name!r}", RUN_SURFACE)
-    if name not in ("02sequence", "lowdiscrepancy", "zerotwosequence"):
+    kind = "random" if name == "random" else "02sequence"
+    if name != "random" and name not in SEQUENCE_KINDS:
         log.warning("sampler %r unsupported; using 02sequence", name)
-    spp = sp.find_one_int("pixelsamples", 16)
+    spp = sp.find_one_int("pixelsamples", 4 if kind == "random" else 16)
     if quick:
         spp = max(1, spp // 4)   # --quick: spp / 4
-    return SamplerConfig(kind="02sequence", spp=spp)
+    return SamplerConfig(kind=kind, spp=spp)
 
 
 def _integrator(ro, ms, lights, light_rows, world_lo, world_hi):
@@ -436,9 +461,44 @@ def build_bundle(api, device="cuda") -> SceneBundle:
 
     integ, light_grid = _integrator(ro, ms, lights, light_rows, world_lo,
                                     world_hi)
+    _report_build_stats(ro, geom, lights, ms, film, textures, tris, bvh)
     return SceneBundle(
         geom=geom, lights=lights, material_set=ms,
         textures=textures, camera=camera, film=film,
         sampler=sampler, integrator=integ, integrator_name=iname,
         filename=film.filename, light_grid=light_grid, device=dev,
         world_bounds=(world_lo, world_hi))
+
+
+def _report_build_stats(ro, geom, lights, ms, film, textures, tris, bvh):
+    """The scene-build counters (the JAX package's bundle.py
+    _report_build_stats; the reference's bvh/mod.rs:19-27, mesh.rs:21-23,
+    film.rs:19, mipmap.rs:17-19 and scene.rs counts)."""
+    n_tris = int(geom.n_triangles) if tris is not None else 0
+    S.counter_add("Scene/Triangles", n_tris)
+    S.counter_add("Scene/Quadric shapes", len(ro.quadrics))
+    S.counter_add("Scene/Lights", int(lights.n_lights))
+    S.counter_add("Scene/Materials", len(ms.materials))
+    if tris is not None:
+        S.memory_add("Memory/Triangle meshes", sum(
+            tris[k].nbytes for k in ("tv_p", "tv_n", "tv_uv", "tv_s",
+                                     "t_idx")))
+    if bvh is not None and (len(ro.quadrics) + n_tris > 8
+                            or ro.instance_list):
+        table = np.asarray(bvh["bvh16_table"])
+        tag = table[:, 0].view(np.int32)
+        leaf = tag < 0
+        n_leaf = int(leaf.sum())
+        S.counter_add("BVH/16-wide interior nodes",
+                      int(((tag >= 1) & (tag <= 16)).sum()) // 8)
+        S.counter_add("BVH/16-wide leaf records", n_leaf)
+        S.ratio_report("BVH/Triangles per 16-wide leaf",
+                       int(-tag[leaf].sum()), n_leaf)
+        S.memory_add("Memory/BVH tree", sum(
+            np.asarray(v).nbytes for v in bvh.values()
+            if isinstance(v, np.ndarray)))
+    xr, yr = film.full_resolution
+    S.memory_add("Memory/Film pixels", xr * yr * 4 * 4)
+    for pyr in textures.get("images", []):
+        S.memory_add("Memory/Texture MIP maps",
+                     sum(lv.numel() * lv.element_size() for lv in pyr))

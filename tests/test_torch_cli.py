@@ -5,10 +5,13 @@ testball-glass prints its phases and launches; ``scenes/simple.pbrt``
 (spheres and a disk alone: no triangle, a point light and a disk light)
 renders at 1 spp (about 25 s); scenes with instances and with alpha and
 shadow-alpha cut-outs render at 1 spp under the middle split and the
-hlbvh name; a scene with a feature the port does not render (the Whitted
-integrator, the random sampler) exits non-zero naming the feature; the
-flags that are not ported exit non-zero saying so."""
+hlbvh name; scenes with the Whitted integrator and the random sampler,
+both refused once, render; ``--checkpoint`` renders the image of a run
+without it and leaves no file, and ``--profile`` writes a Chrome trace;
+the counter table follows the phase timings."""
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -71,39 +74,41 @@ def test_cpu_render_of_a_scene_of_quadrics(tmp_path):
     assert img.mean() > 1e-2
 
 
-# the options each case adds, and what a refusal's message names: the
-# random sampler (ROADMAP.md section A, item 17) is refused; the Whitted
-# integrator, refused until item 16 ported it, renders
+# the options of each case, refused once: the Whitted integrator until
+# ROADMAP.md section A item 16 ported it, the random sampler until item 17
 UNPORTED = {
     "whitted": ('Integrator "whitted"', "'whitted'", 16),
     "random": ('Sampler "random"', "'random'", 17),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unsupported_scene_exits_with_the_feature(tmp_path, case):
-    """The random sampler exits non-zero naming itself and its item; the
-    Whitted integrator's scene (a point light added) renders a finite
-    image."""
-    options, feature, item = UNPORTED[case]
-    scene = tmp_path / f"{case}.pbrt"
+def small_scene(tmp_path, options="", name="s"):
+    """An 8 x 8 scene file of one triangle under a point light."""
+    scene = tmp_path / f"{name}.pbrt"
     scene.write_text(
         'Camera "perspective"\nFilm "image" "integer xresolution" [8] '
         '"integer yresolution" [8]\n' + options + '\nWorldBegin\n'
         'LightSource "point" "rgb I" [2 2 2]\n'
         'Shape "trianglemesh" "integer indices" [0 1 2] '
         '"point P" [0 0 1 1 0 1 0 1 1]\nWorldEnd\n')
+    return str(scene)
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unsupported_scene_exits_with_the_feature(tmp_path, case):
+    """The Whitted integrator's scene and the random sampler's (a point
+    light added) render a finite image; the random sampler's table counts
+    its 4 default samples a pixel."""
+    options, feature, item = UNPORTED[case]
     out = str(tmp_path / "x.exr")
-    proc = run_cli(str(scene), "--cpu", "-o", out)
-    if item == 16:
-        assert proc.returncode == 0, proc.stdout + proc.stderr
-        img = read_image(out)
-        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
-        assert img.mean() > 1e-3
-        return
-    assert proc.returncode != 0
-    assert feature in proc.stderr and "not ported yet" in proc.stderr
-    assert f"item {item}" in proc.stderr
+    proc = run_cli(small_scene(tmp_path, options, case), "--cpu", "-o", out)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    img = read_image(out)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 1e-3
+    if item == 17:
+        assert re.search(rf"^ +Camera rays traced +{8 * 8 * 4}$",
+                         proc.stdout, re.M), proc.stdout
 
 
 _CARD = ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" '
@@ -149,6 +154,30 @@ def test_cpu_render_of_a_geometry_scene(tmp_path, case):
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "ck.npz"],
                                   ["--profile", "trace"]])
-def test_unported_flags_exit(flag):
-    proc = run_cli("scenes/cornell-box.pbrt", "--cpu", *flag)
-    assert proc.returncode != 0 and "not ported (A17)" in proc.stderr
+def test_unported_flags_exit(tmp_path, flag):
+    """The flags refused until the run surface was ported: a 2-spp
+    ``--checkpoint`` run written every sample gives the image of the run
+    without the flag and leaves no checkpoint; ``--profile`` writes a JSON
+    trace with ``traceEvents`` into its directory. Both print the counter
+    table."""
+    scene = small_scene(tmp_path)
+    out = str(tmp_path / "x.exr")
+    arg = str(tmp_path / flag[1])
+    extra = ["--checkpoint-every", "1"] if flag[0] == "--checkpoint" else []
+    proc = run_cli(scene, "--cpu", "--spp", "2", "-o", out, flag[0], arg,
+                   *extra)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Statistics:" in proc.stdout and "Camera rays traced" in \
+        proc.stdout
+    if flag[0] == "--checkpoint":
+        assert not os.path.exists(arg)
+        ref = str(tmp_path / "ref.exr")
+        assert run_cli(scene, "--cpu", "--spp", "2", "-o", ref).returncode \
+            == 0
+        np.testing.assert_array_equal(read_image(out), read_image(ref))
+        return
+    traces = [f for f in os.listdir(arg) if f.endswith(".json")]
+    assert len(traces) == 1, os.listdir(arg)
+    with open(os.path.join(arg, traces[0])) as f:
+        assert "traceEvents" in json.load(f)
+    assert f"trace to {os.path.join(arg, traces[0])}" in proc.stdout

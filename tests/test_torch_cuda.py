@@ -50,7 +50,10 @@ lanes (a mip level, an octave count or a bisection step flipped by a
 last-bit difference); the three scenes of tools/texture_work.py within
 the golden-image tolerance of the all-plain render. K20 (K17's texel
 gradient) within 1e-5 of the largest sum of its terms' magnitudes
-(atomic adds in another order)."""
+(atomic adds in another order). The run surface: K3r (the random
+sampler) bit for bit; K4d (the deterministic splat) bit for bit with its
+plain version (the Gaussian within 1e-5 relative) and with itself on a
+second run."""
 import contextlib
 import dataclasses
 from types import SimpleNamespace
@@ -72,7 +75,7 @@ from rustracer_tpu_torch.ops.mipmap import (WRAP_BLACK, WRAP_CLAMP,
 from rustracer_tpu_torch.render.film import Film, FilmState
 from rustracer_tpu_torch.render.filters import Filter
 from rustracer_tpu_torch.render.renderer import Lanes, RenderConfig, Renderer
-from rustracer_tpu_torch.render.sampler import DimAllocator
+from rustracer_tpu_torch.render.sampler import DimAllocator, SamplerConfig
 from rustracer_tpu_torch.scene import atlas as A
 from rustracer_tpu_torch.scene.tables import (build_interaction, make_geometry,
                                              scene_intersect)
@@ -1024,6 +1027,80 @@ def test_film_filters_match_plain(dev, kind, case):
     if kind == "triangle":
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_random_sampler_bit_equal(dev):
+    """K3r (the random sampler's kernels) bit for bit with their plain
+    versions on seeded uint32 pixel and sample ids, one launch a call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    pix = torch.randint(0, 1 << 32, ((1 << 16) + 7,), generator=gen,
+                        device=dev, dtype=torch.int64)
+    smp = torch.randint(0, 1 << 32, pix.shape, generator=gen, device=dev,
+                        dtype=torch.int64)
+    s = SamplerConfig(kind="random", spp=3, seed=11)
+    for name, fn in (("sample_random_1d", lambda d: s.get_1d(pix, smp, d)),
+                     ("sample_random_2d", lambda d: s.get_2d(pix, smp, d))):
+        for dim in (0, 5, (1 << 32) - 1):
+            n0 = K.LAUNCHES[name]
+            out = fn(dim)
+            assert K.LAUNCHES[name] == n0 + 1
+            assert torch.equal(out.view(torch.int32),
+                               _plain(lambda: fn(dim)).view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["box", "triangle", "mitchell",
+                                  "gaussian"])
+def test_det_splat_matches_plain(dev, kind):
+    """K4d on two tiles of a renderer's lanes (the second starting
+    mid-row and padded past the sample bounds with invalid lanes, as the
+    renderer pads; some lanes invalid, a crop, the luminance clamp on about
+    half the lanes) against
+    its plain version: bit for bit (its sums in the plain version's order;
+    within 1e-5 relative for the Gaussian, whose plain exp rounds
+    otherwise on the card, as test_film_filters_match_plain says), the
+    same bits on a second launch, and a sample outside its lane's pixel
+    refused."""
+    filt = {"box": Filter("box", 0.5, 0.5), "triangle":
+            Filter("triangle", 2.0, 2.0), "mitchell": Filter("mitchell", 2.0,
+                                                           2.0),
+            "gaussian": Filter("gaussian", 2.0, 1.5, alpha=3.0)}[kind]
+    film = Film(full_resolution=(300, 200), filter=filt,
+                crop_window=(0.1, 0.05, 0.9, 0.95), max_sample_luminance=4.0)
+    sx0, sy0, sx1, sy1 = film.get_sample_bounds()
+    total = (sx1 - sx0) * (sy1 - sy0)
+    runs = []
+    for _ in range(2):
+        out, ref = film.init_state(dev), film.init_state(dev)
+        for first, n in ((0, 20000), (20000, total - 20000 + 137)):
+            lx, ly, lane = film.lane_pixels(first, n, dev)
+            g = torch.Generator(device=dev)
+            g.manual_seed(first)
+            p_film = torch.stack([lx, ly], -1).float() + torch.rand(
+                (n, 2), generator=g, device=dev)
+            # about half the lanes above the clamp's luminance of 4
+            rad = torch.rand((n, 3), generator=g, device=dev) * 8.0
+            valid = (torch.rand(n, generator=g, device=dev) > 0.1) \
+                & (lane < total)
+            clamped = (film._clamped(rad) != rad).any(-1).float().mean()
+            assert 0.2 < clamped < 0.8
+            n0 = K.LAUNCHES["film_add_samples_det"]
+            film.add_samples_det(out, p_film, rad, valid, first)
+            assert K.LAUNCHES["film_add_samples_det"] == n0 + 1
+            _plain(lambda: film.add_samples_det(ref, p_film, rad, valid,
+                                                first))
+        runs.append(out)
+        for a, b in zip(out[:2], ref[:2]):
+            if kind == "gaussian":
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (runs[0].wsum > 0).float().mean() > 0.5
+    assert torch.equal(runs[0].rgb.view(torch.int32),
+                       runs[1].rgb.view(torch.int32))
+    with pytest.raises(ValueError, match="renderer's lanes"):
+        film.add_samples_det(film.init_state(dev), p_film.flip(0), rad,
+                             None, first)
 
 
 @pytest.fixture(scope="module")

@@ -477,15 +477,19 @@ def test_estimate_direct_toward_delta_and_infinite(scenes):
     jsi = jax_intersect(jb.geom, JRay(o=jnp.asarray(o), d=jnp.asarray(d),
                                       t_max=jnp.full(n, np.inf)))
     jsi, jlobes = jb.material_set.shade(jsi, jb.context())
-    ref, _ = jax_estimate(jb.context(), jb.material_set, jsi, jlobes,
-                          jnp.asarray(lid), jnp.asarray(u), jnp.asarray(pmf))
+    ref, n_shadow = jax_estimate(jb.context(), jb.material_set, jsi,
+                                 jlobes, jnp.asarray(lid), jnp.asarray(u),
+                                 jnp.asarray(pmf))
     ctx = RenderContext(geom=pb.geom, lights=clt, textures=pb.textures)
     si = scene_intersect(pb.geom, Ray(o=_t(o), d=_t(d),
                                       t_max=torch.full((n,), np.inf)))
     si, lobes = pb.material_set.shade(si, ctx)
-    got = estimate_direct_light_side(ctx, pb.material_set, si, lobes,
-                                     _t(lid), _t(u), _t(pmf)).numpy()
+    got, traced = estimate_direct_light_side(ctx, pb.material_set, si,
+                                             lobes, _t(lid), _t(u), _t(pmf))
+    got = got.numpy()
     ref = np.asarray(ref)
+    # the shadow rays traced: the JAX package's observed count
+    assert int(traced.sum()) == int(n_shadow)
     assert (got.sum(-1) > 0).mean() > 0.3
     lit = np.abs(got - ref).max(-1) <= 1e-5 * np.abs(ref).max(-1) + 1e-7
     # a lane whose shadow ray grazes an occluder may land apart (XLA's

@@ -1,5 +1,5 @@
-"""Port parity: the integer hash, the (0,2) sequence and the sampler (plain
-version of kernel K3) against the JAX package.
+"""Port parity: the integer hash, the (0,2) sequence and the samplers (plain
+versions of kernels K3 and K3r) against the JAX package.
 
 Tolerance: bit-equal (uint32 arithmetic and one rounding uint32 -> float32)."""
 import jax.numpy as jnp
@@ -77,5 +77,27 @@ def test_sampler_dims_bit_equal(seed, spp):
 
 
 def test_random_sampler_refused():
-    with pytest.raises(NotImplementedError):
-        SamplerConfig(kind="random")
+    """The random sampler, refused until the run surface was ported:
+    ``get_1d``, ``get_2d`` and the camera sample bit for bit with the JAX
+    package's SamplerConfig(kind="random") (plain version of K3r), its spp
+    not rounded (3 stays 3); an unknown kind raises."""
+    cfg, jcfg = SamplerConfig(kind="random", spp=3, seed=7), \
+        JaxSampler(kind="random", spp=3, seed=7)
+    assert cfg.spp == jcfg.spp == 3
+    pix, smp = _u32(6, 4096), _u32(7, 4096)
+    for dim in (0, 1, 5, 2 ** 31):
+        np.testing.assert_array_equal(
+            _bits(cfg.get_1d(_t(pix), _t(smp), dim).numpy()),
+            _bits(jcfg.get_1d(jnp.asarray(pix), jnp.asarray(smp), dim)))
+        np.testing.assert_array_equal(
+            _bits(cfg.get_2d(_t(pix), _t(smp), dim).numpy()),
+            _bits(jcfg.get_2d(jnp.asarray(pix), jnp.asarray(smp), dim)))
+    xy = np.random.default_rng(8).integers(0, 512, (4096, 2)) \
+        .astype(np.float32)
+    out = cfg.get_camera_sample(torch.as_tensor(xy), _t(pix), _t(smp))
+    ref = jcfg.get_camera_sample(jnp.asarray(xy), jnp.asarray(pix),
+                                 jnp.asarray(smp))
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+    with pytest.raises(ValueError):
+        SamplerConfig(kind="halton")

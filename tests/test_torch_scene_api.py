@@ -218,8 +218,9 @@ WorldEnd
 # what the port refused until the other integrators were ported (ROADMAP
 # A16): every light under the direct and Whitted integrators
 # (estimate_direct, with the lights' pdf_li and infinite_le_one), and each
-# integrator; each of these renders now, as the JAX package renders it.
-# The random sampler (item 17) is still refused, naming itself
+# integrator; and the random sampler, refused until the run surface was
+# ported (A17), under the path integrator (depth 3) with a point light;
+# each of these renders now, as the JAX package renders it
 REFUSED = {
     "sphere": ('Integrator "directlighting"',
                'AreaLightSource "diffuse"\nShape "sphere"',
@@ -237,7 +238,8 @@ REFUSED = {
                        "'directlighting'", 16),
     "ao": ('Integrator "ao"', '', "'ao'", 16),
     "normal": ('Integrator "normal"', '', "'normal'", 16),
-    "random sampler": ('Sampler "random"', '', "'random'", 17),
+    "random sampler": ('Sampler "random"\nIntegrator "path" "integer '
+                       'maxdepth" [3]', 'LightSource "point"', "'path'", 17),
 }
 
 
@@ -397,9 +399,9 @@ def _li_both(pb, jb):
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_directive_raises_naming_itself(case):
-    """The random sampler raises naming itself and its ROADMAP item; each
-    other case renders (8^2, 16 spp, finite) under the integrator it names,
-    and sample 0's radiance on every lane equals the JAX package's
+    """Each case renders (8^2, the sampler's spp: 16, or the random
+    sampler's 4, finite) under the integrator it names, and sample 0's
+    radiance on every lane equals the JAX package's
     integrator run op by op on the same camera rays within 1e-5 (absolute
     and relative). Op by op, not the JAX package's compiled render: in the
     sphere case the camera sits inside the sphere light, and where a hit's
@@ -408,14 +410,10 @@ def test_unported_directive_raises_naming_itself(case):
     than its own ops and the port do, and so takes other lanes there."""
     options, world, what, item = REFUSED[case]
     text = _HEAD.format(options=options, world=world)
-    if item == 17:
-        with pytest.raises(NotImplementedError) as e:
-            parse_scene_string(text, device="cpu")
-        msg = str(e.value)
-        assert what in msg and f"item {item}" in msg, msg
-        return
     pb = parse_scene_string(text, device="cpu").scene
     assert pb.integrator_name == what.strip("'")
+    if item == 17:
+        assert (pb.sampler.kind, pb.sampler.spp) == ("random", 4)
     img = pb.render().numpy()
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     li, ref = _li_both(pb, jax_parse_string(text).scene)

@@ -403,9 +403,9 @@ def test_capture_step_records_the_slab(monkeypatch):
     sel = order[:w].long()
     for f, s, g in zip(fields, subs, full):
         assert torch.equal(s, f[sel]) and torch.equal(g[sel], f[sel])
-    # a lane's order id, and its 90 bytes of fields (eta_scale's 4
-    # among them) read and written once
-    assert B.k7_moved(fields, w) == w * (4 + 2 * 90)
+    # a lane's order id, and its 94 bytes of fields (eta_scale's 4 and
+    # path_len's 4 among them) read and written once
+    assert B.k7_moved(fields, w) == w * (4 + 2 * 94)
 
 
 SASS = """
