@@ -256,7 +256,28 @@ Phases, each printing its lines:
      step and the glass steps, K5 rows on the dragon and the textured
      testball, K15, K16 and the rows of K12's light branches; each row's
      ms_by: "profiler", "queued" or, for K8 at the tool's shape,
-     "events"), the card line, and the result line.
+     "events"), the card line, and the result line;
+ 26. (run before phase 25 prints) the sharded render and train step over
+     torch.distributed (parallel/mesh.py; parallel/launch.py spawns the
+     ranks, each a process that builds the textured dragon and runs
+     parallel/ranks.py mesh_job): (a) NCCL, one rank a card over every
+     card of the machine, render_sharded of the textured dragon at
+     1024^2, samples [0, 8), global tiles of 2^18 x data lanes, its image
+     within rtol 2e-5, atol 2e-6 of phase 6's (tests/test_mesh.py:78),
+     the all-reduce of the 16 MiB film timed (CUDA events), rank 0's
+     forward kernels launched; (b) gloo named explicitly, 4 ranks (data
+     2 x sample 2) on the one card: the same render in global tiles of
+     2^19 lanes (2^18-lane wavefronts a rank), held likewise, then one
+     sharded train step (samples 0 and 1, lr 0.1, the target phase 11's)
+     whose loss is within 2e-5 relative and whose summed gradients are
+     within ||d|| / ||g|| <= 1e-3, every element within 1e-2 of max |g|,
+     of one device's over the same lanes and samples; rank 0's launches
+     of K1, K4, K5, K8 (render and step) and K9-K11 (step), each rank's
+     peak memory, the film's and the gradient buffer's all-reduce times;
+     camera rays/s of four processes sharing one card (no scaling); every
+     rank's image, loss and gradients rank 0's bits; (c) python -m
+     rustracer_tpu_torch.parallel.dryrun 4 --backend gloo in a
+     subprocess, exit 0.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
 lights kernel; only phase 20's scenes and phase 22's launch K17 (phase 22
@@ -272,7 +293,8 @@ of phase 18, each light scene's parse and render and the bathroom's
 full-width render and step of phase 19, each texture scene's render and
 step of phase 20, each geometry render and step of phase 21, the train
 steps of phase 22, each integrator's render of phase 23, each
-checkpointed render run through of phase 24) is
+checkpointed render run through of phase 24, each sharded render and
+train step of phase 26 on rank 0's process) is
 run with the launch counts set to 0 just before it and read just after;
 the CLI's subprocess prints its own. "[time]" lines give the seconds
 run() has taken after each group of phases.
@@ -3790,9 +3812,177 @@ def run_surface_cli(results):
             "the CLI's 8-spp render of the Cornell box with Sampler random "
             "(phase 24)"))
 
+# phase 26: a collective's timeout (s), the dry run's ranks and its limit
+SHARD_TIMEOUT = 300
+DRYRUN_RANKS = 4
+
+
+def same_on_every_rank(label, out):
+    """Raise unless every rank of a mesh_job returned rank 0's image, loss
+    and gradients, bit for bit."""
+    for rank, res in enumerate(out[1:], 1):
+        for task, task0 in zip(res, out[0]):
+            for r, r0 in zip(task["renders"], task0["renders"]):
+                if not torch.equal(r["image"], r0["image"]):
+                    raise AssertionError(f"{label} rank {rank}'s image is "
+                                         "not rank 0's")
+            if "train" in task and not (
+                    task["train"]["loss"] == task0["train"]["loss"]
+                    and all(torch.equal(a, b) for a, b in zip(
+                        task["train"]["grads"], task0["train"]["grads"]))):
+                raise AssertionError(f"{label} rank {rank}'s loss or "
+                                     "gradients are not rank 0's")
+
+
+def check_sharded_image(label, img, ref):
+    """The sharded image against phase 6's one-device render of the same
+    samples: rtol 2e-5, atol 2e-6 (tests/test_mesh.py:78)."""
+    d = (img - ref).abs()
+    over = (d - 2e-5 * ref.abs()).max().item()
+    log(f"{label} against phase 6's image: max |d| {d.max().item():.3g}, "
+        f"max |d| - 2e-5 |ref| {over:.3g} (<= 2e-6)")
+    if not (bool(torch.isfinite(img).all())
+            and torch.allclose(img, ref, rtol=2e-5, atol=2e-6)):
+        raise AssertionError(f"{label} differs from the one-device render")
+
+
+def one_device_grads(integ, cam, film, sampler, ctx, target, samples, dev):
+    """The loss and gradients of mean((render - target)^2) over samples
+    [0, ``samples``) of every pixel in 2^18-lane tiles on one device: the
+    sharded train step's reference."""
+    import dataclasses
+    from rustracer_tpu_torch.render.renderer import RenderConfig, Renderer
+    from rustracer_tpu_torch.tools.bench_fwdbwd import value_and_grad
+    renderer = Renderer(integ.li, cam, film, sampler,
+                        RenderConfig(max_lanes=LANES, collect_stats=False),
+                        device=dev)
+
+    def loss(textures):
+        fs = renderer.render_state(dataclasses.replace(ctx, textures=textures),
+                                   sample_stop=samples)
+        return torch.mean((film.to_image(fs) - target) ** 2)
+    value, grads = value_and_grad(loss, ctx.textures)
+    return value.item(), grads
+
+
+def sharded(dev, card, trenderer, tctx, tcam, tfilm, tsampler, tinteg,
+            dragon_img):
+    """Phase 26: the sharded render and train step over torch.distributed
+    (parallel/mesh.py; launch.spawn runs ranks.mesh_job on each rank, a
+    process that builds the textured dragon itself): (a) NCCL, one rank a
+    card; (b) gloo, 4 ranks (2 x 2) on the one card; (c) the dry run in a
+    subprocess. Any rank's failure raises here."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.parallel import launch, ranks
+    from rustracer_tpu_torch.parallel.mesh import grad_errors
+    from rustracer_tpu_torch.scenes import build_dragon
+    from rustracer_tpu_torch.tools.bench_fwdbwd import half_albedo_target
+
+    ref = dragon_img.cpu()
+    kw = dict(sub=SUB, res=RES)
+    film_numel = RES[0] * RES[1] * 4
+    rays = RES[0] * RES[1] * SAMPLES
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (a) NCCL, one rank a card
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = launch.spawn(ranks.mesh_job, cards, [dict(
+        build=build_dragon, kw=kw, reduce_numel=[film_numel],
+        renders=[dict(shape=(cards, 1), max_lanes=LANES * cards,
+                      sample_stop=SAMPLES, warm=True)])], device="cuda",
+        timeout=SHARD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    same_on_every_rank("[26a]", out)
+    r = out[0][0]
+    log(f"[26a] NCCL, {cards} rank(s), one a card: render_sharded of the "
+        f"textured dragon {RES[0]}x{RES[1]}, samples [0, {SAMPLES}), global "
+        f"tiles of 2^18 x {cards} lanes: {r['renders'][0]['seconds']:.3f} s "
+        f"on rank 0 ({rays / r['renders'][0]['seconds']:.1f} camera "
+        f"rays/s, after a 1-sample render), {wall:.1f} s with the ranks' "
+        f"start, scene builds and that warm-up; "
+        f"all-reduce of the {film_numel * 4 / 2 ** 20:.0f} MiB film "
+        f"{r['reduce_ms'][0]:.4f} ms (CUDA events, mean of 10); peak "
+        f"{[x[0].get('peak_bytes') for x in out]} bytes a rank, on {card}")
+    log(f"[26a] rank 0 launches: {r['renders'][0]['launches']}")
+    check_sharded_image("[26a]", r["renders"][0]["image"], ref)
+    missing = [k for k in K.FORWARD_KERNELS
+               if r["renders"][0]["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"[26a] rank 0 did not launch {missing}")
+
+    # (b) gloo, 4 ranks (2 x 2) on the one card: the render, then a train
+    # step of samples 0 and 1 against one device's
+    target = half_albedo_target(trenderer, tctx)
+    loss_1, grads_1 = one_device_grads(tinteg, tcam, tfilm, tsampler, tctx,
+                                       target, 2, dev)
+    grad_numel = sum(g.numel() for g in grads_1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.spawn(ranks.mesh_job, 4, [dict(
+        build=build_dragon, kw=kw, reduce_numel=[film_numel, grad_numel],
+        renders=[dict(shape=(2, 2), max_lanes=2 * LANES,
+                      sample_stop=SAMPLES, warm=True)],
+        train=dict(shape=(2, 2), target=target.cpu(), lr=0.1,
+                   max_lanes=LANES))],
+        device="cuda", backend="gloo", timeout=SHARD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    same_on_every_rank("[26b]", out)
+    r, t = out[0][0], out[0][0]["train"]
+    secs = max(x[0]["renders"][0]["seconds"] for x in out)
+    log(f"[26b] gloo, 4 ranks (data 2 x sample 2) on one card: "
+        f"render_sharded in global tiles of 2^19 lanes (2^18 a rank): "
+        f"{secs:.3f} s on the slowest rank, {rays / secs:.1f} camera rays/s "
+        f"of four processes sharing one card (no scaling shown), after a "
+        f"warm-up render of one sample group; {wall:.1f} s with the ranks' "
+        f"start, scene builds and warm-up; all-reduce "
+        f"of the film {r['reduce_ms'][0]:.4f} ms, of the {grad_numel}-float "
+        f"gradient buffer {r['reduce_ms'][1]:.4f} ms (gloo, CUDA events); "
+        f"peak {[x[0].get('peak_bytes') for x in out]} bytes a rank, on "
+        f"{card}")
+    check_sharded_image("[26b]", r["renders"][0]["image"], ref)
+    rel, elem = grad_errors(t["grads"], [g.cpu() for g in grads_1])
+    log(f"[26b] sharded train step (samples 0 and 1, 2^18-lane wavefronts): "
+        f"{t['seconds']:.3f} s on rank 0, loss {t['loss']:.8g}, one device "
+        f"{loss_1:.8g}; gradients ||d|| / ||g|| {rel:.3g} (<= 1e-3), max "
+        f"|d| / max |g| {elem:.3g} (<= 1e-2)")
+    launches = {k: (r["renders"][0]["launches"][k], t["launches"][k])
+                for k in ("traverse16_closest", "traverse16_any",
+                          "film_add_samples", "atlas_lookup_ewa",
+                          "row_gather") + K.BACKWARD_KERNELS[:3]}
+    log(f"[26b] rank 0 launches (render, train step): {launches}")
+    if abs(t["loss"] - loss_1) > 2e-5 * abs(loss_1):
+        raise AssertionError("[26b] the sharded loss differs from one "
+                             "device's")
+    if not (rel <= 1e-3 and elem <= 1e-2 and _finite(t["grads"])
+            and max(g.abs().max().item() for g in t["grads"]) > 0):
+        raise AssertionError("[26b] the sharded gradients differ from one "
+                             "device's")
+    missing = [k for k, (a, b) in launches.items()
+               if b <= 0 or (a <= 0 and k not in K.BACKWARD_KERNELS)]
+    if missing:
+        raise AssertionError(f"[26b] rank 0 did not launch {missing}")
+
+    # (c) the dry run
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rustracer_tpu_torch.parallel.dryrun",
+         str(DRYRUN_RANKS), "--backend", "gloo"], cwd=REPO,
+        capture_output=True, text=True, timeout=2 * SHARD_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        log(f"[26c] {line}")
+    log(f"[26c] python -m rustracer_tpu_torch.parallel.dryrun {DRYRUN_RANKS}"
+        f" --backend gloo: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[26c] the dry run failed:\n"
+                             f"{proc.stderr[-4000:]}")
+
 
 def run(dev, card):
-    """Phases 3 to 25 on device ``dev``."""
+    """Phases 3 to 26 on device ``dev`` (26 before 25's lines)."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.render.film import Film
     from rustracer_tpu_torch.render.filters import Filter
@@ -3949,6 +4139,11 @@ def run(dev, card):
     mitchell_file_checkpointed(dev, card, splats, results)
     run_surface_cli(results)
     lap(24)
+
+    # 26: the sharded render and train step over torch.distributed
+    sharded(dev, card, trenderer, tctx, tcam, tfilm, tsampler, tinteg,
+            dragon_img)
+    lap(26)
 
     kernels = []
     for key, (name, case) in ROWS.items():

@@ -1,7 +1,9 @@
 """The port imports no JAX: a fresh interpreter imports its main path (and
 every module of the package), renders a tiny frame of the matte and of
 the textured dragon, takes a train step of the textured dragon and of the
-Cornell box with imagemap walls and the Cornell's fwd+bwd loss, parses
+Cornell box with imagemap walls and the Cornell's fwd+bwd loss, renders
+the Cornell box through render_sharded and takes a sharded train step on a
+world-size-1 gloo group in process, parses
 ``scenes/cornell-box.pbrt`` (its spatial light grid included) and
 ``scenes/testball-matte.pbrt`` (a sphere, a checkerboard) and renders one
 sample of each, renders the three scenes of tools/texture_work.py (every
@@ -44,6 +46,21 @@ ctx, loss = make_train_step(integ.li, cam, film, samp, device="cpu")(
 loss, grads = value_and_grad(cornell_loss(ctx, cam, film, samp, integ),
                              ctx.textures)
 assert all(bool(torch.isfinite(g).all()) for g in grads) and float(loss) > 0
+import tempfile
+import torch.distributed as dist
+from rustracer_tpu_torch.parallel.launch import init_rank
+from rustracer_tpu_torch.parallel.mesh import (make_device_mesh,
+                                               make_sharded_train_step,
+                                               render_sharded, sample_lanes)
+init_rank(0, 1, "file://" + tempfile.mkdtemp() + "/rendezvous", device="cpu",
+          timeout=60)
+mesh = make_device_mesh(device="cpu")
+img = render_sharded(ctx, integ.li, cam, film, samp, mesh, sample_stop=1)
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+ctx, loss = make_sharded_train_step(integ.li, cam, film, samp, mesh)(
+    ctx, torch.zeros(8, 8, 3), *sample_lanes(film))
+assert bool(torch.isfinite(loss))
+dist.destroy_process_group()
 from rustracer_tpu_torch.scene.api import parse_scene
 bundle = parse_scene("scenes/cornell-box.pbrt", device="cpu").scene
 assert bundle.light_grid is not None
