@@ -3032,12 +3032,18 @@ def check_texture_calls(name, cap, results, counts):
         b = bound(work["moved"], work["ops"])
         results[row] = dict(max_abs_err=worst, ms=ms, plain_ms=pms, **b,
                             **counts[fname])
+        # K19's bound by the recurrence's count, and by the per-term count
+        direct = bound(work["moved"], work["ops_direct"]) \
+            if "ops_direct" in work else None
         log(f"[20] {name} {fname}: {len(calls)} calls, {lanes} lanes, "
             f"{n_flip} flipped lanes held at the other choice, max abs err "
             f"{worst:.3g} on the rest; first call ({args[1].shape[0]} lanes, "
             f"{work}): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
-            f"{100 * b['bound_ms'] / ms:.1f}% of it")
+            f"{100 * b['bound_ms'] / ms:.1f}% of it" + (
+                "" if direct is None else
+                f" (per-term count: {direct['bound_ms']:.4f} ms, "
+                f"{100 * direct['bound_ms'] / ms:.1f}%)"))
 
 
 def texture_scenes(dev, card, results, rays):

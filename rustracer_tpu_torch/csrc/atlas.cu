@@ -73,8 +73,11 @@ __device__ __forceinline__ Tex tap(const Args& g, const Lookup& L, int k) {
     for (int j = 1; j < kTaps; ++j) wk = k == j ? g.taps.w[j] : wk;
     float sk = L.st_s + a * L.ms;
     float tk = L.st_t + a * L.mt;
-    Tex b0 = bilerp<QUAD>(g.texels, L.lv0, L.wrap, sk, tk);
-    Tex b1 = bilerp<QUAD>(g.texels, L.lv1, L.wrap, sk, tk);
+    // the quad rows bake in REPEAT, which every registration then wraps
+    constexpr int kStride = QUAD ? 12 : 3;
+    const int wrap = QUAD ? 0 : L.wrap;
+    Tex b0 = bilerp<kStride>(g.texels, L.lv0, wrap, sk, tk);
+    Tex b1 = bilerp<kStride>(g.texels, L.lv1, wrap, sk, tk);
     return {wk * ((1.0f - L.dl) * b0.r + L.dl * b1.r), wk * ((1.0f - L.dl) * b0.g + L.dl * b1.g),
             wk * ((1.0f - L.dl) * b0.b + L.dl * b1.b)};
 }

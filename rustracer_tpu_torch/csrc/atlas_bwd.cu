@@ -91,17 +91,7 @@ __device__ __forceinline__ void add_quad(float* g_tex, bool emit, Level lv, int 
     int key[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-        int s_i = s0 + (c & 1), t_i = t0 + (c >> 1);
-        bool inside = s_i >= 0 && s_i < lv.w && t_i >= 0 && t_i < lv.h;
-        int s_f, t_f;
-        if (wrap == 0) {  // WRAP_REPEAT
-            s_f = floor_mod(s_i, lv.w);
-            t_f = floor_mod(t_i, lv.h);
-        } else {
-            s_f = min(max(s_i, 0), lv.w - 1);
-            t_f = min(max(t_i, 0), lv.h - 1);
-        }
-        key[c] = emit && (wrap != 1 || inside) ? lv.off + t_f * lv.w + s_f : -1;
+        key[c] = emit ? texel_index(lv, wrap, s0 + (c & 1), t0 + (c >> 1)) : -1;
     }
     // corners that wrap or clamp onto one texel (a level 1 or 2 texels
     // wide, an edge under WRAP_CLAMP) are summed into the first of them

@@ -36,8 +36,8 @@
 
 namespace {
 
-using rt_atlas::floor_mod;
 using rt_atlas::Level;
+using rt_atlas::texel_index;
 using rt_grad::add_texel;
 
 constexpr int kThreads = 128;
@@ -54,21 +54,6 @@ struct Args {
     float* g_tex;  // (n_texels, 3), zeroed by the caller
 };
 
-// the row of texel (s_i, t_i) of lv as K17 reads it, -1 where WRAP_BLACK
-// reads none (atlas.cuh texel_at)
-__device__ __forceinline__ int texel_key(Level lv, int wrap, int s_i, int t_i) {
-    if (wrap == 1 && !(s_i >= 0 && s_i < lv.w && t_i >= 0 && t_i < lv.h)) return -1;
-    int s_f, t_f;
-    if (wrap == 0) {
-        s_f = floor_mod(s_i, lv.w);
-        t_f = floor_mod(t_i, lv.h);
-    } else {
-        s_f = min(max(s_i, 0), lv.w - 1);
-        t_f = min(max(t_i, 0), lv.h - 1);
-    }
-    return lv.off + t_f * lv.w + s_f;
-}
-
 // the transpose of a bilinear lookup of lv at (s, t) (atlas.cuh bilerp):
 // each corner takes its weight times (gr, gg, gb); every lane of the warp
 // calls it (without `emit`: nothing added)
@@ -83,7 +68,7 @@ __device__ __forceinline__ void bilerp_bwd(const Args& g, bool emit, Level lv, f
     float wc[4] = {(1.0f - ds) * (1.0f - dt), ds * (1.0f - dt), (1.0f - ds) * dt, ds * dt};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-        int key = emit ? texel_key(lv, g.wrap, s0 + (c & 1), t0 + (c >> 1)) : -1;
+        int key = emit ? texel_index(lv, g.wrap, s0 + (c & 1), t0 + (c >> 1)) : -1;
         add_texel(g.g_tex, key, gr * wc[c], gg * wc[c], gb * wc[c]);
     }
 }
@@ -134,7 +119,7 @@ __device__ void ewa_exact_bwd(const Args& g, bool emit, float s, float t, float 
         float r2 = k < e.n_taps ? rt_mip::ellipse_tap(e, k, &ss, &tt) : 2.0f;
         bool in = taps && r2 < 1.0f;
         float wgt = in ? expf(-2.0f * r2) - g.e2 : 0.0f;
-        add_texel(g.g_tex, in ? texel_key(e.lv, g.wrap, ss, tt) : -1, tr * wgt, tg * wgt,
+        add_texel(g.g_tex, in ? texel_index(e.lv, g.wrap, ss, tt) : -1, tr * wgt, tg * wgt,
                   tb * wgt);
     }
     // the bilinear fallback where no tap landed

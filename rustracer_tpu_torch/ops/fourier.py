@@ -12,10 +12,10 @@ one N and stacked along a leading table axis; a lane names its table.
 ``fourier_f``, ``fourier_pdf`` and ``fourier_sample_f`` route by device:
 CPU tensors take the plain versions (the reference's arithmetic: the 4 x
 4 Catmull-Rom neighbours' runs summed into (B, 3, m_pad) coefficients,
-then the series), CUDA tensors launch K19, one thread a lane, which walks
-the neighbours' runs and sums the series on the fly. A ``mask`` (B,)
-restricts the work to its lanes (the others give zeros), so a lobe stack
-pays only on its FOURIER rows.
+then the series), CUDA tensors launch K19, one thread a lane, which sums
+its neighbours' runs once (in registers where the table set's m_pad is
+at most 8) and evaluates the series by the angle-addition recurrence. A ``mask`` (B,) restricts the work to its lanes (the others
+give zeros), so a lobe stack pays only on its FOURIER rows.
 """
 from __future__ import annotations
 
@@ -315,7 +315,9 @@ def _prep(ts, tid, mask):
     return tid
 
 
-def _k19(mode, ts: FourierTableSet, tid, wo, second, mask):
+def _k19(mode, ts: FourierTableSet, tid, wo, second, mask, lib=None):
+    """K19 in ``mode`` -> (f, pdf, wi), None where the mode has no such
+    output; ``lib`` another build of the kernel (cuda.launch)."""
     n = tid.shape[0]
     dev = tid.device
     t_n, n_mu = ts.mu.shape
@@ -347,7 +349,7 @@ def _k19(mode, ts: FourierTableSet, tid, wo, second, mask):
         cuda.launch("fourier_bsdf", mode, ts.mu, ts.a_flat, ts.a_offset, ts.m,
                     ts.a0, ts.cdf, ts.eta, ts.n_channels, n_mu,
                     ts.a_flat.shape[1], ts.m_pad, tid, wo, second, mask, n,
-                    f, pdf, wi)
+                    f, pdf, wi, lib=lib)
     return f, pdf, wi
 
 

@@ -359,7 +359,9 @@ def ewa_exact_plain(tx: Texels, st, dst0, dst1, max_anisotropy=16.0,
 
 
 def _k17(tx: Texels, mode, wrap, st, dst0=None, dst1=None, width=None,
-         max_anisotropy=8.0):
+         max_anisotropy=8.0, lib=None):
+    """K17 in ``mode`` -> (B, 3); ``lib`` another build of the kernel
+    (cuda.launch)."""
     n = st.shape[0]
     dev = st.device
     stride = tx.texels.shape[1]
@@ -379,7 +381,7 @@ def _k17(tx: Texels, mode, wrap, st, dst0=None, dst1=None, width=None,
         cuda.launch("mipmap_lookup", tx.texels, stride, tx.meta,
                     tx.meta.shape[0], int(wrap), mode, st, dst0, dst1, width,
                     float(np.float32(max_anisotropy)), n, *TAP_WEIGHTS32,
-                    WSUM32, _E2, out)
+                    WSUM32, _E2, out, lib=lib)
     return out
 
 

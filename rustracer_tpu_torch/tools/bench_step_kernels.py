@@ -2,14 +2,16 @@
 triangle, Gaussian and Mitchell filters: K4F), K5 (the atlas EWA lookup), K6 (the alive-first order), K7
 (the slab take and put), K9 with those filters (the splat's backward:
 K9F), K10 (the lookup's backward) and K11 (the row gather's backward) on
-the inputs of full-width textured steps, and K12 (the light grid's
-contribution sums) over whole grids, against their plain versions and,
-given them, other builds of their sources.
+the inputs of full-width textured steps, K12 (the light grid's
+contribution sums) over whole grids, and K17 (the per-texture mipmap
+lookups) and K19 (the Fourier BSDF) on full-width steps of the texture
+scenes, against their plain versions and, given them, other builds of
+their sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
         [--time-only PATH ...] [--reps N]
-        [--kernels K2,K4,K5,K6,K7,K10,K11,K12,K4F,K9F] [--k12-corners]
-        [--json PATH]
+        [--kernels K2,K4,K5,K6,K7,K10,K11,K17,K19,K12,K4F,K9F]
+        [--k12-corners] [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
 tiles, compaction on) and runs one step of tile 2 (all floor and dragon,
@@ -96,8 +98,24 @@ and ``k9_ops``; a film_bwd.cu that does not export
 ``rt_film_bwd_layout`` (an older source) is called without the sample
 layout's two arguments. A ``--time-only`` film_bwd.cu (a diagnostic
 build that computes a wrong gradient on purpose: tools/k9_parts.py) is
-timed on the K9F calls beside the others, unchecked. ``--kernels`` picks
-what is measured (all by default).
+timed on the K9F calls beside the others, unchecked.
+
+K17 and K19 run on one step of tile 2 of tools/texture_work.py's
+textures-image and testball-fourier at 1024^2 (their 8-sample configs,
+``capture_shading``): K17 on every recorded call, each logged with its
+mode, wrap and texel layout (the exact calls with their box taps a lane
+and a warp), K19 on every recorded call and on the three modes over 2^18
+seeded lanes of a wide table (``WIDE_TABLE``: 64 knots, orders up to 64,
+above the kernel's register path); every build
+held against the plain version on every call (tools/texture_work.py
+compare_with_plain), the first call of each mode (K17: each mode and
+wrap) timed in turns, bounded by k17_work and k19_work (K19 by its
+recurrence count, the per-term count beside). An ``--other`` mipmap.cu
+(exporting ``rt_mipmap_lookup``) needs mipmap.cuh, atlas.cuh and
+common.cuh beside it, a fourier.cu (``rt_fourier_bsdf``) common.cuh; a
+``--time-only`` mipmap.cu (tools/k17_parts.py) is timed on the K17 calls
+unchecked. ``--kernels`` picks what is measured (all by default); the
+dragon is built only for the kernels that need it.
 
 Refuses to run without CUDA.
 """
@@ -124,15 +142,18 @@ from .. import cuda
 from ..accel.traverse16 import traverse16
 from .._build import CSRC, compile_shared
 from ..ops import compact as C
+from ..ops import fourier as FO
 from ..ops import gather as G
+from ..ops import mipmap as MM
 from ..render.film import Film
 from ..scene import atlas as A
 from ..scene import materials as M
 from ..scene.tables import QUADRIC_KEYS, build_interaction, closest_prim
 from . import quadric_work as QW
+from . import texture_work as TW
 from .atlas_work import k10_atomics, k10_work, k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
-from .timing import cold_ms, kernel_ms, queued_ms
+from .timing import cold_ms, events_ms, kernel_ms, queued_ms
 from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S, wavefronts
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
@@ -141,6 +162,7 @@ K9, K10, K11 = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
                 "row_gather_bwd")
 K12 = "spatial_grid_contrib"
 K2 = "build_interaction"
+K17, K19 = "mipmap_lookup", "fourier_bsdf"
 # K2's C interface before its quadric branch (rt_build_interaction_tri):
 # t_shade, n_tris, nq, the rays and hits, n, the 15 outputs, stream
 K2_TRI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
@@ -154,6 +176,7 @@ K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
 # rt_film_bwd_layout export)
 K9_NO_LAYOUT_ARGS = cuda.SIGNATURES[K9][:-3] + cuda.SIGNATURES[K9][-1:]
 KERNELS = {"K2": K2, "K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
+           "K17": K17, "K19": K19,
            "K12": K12, "K4F": K4, "K9F": K9}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
@@ -167,6 +190,14 @@ K9_KERNELS = ("film_add_bwd_kernel",)
 K10_KERNELS = ("atlas_ewa_bwd_kernel",)
 K11_KERNELS = ("row_gather_bwd_kernel", "row_gather_bwd_shared_kernel")
 K12_KERNELS = ("grid_contrib_kernel",)
+K17_KERNELS = ("mipmap_kernel",)
+K19_KERNELS = ("fourier_kernel",)
+# the scenes whose recorded step (tile STEP_TILE, SHADING_SAMPLES samples'
+# config) K17 and K19 run on, and the wide Fourier table's lanes
+K17_SCENE, K19_SCENE = "textures-image", "testball-fourier"
+SHADING_SAMPLES = 8
+WIDE_LANES = 1 << 18
+WIDE_TABLE = dict(n_mu=64, m_max=64)
 # K12's per-chunk C interface, before it took the grid (--k12-corners):
 # voxel corners (n, 3), n, the voxel extent, halton, n_probes, the light
 # tables, n_lights, out, stream; called once a CHUNK_VOXELS chunk
@@ -461,7 +492,7 @@ def memory_ops(sass):
 def build(others, k12_corners=False):
     """Build the library and each other source, and ask ptxas of the
     library's interaction.cu, film.cu, film_bwd.cu, atlas.cu, compact.cu, atlas_bwd.cu,
-    gather_bwd.cu and lightdistrib.cu and of each other source (and
+    gather_bwd.cu, lightdistrib.cu, mipmap.cu and fourier.cu and of each other source (and
     cuobjdump of each film.cu, film_bwd.cu, compact.cu, atlas_bwd.cu and
     gather_bwd.cu), all at once; ``k12_corners``: each
     other source's K12 has the per-chunk interface (K12_CORNER_ARGS) ->
@@ -470,9 +501,10 @@ def build(others, k12_corners=False):
     {build name: film channels})."""
     sources = {f"library {f}": os.path.join(CSRC, f)
                for f in ("interaction.cu", "film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
-                         "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu")}
+                         "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu", "mipmap.cu",
+                         "fourier.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12)
+    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12, K17, K19)
     sass_of = ("film.cu", "film_bwd.cu", "compact.cu", "atlas_bwd.cu",
                "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
@@ -1219,15 +1251,209 @@ def measure_k12(grids, builds, reps=20, log=print):
     return rows
 
 
+K17_MODES = {"lookup_trilinear": MM.TRILINEAR, "lookup_ewa": MM.EWA,
+             "lookup_ewa_exact": MM.EWA_EXACT}
+K19_MODES = {"fourier_f": FO.F, "fourier_pdf": FO.PDF,
+             "fourier_sample_f": FO.SAMPLE_F}
+
+
+def capture_shading(dev, names):
+    """One full-width step (tile STEP_TILE, sample 1) of each of
+    tools/texture_work.py's scenes ``names`` at RES, parsed with its
+    SHADING_SAMPLES-sample config, 2^18-lane tiles -> {name: every K17,
+    K18 and K19 call's arguments by entry point (capture_texture_step)}."""
+    from ..scene.api import parse_scene_string
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            text = TW.scene_text(name, res=RES[0], spp=SHADING_SAMPLES,
+                                 bsdf_dir=tmp)
+            bundle = parse_scene_string(text, device=dev).scene
+            r, ctx = bundle.renderer(LANES), bundle.context()
+            out[name] = TW.capture_texture_step(r, ctx, r.tiles[STEP_TILE])
+    return out
+
+
+def k17_call(lib, fname, args):
+    """K17 (the library's, or ``lib``'s) on a recorded call of entry point
+    ``fname`` (scene/textures.py's arguments) -> (B, C), as the entry point
+    returns it."""
+    mode = K17_MODES[fname]
+    tx, st = args[0], args[1].contiguous()
+    if mode == MM.TRILINEAR:
+        out = MM._k17(tx, mode, args[3], st, width=args[2].contiguous(),
+                      lib=lib)
+    else:
+        out = MM._k17(tx, mode, args[5], st, args[2].contiguous(),
+                      args[3].contiguous(), max_anisotropy=args[4], lib=lib)
+    return out[:, :tx.channels]
+
+
+def k17_work_of(fname, args):
+    """tools/texture_work.py k17_work of a recorded call."""
+    mode = K17_MODES[fname]
+    if mode == MM.TRILINEAR:
+        return TW.k17_work(args[0], mode, args[3], args[1], width=args[2])
+    return TW.k17_work(args[0], mode, args[5], args[1], args[2], args[3],
+                       max_anisotropy=args[4])
+
+
+def exact_taps(args):
+    """The box taps an exact call's lanes visit (at most 128): their mean,
+    quantiles and largest, and over warps of 32 consecutive lanes the mean
+    of the longest lane's and of the warp's sum."""
+    e = MM.ellipse(args[0], args[1], args[2], args[3], args[4])
+    taps = torch.clamp(e.n_box, max=MM.N_TAPS_EXACT).float()
+    warps = torch.cat([taps, taps.new_zeros((-taps.shape[0]) % 32)]).view(
+        -1, 32)
+    q = torch.quantile(taps, torch.tensor([0.5, 0.9, 0.99],
+                                          device=taps.device)).tolist()
+    return dict(mean=taps.mean().item(), p50=q[0], p90=q[1], p99=q[2],
+                max=taps.max().item(),
+                warp_longest=warps.max(1).values.mean().item(),
+                warp_sum=warps.sum(1).mean().item())
+
+
+def _bound(moved, ops):
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_k17(calls, builds, reps=20, log=print, unchecked=()):
+    """K17 on every recorded call of a textures-image step (``calls``:
+    {entry point: [args]}): each call's mode, wrap and texel layout logged,
+    the exact calls' box taps (``exact_taps``); every build but those of
+    ``unchecked`` held against the plain version on every call
+    (tools/texture_work.py compare_with_plain); the first call of each
+    mode and wrap timed in turns (``unchecked`` builds too, unchecked) and
+    bounded (k17_work) -> list of row dicts."""
+    seq = [(f, a) for f in K17_MODES for a in calls.get(f, [])]
+    firsts = {}
+    for i, (fname, args) in enumerate(seq):
+        wrap = args[-1]
+        log(f"K17 call {i}: {fname}, wrap {wrap}, texel rows of "
+            f"{args[0].texels.shape[1]} floats, {args[1].shape[0]} lanes"
+            + (f", taps {exact_taps(args)}" if fname == "lookup_ewa_exact"
+               else ""))
+        firsts.setdefault((fname, wrap), i)
+    errs = {}
+    for b, lib in builds.items():
+        if b in unchecked:
+            continue
+        worst, flipped = 0.0, 0
+        for fname, args in seq:
+            r = TW.compare_with_plain(fname, args, k17_call(lib, fname, args))
+            worst, flipped = max(worst, r["max_abs_err"]), flipped + r["flipped"]
+        errs[b] = worst
+        log(f"K17 {b}: {len(seq)} calls held to the plain version, max abs "
+            f"err {worst:.3g}, {flipped} flipped lanes held at the other "
+            "level")
+    rows = []
+    for (fname, wrap), i in firsts.items():
+        args = seq[i][1]
+        work = k17_work_of(fname, args)
+        bound_ms, bound_by = _bound(work["moved"], work["ops"])
+        label = f"K17 {fname} wrap {wrap}"
+        with cuda.plain_reference():
+            plain = events_ms(lambda: TW._entry(fname)(*args), 5)
+        timed = _turns({b: (lambda lib=lib: k17_call(lib, fname, args))
+                        for b, lib in builds.items()}, reps, K17_KERNELS)
+        log(f"{label} (call {i}): {work}; plain {plain:.4f} ms")
+        for b in builds:
+            r = _row(label, b, timed[b], bound_ms, bound_by, call=i,
+                     plain_ms=plain, max_abs_err=errs.get(b),
+                     checked=b not in unchecked, **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
+def k19_call(lib, fname, args):
+    """K19 (the library's, or ``lib``'s) on a call of entry point
+    ``fname`` (ts, tid, wo, wi or u, mask) -> its outputs, as the entry
+    point returns them."""
+    ts, tid, wo, second, mask = args
+    mode = K19_MODES[fname]
+    f, pdf, wi = FO._k19(mode, ts, FO._prep(ts, tid, mask), wo.contiguous(),
+                         second.contiguous(), mask, lib=lib)
+    return {FO.F: f, FO.PDF: pdf, FO.SAMPLE_F: (wi, f, pdf)}[mode]
+
+
+def wide_fourier_calls(dev, n=WIDE_LANES, seed=11):
+    """The three K19 modes on ``n`` seeded lanes of one table at a measured
+    table's scale (tools/texture_work.py fourier_table(**WIDE_TABLE): 64
+    knots, orders up to 64) -> [(entry point, args)]."""
+    ts = FO.make_table_set([TW.fourier_table(**WIDE_TABLE)]).to(dev)
+    rs = np.random.RandomState(seed)
+
+    def dirs():
+        v = rs.normal(size=(n, 3))
+        return torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True))
+                                .astype(np.float32)).to(dev)
+    tid = torch.zeros(n, dtype=torch.int32, device=dev)
+    wo, wi = dirs(), dirs()
+    u = torch.from_numpy(rs.uniform(size=(n, 2)).astype(np.float32)).to(dev)
+    return [("fourier_f", (ts, tid, wo, wi, None)),
+            ("fourier_pdf", (ts, tid, wo, wi, None)),
+            ("fourier_sample_f", (ts, tid, wo, u, None))]
+
+
+def measure_k19(calls, wide, builds, reps=20, log=print):
+    """K19 on every recorded call of a testball-fourier step (``calls``:
+    {entry point: [args]}) and on ``wide`` (wide_fourier_calls): every
+    build held against the plain version on every call (compare_with_plain),
+    the first step call of each mode and each wide call timed in turns and
+    bounded by k19_work's recurrence count (its per-term count beside) ->
+    list of row dicts."""
+    seq = [("step", f, a) for f in K19_MODES for a in calls.get(f, [])]
+    seq += [("wide", f, a) for f, a in wide]
+    errs = {}
+    for b, lib in builds.items():
+        worst, flipped = 0.0, 0
+        for case, fname, args in seq:
+            r = TW.compare_with_plain(fname, args, k19_call(lib, fname, args))
+            worst, flipped = max(worst, r["max_abs_err"]), flipped + r["flipped"]
+        errs[b] = worst
+        log(f"K19 {b}: {len(seq)} calls held to the plain version, max abs "
+            f"err {worst:.3g}, {flipped} lanes sampled another direction, "
+            "each held at its own")
+    rows, seen = [], set()
+    for case, fname, args in seq:
+        if (case, fname) in seen:
+            continue
+        seen.add((case, fname))
+        ts, tid, wo, second, mask = args
+        work = TW.k19_work(ts, K19_MODES[fname], tid, wo, second, mask)
+        bound_ms, bound_by = _bound(work["moved"], work["ops"])
+        direct_ms, _ = _bound(work["moved"], work["ops_direct"])
+        label = f"K19 {fname} {case} (m_pad {ts.m_pad}, {ts.n_mu} knots)"
+        with cuda.plain_reference():
+            plain = events_ms(lambda: TW._entry(fname)(*args), 5)
+        timed = _turns({b: (lambda lib=lib: k19_call(lib, fname, args))
+                        for b, lib in builds.items()}, reps, K19_KERNELS)
+        log(f"{label}: {work}; bound by the per-term count "
+            f"{direct_ms:.4f} ms; plain {plain:.4f} ms")
+        for b in builds:
+            r = _row(label, b, timed[b], bound_ms, bound_by,
+                     bound_direct_ms=direct_ms, plain_ms=plain,
+                     max_abs_err=errs[b], **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
                     help="another interaction.cu, film.cu, film_bwd.cu, "
-                         "atlas.cu, compact.cu, atlas_bwd.cu, gather_bwd.cu "
-                         "or lightdistrib.cu to time (repeatable)")
+                         "atlas.cu, compact.cu, atlas_bwd.cu, gather_bwd.cu, "
+                         "lightdistrib.cu, mipmap.cu or fourier.cu to time "
+                         "(repeatable)")
     ap.add_argument("--time-only", action="append", default=[],
-                    help="a diagnostic film_bwd.cu, timed on the K9F calls "
-                         "unchecked (tools/k9_parts.py; repeatable)")
+                    help="a diagnostic film_bwd.cu or mipmap.cu, timed on "
+                         "the K9F or K17 calls unchecked (tools/k9_parts.py, "
+                         "tools/k17_parts.py; repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="the kernels to measure, of "
@@ -1258,21 +1484,25 @@ def main(argv=None):
         for fn, ops in fns.items():
             print(f"sass [{name}] {fn}: {' '.join(ops)}", flush=True)
     dev = torch.device("cuda:0")
-    ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
-    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=LANES),
-                 device=dev)
     which = args.kernels.split(",")
-    cap = capture_step(r, ctx, r.tiles[STEP_TILE])
-    cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
-    cap["k4f"] = filtered_splat(r, ctx, STEP_TILE)
-    grad = capture_grad_step(r, ctx, r.tiles[STEP_TILE])
-    grads = {kind: filtered_grad_step(r, ctx, STEP_TILE, kind=kind)
-             for kind in FILTERS} if "K9F" in which else {}
-    print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
-          f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls, "
-          f"{len(grad['k10'])} K10 and {len(grad['k11'])} K11 calls in its "
-          f"backward; step of tile {SLAB_TILE}: {len(cap['k7'])} K7 take",
-          flush=True)
+    if [k for k in which if k not in ("K17", "K19")]:
+        ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
+        r = Renderer(integ.li, cam, film, sampler,
+                     RenderConfig(max_lanes=LANES), device=dev)
+        cap = capture_step(r, ctx, r.tiles[STEP_TILE])
+        cap["k7"] = capture_step(r, ctx, r.tiles[SLAB_TILE])["k7"]
+        cap["k4f"] = filtered_splat(r, ctx, STEP_TILE)
+        grad = capture_grad_step(r, ctx, r.tiles[STEP_TILE])
+        grads = {kind: filtered_grad_step(r, ctx, STEP_TILE, kind=kind)
+                 for kind in FILTERS} if "K9F" in which else {}
+        print(f"step of tile {STEP_TILE}: {len(cap['k4'])} K4, "
+              f"{len(cap['k5'])} K5 and {len(cap['k6'])} K6 calls, "
+              f"{len(grad['k10'])} K10 and {len(grad['k11'])} K11 calls in "
+              f"its backward; step of tile {SLAB_TILE}: {len(cap['k7'])} K7 "
+              "take", flush=True)
+    shading = capture_shading(dev, [n for k, n in (("K17", K17_SCENE),
+                                                   ("K19", K19_SCENE))
+                                    if k in which])
     log = lambda s: print(s, flush=True)   # noqa: E731
     measure = {
         "K2": lambda: measure_k2(k2_cases(ctx, cam, sampler, r), builds[K2],
@@ -1288,7 +1518,12 @@ def main(argv=None):
         "K4F": lambda: measure_k4f(cap, builds[K4], channels, args.reps,
                                    log),
         "K9F": lambda: measure_k9f(grads, builds[K9], args.reps, log,
-                                   unchecked=args.time_only)}
+                                   unchecked=args.time_only),
+        "K17": lambda: measure_k17(shading[K17_SCENE], builds[K17],
+                                   args.reps, log, unchecked=args.time_only),
+        "K19": lambda: measure_k19(shading[K19_SCENE],
+                                   wide_fourier_calls(dev), builds[K19],
+                                   args.reps, log)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

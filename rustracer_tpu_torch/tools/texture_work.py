@@ -441,6 +441,18 @@ K19_SAMPLE_OPS = 20 * 12 + 30 * 25 + 30 + 2 * SIN_OPS
 # term each a sine and a cosine with their products and sums (K19_FF_OPS)
 K19_AK_OPS = 16 * 4
 K19_FF_OPS = 2 * SIN_OPS + 6
+# the recurrence design (csrc/fourier.cu), counted in instructions as
+# PEAK_OPS_PER_S rates them (the kernel's explicit fmaf is one fused
+# instruction, the rest -fmad=false): an order's cosine and sine from those
+# of the order below by the angle-addition recurrence (2 multiplies, 2
+# fused multiply-adds: K19_REC_OPS), shared by the channels, from one
+# sincosf an evaluation (SIN_OPS); a channel's term its a_k summed over the
+# 16 neighbours and one fused multiply-add (K19_REC_TERM_OPS); a term of
+# sample_fourier's F and f the recurrence, the sine's coefficient times
+# 1/k and its fused multiply-add (2), the cosine's fused multiply-add (1)
+K19_REC_OPS = 4
+K19_REC_TERM_OPS = K19_AK_OPS + 1
+K19_REC_FF_OPS = K19_REC_OPS + 2 + 1
 
 
 def _runs(ts, tid, mu_i, mu_o):
@@ -464,14 +476,17 @@ def _runs(ts, tid, mu_i, mu_o):
 
 
 def k19_work(ts, mode, tid, wo, second, mask) -> dict:
-    """-> dict(lanes, active (masked-in lanes with valid weights), terms
-    (series terms summed over channels and lanes), moved, ops) of one K19
-    call in ``mode`` (ops/fourier.py F, PDF, SAMPLE_F) on these inputs:
-    each lane's tid, wo, wi or u and mask read and its outputs written;
-    each active lane's table knots (4 N B, once a table) and each distinct
-    neighbour run's coefficients (channels x order x 4 B) read once. For
-    sample_f the runs are those of the sampled direction's muI (the
-    plain version's)."""
+    """-> dict(lanes, active (masked-in lanes with valid weights), orders
+    (the series' orders summed over lanes), terms (over channels too),
+    moved, ops, ops_direct) of one K19 call in ``mode`` (ops/fourier.py F,
+    PDF, SAMPLE_F) on these inputs: each lane's tid, wo, wi or u and mask
+    read and its outputs written; each active lane's table knots (4 N B,
+    once a table) and each distinct neighbour run's coefficients (channels
+    x order x 4 B) read once. ``ops`` counts the series by the recurrence
+    (K19_REC_*: one sincosf an evaluation), ``ops_direct`` with a sine or
+    cosine a term (K19_TERM_OPS, K19_FF_OPS: the per-term design's
+    count). For sample_f the runs are those of the sampled direction's muI
+    (the plain version's)."""
     from ..ops import fourier as FO
     n = tid.shape[0]
     on = torch.ones(n, dtype=torch.bool, device=tid.device) \
@@ -498,12 +513,16 @@ def k19_work(ts, mode, tid, wo, second, mask) -> dict:
     moved = n * lane_io + tables * 4 * ts.n_mu \
         + int(run_m.sum()) * channels * 4
     n_act = int(act.sum())
-    ops = n_act * K19_LANE_OPS + terms * K19_TERM_OPS
+    orders = int(kmax[act].sum())
+    ops_direct = n_act * K19_LANE_OPS + terms * K19_TERM_OPS
+    ops = n_act * (K19_LANE_OPS + SIN_OPS) + terms * K19_REC_TERM_OPS \
+        + orders * K19_REC_OPS
     if mode == FO.SAMPLE_F:
-        k_lum = int(kmax[act].sum())
-        ops += int(on.sum()) * K19_SAMPLE_OPS \
-            + k_lum * (K19_AK_OPS + 31 * K19_FF_OPS)
-    return dict(lanes=n, active=n_act, terms=terms, moved=moved, ops=ops)
+        sample = int(on.sum()) * K19_SAMPLE_OPS + orders * K19_AK_OPS
+        ops_direct += sample + orders * 31 * K19_FF_OPS
+        ops += sample + 31 * (orders * K19_REC_FF_OPS + n_act * SIN_OPS)
+    return dict(lanes=n, active=n_act, orders=orders, terms=terms,
+                moved=moved, ops=ops, ops_direct=ops_direct)
 
 
 # --- K17-K19 against their plain versions ---

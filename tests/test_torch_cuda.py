@@ -1522,6 +1522,43 @@ def test_mipmap_lookup_matches_plain(dev, wrap, layout):
 
 @pytest.mark.parametrize("layout", ["flat", "quad"])
 @pytest.mark.parametrize("wrap", [WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP])
+def test_mipmap_exact_at_the_tap_cap_matches_plain(dev, wrap, layout):
+    """K17's exact mode where the footprints' bounding boxes reach past
+    the 128 taps the reference visits (anisotropy 32 at the clamp, boxes
+    of hundreds of texels, so a lane walks 128 taps in 2 x 2 blocks, the
+    last block cut at the cap): within 2e-5 absolute of the plain version
+    on every lane
+    (a lane whose rounded level flipped, at most 1e-4 of them, within that
+    of the neighbouring level's plain value)."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    rs = np.random.RandomState(10 + wrap)
+    img = rs.rand(64, 48, 3).astype(np.float32)
+    pyr = [torch.from_numpy(lv).to(dev) for lv in build_pyramid(img)]
+    tx = MM.pyramid_texels(pyr)
+    if layout == "quad":
+        tx = MM.Texels(A.atlas_quad_texels([pyr]), tx.meta, 3)
+    n = 1 << 14
+    st = torch.from_numpy(rs.uniform(-0.5, 1.5, (n, 2)).astype(
+        np.float32)).to(dev)
+    ang = rs.uniform(0, 2 * np.pi, n)
+    minor = 10 ** rs.uniform(-2.5, -1.0, n)
+    major = minor * 32.0
+    d0 = torch.from_numpy(np.stack([np.cos(ang) * major, np.sin(ang) * major],
+                                   -1).astype(np.float32)).to(dev)
+    d1 = torch.from_numpy(np.stack([-np.sin(ang) * minor, np.cos(ang) * minor],
+                                   -1).astype(np.float32)).to(dev)
+    args = (tx, st, d0, d1, 32.0, wrap)
+    capped = (MM.ellipse(tx, st, d0, d1, 32.0).n_box >= MM.N_TAPS_EXACT)
+    assert float(capped.float().mean()) > 0.8
+    K.reset_launches()
+    out = MM.lookup_ewa_exact(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mipmap_lookup"] == 1
+    _held_to_plain(MM.lookup_ewa_exact, args, out)
+
+
+@pytest.mark.parametrize("layout", ["flat", "quad"])
+@pytest.mark.parametrize("wrap", [WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP])
 def test_mipmap_bwd_matches_plain(dev, wrap, layout):
     """K20, the texel gradient of K17's lookups, in each mode on a
     non-power-of-two image's (T, 3) rows, 2^16 lanes of footprints of
@@ -1636,30 +1673,49 @@ def test_noise_matches_plain(dev, turbulence):
         _held_to_plain(fn, (p, dx, dy, omega, octaves), out)
 
 
-def test_fourier_matches_plain(dev):
-    """K19 (f, pdf, sample_f) on 2^16 lanes over a Lambertian, a
-    multi-order 3-channel and a 1-channel table (tests/test_torch_fourier
-    .py's set), a third of the lanes masked off: f and pdf within 1e-5 of
-    the largest magnitude plus 1e-6 on every lane; the sampled direction
-    within 1e-4, and its f and pdf as f and pdf, on every lane but those
-    whose bisections' or Newton steps' compares flipped (at most 1e-4 of
-    them: a unit direction, its f within 1e-3 of the plain f there, a
-    finite pdf >= 0); zeros off the mask."""
+def _fourier_tables(which):
+    """K19's table sets by the path their m_pad takes (csrc/fourier.cu):
+    ``cap8`` (m_pad 8: the 8-order registers), ``cap8+1`` (m_pad 9, just
+    above: f and pdf in 32-order chunks, sample_f the shared-memory
+    slice), ``mixed`` (tests/test_torch_fourier.py's: a Lambertian, a
+    multi-order 3-channel and a 1-channel table, m_pad 11), ``wide`` (64
+    knots, orders up to 64: two chunks) and ``long`` (orders 994-1000:
+    past the slice, the rest summed where taken) -> (tables, lanes)."""
     from rustracer_tpu_torch.ops import fourier as FO
+    from rustracer_tpu_torch.tools.fourier_precision import long_table
     from rustracer_tpu_torch.tools.texture_work import fourier_table
-    t3 = fourier_table(n_mu=20, m_max=11, seed=9)
-    t3["n_channels"] = 1
-    tabs = [FO.make_lambertian_table((0.6, 0.4, 0.2), n_mu=12),
-            fourier_table(transmission=0.1, eta=1.5), t3]
+    if which == "mixed":
+        t3 = fourier_table(n_mu=20, m_max=11, seed=9)
+        t3["n_channels"] = 1
+        return [FO.make_lambertian_table((0.6, 0.4, 0.2), n_mu=12),
+                fourier_table(transmission=0.1, eta=1.5), t3], 1 << 16
+    return {"cap8": ([fourier_table()], 1 << 16),
+            "cap8+1": ([fourier_table(m_max=9, seed=2)], 1 << 16),
+            "wide": ([fourier_table(n_mu=64, m_max=64)], 1 << 16),
+            "long": ([long_table()], 1 << 13)}[which]
+
+
+@pytest.mark.parametrize("which", ["mixed", "cap8", "cap8+1", "wide",
+                                   "long"])
+def test_fourier_matches_plain(dev, which):
+    """K19 (f, pdf, sample_f) on a table set of each path
+    (``_fourier_tables``), a third of the lanes masked off: f and pdf
+    within 1e-5 of the largest magnitude plus 1e-6 on every lane; the
+    sampled direction within 1e-4, and its f and pdf as f and pdf, on
+    every lane but those whose bisections' or Newton steps' compares
+    flipped (at most 1e-4 of them: a unit direction, its f within 1e-3 of
+    the plain f there, a finite pdf >= 0); zeros off the mask."""
+    from rustracer_tpu_torch.ops import fourier as FO
+    tabs, n = _fourier_tables(which)
     ts = FO.make_table_set(tabs).to(dev)
     rs = np.random.RandomState(7)
-    n = 1 << 16
 
     def dirs():
         v = rs.normal(size=(n, 3))
         return torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True))
                                 .astype(np.float32)).to(dev)
-    tid = torch.from_numpy(rs.randint(0, 3, n).astype(np.int32)).to(dev)
+    tid = torch.from_numpy(rs.randint(0, len(tabs), n).astype(
+        np.int32)).to(dev)
     wo, wi = dirs(), dirs()
     u = torch.from_numpy(rs.uniform(size=(n, 2)).astype(np.float32)).to(dev)
     mask = torch.from_numpy(np.arange(n) % 3 != 0).to(dev)

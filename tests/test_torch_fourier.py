@@ -182,6 +182,42 @@ def test_fourier_bsdf_matches(which):
     assert torch.equal(f_m[mask], PF.fourier_f(pts, p[0], p[1], p[2])[mask])
 
 
+def test_fourier_bsdf_matches_wide_table():
+    """The plain f, pdf and sample_f on a wide table (64 knots, orders up
+    to 64: above K19's register path) against the JAX package, with
+    test_fourier_bsdf_matches's tolerances."""
+    tabs = [fourier_table(n_mu=64, m_max=64)]
+    jts = JF.make_table_set(tabs)
+    pts = PF.make_table_set(tabs).to("cpu")
+    assert pts.m_pad == 64
+    tid, wo, wi, u = _inputs(13)
+    tid[:] = 0
+    j = [jnp.asarray(x) for x in (tid, wo, wi, u)]
+    p = [torch.from_numpy(x) for x in (tid, wo, wi, u)]
+    close(PF.fourier_f(pts, p[0], p[1], p[2]).numpy(),
+          JF.fourier_f(jts, j[0], j[1], j[2]))
+    close(PF.fourier_pdf(pts, p[0], p[1], p[2]).numpy(),
+          JF.fourier_pdf(jts, j[0], j[1], j[2]))
+    pw, pf, pp = PF.fourier_sample_f(pts, p[0], p[1], p[3])
+    jw, jf, jp = JF.fourier_sample_f(jts, j[0], j[1], j[3])
+    err = np.abs(pw.numpy() - np.asarray(jw)).max()
+    print(f"wide table: sampled direction max error {err:.3g}")
+    assert err <= 1e-5
+    close(pf.numpy(), jf)
+    close(pp.numpy(), jp)
+
+
+def test_chunked_series_keeps_the_plain_series_error():
+    """tools/fourier_precision.py: K19's series (the float32 recurrence in
+    float32 chunks of 32 orders added in double) lies within the plain
+    series' own distance from the exact one, plus 2e-7 (a few ulps of
+    the series), at 64 and 1000 orders."""
+    from rustracer_tpu_torch.tools import fourier_precision as FP
+    for name, ways in FP.report(2048).items():
+        chunks = ways[f"float32 chunks of {FP.CHUNK} in double"]
+        assert chunks <= ways["exact (float64)"] + 2e-7, (name, ways)
+
+
 def test_plain_comparison_allows_only_direction_flips():
     """``tools/texture_work.py compare_with_plain``, which holds K19
     against its plain version on the card: a lane of sample_f may sample

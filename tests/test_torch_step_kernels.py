@@ -431,3 +431,72 @@ def test_sass_memory_ops_in_program_order():
         "_Z1kPf": ["LDG.E.64.CONSTANT", "REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU",
                    "STS"],
         "_Z1jPi": ["STG.E.U8"]}
+
+
+def _k19_lanes():
+    """Four lanes on a 4-knot Lambertian table (knots -1, -1/3, 1/3, 1;
+    order 1 on the pairs of opposite signs, 0 elsewhere): lane 0 masked
+    off; muO, muI on knots (one neighbour of nonzero weight): lane 1 at
+    (1/3, -1/3) and lane 3 at (-1, 1) one order each, lane 2 at (1/3,
+    1/3) none."""
+    from rustracer_tpu_torch.ops import fourier as FO
+    ts = FO.make_table_set([FO.make_lambertian_table(n_mu=4)]).to("cpu")
+    k = ts.mu[0]
+    mu_o = torch.stack([k[2], k[2], k[2], k[0]])
+    mu_i = torch.stack([k[1], k[1], k[2], k[3]])
+    wo = torch.stack([torch.sqrt(1 - mu_o * mu_o), torch.zeros(4), mu_o], -1)
+    wi = torch.stack([torch.zeros(4), torch.sqrt(1 - mu_i * mu_i), -mu_i], -1)
+    mask = torch.tensor([False, True, True, True])
+    return ts, torch.zeros(4, dtype=torch.int32), wo, wi, mask
+
+
+def test_k19_work_counts_the_recurrence_by_hand():
+    """tools/texture_work.py k19_work on ``_k19_lanes``: f's 3 active
+    lanes, 2 orders, 6 channel terms, each lane's acosf and sincosf, a
+    term its 16-neighbour sum and one fused multiply-add, an order its
+    rotation (2 multiplies, 2 fused multiply-adds); the per-term count
+    beside (a sine or cosine a term); sample_f's 3 lanes, each sampling
+    one order (its muI between knots, its row's two reflection pairs of
+    nonzero weight), 31 evaluations of 7 instructions an order and a
+    sincosf each."""
+    from rustracer_tpu_torch.ops import fourier as FO
+    from rustracer_tpu_torch.tools import texture_work as TW
+    lane, sin = TW.K19_LANE_OPS, TW.SIN_OPS
+    assert (lane, sin, TW.K19_REC_TERM_OPS, TW.K19_REC_OPS,
+            TW.K19_REC_FF_OPS) == (224, 20, 65, 4, 7)
+    ts, tid, wo, wi, mask = _k19_lanes()
+    w = TW.k19_work(ts, FO.F, tid, wo, wi, mask)
+    assert (w["active"], w["orders"], w["terms"]) == (3, 2, 6)
+    assert w["ops"] == 3 * (lane + sin) + 6 * 65 + 2 * 4 == 1130
+    assert w["ops_direct"] == 3 * lane + 6 * (64 + sin + 3) == 1194
+    # 41 bytes a lane, the table's 4 knots, 2 runs of one order x 3
+    assert w["moved"] == 4 * 41 + 4 * 4 + 2 * 3 * 4
+    u = torch.full((4, 2), 0.25)
+    w = TW.k19_work(ts, FO.SAMPLE_F, tid, wo, u, mask)
+    assert (w["active"], w["orders"], w["terms"]) == (3, 3, 9)
+    sample = 3 * TW.K19_SAMPLE_OPS + 3 * TW.K19_AK_OPS
+    assert w["ops"] == sample + 3 * (lane + sin) + 9 * 65 + 3 * 4 \
+        + 31 * (3 * 7 + 3 * sin) == 7212
+    assert w["ops_direct"] == sample + 3 * lane + 9 * (64 + sin + 3) \
+        + 3 * 31 * TW.K19_FF_OPS
+
+
+def test_k17_parts_replace_each_text_once():
+    """tools/k17_parts.py: each part replaces its texts, each found once
+    in the design it was written for; a text missing raises."""
+    from rustracer_tpu_torch.tools import k17_parts as KP
+    texts = {f: "" for f in KP.FILES}
+    for part in KP.PARTS.values():
+        for name, old, _ in part:
+            if old not in texts[name]:
+                texts[name] += old + "\n"
+    for part, edits in KP.PARTS.items():
+        out = KP.part_files(texts, part)
+        for name, old, new in edits:
+            assert new in out[name] and out[name] != texts[name]
+        assert {n: t for n, t in out.items()
+                if n not in {e[0] for e in edits}} == {
+                    n: t for n, t in texts.items()
+                    if n not in {e[0] for e in edits}}
+    with pytest.raises(ValueError):
+        KP.part_files(dict(texts, **{"atlas.cuh": ""}), "wrap")
