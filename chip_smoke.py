@@ -215,7 +215,8 @@ Phases, each printing its lines:
      leaf finite; every K20 call of one more step's recorded backward
      against the plain version (within 1e-5 of the largest sum of its
      terms' magnitudes), the first call of each mode timed and bounded
-     (tools/texture_work.py k20_work);
+     (tools/texture_work.py k20_work: every lane's inputs read, the
+     set-up, adds and texel rows of the lanes that add);
  23. the direct-lighting, Whitted, ambient-occlusion and normal
      integrators: tools/integrator_work.py's CASES (the Cornell box under
      each, direct lighting with the strategies "all" and "one";
@@ -2314,16 +2315,7 @@ def inside_call(label, calls, key):
     live rays starting inside a sphere, and that count; every call's
     count printed."""
     from rustracer_tpu_torch.tools import quadric_work as QW
-    counts = []
-    for c in calls:
-        if key == "build_interaction":
-            geom, ray, hit, _, prim = c
-            live = hit & (prim < geom.n_quadrics)
-            o = ray.o
-        else:
-            geom, o, _, t_max = c
-            live = t_max > 0
-        counts.append(int((QW.inside_sphere(geom, o) & live).sum()))
+    counts = QW.inside_counts(calls, key)
     log(f"{label} {key}: rays starting inside the ball, by call: {counts}")
     i = int(np.argmax(counts))
     if counts[i] <= 0:
@@ -3331,14 +3323,18 @@ def texture_train(dev, card, results):
     its launches), the loss and every updated leaf finite; then one more
     step's backward recorded and every K20 call of it held against the
     plain version (texture_work.compare_bwd_with_plain: within 1e-5 of the
-    largest sum of magnitudes), the first call of each mode timed and
-    bounded (texture_work.k20_work)."""
+    largest sum of magnitudes), the first call of each mode also with each
+    of its threads a lookup forced (each route of K20), timed and bounded
+    (texture_work.k20_work), its texture, lanes (those with a nonzero
+    gradient), texels, adds and global atomics (k20_atomics) logged."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.ops import mipmap as MM
     from rustracer_tpu_torch.parallel.mesh import (float_leaves,
                                                    make_train_step)
     from rustracer_tpu_torch.render.renderer import RenderConfig
+    from rustracer_tpu_torch.tools import bench_step_kernels as B
     from rustracer_tpu_torch.tools import texture_work as TW
+    from rustracer_tpu_torch.tools.bench_step_kernels import K20_GROUPS
     from rustracer_tpu_torch.tools.timing import events_ms
     with tempfile.TemporaryDirectory() as tmp:
         text = TW.scene_text("textures-train", res=TRAIN_RES, spp=1,
@@ -3390,13 +3386,27 @@ def texture_train(dev, card, results):
             flipped += r["flipped"]
             lanes += r["lanes"]
         args = calls[0]
+        # each route: the first call with every G threads a lookup forced
+        for group in K20_GROUPS[name]:
+            r = TW.compare_bwd_with_plain(*args, B.k20_call(None, args,
+                                                            group))
+            worst = max(worst, r["max_abs_err"])
 
         def call(args=args):
             return MM.mipmap_lookup_bwd(*args)
-        ms = kernel_time(row, call, 20, "mipmap_bwd_kernel")
+        ms = kernel_time(row, call, 20, "mipmap_bwd_")
         with K.plain_reference():
             pms = events_ms(call, 5)
-        work = TW.k20_work(*args[1:])
+        work = TW.k20_work(*args)
+        atomics = TW.k20_atomics(*args)
+        nonzero = int((args[0] != 0).any(1).sum())
+        log(f"[22] {row}: the timed call (the first of its mode in the "
+            f"backward): {B.texture_of(args[1])}, wrap {args[3]}, "
+            f"{work['lanes']} lanes ({nonzero} with a nonzero gradient, "
+            f"{work['active']} that add: {work['texels']} texel rows, "
+            f"{work['adds']} adds); global atomics "
+            f"{atomics}; with G {K20_GROUPS[name]} forced, held to the "
+            "plain version too")
         b = bound(work["moved"], work["ops"])
         results[row] = dict(max_abs_err=worst, ms=ms, plain_ms=pms,
                             library_ms=None, launches=modes[name],

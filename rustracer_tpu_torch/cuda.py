@@ -126,9 +126,10 @@ SIGNATURES = {
     "mipmap_lookup": [_P, _I, _P, _I, _I, _I] + [_P] * 4 + [_F, _I]
     + [_F] * 10 + [_P, _P],
     # g_out, meta, n_levels, wrap, mode, st, dst0, dst1, width, max_aniso,
-    # n, the 8 tap weights, their sum, exp(-2), g_tex, n_texels, stream
+    # n, the 8 tap weights, their sum, exp(-2), g_tex, n_texels, the
+    # threads a lookup (0: each block's choice), stream
     "mipmap_lookup_bwd": [_P, _P, _I, _I, _I] + [_P] * 4 + [_F, _I]
-    + [_F] * 10 + [_P, _I, _P],
+    + [_F] * 10 + [_P, _I, _I, _P],
     # p, dpdx, dpdy, n, omega, max_octaves, turbulence, out, stream
     "noise_fbm": [_P, _P, _P, _I, _D, _I, _I, _P, _P],
     # mode, the table set's 8 tables, n_mu, nc, m_pad, tid, wo, wi or u,

@@ -427,8 +427,16 @@ def mipmap_lookup_bwd(g, tx: Texels, mode, wrap, st, dst0=None, dst1=None,
     if not cuda.use_kernel(st):
         return mipmap_lookup_bwd_plain(g, tx, mode, wrap, st, dst0, dst1,
                                        width, max_anisotropy)
-    n, dev = st.shape[0], st.device
     g, st, dst0, dst1, width = _contig(g, st, dst0, dst1, width)
+    return _k20(g, tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
+
+
+def _k20(g, tx: Texels, mode, wrap, st, dst0=None, dst1=None, width=None,
+         max_anisotropy=8.0, lib=None, group=0):
+    """K20 in ``mode`` -> the (T, 3) texel gradient; ``group`` its threads
+    a lookup (0: each block's choice; csrc/mipmap_bwd.cu has_route); ``lib``
+    another build of the kernel (cuda.launch)."""
+    n, dev = st.shape[0], st.device
     n_texels = tx.texels.shape[0]
     cuda.check(g, "g", torch.float32, (n, 3), dev)
     cuda.check(tx.texels, "texels", torch.float32, (n_texels, 3), dev)
@@ -444,7 +452,7 @@ def mipmap_lookup_bwd(g, tx: Texels, mode, wrap, st, dst0=None, dst1=None,
         cuda.launch("mipmap_lookup_bwd", g, tx.meta, tx.meta.shape[0],
                     int(wrap), mode, st, dst0, dst1, width,
                     float(np.float32(max_anisotropy)), n, *TAP_WEIGHTS32,
-                    WSUM32, _E2, out, n_texels)
+                    WSUM32, _E2, out, n_texels, group, lib=lib)
     return out
 
 

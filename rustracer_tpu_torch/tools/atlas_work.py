@@ -169,37 +169,51 @@ def _corner_keys(off, w, h, wrap, s0, t0):
     return torch.stack(keys)
 
 
-def _k10_new(tp, g, wsum_scale, n_texels):
+def packed_warps(lanes, tile=K10_TILE, most=8, least=1):
+    """The packing of the texel-gradient kernels (csrc/texel_grad.cuh
+    pack_tile, rounds, group_of) of the lanes that add (sorted lane
+    indices ``lanes``): tiles of ``tile`` lanes on K10_THREADS threads, G
+    threads a lookup by the tile's count (the most of ``least``, 2
+    ``least``, ..., ``most`` that run it in one round) -> (G (L,), warp
+    (L,): an id of the warp that runs each lookup's threads, in its
+    round)."""
+    first = torch.searchsorted(lanes // tile, lanes // tile)
+    tile_of = lanes // tile
+    rank = torch.arange(lanes.numel(), device=lanes.device) - first
+    count = torch.bincount(tile_of)[tile_of]
+    grp = torch.full_like(count, least)
+    while True:
+        up = (grp < most) & (2 * grp * count <= K10_THREADS)
+        if not bool(up.any()):
+            break
+        grp = torch.where(up, 2 * grp, grp)
+    per_round = K10_THREADS // grp
+    warp = (tile_of * (tile // per_round + 1) + rank // per_round) \
+        * (K10_THREADS // 32) + (rank % per_round) // (32 // grp)
+    return grp, warp
+
+
+def _k10_new(tp, g, wsum_scale, n_texels, tile=K10_TILE, least=1):
     """The global atomics of this K10 (csrc/atlas_bwd.cu) on the taps
     ``tp`` (_k10_taps) and the lanes' scaled gradients ``wsum_scale`` *
-    g: the textured lanes packed per tile, G threads a lookup, two open
-    quads a thread, quads added at the kernel's call sites, each corner
-    summed over the warp's lanes with its texel -> count of adds of a
-    nonzero sum, one a channel."""
+    g: the textured lanes packed per tile (``tile`` lanes), G threads a
+    lookup (packed_warps, at least ``least``), two open quads a thread,
+    quads added at the kernel's call sites, each corner summed over the
+    warp's lanes with its texel -> count of adds of a nonzero sum, one a
+    channel. K20's 8-tap lookups (texture_work.k20_atomics) take the same
+    code."""
     lanes = tp["lanes"]
     dev = lanes.device
-    n = lanes.numel()
-    tile = lanes // K10_TILE
-    first = torch.searchsorted(tile, tile)            # lanes sorted
-    rank = torch.arange(n, device=dev) - first        # packed index p
-    count = torch.bincount(tile)[tile]
-    grp = torch.where(2 * count > K10_THREADS, 1,
-                      torch.where(4 * count > K10_THREADS, 2,
-                                  torch.where(8 * count > K10_THREADS, 4,
-                                              8)))
+    grp, warp_of = packed_warps(lanes, tile, 8, least)
     events = []
     for G in (1, 2, 4, 8):
         sel = torch.nonzero(grp == G).flatten()
         if not sel.numel():
             continue
         T = 8 // G
-        p = rank[sel]
-        per_round = K10_THREADS // G
-        warp = (tile[sel] * (K10_TILE // per_round + 1) + p // per_round) \
-            * (K10_THREADS // 32) + (p % per_round) // (32 // G)
         # the G threads of each lookup, each taps k0 .. k0 + T - 1
         look = sel.repeat_interleave(G)
-        warp = warp.repeat_interleave(G)
+        warp = warp_of[sel].repeat_interleave(G)
         k0 = torch.arange(G, device=dev).repeat(sel.numel()) * T
         events += _k10_thread_events(tp, look, warp, k0, T, g, wsum_scale,
                                      n_texels)

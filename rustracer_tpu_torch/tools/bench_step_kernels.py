@@ -3,14 +3,15 @@ triangle, Gaussian and Mitchell filters: K4F), K5 (the atlas EWA lookup), K6 (th
 (the slab take and put), K9 with those filters (the splat's backward:
 K9F), K10 (the lookup's backward) and K11 (the row gather's backward) on
 the inputs of full-width textured steps, K12 (the light grid's
-contribution sums) over whole grids, and K17 (the per-texture mipmap
+contribution sums) over whole grids, K17 (the per-texture mipmap
 lookups) and K19 (the Fourier BSDF) on full-width steps of the texture
-scenes, against their plain versions and, given them, other builds of
+scenes, and K20 (K17's texel gradient) on a recorded textures-train
+backward, against their plain versions and, given them, other builds of
 their sources.
 
     python -m rustracer_tpu_torch.tools.bench_step_kernels [--other PATH ...]
         [--time-only PATH ...] [--reps N]
-        [--kernels K2,K4,K5,K6,K7,K10,K11,K17,K19,K12,K4F,K9F]
+        [--kernels K2,K4,K5,K6,K7,K10,K11,K17,K19,K20,K12,K4F,K9F]
         [--k12-corners] [--json PATH]
 
 Builds the textured headline dragon (1024^2, the 64-spp config, 2^18-lane
@@ -22,10 +23,19 @@ mask after bounce 0) and K8 (the material rows) in that step
 slab), recording K7's fields as bounce 0 left them, its order and width.
 
 K2 runs on the closest hits of the dragon's camera and bounce wavefronts
-(tools/traverse_work.py: triangle lanes and misses) and of 2^18 rays at
+(tools/traverse_work.py: triangle lanes and misses), of 2^18 rays at
 the 16-quadric table over a ground triangle (tools/quadric_work.py:
-quadric and triangle lanes); every build's 15 outputs bit for bit with the
-library's, timed in turns, bounded by tools/quadric_work.py k2_bound.
+quadric and triangle lanes), of a full-width testball-matte step's camera
+rays, of a testball-glass step's bounce 1 (the call with the most hits
+leaving the ball from inside) and of the instanced gallery's camera rays
+(``k2_step_cases``); every build's 15 outputs bit for bit with the
+library's, timed in turns (``k2_runs``: the library through its wrapper
+and launched directly, with and without the wrapper's zero fills), then
+each case with its lanes sorted by kind on the host (``k2_sorted``),
+bounded by tools/quadric_work.py k2_bound; the SASS of each other build's
+kernels against the library's, instruction for instruction
+(``compare_k2_sass``). A ``--time-only`` interaction.cu (a diagnostic
+build: tools/k2_parts.py) is timed on the K2 cases unchecked.
 
 K4 runs on the recorded splat into a zero 1024^2 film, bit for bit equal
 with the plain version (box 0.5: a pixel takes at most two taps), and is
@@ -114,8 +124,23 @@ recurrence count, the per-term count beside). An ``--other`` mipmap.cu
 (exporting ``rt_mipmap_lookup``) needs mipmap.cuh, atlas.cuh and
 common.cuh beside it, a fourier.cu (``rt_fourier_bsdf``) common.cuh; a
 ``--time-only`` mipmap.cu (tools/k17_parts.py) is timed on the K17 calls
-unchecked. ``--kernels`` picks what is measured (all by default); the
-dragon is built only for the kernels that need it.
+unchecked.
+
+K20 runs on every call of the backward of textures-train at 256^2, its
+images 1024^2, recorded after three train steps as chip_smoke's phase 22
+records it (``capture_k20``): each call's texture, wrap, lanes (and
+those with a nonzero gradient), texels, adds and global atomics (the
+parent's design and this one's, tools/texture_work.py k20_atomics)
+logged; every build and route (``k20_runs``: each threads a lookup
+forced) held against the plain version on every call
+(compare_bwd_with_plain), every call timed in turns, bounded by
+k20_work. An ``--other`` mipmap_bwd.cu needs mipmap.cuh, atlas.cuh,
+texel_grad.cuh and common.cuh beside it; one whose
+``rt_mipmap_lookup_bwd`` takes no ``group`` (an older source) runs with
+its own choice only; a ``--time-only`` one (tools/k20_parts.py) is timed
+unchecked.
+``--kernels`` picks what is measured (all by default); the dragon is
+built only for the kernels that need it.
 
 Refuses to run without CUDA.
 """
@@ -162,7 +187,7 @@ K9, K10, K11 = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
                 "row_gather_bwd")
 K12 = "spatial_grid_contrib"
 K2 = "build_interaction"
-K17, K19 = "mipmap_lookup", "fourier_bsdf"
+K17, K19, K20 = "mipmap_lookup", "fourier_bsdf", "mipmap_lookup_bwd"
 # K2's C interface before its quadric branch (rt_build_interaction_tri):
 # t_shade, n_tris, nq, the rays and hits, n, the 15 outputs, stream
 K2_TRI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
@@ -176,7 +201,7 @@ K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
 # rt_film_bwd_layout export)
 K9_NO_LAYOUT_ARGS = cuda.SIGNATURES[K9][:-3] + cuda.SIGNATURES[K9][-1:]
 KERNELS = {"K2": K2, "K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
-           "K17": K17, "K19": K19,
+           "K17": K17, "K19": K19, "K20": K20,
            "K12": K12, "K4F": K4, "K9F": K9}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
@@ -192,12 +217,21 @@ K11_KERNELS = ("row_gather_bwd_kernel", "row_gather_bwd_shared_kernel")
 K12_KERNELS = ("grid_contrib_kernel",)
 K17_KERNELS = ("mipmap_kernel",)
 K19_KERNELS = ("fourier_kernel",)
+K20_KERNELS = ("mipmap_bwd_",)
 # the scenes whose recorded step (tile STEP_TILE, SHADING_SAMPLES samples'
 # config) K17 and K19 run on, and the wide Fourier table's lanes
 K17_SCENE, K19_SCENE = "textures-image", "testball-fourier"
 SHADING_SAMPLES = 8
 WIDE_LANES = 1 << 18
 WIDE_TABLE = dict(n_mu=64, m_max=64)
+# K20's recorded backward: textures-train's film, the side of its two
+# images, the learning rate and the train steps before it (chip_smoke
+# phase 22's)
+K20_RES, K20_IMAGE, K20_LR, K20_STEPS = 256, 1024, 1.0, 3
+# K2's recorded steps: the testballs' camera and glass bounce-1 hits, and
+# the gallery's camera hits (its film, chip_smoke phase 21's)
+K2_BALLS = ("matte", "glass")
+GALLERY_RES = (1024, 768)
 # K12's per-chunk C interface, before it took the grid (--k12-corners):
 # voxel corners (n, 3), n, the voxel extent, halton, n_probes, the light
 # tables, n_lights, out, stream; called once a CHUNK_VOXELS chunk
@@ -231,6 +265,12 @@ K4F_TAP_OPS_PER_TAP = {"triangle": 22, "gaussian": 26, "mitchell": 58}
 # multiplies and adds 9
 K9_TAP_OPS = 8
 K9_CLAMP_OPS = 31
+# K20's C interface before its threads a lookup: the arguments without
+# ``group``
+K20_PARENT_ARGS = cuda.SIGNATURES[K20][:-2] + cuda.SIGNATURES[K20][-1:]
+# K20's threads a lookup timed beside each block's own choice, by mode:
+# every route it has (csrc/mipmap_bwd.cu has_route)
+K20_GROUPS = {"trilinear": (1, 2), "ewa": (4, 8), "exact": (1, 2, 4, 8)}
 # K11's C interface before its register path: g, idx, n, rows,
 # width, out (zeroed, added into), stream
 K11_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
@@ -502,9 +542,9 @@ def build(others, k12_corners=False):
     sources = {f"library {f}": os.path.join(CSRC, f)
                for f in ("interaction.cu", "film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
                          "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu", "mipmap.cu",
-                         "fourier.cu")}
+                         "fourier.cu", "mipmap_bwd.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12, K17, K19)
+    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12, K17, K19, K20)
     sass_of = ("film.cu", "film_bwd.cu", "compact.cu", "atlas_bwd.cu",
                "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
@@ -537,7 +577,17 @@ def build(others, k12_corners=False):
             loaded = cuda.load(f.result(), names
                                + (["slab_put"] if K7 in exports else [])
                                + (["row_gather_bwd_blocks"]
-                                  if K11 in names else []))
+                                  if K11 in names else [])
+                               + (["build_interaction_inst"] if K2 in names
+                                  and hasattr(handle,
+                                              "rt_build_interaction_inst")
+                                  else []))
+            loaded.path = f.result()
+            if K20 in names and not _k20_takes_group(p):
+                fn = loaded.rt_mipmap_lookup_bwd
+                fn.argtypes = K20_PARENT_ARGS
+                loaded.rt_mipmap_lookup_bwd = _without_group(fn)
+                loaded.k20_parent = True
             if k12_chunked:
                 loaded.rt_spatial_grid_contrib.argtypes = K12_CORNER_ARGS
                 loaded.rt_spatial_grid_contrib.restype = ctypes.c_int
@@ -622,13 +672,73 @@ def k2_cases(ctx, cam, sampler, renderer):
     return cases
 
 
-def k2_call(lib, case):
+def k2_step_cases(dev, res=RES, lanes=LANES, balls=K2_BALLS, gallery=True):
+    """-> {case: (geom, ray, hit, t, prim[, inst])}: K2's recorded calls
+    of one step (tile STEP_TILE, or the last tile of a smaller film) of
+    testball-<ball> with its film at ``res`` for each of ``balls`` (matte: the camera
+    hits; glass: the call with the most hits leaving the ball from
+    inside, bounce 1, quadric_work.inside_counts) and, with ``gallery``,
+    of the instanced gallery at GALLERY_RES (its camera hits, K2's
+    instance branch)."""
+    from ..scene.api import parse_scene_string
+    from ..utils import fileutil
+    from .profile_step import testball_text
+    cases = {}
+    for ball in balls:
+        text, scenes = testball_text(f"testball-{ball}", res)
+        fileutil.set_search_directory(scenes)
+        bundle = parse_scene_string(text, device=dev).scene
+        r, ctx = bundle.renderer(lanes), bundle.context()
+        tile = r.tiles[min(STEP_TILE, len(r.tiles) - 1)]
+        calls = QW.capture_quadric_step(r, ctx, tile, every=True)
+        k2 = calls["build_interaction"]
+        i = 0
+        if ball == "glass":
+            counts = QW.inside_counts(k2, "build_interaction")
+            i = int(np.argmax(counts))
+        cases[f"K2 testball-{ball} call {i}"] = k2[i]
+    if gallery:
+        from ..render.renderer import RenderConfig, Renderer
+        from ..scenes import build_instanced
+        from . import geometry_work as GW
+        ctx, cam, film, sampler, integ = build_instanced(res=GALLERY_RES,
+                                                         device=dev)
+        r = Renderer(integ.li, cam, film, sampler,
+                     RenderConfig(max_lanes=lanes), device=dev)
+        args, kw = GW.capture_geometry_step(
+            r, ctx, r.tiles[STEP_TILE])["build_interaction"][0]
+        cases["K2 gallery camera"] = tuple(args[:5]) + (
+            args[5] if len(args) > 5 else kw["inst"],)
+    return cases
+
+
+def k2_sorted(case):
+    """``case`` with its lanes sorted by kind (miss, triangle, then each
+    quadric type: one path a warp but at the kinds' edges) -> (the sorted
+    case, the order: sorted lane j is lane order[j])."""
+    geom, ray, hit, t, prim = case[:5]
+    nq = geom.n_quadrics
+    qt = geom.q_type[prim.clamp(0, nq - 1).long()]
+    quad = (prim < nq) & bool(geom.has_quadrics)
+    kind = torch.where(~hit, 0, torch.where(quad, 2 + qt, 1))
+    order = torch.argsort(kind, stable=True)
+    ray = type(ray)(o=ray.o[order].contiguous(), d=ray.d[order].contiguous(),
+                    t_max=ray.t_max[order].contiguous())
+    rest = tuple(x[order].contiguous() for x in (hit, t, prim) + case[5:])
+    return (geom, ray) + rest, order
+
+
+def k2_call(lib, case, fills=False):
     """One K2 call on a case -> its outputs in K2_FIELDS order: the
-    library's through its wrapper, or ``lib``'s with the same arguments
-    (one from before the quadric branch through its triangle entry)."""
-    geom, ray, hit, t, prim = case
+    library's through its wrapper (``lib`` None), or ``lib``'s with the
+    same arguments (one from before the quadric branch through its
+    triangle entry), and with ``fills`` the two zero fills of the
+    wrapper's Interaction (its texture differentials) after it; a case
+    with instances through the instance entry."""
+    geom, ray, hit, t, prim = case[:5]
+    inst = case[5:]
     if lib is None:
-        si = build_interaction(geom, ray, hit, t, prim)
+        si = build_interaction(geom, ray, hit, t, prim, *inst)
         return [getattr(si, f) for f in K2_FIELDS]
     n, dev = t.shape[0], t.device
     out = [torch.empty((n, 2 if f == "uv" else 3), dtype=torch.float32,
@@ -638,40 +748,129 @@ def k2_call(lib, case):
     if getattr(lib, "k2_tri", False):
         cuda.launch(K2 + "_tri", geom.t_shade, geom.n_triangles,
                     geom.n_quadrics, *rays, *out, lib=lib)
+    elif inst:
+        cuda.launch(K2 + "_inst", geom.t_shade, geom.n_triangles,
+                    geom.n_quadrics, int(geom.has_quadrics),
+                    *(getattr(geom, k) for k in QUADRIC_KEYS), *rays, *out,
+                    inst[0], geom.inst_o2w, geom.inst_w2o, geom.inst_flip,
+                    lib=lib)
     else:
         cuda.launch(K2, geom.t_shade, geom.n_triangles, geom.n_quadrics,
                     int(geom.has_quadrics),
                     *(getattr(geom, k) for k in QUADRIC_KEYS), *rays, *out,
                     lib=lib)
+    if fills:
+        torch.zeros_like(t), torch.zeros_like(out[0])
     return out
 
 
-def measure_k2(cases, builds, reps=20, log=print):
-    """Check and time every K2 build on each case it takes (one from
-    before the quadric branch the dragon's only): every output bit for bit
-    with the library's, timed in turns."""
+def _k2_takes(lib, case):
+    """Whether build ``lib`` (None: the library) runs ``case``: one from
+    before the quadric branch the triangle-only cases, one without the
+    instance entry none with instances."""
+    geom = case[0]
+    if getattr(lib, "k2_tri", False):
+        return not geom.has_quadrics and len(case) == 5
+    return len(case) == 5 or lib is None or hasattr(
+        lib, "rt_build_interaction_inst")
+
+
+def k2_runs(builds, case):
+    """-> {run name: (build, fills)} of ``case``: each build that takes
+    it, and the library also launched as the other builds are ("library
+    direct"), with and without the wrapper's two zero fills after each
+    call (k2_call ``fills``: the gap between the wrapper's timing and the
+    same kernel's)."""
+    runs = {b: (lib, False) for b, lib in builds.items()
+            if _k2_takes(lib, case)}
+    if "library direct" in runs:
+        runs["library direct (the wrapper's zero fills)"] = (
+            runs["library direct"][0], True)
+    return runs
+
+
+def measure_k2(cases, builds, reps=20, log=print, unchecked=()):
+    """Check and time every K2 build on each case it takes (k2_runs):
+    every output bit for bit with the library's (builds in ``unchecked``:
+    tools/k2_parts.py's, unchecked), timed in turns; then each case with
+    its lanes sorted by kind (k2_sorted: one path a warp, for the
+    measurement only), the other checked builds again bit for bit with
+    the library's on the case as recorded and timed in turns."""
     rows = []
     for case, args in cases.items():
-        geom, _, hit, _, prim = args
-        takes = {b: lib for b, lib in builds.items()
-                 if not (geom.has_quadrics and getattr(lib, "k2_tri", False))}
+        geom, _, hit, _, prim = args[:5]
+        runs = k2_runs(builds, args)
         ref = k2_call(None, args)
-        for b, lib in takes.items():
-            for f, x, y in zip(K2_FIELDS, k2_call(lib, args), ref):
-                if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
-                    raise AssertionError(f"{case} {b}: {f} differs from the "
-                                         "library's")
+        sorted_args, order = k2_sorted(args)
+        sorted_runs = {b: r for b, r in runs.items()
+                       if b not in unchecked and r[0] is not None
+                       and not r[1]}
+        for label, a, rs in (("", args, runs),
+                             (" sorted", sorted_args, sorted_runs)):
+            for b, (lib, fills) in rs.items():
+                if b in unchecked:
+                    continue
+                out = k2_call(lib, a, fills)
+                for f, x, y in zip(K2_FIELDS, out, ref):
+                    if label:
+                        x = torch.empty_like(x).index_copy_(0, order, x)
+                    if not torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32)):
+                        raise AssertionError(f"{case}{label} {b}: {f} "
+                                             "differs from the library's")
         bound_ms, bound_by, n_q, n_t = QW.k2_bound(geom, hit, prim)
-        log(f"{case}: {n_q} quadric and {n_t} triangle lanes of "
-            f"{hit.shape[0]}; every build bit for bit with the library")
-        timed = _turns({b: (lambda lib=lib: k2_call(lib, args))
-                        for b, lib in takes.items()}, reps, K2_KERNELS)
-        for b in takes:
-            r = _row(case, b, timed[b], bound_ms, bound_by,
-                     quadric_lanes=n_q, triangle_lanes=n_t)
-            rows.append(r)
-            _log_row(log, r)
+        n_inst = int((args[5] >= 0).sum()) if len(args) > 5 else 0
+        log(f"{case}: {n_q} quadric, {n_t} triangle ({n_inst} instanced) "
+            f"lanes of {hit.shape[0]}; every checked build bit for bit with "
+            "the library, also on the lanes sorted by kind")
+        for label, a, rs in (("", args, runs),
+                             (" sorted", sorted_args, sorted_runs)):
+            timed = _turns({b: (lambda r=r, a=a: k2_call(r[0], a, r[1]))
+                            for b, r in rs.items()}, reps, K2_KERNELS)
+            for b in rs:
+                r = _row(case + label, b, timed[b], bound_ms, bound_by,
+                         quadric_lanes=n_q, triangle_lanes=n_t,
+                         instanced_lanes=n_inst, checked=b not in unchecked)
+                rows.append(r)
+                _log_row(log, r)
     return rows
+
+
+def function_sass(path):
+    """cuobjdump's SASS of each kernel in the shared library or cubin at
+    ``path`` -> {kernel (mangled name): [instruction text without its
+    address and encoding]}."""
+    sass = subprocess.run([cuobjdump_path(), "-sass", path], check=True,
+                          capture_output=True, text=True,
+                          timeout=600).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = _SASS_FN.search(ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+        elif fn is not None and "*/" in ln and ln.strip().startswith("/*"):
+            out[fn].append(ln.split("*/", 1)[1].split("/*")[0].strip())
+    return out
+
+
+def compare_k2_sass(builds, log=print):
+    """For each other K2 build, whether its kernels' SASS is the
+    library's, instruction for instruction -> {build: {kernel: (same,
+    instructions in the library's, in the build's)}}."""
+    lib_fns = {k: v for k, v in function_sass(cuda.library_path()).items()
+               if "build_interaction_kernel" in k}
+    out = {}
+    for b, lib in builds.items():
+        if not hasattr(lib, "path") or getattr(lib, "k2_tri", False):
+            continue
+        fns = function_sass(lib.path)
+        out[b] = {k: (fns.get(k) == v, len(v), len(fns.get(k, [])))
+                  for k, v in lib_fns.items()}
+        for k, (same, n_lib, n_b) in out[b].items():
+            log(f"K2 SASS {b}: {k}: {'the same as' if same else 'differs from'}"
+                f" the library's ({n_b} instructions against {n_lib})")
+    return out
 
 
 def measure_k5(ctx, cap, builds, reps=20, log=print):
@@ -1443,6 +1642,144 @@ def measure_k19(calls, wide, builds, reps=20, log=print):
     return rows
 
 
+def capture_k20(dev, res=K20_RES, image=K20_IMAGE, lanes=LANES, lr=K20_LR,
+                steps=K20_STEPS):
+    """textures-train at res^2, its images image^2 (tools/texture_work.py),
+    through make_train_step as chip_smoke's phase 22 runs it: ``steps``
+    train steps at samples 0, 1, ..., then the step at sample ``steps``
+    recorded -> {mode name: [args of each of its backward's K20 calls, in
+    the order the backward makes them]} (texture_work.count_bwd_calls)."""
+    from ..parallel.mesh import make_train_step
+    from ..render.renderer import RenderConfig
+    from ..scene.api import parse_scene_string
+    with tempfile.TemporaryDirectory() as tmp:
+        text = TW.scene_text("textures-train", res=res, spp=1, bsdf_dir=tmp,
+                             image_size=image)
+        bundle = parse_scene_string(text, device=dev).scene
+    ctx = bundle.context()
+    target = torch.full((res, res, 3), 0.2, device=dev)
+    step = make_train_step(bundle.integrator.li, bundle.camera, bundle.film,
+                           bundle.sampler, lr=lr,
+                           config=RenderConfig(max_lanes=lanes), device=dev)
+    for s in range(steps):
+        ctx, _ = step(ctx, target, s)
+    rec = {}
+    with TW.count_bwd_calls({}, rec):
+        step(ctx, target, steps)
+    return rec
+
+
+def _k20_takes_group(path):
+    """Whether the mipmap_bwd.cu at ``path`` exports K20 with its threads
+    a lookup (``group``); a source from before the argument does not."""
+    with open(path) as f:
+        m = re.search(r"rt_mipmap_lookup_bwd\(([^)]*)\)", f.read())
+    return bool(m) and "int group" in m.group(1)
+
+
+def _without_group(fn):
+    """K20's entry ``fn`` of a build without ``group`` (K20_PARENT_ARGS),
+    called with the library's arguments: each block's choice (group 0),
+    the only one it has."""
+    def call(*args):
+        if args[-2] != 0:
+            raise ValueError("this K20 build has no threads a lookup to "
+                             "force")
+        return fn(*args[:-2], args[-1])
+    return call
+
+
+def k20_call(lib, args, group=0):
+    """K20 (the library's, or ``lib``'s) on a recorded call (g, tx, mode,
+    wrap, st, dst0, dst1, width, max_anisotropy), ``group`` threads a
+    lookup (0: each block's choice) -> the texel gradient."""
+    g, tx, mode, wrap, st, dst0, dst1, width, ma = args
+    g, st, dst0, dst1, width = MM._contig(g, st, dst0, dst1, width)
+    return MM._k20(g, tx, mode, wrap, st, dst0, dst1, width, ma, lib=lib,
+                   group=group)
+
+
+def texture_of(tx):
+    """A K20 call's texture, named by its pyramid's place in the texel
+    rows: its first texel, level 0's size and its levels."""
+    off, w, h = tx.meta[0].tolist()
+    return f"texels {off}+, {w}x{h}, {tx.meta.shape[0]} levels"
+
+
+def k20_runs(builds, mode_name, unchecked=()):
+    """-> {run name: (build, threads a lookup)}: each build with each
+    block's choice (0), and each build that takes the argument but the
+    diagnostic ones of ``unchecked`` with each of K20_GROUPS[mode_name]."""
+    runs = {}
+    for b, lib in builds.items():
+        runs[b] = (lib, 0)
+        if not getattr(lib, "k20_parent", False) and b not in unchecked:
+            runs.update((f"{b} G={G}", (lib, G))
+                        for G in K20_GROUPS[mode_name])
+    return runs
+
+
+def measure_k20(calls, builds, reps=20, log=print, unchecked=()):
+    """K20 on every call of a recorded textures-train backward (``calls``:
+    capture_k20): each call's texture, wrap, lanes (and those with a
+    nonzero gradient), texels, adds and global atomics logged
+    (texture_work.k20_work, k20_atomics); every build but those of
+    ``unchecked`` (tools/k20_parts.py's), with the kernel's choice of
+    threads a lookup and with each of K20_GROUPS (k20_runs), held against
+    the plain version on every call (texture_work.compare_bwd_with_plain);
+    every call timed in turns and bounded, the first of each mode beside
+    its plain version's time -> list of row dicts."""
+    seq = [(name, a) for name in TW.BWD_MODES.values()
+           for a in calls.get(name, [])]
+    works = []
+    for i, (name, args) in enumerate(seq):
+        work = TW.k20_work(*args)
+        atomics = TW.k20_atomics(*args)
+        nonzero = int((args[0] != 0).any(1).sum())
+        works.append(dict(work, nonzero_lanes=nonzero,
+                          **{f"atomics_{k}": v for k, v in atomics.items()}))
+        log(f"K20 call {i}: {name}, {texture_of(args[1])}, wrap {args[3]}, "
+            f"{work['lanes']} lanes ({nonzero} with a nonzero gradient, "
+            f"{work['active']} that add: {work['texels']} texel rows, "
+            f"{work['adds']} adds); global atomics "
+            f"{atomics}")
+    errs = {}
+    for name, args in seq:
+        for run, (lib, group) in k20_runs(builds, name, unchecked).items():
+            if run in unchecked:
+                continue
+            r = TW.compare_bwd_with_plain(*args, k20_call(lib, args, group))
+            errs[run] = max(errs.get(run, 0.0), r["max_abs_err"])
+    for run, err in errs.items():
+        log(f"K20 {run}: {len(seq)} calls held to the plain version, max "
+            f"abs err {err:.3g}")
+    rows, seen = [], set()
+    for i, (name, args) in enumerate(seq):
+        work = works[i]
+        bound_ms, bound_by = _bound(work["moved"], work["ops"])
+        label = f"K20 {name} call {i}"
+        plain = None
+        if name not in seen:
+            seen.add(name)
+            with cuda.plain_reference():
+                plain = events_ms(lambda: MM.mipmap_lookup_bwd(*args), 3)
+        runs = k20_runs(builds, name, unchecked)
+        timed = _turns({run: (lambda lib=lib, group=group:
+                              k20_call(lib, args, group))
+                        for run, (lib, group) in runs.items()}, reps,
+                       K20_KERNELS)
+        log(f"{label} ({texture_of(args[1])}, wrap {args[3]}): {work}"
+            + (f"; plain {plain:.4f} ms" if plain is not None else ""))
+        for run in runs:
+            r = _row(label, run, timed[run], bound_ms, bound_by, call=i,
+                     mode=name, texture=texture_of(args[1]), wrap=args[3],
+                     plain_ms=plain, max_abs_err=errs.get(run),
+                     checked=run in errs, **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
@@ -1451,9 +1788,11 @@ def main(argv=None):
                          "lightdistrib.cu, mipmap.cu or fourier.cu to time "
                          "(repeatable)")
     ap.add_argument("--time-only", action="append", default=[],
-                    help="a diagnostic film_bwd.cu or mipmap.cu, timed on "
-                         "the K9F or K17 calls unchecked (tools/k9_parts.py, "
-                         "tools/k17_parts.py; repeatable)")
+                    help="a diagnostic film_bwd.cu, mipmap.cu, "
+                         "mipmap_bwd.cu or interaction.cu, timed on the "
+                         "K9F, K17, K20 or K2 calls unchecked "
+                         "(tools/k9_parts.py, k17_parts.py, k20_parts.py, "
+                         "k2_parts.py; repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="the kernels to measure, of "
@@ -1485,7 +1824,7 @@ def main(argv=None):
             print(f"sass [{name}] {fn}: {' '.join(ops)}", flush=True)
     dev = torch.device("cuda:0")
     which = args.kernels.split(",")
-    if [k for k in which if k not in ("K17", "K19")]:
+    if [k for k in which if k not in ("K17", "K19", "K20")]:
         ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
         r = Renderer(integ.li, cam, film, sampler,
                      RenderConfig(max_lanes=LANES), device=dev)
@@ -1504,9 +1843,15 @@ def main(argv=None):
                                                    ("K19", K19_SCENE))
                                     if k in which])
     log = lambda s: print(s, flush=True)   # noqa: E731
+    if "K2" in which:
+        # the library's kernel launched as the other builds are, for the
+        # gap between the library's K2 and the same source built alone
+        builds[K2] = dict(builds[K2], **{"library direct": cuda.library()})
+        compare_k2_sass(builds[K2], log)
     measure = {
-        "K2": lambda: measure_k2(k2_cases(ctx, cam, sampler, r), builds[K2],
-                                 args.reps, log),
+        "K2": lambda: measure_k2(
+            {**k2_cases(ctx, cam, sampler, r), **k2_step_cases(dev)},
+            builds[K2], args.reps, log, unchecked=args.time_only),
         "K4": lambda: measure_k4(cap, builds[K4], channels, args.reps, log),
         "K5": lambda: measure_k5(ctx, cap, builds[K5], args.reps, log),
         "K6": lambda: measure_k6(cap, builds[K6], args.reps, log),
@@ -1523,7 +1868,9 @@ def main(argv=None):
                                    args.reps, log, unchecked=args.time_only),
         "K19": lambda: measure_k19(shading[K19_SCENE],
                                    wide_fourier_calls(dev), builds[K19],
-                                   args.reps, log)}
+                                   args.reps, log),
+        "K20": lambda: measure_k20(capture_k20(dev), builds[K20], args.reps,
+                                   log, unchecked=args.time_only)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

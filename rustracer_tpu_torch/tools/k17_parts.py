@@ -67,11 +67,12 @@ PARTS = {
 }
 
 
-def part_files(texts, part):
-    """``texts`` ({file: text} of FILES) with ``part``'s replacements;
-    raises unless each replaced text occurs once."""
+def replace_once(texts, edits, part):
+    """``texts`` ({file: text}) with ``edits`` ([(file, old, new)])
+    applied; raises unless each replaced text occurs once (a design the
+    part was not written for)."""
     out = dict(texts)
-    for name, old, new in PARTS[part]:
+    for name, old, new in edits:
         if out[name].count(old) != 1:
             raise ValueError(f"{part}: the text to replace is not in {name} "
                              "once")
@@ -79,22 +80,34 @@ def part_files(texts, part):
     return out
 
 
-def write_parts(src, directory):
-    """Write each part's four files under ``directory`` from those in
-    ``src`` -> {part: path of its mipmap.cu}."""
+def part_files(texts, part):
+    """``texts`` ({file: text} of FILES) with ``part``'s replacements;
+    raises unless each replaced text occurs once."""
+    return replace_once(texts, PARTS[part], part)
+
+
+def write_part_dirs(src, directory, files, parts, main):
+    """Write each part's ``files`` under ``directory``/<part> from those in
+    ``src``, the part's texts replaced -> {part: path of its ``main``}."""
     texts = {}
-    for name in FILES:
+    for name in files:
         with open(os.path.join(src, name)) as f:
             texts[name] = f.read()
     paths = {}
-    for part in PARTS:
+    for part, edits in parts.items():
         d = os.path.join(directory, part)
         os.makedirs(d, exist_ok=True)
-        for name, text in part_files(texts, part).items():
+        for name, text in replace_once(texts, edits, part).items():
             with open(os.path.join(d, name), "w") as f:
                 f.write(text)
-        paths[part] = os.path.join(d, "mipmap.cu")
+        paths[part] = os.path.join(d, main)
     return paths
+
+
+def write_parts(src, directory):
+    """Write each part's four files under ``directory`` from those in
+    ``src`` -> {part: path of its mipmap.cu}."""
+    return write_part_dirs(src, directory, FILES, PARTS, "mipmap.cu")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ branch; shared by chip_smoke.py and the tests.
 - ``capture_quadric_step``: the inputs of the first (or of every) K14
   closest, K14 any and K2 call of one renderer step; ``inside_sphere``:
   the lanes of a call whose rays start inside a sphere (refracted rays
-  leaving a glass ball).
+  leaving a glass ball), ``inside_counts`` their count in each recorded
+  call.
 """
 from __future__ import annotations
 
@@ -332,6 +333,24 @@ def capture_quadric_step(renderer, ctx, tile, sample=1, every=False) -> dict:
             record_calls(tables, "build_interaction", calls, every):
         renderer.step(ctx, fs, px, py, sample, v)
     return calls
+
+
+def inside_counts(calls, key):
+    """-> for each recorded call (``calls``: capture_quadric_step(every=
+    True)'s list under ``key``), its live rays that start inside a sphere:
+    build_interaction's quadric hits, or the K14 calls' rays with t_max >
+    0."""
+    counts = []
+    for c in calls:
+        if key == "build_interaction":
+            geom, ray, hit, _, prim = c
+            live = hit & (prim < geom.n_quadrics)
+            o = ray.o
+        else:
+            geom, o, _, t_max = c
+            live = t_max > 0
+        counts.append(int((inside_sphere(geom, o) & live).sum()))
+    return counts
 
 
 def inside_sphere(geom, o):

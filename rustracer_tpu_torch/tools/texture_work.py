@@ -382,21 +382,239 @@ def k17_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
                 moved=n * (lane_in + 12) + texels * TEXEL_BYTES, ops=ops)
 
 
-def k20_work(tx, mode, wrap, st, dst0=None, dst1=None, width=None,
+def k20_work(g, tx, mode, wrap, st, dst0=None, dst1=None, width=None,
              max_anisotropy=8.0) -> dict:
-    """-> dict(lanes, texels (distinct texel rows written), adds (texel
-    adds of all lanes), moved, ops) of one K20 call, the backward of the
-    K17 call of these inputs: each lane's gradient (12 B), st and width or
-    differentials read once, each distinct texel row it adds into written
-    once (12 B, the (T, 3) rows: the texels the forward read), so the
-    forward's bytes (k17_work); its operations (the same set-up and
-    weights) and 3 more a texel add (the scaled gradient's channels)."""
-    w = k17_work(tx, mode, wrap, st, dst0, dst1, width, max_anisotropy)
-    n = w["lanes"]
-    adds = {MM.TRILINEAR: 8 * n, MM.EWA: 64 * n}.get(
-        mode, w["inside"] + 4 * w["fallback"])
-    return dict(lanes=n, texels=w["texels"], adds=adds,
-                moved=w["moved"], ops=w["ops"] + 3 * adds)
+    """-> dict(lanes, active (the lanes that add: k20_active), texels
+    (distinct texel rows they add into), adds (their texel adds that reach
+    a texel: k20_adds), moved, ops) of one K20 call, the backward of the
+    K17 call of these inputs. Bytes: every lane's gradient (12 B) and
+    coordinates (st and width or differentials) read once, to find the
+    lanes that add, and each distinct texel row an active lane adds into
+    written once (12 B, the (T, 3) rows). Operations of the active lanes
+    only: the forward's set-up and weights (k17_work) and 3 a texel add
+    (the scaled gradient's channels); a lane whose gradient is 0 adds
+    exactly 0, which changes no bit."""
+    act = k20_active(g, mode, st, dst0, dst1)
+
+    def some(x):
+        return None if x is None else x[act]
+    sub = (st[act], some(dst0), some(dst1), some(width), max_anisotropy)
+    w = k17_work(tx, mode, wrap, *sub)
+    keys, _ = k20_adds(torch.ones_like(g[act]), tx, mode, wrap, *sub)
+    adds = int((keys >= 0).sum())
+    n = st.shape[0]
+    lane_in = 12 if mode == MM.TRILINEAR else 24
+    moved = n * (lane_in + 12) + w["texels"] * TEXEL_BYTES
+    return dict(lanes=n, active=int(act.sum()), texels=w["texels"],
+                adds=adds, moved=moved, ops=w["ops"] + 3 * adds)
+
+
+def k20_adds(g, tx, mode, wrap, st, dst0=None, dst1=None, width=None,
+             max_anisotropy=8.0):
+    """The texel adds of one K20 call, in the order a lane of the design
+    with one thread a lane makes them -> (keys (B, A) int64, the texel or
+    -1 where WRAP_BLACK reads none or the add is masked, vals (B, A, 3)):
+    trilinear 2 levels x 4 corners (A = 8); the 8-tap lookup tap k, level
+    l, corner c at (k * 2 + l) * 4 + c (A = 64); the exact lookup its 128
+    box taps (those inside the ellipse, where the lane's weight sum is
+    above 1e-9), then the bilinear fallback's 4 corners (A = 132)."""
+    keys, vals = [], []
+
+    def quad(li, at, scale):
+        off, w, h, s0, t0, ds, dt = MM.bilerp_corner(tx, li, at)
+        ds, dt = ds.reshape(-1), dt.reshape(-1)
+        for c, wc in enumerate(((1 - ds) * (1 - dt), ds * (1 - dt),
+                                (1 - ds) * dt, ds * dt)):
+            keys.append(_texel_index(off, w, h, wrap, s0 + (c & 1),
+                                     t0 + (c >> 1)))
+            vals.append(scale * wc[:, None])
+    if mode == MM.TRILINEAR:
+        l0, l1, dl = MM.tri_levels(tx, width)
+        quad(l0, st, g * (1.0 - dl))
+        quad(l1, st, g * dl)
+    elif mode == MM.EWA:
+        major, minor_len = MM.ewa_axes(dst0, dst1, max_anisotropy)
+        l0, l1, dl = MM.tri_levels(tx, minor_len)
+        gw = g / MM.WSUM32
+        for (a, _), wk in zip(MM.TAPS, MM.TAP_WEIGHTS32):
+            quad(l0, st + a * major, gw * wk * (1.0 - dl))
+            quad(l1, st + a * major, gw * wk * dl)
+    else:
+        e = MM.ellipse(tx, st, dst0, dst1, max_anisotropy)
+        taps = [MM.ellipse_tap(e, k) for k in range(MM.N_TAPS_EXACT)]
+        wgt = [torch.where(ok, torch.exp(-2.0 * r2) - MM._E2, 0.0)
+               for _, _, ok, r2 in taps]
+        wsum = sum(wgt)
+        inside = wsum > 1e-9
+        gd = g / torch.clamp(wsum, min=1e-9)[:, None]
+        for (ss, tt, ok, _), w in zip(taps, wgt):
+            keys.append(torch.where(ok & inside, _texel_index(
+                e.off, e.w, e.h, wrap, ss, tt), -1))
+            vals.append(gd * w[:, None])
+        quad(e.li, st, torch.where(inside[:, None], 0.0, g))
+        for c in range(4):
+            keys[-4 + c] = torch.where(inside, -1, keys[-4 + c])
+    return torch.stack(keys, 1).long(), torch.stack(vals, 1)
+
+
+def _nonzero_sums(ids, vals):
+    """The channel sums of ``vals`` (N, 3) grouped by ``ids`` that are
+    not 0: the atomics of adds that leave out an add of exactly 0."""
+    if not ids.numel():
+        return 0
+    u, inv = torch.unique(ids, return_inverse=True)
+    sums = torch.zeros((u.numel(), 3), dtype=vals.dtype, device=vals.device)
+    sums.index_add_(0, inv, vals)
+    return int((sums != 0).sum())
+
+
+def k20_active(g, mode, st, dst0=None, dst1=None):
+    """(B,) bool: the lanes of a K20 call that add (csrc/mipmap_bwd.cu
+    adds): a nonzero gradient, or a coordinate (st, and the differentials
+    in the EWA modes) that is not finite."""
+    coords = [st] if mode == MM.TRILINEAR else [st, dst0, dst1]
+    finite = torch.stack([torch.isfinite(c).all(1) for c in coords]).all(0)
+    return (g != 0).any(1) | ~finite
+
+
+# K20's tiles (csrc/mipmap_bwd.cu: 256 lanes) and the 8-tap lookup's
+# fewest threads a lookup (kEwaLeastGroup)
+K20_TILE = 256
+K20_EWA_LEAST = 4
+
+
+def _merged(keys, vals):
+    """A quad's corners (keys (4, N), vals (4, N, 3)) with the corners that
+    reach one texel summed into the first of them (its key the others'
+    -1), as texel_grad.cuh add_quad sums them."""
+    keys, vals = keys.clone(), vals.clone()
+    for c in range(1, 4):
+        for d in range(c):
+            same = (keys[c] >= 0) & (keys[c] == keys[d])
+            vals[d] += torch.where(same[:, None], vals[c], 0.0)
+            vals[c] = torch.where(same[:, None], 0.0, vals[c])
+            keys[c] = torch.where(same, -1, keys[c])
+    return keys, vals
+
+
+def _k20_new(g, tx, mode, wrap, st, dst0, dst1, width, max_anisotropy):
+    """The global atomics of this K20 (csrc/mipmap_bwd.cu) on these
+    inputs, replayed: the lanes that add packed a tile, G threads a lookup
+    by the tile's count; the 8-tap lookup as K10's (atlas_work: two open
+    quads a thread), trilinear a quad a level (both at one call site where
+    G is 2), the exact lookup a call site a box tap and its fallback's quad,
+    each summed over the warp's lanes with the same texel at one call site,
+    one add a channel of a nonzero sum."""
+    act = k20_active(g, mode, st, dst0, dst1)
+    lanes = torch.nonzero(act).flatten()
+    if not lanes.numel():
+        return 0
+    tile = K20_TILE
+    sub = [None if x is None else x[lanes] for x in (g, st, dst0, dst1,
+                                                     width)]
+    gs, sts, d0, d1, ws = sub
+    n_texels = tx.texels.shape[0]
+    if mode == MM.EWA:
+        major, minor_len = MM.ewa_axes(d0, d1, max_anisotropy)
+        l0, l1, dl = MM.tri_levels(tx, minor_len)
+        dl = dl[:, 0]
+        out = {k: [[None] * 8 for _ in range(2)]
+               for k in ("s0", "t0", "ds", "dt", "f")}
+        lv = []
+        for li, (lev, lw) in enumerate(((l0, 1.0 - dl), (l1, dl))):
+            for k, (a, _) in enumerate(MM.TAPS):
+                off, w, h, s0, t0, ds, dt = MM.bilerp_corner(
+                    tx, lev, sts + a * major)
+                for name, v in (("s0", s0), ("t0", t0), ("ds", ds[:, 0]),
+                                ("dt", dt[:, 0]),
+                                ("f", MM.TAP_WEIGHTS32[k] * lw)):
+                    out[name][li][k] = v
+            lv.append((off, w, h))
+        tp = {k: torch.stack([torch.stack(v, -1) for v in out[k]], 1)
+              for k in out}
+        tp.update(lanes=lanes, dl=dl,
+                  wrap=torch.full_like(lanes, int(wrap)),
+                  **{k: torch.stack([x[i] for x in lv], 1)
+                     for i, k in enumerate(("off", "w", "h"))})
+        scale = torch.full((lanes.numel(),), 1.0 / MM.WSUM32,
+                           device=lanes.device)
+        return atlas_work._k10_new(tp, g, scale, n_texels, tile,
+                                   K20_EWA_LEAST)
+    ids, vals = [], []
+
+    def add(site, keys, v):          # site (N,) or a number, keys (N,)
+        ok = keys >= 0
+        site = torch.broadcast_to(torch.as_tensor(site, device=keys.device),
+                                  keys.shape)
+        ids.append((warp[ok] * 1024 + site[ok]) * n_texels + keys[ok])
+        vals.append(v[ok])
+
+    def quad(site, li, at, scale):   # scale (N, 3)
+        off, w, h, s0, t0, ds, dt = MM.bilerp_corner(tx, li, at)
+        ds, dt = ds[:, 0], dt[:, 0]
+        keys = torch.stack([_texel_index(off, w, h, wrap, s0 + (c & 1),
+                                         t0 + (c >> 1)) for c in range(4)])
+        wc = torch.stack([(1 - ds) * (1 - dt), ds * (1 - dt),
+                          (1 - ds) * dt, ds * dt])
+        keys, v = _merged(keys, wc[:, :, None] * scale[None])
+        for c in range(4):
+            add(site * 4 + c, keys[c], v[c])
+    if mode == MM.TRILINEAR:
+        grp, warp = atlas_work.packed_warps(lanes, tile, 2)
+        l0, l1, dl = MM.tri_levels(tx, ws)
+        quad(0, l0, sts, gs * (1.0 - dl))
+        # one thread a lookup adds level 1 at a call site of its own; two
+        # add it beside level 0's, from the lookup's second thread
+        quad(torch.where(grp == 1, 1, 0), l1, sts, gs * dl)
+    else:
+        # G threads a lookup, each every G-th box tap: tap k at its
+        # thread's call site k // G
+        grp, warp = atlas_work.packed_warps(lanes, tile, 8)
+        e = MM.ellipse(tx, sts, d0, d1, max_anisotropy)
+        wgt = []
+        for k in range(MM.N_TAPS_EXACT):
+            ss, tt, ok, r2 = MM.ellipse_tap(e, k)
+            wgt.append((ss, tt, ok, torch.where(ok, torch.exp(-2.0 * r2)
+                                                - MM._E2, 0.0)))
+        wsum = sum(w for *_, w in wgt)
+        inside = wsum > 1e-9
+        gd = gs / torch.clamp(wsum, min=1e-9)[:, None]
+        for k, (ss, tt, ok, w) in enumerate(wgt):
+            add(4 * (k // grp),
+                torch.where(ok & inside, _texel_index(
+                    e.off, e.w, e.h, wrap, ss, tt), -1), gd * w[:, None])
+        quad(torch.full_like(lanes, 200), e.li, sts,
+             torch.where(inside[:, None], 0.0, gs))
+    return _nonzero_sums(torch.cat(ids), torch.cat(vals))
+
+
+def k20_atomics(g, tx, mode, wrap, st, dst0=None, dst1=None, width=None,
+                max_anisotropy=8.0) -> dict:
+    """The global atomics of one K20 call, counted from its inputs ->
+    dict of:
+
+    - adds: the texel adds of all lanes (k20_adds: those that reach a
+      texel);
+    - parent: the design with one thread a lane (32 consecutive lanes a
+      warp), whose lanes of a warp that add into one texel at one add
+      number (the warp's trip, for the exact mode's taps) sum first, one
+      atomic a channel of a nonzero sum;
+    - new: this design's (_k20_new);
+    - max_adds_texel: the most adds that land on one texel."""
+    keys, vals = k20_adds(g, tx, mode, wrap, st, dst0, dst1, width,
+                          max_anisotropy)
+    n, a = keys.shape
+    ok = keys >= 0
+    if not bool(ok.any()):
+        return dict(adds=0, parent=0, new=0, max_adds_texel=0)
+    warp = (torch.arange(n, device=keys.device) // 32)[:, None].expand(n, a)
+    site = torch.arange(a, device=keys.device)[None, :].expand(n, a)
+    n_texels = tx.texels.shape[0]
+    ids = (warp[ok] * a + site[ok]) * n_texels + keys[ok]
+    return dict(adds=int(ok.sum()), parent=_nonzero_sums(ids, vals[ok]),
+                new=_k20_new(g, tx, mode, wrap, st, dst0, dst1, width,
+                             max_anisotropy),
+                max_adds_texel=int(torch.bincount(keys[ok]).max()))
 
 
 # --- K18 ---

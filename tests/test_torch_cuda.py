@@ -1235,6 +1235,58 @@ def test_build_interaction_quadric_lanes_match_plain(quadric_scene):
         assert torch.equal(getattr(out, f), getattr(ref, f)), f
 
 
+def _k2_held(out, ref):
+    for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+              "dndu", "dndv", "wo"):
+        assert not _k2_off(f, getattr(out, f), getattr(ref, f)).any(), f
+    for f in ("material", "arealight", "prim_id", "valid"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+
+
+def test_build_interaction_mixed_warps_match_plain(dev):
+    """K2 on warps that mix miss, triangle, sphere, cylinder and disk lanes
+    (reversed quadrics among them): the 16-quadric table's hits with their
+    lanes shuffled; every field within _k2_off of the plain version, the
+    ids equal, and bit for bit with K2 on the lanes in their first order."""
+    from rustracer_tpu_torch.ops.quadrics import CYLINDER, DISK, SPHERE
+    from rustracer_tpu_torch.scene.tables import closest_prim
+    from rustracer_tpu_torch.tools.quadric_work import (quadric_rays,
+                                                        quadric_table,
+                                                        table_geometry)
+    q = quadric_table()
+    geom = table_geometry(q, device=dev)
+    assert geom.n_quadrics == 16 and bool(geom.q_reverse.any())
+    ray = quadric_rays(q, (1 << 16) + 11, device=dev)
+    hit, t, prim = closest_prim(geom, ray)
+    perm = torch.randperm(hit.shape[0], device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+    ray = type(ray)(o=ray.o[perm].contiguous(), d=ray.d[perm].contiguous(),
+                    t_max=ray.t_max[perm].contiguous())
+    hit, t, prim = hit[perm], t[perm], prim[perm]
+    quad = hit & (prim < geom.n_quadrics)
+    kinds = geom.q_type[prim[quad].long()]
+    for k in (SPHERE, CYLINDER, DISK):
+        assert (kinds == k).any()
+    # a warp of each sort: misses, triangles and quadrics all present
+    w = torch.stack([~hit, hit & ~quad, quad]).view(3, -1)[:, :2048]
+    assert w.view(3, -1, 32).any(2).all(0).float().mean() > 0.5
+
+    def fn(*a):
+        return build_interaction(geom, *a)
+    K.reset_launches()
+    out = fn(ray, hit, t, prim)
+    assert K.LAUNCHES["build_interaction"] == 1
+    _k2_held(out, _plain(lambda: fn(ray, hit, t, prim)))
+    inv = torch.argsort(perm)
+    first = fn(type(ray)(o=ray.o[inv].contiguous(), d=ray.d[inv].contiguous(),
+                         t_max=ray.t_max[inv].contiguous()),
+               hit[inv], t[inv], prim[inv])
+    for f in ("p", "p_error", "n", "uv", "dpdu", "dpdv", "ns", "ss", "ts",
+              "dndu", "dndv", "wo", "material", "arealight", "prim_id"):
+        x, y = getattr(out, f), getattr(first, f)[perm]
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), f
+
+
 def test_testball_render_matches_plain(dev):
     """scenes/testball-matte.pbrt on the card, 1 sample: K14 (closest and
     any) and K2 launched, the image within the golden-image tolerance of
@@ -1600,6 +1652,94 @@ def test_mipmap_bwd_matches_plain(dev, wrap, layout):
         torch.cuda.synchronize()
         assert K.LAUNCHES["mipmap_lookup_bwd"] == 1
         compare_bwd_with_plain(g, *args, out)
+
+
+def _k20_case(dev, case, wrap):
+    """K20's inputs for ``case`` on a 37 x 50 image's (T, 3) rows, 2^14 + 5
+    lanes: "contended" every lane at one point with footprints that pick
+    the coarsest level (every add on its one texel; a quarter of the lanes
+    with a zero gradient), "scattered" seeded points and footprints of
+    anisotropy 1 to 32, 70% of the lanes with a zero gradient (the lanes
+    of other surfaces) and a few with a non-finite st (their zero
+    gradient still adds NaN, as the plain version's does) -> (g, tx, st,
+    d0, d1, width)."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    rs = np.random.RandomState(20 + wrap)
+    img = rs.rand(37, 50, 3).astype(np.float32)
+    tx = MM.pyramid_texels([torch.from_numpy(lv).to(dev)
+                            for lv in build_pyramid(img)])
+    n = (1 << 14) + 5
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    g = rs.uniform(-1, 1, (n, 3))
+    if case == "contended":
+        st = np.tile([[0.37, 0.61]], (n, 1))
+        d0 = np.tile([[3.0, 0.5]], (n, 1))
+        d1 = np.tile([[-0.5, 2.0]], (n, 1))
+        width = np.full(n, 8.0)
+        g[rs.uniform(size=n) < 0.25] = 0.0
+    else:
+        st = rs.uniform(-0.5, 1.5, (n, 2))
+        ang = rs.uniform(0, 2 * np.pi, n)
+        minor = 10 ** rs.uniform(-3.5, -0.5, n)
+        major = minor * 10 ** rs.uniform(0, np.log10(32.0), n)
+        d0 = np.stack([np.cos(ang) * major, np.sin(ang) * major], -1)
+        d1 = np.stack([-np.sin(ang) * minor, np.cos(ang) * minor], -1)
+        width = 10 ** rs.uniform(-4, 0.5, n)
+        g[rs.uniform(size=n) < 0.7] = 0.0
+    return t(g), tx, t(st), t(d0), t(d1), t(width)
+
+
+# (mode, threads a lookup): each block's choice (0) and each G forced,
+# every route the mode has (csrc/mipmap_bwd.cu has_route)
+_K20_ROUTES = [(mode, group) for mode, groups in
+               ((0, (0, 1, 2)), (1, (0, 4, 8)), (2, (0, 1, 2, 4, 8)))
+               for group in groups]
+
+
+@pytest.mark.parametrize("case", ["contended", "scattered"])
+@pytest.mark.parametrize("wrap", [WRAP_REPEAT, WRAP_BLACK, WRAP_CLAMP])
+@pytest.mark.parametrize("mode,group", _K20_ROUTES)
+def test_mipmap_bwd_routes_match_plain(dev, mode, group, wrap, case):
+    """Each route of K20 (its threads a lookup: each block's choice (0) or
+    each one forced) in each mode and wrap, on a contended and a scattered
+    case (_k20_case): within 1e-5 of the largest sum of its terms'
+    magnitudes (compare_bwd_with_plain), one launch. The scattered case's
+    non-finite lanes leave NaN where the plain version does."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.tools.texture_work import compare_bwd_with_plain
+    g, tx, st, d0, d1, width = _k20_case(dev, case, wrap)
+    ma = 8.0 if mode == MM.EWA else 16.0
+    args = (tx, mode, wrap, st, d0, d1, width, ma)
+    K.reset_launches()
+    out = MM._k20(g, *args, group=group)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mipmap_lookup_bwd"] == 1
+    compare_bwd_with_plain(g, *args, out)
+    if case == "scattered":
+        st = st.clone()
+        st[::997] = float("nan")
+        g = torch.where(torch.isnan(st[:, :1]), 0.0, g)
+        args = (tx, mode, wrap, st, d0, d1, width, ma)
+        out = MM._k20(g, *args, group=group)
+        with K.plain_reference():
+            ref = MM.mipmap_lookup_bwd(g, *args)
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+
+
+def test_mipmap_bwd_refuses_a_route_it_has_not(dev):
+    """K20 takes 1 or 2 threads a trilinear lookup, 4 or 8 an 8-tap one
+    and 1 to 8 an exact one, a power of two (csrc/mipmap_bwd.cu
+    has_route); others raise."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    g, tx, st, d0, d1, width = _k20_case(dev, "scattered", WRAP_REPEAT)
+    for mode, refused in ((0, (4, 3, -1)), (1, (1, 2, 16, 3)),
+                          (2, (16, 3, 6))):
+        for group in refused:
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                MM._k20(g, tx, mode, WRAP_REPEAT, st, d0, d1, width, 8.0,
+                        group=group)
 
 
 def test_mipmap_lookup_trains_through_k20(dev):

@@ -3,6 +3,7 @@
 (tools/bench_step_kernels.py) against counts by hand, the cold timer's
 argument handling (tools/timing.py), and the recording of one render
 step's K4-K8 inputs (tools/bench_step_kernels.py)."""
+import os
 from types import SimpleNamespace
 
 import pytest
@@ -500,3 +501,171 @@ def test_k17_parts_replace_each_text_once():
                     if n not in {e[0] for e in edits}}
     with pytest.raises(ValueError):
         KP.part_files(dict(texts, **{"atlas.cuh": ""}), "wrap")
+
+
+def _tiny_pyramid():
+    """A 4x4 image's pyramid (levels at texels 0, 16 and 20) and three
+    lanes with zero differentials and width 0.25 (level 0, blend 0): lane
+    0 at st (0.3, 0.3) with a zero gradient, lanes 1 and 2 at (0.5, 0.5)
+    and (0.1, 0.1) with (1, 2, 3)."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    img = torch.arange(48, dtype=torch.float32).reshape(4, 4, 3).numpy()
+    tx = MM.pyramid_texels([torch.from_numpy(lv)
+                            for lv in MM.build_pyramid(img)])
+    g = torch.tensor([[0.0, 0.0, 0.0], [1.0, 2.0, 3.0], [1.0, 2.0, 3.0]])
+    st = torch.tensor([[0.3, 0.3], [0.5, 0.5], [0.1, 0.1]])
+    return tx, g, st, torch.zeros(3, 2), torch.full((3,), 0.25)
+
+
+# K20 on those lanes, by hand. Level 0's quads: lane 0 at (0, 0) (texels 0
+# 1 4 5), lane 1 at (1, 1) (5 6 9 10, a quarter each), lane 2 at (-1, -1),
+# which REPEAT wraps to 15 12 3 0, CLAMP clamps onto 0, BLACK keeps (0, 0)
+# of; level 1 (16-19) takes weight 0. Trilinear: 8 adds a lane (BLACK:
+# lane 2 two); the parent's atomics are distinct (warp, corner, texel)
+# with a nonzero sum, 3 channels: 8 (BLACK 5); the new design packs lanes
+# 1 and 2 (lane 0's gradient is 0), 2 threads a lookup, level 1's thread
+# idle (the warp is flat), and sums lane 2's CLAMP corners into one. The
+# 8-tap lookup (zero differentials: its 8 taps on one point) is 8 times
+# that, but the new design's open quad sums a lookup's taps: the
+# trilinear numbers. The exact lookup at level 0 (a unit circle at the
+# lane's point) takes all 4 box taps of lanes 0 and 1 and 3 of lane 2's
+# ((0, -1), (-1, 0), (0, 0): REPEAT 12, 3, 0; CLAMP 0 thrice; BLACK 0
+# once); the parent adds a tap at its box index, one thread a lane, the
+# new design on 8 threads a lookup, a thread every 8th tap: a lookup's 4
+# taps at one call site, so lane 2's CLAMP taps sum into one.
+@pytest.mark.parametrize("mode,wrap,adds,parent,new,most", [
+    (0, WRAP_REPEAT, 24, 24, 24, 3),
+    (0, WRAP_CLAMP, 24, 24, 15, 6),
+    (0, WRAP_BLACK, 18, 15, 15, 3),
+    (1, WRAP_REPEAT, 192, 192, 24, 24),
+    (1, WRAP_CLAMP, 192, 192, 15, 48),
+    (1, WRAP_BLACK, 144, 120, 15, 24),
+    (2, WRAP_REPEAT, 11, 21, 21, 2),
+    (2, WRAP_CLAMP, 11, 21, 15, 4),
+    (2, WRAP_BLACK, 9, 15, 15, 2),
+])
+def test_k20_atomics_by_hand(mode, wrap, adds, parent, new, most):
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.tools import texture_work as TW
+    tx, g, st, z, w = _tiny_pyramid()
+    ma = 8.0 if mode == MM.EWA else 16.0
+    assert TW.k20_atomics(g, tx, mode, wrap, st, z, z, w, ma) == dict(
+        adds=adds, parent=parent, new=new, max_adds_texel=most)
+    # the work counts only the lanes that add (1 and 2): lane 0's 8, 64
+    # or 4 adds, its set-up and its texels out; every lane's inputs read
+    work = TW.k20_work(g, tx, mode, wrap, st, z, z, w, ma)
+    fwd = TW.k17_work(tx, mode, wrap, st[1:], z[1:], z[1:], w[1:], ma)
+    lane_in = 12 if mode == MM.TRILINEAR else 24
+    assert work["active"] == 2
+    assert work["adds"] == adds - (8, 64, 4)[mode]
+    assert work["texels"] == fwd["texels"]
+    assert work["ops"] == fwd["ops"] + 3 * work["adds"]
+    assert work["moved"] == 3 * (lane_in + 12) + 12 * fwd["texels"]
+    idle = TW.k20_work(torch.zeros_like(g), tx, mode, wrap, st, z, z, w, ma)
+    assert (idle["active"], idle["adds"], idle["texels"], idle["ops"],
+            idle["moved"]) == (0, 0, 0, 0, 3 * (lane_in + 12))
+    # the adds sum to the plain version's gradient
+    keys, vals = TW.k20_adds(g, tx, mode, wrap, st, z, z, w, ma)
+    ok = keys >= 0
+    total = torch.zeros_like(tx.texels).index_add_(0, keys[ok], vals[ok])
+    ref = MM.mipmap_lookup_bwd(g, tx, mode, wrap, st, z, z, w, ma)
+    assert torch.allclose(total, ref, rtol=1e-6, atol=1e-6)
+    # no lane that adds: nothing to count
+    assert TW.k20_atomics(torch.zeros_like(g), tx, mode, wrap, st, z, z,
+                          w, ma)["new"] == 0
+
+
+@pytest.mark.parametrize("module,parts", [
+    ("k20_parts", "PARTS"), ("k2_parts", "PARTS"),
+    ("k20_parts", "PACKED_PARTS")],
+    ids=["k20_parts", "k2_parts", "k20_parts-packed"])
+def test_kernel_parts_replace_each_text_once(module, parts):
+    """tools/k20_parts.py (the parts of the design before the packing and
+    of the packed one) and tools/k2_parts.py: each part replaces its
+    texts, each found once in the design it was written for; a text
+    missing raises. The packed parts apply to csrc/ as it is."""
+    import functools
+    import importlib
+    KP = importlib.import_module(f"rustracer_tpu_torch.tools.{module}")
+    PARTS = getattr(KP, parts)
+    part_files = KP.part_files if parts == "PARTS" else functools.partial(
+        KP.part_files, parts=PARTS)
+    texts = {f: "" for f in KP.FILES}
+    for part in PARTS.values():
+        for name, old, _ in part:
+            if old not in texts[name]:
+                texts[name] += old + "\n"
+    for part, edits in PARTS.items():
+        out = part_files(texts, part)
+        for name, old, new in edits:
+            assert new in out[name] and out[name] != texts[name]
+        assert {n: t for n, t in out.items()
+                if n not in {e[0] for e in edits}} == {
+                    n: t for n, t in texts.items()
+                    if n not in {e[0] for e in edits}}
+        name = edits[0][0]
+        with pytest.raises(ValueError):
+            part_files(dict(texts, **{name: ""}), part)
+    if parts == "PACKED_PARTS":
+        csrc = os.path.join(os.path.dirname(KP.__file__), "..", "csrc")
+        real = {}
+        for f in KP.FILES:
+            with open(os.path.join(csrc, f)) as fh:
+                real[f] = fh.read()
+        for part in PARTS:
+            assert part_files(real, part) != real
+
+
+def test_capture_k20_records_the_backward():
+    """textures-train at 16^2 (its images 32^2) on the CPU, one train step
+    and then a recorded one: its backward makes 6 trilinear, 4 8-tap and
+    2 exact K20 calls, each on every lane; their adds (k20_adds) sum to
+    the plain gradient, and only the lanes that see the texture add."""
+    from rustracer_tpu_torch.ops import mipmap as MM
+    from rustracer_tpu_torch.tools import texture_work as TW
+    rec = B.capture_k20("cpu", res=16, image=32, lanes=256, steps=1)
+    assert {k: len(v) for k, v in rec.items()} == dict(trilinear=6, ewa=4,
+                                                      exact=2)
+    for name, calls in rec.items():
+        for args in calls:
+            g, tx, mode = args[:3]
+            assert TW.BWD_MODES[mode] == name and g.shape == (256, 3)
+            assert "32x32, 6 levels" in B.texture_of(tx)
+            act = TW.k20_active(g, mode, args[4], args[5], args[6])
+            assert 0 < int(act.sum()) < 256
+            keys, vals = TW.k20_adds(*args)
+            ok = keys >= 0
+            total = torch.zeros_like(tx.texels).index_add_(0, keys[ok],
+                                                           vals[ok])
+            ref = MM.mipmap_lookup_bwd(*args)
+            assert (total - ref).abs().max() <= 1e-5 * max(
+                ref.abs().max().item(), 1e-30)
+
+
+def test_k2_step_cases_record_the_steps():
+    """testball-matte's and testball-glass's recorded K2 calls on the CPU
+    at 32^2 (256-lane tiles): matte's camera hits hold sphere and floor
+    lanes, glass's chosen call hits leaving the ball from inside, and the
+    lanes sorted by kind (k2_sorted) give the same interactions in lane
+    order."""
+    from rustracer_tpu_torch.scene.tables import build_interaction_plain
+    from rustracer_tpu_torch.tools import quadric_work as QW
+    cases = B.k2_step_cases("cpu", res=(32, 32), lanes=256, gallery=False)
+    (matte, m), (glass, gl) = cases.items()
+    assert matte == "K2 testball-matte call 0"
+    assert glass.startswith("K2 testball-glass call ")
+    for case in (m, gl):
+        geom, ray, hit, t, prim = case
+        _, _, n_q, n_t = QW.k2_bound(geom, hit, prim)
+        assert n_q > 0 and n_t > 0 and hit.shape == (256,)
+        srt, order = B.k2_sorted(case)
+        kind = torch.where(~srt[2], 0, torch.where(
+            srt[4] < geom.n_quadrics, 2, 1))
+        assert (kind[1:] >= kind[:-1]).all()
+        a = build_interaction_plain(*case)
+        b = build_interaction_plain(*srt)
+        for f in B.K2_FIELDS:
+            x = getattr(b, f)
+            assert torch.equal(torch.empty_like(x).index_copy_(0, order, x),
+                               getattr(a, f))
+    assert QW.inside_counts([gl], "build_interaction")[0] > 0
