@@ -109,7 +109,7 @@ Phases, each printing its lines:
      on those rays' hits (quadric and triangle lanes, within 1e-5
      absolute or relative), each timed and bounded; scenes/testball-
      matte.pbrt parsed with its film at 1024^2 and rendered, samples
-     [0, 8) in 2^18-lane tiles, depth 7, counted (K14 closest and any
+     [0, 2) in 2^18-lane tiles, depth 7, counted (K14 closest and any
      and K2 launched); one full-width step (tile 2) recorded
      (tools/quadric_work.capture_quadric_step) and K14 and K2 checked and
      timed on its inputs, with that step's launches; a 128^2 crop at 1
@@ -121,7 +121,7 @@ Phases, each printing its lines:
      parsed and rendered in process at their own 64^2, 16 spp, depth 7
      (textured 5), counted (K14 and K2 launched on each), each against
      tests/goldens/testball-<m>.npz (mean 2e-3, p99 2e-2); testball-glass
-     with its film at 1024^2, 8 samples, 2^18-lane tiles, compaction on,
+     with its film at 1024^2, 2 samples, 2^18-lane tiles, compaction on,
      counted and timed; in one full-width glass step (tile 2) every K14
      closest and K2 call recorded, and the one with the most rays leaving
      the ball from inside held against the plain versions (hit, quadric
@@ -141,13 +141,13 @@ Phases, each printing its lines:
      (tools/profile_step.py BALLS) each rendered at 128^2, 4 spp, counted,
      through the kernels and through the all-plain path, held within the
      crop tolerance of phase 16; testball-disney with its film at 1024^2,
-     8 samples, 2^18-lane tiles, compaction on, counted and timed (camera
+     2 samples, 2^18-lane tiles, compaction on, counted and timed (camera
      rays/s beside testball-matte's of phase 16 and testball-glass's of
      phase 17); K8 on the material rows of a full-width Disney step (96
      floats a row) and of a full-width mix step (112), bit for bit, timed
      and bounded; one tile-2 step of each of testball-matte, -glass and
-     -disney at 1024^2 profiled (tools/profile_step.profile_tile: device
-     kernels, busy share, hand-kernel ms);
+     -disney at 1024^2 profiled (tools/profile_step.profile_tile, the
+     median of 2 steps: device kernels, busy share, hand-kernel ms);
  19. the lights: scenes/veach-mis.pbrt (sphere lights: the cone, K12's
      lights kernel), envmap-dof.pbrt (the sky: K15, K16) and
      bathroom.pbrt (triangle, sphere and sky lights under the spatial
@@ -161,7 +161,8 @@ Phases, each printing its lines:
      rest within 1e-5 relative, K16 plus 1e-5 / sin theta near a pole
      and off the texel edges of the map's pdf), bounce 0's K15 call, the
      camera rays' K16 call and bounce 1's timed and bounded
-     (tools/light_work.py); K12's lights kernel on the bathroom's whole
+     (tools/light_work.py), K15's beside the time of its design before PR
+     22; K12's lights kernel on the bathroom's whole
      grid and on each branch alone (each light of tools/light_work.py
      MIXED_SCENE in a scene of its own, light_scene, over the mixed
      scene's grid: point, distant, the full sphere's cone, clipped
@@ -242,7 +243,8 @@ Phases, each printing its lines:
      through, within the golden tolerance of the atomic K4 render; K4d on
      phase 15's recorded full-width Mitchell splat, bit for bit with its
      plain version and over two launches, timed with L2 evicted beside K4
-     on the same splat, with its yardstick (index_put_ of the precomputed
+     on the same splat and beside the time of its design before PR 22
+     (one thread a pixel), with its yardstick (index_put_ of the precomputed
      taps, accumulate, deterministic algorithms); the Cornell box with
      Sampler "random" through the port's command line in a subprocess at
      8 spp with --checkpoint, --checkpoint-every 4, --profile and -v: exit
@@ -313,10 +315,16 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
+
 SUB = 7          # bumpy_sphere(7): 327,680 mesh triangles
 RES = (1024, 1024)
 SPP = 8          # the matte config's samples (its 64-spp config draws these)
 SAMPLES = 8      # the textured 64-spp config's timed slice
+# the testballs' rays/s renders at RES (phases 16-18; 8 samples until PR
+# 22, cut for the run's time limit: their full-width steps are recorded
+# as before)
+BALL_SAMPLES = 2
 LANES = 1 << 18
 CROP = (0.4375, 0.4375, 0.5625, 0.5625)     # 128^2 around the image centre
 # rows 64-191 above and through the dragon's crown: two 2^16-lane tiles,
@@ -724,6 +732,11 @@ FILTER_KINDS = ("triangle", "gaussian", "mitchell")
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the rows of the kernels line whose kernel time (one of the times behind
 # it) was taken by CUDA events around the call, the profiler having lost
+# the designs before PR 22's, on the same calls (PERF.md section 6, an
+# NVIDIA H100 80GB HBM3 at 700 W): K4d one thread a pixel reading its
+# window's lanes from global memory, K15 searching by bisection
+K4D_BEFORE = "0.0510 ms, 8.2% of its bound"
+K15_BEFORE = "0.0118 ms, 42.5% of its bound"
 # every record of the kernel in three traces (kernel_time): ms_by "queued"
 QUEUED_ROWS = set()
 CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
@@ -2232,7 +2245,7 @@ def testball_full(dev, card, results):
     renderer, ctx = bundle.renderer(LANES), bundle.context()
     renderer.render_state(ctx, sample_stop=1)
     launches, _, img, rays = render_counted(
-        "[16]", renderer, bundle.film, ctx, SAMPLES, card,
+        "[16]", renderer, bundle.film, ctx, BALL_SAMPLES, card,
         depth=bundle.integrator.max_depth)
     missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",)
                if launches[k] <= 0]
@@ -2418,7 +2431,8 @@ def glass_steps(dev, card, results, counts):
     renderer, ctx = bundle.renderer(LANES), bundle.context()
     renderer.render_state(ctx, sample_stop=1)
     launches, tiers, _, rays = render_counted(
-        "[17] testball-glass", renderer, bundle.film, ctx, SAMPLES, card,
+        "[17] testball-glass", renderer, bundle.film, ctx, BALL_SAMPLES,
+        card,
         depth=bundle.integrator.max_depth)
     missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",)
                if launches[k] <= 0]
@@ -2544,14 +2558,15 @@ def layered_steps(dev, card, results, counts, rays):
     renderer, ctx = bundle.renderer(LANES), bundle.context()
     renderer.render_state(ctx, sample_stop=1)
     launches, _, _, rays["disney"] = render_counted(
-        "[18] testball-disney", renderer, bundle.film, ctx, SAMPLES, card,
+        "[18] testball-disney", renderer, bundle.film, ctx, BALL_SAMPLES,
+        card,
         depth=bundle.integrator.max_depth)
     missing = [k for k in K.QUADRIC_KERNELS + ("build_interaction",
                                                "row_gather")
                if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the Disney render did not launch {missing}")
-    log(f"[18] camera rays/s at {RES[0]}^2, {SAMPLES} samples, on {card}: "
+    log(f"[18] camera rays/s at {RES[0]}^2, {BALL_SAMPLES} samples, on {card}: "
         + ", ".join(f"testball-{k} {v:.1f}" for k, v in rays.items()))
     tile = renderer.tiles[2]
     per_step = step_launches(renderer, ctx, tile)
@@ -2576,7 +2591,7 @@ def layered_steps(dev, card, results, counts, rays):
         steps[name] = (b.renderer(LANES), b.context())
     for name in ("matte", "glass", "disney"):
         r, c = steps[name]
-        prof = profile_tile(r, c, r.tiles[2])
+        prof = profile_tile(r, c, r.tiles[2], reps=2)
         log(f"[18] profiled step of testball-{name} (tile 2, {LANES} lanes) "
             f"on {card}: {prof['n_kernels']} device kernels, busy "
             f"{prof['device_busy_ms']:.3f} ms of "
@@ -2721,7 +2736,8 @@ def check_k15(calls, results, counts):
     log(f"[19] K15 infinite_sample, bounce 0's NEE ({work['lanes']} lanes, "
         f"{work['infinite_lanes']} on the sky): kernel {ms:.4f} ms, plain "
         f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by}: {work['moved']} bytes, "
-        f"{work['ops']} operations), {100 * b_ms / ms:.1f}% of it")
+        f"{work['ops']} operations), {100 * b_ms / ms:.1f}% of it (the "
+        f"bisections before PR 22: {K15_BEFORE})")
 
 
 def check_k16(label, calls, results, counts,
@@ -2887,7 +2903,8 @@ def bathroom_full(dev, card, results, rays):
                              "grid not once")
     log(f"[19] camera rays/s on {card}: bathroom at {BATH_RES[0]}x"
         f"{BATH_RES[1]}, 1 sample, {rays['bathroom']:.1f}; testball-matte "
-        f"at {RES[0]}^2, {SAMPLES} samples (phase 16), {rays['matte']:.1f}")
+        f"at {RES[0]}^2, {BALL_SAMPLES} samples (phase 16), "
+        f"{rays['matte']:.1f}")
     tile = renderer.tiles[2]
     per_step = step_launches(renderer, ctx, tile)
     log(f"[19] launches in one full-width bathroom step (tile 2): "
@@ -3679,7 +3696,7 @@ def check_k4d_full(full, k4_launches, k4d_launches, counted_in, results):
                              f"plain version or from itself (max {err})")
     acc = film.init_state(dev)
     ms = kernel_time("film_add_samples_det", lambda: k4d(acc), 20,
-                     "film_add_det_kernel", cold=True)
+                     "film_add_det", cold=True)
     k4_run, _ = k4_call(None, full)
     k4_ms = kernel_time("film_add_samples_det (K4 beside it)", k4_run, 20,
                         "film_add_kernel", cold=True)
@@ -3705,9 +3722,10 @@ def check_k4d_full(full, k4_launches, k4d_launches, counted_in, results):
         f"before each launch: K4d {ms:.4f} ms, K4 on the same splat "
         f"{k4_ms:.4f} ms, plain {pms:.4f} ms, deterministic index_put_ of "
         f"the taps {lib_ms:.4f} ms; bound {b_['bound_ms']:.4f} ms "
-        f"({b_['bound_by']}), {100 * b_['bound_ms'] / ms:.1f}% of it; "
-        f"launches {k4d_launches} in {counted_in} (K4 {k4_launches} in "
-        "phase 14's step)")
+        f"({b_['bound_by']}), {100 * b_['bound_ms'] / ms:.1f}% of it "
+        f"(the per-pixel design before the tiles: {K4D_BEFORE}); launches "
+        f"{k4d_launches} in {counted_in} (K4 {k4_launches} in phase 14's "
+        "step)")
 
 
 def mitchell_file_checkpointed(dev, card, splats, results):
@@ -4189,6 +4207,8 @@ def run(dev, card):
                and k != "mipmap_lookup_bwd"]
     if missing:
         raise AssertionError(f"backward kernels not launched: {missing}")
+    log(f"[time] the whole run {time.perf_counter() - T_START:.1f} s, the "
+        "kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

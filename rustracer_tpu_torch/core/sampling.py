@@ -119,7 +119,10 @@ class Distribution1D:
                          du / torch.where(denom > 0.0, denom, 1.0), du)
         pos, safe = self._safe_int()
         pdf = torch.where(pos, f / safe, 0.0)
-        x = (off.float() + du) / self.count
+        # over a tensor, not a number: on the card torch takes a tensor
+        # over a number as a product with its reciprocal (two roundings),
+        # where the reference and K15 divide once
+        x = (off.float() + du) / du.new_full((), float(self.count))
         return x, pdf, off
 
     def sample_discrete(self, u):

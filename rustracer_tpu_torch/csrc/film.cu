@@ -57,14 +57,29 @@
 // contiguous run of the row-major pixels of the film's sample bounds, one
 // sample a lane, so the lanes that can reach a pixel are those of the
 // pixels within the filter's tap window of it, and their lane index is
-// arithmetic. One thread a film pixel of the rows the tile reaches gathers
-// its taps from those lanes in ascending lane order (a lane has at most one
-// tap on a pixel), sums them from 0 and adds the sum to the pixel once: no
+// arithmetic. Each film pixel of the rows the tile reaches gathers its taps
+// from those lanes in ascending lane order (a lane has at most one tap on
+// a pixel), sums them from 0 and adds the sum to the pixel once: no
 // atomics, each pixel read and written at most once a launch. Its plain
 // version (Film.add_samples_det_plain) sums in the same order, so the two
 // agree bit for bit. Bound: bytes, as K4's (the samples in, each touched
-// pixel read and written once); a lane's sample is read once a pixel of its
-// window, from L1 or L2.
+// pixel read and written once).
+//
+// Its design (footprints up to kMaxAxisTaps an axis): a block takes a
+// kDetW x kDetH tile of film pixels and first stages, with coalesced
+// loads, the lanes whose pixels lie within the window of the tile (for
+// PBRT's radius 2, a 7 x 7 window: 38 x 22 lanes for 32 x 16 pixels) in
+// shared memory, each lane's invariants computed once there: its clamped
+// radiance, its footprint origin as the first tap index of the window's
+// first offset, and its two AxisTaps (filter.cuh axis_taps: a tap's weight
+// wx.at(k) * wy.at(j), filter_weight's product bit for bit). The block
+// takes the range of those origins, so its pixels walk only the window
+// steps a tap can come from (5 x 5 of the 7 x 7 for radius 2), in the
+// order above, unrolled, reading shared memory only: a word to test the
+// footprint, and for a tap two weights and the radiance. A footprint wider
+// than kMaxAxisTaps takes film_add_det_kernel: one thread a pixel reading
+// each lane of its window from global memory, the footprint, clamp and
+// filter_weight computed again for each pixel a sample reaches.
 #include "common.cuh"
 #include "filter.cuh"
 
@@ -211,10 +226,10 @@ struct LaunchAdd {
     }
 };
 
-// one thread a film pixel (iy, ix) of rows [row0, row0 + rows): the taps
-// of the lanes whose pixel lies within the window [olx, ohx] x [oly, ohy]
-// of offsets from it, in ascending lane order (descending offset), summed
-// from 0 and added to the pixel once
+// footprints wider than kMaxAxisTaps: one thread a film pixel (iy, ix) of
+// rows [row0, row0 + rows), the taps of the lanes whose pixel lies within
+// the window [olx, ohx] x [oly, ohy] of offsets from it, in ascending lane
+// order (descending offset), summed from 0 and added to the pixel once
 template <int Kind>
 __global__ void __launch_bounds__(kThreads)
     film_add_det_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
@@ -261,12 +276,149 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// K4d's tile: kDetW x kDetH film pixels a block (one thread each), the
+// lanes of a window of at most kDetWin x kDetWin offsets around it staged
+// in shared memory, each array padded to a multiple of 32 entries (a
+// weight at tap k of entry s sits at k * kDetPad + s: the threads of a
+// warp, on consecutive entries, read distinct banks whatever their k)
+constexpr int kDetW = 32, kDetH = 16, kDetThreads = kDetW * kDetH;
+constexpr int kDetWin = rt::kMaxAxisTaps + 3;
+constexpr int kDetSW = kDetW + kDetWin - 1, kDetSH = kDetH + kDetWin - 1;
+constexpr int kDetPad = (kDetSW * kDetSH + 31) / 32 * 32;
+// a staged entry's footprint code: the first tap index, on each axis, of
+// the window's first offset (x in the high half, y in the low; a tap at
+// window step (dx, dy) is (kx - dx, ky - dy)); kDetNone for a lane that
+// splats nothing (beyond the lanes, invalid, outside the sample bounds)
+constexpr int kDetNone = (int)0x80008000u;
+
+// blockIdx (bx, by): film pixels [32 bx, 32 bx + 32) x [row0 + 16 by, +16);
+// the window [olx, ohx] x [oly, ohy] is at most kDetWin wide on each axis
+// and the footprint at most kMaxAxisTaps
+template <int Kind>
+__global__ void __launch_bounds__(kDetThreads)
+    film_add_det_tile_kernel(const float2* __restrict__ p_film, const float* __restrict__ rad,
+                             const bool* __restrict__ valid, int n, float4* __restrict__ acc,
+                             int h, int w, int x0, int y0, rt::FilterParams f, int nx, int ny,
+                             float max_lum, int first, int sx0, int sy0, int sw, int sh, int olx,
+                             int ohx, int oly, int ohy, int row0, int rows) {
+    __shared__ int s_code[kDetPad];
+    __shared__ float s_wx[rt::kMaxAxisTaps * kDetPad], s_wy[rt::kMaxAxisTaps * kDetPad];
+    __shared__ float4 s_rgb[kDetPad];
+    // the block's taps reach window steps [dx0, dx1] x [dy0, dy1]: the
+    // least and most first tap indices of its lanes (ranges of 2 for
+    // PBRT's radius 2: 5 x 5 of the 7 x 7 window)
+    __shared__ int s_range[4];
+    const int ww = ohx - olx + 1, wh = ohy - oly + 1;
+    const int tsw = kDetW + ww - 1, tsh = kDetH + wh - 1;
+    const int ix0 = blockIdx.x * kDetW, iy0 = row0 + blockIdx.y * kDetH;
+    // the staged entry (sx, sy) is the lane of pixel (LX0 + sx, LY0 + sy):
+    // the pixel the window's first offset (ohx, ohy) reaches the tile's
+    // first pixel from
+    const int LX0 = ix0 + x0 - ohx, LY0 = iy0 + y0 - ohy;
+    if (threadIdx.x < 4) s_range[threadIdx.x] = threadIdx.x % 2 ? -1024 : 1024;
+    __syncthreads();
+    int kx_lo = 1024, kx_hi = -1024, ky_lo = 1024, ky_hi = -1024;
+    for (int e = threadIdx.x; e < tsw * tsh; e += kDetThreads) {
+        const int sy = e / tsw, sx = e - sy * tsw;
+        const int gx = LX0 + sx - sx0, gy = LY0 + sy - sy0;
+        const long long lane = (long long)gy * sw + gx - first;
+        const int s = sy * kDetSW + sx;
+        if (gx < 0 || gx >= sw || gy < 0 || gy >= sh || lane < 0 || lane >= n ||
+            (valid != nullptr && !valid[lane])) {
+            s_code[s] = kDetNone;
+            continue;
+        }
+        const float2 p = p_film[lane];
+        float r = rad[3 * lane], g = rad[3 * lane + 1], b = rad[3 * lane + 2];
+        if (isfinite(max_lum)) {
+            float lum = r * 0.212671f + g * 0.715160f + b * 0.072169f;
+            float scale = lum > max_lum ? max_lum / fmaxf(lum, 1e-20f) : 1.0f;
+            r = r * scale;
+            g = g * scale;
+            b = b * scale;
+        }
+        const int lo_x = (int)ceilf((p.x - 0.5f) - f.rx);
+        const int lo_y = (int)ceilf((p.y - 0.5f) - f.ry);
+        // the tap index of offset ohx from this lane's pixel: its x minus
+        // lo_x; a lane's pixel x is LX0 + sx (clamped: a lane beyond the
+        // window's reach keeps no tap)
+        const int kx = min(max((LX0 + sx + ohx) - lo_x, -1024), 1024);
+        const int ky = min(max((LY0 + sy + ohy) - lo_y, -1024), 1024);
+        s_code[s] = (int)(((unsigned)kx << 16) | ((unsigned)ky & 0xffffu));
+        kx_lo = min(kx_lo, kx);
+        kx_hi = max(kx_hi, kx);
+        ky_lo = min(ky_lo, ky);
+        ky_hi = max(ky_hi, ky);
+        const rt::AxisTaps wx = rt::axis_taps<Kind, 0>(f, lo_x, p.x, nx);
+        const rt::AxisTaps wy = rt::axis_taps<Kind, 1>(f, lo_y, p.y, ny);
+        s_wx[s] = wx.v0;
+        s_wx[kDetPad + s] = wx.v1;
+        s_wx[2 * kDetPad + s] = wx.v2;
+        s_wx[3 * kDetPad + s] = wx.v3;
+        s_wy[s] = wy.v0;
+        s_wy[kDetPad + s] = wy.v1;
+        s_wy[2 * kDetPad + s] = wy.v2;
+        s_wy[3 * kDetPad + s] = wy.v3;
+        s_rgb[s] = make_float4(r, g, b, 0.0f);
+    }
+    kx_lo = __reduce_min_sync(0xffffffffu, kx_lo);
+    kx_hi = __reduce_max_sync(0xffffffffu, kx_hi);
+    ky_lo = __reduce_min_sync(0xffffffffu, ky_lo);
+    ky_hi = __reduce_max_sync(0xffffffffu, ky_hi);
+    if ((threadIdx.x & 31) == 0) {
+        atomicMin(s_range, kx_lo);
+        atomicMax(s_range + 1, kx_hi);
+        atomicMin(s_range + 2, ky_lo);
+        atomicMax(s_range + 3, ky_hi);
+    }
+    __syncthreads();
+    const int tx = threadIdx.x % kDetW, ty = threadIdx.x / kDetW;
+    const int ix = ix0 + tx, iy = iy0 + ty;
+    if (ix >= w || iy >= row0 + rows) return;
+    // a tap at step dx has k = kx - dx in [0, nx): dx in [kx - nx + 1, kx]
+    const int dx0 = max(s_range[0] - nx + 1, 0), dx1 = min(s_range[1], ww - 1);
+    const int dy0 = max(s_range[2] - ny + 1, 0), dy1 = min(s_range[3], wh - 1);
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bool any = false;
+    // offsets (ohx - dx, ohy - dy): descending offset, ascending lane
+#pragma unroll
+    for (int dy = 0; dy < kDetWin; ++dy) {
+        if (dy < dy0 || dy > dy1) continue;
+#pragma unroll
+        for (int dx = 0; dx < kDetWin; ++dx) {
+            if (dx < dx0 || dx > dx1) continue;
+            const int s = (ty + dy) * kDetSW + tx + dx;
+            const int c = s_code[s];
+            const int k = (c >> 16) - dx, j = (int)(short)(c & 0xffff) - dy;
+            if ((unsigned)k >= (unsigned)nx || (unsigned)j >= (unsigned)ny) continue;
+            const float fw = s_wx[k * kDetPad + s] * s_wy[j * kDetPad + s];
+            if (!(fw > 0.0f)) continue;
+            const float4 v = s_rgb[s];
+            sum = add4(sum, scaled(fw, v.x, v.y, v.z));
+            any = true;
+        }
+    }
+    if (any) {
+        float4* a = acc + ((size_t)iy * w + ix);
+        *a = add4(*a, sum);
+    }
+}
+
 template <int Kind>
 struct LaunchDet {
     void operator()(const void* p_film, const void* rad, const void* valid, int n, void* rgb,
                     int h, int w, int x0, int y0, rt::FilterParams f, int nx, int ny,
                     float max_lum, int first, int sx0, int sy0, int sw, int sh, int olx, int ohx,
                     int oly, int ohy, int row0, int rows, cudaStream_t stream) {
+        if (nx <= rt::kMaxAxisTaps && ny <= rt::kMaxAxisTaps && ohx - olx < kDetWin &&
+            ohy - oly < kDetWin) {
+            const dim3 blocks((w + kDetW - 1) / kDetW, (rows + kDetH - 1) / kDetH);
+            film_add_det_tile_kernel<Kind><<<blocks, kDetThreads, 0, stream>>>(
+                (const float2*)p_film, (const float*)rad, (const bool*)valid, n, (float4*)rgb,
+                h, w, x0, y0, f, nx, ny, max_lum, first, sx0, sy0, sw, sh, olx, ohx, oly, ohy,
+                row0, rows);
+            return;
+        }
         const long long threads = (long long)rows * w;
         const int blocks = (int)((threads + kThreads - 1) / kThreads);
         film_add_det_kernel<Kind><<<blocks, kThreads, 0, stream>>>(

@@ -18,9 +18,17 @@
 // a specular bounce); 0 on the other lanes.
 //
 // One thread a lane. Bound: bytes (a lane's inputs and outputs; the maps
-// and their cdfs, 32 x 64 for the sky, stay in L1 and L2). A lane's
-// searches are bisections of the (H + 1) and (W + 1) cdf entries, about 12
-// reads for the sky.
+// and their cdfs, 32 x 64 for the sky, stay in L1 and L2).
+//
+// K15's design: one thread a lane as K16, its searches the bisections of
+// lights.cuh; u and p are loaded with the descriptor, off the lane's chain
+// of dependent loads, and sinf and cosf are lights.cuh's sincos_bounded
+// (no stack frame). A sky lane's time is that chain (its light row, the
+// descriptor, the two bisections, four texels) in a single wave whose L1
+// starts cold. Copying the tables into each block's shared memory, a
+// persistent grid staging them once a block, prefetching their lines into
+// L1, two rounds of independent loads a search, two lanes a thread and
+// fewer registers each took longer (PERF.md, PR 22).
 #include "lights.cuh"
 
 namespace {
@@ -47,16 +55,18 @@ __global__ void __launch_bounds__(kThreads)
         pdf_out[i] = 0.0f;
         return;
     }
+    const float u0 = u[2 * i], u1 = u[2 * i + 1];
+    const rt::V3 pi = rt::load3(p + 3 * i);
     const rt::InfLight L = rt::inf_light(flat, desc, k);
     float uv0, uv1, map_pdf, st;
-    rt::sample_2d(L, u[2 * i], u[2 * i + 1], &uv0, &uv1, &map_pdf);
+    rt::sample_2d(L, u0, u1, &uv0, &uv1, &map_pdf);
     const rt::V3 wi = rt::inf_uv_to_dir(l2w + 16 * k, uv0, uv1, &st);
     const rt::V3 le = rt::bilerp_repeat(L.map, L.h, L.w, uv0, uv1);
     const rt::V3 e = rt::load3(emit + 3 * row);
     rt::store3(wi_out + 3 * i, wi);
     pdf_out[i] = rt::inf_pdf(map_pdf, st);
     rt::store3(li_out + 3 * i, rt::V3{le.x * e.x, le.y * e.y, le.z * e.z});
-    rt::store3(pt_out + 3 * i, rt::load3(p + 3 * i) + wi * (2.0f * world_radius));
+    rt::store3(pt_out + 3 * i, pi + wi * (2.0f * world_radius));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -97,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
 // lid (n,) int32 light rows, p (n, 3), u (n, 2); row_inf (n_lights,) the
 // infinite light of each row (-1 elsewhere), emit (n_lights, 3), the
 // infinite lights' flat table and descriptors (K, 9) (scene/lights.py
-// INF_DESC), l2w (K, 4, 4) -> wi, pdf, li, p_target
+// INF_DESC), l2w (K, 4, 4), world_radius -> wi, pdf, li, p_target
 extern "C" int rt_infinite_sample(const void* lid, const void* p, const void* u, int n,
                                   const void* row_inf, int n_lights, const void* emit,
                                   const void* flat, const void* desc, const void* l2w,

@@ -133,11 +133,14 @@ class Film:
                 yield iy, ix, fw, ok
 
     def _clamped(self, radiance):
-        """The radiance scaled down to ``max_sample_luminance``."""
+        """The radiance scaled down to ``max_sample_luminance``: the scale
+        max / lum one rounded division, as the reference and K4 take it
+        (a number over a tensor, ``m / t``, is ``t.reciprocal() * m`` in
+        torch: two roundings)."""
         if not np.isfinite(self.max_sample_luminance):
             return radiance
         lum = luminance(radiance)
-        m = self.max_sample_luminance
+        m = lum.new_full((), self.max_sample_luminance)
         scale = torch.where(lum > m, m / torch.clamp(lum, min=1e-20), 1.0)
         return radiance * scale[:, None]
 
@@ -297,8 +300,10 @@ class Film:
         row1 = min(sy0 + gb + ohy - y0 + 1, h)
         return row0, max(row1 - row0, 0)
 
-    def _add_samples_det(self, state, p_film, radiance, valid, first):
-        """K4d's launch (``add_samples_det`` without the layout check)."""
+    def _add_samples_det(self, state, p_film, radiance, valid, first,
+                         lib=None):
+        """K4d's launch (``add_samples_det`` without the layout check;
+        ``lib``, a loaded other build, is launched uncounted)."""
         n = p_film.shape[0]
         dev = p_film.device
         h, w = state.wsum.shape
@@ -318,7 +323,7 @@ class Film:
                         state.rgb, state.wsum, h, w, x0, y0, rx, ry, nx, ny,
                         self.max_sample_luminance, kind, *fp, first, sx0,
                         sy0, sx1 - sx0, sy1 - sy0, *self.det_window(), row0,
-                        rows)
+                        rows, lib=lib)
         return state
 
     def clamp_vjp(self, radiance, g):

@@ -221,11 +221,12 @@ def grid_contrib(lt, world_lo, vox_ext, nv, halton):
     return out
 
 
-def grid_contrib_lights(lt, world_lo, vox_ext, nv, halton):
+def grid_contrib_lights(lt, world_lo, vox_ext, nv, halton, lib=None):
     """K12 ``spatial_grid_contrib_lights``, ``grid_contrib`` for a table of
     any light types (a light a block row, so a block's type picks its
     branch); one launch. It takes a table of triangle lights too, through
-    the triangle kernel's code. CPU tensors take the plain version."""
+    the triangle kernel's code. CPU tensors take the plain version;
+    ``lib``, a loaded other build, is launched uncounted."""
     if not cuda.use_kernel(halton):
         return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
     dev = halton.device
@@ -251,7 +252,7 @@ def grid_contrib_lights(lt, world_lo, vox_ext, nv, halton):
                 lt.l_twosided, lt.l_area, lt.l_tri_p, lt.l_tri_rev,
                 lt.l_q_type, lt.l_q_o2w, lt.l_q_w2o, lt.l_q_params,
                 lt.l_q_rev, lt.l_cone, lt.row_inf, lt.inf_flat, lt.inf_desc,
-                lt.inf_l2w, n_l, out)
+                lt.inf_l2w, n_l, out, lib=lib)
     return out
 
 

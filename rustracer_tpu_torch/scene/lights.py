@@ -496,9 +496,10 @@ def infinite_sample_plain(lt: LightTables, lid, p, u):
     return wi, pdf, li, pt
 
 
-def infinite_sample(lt: LightTables, lid, p, u):
+def infinite_sample(lt: LightTables, lid, p, u, lib=None):
     """K15 (csrc/lights.cu): ``infinite_sample_plain``'s outputs. CPU
-    tensors take the plain version, CUDA tensors launch the kernel."""
+    tensors take the plain version, CUDA tensors launch the kernel
+    (``lib``, a loaded other build, uncounted)."""
     if not cuda.use_kernel(p):
         return infinite_sample_plain(lt, lid, p, u)
     n, dev = p.shape[0], p.device
@@ -512,7 +513,7 @@ def infinite_sample(lt: LightTables, lid, p, u):
     if n:
         cuda.launch("infinite_sample", lid, p, u, n, lt.row_inf,
                     lt.n_lights, lt.l_emit, lt.inf_flat, lt.inf_desc,
-                    lt.inf_l2w, lt.world_radius, wi, pdf, li, pt)
+                    lt.inf_l2w, lt.world_radius, wi, pdf, li, pt, lib=lib)
     return wi, pdf, li, pt
 
 
@@ -553,11 +554,12 @@ def infinite_escape_plain(lt: LightTables, d, mask, prev_pdf=None,
 
 
 def infinite_escape(lt: LightTables, d, mask, prev_pdf=None, prev_spec=None,
-                    pmfs=None):
+                    pmfs=None, lib=None):
     """K16 (csrc/lights.cu): ``infinite_escape_plain``'s radiance. CPU
     tensors take the plain version, CUDA tensors launch the kernel (the
     pmfs as one (K, B) table, or one number for all when each is the
-    uniform pick's)."""
+    uniform pick's; ``lib``, a loaded other build, is launched
+    uncounted)."""
     if not cuda.use_kernel(d):
         return infinite_escape_plain(lt, d, mask, prev_pdf, prev_spec, pmfs)
     n, dev = d.shape[0], d.device
@@ -584,7 +586,8 @@ def infinite_escape(lt: LightTables, d, mask, prev_pdf=None, prev_spec=None,
     if n:
         cuda.launch("infinite_escape", d, mask, prev_pdf, prev_spec,
                     pmf_tab, pmf_const, int(mis), n, lt.n_infinite,
-                    lt.inf_scale, lt.inf_flat, lt.inf_desc, lt.inf_w2l, out)
+                    lt.inf_scale, lt.inf_flat, lt.inf_desc, lt.inf_w2l, out,
+                    lib=lib)
     return out
 
 

@@ -188,6 +188,9 @@ K9, K10, K11 = ("film_add_samples_bwd", "atlas_lookup_ewa_bwd",
 K12 = "spatial_grid_contrib"
 K2 = "build_interaction"
 K17, K19, K20 = "mipmap_lookup", "fourier_bsdf", "mipmap_lookup_bwd"
+K4D = "film_add_samples_det"
+K15, K16, K12L = ("infinite_sample", "infinite_escape",
+                  "spatial_grid_contrib_lights")
 # K2's C interface before its quadric branch (rt_build_interaction_tri):
 # t_shade, n_tris, nq, the rays and hits, n, the 15 outputs, stream
 K2_TRI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
@@ -202,7 +205,8 @@ K4_BOX_ARGS = (cuda.SIGNATURES[K4][:15] + cuda.SIGNATURES[K4][-1:])
 K9_NO_LAYOUT_ARGS = cuda.SIGNATURES[K9][:-3] + cuda.SIGNATURES[K9][-1:]
 KERNELS = {"K2": K2, "K4": K4, "K5": K5, "K6": K6, "K7": K7, "K10": K10, "K11": K11,
            "K17": K17, "K19": K19, "K20": K20,
-           "K12": K12, "K4F": K4, "K9F": K9}
+           "K12": K12, "K4F": K4, "K9F": K9, "K4d": K4D, "K15": K15,
+           "K16": K16, "K12L": K12L}
 # the device kernels of each: K6's one launch, or the count, scan and place
 # launches of a three-launch build
 K2_KERNELS = ("build_interaction_kernel",)
@@ -218,6 +222,16 @@ K12_KERNELS = ("grid_contrib_kernel",)
 K17_KERNELS = ("mipmap_kernel",)
 K19_KERNELS = ("fourier_kernel",)
 K20_KERNELS = ("mipmap_bwd_",)
+# K4d's tiled kernel and its per-pixel kernel (wide footprints; the
+# design before the tiles)
+K4D_KERNELS = ("film_add_det",)
+K15_KERNELS = ("infinite_sample_kernel",)
+K16_KERNELS = ("infinite_escape_kernel",)
+K12L_KERNELS = ("grid_contrib_lights_kernel",)
+# K15's, K16's and K12's lights kernel's recorded step: the bathroom with
+# its film at BATH_RES, one sample, 2^18-lane tiles, tile BATH_TILE (and
+# K16's camera rays on envmap-dof at RES, tile 0): chip_smoke phase 19's
+BATH_RES, BATH_TILE = (1920, 1080), 2
 # the scenes whose recorded step (tile STEP_TILE, SHADING_SAMPLES samples'
 # config) K17 and K19 run on, and the wide Fourier table's lanes
 K17_SCENE, K19_SCENE = "textures-image", "testball-fourier"
@@ -542,9 +556,10 @@ def build(others, k12_corners=False):
     sources = {f"library {f}": os.path.join(CSRC, f)
                for f in ("interaction.cu", "film.cu", "film_bwd.cu", "atlas.cu", "compact.cu",
                          "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu", "mipmap.cu",
-                         "fourier.cu", "mipmap_bwd.cu")}
+                         "fourier.cu", "mipmap_bwd.cu", "lights.cu")}
     sources.update((p, os.path.abspath(p)) for p in others)
-    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12, K17, K19, K20)
+    kernels = (K2, K4, K5, K6, K7, K9, K10, K11, K12, K17, K19, K20, K4D,
+               K15, K16, K12L)
     sass_of = ("film.cu", "film_bwd.cu", "compact.cu", "atlas_bwd.cu",
                "gather_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(3 * len(sources)) as pool:
@@ -1780,6 +1795,373 @@ def measure_k20(calls, builds, reps=20, log=print, unchecked=()):
     return rows
 
 
+def _checked(builds, time_only):
+    """``builds`` without the ``--time-only`` ones (diagnostic builds of
+    another kernel of the same source)."""
+    return {b: lib for b, lib in builds.items() if b not in time_only}
+
+
+def res_usage(source):
+    """cuobjdump -res-usage of a cubin of ``source`` built with the
+    library's flags -> {kernel (mangled name): its resource line
+    (registers, stack, shared, local, ...)}."""
+    cmd = [a for a in nvcc_command(source) if a != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        subprocess.run(cmd + ["-cubin", "-o", cubin, source], check=True,
+                       capture_output=True, text=True, timeout=600)
+        text = subprocess.run([cuobjdump_path(), "-res-usage", cubin],
+                              check=True, capture_output=True, text=True,
+                              timeout=600).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function (\S+):", ln)
+        if m:
+            fn = m.group(1)
+        elif fn is not None and "REG:" in ln:
+            out[fn] = ln.strip()
+            fn = None
+    return out
+
+
+def k4d_cases(renderer, ctx, dev):
+    """K4d's recorded splats -> {case: dict(film, p_film, radiance, valid,
+    first)}: tile STEP_TILE of ``renderer``'s step with each of FILTERS
+    (``filtered_splat``: one splat, the film's filter swapped; the lanes
+    from STEP_TILE * LANES), and the whole splat of one step of the
+    Cornell box parsed with PixelFilter mitchell (its 68^2 sample bounds in
+    one tile, 1 sample), each held to the renderer's lane layout."""
+    from ..scene.api import parse_scene_string
+    base = filtered_splat(renderer, ctx, STEP_TILE, kind="mitchell")
+    cases = {f"{kind} full width": dict(with_filter(base, kind),
+                                        first=STEP_TILE * LANES)
+             for kind in FILTERS}
+    with open(os.path.join(os.path.dirname(CSRC), os.pardir, "scenes",
+                           "cornell-box.pbrt")) as f:
+        text = f.read().replace("WorldBegin", 'PixelFilter "mitchell"\n'
+                                "WorldBegin", 1)
+    bundle = parse_scene_string(text, device=dev).scene
+    r = bundle.renderer()
+    c = capture_step(r, bundle.context(), r.tiles[0], sample=0)["k4"][0]
+    cases["mitchell Cornell"] = dict(c, first=0)
+    for case in cases.values():
+        case["film"].check_det_layout(case["p_film"], case["valid"],
+                                      case["first"])
+    return cases
+
+
+def k4d_call(lib, case, state=None):
+    """K4d (the library's, or ``lib``'s) on a recorded splat into
+    ``state`` (a zero film's, by default) -> the state."""
+    film = case["film"]
+    if state is None:
+        state = film.init_state(case["p_film"].device)
+    return film._add_samples_det(state, case["p_film"], case["radiance"],
+                                 case["valid"], case["first"], lib=lib)
+
+
+def measure_k4d(cases, builds, reps=20, log=print, unchecked=()):
+    """K4d on each recorded splat (``k4d_cases``): every build but those
+    of ``unchecked`` bit for bit with the plain version
+    (Film.add_samples_det_plain; for the Gaussian, whose plain exp rounds
+    apart from expf, with the library's, itself within 1e-5 relative of
+    the plain version) and over two launches; timed in turns
+    with L2 evicted before each call, as the checkpointed render's one
+    splat a step finds it, bounded as K4 (``k4_moved``) -> list of row
+    dicts."""
+    rows = []
+    for label, case in cases.items():
+        film, p_film = case["film"], case["p_film"]
+        rad, valid, first = case["radiance"], case["valid"], case["first"]
+        dev = p_film.device
+        with cuda.plain_reference():
+            ref = film.add_samples_det_plain(film.init_state(dev), p_film,
+                                             rad, valid, first)
+        gauss = film.filter.kind == "gaussian"
+        if gauss:
+            # the plain version's exp rounds apart from expf on the card:
+            # the library within 1e-5 relative of it, every build bit for
+            # bit with the library
+            lib_out = k4d_call(None, case)
+            torch.testing.assert_close(lib_out.rgb, ref.rgb, rtol=1e-5,
+                                       atol=1e-6)
+            ref = lib_out
+        for b, lib in builds.items():
+            if b in unchecked:
+                continue
+            a, a2 = k4d_call(lib, case), k4d_call(lib, case)
+            for x in (a, a2):
+                if not (torch.equal(x.rgb, ref.rgb)
+                        and torch.equal(x.wsum, ref.wsum)):
+                    d = (x.rgb - ref.rgb).abs().max().item()
+                    raise AssertionError(
+                        f"K4d {label} {b} differs in bits from the "
+                        f"{'library' if gauss else 'plain version'} (max "
+                        f"{d})")
+        bound_ms, bound_by = _bound(k4_moved(film, p_film, rad, valid), 0)
+        with cuda.plain_reference():
+            plain = cold_ms(lambda: film.add_samples_det_plain(
+                film.init_state(dev), p_film, rad, valid, first), 3)
+        log(f"K4d {label}: {p_film.shape[0]} samples from lane {first}, "
+            f"window {film.det_window()}, rows "
+            f"{film.det_rows(first, p_film.shape[0])}, "
+            f"film {film.cropped_resolution}; every checked build bit for "
+            f"bit with the {'library' if gauss else 'plain version'}; plain "
+            f"{plain:.4f} ms (L2 cold)")
+        acc = film.init_state(dev)
+        timed = _turns({b: (lambda lib=lib: k4d_call(lib, case, acc))
+                        for b, lib in builds.items()}, reps, K4D_KERNELS,
+                       cold=True)
+        for b in builds:
+            r = _row(f"K4d {label}, L2 cold", b, timed[b], bound_ms,
+                     bound_by, samples=p_film.shape[0], plain_ms=plain,
+                     checked=b not in unchecked)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
+def light_step_cases(dev, res=BATH_RES, lanes=LANES):
+    """The recorded calls of K15, K16 and K12's lights kernel -> dict:
+    ``k15`` and ``k16`` every infinite_sample and infinite_escape call of
+    one step of tile BATH_TILE of the bathroom with its film at ``res``, 1
+    sample (tools/light_work.py capture_light_step), ``k16`` then the
+    camera rays' call of envmap-dof's tile 0 with its film at RES (all on
+    the sky); ``k12l`` (the bathroom's light table, its grid (lo, voxel
+    extent, voxel counts)) as its parse fills it."""
+    from ..scene import lightdistrib as LD
+    from ..scene.api import parse_scene_string
+    from ..utils import fileutil
+    from . import light_work as LW
+
+    def scene(name, small, size):
+        with open(os.path.join(LW.SCENES, f"{name}.pbrt")) as f:
+            text = f.read()
+        if small not in text:
+            raise ValueError(f"{name}.pbrt's Film line changed")
+        return text.replace(small, f'"integer xresolution" [{size[0]}] '
+                            f'"integer yresolution" [{size[1]}]')
+    fileutil.set_search_directory(LW.SCENES)
+    bath = parse_scene_string(scene(
+        "bathroom", '"integer xresolution" [320] "integer yresolution" '
+        '[180]', res), device=dev).scene
+    r = bath.renderer(lanes)
+    cap = LW.capture_light_step(r, bath.context(), r.tiles[BATH_TILE])
+    env = parse_scene_string(scene(
+        "envmap-dof", '"integer xresolution" [64] "integer yresolution" '
+        '[64]', RES), device=dev).scene
+    r = env.renderer(lanes)
+    camera = LW.capture_light_step(r, env.context(),
+                                   r.tiles[0])["infinite_escape"][0]
+    lo, hi = bath.world_bounds
+    nv, _, ext = LD.voxels(lo, hi)
+    return dict(k15=cap["infinite_sample"],
+                k16=cap["infinite_escape"] + [camera],
+                k12l=(bath.lights, (lo, ext, nv)))
+
+
+def k15_errors(out, ref):
+    """K15's outputs against the plain version's -> (li bit for bit, the
+    largest relative error of wi, the target and the pdf)."""
+    wi, pdf, li, pt = out
+    rwi, rpdf, rli, rpt = ref
+    errs = [((a - b).abs().max(-1).values
+             / b.abs().max(-1).values.clamp(min=1e-30)).max().item()
+            for a, b in ((wi, rwi), (pt, rpt))]
+    errs.append(((pdf - rpdf).abs() / rpdf.abs().clamp(min=1e-30))
+                .max().item())
+    return torch.equal(li, rli), max(errs)
+
+
+def measure_k15(calls, builds, reps=20, log=print, unchecked=()):
+    """K15 on every recorded call of the bathroom step (``calls``: lt, lid,
+    p, u): each call's sky lanes logged; every build but those of
+    ``unchecked`` held to the plain version (li bit for bit, wi, the
+    target and the pdf within 1e-5 relative); every call timed in turns
+    (warm, as the step finds its inputs), bounded (tools/light_work.py
+    k15_work) -> list of row dicts."""
+    from ..scene import lights as L
+    from . import light_work as LW
+    rows = []
+    for i, args in enumerate(calls):
+        lt_, lid = args[0], args[1]
+        work = LW.k15_work(lt_, lid)
+        with cuda.plain_reference():
+            ref = L.infinite_sample(*args)
+        errs = {}
+        for b, lib in builds.items():
+            if b in unchecked:
+                continue
+            bits, err = k15_errors(L.infinite_sample(*args, lib=lib), ref)
+            if not bits or err > 1e-5:
+                raise AssertionError(f"K15 call {i} {b} differs from the "
+                                     f"plain version (li bits {bits}, "
+                                     f"relative {err:.3g})")
+            errs[b] = err
+        with cuda.plain_reference():
+            plain = events_ms(lambda: L.infinite_sample(*args), 5)
+        bound_ms, bound_by = _bound(work["moved"], work["ops"])
+        log(f"K15 call {i}: {work['lanes']} lanes, {work['infinite_lanes']} "
+            f"on the sky; li bit for bit, relative errors {errs}; plain "
+            f"{plain:.4f} ms")
+        timed = _turns({b: (lambda lib=lib: L.infinite_sample(*args,
+                                                              lib=lib))
+                        for b, lib in builds.items()}, reps, K15_KERNELS)
+        for b in builds:
+            r = _row(f"K15 call {i}", b, timed[b], bound_ms, bound_by,
+                     call=i, plain_ms=plain, rel_err=errs.get(b),
+                     checked=b not in unchecked, **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
+def measure_k16(calls, builds, reps=20, log=print):
+    """K16 on every recorded call of the bathroom step and envmap-dof's
+    camera rays (``light_step_cases``): every other build bit for bit with
+    the library's (the same K16 source unless it changed), the library's
+    largest difference from the plain version logged; every call timed in
+    turns, bounded (tools/light_work.py k16_work) -> list of row dicts."""
+    from ..scene import lights as L
+    from . import light_work as LW
+    rows = []
+    for i, args in enumerate(calls):
+        out = L.infinite_escape(*args)
+        with cuda.plain_reference():
+            ref = L.infinite_escape(*args)
+            plain = events_ms(lambda: L.infinite_escape(*args), 5)
+        for b, lib in builds.items():
+            if lib is not None and not torch.equal(
+                    L.infinite_escape(*args, lib=lib), out):
+                raise AssertionError(f"K16 call {i}: {b} differs in bits "
+                                     "from the library")
+        mis = len(args) > 3
+        work = LW.k16_work(args[0], args[2], mis)
+        bound_ms, bound_by = _bound(work["moved"], work["ops"])
+        label = f"K16 call {i} ({'MIS' if mis else 'camera'}" + (
+            ", envmap-dof)" if i == len(calls) - 1 else ")")
+        log(f"{label}: {work['escaped']} of {work['lanes']} lanes escaped; "
+            f"every build bit for bit; library against plain max abs "
+            f"{(out - ref).abs().max().item():.3g}; plain {plain:.4f} ms")
+        timed = _turns({b: (lambda lib=lib: L.infinite_escape(*args,
+                                                              lib=lib))
+                        for b, lib in builds.items()}, reps, K16_KERNELS)
+        for b in builds:
+            r = _row(label, b, timed[b], bound_ms, bound_by, call=i,
+                     plain_ms=plain, **work)
+            rows.append(r)
+            _log_row(log, r)
+    return rows
+
+
+def k12l_work(lt, grid, halton):
+    """K12's lights kernel over ``grid``: the bytes and operations of
+    every light's branch (tools/light_work.py k12_light_work; a full
+    sphere's probes outside it through the cone), the probes in."""
+    from ..scene import lightdistrib as LD
+    from . import light_work as LW
+    lo, ext, nv = grid
+    dev = halton.device
+    v = int(np.prod(nv))
+    moved, ops = halton.numel() * halton.element_size(), 0
+    for j in range(lt.n_lights):
+        cone = 0
+        if bool(lt.l_cone[j]):
+            corners = LD.voxel_corners(lo, ext, nv, 0, v, dev)
+            pts = corners[None] + halton[:, None, :3] * torch.as_tensor(
+                ext, device=dev)
+            c, rad = lt.l_q_o2w[j, :3, 3], lt.l_q_params[j, 0]
+            cone = int((((pts - c) ** 2).sum(-1) > rad * rad).sum())
+        w = LW.k12_light_work(lt, j, v, LD.N_SAMPLES, cone)
+        moved, ops = moved + w["moved"], ops + w["ops"]
+    return moved, ops
+
+
+def measure_k12l(case, builds, reps=10, log=print):
+    """K12's lights kernel on the bathroom's whole grid (``case``: its
+    light table and grid): every build within 1e-5 relative (or 1e-6 of
+    the column's largest) of the plain version, timed in turns, bounded
+    (``k12l_work``) -> list of row dicts."""
+    from ..scene import lightdistrib as LD
+    lt, grid = case
+    lo, ext, nv = grid
+    dev = lt.l_emit.device
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+
+    def fn(lib):
+        return LD.grid_contrib_lights(lt, lo, ext, nv, halton, lib=lib)
+    with cuda.plain_reference():
+        ref = fn(None)
+        plain = events_ms(lambda: fn(None), 2)
+    top = ref.abs().max(0).values
+    errs = {}
+    for b, lib in builds.items():
+        d = (fn(lib) - ref).abs()
+        if ((d > 1e-5 * ref.abs()) & (d > 1e-6 * top)).any():
+            raise AssertionError(f"K12's lights kernel {b} differs from "
+                                 "the plain version")
+        errs[b] = d.max().item()
+    moved, ops = k12l_work(lt, grid, halton)
+    bound_ms, bound_by = _bound(moved, ops)
+    log(f"K12 lights kernel, bathroom grid {tuple(int(x) for x in nv)}: "
+        f"max abs err {errs}; plain {plain:.4f} ms")
+    timed = _turns({b: (lambda lib=lib: fn(lib)) for b, lib in builds.items()},
+                   reps, K12L_KERNELS)
+    rows = []
+    for b in builds:
+        r = _row("K12 lights kernel, bathroom grid", b, timed[b], bound_ms,
+                 bound_by, plain_ms=plain, max_abs_err=errs[b],
+                 bytes=moved, operations=ops)
+        rows.append(r)
+        _log_row(log, r)
+    return rows
+
+
+def sincos_check(log=print):
+    """csrc/lights.cuh sincos_bounded against CUDA's sinf and cosf on every
+    float32 in [0, 2 pi] (about 1.1e9), on the card -> (floats, mismatches
+    of sin, of cos, the largest difference in units in the last place)."""
+    src = os.path.join(tempfile.mkdtemp(), "sincos_check.cu")
+    with open(src, "w") as f:
+        f.write(SINCOS_CHECK_CU)
+    lib = ctypes.CDLL(compile_shared(
+        "sincos_check", [src], nvcc_command(src) + ["-I", CSRC]))
+    out = torch.zeros(4, dtype=torch.int64, device="cuda")
+    hi = int(np.array([2 * np.pi], np.float32).view(np.int32)[0])
+    lib.rt_sincos_check.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.rt_sincos_check.restype = ctypes.c_int
+    if lib.rt_sincos_check(hi, ctypes.c_void_p(out.data_ptr())) != 0:
+        raise RuntimeError("sincos_check failed to launch")
+    torch.cuda.synchronize()
+    res = (hi + 1, *out[:3].tolist())
+    log(f"sincos_bounded against sinf / cosf on the {res[0]} floats of "
+        f"[0, 2 pi]: {res[1]} / {res[2]} differ, at most {res[3]} ulp")
+    return res
+
+
+SINCOS_CHECK_CU = r"""
+#include "lights.cuh"
+__global__ void sincos_check_kernel(int hi, unsigned long long* out) {
+    for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b <= hi;
+         b += (long long)gridDim.x * blockDim.x) {
+        const float x = __int_as_float((int)b);
+        float s, c;
+        rt::sincos_bounded(x, &s, &c);
+        const int ds = abs(__float_as_int(s) - __float_as_int(sinf(x)));
+        const int dc = abs(__float_as_int(c) - __float_as_int(cosf(x)));
+        if (ds) atomicAdd(out, 1ull);
+        if (dc) atomicAdd(out + 1, 1ull);
+        if (ds || dc) atomicMax(out + 2, (unsigned long long)max(ds, dc));
+    }
+}
+extern "C" int rt_sincos_check(int hi, void* out) {
+    sincos_check_kernel<<<132 * 16, 256>>>(hi, (unsigned long long*)out);
+    return (int)cudaGetLastError();
+}
+"""
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
@@ -1824,7 +2206,22 @@ def main(argv=None):
             print(f"sass [{name}] {fn}: {' '.join(ops)}", flush=True)
     dev = torch.device("cuda:0")
     which = args.kernels.split(",")
-    if [k for k in which if k not in ("K17", "K19", "K20")]:
+    if "K15" in which or "K4d" in which:
+        # K15's stack frame (none since its redesign) and K4d's tile's
+        # shared memory, and sincos_bounded against sinf and cosf
+        srcs = [os.path.join(CSRC, f) for f in ("lights.cu", "film.cu")] + [
+            p for p in args.other + args.time_only
+            if os.path.basename(p) in ("lights.cu", "film.cu")]
+        for src in srcs:
+            for fn, ln in res_usage(src).items():
+                if "infinite_sample" in fn or "film_add_det" in fn:
+                    print(f"res-usage [{src}] {fn}: {ln}", flush=True)
+        if "K15" in which:
+            sincos_check()
+    lights = light_step_cases(dev) if {"K15", "K16", "K12L"} & set(which) \
+        else None
+    if [k for k in which if k not in ("K17", "K19", "K20", "K15", "K16",
+                                      "K12L")]:
         ctx, cam, film, sampler, integ, _ = build_dragon(res=RES, device=dev)
         r = Renderer(integ.li, cam, film, sampler,
                      RenderConfig(max_lanes=LANES), device=dev)
@@ -1870,7 +2267,17 @@ def main(argv=None):
                                    wide_fourier_calls(dev), builds[K19],
                                    args.reps, log),
         "K20": lambda: measure_k20(capture_k20(dev), builds[K20], args.reps,
-                                   log, unchecked=args.time_only)}
+                                   log, unchecked=args.time_only),
+        "K4d": lambda: measure_k4d(k4d_cases(r, ctx, dev), builds[K4D],
+                                   args.reps, log, unchecked=args.time_only),
+        "K15": lambda: measure_k15(lights["k15"], builds[K15], args.reps,
+                                   log, unchecked=args.time_only),
+        "K16": lambda: measure_k16(lights["k16"], _checked(builds[K16],
+                                                            args.time_only),
+                                   args.reps, log),
+        "K12L": lambda: measure_k12l(lights["k12l"],
+                                     _checked(builds[K12L], args.time_only),
+                                     max(args.reps // 2, 1), log)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

@@ -21,7 +21,9 @@ from rustracer_tpu.render.checkpoint import \
     load_film_checkpoint as jax_load
 from rustracer_tpu.render.checkpoint import \
     save_film_checkpoint as jax_save
+from rustracer_tpu.render.film import Film as JaxFilm
 from rustracer_tpu.render.film import FilmState as JaxFilmState
+from rustracer_tpu.render.filters import Filter as JaxFilter
 from rustracer_tpu_torch.integrators.normal import NormalIntegrator
 from rustracer_tpu_torch.render.checkpoint import (load_film_checkpoint,
                                                    maybe_resume,
@@ -135,6 +137,53 @@ def test_det_splat_plain_against_k4_plain(kind):
     with pytest.raises(ValueError, match="renderer's lanes"):
         film.add_samples_det(film.init_state("cpu"), p_film.flip(0), rad,
                              None, first)
+
+
+# K4d's plain version against the JAX package's splat: (filter, film,
+# crop, the lanes' first index and count). Each run of lanes starts and
+# ends mid-row; the 3-wide Gaussian's footprint is wider than the CUDA
+# kernel's tiles take.
+DET_JAX_CASES = {
+    "mitchell mid-row": (("mitchell", 2.0, 2.0), (23, 17), (0, 0, 1, 1),
+                         61, 200),
+    "triangle crop": (("triangle", 1.3, 1.9), (30, 20),
+                      (0.1, 0.15, 0.8, 0.95), 45, 260),
+    "gaussian wide": (("gaussian", 3.0, 3.0), (20, 14), (0, 0, 1, 1), 29,
+                      300),
+}
+
+
+@pytest.mark.parametrize("case", list(DET_JAX_CASES))
+def test_det_splat_plain_matches_jax(case):
+    """K4d's plain version (Film.add_samples_det_plain) on a run of a
+    renderer's lanes that starts and ends mid-row (some invalid, the
+    luminance clamp on) against the JAX package's Film.add_samples on the
+    same samples: within float rounding (its sums in another order: 1e-5
+    relative, 1e-6 absolute)."""
+    (kind, rx, ry), res, crop, first, n = DET_JAX_CASES[case]
+    film = Film(full_resolution=res, filter=Filter(kind, rx, ry),
+                crop_window=crop, max_sample_luminance=3.0)
+    jfilm = JaxFilm(full_resolution=res, filter=JaxFilter(kind, rx, ry),
+                    crop_window=crop, max_sample_luminance=3.0)
+    sx0, sy0, sx1, sy1 = film.get_sample_bounds()
+    assert first % (sx1 - sx0) and (first + n) % (sx1 - sx0)
+    assert first + n <= (sx1 - sx0) * (sy1 - sy0)
+    lx, ly, _ = film.lane_pixels(first, n, "cpu")
+    rs = np.random.default_rng(first)
+    p_film = (np.stack([lx.numpy(), ly.numpy()], -1)
+              + rs.random((n, 2))).astype(np.float32)
+    rad = (rs.random((n, 3)) * 5.0).astype(np.float32)
+    valid = rs.random(n) > 0.15
+    det = film.add_samples_det_plain(film.init_state("cpu"),
+                                     torch.as_tensor(p_film),
+                                     torch.as_tensor(rad),
+                                     torch.as_tensor(valid), first)
+    ref = jfilm.add_samples(jfilm.init_state(), jnp.asarray(p_film),
+                            jnp.asarray(rad), valid=jnp.asarray(valid))
+    assert float(det.wsum.sum()) > 0
+    for a, b in ((det.rgb, ref.rgb), (det.wsum, ref.wsum)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_file_interchange(tmp_path):

@@ -1103,6 +1103,70 @@ def test_det_splat_matches_plain(dev, kind):
                              None, first)
 
 
+# K4d's tiled kernel against its plain version: (filter, film, crop, the
+# lanes' first index and count, the share of invalid lanes). Lanes start
+# and end mid-row; the 3-wide Gaussian's footprint (6 taps an axis) is
+# wider than the tiles' kMaxAxisTaps and takes the per-pixel kernel.
+DET_TILE_CASES = {
+    "box": (Filter("box", 0.5, 0.5), (203, 77), (0, 0, 1, 1), 45, 9000,
+            0.0),
+    "triangle": (Filter("triangle", 2.0, 2.0), (203, 77), (0, 0, 1, 1),
+                 101, 12000, 0.2),
+    "gaussian": (Filter("gaussian", 2.0, 2.0, alpha=2.0), (203, 77),
+                 (0, 0, 1, 1), 317, 11000, 0.2),
+    "mitchell": (Filter("mitchell", 2.0, 2.0), (203, 77), (0, 0, 1, 1), 13,
+                 15000, 0.0),
+    "mitchell crop": (Filter("mitchell", 2.0, 2.0), (300, 130),
+                      (0.13, 0.21, 0.71, 0.9), 777, 8000, 0.3),
+    "triangle 1.3 x 1.9": (Filter("triangle", 1.3, 1.9), (150, 90),
+                           (0, 0.1, 0.9, 1), 59, 9000, 0.25),
+    "gaussian wide": (Filter("gaussian", 3.0, 3.0, alpha=2.0), (150, 90),
+                      (0.05, 0, 1, 0.8), 211, 7000, 0.25),
+}
+
+
+@pytest.mark.parametrize("case", list(DET_TILE_CASES))
+def test_det_splat_tiles_match_plain(dev, case):
+    """K4d (csrc/film.cu: 32 x 16-pixel tiles over the lanes staged in
+    shared memory; footprints wider than 4 taps an axis per pixel) on a
+    run of a renderer's lanes that starts and ends mid-row, some invalid,
+    the luminance clamp on: bit for bit with Film.add_samples_det_plain
+    (the Gaussian within 1e-5 relative: its plain exp rounds otherwise on
+    the card, test_det_splat_matches_plain), and bit for bit over two
+    launches."""
+    filt, res, crop, first, n, holes = DET_TILE_CASES[case]
+    film = Film(full_resolution=res, filter=filt, crop_window=crop,
+                max_sample_luminance=3.0)
+    sx0, sy0, sx1, sy1 = film.get_sample_bounds()
+    n = min(n, (sx1 - sx0) * (sy1 - sy0) - first)
+    assert first % (sx1 - sx0) and (first + n) % (sx1 - sx0)
+    lx, ly, _ = film.lane_pixels(first, n, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(first)
+    p_film = torch.stack([lx, ly], -1).float() + torch.rand(
+        (n, 2), generator=g, device=dev)
+    p_film[:7] = torch.stack([lx[:7], ly[:7]], -1).float()
+    rad = torch.rand((n, 3), generator=g, device=dev) * 6.0
+    valid = (torch.rand(n, generator=g, device=dev) >= holes) if holes \
+        else None
+    outs = []
+    for _ in range(2):
+        n0 = K.LAUNCHES["film_add_samples_det"]
+        outs.append(film.add_samples_det(film.init_state(dev), p_film, rad,
+                                         valid, first))
+        assert K.LAUNCHES["film_add_samples_det"] == n0 + 1
+    ref = _plain(lambda: film.add_samples_det(film.init_state(dev), p_film,
+                                              rad, valid, first))
+    assert (ref.wsum != 0).float().mean() > 0.3
+    for a, b in zip(outs[0][:2], ref[:2]):
+        if filt.kind == "gaussian":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.fixture(scope="module")
 def parsed_cornell(dev):
     import os
@@ -1362,6 +1426,79 @@ def test_infinite_sample_matches_plain(mixed_lights, n):
     other = ~torch.isin(lid, torch.tensor(lt.inf_rows, device=dev,
                                           dtype=torch.int32))
     assert (out[1][other] == 0).all() and (out[2][other] == 0).all()
+
+
+def _with_maps(lt, h, w, seed=5, zero_band=False):
+    """``lt`` with each infinite light's map replaced by a seeded (h, w)
+    map; with ``zero_band``, rows h/4 to h/2 and columns w/3 to w/2 black
+    (plateaus of the cdfs: ties for the searches)."""
+    from rustracer_tpu_torch.core.sampling import Distribution2D
+    from rustracer_tpu_torch.scene import lights as L
+    rng = np.random.default_rng(seed)
+    maps = []
+    for _ in lt.inf_rows:
+        m = rng.random((h, w, 3)).astype(np.float32) + 0.05
+        if zero_band:
+            m[h // 4:h // 2] = 0.0
+            m[:, w // 3:w // 2] = 0.0
+        maps.append(m)
+    dists = [Distribution2D.create(L.infinite_importance(m)) for m in maps]
+    return dataclasses.replace(lt, **L.infinite_tensors(
+        maps, dists, list(lt.inf_l2w.cpu().numpy()),
+        list(lt.inf_w2l.cpu().numpy()), lt.inf_rows, lt.l_emit.cpu().numpy(),
+        lt.l_emit.device))
+
+
+@pytest.mark.parametrize("table", ["mixed", "96 x 192", "zero band"])
+def test_infinite_sample_tables_match_plain(mixed_lights, table):
+    """K15 (csrc/lights.cu, its searches in two rounds of loads) on 2^18 +
+    3 lanes of every row, u at the cdfs' entries among them, over the
+    mixed scene's two infinite lights (32 x 64 and 4 x 8), over 96 x 192
+    maps (sides not powers of two, 97 and 193 cdf entries: a search's
+    second round past the last coarse entry) and over 40 x 72 maps with
+    black bands (cdf plateaus: ties): li bit for bit with the plain
+    version (it pins both integer searches), wi, the target and the pdf
+    within 1e-5 relative, zeros off the sky."""
+    from rustracer_tpu_torch.scene import lights as L
+    lt, dev = mixed_lights.lights, mixed_lights.device
+    if table == "96 x 192":
+        lt = _with_maps(lt, 96, 192)
+    elif table == "zero band":
+        lt = _with_maps(lt, 40, 72, zero_band=True)
+    n = (1 << 18) + 3
+    g = torch.Generator(device="cpu").manual_seed(7)
+    lid = torch.randint(0, lt.n_lights, (n,), generator=g).int().to(dev)
+    p = (torch.rand(n, 3, generator=g) * 6 - 3).to(dev)
+    u = torch.rand(n, 2, generator=g).to(dev)
+    # u exactly at cdf entries (a search's ties and ends)
+    cdf = lt.inf_dists[0].marginal.cdf
+    u[:cdf.numel(), 1] = cdf.to(dev)
+    u[:cdf.numel(), 0] = lt.inf_dists[0].conditional.cdf[0][
+        torch.arange(cdf.numel()) % lt.inf_dists[0].conditional.cdf.shape[1]
+    ].to(dev)
+    n0 = K.LAUNCHES["infinite_sample"]
+    out = L.infinite_sample(lt, lid, p, u)
+    assert K.LAUNCHES["infinite_sample"] == n0 + 1
+    ref = _plain(lambda: L.infinite_sample(lt, lid, p, u))
+    assert torch.equal(out[2], ref[2])
+    for a, b in zip(out, ref):
+        scale = b.abs().reshape(n, -1).max(-1).values.clamp(min=1e-30)
+        assert ((a - b).abs().reshape(n, -1).max(-1).values / scale
+                <= 1e-5).all()
+    other = ~torch.isin(lid, torch.tensor(lt.inf_rows, device=dev,
+                                          dtype=torch.int32))
+    assert all((x[other] == 0).all() for x in out)
+
+
+def test_sincos_bounded_against_sinf():
+    """csrc/lights.cuh sincos_bounded (K15's and K12's lights kernel's
+    sin and cos of theta and phi) against CUDA's sinf and cosf on every
+    float32 in [0, 2 pi]: within 1 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rustracer_tpu_torch.tools.bench_step_kernels import sincos_check
+    floats, _, _, ulp = sincos_check(log=lambda s: None)
+    assert floats > 10 ** 9 and ulp <= 1
 
 
 @pytest.mark.parametrize("form", ["camera", "mis uniform", "mis per lane"])

@@ -192,6 +192,65 @@ def test_distribution2d(name):
                                np.asarray(jd.pdf(juv)), rtol=1e-6)
 
 
+# K15's plain version against the JAX package on other maps: (H, W),
+# black rows (a slice) and black columns (a slice), or None
+OTHER_MAPS = {
+    "7 x 24": ((7, 24), None, None),
+    "20 x 6": ((20, 6), None, None),
+    "1 x 3": ((1, 3), None, None),
+    "33 x 65": ((33, 65), None, None),
+    "zero band 16 x 40": ((16, 40), slice(4, 8), slice(12, 20)),
+}
+
+
+@pytest.mark.parametrize("case", list(OTHER_MAPS))
+def test_infinite_sample_on_other_maps_matches_jax(tmp_path, case):
+    """K15's plain version (scene/lights.py infinite_sample_plain) on an
+    infinite light whose map is a seeded non-square image (some with
+    black bands: plateaus of the cdfs), written as EXR and parsed by both
+    packages, under a rotation, against the JAX package's sample_li: the
+    directions, targets and radiance within 1e-5 relative, the pdf as
+    well."""
+    shape, rows, cols = OTHER_MAPS[case]
+    from rustracer_tpu_torch.render.imageio import write_exr
+    path = str(tmp_path / "map.exr")
+    img = np.random.default_rng(shape[0]).random(
+        shape + (3,)).astype(np.float32) * 2 + 0.01
+    if rows is not None:
+        img[rows] = 0.0
+        img[:, cols] = 0.0
+    write_exr(path, img)
+    text = f"""LookAt 0 0 -5  0 0 0  0 1 0
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+WorldBegin
+AttributeBegin
+  Rotate 35 1 0.5 0
+  LightSource "infinite" "string mapname" "{path}" "rgb L" [0.7 0.9 1.1]
+AttributeEnd
+Material "matte"
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+    jb = jax_parse_string(text).scene
+    pb = parse_scene_string(text, device="cpu").scene
+    clt = convert.lights_from_jax(jb.lights, geom=jb.geom, device="cpu")
+    assert tuple(pb.lights.inf_maps[0].shape[:2]) == shape
+    assert torch.equal(pb.lights.inf_maps[0], clt.inf_maps[0])
+    row = clt.inf_rows[0]
+    lid, p, u = _lanes([row], seed=shape[1])
+    jl = JL.sample_li(jb.lights, jb.geom, jnp.asarray(lid),
+                      SimpleNamespace(p=jnp.asarray(p), t=jnp.zeros(N)),
+                      jnp.asarray(u))
+    wi, pdf, li, pt = L.infinite_sample_plain(clt, _t(lid), _t(p), _t(u))
+    for a, b in ((wi, jl.wi), (li, jl.li), (pt, jl.p_target)):
+        b = np.asarray(b)
+        scale = np.maximum(np.abs(b).max(-1), 1e-30)
+        assert (np.abs(a.numpy() - b).max(-1) / scale <= 1e-5).all()
+    assert (_rel(pdf.numpy(), np.asarray(jl.pdf)) <= 1e-5).all()
+    assert (pdf > 0).float().mean() > (0.99 if rows is None else 0.5)
+
+
 @pytest.mark.parametrize("wrap", [MM.WRAP_REPEAT, MM.WRAP_CLAMP,
                                   MM.WRAP_BLACK])
 def test_bilerp_level_wrapped(wrap):

@@ -577,13 +577,18 @@ def test_k20_atomics_by_hand(mode, wrap, adds, parent, new, most):
 
 @pytest.mark.parametrize("module,parts", [
     ("k20_parts", "PARTS"), ("k2_parts", "PARTS"),
-    ("k20_parts", "PACKED_PARTS")],
-    ids=["k20_parts", "k2_parts", "k20_parts-packed"])
+    ("k20_parts", "PACKED_PARTS"), ("k4d_parts", "PARTS"),
+    ("k4d_parts", "TILE_PARTS"), ("k15_parts", "PARTS"),
+    ("k15_parts", "TUNE_PARTS")],
+    ids=["k20_parts", "k2_parts", "k20_parts-packed", "k4d_parts",
+         "k4d_parts-tiles", "k15_parts", "k15_parts-tune"])
 def test_kernel_parts_replace_each_text_once(module, parts):
     """tools/k20_parts.py (the parts of the design before the packing and
-    of the packed one) and tools/k2_parts.py: each part replaces its
-    texts, each found once in the design it was written for; a text
-    missing raises. The packed parts apply to csrc/ as it is."""
+    of the packed one), tools/k2_parts.py, tools/k4d_parts.py (before the
+    tiles and of them) and tools/k15_parts.py (of the design before PR 22
+    and variants of its own): each part replaces its texts, each found once in the
+    design it was written for; a text missing raises. The parts of the
+    present designs apply to csrc/ as it is."""
     import functools
     import importlib
     KP = importlib.import_module(f"rustracer_tpu_torch.tools.{module}")
@@ -606,7 +611,7 @@ def test_kernel_parts_replace_each_text_once(module, parts):
         name = edits[0][0]
         with pytest.raises(ValueError):
             part_files(dict(texts, **{name: ""}), part)
-    if parts == "PACKED_PARTS":
+    if parts != "PARTS":
         csrc = os.path.join(os.path.dirname(KP.__file__), "..", "csrc")
         real = {}
         for f in KP.FILES:
