@@ -571,7 +571,8 @@ ROWS = {
     "spatial_grid_contrib_lights": (
         "spatial_grid_contrib_lights", "the bathroom's whole grid (35 x 21 "
         "x 64 voxels, 2 sphere, 2 triangle and 1 infinite lights), one "
-        "launch"),
+        "call: K12's triangle kernel and the other branches' kernel, each "
+        "over every row (kernel_launches_a_call)"),
     "spatial_grid_contrib_lights point": (
         "spatial_grid_contrib_lights", "tools/light_work.py light_scene's "
         "point light alone, over MIXED_SCENE's grid (64 x 32 x 64 voxels)"),
@@ -589,7 +590,7 @@ ROWS = {
         "spatial_grid_contrib_lights", "light_scene's cylinder alone"),
     "spatial_grid_contrib_lights triangle": (
         "spatial_grid_contrib_lights", "light_scene's triangle light alone "
-        "(two triangles; the triangle kernel's code)"),
+        "(two triangles; the triangle kernel itself)"),
     "spatial_grid_contrib_lights infinite": (
         "spatial_grid_contrib_lights", "light_scene's sky alone"),
     "mipmap_lookup trilinear": (
@@ -737,8 +738,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # window's lanes from global memory, K15 searching by bisection
 K4D_BEFORE = "0.0510 ms, 8.2% of its bound"
 K15_BEFORE = "0.0118 ms, 42.5% of its bound"
+# the designs before the forms' instantiations of K16 and the branches'
+# of K12's lights kernel, on the same calls (PERF.md section 6, the same
+# card): K16 one kernel for both forms, each lane reading each light's
+# tables on its chain (envmap-dof's camera rays); the lights kernel one
+# kernel for every branch, the cone's trig a (voxel, probe), each distant
+# or sky column summed by every thread (the bathroom's grid)
+K16_BEFORE = "0.0061 ms, 32.5% of its bound"
+K12L_BEFORE = "0.2419 ms, 32.1% of its bound"
 # every record of the kernel in three traces (kernel_time): ms_by "queued"
 QUEUED_ROWS = set()
+# row -> {kernel: its launches a call} where kernel_time sums a call's
+# launches (per_call): the kernels line's kernel_launches_a_call
+KERNEL_LAUNCHES = {}
 CORNELL_PBRT = os.path.join(REPO, "scenes", "cornell-box.pbrt")
 CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell-box.npz")
 # the rows whose launches are counted in the dragon train step
@@ -786,18 +798,27 @@ def k2_off(field, a, b):
     return (d > 1e-5) & (d > 1e-5 * b.abs())
 
 
-def kernel_time(row, fn, reps, names, cold=False):
+def kernel_time(row, fn, reps, names, cold=False, per_call=False):
     """The device time of the kernels ``names`` in one call of ``fn`` for
     the kernels line's row ``row`` (tools/timing.py device_ms, L2 cold
     where ``cold``): torch.profiler's records, or where three traces lost
     them all, CUDA events around the call, and the row then reads ms_by
-    "queued" (QUEUED_ROWS)."""
-    from rustracer_tpu_torch.tools.timing import device_ms
-    ms, by = device_ms(fn, reps, names, cold)
+    "queued" (QUEUED_ROWS). With ``per_call``, the sum of all the call's
+    launches (a kernel launched more than once a call, or several
+    instantiations of one name), each kernel's launches a call logged."""
+    from rustracer_tpu_torch.tools.timing import device_ms, short_name
+    launches = {}
+    ms, by = device_ms(fn, reps, names, cold, per_call, launches)
     if by != "profiler":
         QUEUED_ROWS.add(row)
         log(f"{row}: the profiler lost every record of {names} in 3 traces; "
             f"{ms:.4f} ms by CUDA events around the call")
+    elif per_call:
+        KERNEL_LAUNCHES[row] = {short_name(k): n
+                                for k, n in sorted(launches.items())}
+        log(f"{row}: {ms:.4f} ms, the sum of the call's launches: "
+            + ", ".join(f"{short_name(k)} x{n}"
+                        for k, n in sorted(launches.items())))
     return ms
 
 
@@ -1616,6 +1637,7 @@ def check_grid_contrib(label, key, scene, bundle, launches, results):
     ``results[key]``, its launches those of the scene's parse."""
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.scene import lightdistrib as LD
+    from rustracer_tpu_torch.tools.bench_step_kernels import K12L_KERNELS
     from rustracer_tpu_torch.tools.timing import events_ms
     lt, dev = bundle.lights, bundle.device
     lo = bundle.geom.tv_p.min(0).values.cpu().numpy()
@@ -1668,7 +1690,7 @@ def check_grid_contrib(label, key, scene, bundle, launches, results):
                              "spatial_grid_contrib")
     lms = kernel_time(f"{key}, lights kernel",
                       lambda: LD.grid_contrib_lights(lt, lo, ext, nv, halton),
-                      20, "grid_contrib_lights_kernel")
+                      20, K12L_KERNELS, per_call=True)
     log(f"{label} the same grid through spatial_grid_contrib_lights: bit "
         f"for bit; kernel {lms:.4f} ms against spatial_grid_contrib's "
         f"{ms:.4f} ms ({lms / ms:.3f}x)")
@@ -2791,20 +2813,44 @@ def check_k16(label, calls, results, counts,
 
         def fn(args=args):
             return L.infinite_escape(*args)
-        ms = kernel_time(key, fn, 20, "infinite_escape_kernel")
+        ms = kernel_time(key, fn, 20, "infinite_escape_kernel",
+                         per_call=True)
         with K.plain_reference():
             pms = events_ms(fn, 5)
         mis = len(args) > 3
         work = LW.k16_work(args[0], args[2], mis)
         b = bound(work["moved"], work["ops"])
         b_ms, by = b["bound_ms"], b["bound_by"]
+        ms = bounded_ms(key, ms, b_ms, fn, 20, "infinite_escape_kernel")
         results[key] = dict(max_abs_err=worst[mis], ms=ms, plain_ms=pms,
                             **b, **counts)
         log(f"{label} K16 {key}, {ROWS[key][1]} ({work['escaped']} "
             f"of {work['lanes']} lanes escaped): kernel {ms:.4f} ms, plain "
             f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by}: {work['moved']} "
             f"bytes, {work['ops']} operations), {100 * b_ms / ms:.1f}% of "
-            "it")
+            "it" + (f" (one kernel for both forms before: {K16_BEFORE})"
+                    if key == "infinite_escape envmap-dof" else ""))
+
+
+def bounded_ms(row, ms, bound_ms, fn, reps, names):
+    """``ms``, kernel_time's reading of row ``row`` (the sum of the call's
+    launches), where it is not below ``bound_ms``, the least time the card
+    could take. The profiler now and then returns records too short: such
+    a reading is taken again once, and then replaced by CUDA events around
+    the call with the host ahead (timing.queued_ms; ms_by "queued")."""
+    from rustracer_tpu_torch.tools.timing import queued_ms
+    if ms >= bound_ms:
+        return ms
+    log(f"{row}: {ms:.4f} ms, below its bound {bound_ms:.4f} ms: timed "
+        "again")
+    ms = kernel_time(row, fn, reps, names, per_call=True)
+    if ms >= bound_ms:
+        return ms
+    QUEUED_ROWS.add(row)
+    ms = queued_ms(fn, reps)
+    log(f"{row}: below its bound again; {ms:.4f} ms by CUDA events around "
+        "the call")
+    return ms
 
 
 def check_k12_lights(label, key, lt, grid, results, counts):
@@ -2816,6 +2862,7 @@ def check_k12_lights(label, key, lt, grid, results, counts):
     from rustracer_tpu_torch import cuda as K
     from rustracer_tpu_torch.scene import lightdistrib as LD
     from rustracer_tpu_torch.tools import light_work as LW
+    from rustracer_tpu_torch.tools.bench_step_kernels import K12L_KERNELS
     from rustracer_tpu_torch.tools.timing import events_ms
     lo, ext, nv = grid
     dev = lt.l_emit.device
@@ -2834,7 +2881,7 @@ def check_k12_lights(label, key, lt, grid, results, counts):
     d = (out - ref).abs()
     top = ref.abs().max(0).values
     bad = (d > 1e-5 * ref.abs()) & (d > 1e-6 * top)
-    ms = kernel_time(key, fn, 10, "grid_contrib_lights_kernel")
+    ms = kernel_time(key, fn, 10, K12L_KERNELS, per_call=True)
     with K.plain_reference():
         pms = events_ms(fn, 2)
     moved, ops = nbytes(halton), 0
@@ -2850,6 +2897,7 @@ def check_k12_lights(label, key, lt, grid, results, counts):
         w = LW.k12_light_work(lt, j, v, LD.N_SAMPLES, cone)
         moved, ops = moved + w["moved"], ops + w["ops"]
     b = bound(moved, ops)
+    ms = bounded_ms(key, ms, b["bound_ms"], fn, 10, K12L_KERNELS)
     results[key] = dict(max_abs_err=d.max().item(), ms=ms, plain_ms=pms,
                         **b, **counts)
     log(f"{label} K12 {key}: {tuple(int(x) for x in nv)} voxels x "
@@ -2858,7 +2906,9 @@ def check_k12_lights(label, key, lt, grid, results, counts):
         f"{int(bad.sum())} sums beyond 1e-5 relative; kernel {ms:.4f} "
         f"ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']}: {moved} bytes, {ops} operations), "
-        f"{100 * b['bound_ms'] / ms:.1f}% of it")
+        f"{100 * b['bound_ms'] / ms:.1f}% of it"
+        + (f" (one kernel for every branch before: {K12L_BEFORE})"
+           if key == "spatial_grid_contrib_lights" else ""))
     if bad.any() or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{key} differs from its plain version")
 
@@ -4202,6 +4252,8 @@ def run(dev, card):
             launches_counted_in=r["counted_in"] if own
             else "dragon train step" if train else "textured render",
             case=case))
+        if key in KERNEL_LAUNCHES:
+            kernels[-1]["kernel_launches_a_call"] = KERNEL_LAUNCHES[key]
     # the dragon looks no image up per texture: K20 has its own rows
     missing = [k for k in K.BACKWARD_KERNELS if train_launches[k] <= 0
                and k != "mipmap_lookup_bwd"]

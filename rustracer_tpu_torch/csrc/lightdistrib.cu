@@ -34,21 +34,32 @@
 //
 // K12's lights kernel spatial_grid_contrib_lights computes the same sums for
 // a table of any light types (scene/lights.py LightTables), the reference's
-// sample_li for each (rustracer_tpu/scene/lights.py:415-509): one block row
-// is one light, so a block's type is uniform and picks its branch. A
-// triangle runs the kernel above's code (tri_probe, tri_sum; the same
-// bits). A quadric's uniform-area point and normal of each probe are
-// computed once a block into shared memory; a full sphere seen from a
-// probe point outside it takes the cone instead (lights.cuh cone_sample),
-// per (voxel, probe). A point light's contribution needs the probe point.
-// A distant or infinite light's depends on the probe alone: the block
-// computes the 128 contributions once (an infinite light's Distribution2D
-// sample and map lookup, lights.cuh) and each thread sums them in order.
-// Each probe is computed as the plain version's sample_li computes it,
-// operation for operation, with 1/sqrtf for torch.rsqrt and CUDA's sinf
-// and cosf, so the sums agree within a few float roundings a probe.
-// Bound: operations (tools/light_work.py k12_light_work), except the
-// distant and infinite branches (bytes: a float a voxel out).
+// sample_li for each (rustracer_tpu/scene/lights.py:415-509). Nothing is
+// read back to the host: a call launches K12's kernel itself over every
+// row, a block a row, for the triangle lights (the same bits and
+// registers; a block of another branch's row returns at once), then one
+// grid_contrib_lights_kernel<M> a set M of the other branches (LightSets:
+// quadric, full sphere, point, and the uniform rows of distant and
+// infinite lights), one wave of blocks that take the items (a row, 256
+// voxels) of the set's rows from a queue an SM (next_item), so that the
+// items of one branch spread evenly over the SMs. A quadric's
+// uniform-area point and normal of each probe are computed once an item
+// into shared memory; a full sphere seen from a probe point outside it
+// takes the cone instead (lights.cuh cone_sample), per (voxel, probe),
+// with cosf and sinf of its phi, which depend on the probe alone, computed
+// once a probe in the staging, and the area pdf only where the cone does
+// not apply. A point light's contribution needs the probe point (e / dist2
+// as one divide and three products). A distant or infinite light's
+// depends on the probe alone: the block computes the 128 contributions
+// once (an infinite light's Distribution2D sample and map lookup,
+// lights.cuh), one thread sums them in order (four a shared load), and
+// every thread writes the sum. Each probe is computed as the plain
+// version's sample_li computes it, operation for operation, with 1/sqrtf
+// for torch.rsqrt and CUDA's sinf and cosf, so the sums agree within a few
+// float roundings a probe; every sum but a point light's has the bits of
+// the one-kernel design before it. Bound: operations
+// (tools/light_work.py k12_light_work), except the distant and infinite
+// branches (bytes: a float a voxel out).
 //
 // K13 spatial_light_pick and spatial_pmf_lookup replace sample_light and
 // pmf_lookup (:141-170): one thread a lane computes its voxel in the
@@ -58,6 +69,10 @@
 // the pmf of the light picked; the lookup gathers the pmf of a given light.
 // Bound: bytes (a lane's point, u or light id, one cdf row and one pmf
 // entry in, its id and pmf out).
+#include <algorithm>
+#include <climits>
+#include <type_traits>
+
 #include "lights.cuh"
 
 namespace {
@@ -111,17 +126,25 @@ __device__ __forceinline__ float tri_sum(const float4* s_p, const float4* s_nn, 
     return sum;
 }
 
-// the block's light j = blockIdx.y, its voxels blockIdx.x * kThreads + tid
+constexpr int kPoint = 0, kDistant = 1, kArea = 2, kInfinite = 3;
+
+// the block's light j = blockIdx.y, its voxels blockIdx.x * kThreads + tid.
+// For K12's lights kernel (kRows), the tables are a light table's, of
+// every light type (type, q_type: scene/lights.py LightTables), and a
+// block whose row is not a triangle light returns at once.
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
     grid_contrib_kernel(float lo_x, float lo_y, float lo_z, float ext_x, float ext_y,
                         float ext_z, int ny, int nz, int n_vox, const float* __restrict__ halton,
                         int n_probes, const float* __restrict__ tri_p,
                         const bool* __restrict__ tri_rev, const bool* __restrict__ twosided,
                         const float* __restrict__ emit, const float* __restrict__ area,
-                        int n_lights, float* __restrict__ out) {
+                        int n_lights, const int* __restrict__ type,
+                        const int* __restrict__ q_type, float* __restrict__ out) {
     // a probe's light point, the light's normal negated, and h[0:3] * ext
     __shared__ float4 s_p[kMaxProbes], s_nn[kMaxProbes], s_h[kMaxProbes];
     const int j = blockIdx.y;
+    if (kRows && !(type[j] == kArea && q_type[j] < 0)) return;
     for (int s = threadIdx.x; s < n_probes; s += kThreads) {
         tri_probe(halton, s, tri_p, tri_rev, j, s_p + s, s_nn + s);
         s_h[s] = make_float4(halton[5 * s] * ext_x, halton[5 * s + 1] * ext_y,
@@ -159,104 +182,288 @@ struct LightRows {
     const float* inf_l2w;
 };
 
-constexpr int kPoint = 0, kDistant = 1, kArea = 2, kInfinite = 3;
-
 // contribution y(li) / pdf of a probe where pdf > 0 (scene/lightdistrib.py
 // _y_over_pdf)
 __device__ __forceinline__ float y_over_pdf(float y, float pdf) {
     return pdf > 0.0f ? y / fmaxf(pdf, 1e-20f) : 0.0f;
 }
 
-// The block's light j = blockIdx.y, its voxels blockIdx.x * kThreads +
-// tid. Its type picks the branch, the same for the whole block. What
-// depends on the probe and the light only is computed once a block into
-// shared memory: a triangle's or a quadric's uniform-area point and
-// normal; a distant or infinite light's whole contribution, which does not
-// depend on the voxel (each thread then sums the probes' values in order).
+// The branches of the lights kernel: a triangle light (K12's kernel
+// itself, grid_contrib_kernel<true>), an area light on a quadric (kQuad),
+// a full sphere's (the cone from a probe point outside it, kCone), a point
+// light, and the lights whose contribution does not depend on the voxel
+// (distant and infinite lights, and a dummy row's zeros: kUniform).
+enum Branch : int { kTri, kQuad, kCone, kPointRow, kUniform };
+__host__ __device__ constexpr int bit(int b) { return 1 << b; }
+
+__device__ __forceinline__ int branch_of(const LightRows& L, int j) {
+    const int t = L.type[j];
+    return t == kArea    ? (L.q_type[j] < 0 ? kTri : L.cone[j] ? kCone : kQuad)
+           : t == kPoint ? kPointRow
+                         : kUniform;
+}
+
+// The queues of the lights kernel's items: an SM's blocks take the items
+// of its own queue first (next[q] the position of the next one), then those
+// of the queues that still hold some. Reset before each launch.
+constexpr int kMaxQueues = 1024;
+__device__ unsigned g_next[kMaxQueues];
+
+__device__ __forceinline__ unsigned sm_id() {
+#ifdef __CUDA_ARCH__
+    unsigned id;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+    return id;
+#else
+    return 0;
+#endif
+}
+
+// queue q of n_queues holds the items q, q + n_queues, ... below n_items
+__device__ __forceinline__ long long queue_len(int q, int n_queues, long long n_items) {
+    return q < n_items ? (n_items - q + n_queues - 1) / n_queues : 0;
+}
+
+// the rows whose branches a block of the lights kernel holds in shared
+// memory
+constexpr int kRowCache = 512;
+
+// (thread 0) the next item of queue q whose row's branch is in the set M
+// -> its row, its chunk and the row's branch in *item, or false where the
+// queue holds no more: the rest of a row of another branch in the queue is
+// passed over at once. br: the first kRowCache rows' branches.
+template <int M>
+__device__ bool next_item(const LightRows& L, const unsigned char* br, unsigned* next, int q,
+                          int n_queues, int n_vox, int n_lights, int3* item) {
+    const int chunks = (n_vox + kThreads - 1) / kThreads;
+    const long long len = queue_len(q, n_queues, (long long)chunks * n_lights);
+    for (;;) {
+        const unsigned p = atomicAdd(next + q, 1u);
+        if (p >= len) return false;
+        const long long i = q + (long long)p * n_queues;
+        const int j = (int)(i / chunks);
+        const int b = j < kRowCache ? br[j] : branch_of(L, j);
+        if (M & bit(b)) {
+            *item = make_int3(j, (int)(i - (long long)j * chunks), b);
+            return true;
+        }
+        const long long end = (long long)(j + 1) * chunks;
+        atomicMax(next + q, (unsigned)((end - q + n_queues - 1) / n_queues));
+    }
+}
+
+// A launch covers every row of the table as items (light j, voxels chunk
+// * kThreads + tid), j outer, item i in queue i % n_queues, and holds one
+// wave of blocks (lights_wave) that take the items from the queues
+// (next_item), each block from its SM's queue first. The items of one
+// branch are consecutive, so each queue holds an equal share of them, and
+// no SM runs more of them at once than that share. (A grid of an item a
+// block, or blocks that walk the items in a fixed order, let the blocks
+// of the items of other branches, which return at once, leave their slots
+// to working blocks: the block scheduler hands a wave out several
+// consecutive blocks an SM, so some SMs ran 4 or 5 sphere items at once
+// where 3 an SM was the even share.) A launch of one branch compiles that
+// branch alone, with its own registers. What depends on the probe and the
+// light only is computed once an item into shared memory: a quadric's
+// uniform-area point and normal, cosf and sinf of the cone's phi, and a
+// distant or infinite light's whole contribution, whose in-order sum over
+// the probes one thread takes and every thread writes.
+template <int M>
 __global__ void __launch_bounds__(kThreads)
     grid_contrib_lights_kernel(float lo_x, float lo_y, float lo_z, float ext_x, float ext_y,
                                float ext_z, int ny, int nz, int n_vox,
                                const float* __restrict__ halton, int n_probes, LightRows L,
-                               int n_lights, float* __restrict__ out) {
-    __shared__ float4 s_p[kMaxProbes], s_n[kMaxProbes], s_h[kMaxProbes];
-    __shared__ float s_c[kMaxProbes];
-    const int j = blockIdx.y;
-    const int type = L.type[j];
-    const bool tri = type == kArea && L.q_type[j] < 0;
-    const rt::QLight Q{L.q_type[j], L.q_o2w + 16 * j, L.q_w2o + 16 * j,
-                       rt::QParams{L.q_params[4 * j], L.q_params[4 * j + 1],
-                                   L.q_params[4 * j + 2], L.q_params[4 * j + 3]},
-                       L.q_rev[j]};
-    const rt::V3 e = rt::load3(L.emit + 3 * j);
-    const float y = 0.212671f * e.x + 0.715160f * e.y + 0.072169f * e.z;
-    for (int s = threadIdx.x; s < n_probes; s += kThreads) {
-        const float u0 = halton[5 * s + 3], u1 = halton[5 * s + 4];
-        s_h[s] = make_float4(halton[5 * s] * ext_x, halton[5 * s + 1] * ext_y,
-                             halton[5 * s + 2] * ext_z, 0.0f);
-        if (tri) {
-            tri_probe(halton, s, L.tri_p, L.tri_rev, j, s_p + s, s_n + s);
-        } else if (type == kArea) {
-            rt::V3 p, n;
-            rt::quadric_sample(Q, u0, u1, &p, &n);
-            s_p[s] = make_float4(p.x, p.y, p.z, u0);
-            s_n[s] = make_float4(n.x, n.y, n.z, u1);
-        } else if (type == kDistant) {
-            s_c[s] = y_over_pdf(y, 1.0f);
-        } else if (type == kInfinite) {
-            const int k = L.row_inf[j];
-            const rt::InfLight I = rt::inf_light(L.inf_flat, L.inf_desc, k);
-            float uv0, uv1, map_pdf, st;
-            rt::sample_2d(I, u0, u1, &uv0, &uv1, &map_pdf);
-            rt::inf_uv_to_dir(L.inf_l2w + 16 * k, uv0, uv1, &st);
-            const rt::V3 v = rt::bilerp_repeat(I.map, I.h, I.w, uv0, uv1);
-            s_c[s] = y_over_pdf(rt::lum(rt::V3{v.x * e.x, v.y * e.y, v.z * e.z}),
-                                rt::inf_pdf(map_pdf, st));
-        }
+                               int n_lights, int n_queues, unsigned* __restrict__ next,
+                               float* __restrict__ out) {
+    constexpr bool kQuadrics = (M & (bit(kQuad) | bit(kCone))) != 0;
+    constexpr bool kPoints = (M & bit(kPointRow)) != 0;
+    constexpr bool kUniforms = (M & bit(kUniform)) != 0;
+    __shared__ float4 s_p[kQuadrics ? kMaxProbes : 1], s_n[kQuadrics ? kMaxProbes : 1];
+    __shared__ float4 s_h[kQuadrics || kPoints ? kMaxProbes : 1];
+    __shared__ float2 s_cs[(M & bit(kCone)) ? kMaxProbes : 1];
+    __shared__ float4 s_c[kUniforms ? kMaxProbes / 4 : 1];
+    __shared__ float s_sum;
+    // the block's queue and item (its row, chunk and branch; a row of -1:
+    // the queue is empty), held here, not in registers across the item
+    __shared__ int s_q, s_steal, s_rows;
+    __shared__ int3 s_item;
+    // the first kRowCache rows' branches, and how many of them are in M (a
+    // launch with none returns at once)
+    __shared__ unsigned char s_br[kRowCache];
+    if (threadIdx.x == 0) {
+        s_q = (int)(sm_id() % (unsigned)n_queues);
+        s_rows = n_lights > kRowCache ? 1 : 0;
     }
     __syncthreads();
-    const int v = blockIdx.x * kThreads + threadIdx.x;
-    if (v >= n_vox) return;
-    float sum = 0.0f;
-    if (type == kDistant || type == kInfinite) {
-        for (int s = 0; s < n_probes; ++s) sum = sum + s_c[s];
+    for (int r = threadIdx.x; r < min(n_lights, kRowCache); r += kThreads) {
+        const int b = branch_of(L, r);
+        s_br[r] = (unsigned char)b;
+        if (M & bit(b)) atomicAdd(&s_rows, 1);
+    }
+    __syncthreads();
+    if (s_rows == 0) return;
+    for (;;) {
+        // the previous item's reads of s_item, s_steal and the staging are
+        // done
+        __syncthreads();
+        if (threadIdx.x == 0 &&
+            !next_item<M>(L, s_br, next, s_q, n_queues, n_vox, n_lights, &s_item))
+            s_item.x = -1;
+        __syncthreads();
+        if (s_item.x < 0) {
+            // the first queue after the own one that still holds items
+            if (threadIdx.x == 0) s_steal = INT_MAX;
+            __syncthreads();
+            const int own = (int)(sm_id() % (unsigned)n_queues);
+            const long long n_items =
+                (long long)((n_vox + kThreads - 1) / kThreads) * n_lights;
+            for (int k = threadIdx.x; k < n_queues - 1; k += kThreads) {
+                const int r = (own + 1 + k) % n_queues;
+                if (*(volatile unsigned*)(next + r) < queue_len(r, n_queues, n_items))
+                    atomicMin(&s_steal, k);
+            }
+            __syncthreads();
+            if (s_steal == INT_MAX) return;
+            if (threadIdx.x == 0) s_q = (own + 1 + s_steal) % n_queues;
+            continue;
+        }
+        const int j = s_item.x, b = s_item.z;
+        // the row is of branch B (a constant in a launch of one branch)
+        const auto is = [b](int B) { return (M & bit(B)) != 0 && (M == bit(B) || b == B); };
+        const rt::V3 e = rt::load3(L.emit + 3 * j);
+        const float y = 0.212671f * e.x + 0.715160f * e.y + 0.072169f * e.z;
+        const rt::QLight Q{L.q_type[j], L.q_o2w + 16 * j, L.q_w2o + 16 * j,
+                           rt::QParams{L.q_params[4 * j], L.q_params[4 * j + 1],
+                                       L.q_params[4 * j + 2], L.q_params[4 * j + 3]},
+                           L.q_rev[j]};
+        for (int s = threadIdx.x; s < n_probes; s += kThreads) {
+            const float u0 = halton[5 * s + 3], u1 = halton[5 * s + 4];
+            if (!is(kUniform))
+                s_h[s] = make_float4(halton[5 * s] * ext_x, halton[5 * s + 1] * ext_y,
+                                     halton[5 * s + 2] * ext_z, 0.0f);
+            if (is(kQuad) || is(kCone)) {
+                rt::V3 p, n;
+                rt::quadric_sample(Q, u0, u1, &p, &n);
+                s_p[s] = make_float4(p.x, p.y, p.z, u0);
+                s_n[s] = make_float4(n.x, n.y, n.z, u1);
+                if (is(kCone)) {
+                    const float phi = u1 * 2.0f * rt::kPi;
+                    s_cs[s] = make_float2(cosf(phi), sinf(phi));
+                }
+            } else if (is(kUniform)) {
+                const int type = L.type[j];
+                float c = 0.0f;
+                if (type == kDistant) {
+                    c = y_over_pdf(y, 1.0f);
+                } else if (type == kInfinite) {
+                    const int k = L.row_inf[j];
+                    const rt::InfLight I = rt::inf_light(L.inf_flat, L.inf_desc, k);
+                    float uv0, uv1, map_pdf, st;
+                    rt::sample_2d(I, u0, u1, &uv0, &uv1, &map_pdf);
+                    rt::inf_uv_to_dir(L.inf_l2w + 16 * k, uv0, uv1, &st);
+                    const rt::V3 v = rt::bilerp_repeat(I.map, I.h, I.w, uv0, uv1);
+                    c = y_over_pdf(rt::lum(rt::V3{v.x * e.x, v.y * e.y, v.z * e.z}),
+                                   rt::inf_pdf(map_pdf, st));
+                }
+                reinterpret_cast<float*>(s_c)[s] = c;
+            }
+        }
+        __syncthreads();
+        const int v = s_item.y * kThreads + threadIdx.x;
+        if (is(kUniform)) {
+            // the probes' in-order sum, once an item: four probes a shared
+            // load, eight loads in flight
+            if (threadIdx.x == 0) {
+                float sum = 0.0f;
+                int s = 0;
+#pragma unroll 8
+                for (; s + 4 <= n_probes; s += 4) {
+                    const float4 c = s_c[s / 4];
+                    sum = sum + c.x;
+                    sum = sum + c.y;
+                    sum = sum + c.z;
+                    sum = sum + c.w;
+                }
+                for (; s < n_probes; ++s) sum = sum + reinterpret_cast<const float*>(s_c)[s];
+                s_sum = sum;
+            }
+            __syncthreads();
+            if (v < n_vox) out[(long long)v * n_lights + j] = s_sum;
+            continue;
+        }
+        if (v >= n_vox) continue;
+        const int iz = v % nz, iy = (v / nz) % ny, ix = v / (nz * ny);
+        const float cx = lo_x + (float)ix * ext_x, cy = lo_y + (float)iy * ext_y,
+                    cz = lo_z + (float)iz * ext_z;
+        float sum = 0.0f;
+        if (is(kQuad) || is(kCone)) {
+            const bool two = L.twosided[j], cone = is(kCone);
+            const float ar = L.area[j];
+            for (int s = 0; s < n_probes; ++s) {
+                const float4 h = s_h[s], lp = s_p[s], ln = s_n[s];
+                const rt::V3 p{cx + h.x, cy + h.y, cz + h.z};
+                rt::V3 pa{lp.x, lp.y, lp.z}, na{ln.x, ln.y, ln.z};
+                float pdf = 0.0f;
+                bool in_cone = false;
+                if (cone) {
+                    const float2 cs = s_cs[s];
+                    in_cone = rt::cone_sample(Q, p, lp.w, cs.x, cs.y, &pa, &na, &pdf);
+                }
+                const rt::V3 d = pa - p;
+                const float dist2 = fmaxf(rt::dot(d, d), 1e-12f);
+                const rt::V3 wi = d * rt::rsqrt_rn(fmaxf(dist2, 1e-20f));
+                const float cos_l = rt::dot(na, -wi);
+                const bool facing = two ? fabsf(cos_l) > 1e-7f : cos_l > 1e-7f;
+                // the area pdf only where the cone does not apply
+                if (!in_cone) pdf = dist2 / fmaxf(fabsf(cos_l) * ar, 1e-12f);
+                sum = sum + y_over_pdf(y, facing ? pdf : 0.0f);
+            }
+        } else if (is(kPointRow)) {
+            const rt::V3 pos = rt::load3(L.pos + 3 * j);
+            for (int s = 0; s < n_probes; ++s) {
+                const float4 h = s_h[s];
+                const rt::V3 d = pos - rt::V3{cx + h.x, cy + h.y, cz + h.z};
+                const float r = 1.0f / fmaxf(rt::dot(d, d), 1e-12f);
+                sum = sum + y_over_pdf(rt::lum(rt::V3{e.x * r, e.y * r, e.z * r}), 1.0f);
+            }
+        }
         out[(long long)v * n_lights + j] = sum;
-        return;
     }
-    const int iz = v % nz, iy = (v / nz) % ny, ix = v / (nz * ny);
-    const float cx = lo_x + (float)ix * ext_x, cy = lo_y + (float)iy * ext_y,
-                cz = lo_z + (float)iz * ext_z;
-    const bool two = L.twosided[j];
-    if (tri) {
-        sum = tri_sum(s_p, s_n, s_h, n_probes, cx, cy, cz, two, L.area[j], y);
-    } else if (type == kArea) {
-        const bool cone = L.cone[j];
-        const float ar = L.area[j];
-        for (int s = 0; s < n_probes; ++s) {
-            const float4 h = s_h[s], lp = s_p[s], ln = s_n[s];
-            const rt::V3 p{cx + h.x, cy + h.y, cz + h.z};
-            rt::V3 pa{lp.x, lp.y, lp.z}, na{ln.x, ln.y, ln.z};
-            float cpdf = 0.0f;
-            const bool in_cone = cone && rt::cone_sample(Q, p, lp.w, ln.w, &pa, &na, &cpdf);
-            const rt::V3 d = pa - p;
-            const float dist2 = fmaxf(rt::dot(d, d), 1e-12f);
-            const rt::V3 wi = d * rt::rsqrt_rn(fmaxf(dist2, 1e-20f));
-            const float cos_l = rt::dot(na, -wi);
-            const bool facing = two ? fabsf(cos_l) > 1e-7f : cos_l > 1e-7f;
-            float pdf = dist2 / fmaxf(fabsf(cos_l) * ar, 1e-12f);
-            if (in_cone) pdf = cpdf;
-            sum = sum + y_over_pdf(y, facing ? pdf : 0.0f);
-        }
-    } else if (type == kPoint) {
-        const rt::V3 pos = rt::load3(L.pos + 3 * j);
-        for (int s = 0; s < n_probes; ++s) {
-            const float4 h = s_h[s];
-            const rt::V3 d = pos - rt::V3{cx + h.x, cy + h.y, cz + h.z};
-            const float dist2 = fmaxf(rt::dot(d, d), 1e-12f);
-            sum = sum + y_over_pdf(rt::lum(rt::V3{e.x / dist2, e.y / dist2, e.z / dist2}),
-                                   1.0f);
-        }
+}
+
+// The wave of a launch of grid_contrib_lights_kernel<M>: the SMs times the
+// blocks an SM holds at once, and a queue an SM (device queries, once a
+// process and instantiation).
+template <int M>
+cudaError_t lights_wave(int* blocks, int* queues) {
+    static int sms = 0, per_sm = 0;
+    if (sms == 0) {
+        int dev = 0, n = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, grid_contrib_lights_kernel<M>, kThreads, 0);
+        if (err != cudaSuccess) return err;
+        sms = std::max(n, 1);
     }
-    out[(long long)v * n_lights + j] = sum;
+    *queues = std::min(sms, kMaxQueues);
+    *blocks = sms * std::max(per_sm, 1);
+    return cudaSuccess;
+}
+
+// The launches of the lights kernel beside K12's kernel on the triangle
+// rows: one a set of branches (each a set of Branch bits)
+template <int... Ms>
+struct Sets {};
+using LightSets = Sets<bit(kQuad) | bit(kCone) | bit(kPointRow) | bit(kUniform)>;
+
+template <int... Ms, class F>
+cudaError_t each_set(Sets<Ms...>, F launch) {
+    cudaError_t err = cudaSuccess;
+    ((err = err == cudaSuccess ? launch(std::integral_constant<int, Ms>{}) : err), ...);
+    return err;
 }
 
 __device__ __forceinline__ int voxel_of(const Grid& g, const float* p) {
@@ -327,10 +534,10 @@ extern "C" int rt_spatial_grid_contrib(float lo_x, float lo_y, float lo_z, float
         nv_x <= 0 || nv_y <= 0 || nv_z <= 0 || n_vox > (1LL << 30))
         return (int)cudaErrorInvalidValue;
     dim3 grid(rt::blocks_for((int)n_vox, kThreads), n_lights);
-    grid_contrib_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    grid_contrib_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         lo_x, lo_y, lo_z, ext_x, ext_y, ext_z, nv_y, nv_z, (int)n_vox, (const float*)halton,
         n_probes, (const float*)tri_p, (const bool*)tri_rev, (const bool*)twosided,
-        (const float*)emit, (const float*)area, n_lights, (float*)out);
+        (const float*)emit, (const float*)area, n_lights, nullptr, nullptr, (float*)out);
     return (int)cudaGetLastError();
 }
 
@@ -364,7 +571,10 @@ extern "C" int rt_spatial_pmf_lookup(const void* p, const void* lid, int n, floa
 }
 
 // The grid as spatial_grid_contrib's, over a table of any light types
-// (LightRows, scene/lights.py LightTables) -> out (n_vox, n_lights).
+// (LightRows, scene/lights.py LightTables) -> out (n_vox, n_lights): K12's
+// kernel over every row for the triangle lights, then a launch over every
+// row a set of the other branches (LightSets), a block of another branch's
+// row returning at once; nothing is read back to the host.
 extern "C" int rt_spatial_grid_contrib_lights(
     float lo_x, float lo_y, float lo_z, float ext_x, float ext_y, float ext_z, int nv_x,
     int nv_y, int nv_z, const void* halton, int n_probes, const void* l_type,
@@ -383,9 +593,28 @@ extern "C" int rt_spatial_grid_contrib_lights(
                       (const float*)q_w2o,     (const float*)q_params, (const bool*)q_rev,
                       (const bool*)cone,       (const int*)row_inf,    (const float*)inf_flat,
                       (const int*)inf_desc,    (const float*)inf_l2w};
-    dim3 grid(rt::blocks_for((int)n_vox, kThreads), n_lights);
-    grid_contrib_lights_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    const cudaStream_t st = (cudaStream_t)stream;
+    const dim3 grid(rt::blocks_for((int)n_vox, kThreads), n_lights);
+    grid_contrib_kernel<true><<<grid, kThreads, 0, st>>>(
         lo_x, lo_y, lo_z, ext_x, ext_y, ext_z, nv_y, nv_z, (int)n_vox, (const float*)halton,
-        n_probes, L, n_lights, (float*)out);
-    return (int)cudaGetLastError();
+        n_probes, L.tri_p, L.tri_rev, L.twosided, L.emit, L.area, n_lights, L.type, L.q_type,
+        (float*)out);
+    cudaError_t err = cudaGetLastError();
+    unsigned* next = nullptr;
+    if (err == cudaSuccess) err = cudaGetSymbolAddress((void**)&next, g_next);
+    if (err != cudaSuccess) return (int)err;
+    // the queues are reset before each launch, in the stream's order (calls
+    // on two streams at once would share them)
+    return (int)each_set(LightSets{}, [&](auto m) {
+        constexpr int kM = decltype(m)::value;
+        int blocks = 0, queues = 0;
+        cudaError_t e = lights_wave<kM>(&blocks, &queues);
+        if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(unsigned) * queues, st);
+        if (e != cudaSuccess) return e;
+        blocks = (int)std::min<long long>(blocks, (long long)grid.x * grid.y);
+        grid_contrib_lights_kernel<kM><<<blocks, kThreads, 0, st>>>(
+            lo_x, lo_y, lo_z, ext_x, ext_y, ext_z, nv_y, nv_z, (int)n_vox,
+            (const float*)halton, n_probes, L, n_lights, queues, next, (float*)out);
+        return cudaGetLastError();
+    });
 }

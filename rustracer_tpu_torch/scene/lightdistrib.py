@@ -223,10 +223,13 @@ def grid_contrib(lt, world_lo, vox_ext, nv, halton):
 
 def grid_contrib_lights(lt, world_lo, vox_ext, nv, halton, lib=None):
     """K12 ``spatial_grid_contrib_lights``, ``grid_contrib`` for a table of
-    any light types (a light a block row, so a block's type picks its
-    branch); one launch. It takes a table of triangle lights too, through
-    the triangle kernel's code. CPU tensors take the plain version;
-    ``lib``, a loaded other build, is launched uncounted."""
+    any light types; one ``cuda.launch``, which launches K12's triangle
+    kernel over every row (a block of another branch's row returns at
+    once) and then one kernel a set of the other branches
+    (csrc/lightdistrib.cu ``LightSets``), whose blocks take the items of
+    the set's rows from a queue an SM: nothing is read back. It takes a
+    table of triangle lights too. CPU tensors take the plain
+    version; ``lib``, a loaded other build, is launched uncounted."""
     if not cuda.use_kernel(halton):
         return grid_contrib_all_plain(lt, world_lo, vox_ext, nv, halton)
     dev = halton.device

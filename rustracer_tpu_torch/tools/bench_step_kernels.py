@@ -139,6 +139,17 @@ texel_grad.cuh and common.cuh beside it; one whose
 ``rt_mipmap_lookup_bwd`` takes no ``group`` (an older source) runs with
 its own choice only; a ``--time-only`` one (tools/k20_parts.py) is timed
 unchecked.
+
+K15 and K16 run on every infinite_sample and infinite_escape call of one
+full-width bathroom step (and K16 on envmap-dof's camera rays), K12's
+lights kernel (K12L) on the bathroom's grid, on each light of
+tools/light_work.py's MIXED_SCENE alone over the mixed scene's grid, and
+on the Cornell box's triangle table beside K12 (``light_step_cases``);
+K16's and K12L's calls are timed as the sum of their launches, each
+build's launches a call logged. An ``--other`` lights.cu or
+lightdistrib.cu needs lights.cuh, quadrics.cuh and common.cuh beside it;
+a ``--time-only`` one (tools/k15_parts.py, k16_parts.py,
+k12l_parts.py) is timed unchecked.
 ``--kernels`` picks what is measured (all by default); the dragon is
 built only for the kernels that need it.
 
@@ -178,7 +189,7 @@ from . import quadric_work as QW
 from . import texture_work as TW
 from .atlas_work import k10_atomics, k10_work, k5_bound, k5_work
 from .bench_traverse import nvcc_command, ptxas_report
-from .timing import cold_ms, events_ms, kernel_ms, queued_ms
+from .timing import cold_ms, events_ms, kernel_ms, queued_ms, short_name
 from .traverse_work import PEAK_BYTES_PER_S, PEAK_OPS_PER_S, wavefronts
 
 K4, K5, K6, K7 = ("film_add_samples", "atlas_lookup_ewa", "alive_first_order",
@@ -227,11 +238,21 @@ K20_KERNELS = ("mipmap_bwd_",)
 K4D_KERNELS = ("film_add_det",)
 K15_KERNELS = ("infinite_sample_kernel",)
 K16_KERNELS = ("infinite_escape_kernel",)
-K12L_KERNELS = ("grid_contrib_lights_kernel",)
+# K12's lights kernel: its branches' instantiations, and K12's kernel on
+# a run of triangle lights
+K12L_KERNELS = ("grid_contrib_lights_kernel", "grid_contrib_kernel")
 # K15's, K16's and K12's lights kernel's recorded step: the bathroom with
 # its film at BATH_RES, one sample, 2^18-lane tiles, tile BATH_TILE (and
 # K16's camera rays on envmap-dof at RES, tile 0): chip_smoke phase 19's
 BATH_RES, BATH_TILE = (1920, 1080), 2
+# K12's lights kernel on each branch: case -> the light of
+# tools/light_work.py's MIXED_SCENE that it computes alone (light_scene),
+# over the mixed scene's grid (chip_smoke phase 19's K12_BRANCHES)
+K12_BRANCH_CASES = {
+    "point": "point", "distant": "distant",
+    "sphere (cone)": "full sphere (cone)", "clipped sphere": "clipped sphere",
+    "disk": "disk", "cylinder": "cylinder", "triangle": "triangle",
+    "sky": "infinite"}
 # the scenes whose recorded step (tile STEP_TILE, SHADING_SAMPLES samples'
 # config) K17 and K19 run on, and the wide Fourier table's lanes
 K17_SCENE, K19_SCENE = "textures-image", "testball-fourier"
@@ -632,13 +653,16 @@ def build(others, k12_corners=False):
                 {name: f.result() for name, f in sass.items()}, channels)
 
 
-def _turns(runs, reps, names, cold=False):
+def _turns(runs, reps, names, cold=False, launches=None):
     """Time each build in turns (a, b, ..., ..., b, a) -> {build:
     (kernel ms list, queued ms list)}: the device time of its kernels
     named in ``names`` (timing.kernel_ms), and of a call with the host
     ahead (timing.queued_ms); with ``cold``, both with L2 evicted before
     each call (timing.cold_ms: by name, and between CUDA events with each
-    call queued behind a sleeping kernel)."""
+    call queued behind a sleeping kernel). With ``launches`` (a dict), a
+    call's kernel time is the sum of all its launches (timing.kernel_ms
+    ``per_call``) and ``launches`` receives {build: {kernel: [launches a
+    call, its median ms]}}."""
     order = list(runs)
     prof = {b: [] for b in order}
     queued = {b: [] for b in order}
@@ -646,6 +670,11 @@ def _turns(runs, reps, names, cold=False):
         if cold:
             prof[b].append(cold_ms(runs[b], reps, name=names))
             queued[b].append(cold_ms(runs[b], reps))
+        elif launches is not None:
+            seen, med = {}, {}
+            prof[b].append(kernel_ms(runs[b], reps, names, True, seen, med))
+            launches[b] = {k: [n, med[k]] for k, n in seen.items()}
+            queued[b].append(queued_ms(runs[b], reps))
         else:
             prof[b].append(kernel_ms(runs[b], reps, names))
             queued[b].append(queued_ms(runs[b], reps))
@@ -664,7 +693,8 @@ def _log_row(log, r):
         f"{'/'.join(f'{x:.4f}' for x in r['profiler_ms'])} ms, queued "
         f"{'/'.join(f'{x:.4f}' for x in r['queued_ms'])} ms; bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-        f"{100 * r['bound_share']:.2f}% of it")
+        f"{100 * r['bound_share']:.2f}% of it"
+        + (f"; launches a call {r['launches']}" if "launches" in r else ""))
 
 
 def k2_cases(ctx, cam, sampler, renderer):
@@ -1363,11 +1393,11 @@ def measure_k4f(cap, builds, channels, reps=20, log=print):
     return rows
 
 
-def k12_grids(dev, dragon_ctx):
+def k12_grids(dev, dragon_ctx=None):
     """The two grids K12 fills: the parsed Cornell box's (64 x 63 x 64, 2
     lights) and the dragon scene file's (64 x 11 x 64 over build_dragon's
-    tables, which the file reproduces; its 2-triangle light) -> [(label,
-    lights, world_lo, vox_ext, nv)]."""
+    tables, which the file reproduces; its 2-triangle light; given
+    ``dragon_ctx``) -> [(label, lights, world_lo, vox_ext, nv)]."""
     from ..scene import lightdistrib as LD
     from ..scene.api import parse_scene
     cornell = parse_scene(os.path.join(
@@ -1375,9 +1405,10 @@ def k12_grids(dev, dragon_ctx):
             os.path.abspath(__file__)))), "scenes", "cornell-box.pbrt"),
         device=dev).scene
     out = []
-    for label, lt, geom in (("Cornell box", cornell.lights, cornell.geom),
-                            ("dragon file", dragon_ctx.lights,
-                             dragon_ctx.geom)):
+    grids = [("Cornell box", cornell.lights, cornell.geom)]
+    if dragon_ctx is not None:
+        grids.append(("dragon file", dragon_ctx.lights, dragon_ctx.geom))
+    for label, lt, geom in grids:
         lo = geom.tv_p.min(0).values.cpu().numpy()
         hi = geom.tv_p.max(0).values.cpu().numpy()
         nv, _, ext = LD.voxels(lo, hi)
@@ -1795,12 +1826,6 @@ def measure_k20(calls, builds, reps=20, log=print, unchecked=()):
     return rows
 
 
-def _checked(builds, time_only):
-    """``builds`` without the ``--time-only`` ones (diagnostic builds of
-    another kernel of the same source)."""
-    return {b: lib for b, lib in builds.items() if b not in time_only}
-
-
 def res_usage(source):
     """cuobjdump -res-usage of a cubin of ``source`` built with the
     library's flags -> {kernel (mangled name): its resource line
@@ -1927,8 +1952,11 @@ def light_step_cases(dev, res=BATH_RES, lanes=LANES):
     one step of tile BATH_TILE of the bathroom with its film at ``res``, 1
     sample (tools/light_work.py capture_light_step), ``k16`` then the
     camera rays' call of envmap-dof's tile 0 with its film at RES (all on
-    the sky); ``k12l`` (the bathroom's light table, its grid (lo, voxel
-    extent, voxel counts)) as its parse fills it."""
+    the sky); ``k12l`` [(case, light table, its grid (lo, voxel extent,
+    voxel counts))]: the bathroom's as its parse fills it, then each light
+    of tools/light_work.py's MIXED_SCENE alone (``light_scene``) over the
+    mixed scene's grid (K12_BRANCH_CASES), then the Cornell box's
+    triangle table over its grid (``k12_grids``)."""
     from ..scene import lightdistrib as LD
     from ..scene.api import parse_scene_string
     from ..utils import fileutil
@@ -1953,11 +1981,23 @@ def light_step_cases(dev, res=BATH_RES, lanes=LANES):
     r = env.renderer(lanes)
     camera = LW.capture_light_step(r, env.context(),
                                    r.tiles[0])["infinite_escape"][0]
-    lo, hi = bath.world_bounds
-    nv, _, ext = LD.voxels(lo, hi)
+    sky = os.path.join(LW.SCENES, "textures", "sky.exr")
+
+    def grid_of(bundle):
+        lo, hi = bundle.world_bounds
+        nv, _, ext = LD.voxels(lo, hi)
+        return lo, ext, nv
+    k12l = [("bathroom grid", bath.lights, grid_of(bath))]
+    mixed = grid_of(parse_scene_string(LW.MIXED_SCENE.replace(
+        '"textures/sky.exr"', f'"{sky}"'), device=dev).scene)
+    for case, name in K12_BRANCH_CASES.items():
+        one = parse_scene_string(LW.light_scene(name).replace(
+            '"textures/sky.exr"', f'"{sky}"'), device=dev).scene
+        k12l.append((case, one.lights, mixed))
+    label, lt, lo, ext, nv = k12_grids(dev)[0]
+    k12l.append((f"{label} grid (triangles)", lt, (lo, ext, nv)))
     return dict(k15=cap["infinite_sample"],
-                k16=cap["infinite_escape"] + [camera],
-                k12l=(bath.lights, (lo, ext, nv)))
+                k16=cap["infinite_escape"] + [camera], k12l=k12l)
 
 
 def k15_errors(out, ref):
@@ -2016,12 +2056,13 @@ def measure_k15(calls, builds, reps=20, log=print, unchecked=()):
     return rows
 
 
-def measure_k16(calls, builds, reps=20, log=print):
+def measure_k16(calls, builds, reps=20, log=print, unchecked=()):
     """K16 on every recorded call of the bathroom step and envmap-dof's
-    camera rays (``light_step_cases``): every other build bit for bit with
-    the library's (the same K16 source unless it changed), the library's
-    largest difference from the plain version logged; every call timed in
-    turns, bounded (tools/light_work.py k16_work) -> list of row dicts."""
+    camera rays (``light_step_cases``): every other build but those of
+    ``unchecked`` bit for bit with the library's, the library's largest
+    difference from the plain version logged; every call timed in turns
+    (a call the sum of its launches, logged), bounded (tools/light_work.py
+    k16_work) -> list of row dicts."""
     from ..scene import lights as L
     from . import light_work as LW
     rows = []
@@ -2031,7 +2072,7 @@ def measure_k16(calls, builds, reps=20, log=print):
             ref = L.infinite_escape(*args)
             plain = events_ms(lambda: L.infinite_escape(*args), 5)
         for b, lib in builds.items():
-            if lib is not None and not torch.equal(
+            if lib is not None and b not in unchecked and not torch.equal(
                     L.infinite_escape(*args, lib=lib), out):
                 raise AssertionError(f"K16 call {i}: {b} differs in bits "
                                      "from the library")
@@ -2043,12 +2084,16 @@ def measure_k16(calls, builds, reps=20, log=print):
         log(f"{label}: {work['escaped']} of {work['lanes']} lanes escaped; "
             f"every build bit for bit; library against plain max abs "
             f"{(out - ref).abs().max().item():.3g}; plain {plain:.4f} ms")
+        launches = {}
         timed = _turns({b: (lambda lib=lib: L.infinite_escape(*args,
                                                               lib=lib))
-                        for b, lib in builds.items()}, reps, K16_KERNELS)
+                        for b, lib in builds.items()}, reps, K16_KERNELS,
+                       launches=launches)
         for b in builds:
             r = _row(label, b, timed[b], bound_ms, bound_by, call=i,
-                     plain_ms=plain, **work)
+                     plain_ms=plain, checked=b not in unchecked,
+                     launches={short_name(k): v
+                               for k, v in launches[b].items()}, **work)
             rows.append(r)
             _log_row(log, r)
     return rows
@@ -2077,44 +2122,73 @@ def k12l_work(lt, grid, halton):
     return moved, ops
 
 
-def measure_k12l(case, builds, reps=10, log=print):
-    """K12's lights kernel on the bathroom's whole grid (``case``: its
-    light table and grid): every build within 1e-5 relative (or 1e-6 of
-    the column's largest) of the plain version, timed in turns, bounded
-    (``k12l_work``) -> list of row dicts."""
+def measure_k12l(cases, builds, reps=10, log=print, unchecked=()):
+    """K12's lights kernel on each of ``cases`` (``light_step_cases``:
+    the bathroom's whole grid, each branch alone, the Cornell box's
+    triangle table): every build but those of ``unchecked`` within 1e-5
+    relative (or 1e-6 of the column's largest) of the plain version, bit
+    for bit with the library's on every table without a point light (whose
+    sum the library takes with one divide, not three), and on a table of
+    triangle lights bit for bit with K12 (``spatial_grid_contrib``), which
+    is timed beside it there as the build "K12"; timed in turns (a call the
+    sum of its launches, logged), bounded (``k12l_work``) -> list of row
+    dicts."""
     from ..scene import lightdistrib as LD
-    lt, grid = case
-    lo, ext, nv = grid
-    dev = lt.l_emit.device
-    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
-                             device=dev)
-
-    def fn(lib):
-        return LD.grid_contrib_lights(lt, lo, ext, nv, halton, lib=lib)
-    with cuda.plain_reference():
-        ref = fn(None)
-        plain = events_ms(lambda: fn(None), 2)
-    top = ref.abs().max(0).values
-    errs = {}
-    for b, lib in builds.items():
-        d = (fn(lib) - ref).abs()
-        if ((d > 1e-5 * ref.abs()) & (d > 1e-6 * top)).any():
-            raise AssertionError(f"K12's lights kernel {b} differs from "
-                                 "the plain version")
-        errs[b] = d.max().item()
-    moved, ops = k12l_work(lt, grid, halton)
-    bound_ms, bound_by = _bound(moved, ops)
-    log(f"K12 lights kernel, bathroom grid {tuple(int(x) for x in nv)}: "
-        f"max abs err {errs}; plain {plain:.4f} ms")
-    timed = _turns({b: (lambda lib=lib: fn(lib)) for b, lib in builds.items()},
-                   reps, K12L_KERNELS)
     rows = []
-    for b in builds:
-        r = _row("K12 lights kernel, bathroom grid", b, timed[b], bound_ms,
-                 bound_by, plain_ms=plain, max_abs_err=errs[b],
-                 bytes=moved, operations=ops)
-        rows.append(r)
-        _log_row(log, r)
+    for case, lt, grid in cases:
+        lo, ext, nv = grid
+        dev = lt.l_emit.device
+        halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                                 device=dev)
+        tri = lt.kinds == {"tri"}
+
+        def fn(lib):
+            return LD.grid_contrib_lights(lt, lo, ext, nv, halton, lib=lib)
+        with cuda.plain_reference():
+            ref = fn(None)
+            plain = events_ms(lambda: fn(None), 2)
+        top = ref.abs().max(0).values
+        errs = {}
+        runs = {b: (lambda lib=lib: fn(lib)) for b, lib in builds.items()}
+        lib_out = fn(None)
+        same = []
+        if tri:
+            k12 = LD.grid_contrib(lt, lo, ext, nv, halton)
+            runs["K12"] = lambda: LD.grid_contrib(lt, lo, ext, nv, halton)
+        for b, lib in builds.items():
+            if b in unchecked:
+                continue
+            out = fn(lib)
+            d = (out - ref).abs()
+            if ((d > 1e-5 * ref.abs()) & (d > 1e-6 * top)).any():
+                raise AssertionError(f"K12's lights kernel {b} differs from "
+                                     f"the plain version on {case}")
+            if tri and not torch.equal(out, k12):
+                raise AssertionError(f"K12's lights kernel {b} differs from "
+                                     f"K12 on {case}")
+            if lib is not None and "point" not in lt.kinds:
+                if not torch.equal(out, lib_out):
+                    raise AssertionError(f"K12's lights kernel {b} differs "
+                                         f"in bits from the library on {case}")
+                same.append(b)
+            errs[b] = d.max().item()
+        moved, ops = k12l_work(lt, grid, halton)
+        bound_ms, bound_by = _bound(moved, ops)
+        log(f"K12 lights kernel, {case} {tuple(int(x) for x in nv)}: max "
+            f"abs err {errs}{', bit for bit with K12' if tri else ''}"
+            f"{f', bit for bit with the library: {same}' if same else ''}; "
+            f"plain {plain:.4f} ms")
+        launches = {}
+        timed = _turns(runs, reps, K12L_KERNELS, launches=launches)
+        for b in runs:
+            r = _row(f"K12L {case}", b, timed[b], bound_ms, bound_by,
+                     plain_ms=plain, max_abs_err=errs.get(b),
+                     checked=b not in unchecked, bytes=moved,
+                     operations=ops,
+                     launches={short_name(k): v
+                               for k, v in launches[b].items()})
+            rows.append(r)
+            _log_row(log, r)
     return rows
 
 
@@ -2171,10 +2245,12 @@ def main(argv=None):
                          "(repeatable)")
     ap.add_argument("--time-only", action="append", default=[],
                     help="a diagnostic film_bwd.cu, mipmap.cu, "
-                         "mipmap_bwd.cu or interaction.cu, timed on the "
-                         "K9F, K17, K20 or K2 calls unchecked "
+                         "mipmap_bwd.cu, interaction.cu, film.cu, lights.cu "
+                         "or lightdistrib.cu, timed on the K9F, K17, K20, "
+                         "K2, K4d, K15, K16 or K12L calls unchecked "
                          "(tools/k9_parts.py, k17_parts.py, k20_parts.py, "
-                         "k2_parts.py; repeatable)")
+                         "k2_parts.py, k4d_parts.py, k15_parts.py, "
+                         "k16_parts.py, k12l_parts.py; repeatable)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="the kernels to measure, of "
@@ -2206,15 +2282,19 @@ def main(argv=None):
             print(f"sass [{name}] {fn}: {' '.join(ops)}", flush=True)
     dev = torch.device("cuda:0")
     which = args.kernels.split(",")
-    if "K15" in which or "K4d" in which:
-        # K15's stack frame (none since its redesign) and K4d's tile's
-        # shared memory, and sincos_bounded against sinf and cosf
-        srcs = [os.path.join(CSRC, f) for f in ("lights.cu", "film.cu")] + [
+    if {"K15", "K4d", "K16", "K12L"} & set(which):
+        # the registers and stack frames of K15, K16 and K12's lights
+        # kernel (each instantiation, K12's kernel among them) and K4d's
+        # tile's shared memory, and sincos_bounded against sinf and cosf
+        files = ("lights.cu", "film.cu", "lightdistrib.cu")
+        srcs = [os.path.join(CSRC, f) for f in files] + [
             p for p in args.other + args.time_only
-            if os.path.basename(p) in ("lights.cu", "film.cu")]
+            if os.path.basename(p) in files]
         for src in srcs:
             for fn, ln in res_usage(src).items():
-                if "infinite_sample" in fn or "film_add_det" in fn:
+                if any(k in fn for k in ("infinite_sample", "film_add_det",
+                                         "infinite_escape",
+                                         "grid_contrib_")):
                     print(f"res-usage [{src}] {fn}: {ln}", flush=True)
         if "K15" in which:
             sincos_check()
@@ -2272,12 +2352,11 @@ def main(argv=None):
                                    args.reps, log, unchecked=args.time_only),
         "K15": lambda: measure_k15(lights["k15"], builds[K15], args.reps,
                                    log, unchecked=args.time_only),
-        "K16": lambda: measure_k16(lights["k16"], _checked(builds[K16],
-                                                            args.time_only),
-                                   args.reps, log),
-        "K12L": lambda: measure_k12l(lights["k12l"],
-                                     _checked(builds[K12L], args.time_only),
-                                     max(args.reps // 2, 1), log)}
+        "K16": lambda: measure_k16(lights["k16"], builds[K16], args.reps,
+                                   log, unchecked=args.time_only),
+        "K12L": lambda: measure_k12l(lights["k12l"], builds[K12L],
+                                     max(args.reps // 2, 1), log,
+                                     unchecked=args.time_only)}
     rows = [r for k in which for r in measure[k]()]
     out = dict(card=card, ptxas=reports, sass=sass, rows=rows)
     if args.json:

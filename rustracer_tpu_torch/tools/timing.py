@@ -7,7 +7,11 @@ kernel benchmarks of this package.
   trace holds, summed over the names. A trace now and then comes back
   without some of the launches, so a sum over all of a trace's device
   events divided by the calls reads low. Where three traces in a row
-  hold none of them, it raises ``NoDeviceRecords``.
+  hold none of them, it raises ``NoDeviceRecords``. With ``per_call``,
+  a call that launches one kernel several times, or several kernels
+  under one name (a template's instantiations), is timed as the sum of
+  its launches: each kernel's median times its launches a call, from a
+  trace that holds every kernel the call launches.
 - ``queued_ms``: the device time of a call with its launches queued ahead
   of the device (the host enqueues them behind a sleeping kernel), between
   CUDA events: the call's kernels and the device's gaps between dependent
@@ -26,6 +30,7 @@ from __future__ import annotations
 import time
 import warnings
 
+import numpy as np
 import torch
 
 L2_BYTES = 50 * 2 ** 20       # H100 SXM (NVIDIA data sheet)
@@ -68,31 +73,73 @@ def events_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps, names):
+def short_name(kernel):
+    """A profiler kernel name without its return type, namespaces and
+    arguments (a template's arguments kept)."""
+    name = kernel.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("::")[-1]
+
+
+def kernel_ms(fn, reps, names, per_call=False, launches=None, medians=None):
     """Device time of the kernels of one call of ``fn`` whose names hold
     one of ``names`` (a string or a tuple): for each name, the mean
     duration of its launches in a trace of ``reps`` calls, summed over the
     names seen, after one warm-up call. A trace that holds none of them is
-    taken again, at most three times in all."""
+    taken again, at most three times in all.
+
+    With ``per_call``, a call of several launches reads their sum: the
+    warm-up call is traced too, for the kernels (full names) a call
+    launches, and a trace is taken again unless it holds each of them at
+    least ``reps`` / 2 times (the profiler now and then loses a kernel's
+    records, all of them at times, which a sum would miss); each kernel
+    counts its median
+    launch times its launches a call (the trace's launches over ``reps``,
+    rounded). ``launches``, a dict, then receives {full name: launches a
+    call}, and ``medians`` {full name: its median ms}."""
     _need_card()
     names = (names,) if isinstance(names, str) else tuple(names)
-    fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+
+    def trace(calls):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        spans = {}
+        spans, kernels = {}, {}
         for e in _device_events(prof):
+            if any(name in e.name for name in names):
+                kernels.setdefault(e.name, []).append(_span_us(e))
             for name in names:
                 if name in e.name:
                     spans.setdefault(name, []).append(_span_us(e))
-        if spans:
+        return spans, kernels
+
+    if per_call:
+        expected = set(trace(1)[1])
+    else:
+        fn()
+        torch.cuda.synchronize()
+    for _ in range(3):
+        spans, kernels = trace(reps)
+        if not spans:
+            continue
+        if not per_call:
             return sum(sum(v) / len(v) for v in spans.values()) * 1e-3
-    raise NoDeviceRecords(f"the profiler saw none of {names}")
+        expected |= set(kernels)
+        if any(2 * len(kernels.get(k, ())) < reps for k in expected):
+            continue
+        counts = {k: round(len(v) / reps) for k, v in kernels.items()}
+        med = {k: float(np.median(v)) * 1e-3 for k, v in kernels.items()}
+        if launches is not None:
+            launches.clear()
+            launches.update(counts)
+        if medians is not None:
+            medians.clear()
+            medians.update(med)
+        return sum(med[k] * counts[k] for k in kernels)
+    raise NoDeviceRecords(f"the profiler saw none of {names}" if not per_call
+                          else f"no trace held every launch of {names}")
 
 
 def queued_ms(fn, reps):
@@ -156,7 +203,7 @@ def cold_ms(fn, reps=20, name=None, flush_bytes=FLUSH_BYTES):
     return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
-def device_ms(fn, reps, names, cold=False):
+def device_ms(fn, reps, names, cold=False, per_call=False, launches=None):
     """-> (ms, by): the device time of the kernels ``names`` in one call of
     ``fn``, by "profiler": ``kernel_ms``, or ``cold_ms`` by name where
     ``cold``. Where three traces in a row lose every record of them
@@ -165,12 +212,13 @@ def device_ms(fn, reps, names, cold=False):
     name where ``cold``), which also hold the call's other device work and
     the gaps between its launches; only after a call of ``fn`` is seen to
     launch a kernel of this package (rustracer_tpu_torch.cuda's counts),
-    else it raises."""
+    else it raises. ``per_call`` and ``launches`` as ``kernel_ms``'s
+    (not with ``cold``)."""
     from .. import cuda
     try:
         if cold:
             return cold_ms(fn, reps, name=names), "profiler"
-        return kernel_ms(fn, reps, names), "profiler"
+        return kernel_ms(fn, reps, names, per_call, launches), "profiler"
     except NoDeviceRecords as e:
         n0 = sum(cuda.LAUNCHES.values())
         fn()

@@ -1609,6 +1609,134 @@ def test_grid_contrib_lights_takes_triangle_tables(dev, scene):
     assert torch.equal(LD.grid_contrib_lights(lt, lo, ext, nv, halton), tri)
 
 
+def test_grid_contrib_lights_columns_keep_the_in_order_sum(mixed_lights):
+    """K12's lights kernel on the mixed scene's grid (16 voxels on its
+    widest axis): the full sphere's (the cone), the distant light's and
+    both infinite lights' columns bit for bit with the design that summed
+    the 128 probes in order in each thread. Each probe's contribution is
+    the kernel's own on a one-probe table (a block computes a probe alone
+    as it computes it among 128), each within 1e-5 relative (or 1e-6 of
+    the column's largest) of the plain version's probe contribution
+    (scene/lightdistrib.py _probe_contrib); the in-order float32 sum of
+    the 128 then equals the column in every bit. The distant light's
+    probes are the plain version's bits too, and so is their sum."""
+    from rustracer_tpu_torch.scene import lightdistrib as LD
+    b = mixed_lights
+    lt, dev = b.lights, b.device
+    lo, hi = b.world_bounds
+    nv, _, ext = LD.voxels(lo, hi, 16)
+    halton = torch.as_tensor(LD._radical_inverse_table(LD.N_SAMPLES),
+                             device=dev)
+    rows = {"full sphere (cone)": 2, "distant": 1, "infinite": 8,
+            "infinite ones": 9}
+    assert bool(lt.l_cone[2]) and int(lt.l_type[1]) == 1
+    assert [int(lt.l_type[j]) for j in (8, 9)] == [3, 3]
+    out = LD.grid_contrib_lights(lt, lo, ext, nv, halton)
+    probes = torch.stack([
+        LD.grid_contrib_lights(lt, lo, ext, nv,
+                               halton[s:s + 1].contiguous())
+        for s in range(LD.N_SAMPLES)])          # (S, V, n_lights)
+    v = int(np.prod(nv))
+    corners = LD.voxel_corners(lo, ext, nv, 0, v, dev)
+    pts = corners[None] + halton[:, None, :3] * torch.as_tensor(ext,
+                                                                device=dev)
+    for name, j in rows.items():
+        ref = _plain(lambda: LD._probe_contrib(lt, j, pts, halton[:, 3:5]))
+        mine = probes[:, :, j]
+        top = ref.abs().max()
+        assert ((mine - ref).abs() <= torch.maximum(1e-5 * ref.abs(),
+                                                    1e-6 * top)).all(), name
+        acc = torch.zeros_like(mine[0])
+        for s in range(LD.N_SAMPLES):
+            acc = acc + mine[s]
+        assert torch.equal(acc, out[:, j]), name
+        if name == "distant":
+            assert torch.equal(mine, ref)
+            acc = torch.zeros_like(ref[0])
+            for s in range(LD.N_SAMPLES):
+                acc = acc + ref[s]
+            assert torch.equal(acc, out[:, j])
+
+
+@pytest.mark.parametrize("form", ["camera", "mis"])
+def test_infinite_escape_wraps_the_seam_and_poles(mixed_lights, form):
+    """K16 over maps whose sides are not powers of two (23 x 37 and 23 x
+    37, seeded) under identity transforms, on directions on the seam (u =
+    0: atan2 of +0; u = 1: atan2 of a negative tiny y, phi rounding to 2
+    pi) at 64 polar angles, at both poles (v = 0 and v = 1: the lookup's
+    rows -1 and h) and on seeded directions: the texels are the floor
+    modulo's. The radiance within 1e-5 relative of the plain version's
+    (scene/lights.py bilerp_level, REPEAT) where the direction is exact,
+    and at the poles and the seam's ends equal to the lookup done here in
+    float64 from those texels."""
+    from rustracer_tpu_torch.core.sampling import Distribution2D
+    from rustracer_tpu_torch.scene import lights as L
+    lt, dev = mixed_lights.lights, mixed_lights.device
+    h, w = 23, 37
+    rng = np.random.default_rng(23)
+    maps = [rng.random((h, w, 3)).astype(np.float32) + 0.05
+            for _ in lt.inf_rows]
+    dists = [Distribution2D.create(L.infinite_importance(m)) for m in maps]
+    eye = [np.eye(4, dtype=np.float32) for _ in lt.inf_rows]
+    lt = dataclasses.replace(lt, **L.infinite_tensors(
+        maps, dists, eye, eye, lt.inf_rows, lt.l_emit.cpu().numpy(),
+        lt.l_emit.device))
+    theta = torch.linspace(0.0, float(np.pi), 64)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    z = torch.zeros_like(theta)
+    seam0 = torch.stack([st, z, ct], -1)                # u = 0
+    seam1 = torch.stack([st, torch.full_like(z, -1e-30), ct], -1)  # u = 1
+    poles = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0],
+                          [1.0, 0.0, 0.0], [1.0, -1e-30, 0.0],
+                          [-1.0, 0.0, 0.0]])
+    g = torch.Generator(device="cpu").manual_seed(29)
+    d = torch.cat([poles, seam0, seam1,
+                   torch.randn(4096, 3, generator=g)]).to(dev)
+    n = d.shape[0]
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    args = [lt, d, mask]
+    if form == "mis":
+        args += [(torch.rand(n, generator=g) * 3).to(dev),
+                 (torch.rand(n, generator=g) < 0.2).to(dev), [0.1, 0.1]]
+    out = L.infinite_escape(*args)
+    ref = _plain(lambda: L.infinite_escape(*args))
+    uv, st = _plain(lambda: [torch.stack(x) for x in zip(*[
+        L._inf_dir_to_uv(lt, k, d) for k in range(lt.n_infinite)])])
+    st = st.min(0).values
+    # the map pdf's texel may flip on an ulp of uv (the MIS form) where
+    # uv * side sits on an integer other than the exact ends
+    x = uv * torch.tensor([w, h], device=dev)
+    edge = (((x - x.round()).abs() < 1e-4) & (x != 0)
+            & (x != torch.tensor([w, h], device=dev))).any(-1).any(0)
+    keep = ~edge if form == "mis" else torch.ones_like(edge)
+    assert edge.sum() <= 0.01 * n
+    err = (out - ref).abs().max(-1).values
+    scale = ref.abs().max(-1).values
+    bound = (1e-5 + 1e-5 / st.clamp(min=1e-12)) * scale + 1e-7
+    hand = torch.zeros(n, dtype=torch.bool, device=dev)
+    hand[:poles.shape[0]] = True
+    assert (err[hand] <= 1e-5 * scale[hand]).all()
+    assert (err[keep] <= bound[keep]).all()
+    assert torch.isfinite(out).all() and (out > 0).all()
+    # the poles and the seam's ends by hand: uv, then the floor modulo's
+    # texels (the camera form: each light's Le summed)
+    if form == "camera":
+        for i in range(poles.shape[0]):
+            want = np.zeros(3)
+            for k in range(lt.n_infinite):
+                s = float(uv[k, i, 0]) * w - 0.5
+                t = float(uv[k, i, 1]) * h - 0.5
+                s0, t0 = int(np.floor(s)), int(np.floor(t))
+                ds, dt = s - s0, t - t0
+                m = maps[k].astype(np.float64)
+                val = sum(wt * m[tt % h, ss % w] for wt, ss, tt in (
+                    ((1 - ds) * (1 - dt), s0, t0), (ds * (1 - dt), s0 + 1, t0),
+                    ((1 - ds) * dt, s0, t0 + 1), (ds * dt, s0 + 1, t0 + 1)))
+                want += val * lt.inf_scale[k].cpu().numpy()
+            got = out[i].cpu().numpy().astype(np.float64)
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), i
+
+
 @pytest.mark.parametrize("name", ["veach-mis", "envmap-dof"])
 def test_light_scene_render_matches_plain(dev, name):
     """veach-mis (sphere lights: the cone, K12's lights kernel in the

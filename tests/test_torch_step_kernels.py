@@ -312,6 +312,45 @@ def test_device_ms_needs_a_card():
             timing.device_ms(lambda: None, 1, "k")
 
 
+def test_kernel_ms_per_call_retakes_a_trace_that_lost_a_kernel(monkeypatch):
+    """kernel_ms with ``per_call``: the warm-up call's trace names the
+    kernels a call launches (A twice, B once); a trace that lost B's
+    records is taken again, and the call reads A's median twice plus B's;
+    where no trace holds every kernel, NoDeviceRecords."""
+    import contextlib
+
+    def ev(name, us):
+        return SimpleNamespace(name=name,
+                               time_range=SimpleNamespace(start=0.0, end=us))
+
+    reps = 4
+    full = [ev("void k_A<1>(int)", 10.0)] * (2 * reps - 1) + [
+        ev("void k_A<1>(int)", 500.0)] + [ev("void k_B(int)", 3.0)] * reps
+    lost = [ev("void k_A<1>(int)", 10.0)] * (2 * reps)
+    traces = []
+    monkeypatch.setattr(timing, "_need_card", lambda: None)
+    monkeypatch.setattr(timing, "_device_events", lambda prof: traces.pop(0))
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    traces[:] = [[ev("void k_A<1>(int)", 10.0), ev("void k_B(int)", 3.0)],
+                 lost, full]
+    launches, medians = {}, {}
+    ms = timing.kernel_ms(lambda: None, reps, ("k_A", "k_B"), True,
+                          launches, medians)
+    assert not traces
+    assert ms == pytest.approx((2 * 10.0 + 3.0) * 1e-3)
+    assert launches == {"void k_A<1>(int)": 2, "void k_B(int)": 1}
+    assert medians == pytest.approx({"void k_A<1>(int)": 0.010,
+                                     "void k_B(int)": 0.003})
+    assert timing.short_name("void (anonymous namespace)::k_A<1>(int)") \
+        == "k_A<1>"
+    traces[:] = [[ev("void k_A<1>(int)", 10.0), ev("void k_B(int)", 3.0)],
+                 lost, lost, lost]
+    with pytest.raises(timing.NoDeviceRecords, match="every launch"):
+        timing.kernel_ms(lambda: None, reps, ("k_A", "k_B"), True)
+
+
 def test_capture_step_records_the_step(monkeypatch):
     """A 32^2 textured dragon in one 1024-lane tile, with the slab tiers
     opened to it: the step makes 1 splat, 4 K5 calls (bounce 0 and 3
@@ -579,16 +618,21 @@ def test_k20_atomics_by_hand(mode, wrap, adds, parent, new, most):
     ("k20_parts", "PARTS"), ("k2_parts", "PARTS"),
     ("k20_parts", "PACKED_PARTS"), ("k4d_parts", "PARTS"),
     ("k4d_parts", "TILE_PARTS"), ("k15_parts", "PARTS"),
-    ("k15_parts", "TUNE_PARTS")],
+    ("k15_parts", "TUNE_PARTS"), ("k16_parts", "PARTS"),
+    ("k16_parts", "TUNE_PARTS"), ("k12l_parts", "PARTS"),
+    ("k12l_parts", "TUNE_PARTS")],
     ids=["k20_parts", "k2_parts", "k20_parts-packed", "k4d_parts",
-         "k4d_parts-tiles", "k15_parts", "k15_parts-tune"])
+         "k4d_parts-tiles", "k15_parts", "k15_parts-tune", "k16_parts",
+         "k16_parts-tune", "k12l_parts", "k12l_parts-tune"])
 def test_kernel_parts_replace_each_text_once(module, parts):
     """tools/k20_parts.py (the parts of the design before the packing and
     of the packed one), tools/k2_parts.py, tools/k4d_parts.py (before the
-    tiles and of them) and tools/k15_parts.py (of the design before PR 22
-    and variants of its own): each part replaces its texts, each found once in the
-    design it was written for; a text missing raises. The parts of the
-    present designs apply to csrc/ as it is."""
+    tiles and of them), tools/k15_parts.py (of K15's earlier design and
+    variants of its own), tools/k16_parts.py and tools/k12l_parts.py
+    (of the one-kernel designs of K16 and K12's lights kernel): each part
+    replaces its texts, each found once in the design it was written for;
+    a text missing raises. The parts of the present designs apply to csrc/
+    as it is."""
     import functools
     import importlib
     KP = importlib.import_module(f"rustracer_tpu_torch.tools.{module}")
