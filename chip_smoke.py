@@ -280,7 +280,28 @@ Phases, each printing its lines:
      camera rays/s of four processes sharing one card (no scaling); every
      rank's image, loss and gradients rank 0's bits; (c) python -m
      rustracer_tpu_torch.parallel.dryrun 4 --backend gloo in a
-     subprocess, exit 0.
+     subprocess, exit 0;
+ 27. (run after phase 13) the path chain for Lambertian surfaces under
+     triangle lights, K21 path_hit_emit, K22 path_scatter_lambert and K23
+     path_nee_add (rustracer_tpu_torch/csrc/pathshade.cu), which every
+     render of such a scene takes (no train step): every call of a
+     recorded full-width textured step (tile 2), of tile 0's step (its
+     interior bounces on a slab) and of a step of the parsed Cornell box
+     (the grid's pick and pmf) against the plain twins on the same
+     inputs (tools/pathshade_work.py compare_with_twin), every output
+     bit for bit; phase 21 does the same on the gallery's tile-2 step; bounce 1's
+     K21, bounce 0's K22 and K23 of the textured and the Cornell step
+     timed (kernel, twin) and bounded (tools/pathshade_work.py
+     k21_work, k22_work, k23_work), with their launches a step; each
+     step's device kernels, hand-kernel launches and idle share on the
+     kernel route and on the general chain (tools/profile_step.py
+     profile_tile, kernel_route patched off). The route's crops against
+     the all-plain path are phases 5, 7 and 21's, the Cornell box's
+     golden phases 12-13's.
+The renders of every scene whose materials are each one Lambertian lobe
+under triangle lights launch K21-K23 (the dragons, the Cornell boxes, the dragon file,
+the gallery, testball-matte, textures-procedural, alpha-cards and
+alpha-cards-static); no other scene's and no train step does.
 The dragon, Cornell and dragon-file paths launch no K14 (no quadric);
 every testball does. Only the light scenes launch K15, K16 and K12's
 lights kernel; only phase 20's scenes and phase 22's launch K17 (phase 22
@@ -405,6 +426,12 @@ SOURCES = {
                          "rustracer_tpu/render/sampler.py:41"),
     "film_add_samples_det": ("rustracer_tpu_torch/csrc/film.cu",
                              "rustracer_tpu/render/film.py:67"),
+    "path_hit_emit": ("rustracer_tpu_torch/csrc/pathshade.cu",
+                      "rustracer_tpu/integrators/path.py:190"),
+    "path_scatter_lambert": ("rustracer_tpu_torch/csrc/pathshade.cu",
+                             "rustracer_tpu/integrators/path.py:230"),
+    "path_nee_add": ("rustracer_tpu_torch/csrc/pathshade.cu",
+                     "rustracer_tpu/integrators/path.py:247"),
 }
 # K2's quadric branch (rustracer_tpu/scene/tables.py:556-595)
 QUADRIC_BRANCH = "rustracer_tpu/scene/tables.py:556"
@@ -651,7 +678,26 @@ ROWS = {
                              "phase 15's full-width Mitchell splat of the "
                              "dragon file (tile 2, 2^18 samples, 1024^2 "
                              "film), L2 evicted before each launch"),
+    "path_hit_emit": ("path_hit_emit",
+                      "bounce 1's emission in a full-width textured step "
+                      "(tile 2, 2^18 lanes, the uniform pick)"),
+    "path_scatter_lambert": ("path_scatter_lambert",
+                             "bounce 0's scatter in that step"),
+    "path_nee_add": ("path_nee_add", "bounce 0's NEE add in that step"),
+    "path_hit_emit cornell": ("path_hit_emit",
+                              "bounce 1's emission in a step of the parsed "
+                              "Cornell box (its 64^2 film at sample 1: 4096 "
+                              "lanes, the grid's pmf)"),
+    "path_scatter_lambert cornell": ("path_scatter_lambert",
+                                     "bounce 0's scatter in that step (the "
+                                     "grid's pick)"),
+    "path_nee_add cornell": ("path_nee_add",
+                             "bounce 0's NEE add in that step"),
 }
+# phase 27: the call of a recorded step timed for each path kernel's row
+# (K21: bounce 1's emission, the first with the MIS weight)
+PATH_TIMED_CALL = {"path_hit_emit": 1, "path_scatter_lambert": 0,
+                   "path_nee_add": 0}
 # phase 20: tools/texture_work.py's scenes, the kernel each must launch, and
 # the rows of its kernel
 TEXTURE_NEEDS = {
@@ -974,6 +1020,119 @@ def check_kernels(ctx, cam, film, sampler, renderer, results):
         f"evicted before each launch: kernel {ms:.4f} ms, plain {pms:.4f} "
         f"ms, bound {results['film_add_samples']['bound_ms']:.4f} ms "
         f"({100 * results['film_add_samples']['bound_ms'] / ms:.1f}%)")
+
+
+def check_path_calls(label, scene, renderer, ctx, tile, where):
+    """K21, K22 and K23 on every call of one recorded step of ``tile``
+    (``where`` names it) against their plain twins on the same inputs
+    (tools/pathshade_work.py compare_with_twin): every output bit for bit,
+    bool and int fields equal -> the recorded calls."""
+    from rustracer_tpu_torch.integrators import path as P
+    from rustracer_tpu_torch.tools import pathshade_work as W
+    P.reset_tiers()
+    calls = W.capture_path_step(renderer, ctx, tile)
+    tiers = dict(P.TIERS)
+    held, worst = {}, {}
+    for name in W.NAMES:
+        if not calls.get(name):
+            raise AssertionError(f"{label} {scene}: no {name} call in the "
+                                 "step")
+        for args in calls[name]:
+            for field, v in W.compare_with_twin(name, args).items():
+                key = f"{name}.{field}"
+                n, d = held.get(key, (0, 0))
+                held[key] = (n + v["lanes"], d + v["differ"])
+                worst[key] = max(worst.get(key, 0), v["ulps"])
+    widths = {name: [(a[0] if name == "path_nee_add" else a[3].L).shape[0]
+                     for a in calls[name]] for name in W.NAMES}
+    differ = {k: (d, worst[k]) for k, (n, d) in held.items() if d}
+    log(f"{label} {scene}, one step of {where}: K21-K23 calls of widths "
+        f"{widths} (slab tiers {tiers}); {sum(n for n, _ in held.values())} "
+        f"lane outputs of {len(held)} fields held against the plain twins, "
+        f"{sum(d for _, d in held.values())} differ"
+        + (f": {differ} (lanes, most ulps)" if differ else " (bit for bit)"))
+    if differ:
+        raise AssertionError(f"{label} {scene}: K21-K23 differ from their "
+                             "twins")
+    return calls
+
+
+def time_path_rows(label, calls, suffix, results, counts):
+    """The rows ``<kernel><suffix>`` of K21, K22 and K23 on the call
+    PATH_TIMED_CALL of recorded ``calls``: the kernel's device time, the
+    twin's (CUDA events), the bound counted on its inputs
+    (tools/pathshade_work.py); no one PyTorch call computes their function
+    (library_ms null). ``counts``: a row's own launches, if any."""
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.tools import pathshade_work as W
+    from rustracer_tpu_torch.tools.timing import events_ms
+    for name, i in PATH_TIMED_CALL.items():
+        args, row = calls[name][i], name + suffix
+
+        def fn(args=args, name=name):
+            return W.call(name, args)
+        work = W.WORK[name](args)
+        b = bound(work["moved"], work["ops"])
+        ms = bounded_ms(row, kernel_time(row, fn, 20, W.KERNEL_NAMES[name]),
+                        b["bound_ms"], fn, 20, W.KERNEL_NAMES[name])
+        with K.plain_reference():
+            pms = events_ms(fn, 5)
+        err = max(v["abs"] for v in W.compare_with_twin(name, args).values())
+        results[row] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                            library_ms=None, **b, **counts.get(name, {}))
+        lights = (f" ({work['lights']} hit a light)" if "lights" in work
+                  else "")
+        log(f"{label} {row}: {work['lanes']} lanes{lights}, "
+            f"{work['moved']} bytes, "
+            f"{work['ops']} operations; kernel {ms:.4f} ms, twin {pms:.4f} "
+            f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it")
+
+
+def path_chain(dev, card, trenderer, tctx, bundle, cornell_launches,
+               results):
+    """Phase 27 (see the module docstring): K21-K23 on recorded steps of
+    the textured dragon (tile 2 at full width, tile 0 with its slab) and
+    of the parsed Cornell box, timed and bounded; the steps' device
+    kernels and idle share on the kernel route and on the general
+    chain."""
+    from unittest import mock
+    from rustracer_tpu_torch import cuda as K
+    from rustracer_tpu_torch.integrators.path import PathIntegrator
+    from rustracer_tpu_torch.tools.profile_step import profile_tile
+    t0 = time.perf_counter()
+    calls = check_path_calls("[27]", "textured dragon", trenderer, tctx,
+                             trenderer.tiles[2], "tile 2 (2^18 lanes)")
+    time_path_rows("[27]", calls, "", results, {})
+    check_path_calls("[27]", "textured dragon", trenderer, tctx,
+                     trenderer.tiles[0], "tile 0 (the sky: a slab tier)")
+    cr, cctx = bundle.renderer(), bundle.context()
+    calls = check_path_calls("[27]", "parsed Cornell box", cr, cctx,
+                             cr.tiles[0], "its 4096 lanes (the grid pick)")
+    per_step = step_launches(cr, cctx, cr.tiles[0])
+    time_path_rows("[27]", calls, " cornell", results, {
+        name: dict(launches=cornell_launches[name],
+                   launches_per_step=per_step[name],
+                   counted_in="the parsed Cornell box's render (phase 13)")
+        for name in K.PATH_KERNELS})
+    general = mock.patch.object(PathIntegrator, "kernel_route",
+                                lambda self, ctx: False)
+    for scene, r, c, tile in (
+            ("textured dragon, tile 2", trenderer, tctx, trenderer.tiles[2]),
+            ("parsed Cornell box", cr, cctx, cr.tiles[0])):
+        for chain, scope in (("kernel route", contextlib.nullcontext()),
+                             ("general chain", general)):
+            with scope:
+                p = profile_tile(r, c, tile, reps=3)
+            log(f"[27] {scene} step on the {chain}: {p['n_kernels']} device "
+                f"kernels, {sum(p['launches'].values())} hand-kernel "
+                f"launches, wall {p['step_ms_median']:.3f} ms (median of 3), "
+                f"device busy {p['device_busy_ms']:.3f} ms, idle share "
+                f"{p['idle_share']:.4f}, K21-K23 {p['path_kernels_ms']:.4f} "
+                f"ms, on {card}")
+    log(f"[27] phase 27 took {time.perf_counter() - t0:.1f} s; the kernel "
+        "route's crops against the all-plain path: phases 5, 7 and 21, the "
+        "Cornell box against its golden: phases 12-13")
 
 
 def main():
@@ -3289,6 +3448,9 @@ def geometry_scene(label, scene, bundle_or_parts, dev, card, results,
     counts = {k: dict(launches=launches[k], launches_per_step=per_step[k],
                       counted_in=counted_in) for k in geometry}
     check_geometry_step(label, scene, renderer, ctx, counts, results, every)
+    if scene == "gallery":
+        check_path_calls(label, scene, renderer, ctx, renderer.tiles[2],
+                         "tile 2 (2^18 lanes)")
     crop_film = Film(full_resolution=res, crop_window=CROP,
                      filter=film.filter)
     compare_crop(f"{label} {scene}", Renderer(
@@ -4159,9 +4321,10 @@ def run(dev, card):
     t0 = time.perf_counter()
     img = bundle.render()
     torch.cuda.synchronize()
+    cornell_launches = dict(K.LAUNCHES)
     log(f"[13] parsed Cornell box {bundle.film.full_resolution}, "
         f"{bundle.sampler.spp} spp, depth {bundle.integrator.max_depth}: "
-        f"{time.perf_counter() - t0:.3f} s; launches {dict(K.LAUNCHES)}")
+        f"{time.perf_counter() - t0:.3f} s; launches {cornell_launches}")
     if min(K.LAUNCHES[k] for k in K.GRID_KERNELS[1:]) <= 0:
         raise AssertionError("the parsed Cornell box did not launch K13")
     no_quadric_launches("[13]", K.LAUNCHES)
@@ -4169,6 +4332,9 @@ def run(dev, card):
     check_grid_contrib("[13]", "spatial_grid_contrib",
                        "scenes/cornell-box.pbrt", bundle, parse_launches,
                        results)
+    # 27: the path chain's kernels (K21-K23) on recorded steps
+    path_chain(dev, card, trenderer, tctx, bundle, cornell_launches, results)
+    lap(27)
     splats, grads = dragon_file(dev, card, geometry, (trenderer, tctx),
                                 dragon_img, dragon_rays, results)
     filter_cornells(dev, card, results, splats, grads)

@@ -40,7 +40,7 @@ CU_SOURCES = ("sampler.cu", "film.cu", "traverse16.cu", "interaction.cu",
               "atlas.cu", "compact.cu", "gather.cu", "film_bwd.cu",
               "atlas_bwd.cu", "gather_bwd.cu", "lightdistrib.cu",
               "quadrics.cu", "lights.cu", "mipmap.cu", "noise.cu",
-              "fourier.cu", "mipmap_bwd.cu")
+              "fourier.cu", "mipmap_bwd.cu", "pathshade.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -136,6 +136,21 @@ SIGNATURES = {
     # mask, n, f, pdf, wi out, stream
     "fourier_bsdf": [_I] + [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I]
     + [_P] * 3 + [_P],
+    # K21: the hit's valid, arealight, material, n, wo, p, the ray's d,
+    # the state's L, beta, prev_p, alive, prev_pdf, prev_spec, path_len,
+    # the pmf table, pmf_const, first, n, n_lights, the light rows'
+    # twosided, emit, area, 4 outputs, stream
+    "path_hit_emit": [_P] * 14 + [_P, _F, _I, _I, _I] + [_P] * 3 + [_P] * 4
+    + [_P],
+    # K22: the hit's p, p_error, n, ns, ss, ts, wo, valid, the lobe's
+    # params and active, the state's alive, beta, eta_scale, lid, the
+    # pmf table, pmf_const, u_light, u2, u_rr, the threshold, n,
+    # n_lights, the light rows' tri_p, emit, area, tri_rev, twosided, 11
+    # outputs, stream
+    "path_scatter_lambert": [_P] * 15 + [_F] + [_P] * 3
+    + [_F, _I, _I] + [_P] * 5 + [_P] * 11 + [_P],
+    # K23: L, pending, occluded, n, out, stream
+    "path_nee_add": [_P] * 3 + [_I, _P, _P],
 }
 # host functions of the library (no launch, not counted): name -> argument
 # types; each returns an int
@@ -174,7 +189,12 @@ GEOMETRY_KERNELS = tuple(
 # checkpointed render
 RUN_KERNELS = ("sample_random_1d", "sample_random_2d",
                "film_add_samples_det")
-# the kernels of the textured dragon's forward render
+# the path integrator's chain for Lambertian surfaces under triangle lights
+# (K21-K23), launched by every forward render of such a scene (the
+# dragons, the Cornell boxes, the gallery) outside a train step
+PATH_KERNELS = ("path_hit_emit", "path_scatter_lambert", "path_nee_add")
+# the kernels of the textured dragon's forward render (PATH_KERNELS
+# among them)
 FORWARD_KERNELS = tuple(k for k in SIGNATURES if k not in
                         BACKWARD_KERNELS + GRID_KERNELS + QUADRIC_KERNELS
                         + LIGHT_KERNELS + SHADING_KERNELS + GEOMETRY_KERNELS
@@ -250,14 +270,14 @@ def check_grad(name: str, tensors):
             "differentiable wrapper")
 
 
-def refuse_grad(what: str, tensors):
-    """Raise NotImplementedError naming ROADMAP item B12 if grad mode is on
-    and one of ``tensors`` requires grad: ``what`` carries no gradient in
-    the port yet, on the CPU as on the card."""
+def refuse_grad(what: str, tensors, item: str = "B12"):
+    """Raise NotImplementedError naming ROADMAP item ``item`` (of section
+    B) if grad mode is on and one of ``tensors`` requires grad: ``what``
+    carries no gradient in the port yet, on the CPU as on the card."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, section B, item B12)")
+            f"{what} is not ported yet (ROADMAP.md, section B, item {item})")
 
 
 def use_kernel(t: torch.Tensor) -> bool:

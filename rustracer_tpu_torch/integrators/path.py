@@ -31,6 +31,16 @@ scene without an infinite light runs none of this.
 Russian roulette reads the throughput times ``eta_scale``, the product
 of the squared relative IORs of the specular transmissions taken.
 
+A scene whose materials are each one Lambertian lobe under triangle
+lights alone takes the kernel route (``kernel_route``, decided at each
+trace): the emission after each closest hit is hand kernel K21, and the
+scatter after the shading is K22 (the NEE up to its shadow ray, the
+bounce, Russian roulette), the shadow ray's any hit, and K23 (the NEE's
+radiance added where unoccluded), ops/pathshade.py. Their plain twins and
+this chain are made of the same pieces (ops/pathchain.py), so on the CPU
+the route computes the same bits; a train step (a texture leaf that
+requires grad) keeps the general chain.
+
 A hit on a medium interface (a prim with neither material nor area
 light) is passed through without spending a bounce, up to
 ``max_interface_skips`` times (scene/tables.py
@@ -52,15 +62,15 @@ import dataclasses
 import torch
 
 from ..core.interaction import compute_differentials
-from ..core.math import absdot, dot
+from ..core.math import dot
 from ..core.ray import Ray
-from ..core.sampling import power_heuristic
-from ..core.spectrum import is_black
 from ..ops import bsdf as B
 from ..ops import compact as C
+from ..ops import pathchain as PC
+from ..ops import pathshade as PS
 from ..scene import lightdistrib as LD
 from ..scene import lights as L
-from ..scene.tables import scene_intersect_passthrough
+from ..scene.tables import scene_intersect_p, scene_intersect_passthrough
 from ..utils import stats as S
 from .common import estimate_direct_light_side
 
@@ -125,6 +135,18 @@ class PathIntegrator:
         hit a bounce, one shadow ray a NEE (the JAX package's bounds)."""
         return {"regular": self.max_depth, "shadow": self.max_depth - 1}
 
+    def kernel_route(self, ctx) -> bool:
+        """True when this scene's chain runs as hand kernels K21-K23
+        (ops/pathshade.py): one Lambertian lobe a material (matte
+        surfaces), every light a triangle light, and no texture leaf of
+        ``ctx`` requiring grad while grad mode is on (the train steps keep
+        the general chain)."""
+        return (self.mat_set.types_present() == PS.LAMBERT
+                and self.mat_set.max_lobes == 1
+                and ctx.lights.kinds <= {"tri"}
+                and not (torch.is_grad_enabled()
+                         and _requires_grad(ctx.textures)))
+
     def _pick_light(self, ctx, sampler, lanes, si, d_sel):
         """Light selection at the scattering point -> (light row, pmf):
         uniform, or through the spatial grid."""
@@ -144,8 +166,10 @@ class PathIntegrator:
                                  lid.int().contiguous())
         return 1.0 / ctx.lights.n_lights
 
-    def _hit_and_emit(self, ctx, ray: Ray, st: _PathState, first: bool):
-        """Closest hit and MIS-weighted emission -> (si, state)."""
+    def _hit_and_emit(self, ctx, ray: Ray, st: _PathState, first: bool,
+                      route: bool = False):
+        """Closest hit and MIS-weighted emission -> (si, state); on the
+        kernel route the emission is K21."""
         lt = ctx.lights
         if S.counting():
             S.device_count(REGULAR_TESTS, (ray.t_max > 0.0).sum())
@@ -153,18 +177,14 @@ class PathIntegrator:
                                          self.max_interface_skips)
         if first:
             si = compute_differentials(si, ray)
+        pmf = None if first else self._sel_pmf(ctx, st.prev_p, si.arealight)
+        if route:
+            valid, Lrad, alive, path_len = PS.path_hit_emit(
+                lt, si, ray.d, st, pmf, first)
+            return dataclasses.replace(si, valid=valid), dataclasses.replace(
+                st, L=Lrad, alive=alive, path_len=path_len)
         si = dataclasses.replace(si, valid=si.valid & st.alive)
-        le = L.arealight_le(lt, si.arealight, si.n, si.wo)
-        if first:
-            w_hit = torch.ones_like(st.prev_pdf)
-        else:
-            lpdf = L.pdf_li_hit(lt, si.arealight, st.prev_p, ray.d, si.p,
-                                si.n) * self._sel_pmf(ctx, st.prev_p,
-                                                      si.arealight)
-            w_hit = torch.where(st.prev_spec, 1.0,
-                                power_heuristic(1.0, st.prev_pdf, 1.0, lpdf))
-        le = torch.where((si.valid & (si.arealight >= 0))[:, None],
-                         w_hit[:, None] * le, 0.0)
+        le = PC.hit_emission(lt, si, ray.d, st, pmf, first, si.valid)
         if lt.has_infinite:
             le = le + self._escape(ctx, ray, st, si, first)
         alive = st.alive & si.valid & (si.material >= 0)
@@ -190,8 +210,13 @@ class PathIntegrator:
                                  st.prev_spec.contiguous(), pmfs, escaped)
 
     def _scatter(self, ctx, sampler, lanes, si, st: _PathState,
-                 d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool):
-        """Shade, NEE (light side), BSDF bounce sample, Russian roulette."""
+                 d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool,
+                 route: bool = False):
+        """Shade, NEE (light side), BSDF bounce sample, Russian roulette;
+        on the kernel route K22, the shadow ray's any hit and K23."""
+        if route:
+            return self._scatter_lambert(ctx, sampler, lanes, si, st, d_sel,
+                                         d_light, d_lobe, d_u2, d_rr, rr_on)
         types = self.mat_set.types_present()
         si, lobes = self.mat_set.shade(si, ctx)
         lobes = lobes._replace(active=lobes.active & st.alive[:, None])
@@ -207,38 +232,52 @@ class PathIntegrator:
 
         u_lobe = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_lobe)
         u2 = sampler.get_2d(lanes.pixel_idx, lanes.sample_idx, d_u2)
-        wi, f, pdf, flags, ok = B.bsdf_sample_f(lobes, si, si.wo, u_lobe, u2,
-                                                types)
-        contrib = f * (absdot(wi, si.ns)
-                       / torch.clamp(pdf, min=1e-12))[:, None]
-        alive = st.alive & ok & ~is_black(f) & (pdf > 0.0)
-        beta = torch.where(alive[:, None], st.beta * contrib, st.beta)
-        spec = (flags & B.SPECULAR) != 0
+        b = PC.bsdf_bounce(si, lobes, st.alive, st.beta, u_lobe, u2, types)
+        alive, beta = b.alive, b.beta
+        spec = (b.flags & B.SPECULAR) != 0
         eta_scale = st.eta_scale
         if B.FRESNEL_SPECULAR in types or B.SPECULAR_TRANS in types:
             eta2 = lobes.eta * lobes.eta
             eta_scale = torch.where(
-                spec & ((flags & B.TRANSMISSION) != 0),
+                spec & ((b.flags & B.TRANSMISSION) != 0),
                 eta_scale * torch.where(dot(si.wo, si.ns) > 0.0, eta2,
                                         1.0 / torch.clamp(eta2, min=1e-8)),
                 eta_scale)
-        ray = si.spawn_ray(wi)
-        # dead lanes must not traverse
-        t_max = torch.where(alive, ray.t_max, 0.0)
 
         # Russian roulette; its dimension is allocated on every bounce
         if rr_on:
             u_rr = sampler.get_1d(lanes.pixel_idx, lanes.sample_idx, d_rr)
-            rr_beta_max = (beta * eta_scale[:, None]).max(dim=-1).values
-            q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-            do_rr = rr_beta_max < self.rr_threshold
-            alive = alive & ~(do_rr & (u_rr < q))
-            beta = torch.where((do_rr & alive)[:, None],
-                               beta / torch.clamp(1.0 - q, min=1e-3)[:, None],
-                               beta)
-        return _PathState(ray_o=ray.o, ray_d=ray.d, ray_tmax=t_max, L=Lrad,
-                          beta=beta, eta_scale=eta_scale, alive=alive,
-                          prev_pdf=pdf, prev_spec=spec, prev_p=si.p,
+            alive, beta = PC.russian_roulette(beta, eta_scale, alive, u_rr,
+                                              self.rr_threshold)
+        return _PathState(ray_o=b.ray_o, ray_d=b.wi, ray_tmax=b.t_max,
+                          L=Lrad, beta=beta, eta_scale=eta_scale,
+                          alive=alive, prev_pdf=b.pdf, prev_spec=spec,
+                          prev_p=si.p, path_len=st.path_len)
+
+    def _scatter_lambert(self, ctx, sampler, lanes, si, st: _PathState,
+                         d_sel, d_light, d_lobe, d_u2, d_rr, rr_on: bool):
+        """``_scatter`` on the kernel route: shade, the light pick, the
+        sampler's draws, then K22, the shadow ray's any hit and K23."""
+        si, lobes = self.mat_set.shade(si, ctx)
+        lid, pmf = self._pick_light(ctx, sampler, lanes, si, d_sel)
+        pix, smp = lanes.pixel_idx, lanes.sample_idx
+        u_light = sampler.get_2d(pix, smp, d_light)
+        u_lobe = sampler.get_1d(pix, smp, d_lobe)
+        u2 = sampler.get_2d(pix, smp, d_u2)
+        u_rr = sampler.get_1d(pix, smp, d_rr) if rr_on else None
+        sc = PS.path_scatter_lambert(ctx.lights, si, lobes, st, lid, pmf,
+                                     u_light, u_lobe, u2, u_rr,
+                                     self.rr_threshold)
+        if S.counting():
+            S.device_count(SHADOW_TESTS, (sc.shadow_tmax > 0.0).sum())
+        occluded = scene_intersect_p(ctx.geom, Ray(
+            o=sc.shadow_o, d=sc.shadow_d, t_max=sc.shadow_tmax))
+        return _PathState(ray_o=sc.ray_o, ray_d=sc.ray_d,
+                          ray_tmax=sc.ray_tmax,
+                          L=PS.path_nee_add(st.L, sc.pending, occluded),
+                          beta=sc.beta, eta_scale=st.eta_scale,
+                          alive=sc.alive, prev_pdf=sc.prev_pdf,
+                          prev_spec=sc.prev_spec, prev_p=si.p,
                           path_len=st.path_len)
 
     @staticmethod
@@ -259,14 +298,18 @@ class PathIntegrator:
             prev_p=ray.o,
             path_len=torch.zeros(n, dtype=torch.int32, device=dev))
 
-    def bounce0(self, ctx, ray: Ray, lanes, sampler, dims) -> _PathState:
+    def bounce0(self, ctx, ray: Ray, lanes, sampler, dims,
+                route=None) -> _PathState:
         """Camera hit, emission and the bounce-0 scatter: the state whose
-        alive mask picks the slab width of the interior bounces."""
+        alive mask picks the slab width of the interior bounces
+        (``route``: ``kernel_route(ctx)`` when None)."""
+        if route is None:
+            route = self.kernel_route(ctx)
         si, st = self._hit_and_emit(ctx, ray, self._initial_state(ray),
-                                    first=True)
+                                    first=True, route=route)
         return self._scatter(ctx, sampler, lanes, si, st, dims.next_1d(),
                              dims.next_2d(), dims.next_1d(), dims.next_2d(),
-                             dims.next_1d(), rr_on=False)
+                             dims.next_1d(), rr_on=False, route=route)
 
     def _run(self, ctx, ray: Ray, lanes, sampler, dims):
         """Radiance (B, 3) of the camera rays."""
@@ -274,11 +317,12 @@ class PathIntegrator:
 
     def _trace(self, ctx, ray: Ray, lanes, sampler, dims):
         """The final path state of the camera rays."""
+        route = self.kernel_route(ctx)
         if self.max_depth == 1:
             _, st = self._hit_and_emit(ctx, ray, self._initial_state(ray),
-                                       first=True)
+                                       first=True, route=route)
             return st
-        st = self.bounce0(ctx, ray, lanes, sampler, dims)
+        st = self.bounce0(ctx, ray, lanes, sampler, dims, route)
         # interior bounces 1..max_depth-2, dims laid out as the reference's
         # scanned body allocates them
         base1, base2 = dims.d1, dims.d2
@@ -286,21 +330,21 @@ class PathIntegrator:
         dims.d1 += 3 * n_interior
         dims.d2 += 2 * n_interior
         if n_interior:
-            st = self._interior(ctx, sampler, lanes, st, base1, base2)
+            st = self._interior(ctx, sampler, lanes, st, base1, base2, route)
         # final bounce: emission only
         r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
-        _, st = self._hit_and_emit(ctx, r, st, first=False)
+        _, st = self._hit_and_emit(ctx, r, st, first=False, route=route)
         return st
 
-    def _bounces(self, ctx, sampler, lanes, st, base1, base2):
+    def _bounces(self, ctx, sampler, lanes, st, base1, base2, route):
         for b in range(1, self.max_depth - 1):
             k = b - 1
             r = Ray(o=st.ray_o, d=st.ray_d, t_max=st.ray_tmax)
-            si, st = self._hit_and_emit(ctx, r, st, first=False)
+            si, st = self._hit_and_emit(ctx, r, st, first=False, route=route)
             st = self._scatter(ctx, sampler, lanes, si, st,
                                base1 + 3 * k, base2 + 2 * k,
                                base1 + 3 * k + 1, base2 + 2 * k + 1,
-                               base1 + 3 * k + 2, rr_on=b > 3)
+                               base1 + 3 * k + 2, rr_on=b > 3, route=route)
         return st
 
     def slab_width(self, n, n_alive):
@@ -309,17 +353,19 @@ class PathIntegrator:
             return n // 4
         return n // 2 if n_alive <= n // 2 else n
 
-    def _interior(self, ctx, sampler, lanes, st, base1, base2):
+    def _interior(self, ctx, sampler, lanes, st, base1, base2, route):
         """Interior bounces at full width or on an alive-first slab."""
         n = st.alive.shape[0]
         if not (self.compact_interior and n >= PATH_COMPACT_MIN_B
                 and n % 2 == 0):
-            return self._bounces(ctx, sampler, lanes, st, base1, base2)
+            return self._bounces(ctx, sampler, lanes, st, base1, base2,
+                                 route)
         order, _rank, n_alive = C.alive_first_order(st.alive)
         w = self.slab_width(n, int(n_alive.item()))
         TIERS[n // w] += 1
         if w == n:
-            return self._bounces(ctx, sampler, lanes, st, base1, base2)
+            return self._bounces(ctx, sampler, lanes, st, base1, base2,
+                                 route)
         full = [getattr(st, f).contiguous() for f in SLAB_FIELDS]
         if torch.is_grad_enabled() and (st.L.requires_grad
                                         or st.beta.requires_grad):
@@ -332,7 +378,8 @@ class PathIntegrator:
         sub_st = _PathState(**dict(zip(SLAB_FIELDS, sub[:k])))
         sub_lanes = dataclasses.replace(lanes, pixel_idx=sub[k],
                                         sample_idx=sub[k + 1])
-        sub_st = self._bounces(ctx, sampler, sub_lanes, sub_st, base1, base2)
+        sub_st = self._bounces(ctx, sampler, sub_lanes, sub_st, base1, base2,
+                               route)
         # the slab's lanes go back into the full-width state in place: the
         # tensors of st were made by this step's bounce-0 scatter (under
         # autograd the put marks them dirty)
@@ -340,3 +387,12 @@ class PathIntegrator:
                           order, w)
         return _PathState(**dict(zip(SLAB_FIELDS, full)))
 
+
+def _requires_grad(tree) -> bool:
+    """A float tensor of the dicts, lists and tuples ``tree`` requires
+    grad."""
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad

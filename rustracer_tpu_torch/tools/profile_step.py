@@ -2,7 +2,8 @@
 dragon or of a testball scene file, one GPU.
 
     python -m rustracer_tpu_torch.tools.profile_step
-        [textured|matte|train|testball-<material>] [tile ...]
+        [textured|matte|train|testball-<material>|cornell-box] [tile ...]
+        [--general]
 
 Builds the scene at 1024^2 in 2^18-lane tiles (the textured headline: the
 64-spp config, compaction on; ``testball-<material>``:
@@ -16,7 +17,12 @@ takes a slab tier, tile 2 is all floor and dragon), it times one step at
 sample 1 (median of 5) and profiles one more, and prints one JSON line per
 tile: the step's wall time, the device busy time (the union of the kernels'
 device intervals) and its share of the profiled step, the kernel count and
-the ten largest device items, and the device time of each hand kernel.
+the ten largest device items, and the device time of each hand kernel
+(K21-K23, the path chain's kernels, also summed). ``cornell-box`` is
+scenes/cornell-box.pbrt as written (64^2, 16 spp: one 2^16-lane step).
+``--general`` runs the path integrator's general chain where the scene
+would take the kernel route (integrators/path.py kernel_route), for the
+step's launches and idle share on both chains.
 
 ``train`` times three whole train steps of the textured dragon
 (parallel/mesh.py make_train_step, lr 0.1, sample 0, the target its render
@@ -179,7 +185,12 @@ def profile_call(step, reps=5):
     return dict(step_ms_median=statistics.median(walls) * 1e3,
                 step_ms_all=[w * 1e3 for w in walls],
                 profiled_step_ms=prof_wall * 1e3, device_busy_ms=busy,
-                busy_share=busy / (prof_wall * 1e3), n_kernels=len(events),
+                busy_share=busy / (prof_wall * 1e3),
+                idle_share=1.0 - busy / (prof_wall * 1e3),
+                n_kernels=len(events),
+                path_kernels_ms=round(sum(
+                    ms for k, ms in hand.items()
+                    if k.startswith(cuda.PATH_KERNELS)), 4),
                 launches=dict(cuda.LAUNCHES), slab_tiers=dict(P.TIERS),
                 top_device_ms=[[k, round(ms, 4)] for k, ms in top],
                 hand_kernels_ms={k: round(ms, 4) for k, ms in hand.items()})
@@ -212,8 +223,7 @@ def profile_train(ctx, cam, full, sampler, integ, ti, reps=5):
     bwd = {k: v for k, v in r["hand_kernels_ms"].items()
            if "_bwd_" in k}
     r.update(backward_kernels_ms=bwd,
-             backward_kernels_share=sum(bwd.values()) / busy,
-             idle_share=1.0 - r["busy_share"])
+             backward_kernels_share=sum(bwd.values()) / busy)
     return r
 
 
@@ -222,19 +232,25 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device; nothing runs on the "
                          "CPU")
+    general = "--general" in argv
+    if general:
+        argv = [a for a in argv if a != "--general"]
+        P.PathIntegrator.kernel_route = lambda self, ctx: False
     scene = argv[0] if argv else "textured"
     dev = torch.device("cuda:0")
     if scene == "train":
         return main_train([int(a) for a in argv[1:]] or [2], dev)
     tiles = [int(a) for a in argv[1:]] or [0, 2]
-    if scene.startswith("testball-"):
+    if scene.startswith("testball-") or scene == "cornell-box":
         from ..scene.api import parse_scene_string
         from ..utils import fileutil
-        text, d = testball_text(scene, (1024, 1024))
+        text, d = testball_text(scene, (1024, 1024)) \
+            if scene.startswith("testball-") else (scene_text(scene), _SCENES)
         fileutil.set_search_directory(d)
         bundle = parse_scene_string(text, device=dev).scene
         ctx, film = bundle.context(), bundle.film
         renderer = bundle.renderer(LANES)
+        tiles = [t for t in tiles if t < len(renderer.tiles)]
     else:
         build = {"textured": build_dragon, "matte": build_dragon_matte}[scene]
         ctx, cam, film, sampler, integ, _ = build(device=dev)
@@ -249,13 +265,15 @@ def main(argv=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     rays = film.full_resolution[0] * film.full_resolution[1] * SAMPLES
-    out = [dict(scene=scene, samples=SAMPLES, render_s=walls,
+    out = [dict(scene=scene, chain="general" if general else "kernel route",
+                samples=SAMPLES, render_s=walls,
                 median_s=statistics.median(walls),
                 rays_per_s=rays / statistics.median(walls),
                 card=torch.cuda.get_device_name(0))]
     print(json.dumps(out[0]), flush=True)
     for ti in tiles:
-        r = dict(scene=scene, tile=ti, lanes=LANES,
+        r = dict(scene=scene, tile=ti, lanes=int(renderer.tiles[ti][0].numel()),
+                 chain="general" if general else "kernel route",
                  card=torch.cuda.get_device_name(0),
                  **profile_tile(renderer, ctx, renderer.tiles[ti]))
         print(json.dumps(r), flush=True)

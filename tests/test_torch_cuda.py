@@ -53,7 +53,10 @@ gradient) within 1e-5 of the largest sum of its terms' magnitudes
 (atomic adds in another order). The run surface: K3r (the random
 sampler) bit for bit; K4d (the deterministic splat) bit for bit with its
 plain version (the Gaussian within 1e-5 relative) and with itself on a
-second run."""
+second run. The path chain: K21-K23 bit for bit with their plain twins on
+every call of recorded steps (rsqrtf, cosf and sinf are the functions
+torch calls on the card), and route renders within the golden-image
+tolerance of the all-plain render."""
 import contextlib
 import dataclasses
 from types import SimpleNamespace
@@ -2314,3 +2317,110 @@ def test_geometry_scene_render_matches_plain(dev, name, tmp_path):
     for q in ("closest", "any"):
         assert K.LAUNCHES[f"traverse16_{kind}_{q}"] > 0, K.LAUNCHES
     assert (K.LAUNCHES["build_interaction_inst"] > 0) == inst, K.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# the path chain for Lambertian surfaces under triangle lights (K21-K23)
+# ---------------------------------------------------------------------------
+
+def _path_case(dev, geometry, parsed_cornell, case, monkeypatch):
+    """-> (renderer, ctx, tile) of a recorded step: the textured dragon at
+    full width (its 4096-lane tile) and with the slab tiers opened to
+    1024-lane tiles (tile 0, the top rows, mostly sky: its interior
+    bounces on a B/4 slab), the parsed Cornell box (its grid pick) and
+    the gallery."""
+    from rustracer_tpu_torch.scenes import build_instanced
+    lanes = 4096
+    if case == "gallery":
+        ctx, cam, film, sampler, integ = build_instanced(
+            subdiv=3, res=(64, 48), spp=2, grid=3, device=dev)
+    elif case == "cornell":
+        bundle, _ = parsed_cornell
+        r = bundle.renderer()
+        return r, bundle.context(), r.tiles[0]
+    else:
+        if case == "textured slab":
+            monkeypatch.setattr(P, "PATH_COMPACT_MIN_B", 1024)
+            lanes = 1024
+        ctx, cam, film, sampler, integ, _ = build_dragon(
+            sub=4, res=(64, 64), device=dev, geometry=geometry)
+    r = Renderer(integ.li, cam, film, sampler, RenderConfig(max_lanes=lanes),
+                 device=dev)
+    return r, ctx, r.tiles[0]
+
+
+@pytest.mark.parametrize("case", ["textured", "textured slab", "cornell",
+                                  "gallery"])
+def test_path_kernels_match_twins(dev, geometry, parsed_cornell, case,
+                                  monkeypatch):
+    """K21, K22 and K23 on every call of a recorded step against their
+    plain twins on the same inputs: every output bit for bit (the same
+    float operations; rsqrtf is torch.rsqrt's function on the card, the
+    concentric map's cosf and sinf their fast path), bool and int fields
+    equal; a slab step's calls run on its B/2 or B/4 lanes."""
+    from rustracer_tpu_torch.tools.pathshade_work import (NAMES,
+                                                          capture_path_step,
+                                                          compare_with_twin)
+    r, ctx, tile = _path_case(dev, geometry, parsed_cornell, case,
+                              monkeypatch)
+    P.reset_tiers()
+    calls = capture_path_step(r, ctx, tile)
+    assert [len(calls[n]) for n in NAMES] == [5, 4, 4], calls.keys()
+    if case == "textured slab":
+        assert P.TIERS[2] + P.TIERS[4] == 1, P.TIERS
+        assert calls["path_nee_add"][-1][0].shape[0] < tile[0].shape[0]
+    for name in NAMES:
+        for args in calls[name]:
+            n0 = K.LAUNCHES[name]
+            res = compare_with_twin(name, args)
+            assert K.LAUNCHES[name] == n0 + 1
+            bad = {f: v for f, v in res.items() if v["differ"]}
+            assert not bad, (name, bad)
+
+
+@pytest.mark.parametrize("case", ["textured slab", "cornell", "gallery"])
+def test_path_route_render_runs_no_twin(dev, geometry, parsed_cornell, case,
+                                        monkeypatch):
+    """A render on the card takes K21-K23 on every bounce and launches no
+    plain twin; its image within the golden-image tolerance of the
+    all-plain render."""
+    from rustracer_tpu_torch.ops import pathshade as PS
+    r, ctx, _ = _path_case(dev, geometry, parsed_cornell, case, monkeypatch)
+    ran = []
+    for name in ("path_hit_emit_plain", "path_scatter_lambert_plain",
+                 "path_nee_add_plain"):
+        orig = getattr(PS, name)
+
+        def watched(*a, _name=name, _orig=orig, **k):
+            if not K._plain[0]:
+                ran.append(_name)
+            return _orig(*a, **k)
+        monkeypatch.setattr(PS, name, watched)
+    K.reset_launches()
+    _assert_render_matches_plain(r, ctx, sample_stop=1)
+    assert not ran, ran
+    assert min(K.LAUNCHES[k] for k in K.PATH_KERNELS) > 0, K.LAUNCHES
+
+
+def test_path_kernels_refuse_what_they_do_not_take(dev, parsed_cornell):
+    """K22 refuses more than one lobe a lane and a light table with other
+    than triangle lights; every wrapper refuses an input that requires
+    grad, naming ROADMAP item B1.1."""
+    from rustracer_tpu_torch.ops import pathshade as PS
+    from rustracer_tpu_torch.tools.pathshade_work import capture_path_step
+    bundle, _ = parsed_cornell
+    r = bundle.renderer()
+    calls = capture_path_step(r, bundle.context(), r.tiles[0])
+    args = list(calls["path_scatter_lambert"][0])
+    lt, lobes = args[0], args[2]
+    wide = lobes._replace(params=lobes.params.repeat(1, 2, 1),
+                          active=lobes.active.repeat(1, 2))
+    with pytest.raises(ValueError, match="lobes.params"):
+        PS.path_scatter_lambert(*(args[:2] + [wide] + args[3:]))
+    other = dataclasses.replace(lt, kinds=frozenset({"tri", "point"}))
+    with pytest.raises(ValueError, match="triangle lights only"):
+        PS.path_scatter_lambert(*([other] + args[1:]))
+    st = args[3]
+    grad = dataclasses.replace(st, beta=st.beta.clone().requires_grad_())
+    with pytest.raises(NotImplementedError, match="item B1.1"):
+        PS.path_scatter_lambert(*(args[:3] + [grad] + args[4:]))
